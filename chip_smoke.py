@@ -12,11 +12,11 @@ Phases (any failure exits non-zero; no error is swallowed):
 2. build — every CUDA kernel source under ``mxnet_tpu_torch/kernels/csrc``
    is compiled with nvcc for sm_90a (one process per source, in
    parallel), with ``-Xptxas -v``; the build time is set-up time.
-3. kernels — each kernel against its plain PyTorch version at the shapes
-   the serving path gives it (the four ResNet-50 block-tail shapes at
-   batch 1 and 32) plus ragged shapes, fp32 and bf16, with and without a
-   residual; one JSON line per case with the kernel's and the plain
-   version's time (CUDA events over 50 launches after warm-up), the
+3. kernels — the block-tail kernel (K1) against its plain PyTorch version
+   at the shapes the serving path gives it (the four ResNet-50 block-tail
+   shapes at batch 1 and 32) plus ragged shapes, fp32 and bf16, with and
+   without a residual; one JSON line per case with the kernel's and the
+   plain version's time (CUDA events over 50 launches after warm-up), the
    memory bound, the roofline share and the max abs error.
 4. serving — the port's ``resnet50_v1`` (NHWC, fused block tails,
    1000 classes, 224x224x3, fp32, Xavier weights from a seeded
@@ -29,9 +29,32 @@ Phases (any failure exits non-zero; no error is swallowed):
    percentiles, each bucket's forward time, peak device memory and a
    ``torch.profiler`` view (device busy time, idle share, top kernels)
    of one bucket-1 and one bucket-32 forward.
-5. a ``{"kernels": [...]}`` line — its ``ms``/``plain_ms``/``bound_ms``
-   are per batch-32 forward: the sum over the 16 fp32 block tails with
-   residual — and, last, the ``{"ok": true, "device": {...}}`` line.
+5. attention_kernels — flash attention's forward (K2) and backward (K3)
+   against their plain versions at (B, H, S, D) = (8, 8, 512, 64) causal
+   fp32 (the LM's shape), (1, 8, 4096, 64) causal fp32 and bf16,
+   (2, 16, 2048, 128) bf16, the ragged Sq 1000 / Skv 1500 fp32 case and a
+   two-half carry chain with offsets; one JSON line per case with the
+   errors and tolerances, the kernel's, the plain version's and
+   ``scaled_dot_product_attention``'s time (the yardstick, never called by
+   the port) and the bound.
+6. training — the causal-attention LM of ``__graft_entry__.py`` at the
+   repo's full attention width (vocab 8192, embed 512, 8 heads of 64,
+   batch 8 x length 512, fp32, weights from ``np.random.RandomState(0)``)
+   trained through ``parallel.SPMDTrainer`` (SGD, momentum 0.9, lr 0.1):
+   5 steps with ``ulysses_attention`` (K2 + K3 per step), then 5 with
+   ``ring_attention`` (K2 + the plain ring backward). Losses must be
+   finite, the launch counts exact, and step 1 of each leg must agree
+   with the port's CPU recompute (plain versions, TF32 off). Printed per
+   leg: step time, tokens/s, peak device memory and a profiler view of
+   one step.
+7. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+   ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
+   tails with residual); for K2 and K3 they are at the LM's shape; each
+   ``launches`` is the count on that kernel's main path — and, last, the
+   ``{"ok": true, "device": {...}}`` line.
+
+``--cpu-rehearsal`` runs phases 3-6 on the CPU at a small size, where
+every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
 
@@ -330,42 +353,423 @@ def serving_phase(mx, ctx, rehearsal, seed=0):
     return launches
 
 
+# flash attention cases: (label, B, H, Sq, Skv, D, causal, dtype)
+_ATTN_CASES = (
+    ("lm", 8, 8, 512, 512, 64, True, torch.float32),
+    ("long", 1, 8, 4096, 4096, 64, True, torch.float32),
+    ("long", 1, 8, 4096, 4096, 64, True, torch.bfloat16),
+    ("wide", 2, 16, 2048, 2048, 128, False, torch.bfloat16),
+    ("ragged", 1, 3, 1000, 1500, 64, False, torch.float32),
+)
+_ATTN_REHEARSAL = (
+    ("lm", 2, 2, 64, 64, 16, True, torch.float32),
+    ("long", 1, 2, 100, 100, 16, True, torch.bfloat16),
+    ("ragged", 1, 3, 40, 70, 16, False, torch.float32),
+)
+# the error of a kernel against its plain version, over max(1, the largest
+# magnitude of the plain result): fp32 at the JAX package's flash-vs-plain
+# tolerances (tests/test_pallas.py: 2e-5 forward, 1e-4 gradients); bf16
+# rounds outputs to 8 bits of mantissa (one ulp at 1 is 2^-7), so 2e-2
+_ATTN_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+# peak rate of the card by operand type (H100 SXM data sheet): fp32 on CUDA
+# cores, bf16 dense on tensor cores
+_PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+
+def _visible_pairs(s_q, s_kv, causal):
+    """(query, key) pairs the mask lets through, per batch*head: all of
+    them, or under the causal mask min(row + 1, Skv) for each row."""
+    if not causal:
+        return s_q * s_kv
+    return int(np.minimum(np.arange(1, s_q + 1), s_kv).sum())
+
+
+def _bound_us(flops, nbytes, dtype, rate):
+    t_ops, t_bytes = flops / _PEAK_FLOPS[dtype], nbytes / rate
+    return max(t_ops, t_bytes) * 1e6, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _scaled_err(got, want):
+    want = want.float()
+    err = (got.float() - want).abs().max().item()
+    return err, err / max(1.0, want.abs().max().item())
+
+
+def _attn_plain_forward(FA, q, k, v, causal):
+    """The plain version of the flash forward: the carry reference from
+    the empty accumulator, then the normalisation."""
+    b, h, s_q, d = q.shape
+    bh = b * h
+    flat = lambda x: x.reshape(bh, x.shape[2], d)  # noqa: E731
+    o0 = torch.zeros((bh, s_q, d), device=q.device)
+    m0 = torch.full((bh, s_q), FA.NEG_INF, device=q.device)
+    l0 = torch.zeros((bh, s_q), device=q.device)
+    o, m, l = FA.flash_attention_carry_reference(flat(q), flat(k), flat(v),
+                                                 o0, m0, l0, 0, 0, causal)
+    l = torch.clamp_min(l, 1e-30)
+    return ((o / l[..., None]).to(q.dtype).reshape(q.shape),
+            (m + torch.log(l)).reshape(b, h, s_q))
+
+
+def attention_phase(dev, rate, rehearsal):
+    """K2 and K3 against their plain versions; returns the LM-shape
+    numbers for the kernels line."""
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    import torch.nn.functional as F
+    cuda = dev.type == "cuda"
+    g = torch.Generator(device=dev).manual_seed(2)
+    lm = {}
+    for label, b, h, s_q, s_kv, d, causal, dtype in (
+            _ATTN_REHEARSAL if rehearsal else _ATTN_CASES):
+        rnd = lambda s: torch.randn((b, h, s, d), generator=g,  # noqa: E731
+                                    device=dev).to(dtype)
+        q, k, v, gr = rnd(s_q), rnd(s_kv), rnd(s_kv), rnd(s_q)
+        bh = b * h
+        flat = lambda x: x.reshape(bh, x.shape[2], d)  # noqa: E731
+        tol_f, tol_b = _ATTN_TOL[dtype]
+        fwd = lambda: FA.flash_attention_forward(q, k, v, causal)  # noqa: E731
+        fwd_plain = lambda: _attn_plain_forward(FA, q, k, v, causal)  # noqa: E731
+        out, lse = fwd()
+        out_p, lse_p = fwd_plain()
+        delta = (gr.float() * out.float()).sum(-1)
+        bargs = (flat(q), flat(k), flat(v), flat(gr), lse.reshape(bh, s_q),
+                 delta.reshape(bh, s_q), causal)
+        bwd = lambda: FA.flash_attention_bwd(*bargs)  # noqa: E731
+        bwd_plain = lambda: FA.flash_attention_bwd_reference(*bargs)  # noqa: E731
+        grads, grads_p = bwd(), bwd_plain()
+        if cuda:
+            torch.cuda.synchronize()
+        err_out, rel_out = _scaled_err(out, out_p)
+        err_lse, rel_lse = _scaled_err(lse, lse_p)
+        bwd_errs = [_scaled_err(a, p) for a, p in zip(grads, grads_p)]
+        err_b, rel_b = max(e for e, _ in bwd_errs), max(r for _, r in bwd_errs)
+        ok = max(rel_out, rel_lse) <= tol_f and rel_b <= tol_b
+        rec = {"kernel": "flash_attention", "case": label,
+               "shape": [b, h, s_q, s_kv, d], "causal": causal,
+               "dtype": str(dtype).replace("torch.", ""),
+               "fwd_max_abs_err": max(err_out, err_lse),
+               "fwd_scaled_err": max(rel_out, rel_lse), "fwd_tol": tol_f,
+               "bwd_max_abs_err": err_b, "bwd_scaled_err": rel_b,
+               "bwd_tol": tol_b, "match": bool(ok)}
+        if cuda:
+            item = q.element_size()
+            pairs = bh * _visible_pairs(s_q, s_kv, causal)
+            # each input read once, each output written once: forward
+            # q, k, v -> out, lse; backward q, k, v, g, lse, delta -> dq, dk, dv
+            fwd_bytes = item * (2 * bh * s_q * d + 2 * bh * s_kv * d) \
+                + 4 * bh * s_q
+            bwd_bytes = item * (3 * bh * s_q * d + 4 * bh * s_kv * d) \
+                + 8 * bh * s_q
+            bf, bf_by = _bound_us(4 * pairs * d, fwd_bytes, dtype, rate)
+            bb, bb_by = _bound_us(10 * pairs * d, bwd_bytes, dtype, rate)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal)
+            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qr, kr, vr,
+                                                   is_causal=causal)
+            sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                o_lib, (qr, kr, vr), gr, retain_graph=True)
+            sdpa_both = lambda: torch.autograd.grad(  # noqa: E731
+                F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal),
+                (qr, kr, vr), gr)
+            rec.update({
+                "fwd_us": time_cuda(fwd) * 1e3,
+                "fwd_plain_us": time_cuda(fwd_plain) * 1e3,
+                "fwd_library_us": time_cuda(sdpa) * 1e3,
+                "fwd_bound_us": bf, "fwd_bound_by": bf_by,
+                "fwd_flops": 4 * pairs * d, "fwd_bytes": fwd_bytes,
+                "bwd_us": time_cuda(bwd) * 1e3,
+                "bwd_plain_us": time_cuda(bwd_plain) * 1e3,
+                "bwd_library_us": time_cuda(sdpa_bwd) * 1e3,
+                "fwd_bwd_library_us": time_cuda(sdpa_both) * 1e3,
+                "bwd_bound_us": bb, "bwd_bound_by": bb_by,
+                "bwd_flops": 10 * pairs * d, "bwd_bytes": bwd_bytes})
+            rec["fwd_roofline_share"] = bf / rec["fwd_us"]
+            rec["bwd_roofline_share"] = bb / rec["bwd_us"]
+            del o_lib, qr, kr, vr
+        emit(rec)
+        if not ok:
+            raise AssertionError("flash attention kernel disagrees with its "
+                                 "plain version: %s" % rec)
+        if label == "lm":
+            lm = rec
+    _carry_chain_case(FA, dev, g, rehearsal)
+    return lm
+
+
+def _carry_chain_case(FA, dev, g, rehearsal):
+    """The second query block of a two-way causal ring at the LM's shape:
+    queries at offset S merge the key halves [0, S) and [S, 2S) one after
+    the other; equal to one call over all 2S keys and to the plain
+    version's chain."""
+    bh, s, d = (4, 48, 16) if rehearsal else (64, 512, 64)
+    q = torch.randn((bh, s, d), generator=g, device=dev)
+    k = torch.randn((bh, 2 * s, d), generator=g, device=dev)
+    v = torch.randn((bh, 2 * s, d), generator=g, device=dev)
+
+    def init():
+        return (torch.zeros((bh, s, d), device=dev),
+                torch.full((bh, s), FA.NEG_INF, device=dev),
+                torch.zeros((bh, s), device=dev))
+
+    def chain(fn):
+        c = init()
+        for kv_off in (0, s):
+            c = fn(q, k[:, kv_off:kv_off + s].contiguous(),
+                   v[:, kv_off:kv_off + s].contiguous(), *c,
+                   q_offset=s, kv_offset=kv_off, causal=True)
+        return c
+
+    got = chain(FA.flash_attention_carry)
+    want = chain(FA.flash_attention_carry_reference)
+    whole = FA.flash_attention_carry(q, k, v, *init(), q_offset=s,
+                                     kv_offset=0, causal=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    errs = [_scaled_err(a, b)[1] for a, b in zip(got, want)]
+    norm = lambda c: c[0] / c[2][..., None]  # noqa: E731
+    errs.append(_scaled_err(norm(got), norm(whole))[1])
+    tol = _ATTN_TOL[torch.float32][0]
+    rec = {"kernel": "flash_attention_carry", "case": "two-half chain",
+           "shape": [bh, s, 2 * s, d], "q_offset": s, "kv_offsets": [0, s],
+           "causal": True, "dtype": "float32", "scaled_err": max(errs),
+           "tol": tol, "match": max(errs) <= tol}
+    if dev.type == "cuda":
+        kh, vh = k[:, s:].contiguous(), v[:, s:].contiguous()
+        c0 = init()
+        rec["carry_us"] = time_cuda(lambda: FA.flash_attention_carry(
+            q, kh, vh, *c0, q_offset=s, kv_offset=s, causal=True)) * 1e3
+        rec["carry_plain_us"] = time_cuda(
+            lambda: FA.flash_attention_carry_reference(
+                q, kh, vh, *c0, q_offset=s, kv_offset=s, causal=True)) * 1e3
+    emit(rec)
+    if not rec["match"]:
+        raise AssertionError("carry chain disagrees: %s" % rec)
+
+
+def _lm_params(vocab, embed, seed=0):
+    """The graft LM's parameters (``__graft_entry__.py:76-86``)."""
+    rng = np.random.RandomState(seed)
+    shapes = (("embed", (vocab, embed)), ("wq", (embed, embed)),
+              ("wk", (embed, embed)), ("wv", (embed, embed)),
+              ("wo", (embed, embed)), ("w1", (4 * embed, embed)),
+              ("w2", (embed, 4 * embed)), ("head", (vocab, embed)))
+    return {n: rng.normal(0, 0.02, s).astype(np.float32) for n, s in shapes}
+
+
+def _lm_apply(attn, batch, seq, heads, embed):
+    """``__graft_entry__.py:88-104`` in PyTorch, with the attention as a
+    parameter: embedding, causal multi-head attention, a residual, a ReLU
+    MLP of width 4E, the vocabulary head and the mean next-token NLL."""
+    d = embed // heads
+
+    def split(t):
+        return t.reshape(batch, seq, heads, d).permute(0, 2, 1, 3)
+
+    def apply_fn(p, x, y):
+        e = p["embed"][x.long()]
+        a = attn(split(e @ p["wq"].T), split(e @ p["wk"].T),
+                 split(e @ p["wv"].T))
+        h = e + a.permute(0, 2, 1, 3).reshape(batch, seq, embed) @ p["wo"].T
+        h = h + torch.relu(h @ p["w1"].T) @ p["w2"].T
+        logp = torch.log_softmax(h @ p["head"].T, dim=-1)
+        return (-logp.gather(-1, y.long()[..., None])).mean()
+    return apply_fn
+
+
+def _max_rel(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def training_phase(mx, ctx, rehearsal, steps=5):
+    """The LM through SPMDTrainer, a Ulysses leg and a ring leg; returns
+    the K2 and K3 launches over both legs."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    vocab, embed, heads, batch, seq = (64, 32, 4, 2, 16) if rehearsal \
+        else (8192, 512, 8, 8, 512)
+    gpu = ctx.device_type == "gpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = _lm_params(vocab, embed)
+    batches = [(np.random.RandomState(1 + i).randint(0, vocab, (batch, seq))
+                .astype(np.int32),
+                np.random.RandomState(101 + i).randint(0, vocab, (batch, seq))
+                .astype(np.int32)) for i in range(steps)]
+    spec = parallel.P("dp", "sp")
+    total = {"fwd": 0, "bwd": 0}
+    first = {}         # leg -> (losses, momentum after step 1)
+    for leg, fn, bwd_per_step in (("ulysses", parallel.ulysses_attention, 1),
+                                  ("ring", parallel.ring_attention, 0)):
+        def trainer_on(c, use_pallas=None):
+            mesh = parallel.make_mesh({"dp": 1, "sp": 1, "tp": 1},
+                                      devices=[c])
+            attn = lambda q, k, v: fn(q, k, v, mesh, axis_name="sp",  # noqa: E731
+                                      batch_axis_name="dp", causal=True,
+                                      use_pallas=use_pallas)
+            return parallel.SPMDTrainer(
+                _lm_apply(attn, batch, seq, heads, embed), params, mesh,
+                data_axis="dp", tp_axis="tp", learning_rate=0.1,
+                momentum=0.9, batch_specs=[spec, spec])
+
+        tr = trainer_on(ctx)
+        # -- the main path: counts zeroed just before, read just after ----
+        if gpu:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        FA.fwd_launches = FA.bwd_launches = 0
+        losses = [float(tr.step(*batches[0]))]
+        p1 = tr.get_params()
+        mom1 = {n: m.cpu().numpy() for n, m in tr.mom.items()}
+        t0 = time.perf_counter()
+        if gpu:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        rest = [tr.step(*b) for b in batches[1:]]
+        if gpu:
+            end.record()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fwd": FA.fwd_launches, "bwd": FA.bwd_launches}
+        # -----------------------------------------------------------------
+        losses += [float(x) for x in rest]
+        for key in total:
+            total[key] += launches[key]
+        expect = ({"fwd": steps, "bwd": bwd_per_step * steps} if gpu
+                  else {"fwd": 0, "bwd": 0})
+        rec = {"leg": leg, "model": {"vocab": vocab, "embed": embed,
+                                     "heads": heads, "batch": batch,
+                                     "seq": seq, "dtype": "float32"},
+               "steps": steps, "losses": losses,
+               "kernel_launches": launches, "expected": expect,
+               "tf32": False}
+        if gpu:
+            step_ms = start.elapsed_time(end) / (steps - 1)
+            rec.update({"step_ms": step_ms,
+                        "step_wall_ms": wall * 1e3 / (steps - 1),
+                        "tokens_per_s": batch * seq / step_ms * 1e3,
+                        "max_memory_allocated":
+                            torch.cuda.max_memory_allocated(),
+                        "step_profile": profile_forward(
+                            lambda: tr.step(*batches[0]), reps=2)})
+        # -- step 1 again by the port on the CPU, plain versions ----------
+        cpu_tr = trainer_on(mx.cpu(), use_pallas=True)
+        cpu_loss = float(cpu_tr.step(*batches[0]))
+        cpu_p = cpu_tr.get_params()
+        param_err = max(_max_rel(p1[n], cpu_p[n]) for n in params)
+        # after step 1 the momentum is -lr * gradient: the gradients are
+        # compared without the cancellation of p1 - p0
+        mom_err = max(_max_rel(mom1[n], cpu_tr.mom[n].numpy())
+                      for n in params)
+        loss_err = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+        # fp32 on both sides with TF32 off; cuBLAS and the CPU sum in other
+        # orders: 1e-4 of the largest magnitude for the loss and the
+        # parameters. The gradients get 1e-2: a ReLU unit of the MLP whose
+        # pre-activation lies within rounding of zero takes the other branch
+        # on one side, which moves a whole token's contribution (on the card
+        # against float64: 3.6e-3 on w1, 1.0e-3 on embed, the same for the
+        # kernel and the plain attention routes).
+        rec["cpu_recompute"] = {"loss": cpu_loss, "loss_rel_err": loss_err,
+                                "param_rel_err": param_err,
+                                "grad_rel_err": mom_err,
+                                "tol": 1e-4, "grad_tol": 1e-2}
+        emit({"training": rec})
+        assert all(np.isfinite(losses)), losses
+        assert launches == expect, (launches, expect)
+        assert loss_err <= 1e-4 and param_err <= 1e-4, rec["cpu_recompute"]
+        assert mom_err <= 1e-2, rec["cpu_recompute"]
+        first[leg] = (losses, mom1)
+    # the two legs share every layer but the attention's backward (K3
+    # against the plain ring backward) and its forward epilogue, on the
+    # same device: the step-1 gradients and all losses agree closely
+    (lu, mu), (lr_, mr) = first["ulysses"], first["ring"]
+    cross = {"grad_rel_err": max(_max_rel(mu[n], mr[n]) for n in mu),
+             "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(lu, lr_)),
+             "tol": 1e-4}
+    emit({"training_legs_agree": cross})
+    assert max(cross["grad_rel_err"], cross["loss_rel_err"]) <= 1e-4, cross
+    return total
+
+
+PHASES = ("kernels", "serving", "attention_kernels", "training")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the control flow on the CPU at a small size "
                          "(plain versions only; prints no result line)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of %s to run after device "
+                         "and build; a subset prints no result line"
+                         % ",".join(PHASES))
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
+    todo = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(todo) - set(PHASES))
+    if unknown:
+        ap.error("unknown phases %s" % unknown)
     if not rehearsal and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     import mxnet_tpu_torch as mx
     if rehearsal:
         dev, rate, ctx = torch.device("cpu"), None, mx.cpu()
+    else:
+        with phase("device"):
+            name, count, rate = device_phase()
+        with phase("build"):
+            build_phase()
+        dev, ctx = torch.device("cuda", 0), mx.gpu(0)
+    res = {}
+    if "kernels" in todo:
         with phase("kernels"):
-            main_k = kernel_phase(dev, rate)
+            res["k1"] = kernel_phase(dev, rate)
+    if "serving" in todo:
         with phase("serving"):
-            serving_phase(mx, ctx, rehearsal=True)
-        print("chip_smoke: CPU rehearsal passed (no device result)")
+            res["k1_launches"] = serving_phase(mx, ctx, rehearsal=rehearsal)
+    if "attention_kernels" in todo:
+        with phase("attention_kernels"):
+            res["attn"] = attention_phase(dev, rate, rehearsal)
+    if "training" in todo:
+        with phase("training"):
+            res["attn_launches"] = training_phase(mx, ctx, rehearsal)
+    if rehearsal or todo != list(PHASES):
+        print("chip_smoke: %s passed (no device result)"
+              % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
         return 0
-    with phase("device"):
-        name, count, rate = device_phase()
-    with phase("build"):
-        build_phase()
-    dev, ctx = torch.device("cuda", 0), mx.gpu(0)
-    with phase("kernels"):
-        main_k = kernel_phase(dev, rate)
-    with phase("serving"):
-        launches = serving_phase(mx, ctx, rehearsal=False)
+    k1, attn, launches = res["k1"], res["attn"], res["attn_launches"]
     emit({"kernels": [{
         "name": "scale_bias_add_relu", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/fused_bn.cu",
         "replaces": "mxnet_tpu/pallas/fused_bn.py:_kernel",
-        "launches": launches, "max_abs_err": main_k["max_abs_err"],
-        "ms": main_k["ms"], "plain_ms": main_k["plain_ms"],
-        "bound_ms": main_k["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]})
+        "launches": res["k1_launches"], "max_abs_err": k1["max_abs_err"],
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "mxnet_tpu/pallas/flash_attention.py:_attn_kernel",
+        "launches": launches["fwd"], "max_abs_err": attn["fwd_max_abs_err"],
+        "ms": attn["fwd_us"] / 1e3, "plain_ms": attn["fwd_plain_us"] / 1e3,
+        "bound_ms": attn["fwd_bound_us"] / 1e3,
+        "bound_by": attn["fwd_bound_by"],
+        "library_ms": attn["fwd_library_us"] / 1e3,
+        "library_call": "scaled_dot_product_attention forward",
+        "shape": attn["shape"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "mxnet_tpu/pallas/flash_attention.py:_bwd_kernel",
+        "launches": launches["bwd"], "max_abs_err": attn["bwd_max_abs_err"],
+        "ms": attn["bwd_us"] / 1e3, "plain_ms": attn["bwd_plain_us"] / 1e3,
+        "bound_ms": attn["bwd_bound_us"] / 1e3,
+        "bound_by": attn["bwd_bound_by"],
+        "library_ms": attn["bwd_library_us"] / 1e3,
+        "library_call": "torch.autograd.grad through "
+                        "scaled_dot_product_attention",
+        "shape": attn["shape"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})
     return 0

@@ -8,7 +8,9 @@ kernel (``kernels/``). Entry points run on ``gpu(0)`` unless the caller
 passes ``ctx=cpu()``. This package imports nothing of JAX or of
 ``mxnet_tpu``.
 
-Ported so far: serving ResNet v1 (forward only), see ROADMAP.md.
+Ported so far: serving ResNet v1 (forward only) and training the
+causal-attention LM through ``parallel.SPMDTrainer`` on one device, see
+ROADMAP.md.
 """
 from .base import MXNetError, get_env  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
@@ -27,3 +29,5 @@ from . import serving  # noqa: F401
 from . import gluon  # noqa: F401
 from . import kernels  # noqa: F401
 from . import weights  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import parallel  # noqa: F401

@@ -23,7 +23,7 @@ __all__ = ["SOURCES", "build_all", "load", "nvcc_path", "BUILD_LOG"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("fused_bn",)
+SOURCES = ("fused_bn", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,0 +1,35 @@
+"""Fused optimizer update rules as tensor functions.
+
+Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (so far ``sgd_update``
+and ``sgd_mom_update``; parity: reference ``optimizer_op.cc``). Each
+function is pure: it returns the new weight (and new state) and leaves
+its inputs as they are, like the JAX ops. PyTorch runs each line as its
+own elementwise kernel on the card; one fused update kernel per
+parameter is later work.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["sgd_update", "sgd_mom_update"]
+
+
+def _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient):
+    grad = grad * rescale_grad
+    if clip_gradient is not None and clip_gradient >= 0:
+        grad = torch.clamp(grad, -clip_gradient, clip_gradient)
+    return grad + wd * weight
+
+
+def sgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
+               clip_gradient=-1.0):
+    g = _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient)
+    return weight - lr * g
+
+
+def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns ``(new_weight, new_mom)``."""
+    g = _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient)
+    mom = momentum * mom - lr * g
+    return weight + mom, mom

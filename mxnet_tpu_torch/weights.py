@@ -10,19 +10,25 @@ checked copy:
   ``arg:``/``aux:`` dict of NDArrays, ready for ``Predictor`` and
   ``InferenceEngine``;
 * :func:`load_into_block` sets the same blob on a port Gluon block by
-  parameter name.
+  parameter name;
+* :func:`tree_from_numpy` copies a plain ``{name: array}`` dict (the
+  parameters of a pure ``apply_fn``, as ``parallel.SPMDTrainer`` takes
+  them) onto a device as tensors.
 
-Both raise ``MXNetError`` on a missing or extra name or a shape
-mismatch.
+They raise ``MXNetError`` on a missing or extra name, a shape mismatch,
+or a value that is not an array.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .base import MXNetError
-from .ndarray.ndarray import array
+from .context import current_context
+from .ndarray.ndarray import NDArray, array
+from .ops.common import torch_dtype
 
-__all__ = ["params_from_numpy", "load_into_block"]
+__all__ = ["params_from_numpy", "load_into_block", "tree_from_numpy"]
 
 _AUX_SUFFIXES = ("running_mean", "running_var", "moving_mean", "moving_var")
 
@@ -96,3 +102,29 @@ def load_into_block(block, blob, ctx=None):
             raise MXNetError("weights: %r has shape %s, the block needs %s"
                              % (name, a.shape, p.shape))
         p.set_data(array(a, ctx=ctx))
+
+
+def tree_from_numpy(params, ctx=None, dtype=None):
+    """``{name: tensor}`` on ``ctx`` (default: the current context,
+    ``gpu(0)``) from a plain dict of numpy arrays, tensors or NDArrays;
+    always a copy. float64 becomes float32 (MXNet convention) unless
+    ``dtype`` casts every array."""
+    if not isinstance(params, dict):
+        raise MXNetError("tree_from_numpy: expected a dict of arrays, got %s"
+                         % type(params).__name__)
+    dev = (ctx or current_context()).torch_device()
+    dt = torch_dtype(dtype)
+    out = {}
+    for name, a in params.items():
+        if isinstance(a, NDArray):
+            t = a._data
+        elif isinstance(a, torch.Tensor):
+            t = a
+        elif isinstance(a, np.ndarray) and a.dtype.kind in "biuf":
+            t = torch.from_numpy(np.ascontiguousarray(a))
+        else:
+            raise MXNetError("tree_from_numpy: %r is %s, not a numeric array"
+                             % (name, type(a).__name__))
+        to = dt or (torch.float32 if t.dtype == torch.float64 else t.dtype)
+        out[name] = t.detach().to(dev, to, copy=True)
+    return out

@@ -13,6 +13,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.kernels import fused_bn as K
+from mxnet_tpu_torch.kernels import flash_attention as FA
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
 
 pytestmark = pytest.mark.gpu
@@ -95,3 +96,205 @@ def test_small_resnet_on_card_matches_cpu(monkeypatch):
     scale = np.abs(want).max()
     np.testing.assert_allclose(eager, want, rtol=1e-4, atol=1e-4 * scale)
     np.testing.assert_allclose(served, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+# -- flash attention: K2 (forward / carry) and K3 (backward) ----------------
+
+# (B, H, Sq, Skv, D): small, ragged in both lengths, head dims 8..128
+ATTN_SHAPES = [(1, 2, 64, 64, 64), (2, 3, 19, 19, 8), (1, 2, 33, 65, 16),
+               (1, 2, 100, 70, 40), (1, 1, 130, 130, 128)]
+
+
+def _attn_inputs(shape, dtype, seed=0):
+    b, h, s_q, s_kv, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda s: torch.randn((b, h, s, d), generator=g,  # noqa: E731
+                                device="cuda").to(dtype)
+    return rnd(s_q), rnd(s_kv), rnd(s_kv), rnd(s_q)
+
+
+def _close(got, want, tol):
+    want = want.float()
+    scale = max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_flash_kernels_match_plain_versions(shape, causal, dtype, monkeypatch):
+    """K2 (with its normalising epilogue) and K3 against the plain
+    versions on the same CUDA tensors, TF32 off; one launch each."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    b, h, s_q, s_kv, d = shape
+    q, k, v, g = _attn_inputs(shape, dtype)
+    tol_f, tol_b = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    before = (FA.fwd_launches, FA.bwd_launches)
+    out, lse = FA.flash_attention_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert (FA.fwd_launches, FA.bwd_launches) == (before[0] + 1, before[1])
+    bh = b * h
+    flat = lambda x: x.reshape(bh, x.shape[2], d)  # noqa: E731
+    o0 = torch.zeros((bh, s_q, d), device="cuda")
+    m0 = torch.full((bh, s_q), FA.NEG_INF, device="cuda")
+    l0 = torch.zeros((bh, s_q), device="cuda")
+    o, m, l = FA.flash_attention_carry_reference(flat(q), flat(k), flat(v),
+                                                 o0, m0, l0, 0, 0, causal)
+    l = torch.clamp_min(l, 1e-30)
+    _close(out, (o / l[..., None]).to(dtype).reshape(out.shape), tol_f)
+    _close(lse, (m + torch.log(l)).reshape(lse.shape), tol_f)
+    delta = (g.float() * out.float()).sum(-1).reshape(bh, s_q)
+    args = (flat(q), flat(k), flat(v), flat(g), lse.reshape(bh, s_q), delta,
+            causal)
+    grads = FA.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert FA.bwd_launches == before[1] + 1
+    for got, want in zip(grads, FA.flash_attention_bwd_reference(*args)):
+        assert got.dtype == dtype
+        _close(got, want, tol_b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_carry_chain_on_card(causal, monkeypatch):
+    """Two key halves merged with ring offsets equal one call over all the
+    keys and the plain version's chain; each carry call is one launch."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    bh, s, d = 6, 70, 32
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((bh, s, d), generator=g, device="cuda")
+    k = torch.randn((bh, 2 * s, d), generator=g, device="cuda")
+    v = torch.randn((bh, 2 * s, d), generator=g, device="cuda")
+
+    def init():
+        return (torch.zeros((bh, s, d), device="cuda"),
+                torch.full((bh, s), FA.NEG_INF, device="cuda"),
+                torch.zeros((bh, s), device="cuda"))
+
+    def chain(fn):
+        c = init()
+        for off in (0, s):
+            c = fn(q, k[:, off:off + s].contiguous(),
+                   v[:, off:off + s].contiguous(), *c, q_offset=s,
+                   kv_offset=off, causal=causal)
+        return c
+
+    before = FA.fwd_launches
+    got = chain(FA.flash_attention_carry)
+    assert FA.fwd_launches == before + 2
+    want = chain(FA.flash_attention_carry_reference)
+    for a, b in zip(got, want):
+        _close(a, b, 2e-5)
+    whole = FA.flash_attention_carry(q, k, v, *init(), q_offset=s,
+                                     kv_offset=0, causal=causal)
+    _close(got[0] / got[2][..., None], whole[0] / whole[2][..., None], 2e-5)
+
+
+def test_flash_carry_fully_masked_rows_unchanged_on_card():
+    """Keys wholly after every query under a causal mask leave o, m and l
+    exactly as they came in, also in rows that have seen no key yet."""
+    _need_card()
+    bh, s, d = 3, 40, 16
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, o = (torch.randn((bh, s, d), generator=g, device="cuda")
+                  for _ in range(4))
+    m = torch.randn((bh, s), generator=g, device="cuda")
+    l = torch.rand((bh, s), generator=g, device="cuda")
+    m[0], l[0], o[0] = FA.NEG_INF, 0.0, 0.0
+    o2, m2, l2 = FA.flash_attention_carry(q, k, v, o, m, l, q_offset=0,
+                                          kv_offset=s, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(m2, m) and torch.equal(l2, l)
+
+
+def test_flash_attention_autograd_on_card_matches_cpu(monkeypatch):
+    """The differentiable entry on the card (K2 + K3, non-contiguous
+    (B, S, H, D)-transposed inputs as the LM gives them) against the same
+    entry on the CPU (the plain versions)."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rs = np.random.RandomState(3)
+    x = [rs.normal(size=(2, 50, 4, 32)).astype(np.float32) for _ in range(3)]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in x]
+        out = FA.flash_attention(*[t.transpose(1, 2) for t in ts],
+                                 causal=True)
+        (out ** 2).sum().backward()
+        res[dev] = [out.detach().cpu()] + [t.grad.cpu() for t in ts]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        _close(a, b, 1e-4)
+
+
+def test_flash_wrappers_raise_instead_of_falling_back():
+    """CUDA tensors the kernels do not take raise; nothing runs the plain
+    version for them."""
+    _need_card()
+    bh, s, d = 2, 16, 8
+    q = torch.randn((bh, s, d), device="cuda")
+    o, m, l = (torch.zeros((bh, s, d), device="cuda"),
+               torch.zeros((bh, s), device="cuda"),
+               torch.zeros((bh, s), device="cuda"))
+    before = (FA.fwd_launches, FA.bwd_launches)
+    nc = torch.randn((bh, d, s), device="cuda").transpose(1, 2)
+    with pytest.raises(mt.MXNetError, match="contiguous"):
+        FA.flash_attention_carry(nc, q, q, o, m, l)
+    with pytest.raises(mt.MXNetError, match="contiguous"):
+        FA.flash_attention_bwd(q, q, q, nc, m, l)
+    with pytest.raises(mt.MXNetError, match="dtype"):
+        FA.flash_attention_carry(q.half(), q.half(), q.half(), o, m, l)
+    with pytest.raises(mt.MXNetError, match="head dim"):
+        big = torch.zeros((1, 4, 160), device="cuda")
+        FA.flash_attention_carry(big, big, big, big,
+                                 torch.zeros((1, 4), device="cuda"),
+                                 torch.zeros((1, 4), device="cuda"))
+    assert (FA.fwd_launches, FA.bwd_launches) == before
+
+
+def test_lm_trains_on_card_through_both_routes(monkeypatch):
+    """Three SPMDTrainer steps of a small causal-attention LM on gpu(0):
+    K2 once per step on the ring route, K2 and K3 once per step on the
+    Ulysses route; losses finite and equal to the port's CPU run."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    from mxnet_tpu_torch import parallel
+    vocab, embed, heads, batch, seq = 64, 32, 4, 2, 16
+    d = embed // heads
+    rng = np.random.RandomState(0)
+    params = {n: rng.normal(0, 0.02, s).astype(np.float32) for n, s in (
+        ("embed", (vocab, embed)), ("wq", (embed, embed)),
+        ("wk", (embed, embed)), ("wv", (embed, embed)),
+        ("wo", (embed, embed)), ("w1", (4 * embed, embed)),
+        ("w2", (embed, 4 * embed)), ("head", (vocab, embed)))}
+    xs = [np.random.RandomState(i).randint(0, vocab, (batch, seq))
+          for i in range(6)]
+
+    def split(t):
+        return t.reshape(batch, seq, heads, d).permute(0, 2, 1, 3)
+
+    def run(fn, ctx):
+        mesh = parallel.make_mesh({"dp": 1, "sp": 1}, devices=[ctx])
+
+        def apply_fn(p, x, y):
+            e = p["embed"][x.long()]
+            a = fn(split(e @ p["wq"].T), split(e @ p["wk"].T),
+                   split(e @ p["wv"].T), mesh, causal=True)
+            h = e + a.permute(0, 2, 1, 3).reshape(batch, seq, embed) \
+                @ p["wo"].T
+            h = h + torch.relu(h @ p["w1"].T) @ p["w2"].T
+            logp = torch.log_softmax(h @ p["head"].T, dim=-1)
+            return (-logp.gather(-1, y.long()[..., None])).mean()
+        tr = parallel.SPMDTrainer(apply_fn, params, mesh, learning_rate=0.1,
+                                  momentum=0.9)
+        return [float(tr.step(xs[2 * i], xs[2 * i + 1])) for i in range(3)]
+
+    for fn, bwd_per_step in ((parallel.ring_attention, 0),
+                             (parallel.ulysses_attention, 1)):
+        before = (FA.fwd_launches, FA.bwd_launches)
+        on_card = run(fn, mt.gpu(0))
+        assert (FA.fwd_launches - before[0],
+                FA.bwd_launches - before[1]) == (3, 3 * bwd_per_step)
+        assert np.isfinite(on_card).all()
+        np.testing.assert_allclose(on_card, run(fn, mt.cpu()), rtol=1e-5,
+                                   atol=1e-6)

@@ -1,0 +1,333 @@
+"""The port's parallel package on one device, against the JAX package.
+
+Plain attention, decode attention, ring and Ulysses attention (forward
+and gradients, with the flash kernels' plain versions standing in for
+the CUDA kernels on the CPU), the optimizers and their SPMD kernels, and
+the slice as a whole: the causal-attention LM of ``__graft_entry__.py``
+trained 3 steps through ``SPMDTrainer`` in both packages from the same
+numpy parameters and batches, with ring and with Ulysses attention.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import PartitionSpec as JP
+
+import mxnet_tpu as jmx
+from mxnet_tpu import parallel as jpar
+from mxnet_tpu.parallel import opt_kernels as jopt_kernels
+
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch import parallel as tpar
+from mxnet_tpu_torch.kernels import flash_attention as K
+
+
+def _qkv(seed, shape=(2, 4, 16, 8)):
+    rs = np.random.RandomState(seed)
+    return [rs.normal(size=shape).astype(np.float32) for _ in range(3)]
+
+
+def _jax_mesh():
+    return jpar.make_mesh({"dp": 1, "sp": 1, "tp": 1},
+                          devices=jax.devices()[:1])
+
+
+def _port_mesh():
+    return tpar.make_mesh({"dp": 1, "sp": 1, "tp": 1}, devices=[mt.cpu()])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("offsets", [(0, 0), (8, 0), (0, 8)])
+def test_attention_matches_jax(causal, offsets):
+    q, k, v = _qkv(0)
+    qo, ko = offsets
+    want = np.asarray(jpar.attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=causal,
+                                     q_offset=qo, kv_offset=ko))
+    got = tpar.attention(*[torch.from_numpy(a) for a in (q, k, v)],
+                         causal=causal, q_offset=qo, kv_offset=ko)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    if causal and ko > qo:       # some rows see no key: zeroed, not NaN
+        assert np.isfinite(got.numpy()).all()
+
+
+@pytest.mark.parametrize("length", [0, 1, 7, 12])
+def test_decode_attention_matches_jax(length):
+    rs = np.random.RandomState(1)
+    q = rs.normal(size=(4, 8)).astype(np.float32)
+    kc = rs.normal(size=(4, 12, 8)).astype(np.float32)
+    vc = rs.normal(size=(4, 12, 8)).astype(np.float32)
+    from mxnet_tpu.parallel.ring_attention import decode_attention
+    want = np.asarray(decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                       jnp.asarray(vc), length))
+    got = tpar.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                                torch.from_numpy(vc), length)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def _jax_fn(name, mesh, causal, use_pallas):
+    fn = getattr(jpar, name)
+    return lambda q, k, v: fn(q, k, v, mesh, axis_name="sp",
+                              batch_axis_name="dp", causal=causal,
+                              use_pallas=use_pallas)
+
+
+def _port_fn(name, mesh, causal, use_pallas):
+    fn = getattr(tpar, name)
+    return lambda q, k, v: fn(q, k, v, mesh, axis_name="sp",
+                              batch_axis_name="dp", causal=causal,
+                              use_pallas=use_pallas)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False, None])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("name", ["ring_attention", "ulysses_attention"])
+def test_sequence_parallel_attention_matches_jax(name, causal, use_pallas):
+    """Forward and gradients on a one-device mesh against JAX's
+    ``use_pallas=True`` route (Pallas in interpret mode): the port's
+    kernel route on CPU tensors runs the kernels' plain versions, its
+    plain route plain PyTorch; both must agree."""
+    q, k, v = _qkv(2)
+    w = np.random.RandomState(3).normal(size=q.shape).astype(np.float32)
+    jfn = _jax_fn(name, _jax_mesh(), causal, True)
+
+    def jloss(q, k, v):
+        return jnp.sum(jfn(q, k, v) * w)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want_out = np.asarray(jfn(jq, jk, jv))
+    want_grads = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = _port_fn(name, _port_mesh(), causal, use_pallas)(tq, tk, tv)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), want_out, rtol=2e-5,
+                               atol=2e-5)
+    for nm, t, g in zip("qkv", (tq, tk, tv), want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-4,
+                                   atol=1e-4, err_msg="d" + nm)
+
+
+def test_sequence_parallel_attention_takes_ndarrays():
+    q, k, v = _qkv(4)
+    mesh = _port_mesh()
+    nds = [mt.nd.array(a, ctx=mt.cpu()) for a in (q, k, v)]
+    want = tpar.attention(*[torch.from_numpy(a) for a in (q, k, v)],
+                          causal=True)
+    for fn in (tpar.ring_attention, tpar.ulysses_attention):
+        out = fn(*nds, mesh, causal=True)
+        assert isinstance(out, mt.nd.NDArray)
+        np.testing.assert_allclose(out.asnumpy(), want.numpy(), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_make_mesh_one_device_only(monkeypatch):
+    mesh = tpar.make_mesh({"dp": -1, "sp": 1}, devices=[mt.cpu()])
+    assert mesh.shape == {"dp": 1, "sp": 1} and mesh.device == mt.cpu()
+    assert tpar.default_mesh is not None
+    with pytest.raises(mt.MXNetError, match="ROADMAP queue 6"):
+        tpar.make_mesh({"dp": 2}, devices=[mt.cpu(0), mt.cpu(1)])
+    with pytest.raises(mt.MXNetError, match="ROADMAP queue 6"):
+        tpar.make_mesh({"dp": -1}, devices=[mt.cpu(0), mt.cpu(1)])
+    with pytest.raises(mt.MXNetError, match="at most one"):
+        tpar.make_mesh({"dp": -1, "sp": -1}, devices=[mt.cpu()])
+    # the default device list is [gpu(0)]: without a card it raises
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        tpar.make_mesh({"dp": 1, "sp": 1})
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        tpar.default_mesh()
+
+
+def test_ulysses_head_check_and_wide_axes_raise():
+    """The head-divisibility check comes first (a stand-in mesh with an
+    'sp' axis of 2), then any axis wider than one device raises until the
+    distributed slice; axes the mesh lacks raise too."""
+    q = torch.zeros(1, 3, 4, 8)
+    wide = types.SimpleNamespace(shape={"dp": 1, "sp": 2})
+    with pytest.raises(mt.MXNetError, match="divisible"):
+        tpar.ulysses_attention(q, q, q, wide)
+    q4 = torch.zeros(1, 4, 4, 8)
+    with pytest.raises(mt.MXNetError, match="ROADMAP queue 6"):
+        tpar.ulysses_attention(q4, q4, q4, wide)
+    with pytest.raises(mt.MXNetError, match="ROADMAP queue 6"):
+        tpar.ring_attention(q4, q4, q4, wide)
+    with pytest.raises(mt.MXNetError, match="no axis 'dp'"):
+        tpar.ring_attention(q4, q4, q4,
+                            tpar.make_mesh({"sp": 1}, devices=[mt.cpu()]),
+                            batch_axis_name="dp")
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("sgd", dict(learning_rate=0.1, momentum=0.9)),
+    ("sgd", dict(learning_rate=0.05, wd=1e-4, clip_gradient=0.5,
+                 rescale_grad=0.25)),
+    ("nag", dict(learning_rate=0.1, momentum=0.8, wd=1e-3)),
+    ("NAG", dict(learning_rate=0.2)),
+])
+def test_spmd_hyperparameters_match_jax(name, kwargs):
+    want = jopt_kernels.hyper_from_optimizer(jmx.optimizer.create(name,
+                                                                  **kwargs))
+    got = tpar.opt_kernels.hyper_from_optimizer(
+        mt.optimizer.create(name, **kwargs))
+    assert got == want
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("sgd", dict(learning_rate=0.1, momentum=0.9, wd=1e-3)),
+    ("sgd", dict(learning_rate=0.1, clip_gradient=0.3, rescale_grad=0.5)),
+    ("nag", dict(learning_rate=0.1, momentum=0.9, wd=1e-3,
+                 clip_gradient=0.3)),
+])
+def test_spmd_kernels_and_eager_update_match_jax(name, kwargs):
+    """Three updates of one parameter by the SPMD kernel and by the eager
+    ``Optimizer.update`` (in place on NDArrays), against JAX's kernel."""
+    rs = np.random.RandomState(5)
+    w0 = rs.normal(size=(6, 5)).astype(np.float32)
+    grads = [rs.normal(size=w0.shape).astype(np.float32) for _ in range(3)]
+    kname, h = jopt_kernels.hyper_from_optimizer(
+        jmx.optimizer.create(name, **kwargs))
+    jinit, jupd = jopt_kernels.get_kernel(kname)
+    tinit, tupd = tpar.opt_kernels.get_kernel(kname)
+    jw, tw = jnp.asarray(w0), torch.from_numpy(w0.copy())
+    js, ts = jinit(jw), tinit(tw)
+    opt = mt.optimizer.create(name, **kwargs)
+    ew = mt.nd.array(w0, ctx=mt.cpu())
+    es = opt.create_state(0, ew)
+    for t, g in enumerate(grads, 1):
+        jw, js = jupd(jw, jnp.asarray(g), js, t, h)
+        tw, ts = tupd(tw, torch.from_numpy(g), ts, t, h)
+        opt.update(0, ew, mt.nd.array(g, ctx=mt.cpu()), es)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(ew.asnumpy(), np.asarray(jw), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_unported_optimizers_and_bad_inputs_raise():
+    with pytest.raises(mt.MXNetError, match="not ported yet"):
+        tpar.opt_kernels.get_kernel("adam")
+    with pytest.raises(mt.MXNetError, match="not registered"):
+        mt.optimizer.create("adam")
+    with pytest.raises(mt.MXNetError, match="not a numeric array"):
+        mt.weights.tree_from_numpy({"w": [1.0, 2.0]}, ctx=mt.cpu())
+    with pytest.raises(mt.MXNetError, match="expected a dict"):
+        mt.weights.tree_from_numpy([np.zeros(2)], ctx=mt.cpu())
+    tree = mt.weights.tree_from_numpy(
+        {"a": np.zeros((2, 3)), "b": torch.ones(2, dtype=torch.int32)},
+        ctx=mt.cpu())
+    assert tree["a"].dtype == torch.float32 and tree["b"].dtype == torch.int32
+    mesh = _port_mesh()
+    params = {"w": np.zeros((4, 4), np.float32)}
+    with pytest.raises(mt.MXNetError, match="names axis 'mp'"):
+        tpar.SPMDTrainer(lambda p, x, y: p["w"].sum(), params, mesh,
+                         param_specs={"w": tpar.P("mp", None)})
+    with pytest.raises(mt.MXNetError, match="more entries"):
+        tpar.SPMDTrainer(lambda p, x, y: p["w"].sum(), params, mesh,
+                         param_specs={"w": tpar.P("tp", None, None)})
+    tr = tpar.SPMDTrainer(lambda p, x: p["w"].sum(), params, mesh,
+                          n_batch_args=1)
+    with pytest.raises(mt.MXNetError, match="2 batch args"):
+        tr.step(np.zeros(2), np.zeros(2))
+    assert tpar.shard_params_rule(params, mesh, "tp") == {"w": ("tp", None)}
+
+
+# -- the slice as a whole: the graft LM through SPMDTrainer -------------------
+
+V, E, H, B, S = 64, 32, 4, 2, 16
+D = E // H
+
+
+def _lm_params():
+    """The graft LM's parameters (``__graft_entry__.py:76-86``)."""
+    rng = np.random.RandomState(0)
+    return {
+        "embed": rng.normal(0, 0.02, (V, E)).astype(np.float32),
+        "wq": rng.normal(0, 0.02, (E, E)).astype(np.float32),
+        "wk": rng.normal(0, 0.02, (E, E)).astype(np.float32),
+        "wv": rng.normal(0, 0.02, (E, E)).astype(np.float32),
+        "wo": rng.normal(0, 0.02, (E, E)).astype(np.float32),
+        "w1": rng.normal(0, 0.02, (4 * E, E)).astype(np.float32),
+        "w2": rng.normal(0, 0.02, (E, 4 * E)).astype(np.float32),
+        "head": rng.normal(0, 0.02, (V, E)).astype(np.float32),
+    }
+
+
+def _batches(n=3):
+    return [(np.random.RandomState(10 + i).randint(0, V, (B, S))
+             .astype(np.int32),
+             np.random.RandomState(20 + i).randint(0, V, (B, S))
+             .astype(np.int32)) for i in range(n)]
+
+
+def _jax_lm(attn):
+    """``__graft_entry__.py:88-104`` with the attention as a parameter."""
+    def apply_fn(p, x, y):
+        e = jnp.take(p["embed"], x, axis=0)
+        q = (e @ p["wq"].T).reshape(B, S, H, D).transpose(0, 2, 1, 3)
+        k = (e @ p["wk"].T).reshape(B, S, H, D).transpose(0, 2, 1, 3)
+        v = (e @ p["wv"].T).reshape(B, S, H, D).transpose(0, 2, 1, 3)
+        a = attn(q, k, v)
+        a = a.transpose(0, 2, 1, 3).reshape(B, S, E) @ p["wo"].T
+        h = e + a
+        h = h + jnp.maximum(h @ p["w1"].T, 0) @ p["w2"].T
+        logp = jax.nn.log_softmax(h @ p["head"].T)
+        return jnp.mean(-jnp.take_along_axis(logp, y[..., None], axis=-1))
+    return apply_fn
+
+
+def _port_lm(attn):
+    """The same LM in PyTorch, as ``chip_smoke.py`` drives it."""
+    def apply_fn(p, x, y):
+        e = p["embed"][x.long()]
+        q = (e @ p["wq"].T).reshape(B, S, H, D).permute(0, 2, 1, 3)
+        k = (e @ p["wk"].T).reshape(B, S, H, D).permute(0, 2, 1, 3)
+        v = (e @ p["wv"].T).reshape(B, S, H, D).permute(0, 2, 1, 3)
+        a = attn(q, k, v)
+        a = a.permute(0, 2, 1, 3).reshape(B, S, E) @ p["wo"].T
+        h = e + a
+        h = h + torch.relu(h @ p["w1"].T) @ p["w2"].T
+        logp = torch.log_softmax(h @ p["head"].T, dim=-1)
+        return (-logp.gather(-1, y.long()[..., None])).mean()
+    return apply_fn
+
+
+@pytest.mark.parametrize("use_pallas", [True, None])
+@pytest.mark.parametrize("name", ["ring_attention", "ulysses_attention"])
+def test_lm_three_spmd_steps_match_jax(name, use_pallas):
+    """Losses of every step and every parameter after step 3 agree at
+    the tolerance of the graft's own oracle (rtol 1e-5, atol 1e-6,
+    ``__graft_entry__.py:129-134``). JAX runs its Pallas route (interpret
+    mode); the port its kernel route (the kernels' plain versions on CPU
+    tensors) or, with ``use_pallas=None`` on the CPU, plain PyTorch."""
+    params = _lm_params()
+    jmesh, tmesh = _jax_mesh(), _port_mesh()
+    jattn = _jax_fn(name, jmesh, True, True)
+    tattn = _port_fn(name, tmesh, True, use_pallas)
+    jtr = jpar.SPMDTrainer(_jax_lm(jattn), params, jmesh, data_axis="dp",
+                           tp_axis="tp", learning_rate=0.1, momentum=0.9,
+                           batch_specs=[JP("dp", "sp"), JP("dp", "sp")])
+    ttr = tpar.SPMDTrainer(_port_lm(tattn), params, tmesh, data_axis="dp",
+                           tp_axis="tp", learning_rate=0.1, momentum=0.9,
+                           batch_specs=[tpar.P("dp", "sp"),
+                                        tpar.P("dp", "sp")])
+    assert (ttr.lr, ttr.momentum, ttr.wd) == (jtr.lr, jtr.momentum, jtr.wd)
+    launches = (K.fwd_launches, K.bwd_launches)
+    for x, y in _batches():
+        jl = float(np.asarray(jax.device_get(jtr.step(x, y))))
+        tl = float(ttr.step(x, y))
+        assert np.isfinite(tl)
+        np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-6)
+    jp, tp = jtr.get_params(), ttr.get_params()
+    assert sorted(jp) == sorted(tp)
+    for n in jp:
+        np.testing.assert_allclose(tp[n], jp[n], rtol=1e-5, atol=1e-6,
+                                   err_msg=n)
+    for n, m in ttr.mom.items():
+        np.testing.assert_allclose(m.numpy(), np.asarray(jtr.mom[n]),
+                                   rtol=1e-5, atol=1e-6, err_msg=n)
+    # CPU tensors take the plain versions, which count no launch
+    assert (K.fwd_launches, K.bwd_launches) == launches
