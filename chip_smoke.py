@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; no error is swallowed):
    power limit; no CUDA device means exit 2.
 2. build — every CUDA kernel source under ``mxnet_tpu_torch/kernels/csrc``
    is compiled with nvcc for sm_90a (one process per source, in
-   parallel), with ``-Xptxas -v``; the build time is set-up time.
+   parallel), with ``-Xptxas -v``; the build time is set-up time. Then one
+   line per kernel function of the flash library with its count of
+   tensor-core instructions in ``cuobjdump -sass`` (HGMMA, HMMA); every
+   flash kernel must have some (HGMMA in bf16).
 3. kernels — the block-tail kernel (K1) against its plain PyTorch version
    at the shapes the serving path gives it (the four ResNet-50 block-tail
    shapes at batch 1 and 32) plus ragged shapes, fp32 and bf16, with and
@@ -32,11 +35,17 @@ Phases (any failure exits non-zero; no error is swallowed):
 5. attention_kernels — flash attention's forward (K2) and backward (K3)
    against their plain versions at (B, H, S, D) = (8, 8, 512, 64) causal
    fp32 (the LM's shape), (1, 8, 4096, 64) causal fp32 and bf16,
-   (2, 16, 2048, 128) bf16, the ragged Sq 1000 / Skv 1500 fp32 case and a
+   (2, 16, 2048, 128) bf16, the ragged Sq 1000 / Skv 1500 case (fp32, and
+   bf16 causal), head dims 20 and 3 (the plain-load path) and 72, and a
    two-half carry chain with offsets; one JSON line per case with the
    errors and tolerances, the kernel's, the plain version's and
    ``scaled_dot_product_attention``'s time (the yardstick, never called by
-   the port) and the bound.
+   the port; with the names of the kernels SDPA ran, which name its
+   backend) and the bound. Kernel and SDPA times are given twice: CUDA
+   events around 50 calls (host dispatch included) and device time from
+   a ``torch.profiler`` trace (the kernels alone); shares use the device
+   time, against 165 TFLOP/s in fp32 (3xTF32 on the tensor cores) and
+   989 in bf16, with the CUDA-core fp32 share (67 TFLOP/s) beside.
 6. training — the causal-attention LM of ``__graft_entry__.py`` at the
    repo's full attention width (vocab 8192, embed 512, 8 heads of 64,
    batch 8 x length 512, fp32, weights from ``np.random.RandomState(0)``)
@@ -44,12 +53,16 @@ Phases (any failure exits non-zero; no error is swallowed):
    5 steps with ``ulysses_attention`` (K2 + K3 per step), then 5 with
    ``ring_attention`` (K2 + the plain ring backward). Losses must be
    finite, the launch counts exact, and step 1 of each leg must agree
-   with the port's CPU recompute (plain versions, TF32 off). Printed per
+   with the port's CPU recompute (plain versions, TF32 off; the
+   gradients from a recompute that takes the card's ReLU mask, with the
+   count of MLP units whose sign differed). Printed per
    leg: step time, tokens/s, peak device memory and a profiler view of
    one step.
 7. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
-   tails with residual); for K2 and K3 they are at the LM's shape; each
+   tails with residual); for K2 and K3 they are at the LM's shape, ``ms``
+   and ``library_ms`` device times (``event_ms`` beside), ``plain_ms`` by
+   CUDA events; each
    ``launches`` is the count on that kernel's main path — and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
@@ -107,6 +120,55 @@ def time_cuda(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def device_time(fn, match=None, reps=20):
+    """The device time per call of ``fn`` from a ``torch.profiler`` trace:
+    the CUDA durations of the kernels whose name contains ``match`` (all
+    kernels when None), summed and divided by ``reps``; returns (ms, {kernel
+    name: ms}), ms None when the trace holds no such device events. Unlike
+    ``time_cuda`` it leaves out the host's dispatch of each call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = {e.key: e.self_device_time_total / 1e3 / reps
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0
+             and (match is None or match in e.key)}
+    if not names:   # no device events in the trace: CUDA events instead
+        return time_cuda(fn), {"(no device events; CUDA events)": None}
+    return sum(names.values()), names
+
+
+def sass_tensor_ops(lib_path):
+    """Per kernel function of a built library, the count of tensor-core
+    instructions in its SASS (``cuobjdump -sass``): HGMMA (wgmma) and HMMA
+    (mma.sync)."""
+    import shutil
+    exe = next((c for c in ("/usr/local/cuda/bin/cuobjdump",
+                            shutil.which("cuobjdump")) if c
+                and os.path.isfile(c)), None)
+    if exe is None:
+        return {"error": "cuobjdump not found"}
+    sass = subprocess.run([exe, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op + "." in line:
+                    counts[fn][op] += 1
+    return counts
+
+
 def device_phase():
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -130,6 +192,17 @@ def build_phase():
         print("-- nvcc -Xptxas -v: %s\n%s" % (name, rec["ptxas"]), flush=True)
     emit({"setup_build_s": time.perf_counter() - t0,
           "per_source_s": {n: r["seconds"] for n, r in log.items()}})
+    # the flash kernels run on the tensor cores: wgmma (HGMMA) in bf16,
+    # mma.sync (HMMA) or wgmma in fp32
+    counts = sass_tensor_ops(os.path.join(_build.BUILD_DIR,
+                                          "libflash_attention.so"))
+    for fn, c in sorted(counts.items()):
+        emit({"sass": fn, "tensor_core_instructions": c})
+    flash = {fn: c for fn, c in counts.items() if "flash_" in fn}
+    assert flash, counts
+    for fn, c in flash.items():
+        need = c["HGMMA"] if "bfloat16" in fn else c["HGMMA"] + c["HMMA"]
+        assert need > 0, ("no tensor-core instruction in", fn, c)
 
 
 def kernel_cases():
@@ -360,20 +433,31 @@ _ATTN_CASES = (
     ("long", 1, 8, 4096, 4096, 64, True, torch.bfloat16),
     ("wide", 2, 16, 2048, 2048, 128, False, torch.bfloat16),
     ("ragged", 1, 3, 1000, 1500, 64, False, torch.float32),
+    ("ragged", 1, 3, 1000, 1500, 64, True, torch.bfloat16),
+    ("d20", 2, 4, 300, 300, 20, True, torch.bfloat16),
+    ("d3", 1, 4, 257, 311, 3, False, torch.float32),
+    ("d72", 2, 8, 1024, 1024, 72, True, torch.bfloat16),
 )
 _ATTN_REHEARSAL = (
     ("lm", 2, 2, 64, 64, 16, True, torch.float32),
     ("long", 1, 2, 100, 100, 16, True, torch.bfloat16),
     ("ragged", 1, 3, 40, 70, 16, False, torch.float32),
+    ("d20", 1, 2, 30, 30, 20, True, torch.bfloat16),
 )
 # the error of a kernel against its plain version, over max(1, the largest
 # magnitude of the plain result): fp32 at the JAX package's flash-vs-plain
 # tolerances (tests/test_pallas.py: 2e-5 forward, 1e-4 gradients); bf16
 # rounds outputs to 8 bits of mantissa (one ulp at 1 is 2^-7), so 2e-2
 _ATTN_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
-# peak rate of the card by operand type (H100 SXM data sheet): fp32 on CUDA
-# cores, bf16 dense on tensor cores
-_PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# peak rate of the card by operand type (H100 SXM data sheet), dense: bf16 on
+# the tensor cores 989 TFLOP/s; fp32 at fp32 accuracy 495 / 3 = 165 TFLOP/s,
+# because the tensor cores give that accuracy only as 3xTF32 (three tf32
+# products of 495 TFLOP/s for each fp32 product), which is what the kernels
+# and SDPA's fp32 kernel do. The CUDA-core fp32 rate (67 TFLOP/s), against
+# which the earlier CUDA-core kernels were measured, is kept beside it as a
+# second share.
+_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+_CUDA_CORE_FP32 = 67e12
 
 
 def _visible_pairs(s_q, s_kv, causal):
@@ -384,10 +468,21 @@ def _visible_pairs(s_q, s_kv, causal):
     return int(np.minimum(np.arange(1, s_q + 1), s_kv).sum())
 
 
-def _bound_us(flops, nbytes, dtype, rate):
-    t_ops, t_bytes = flops / _PEAK_FLOPS[dtype], nbytes / rate
+def _bound_us(flops, nbytes, dtype, rate, peak=None):
+    peak = _PEAK_FLOPS[dtype] if peak is None else peak
+    t_ops, t_bytes = flops / peak, nbytes / rate
     return max(t_ops, t_bytes) * 1e6, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def _short_names(names):
+    """{kernel: us} with the demangled names cut to name<template args>."""
+    out = {}
+    for key, ms in names.items():
+        short = key.split(">(")[0].replace("void (anonymous namespace)::", "")
+        out[short + (">" if "<" in short else "")] = \
+            None if ms is None else ms * 1e3
+    return out
 
 
 def _scaled_err(got, want):
@@ -473,20 +568,44 @@ def attention_phase(dev, rate, rehearsal):
             sdpa_both = lambda: torch.autograd.grad(  # noqa: E731
                 F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal),
                 (qr, kr, vr), gr)
+            # event times (host dispatch included) beside device times
+            # from a profiler trace (the kernels alone)
+            f_dev, f_names = device_time(fwd, "flash_fwd_kernel")
+            b_dev, b_names = device_time(bwd, "flash_bwd_")
+            lf_dev, lf_names = device_time(sdpa)
+            lb_dev, lb_names = device_time(sdpa_bwd)
             rec.update({
                 "fwd_us": time_cuda(fwd) * 1e3,
+                "fwd_device_us": f_dev * 1e3,
+                "fwd_kernels_us": _short_names(f_names),
                 "fwd_plain_us": time_cuda(fwd_plain) * 1e3,
                 "fwd_library_us": time_cuda(sdpa) * 1e3,
+                "fwd_library_device_us": lf_dev * 1e3,
+                "fwd_library_kernels": sorted(lf_names),
                 "fwd_bound_us": bf, "fwd_bound_by": bf_by,
                 "fwd_flops": 4 * pairs * d, "fwd_bytes": fwd_bytes,
                 "bwd_us": time_cuda(bwd) * 1e3,
+                "bwd_device_us": b_dev * 1e3,
+                "bwd_kernels_us": _short_names(b_names),
                 "bwd_plain_us": time_cuda(bwd_plain) * 1e3,
                 "bwd_library_us": time_cuda(sdpa_bwd) * 1e3,
+                "bwd_library_device_us": lb_dev * 1e3,
+                "bwd_library_kernels": sorted(lb_names),
                 "fwd_bwd_library_us": time_cuda(sdpa_both) * 1e3,
                 "bwd_bound_us": bb, "bwd_bound_by": bb_by,
                 "bwd_flops": 10 * pairs * d, "bwd_bytes": bwd_bytes})
-            rec["fwd_roofline_share"] = bf / rec["fwd_us"]
-            rec["bwd_roofline_share"] = bb / rec["bwd_us"]
+            # shares use the device time
+            rec["fwd_roofline_share"] = bf / rec["fwd_device_us"]
+            rec["bwd_roofline_share"] = bb / rec["bwd_device_us"]
+            if dtype == torch.float32:
+                rec["fwd_cuda_core_bound_us"] = _bound_us(
+                    4 * pairs * d, fwd_bytes, dtype, rate, _CUDA_CORE_FP32)[0]
+                rec["bwd_cuda_core_bound_us"] = _bound_us(
+                    10 * pairs * d, bwd_bytes, dtype, rate, _CUDA_CORE_FP32)[0]
+                rec["fwd_cuda_core_share"] = \
+                    rec["fwd_cuda_core_bound_us"] / rec["fwd_device_us"]
+                rec["bwd_cuda_core_share"] = \
+                    rec["bwd_cuda_core_bound_us"] / rec["bwd_device_us"]
             del o_lib, qr, kr, vr
         emit(rec)
         if not ok:
@@ -558,10 +677,11 @@ def _lm_params(vocab, embed, seed=0):
     return {n: rng.normal(0, 0.02, s).astype(np.float32) for n, s in shapes}
 
 
-def _lm_apply(attn, batch, seq, heads, embed):
-    """``__graft_entry__.py:88-104`` in PyTorch, with the attention as a
-    parameter: embedding, causal multi-head attention, a residual, a ReLU
-    MLP of width 4E, the vocabulary head and the mean next-token NLL."""
+def _lm_apply(attn, batch, seq, heads, embed, relu=torch.relu):
+    """``__graft_entry__.py:88-104`` in PyTorch, with the attention (and,
+    for the CPU recompute, the MLP's ReLU) as a parameter: embedding,
+    causal multi-head attention, a residual, a ReLU MLP of width 4E, the
+    vocabulary head and the mean next-token NLL."""
     d = embed // heads
 
     def split(t):
@@ -572,10 +692,20 @@ def _lm_apply(attn, batch, seq, heads, embed):
         a = attn(split(e @ p["wq"].T), split(e @ p["wk"].T),
                  split(e @ p["wv"].T))
         h = e + a.permute(0, 2, 1, 3).reshape(batch, seq, embed) @ p["wo"].T
-        h = h + torch.relu(h @ p["w1"].T) @ p["w2"].T
+        h = h + relu(h @ p["w1"].T) @ p["w2"].T
         logp = torch.log_softmax(h @ p["head"].T, dim=-1)
         return (-logp.gather(-1, y.long()[..., None])).mean()
     return apply_fn
+
+
+def _recording_relu(store, key):
+    """torch.relu that keeps the sign mask of its first input under
+    ``store[key]``."""
+    def relu(x):
+        if key not in store:
+            store[key] = (x > 0).detach()
+        return torch.relu(x)
+    return relu
 
 
 def _max_rel(a, b):
@@ -602,18 +732,19 @@ def training_phase(mx, ctx, rehearsal, steps=5):
     first = {}         # leg -> (losses, momentum after step 1)
     for leg, fn, bwd_per_step in (("ulysses", parallel.ulysses_attention, 1),
                                   ("ring", parallel.ring_attention, 0)):
-        def trainer_on(c, use_pallas=None):
+        def trainer_on(c, use_pallas=None, relu=torch.relu):
             mesh = parallel.make_mesh({"dp": 1, "sp": 1, "tp": 1},
                                       devices=[c])
             attn = lambda q, k, v: fn(q, k, v, mesh, axis_name="sp",  # noqa: E731
                                       batch_axis_name="dp", causal=True,
                                       use_pallas=use_pallas)
             return parallel.SPMDTrainer(
-                _lm_apply(attn, batch, seq, heads, embed), params, mesh,
+                _lm_apply(attn, batch, seq, heads, embed, relu), params, mesh,
                 data_axis="dp", tp_axis="tp", learning_rate=0.1,
                 momentum=0.9, batch_specs=[spec, spec])
 
-        tr = trainer_on(ctx)
+        masks = {}     # the MLP's ReLU sign mask in step 1, per side
+        tr = trainer_on(ctx, relu=_recording_relu(masks, "card"))
         # -- the main path: counts zeroed just before, read just after ----
         if gpu:
             torch.cuda.synchronize()
@@ -659,27 +790,40 @@ def training_phase(mx, ctx, rehearsal, steps=5):
         cpu_loss = float(cpu_tr.step(*batches[0]))
         cpu_p = cpu_tr.get_params()
         param_err = max(_max_rel(p1[n], cpu_p[n]) for n in params)
-        # after step 1 the momentum is -lr * gradient: the gradients are
-        # compared without the cancellation of p1 - p0
-        mom_err = max(_max_rel(mom1[n], cpu_tr.mom[n].numpy())
-                      for n in params)
         loss_err = abs(losses[0] - cpu_loss) / abs(cpu_loss)
-        # fp32 on both sides with TF32 off; cuBLAS and the CPU sum in other
-        # orders: 1e-4 of the largest magnitude for the loss and the
-        # parameters. The gradients get 1e-2: a ReLU unit of the MLP whose
-        # pre-activation lies within rounding of zero takes the other branch
-        # on one side, which moves a whole token's contribution (on the card
-        # against float64: 3.6e-3 on w1, 1.0e-3 on embed, the same for the
-        # kernel and the plain attention routes).
+        # The gradients: a ReLU unit of the MLP whose pre-activation lies
+        # within rounding of zero can take the other branch on one side,
+        # which moves a whole token's contribution (one such unit moved
+        # 3.6e-3 of the largest w1 gradient on the H100, against float64).
+        # So step 1 is recomputed on the CPU once more with the card's ReLU
+        # mask in place of its own; after step 1 the momentum is
+        # -lr * gradient, compared without the cancellation of p1 - p0.
+        card_mask = masks["card"].cpu()
+        own = {}
+        def card_relu(x):  # noqa: E306
+            if "cpu" not in own:
+                own["cpu"] = (x > 0).detach()
+            return torch.where(card_mask, x, torch.zeros_like(x))
+        same_tr = trainer_on(mx.cpu(), use_pallas=True, relu=card_relu)
+        same_tr.step(*batches[0])
+        grad_errs = {n: _max_rel(mom1[n], same_tr.mom[n].numpy())
+                     for n in params}
+        mom_err = max(grad_errs.values())
+        flips = int((own["cpu"] != card_mask).sum())
+        # fp32 on both sides with TF32 off; cuBLAS, the kernels' 3xTF32 and
+        # the CPU sum in other orders: 1e-4 of the largest magnitude for
+        # the loss and the parameters, 1e-3 for the gradients
         rec["cpu_recompute"] = {"loss": cpu_loss, "loss_rel_err": loss_err,
                                 "param_rel_err": param_err,
-                                "grad_rel_err": mom_err,
-                                "tol": 1e-4, "grad_tol": 1e-2}
+                                "relu_units_flipped": flips,
+                                "grad_rel_err_with_card_relu_mask": mom_err,
+                                "grad_rel_err_by_param": grad_errs,
+                                "tol": 1e-4, "grad_tol": 1e-3}
         emit({"training": rec})
         assert all(np.isfinite(losses)), losses
         assert launches == expect, (launches, expect)
         assert loss_err <= 1e-4 and param_err <= 1e-4, rec["cpu_recompute"]
-        assert mom_err <= 1e-2, rec["cpu_recompute"]
+        assert mom_err <= 1e-3, rec["cpu_recompute"]
         first[leg] = (losses, mom1)
     # the two legs share every layer but the attention's backward (K3
     # against the plain ring backward) and its forward epilogue, on the
@@ -753,20 +897,24 @@ def main(argv=None):
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:_attn_kernel",
         "launches": launches["fwd"], "max_abs_err": attn["fwd_max_abs_err"],
-        "ms": attn["fwd_us"] / 1e3, "plain_ms": attn["fwd_plain_us"] / 1e3,
+        "ms": attn["fwd_device_us"] / 1e3,
+        "event_ms": attn["fwd_us"] / 1e3,
+        "plain_ms": attn["fwd_plain_us"] / 1e3,
         "bound_ms": attn["fwd_bound_us"] / 1e3,
         "bound_by": attn["fwd_bound_by"],
-        "library_ms": attn["fwd_library_us"] / 1e3,
+        "library_ms": attn["fwd_library_device_us"] / 1e3,
         "library_call": "scaled_dot_product_attention forward",
         "shape": attn["shape"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:_bwd_kernel",
         "launches": launches["bwd"], "max_abs_err": attn["bwd_max_abs_err"],
-        "ms": attn["bwd_us"] / 1e3, "plain_ms": attn["bwd_plain_us"] / 1e3,
+        "ms": attn["bwd_device_us"] / 1e3,
+        "event_ms": attn["bwd_us"] / 1e3,
+        "plain_ms": attn["bwd_plain_us"] / 1e3,
         "bound_ms": attn["bwd_bound_us"] / 1e3,
         "bound_by": attn["bwd_bound_by"],
-        "library_ms": attn["bwd_library_us"] / 1e3,
+        "library_ms": attn["bwd_library_device_us"] / 1e3,
         "library_call": "torch.autograd.grad through "
                         "scaled_dot_product_attention",
         "shape": attn["shape"]}]})

@@ -52,9 +52,14 @@ def _paths(name):
 
 
 def _stale(name):
+    """A library is stale when it is missing or older than its source or
+    any header under ``csrc/`` (the sources include them)."""
     src, lib = _paths(name)
-    return not os.path.exists(lib) or \
-        os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    deps = [src] + [os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+                    if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(f) for f in deps)
 
 
 def build_all(names=SOURCES, force=False):

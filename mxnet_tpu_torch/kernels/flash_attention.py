@@ -16,13 +16,16 @@ Each dispatches on the tensor's device:
   adds one to :data:`fwd_launches`, every call that launches K3 (its two
   kernels, dk/dv and dq) adds one to :data:`bwd_launches`;
 * CPU — the plain PyTorch versions :func:`flash_attention_carry_reference`
-  and :func:`flash_attention_bwd_reference`;
+  and :func:`flash_attention_bwd_reference`; with ``matmul=matmul_3xtf32``
+  (every product taken as hi·hi + hi·lo + lo·hi of :func:`split_tf32`'s
+  parts) and, in the backward, ``ps_dtype=torch.bfloat16`` they repeat the
+  kernels' own numerics, so the CPU tests can hold those against JAX;
 * ``meta`` — empty outputs of the right shapes.
 
 For a CUDA tensor the wrapper launches the kernel or raises; it never
 falls back to the plain version. Not carried over: the operator tuner's
 ``block_q`` choice (``block_q`` is accepted and does not change the
-result: the kernels use their own 64-row tiles) and the
+result: the kernels use their own 64- and 128-row tiles) and the
 ``MXTPU_FLASH_BWD=xla`` switch (on a CUDA tensor the backward is K3).
 """
 from __future__ import annotations
@@ -37,6 +40,7 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_carry",
            "flash_attention_forward", "flash_attention_bwd",
            "flash_attention_carry_reference", "flash_attention_bwd_reference",
+           "split_tf32", "matmul_3xtf32",
            "NEG_INF", "fwd_launches", "bwd_launches"]
 
 DEFAULT_BLOCK_Q = 128
@@ -55,17 +59,43 @@ def _scale(scale, d):
     return scale if scale is not None else 1.0 / math.sqrt(d)
 
 
+# -- the kernels' fp32 numerics, in plain PyTorch ----------------------------
+
+def split_tf32(x):
+    """An fp32 tensor as ``(hi, lo)``: ``hi`` keeps the top 10 of the 23
+    mantissa bits, rounded to nearest with ties away from zero on the low
+    13 (integer add of half a unit, then mask), and ``lo`` is the same
+    rounding of ``x - hi``. The fp32 kernels split every operand this way
+    (``csrc/hopper_mma.cuh:split_tf32``)."""
+    def tf32(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(_F32)
+    hi = tf32(x.to(_F32))
+    return hi, tf32(x.to(_F32) - hi)
+
+
+def matmul_3xtf32(a, b):
+    """``a @ b`` as the fp32 kernels take it on tf32 tensor cores:
+    lo·hi + hi·lo + hi·hi of the :func:`split_tf32` parts (the lo·lo term
+    dropped). Each product of two tf32 values is exact in fp32."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) \
+        + torch.matmul(a_hi, b_hi)
+
+
 # -- plain versions ---------------------------------------------------------
 
 def flash_attention_carry_reference(q, k, v, o, m, l, q_offset=0,
-                                    kv_offset=0, causal=False, scale=None):
+                                    kv_offset=0, causal=False, scale=None,
+                                    matmul=torch.matmul):
     """The plain PyTorch version of K2: ``_attn_kernel``
     (``mxnet_tpu/pallas/flash_attention.py:83-126``) over the whole local
-    block at once. Products in fp32 (bf16 widens exactly); p is rounded
-    to ``v.dtype`` before ``p @ v``."""
+    block at once. Products in fp32 (bf16 widens exactly) through
+    ``matmul``; p is rounded to ``v.dtype`` before ``p @ v``."""
     s_q, s_kv = q.shape[1], k.shape[1]
     scale = _scale(scale, q.shape[-1])
-    scores = torch.matmul(q.to(_F32), k.to(_F32).transpose(-1, -2)) * scale
+    scores = matmul(q.to(_F32), k.to(_F32).transpose(-1, -2)) * scale
     q_pos = q_offset + torch.arange(s_q, device=q.device)[:, None]
     k_pos = kv_offset + torch.arange(s_kv, device=q.device)[None, :]
     mask = k_pos < kv_offset + s_kv
@@ -78,32 +108,37 @@ def flash_attention_carry_reference(q, k, v, o, m, l, q_offset=0,
     p = torch.exp(scores - m_new[..., None])
     p = torch.where(mask, p, 0.0)
     l_new = l * corr + p.sum(-1)
-    pv = torch.matmul(p.to(v.dtype).to(_F32), v.to(_F32))
+    pv = matmul(p.to(v.dtype).to(_F32), v.to(_F32))
     return o * corr[..., None] + pv, m_new, l_new
 
 
 def flash_attention_bwd_reference(q, k, v, g, lse, delta, causal=False,
-                                  scale=None):
+                                  scale=None, matmul=torch.matmul,
+                                  ps_dtype=None):
     """The plain PyTorch version of K3: ``_bwd_kernel``
     (``mxnet_tpu/pallas/flash_attention.py:261-305``) over the whole
     sequence, on ``(BH, S, D)``; returns fp32 ``(dq, dk, dv)``. As in the
     kernel, p is 0 where the causal mask is false (the reference relies
     on ``exp(NEG_INF - lse)`` underflowing, the same value wherever a row
-    has a visible key)."""
+    has a visible key). Products through ``matmul``; with ``ps_dtype``,
+    p and ds are rounded to that type as operands of dv, dq and dk (ds
+    itself is computed from the unrounded p), as the bf16 kernel does."""
     s_q, s_kv = q.shape[1], k.shape[1]
     scale = _scale(scale, q.shape[-1])
     qf, kf, vf, gf = (t.to(_F32) for t in (q, k, v, g))
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse[..., None])
     if causal:
         q_pos = torch.arange(s_q, device=q.device)[:, None]
         k_pos = torch.arange(s_kv, device=q.device)[None, :]
         p = torch.where(q_pos >= k_pos, p, 0.0)
-    dv = torch.matmul(p.transpose(-1, -2), gf)
-    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    dp = matmul(gf, vf.transpose(-1, -2))
     ds = p * (dp - delta[..., None]) * scale
-    dq = torch.matmul(ds, kf)
-    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    if ps_dtype is not None:
+        p, ds = p.to(ps_dtype).to(_F32), ds.to(ps_dtype).to(_F32)
+    dv = matmul(p.transpose(-1, -2), gf)
+    dq = matmul(ds, kf)
+    dk = matmul(ds.transpose(-1, -2), qf)
     return dq, dk, dv
 
 

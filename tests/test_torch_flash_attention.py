@@ -232,3 +232,93 @@ def test_wrapper_checks_dispatch_and_meta():
                                 torch.zeros(1, 4))
     with pytest.raises(mt.MXNetError, match="B, H, S, D"):
         K.flash_attention(q3, q3, q3)
+
+
+# -- the kernels' numerics on the CPU: split TF32 and bf16-rounded p/ds -------
+
+def test_split_tf32_rounds_ties_away_and_keeps_fp32_accuracy():
+    """hi keeps 10 mantissa bits (the low 13 are zero), rounded to nearest
+    with ties away from zero; hi + lo is x to about 2^-22 relative."""
+    one_and_half_ulp = np.float32(1.0 + 2.0 ** -11)      # a tie at tf32
+    x = np.array([one_and_half_ulp, -one_and_half_ulp, 1.0 + 2.0 ** -12,
+                  3.0], np.float32)
+    hi, lo = K.split_tf32(torch.from_numpy(x))
+    np.testing.assert_array_equal(
+        hi.numpy(), np.array([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0,
+                              3.0], np.float32))
+    r = torch.from_numpy(np.random.RandomState(8).normal(size=4096)
+                         .astype(np.float32) * 100)
+    hi, lo = K.split_tf32(r)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert int((lo.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert float(((hi + lo - r).abs() / r.abs()).max()) < 2.0 ** -21
+
+
+def _plain_fwd_bwd(q, k, v, g, causal, matmul=torch.matmul, ps_dtype=None):
+    """The plain forward (carry reference from the empty carry, then the
+    normalisation) and backward on (B, H, S, D) numpy inputs of one type."""
+    b, h, s_q, d = q.shape
+    s_kv = k.shape[2]
+    bh = b * h
+    tq, tk, tv, tg = (t.reshape(bh, -1, d) for t in (q, k, v, g))
+    o, m, l = K.flash_attention_carry_reference(
+        tq, tk, tv, torch.zeros(bh, s_q, d), torch.full((bh, s_q), K.NEG_INF),
+        torch.zeros(bh, s_q), 0, 0, causal, matmul=matmul)
+    l = torch.clamp_min(l, 1e-30)
+    out = (o / l[..., None]).to(q.dtype)
+    lse = m + torch.log(l)
+    delta = (tg.float() * out.float()).sum(-1)
+    grads = K.flash_attention_bwd_reference(tq, tk, tv, tg, lse, delta, causal,
+                                            matmul=matmul, ps_dtype=ps_dtype)
+    return (out.reshape(b, h, s_q, d),
+            [x.reshape(b, h, n, d) for x, n in zip(grads, (s_q, s_kv, s_kv))])
+
+
+# (B, H, Sq, Skv, D): the LM's head dim 64, and a ragged shape
+NUMERICS_SHAPES = [(1, 2, 64, 64, 64), (1, 3, 33, 65, 20)]
+
+
+@pytest.mark.parametrize("shape", NUMERICS_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_tf32_products_match_jax(shape, causal):
+    """Every product of the plain forward and backward taken as the fp32
+    kernels take it (lo.hi + hi.lo + hi.hi of the tf32 parts) stays within
+    the fp32 tolerances of JAX's flash attention and its VJP: 2e-5 on the
+    output, 1e-4 on the gradients."""
+    b, h, s_q, s_kv, d = shape
+    q, k, v = _qkv(9, b=b, h=h, s_q=s_q, s_kv=s_kv, d=d)
+    g = np.random.RandomState(10).normal(size=q.shape).astype(np.float32)
+    out, grads = _plain_fwd_bwd(*_t(q, k, v, g), causal,
+                                matmul=K.matmul_3xtf32)
+    want, vjp = jax.vjp(lambda a, b_, c: jax_flash(a, b_, c, causal),
+                        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    for name, a, w in zip("qkv", grads, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4, err_msg="d" + name)
+
+
+@pytest.mark.parametrize("shape", NUMERICS_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_rounded_p_and_ds_match_jax(shape, causal):
+    """bf16 inputs with p and ds rounded to bf16 as operands of dv, dq and
+    dk (as the bf16 backward kernel takes them) stay within the bf16
+    tolerance of JAX's gradients on the same bf16 inputs, scaled by the
+    largest gradient: 2e-2."""
+    b, h, s_q, s_kv, d = shape
+    q, k, v = _qkv(11, b=b, h=h, s_q=s_q, s_kv=s_kv, d=d)
+    g = np.random.RandomState(12).normal(size=q.shape).astype(np.float32)
+    jq, jk, jv, jg = (jnp.asarray(a).astype(jnp.bfloat16)
+                      for a in (q, k, v, g))
+    _, vjp = jax.vjp(lambda a, b_, c: jax_flash(a, b_, c, causal), jq, jk, jv)
+    tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (q, k, v, g))
+    _, grads = _plain_fwd_bwd(tq, tk, tv, tg, causal,
+                              ps_dtype=torch.bfloat16)
+    for name, a, w in zip("qkv", grads, vjp(jg)):
+        w = np.asarray(w, np.float32)
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(a.to(torch.bfloat16).float().numpy(), w,
+                                   rtol=0, atol=2e-2 * scale,
+                                   err_msg="d" + name)

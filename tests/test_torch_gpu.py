@@ -100,9 +100,11 @@ def test_small_resnet_on_card_matches_cpu(monkeypatch):
 
 # -- flash attention: K2 (forward / carry) and K3 (backward) ----------------
 
-# (B, H, Sq, Skv, D): small, ragged in both lengths, head dims 8..128
+# (B, H, Sq, Skv, D): small, ragged in both lengths, head dims 3..128 (3,
+# 20 and 72 take the plain-load path in bf16, 3 also in fp32)
 ATTN_SHAPES = [(1, 2, 64, 64, 64), (2, 3, 19, 19, 8), (1, 2, 33, 65, 16),
-               (1, 2, 100, 70, 40), (1, 1, 130, 130, 128)]
+               (1, 2, 100, 70, 40), (1, 1, 130, 130, 128),
+               (1, 2, 50, 37, 3), (2, 2, 70, 90, 20), (1, 2, 96, 130, 72)]
 
 
 def _attn_inputs(shape, dtype, seed=0):
@@ -153,6 +155,98 @@ def test_flash_kernels_match_plain_versions(shape, causal, dtype, monkeypatch):
     for got, want in zip(grads, FA.flash_attention_bwd_reference(*args)):
         assert got.dtype == dtype
         _close(got, want, tol_b)
+
+
+def _plain_normalised(q, k, v, causal):
+    b, h, s_q, d = q.shape
+    bh = b * h
+    flat = lambda x: x.reshape(bh, x.shape[2], d)  # noqa: E731
+    o, m, l = FA.flash_attention_carry_reference(
+        flat(q), flat(k), flat(v), torch.zeros((bh, s_q, d), device=q.device),
+        torch.full((bh, s_q), FA.NEG_INF, device=q.device),
+        torch.zeros((bh, s_q), device=q.device), 0, 0, causal)
+    l = torch.clamp_min(l, 1e-30)
+    return ((o / l[..., None]).to(q.dtype).reshape(q.shape),
+            (m + torch.log(l)).reshape(b, h, s_q))
+
+
+def test_flash_kernels_take_unaligned_views(monkeypatch):
+    """Inputs that start one element into their storage (base not 16-byte
+    aligned) take the plain-load path and still agree with the plain
+    versions, forward and backward."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    bh, s, d = 3, 70, 64
+    g = torch.Generator(device="cuda").manual_seed(4)
+    views = []
+    for _ in range(4):
+        base = torch.randn(bh * s * d + 1, generator=g, device="cuda")
+        views.append(base[1:].view(1, bh, s, d))
+    q, k, v, gr = views
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    out, lse = FA.flash_attention_forward(q, k, v, True)
+    want_out, want_lse = _plain_normalised(q, k, v, True)
+    _close(out, want_out, 2e-5)
+    _close(lse, want_lse, 2e-5)
+    delta = (gr.float() * out.float()).sum(-1).reshape(bh, s)
+    args = (q[0], k[0], v[0], gr[0], lse.reshape(bh, s), delta, True)
+    for got, want in zip(FA.flash_attention_bwd(*args),
+                         FA.flash_attention_bwd_reference(*args)):
+        _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("mode", ["normalised", "carry"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_ragged_bh3(causal, dtype, mode, monkeypatch):
+    """BH 3 with ragged Sq 100 / Skv 150: the normalised forward and the
+    backward, or a carry call with ring offsets, against the plain
+    versions."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    shape = (1, 3, 100, 150, 64)
+    q, k, v, gr = _attn_inputs(shape, dtype, seed=5)
+    tol_f, tol_b = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    if mode == "carry":
+        qf, kf, vf = q[0], k[0], v[0]
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        o = torch.randn((3, 100, 64), generator=gen, device="cuda")
+        m = torch.randn((3, 100), generator=gen, device="cuda")
+        l = torch.rand((3, 100), generator=gen, device="cuda") + 0.5
+        kw = dict(q_offset=120, kv_offset=30, causal=causal)
+        got = FA.flash_attention_carry(qf, kf, vf, o, m, l, **kw)
+        want = FA.flash_attention_carry_reference(qf, kf, vf, o, m, l, **kw)
+        for a, b in zip(got, want):
+            _close(a, b, tol_f)
+        return
+    out, lse = FA.flash_attention_forward(q, k, v, causal)
+    want_out, want_lse = _plain_normalised(q, k, v, causal)
+    _close(out, want_out, tol_f)
+    _close(lse, want_lse, tol_f)
+    delta = (gr.float() * out.float()).sum(-1).reshape(3, 100)
+    args = (q[0], k[0], v[0], gr[0], lse.reshape(3, 100), delta, causal)
+    for got, want in zip(FA.flash_attention_bwd(*args),
+                         FA.flash_attention_bwd_reference(*args)):
+        _close(got, want, tol_b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(dtype):
+    """K3 twice on the same inputs gives bit-equal dq, dk and dv (no
+    floating-point atomics)."""
+    _need_card()
+    shape = (2, 4, 300, 300, 64)
+    q, k, v, gr = _attn_inputs(shape, dtype, seed=7)
+    out, lse = FA.flash_attention_forward(q, k, v, True)
+    delta = (gr.float() * out.float()).sum(-1).reshape(8, 300)
+    flat = lambda x: x.reshape(8, 300, 64)  # noqa: E731
+    args = (flat(q), flat(k), flat(v), flat(gr), lse.reshape(8, 300), delta,
+            True)
+    first = FA.flash_attention_bwd(*args)
+    second = FA.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("causal", [False, True])
