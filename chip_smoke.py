@@ -58,15 +58,30 @@ Phases (any failure exits non-zero; no error is swallowed):
    count of MLP units whose sign differed). Printed per
    leg: step time, tokens/s, peak device memory and a profiler view of
    one step.
-7. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+7. resnet_training — ``resnet50_v1`` (NHWC, fused tails, 224x224x3,
+   1000 classes, seeded Xavier weights) trained through ``bench.py``'s
+   raw step (``gluon.block.make_pure_fn``, ``torch.autograd``,
+   multi-precision SGD-momentum, batch 128, bf16 weights with fp32
+   masters): 2 + 5 steps on one batch, exactly 16 K1 launches per step,
+   a finite loss that falls; step time, img/s, a profile (device busy,
+   idle share, device time by class of kernel) and peak memory. Then
+   ``Module.fit`` on the same net as a symbol + ``SoftmaxOutput`` (fp32,
+   batch 32, 6 batches, TF32 off, ``cudnn.deterministic``) fused and
+   phase-split from the same params (bit-equal), and step 1 recomputed
+   by the port on the CPU: the loss within 1e-4, the weights within 1e-3
+   of each tensor's largest value on the card's ReLU branches. Last,
+   K1's backward against its plain version at the batch-32 tail shapes
+   (fp32 and bf16, strided incoming gradient) with its time and bound.
+8. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
-   tails with residual); for K2 and K3 they are at the LM's shape, ``ms``
+   tails with residual) and its ``bwd_*`` the backward's per batch-32
+   step; for K2 and K3 they are at the LM's shape, ``ms``
    and ``library_ms`` device times (``event_ms`` beside), ``plain_ms`` by
    CUDA events; each
-   ``launches`` is the count on that kernel's main path — and, last, the
-   ``{"ok": true, "device": {...}}`` line.
+   ``launches`` is the count on that kernel's main paths (K1: serving and
+   training) — and, last, the ``{"ok": true, "device": {...}}`` line.
 
-``--cpu-rehearsal`` runs phases 3-6 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-7 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -74,6 +89,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -287,10 +303,34 @@ def profile_forward(fn, reps=3):
                    and e.self_device_time_total > 0),
                   key=lambda kv: -kv[1])
     busy = sum(ms for _, ms in kern) if kern else None
+    classes = collections.Counter()
+    for k, ms in kern:
+        classes[_kernel_class(k)] += ms
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": None if busy is None else 1 - busy / wall_ms,
-            "kernels": len(kern),
+            "kernels": len(kern), "device_ms_by_class": dict(classes),
             "top": [[k[:80], ms] for k, ms in kern[:8]]}
+
+
+# kernel-name fragments of each class of device work, first match wins
+_KERNEL_CLASSES = (
+    ("K1 block tail", ("scale_bias_add_relu",)),
+    ("flash attention", ("flash_",)),
+    ("pooling", ("pool",)),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise and copies", ("elementwise", "direct_copy", "CatArray",
+                                "index", "fill")),
+    ("convolutions and GEMMs (cuDNN, cuBLAS)",
+     ("cudnn", "xmma", "gemm", "conv", "sm90", "sm80", "cutlass", "nhwc",
+      "implicit", "wgrad", "dgrad", "fprop")))
+
+
+def _kernel_class(name):
+    low = name.lower()
+    for cls, keys in _KERNEL_CLASSES:
+        if any(k.lower() in low for k in keys):
+            return cls
+    return "other"
 
 
 def _randomize_bn(net, gen):
@@ -837,7 +877,505 @@ def training_phase(mx, ctx, rehearsal, steps=5):
     return total
 
 
-PHASES = ("kernels", "serving", "attention_kernels", "training")
+# -- ResNet-50 training -------------------------------------------------------
+
+_BENCH_LR, _BENCH_MOMENTUM = 0.05, 0.9      # bench.py:52-60
+
+
+def _resnet_net(mx, ctx, rehearsal, seed=0):
+    """The model-zoo ``resnet50_v1``, NHWC with fused block tails, Xavier
+    weights from a seeded ``torch.Generator`` (rehearsal: a narrow ResNet
+    v1 at 32x32, 10 classes); deferred shapes completed on ``ctx``."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    os.environ["MXNET_FUSED_BN_ADD_RELU"] = "1"
+    mx.layout.set_default_layout("NHWC")
+    hw, classes = (32, 10) if rehearsal else (224, 1000)
+    with mx.name.NameManager():
+        net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                              [16, 32, 64, 128, 256], classes=10) \
+            if rehearsal else resnet.resnet50_v1()
+        sym = mx.sym.SoftmaxOutput(net(mx.sym.Variable("data")),
+                                   mx.sym.Variable("softmax_label"),
+                                   name="softmax")
+    net.initialize(mx.init.Xavier(generator=torch.Generator()
+                                  .manual_seed(seed)), ctx=ctx)
+    net(mx.nd.zeros((1, hw, hw, 3), ctx=ctx))
+    return net, sym, hw, classes
+
+
+class _RawStep:
+    """``bench.py``'s raw step (``bench.py:191-300``) in the port: the
+    pure function of ``gluon.block.make_pure_fn(net, train=True)``, the
+    mean NLL over fp32 ``log_softmax``, ``torch.autograd.grad``, then
+    multi-precision SGD-momentum: conv and FC weights bf16-resident with
+    fp32 masters (``mp_sgd_mom_update``), BN gamma/beta and moving stats
+    fp32 (``sgd_mom_update``), BN running stats written back from the aux
+    map."""
+
+    def __init__(self, net, dev, x, y):
+        from mxnet_tpu_torch.gluon.block import make_pure_fn
+        from mxnet_tpu_torch.ops import optimizer_ops as O
+        self.O = O
+        self.fn, raw, self.names = make_pure_fn(net, train=True)
+        keep = [any(t in n for t in ("gamma", "beta", "running_mean",
+                                     "running_var")) for n in self.names]
+        self.lowp = [not k for k in keep]
+        self.master = [r.detach().to(dev, torch.float32, copy=True)
+                       for r in raw]
+        self.mom = [torch.zeros_like(m) for m in self.master]
+        self.pbf = [m.to(torch.bfloat16) if lp else None
+                    for m, lp in zip(self.master, self.lowp)]
+        self.x, self.y = x, y
+
+    def __call__(self):
+        full = [(self.pbf[i] if self.lowp[i] else self.master[i]).detach()
+                .requires_grad_() for i in range(len(self.master))]
+        (logits,), aux = self.fn(full, [self.x])
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -logp.gather(1, self.y[:, None]).mean()
+        grads = torch.autograd.grad(loss, full, allow_unused=True)
+        O = self.O
+        with torch.no_grad():
+            for i, g in enumerate(grads):
+                if i in aux:
+                    self.master[i] = aux[i].float()
+                elif g is None:
+                    continue
+                elif self.lowp[i]:
+                    self.pbf[i], self.mom[i], self.master[i] = \
+                        O.mp_sgd_mom_update(
+                            self.pbf[i], g, self.mom[i], self.master[i],
+                            lr=_BENCH_LR, momentum=_BENCH_MOMENTUM)
+                else:
+                    self.master[i], self.mom[i] = O.sgd_mom_update(
+                        self.master[i], g, self.mom[i], lr=_BENCH_LR,
+                        momentum=_BENCH_MOMENTUM)
+        return loss.detach()
+
+
+def _raw_leg(mx, net, ctx, rehearsal, hw, classes):
+    """The raw step at full width: batch 128, bf16 + fp32 masters, 2
+    warm-up and 5 timed steps on one fixed synthetic batch."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    gpu = ctx.device_type == "gpu"
+    dev = ctx.torch_device()
+    batch, warm, timed = (8, 2, 5) if rehearsal else (128, 2, 5)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.uniform(-1, 1, (batch, hw, hw, 3))
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    y = torch.from_numpy(rs.randint(0, classes, batch)).to(dev)
+    step = _RawStep(net, dev, x, y)
+    # -- the main path: counts zeroed just before, read just after --------
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.launches = 0
+    losses = [step() for _ in range(warm)]
+    if gpu:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(timed)]
+    if gpu:
+        end.record()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launches
+    # ---------------------------------------------------------------------
+    losses = [float(v) for v in losses]
+    expect = 16 * (warm + timed) if gpu else 0
+    rec = {"leg": "raw_step", "model": "resnet50_v1" if not rehearsal
+           else "resnet_v1_small", "input": [hw, hw, 3], "classes": classes,
+           "batch": batch, "precision": "bf16 weights + fp32 masters",
+           "lr": _BENCH_LR, "momentum": _BENCH_MOMENTUM,
+           "steps": warm + timed, "losses": losses,
+           "kernel_launches": launches, "expected": expect}
+    if gpu:
+        step_ms = start.elapsed_time(end) / timed
+        rec.update({"step_ms": step_ms, "step_wall_ms": wall * 1e3 / timed,
+                    "img_per_s": batch / step_ms * 1e3,
+                    "max_memory_allocated":
+                        torch.cuda.max_memory_allocated(),
+                    "step_profile": profile_forward(step, reps=2)})
+    emit({"resnet_training": rec})
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    assert launches == expect, (launches, expect)
+    del step
+    return launches
+
+
+def _module_data(n, batch, hw, classes, seed=1):
+    rs = np.random.RandomState(seed)
+    return (rs.uniform(-1, 1, (n * batch, hw, hw, 3)).astype(np.float32),
+            rs.randint(0, classes, n * batch).astype(np.float32))
+
+
+def _module_run(mx, sym, ctx, arg, aux, data, batch, fused, snap=None,
+                tape=None):
+    """One epoch of ``Module.fit`` over ``data`` from ``arg``/``aux``;
+    ``snap`` collects the parameters and the cross-entropy after batch 0,
+    ``tape`` the ReLU branches of batch 0's forward. Returns (module,
+    metric, seconds per batch after the first)."""
+    os.environ["MXNET_MODULE_FUSED_STEP"] = "1" if fused else "0"
+    hw = data[0].shape[1]
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (batch, hw, hw, 3))],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    np.random.seed(5)
+    it = mx.io.NDArrayIter(data[0], data[1], batch_size=batch, shuffle=True)
+    metric = mx.metric.create(["acc", "ce"])
+    opt = {"learning_rate": _BENCH_LR, "momentum": _BENCH_MOMENTUM,
+           "rescale_grad": 1.0 / batch}
+
+    marks = []
+
+    def batch_end(param):
+        marks.append(time.perf_counter())
+        if tape is not None:
+            tape.mode = None
+        if snap is not None and param.nbatch == 0:
+            snap["ce"] = param.eval_metric.get_metric(1).get()[1]
+            snap["params"] = {k: v.asnumpy()
+                              for k, v in mod.get_params()[0].items()}
+    if tape is not None:
+        tape.mode = "record"
+    mod.fit(it, eval_metric=metric, optimizer="sgd", optimizer_params=opt,
+            num_epoch=1, batch_end_callback=batch_end)
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    # bench.py's method: from the first batch's end to the drained queue,
+    # over the batches after the first
+    secs = (time.perf_counter() - marks[0]) / (len(marks) - 1)
+    assert (mod._fused_fallback_reason is None) == fused, \
+        mod._fused_fallback_reason
+    os.environ.pop("MXNET_MODULE_FUSED_STEP", None)
+    return mod, metric, secs
+
+
+def _masked_tail(x, scale, bias, residual, mask):
+    """The plain block tail (``scale_bias_add_relu_reference``'s ops) with
+    the ReLU's branch given per element, in place of the sign of its own
+    sum: the plain version recomputed on another computation's branches
+    (a bf16 sum within an ulp of zero can land on either side)."""
+    y = x * scale.to(x.dtype) + bias.to(x.dtype)
+    if residual is not None:
+        y = y + residual
+    return torch.where(mask, y, torch.zeros((), dtype=y.dtype,
+                                            device=y.device))
+
+
+class _BranchTape:
+    """The ReLU branches of ResNet's forward — every ``Activation`` ReLU
+    (as its gradient factor) and every block tail (as its mask) —
+    recorded on one device and replayed on another (as the LM's CPU
+    recompute takes the card's ReLU mask: a unit within rounding of zero
+    can take the other branch on the other device and move a whole
+    batch's gradient).
+    ``mode`` None passes through, "record" keeps each branch mask,
+    "replay" takes the recorded masks in order and counts the units whose
+    own branch differs."""
+
+    def __init__(self):
+        from mxnet_tpu_torch.kernels import fused_bn as K
+        from mxnet_tpu_torch.ops.registry import get_op
+        self.K, self.op = K, get_op("Activation")
+        self.act, self.tail = self.op.fn, K.scale_bias_add_relu
+        self.mode, self.masks, self.flips, self.units = None, [], 0, 0
+
+    def __enter__(self):
+        self.op.fn, self.K.scale_bias_add_relu = self._act, self._tail
+        return self
+
+    def __exit__(self, *exc):
+        self.op.fn, self.K.scale_bias_add_relu = self.act, self.tail
+
+    def _take(self, own):
+        mask = self.masks.pop(0).to(own.device)
+        self.flips += int((mask != own).sum())
+        self.units += mask.numel()
+        return mask
+
+    @staticmethod
+    def _factor(data):
+        """max(x, 0)'s gradient: 1 above 0, 1/2 at the tie, 0 below."""
+        return (data > 0).to(data.dtype) + 0.5 * (data == 0).to(data.dtype)
+
+    def _act(self, data, act_type="relu"):
+        if act_type != "relu" or self.mode is None \
+                or data.device.type == "meta":      # shape inference
+            return self.act(data, act_type)
+        twice = (2 * self._factor(data.detach())).to(torch.uint8)
+        if self.mode == "record":
+            self.masks.append(twice.cpu())
+            return self.act(data, act_type)
+        # x * factor: the recorded branch's value and gradient
+        return data * (self._take(twice).to(data.dtype) / 2)
+
+    def _tail(self, x, scale, bias, residual=None):
+        if self.mode is None or x.device.type == "meta":
+            return self.tail(x, scale, bias, residual)
+        if self.mode == "record":
+            out = self.tail(x, scale, bias, residual)
+            self.masks.append((out > 0).cpu())
+            return out
+        own = self.K.scale_bias_add_relu_reference(x, scale, bias,
+                                                   residual) > 0
+        return _masked_tail(x, scale, bias, residual, self._take(own))
+
+
+def _module_first_step(mx, sym, ctx, arg, aux, data, batch):
+    """The first batch of ``_module_run``'s iterator through one fused
+    step on ``ctx``: the cross-entropy and the parameters after it."""
+    hw = data[0].shape[1]
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (batch, hw, hw, 3))],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": _BENCH_LR, "momentum": _BENCH_MOMENTUM,
+        "rescale_grad": 1.0 / batch})
+    np.random.seed(5)
+    it = mx.io.NDArrayIter(data[0], data[1], batch_size=batch, shuffle=True)
+    it.reset()                  # as fit does before its first epoch
+    metric = mx.metric.create(["acc", "ce"])
+    assert mod.fused_step(next(it), eval_metric=metric)
+    return {"ce": metric.get_metric(1).get()[1],
+            "params": {k: v.asnumpy()
+                       for k, v in mod.get_params()[0].items()}}
+
+
+def _module_leg(mx, net, sym, ctx, rehearsal, hw, classes):
+    """``Module.fit`` on the same net captured as a symbol with
+    ``SoftmaxOutput``: fp32, batch 32, 6 batches, through the fused batch
+    step and then phase-split from the same params; step 1 recomputed by
+    the port on the CPU."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    gpu = ctx.device_type == "gpu"
+    batch, n = (4, 6) if rehearsal else (32, 6)
+    aux_names = set(sym.list_auxiliary_states())
+    params = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    arg = {k: v for k, v in params.items() if k not in aux_names}
+    aux = {k: v for k, v in params.items() if k in aux_names}
+    data = _module_data(n, batch, hw, classes)
+    torch.backends.cudnn.deterministic = True
+    if gpu:
+        torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after --------
+    K.launches = 0
+    fused, f_metric, f_secs = _module_run(mx, sym, ctx, arg, aux, data,
+                                          batch, True)
+    launches_fused = K.launches
+    K.launches = 0
+    snap = {}
+    with _BranchTape() as tape:
+        split, s_metric, s_secs = _module_run(mx, sym, ctx, arg, aux, data,
+                                              batch, False, snap, tape)
+    launches_split = K.launches
+    # ---------------------------------------------------------------------
+    expect = 16 * n if gpu else 0
+    peak = torch.cuda.max_memory_allocated() if gpu else None
+    fa, fx = fused.get_params()
+    sa, sx = split.get_params()
+    f_states = mx.weights.module_to_numpy(fused)[2]
+    s_states = mx.weights.module_to_numpy(split)[2]
+    gap = 0.0
+    for a, b in [(fa[k].asnumpy(), sa[k].asnumpy()) for k in fa] + \
+            [(fx[k].asnumpy(), sx[k].asnumpy()) for k in fx] + \
+            [(f_states[i], s_states[i]) for i in f_states]:
+        gap = max(gap, _max_rel(a, b))
+    rec = {"leg": "module_fit", "batch": batch, "batches": n,
+           "dtype": "float32", "tf32": False, "cudnn_deterministic": True,
+           "optimizer": {"learning_rate": _BENCH_LR,
+                         "momentum": _BENCH_MOMENTUM,
+                         "rescale_grad": 1.0 / batch},
+           "fused_metric": f_metric.get_name_value(),
+           "phase_split_metric": s_metric.get_name_value(),
+           "kernel_launches": {"fused": launches_fused,
+                               "phase_split": launches_split},
+           "expected_each": expect,
+           "fused_ms_per_batch": f_secs * 1e3,
+           "phase_split_ms_per_batch": s_secs * 1e3,
+           "fused_img_per_s": batch / f_secs,
+           "fused_vs_phase_split_max_rel": gap,
+           "max_memory_allocated": peak}
+    del fused, split
+    # -- step 1 again by the port on the CPU, from the same params: once
+    # on its own ReLU branches (the loss), once on the card's (the
+    # parameters: a branch within rounding of zero moves a gradient) ---
+    t0 = time.perf_counter()
+    own = _module_first_step(mx, sym, mx.cpu(), arg, aux, data, batch)
+    cpu_s = time.perf_counter() - t0
+    tape.mode = "replay"
+    with tape:
+        same = _module_first_step(mx, sym, mx.cpu(), arg, aux, data, batch)
+    assert not tape.masks, len(tape.masks)
+    loss_err = abs(snap["ce"] - own["ce"]) / abs(own["ce"])
+
+    def param_errs(cpu):
+        # a conv bias ahead of a BatchNorm has a zero gradient in exact
+        # arithmetic: after the step its value is rounding noise on both
+        # sides, held to the largest magnitude of all weights
+        largest = float(max(np.abs(v).max() for v in cpu.values()))
+        per, noise = 0.0, 0.0
+        for k, card_v in snap["params"].items():
+            if "conv" in k and k.endswith("_bias"):
+                noise = max(noise, float(np.abs(card_v - cpu[k]).max())
+                            / largest)
+            else:
+                per = max(per, _max_rel(card_v, cpu[k]))
+        return per, noise
+    own_err, _ = param_errs(own["params"])
+    param_err, noise_err = param_errs(same["params"])
+    rec["cpu_recompute"] = {
+        "batch": batch, "seconds": cpu_s, "loss": own["ce"],
+        "card_loss": snap["ce"], "loss_rel_err": loss_err,
+        "param_rel_err_own_branches": own_err,
+        "param_rel_err_card_branches": param_err,
+        "conv_bias_err_over_largest_weight": noise_err,
+        "relu_units_flipped": tape.flips, "relu_units": tape.units,
+        "loss_tol": 1e-4, "param_tol": 1e-3}
+    emit({"resnet_training": rec})
+    torch.backends.cudnn.deterministic = False
+    ok = [name for name, v in (("fused", f_metric), ("split", s_metric))
+          if not all(np.isfinite(x) for _, x in v.get_name_value())]
+    assert not ok, ok
+    assert launches_fused == launches_split == expect, rec
+    # max pooling's backward on CUDA adds through atomics, in no fixed
+    # order; everything else repeats bit for bit under cudnn.deterministic
+    assert gap <= 1e-4, rec
+    assert loss_err <= 1e-4 and max(param_err, noise_err) <= 1e-3, \
+        rec["cpu_recompute"]
+    return launches_fused + launches_split
+
+
+def _rel_to_max(got, want):
+    """(max abs error, the same over the largest magnitude of ``want``)."""
+    want = want.float()
+    err = (got.float() - want).abs().max().item()
+    return err, err / max(want.abs().max().item(), 1e-30)
+
+
+# the block tails of resnet50_v1 at batch 32: (H=W, C, tails in the stage)
+def _tail_cases(rehearsal):
+    if rehearsal:
+        return ((4, 8, 8, 16), 1), ((2, 3, 5, 33), 1)
+    return tuple(((32, hw, hw, c), k) for hw, c, k in _R50_TAILS)
+
+
+def tail_backward_phase(dev, rate, rehearsal):
+    """K1 under autograd against autograd through its plain version at
+    the batch-32 block-tail shapes, fp32 and bf16, with a residual and a
+    non-contiguous incoming gradient: the forward bit-equal in fp32, the
+    gradients within the JAX package's tolerances (1e-5 fp32, as
+    ``tests/test_pallas.py::test_scale_bias_add_relu_grad``; 2e-2 bf16),
+    scaled by the largest magnitude. On the card, the backward's time
+    (plain PyTorch, ``scale_bias_add_relu_backward``) against its bound:
+    g, out and x read, dx and dres written, over the memory rate (the
+    backward never reads the residual). Returns the fp32 per-step sums
+    (16 tails)."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    cuda = dev.type == "cuda"
+    g = torch.Generator(device=dev).manual_seed(4)
+    tot = {"bwd_ms": 0.0, "bwd_plain_ms": 0.0, "bwd_bound_ms": 0.0,
+           "bwd_max_scaled_err": 0.0}
+    for shape, count in _tail_cases(rehearsal):
+        for dtype in (torch.float32, torch.bfloat16):
+            c = shape[-1]
+            rnd = lambda s: torch.randn(s, generator=g,  # noqa: E731
+                                        device=dev)
+            x, r = rnd(shape).to(dtype), rnd(shape).to(dtype)
+            sc, bi = rnd((c,)) + 1.0, rnd((c,))
+            grad = rnd((shape[0], c) + shape[1:3]).to(dtype) \
+                .permute(0, 2, 3, 1)
+            leaves = [t.clone().requires_grad_() for t in (x, sc, bi, r)]
+            ref_leaves = [t.clone().requires_grad_() for t in (x, sc, bi, r)]
+            out = K.scale_bias_add_relu(*leaves)
+            ref = K.scale_bias_add_relu_reference(*ref_leaves)
+            # the plain backward on the kernel's ReLU branches: in bf16 a
+            # sum within an ulp of zero lands on either side; in fp32 no
+            # branch may differ
+            mask = out.detach() > 0
+            flips = int((mask != (ref.detach() > 0)).sum())
+            masked = _masked_tail(*ref_leaves, mask)
+            got = torch.autograd.grad(out, leaves, grad, retain_graph=True)
+            want = torch.autograd.grad(masked, ref_leaves, grad,
+                                       retain_graph=True)
+            if cuda:
+                torch.cuda.synchronize()
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            fwd_equal = bool(torch.equal(out, ref))
+            fwd_err = _scaled_err(out, ref)[1]
+            errs = [_rel_to_max(a, w) for a, w in zip(got, want)]
+            err = max(e for _, e in errs)
+            rec = {"kernel": "scale_bias_add_relu_backward",
+                   "shape": list(shape), "dtype": str(dtype)[6:],
+                   "grad_contiguous": grad.is_contiguous(),
+                   "fwd_bit_equal": fwd_equal, "fwd_scaled_err": fwd_err,
+                   "relu_branches_differing": flips,
+                   "bwd_scaled_err": err,
+                   "bwd_max_abs_err": max(a for a, _ in errs), "tol": tol}
+            ok = err <= tol and flips <= 1e-3 * out.numel() and (
+                fwd_equal and flips == 0 if dtype == torch.float32
+                else fwd_err <= tol)
+            rec["match"] = bool(ok)
+            if cuda:
+                o = out.detach()
+                bwd = lambda: K.scale_bias_add_relu_backward(  # noqa: E731
+                    grad.contiguous(), x, sc, bi, o, True)
+                plain = lambda: torch.autograd.grad(  # noqa: E731
+                    masked, ref_leaves, grad, retain_graph=True)
+                # g, out and x read, dx and dres written (the residual
+                # is not read); scale read, dscale and dbias written
+                item = x.element_size()
+                nbytes = 5 * x.numel() * item + 4 * c * 4
+                bound = nbytes / rate * 1e3
+                ms, plain_ms = time_cuda(bwd, iters=20), \
+                    time_cuda(plain, iters=20)
+                rec.update({"bwd_us": ms * 1e3, "bwd_plain_us": plain_ms * 1e3,
+                            "bwd_bound_us": bound * 1e3, "bytes": nbytes,
+                            "roofline_share": bound / ms,
+                            "tails_per_step": count})
+                if dtype == torch.float32:
+                    tot["bwd_ms"] += count * ms
+                    tot["bwd_plain_ms"] += count * plain_ms
+                    tot["bwd_bound_ms"] += count * bound
+            if dtype == torch.float32:
+                tot["bwd_max_scaled_err"] = max(tot["bwd_max_scaled_err"],
+                                                err)
+            emit(rec)
+            if not ok:
+                raise AssertionError("K1's backward disagrees with its "
+                                     "plain version: %s" % rec)
+            del leaves, ref_leaves, out, ref, masked, got, want
+    return tot
+
+
+def resnet_training_phase(mx, ctx, dev, rate, rehearsal):
+    """Train ResNet-50 v1 at full width through the raw step of bench.py
+    and through Module.fit; K1's backward against its plain version.
+    Returns the K1 launches of the training legs and the backward's
+    numbers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()                # what the earlier phases left behind
+    if ctx.device_type == "gpu":
+        torch.cuda.empty_cache()
+    net, sym, hw, classes = _resnet_net(mx, ctx, rehearsal)
+    launches = _raw_leg(mx, net, ctx, rehearsal, hw, classes)
+    if ctx.device_type == "gpu":
+        torch.cuda.empty_cache()
+    launches += _module_leg(mx, net, sym, ctx, rehearsal, hw, classes)
+    if ctx.device_type == "gpu":
+        torch.cuda.empty_cache()
+    mx.layout.set_default_layout(None)
+    return launches, tail_backward_phase(dev, rate, rehearsal)
+
+
+PHASES = ("kernels", "serving", "attention_kernels", "training",
+          "resnet_training")
 
 
 def main(argv=None):
@@ -880,19 +1418,31 @@ def main(argv=None):
     if "training" in todo:
         with phase("training"):
             res["attn_launches"] = training_phase(mx, ctx, rehearsal)
+    if "resnet_training" in todo:
+        with phase("resnet_training"):
+            res["k1_train_launches"], res["k1_bwd"] = \
+                resnet_training_phase(mx, ctx, dev, rate, rehearsal)
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
         return 0
     k1, attn, launches = res["k1"], res["attn"], res["attn_launches"]
+    bwd = res["k1_bwd"]
     emit({"kernels": [{
         "name": "scale_bias_add_relu", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/fused_bn.cu",
         "replaces": "mxnet_tpu/pallas/fused_bn.py:_kernel",
-        "launches": res["k1_launches"], "max_abs_err": k1["max_abs_err"],
+        "launches": res["k1_launches"] + res["k1_train_launches"],
+        "serving_launches": res["k1_launches"],
+        "training_launches": res["k1_train_launches"],
+        "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}, {
+        "library_ms": None,
+        "backward": "plain PyTorch (scale_bias_add_relu_backward)",
+        "bwd_ms": bwd["bwd_ms"], "bwd_plain_ms": bwd["bwd_plain_ms"],
+        "bwd_bound_ms": bwd["bwd_bound_ms"],
+        "bwd_max_scaled_err": bwd["bwd_max_scaled_err"]}, {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:_attn_kernel",

@@ -8,9 +8,10 @@ kernel (``kernels/``). Entry points run on ``gpu(0)`` unless the caller
 passes ``ctx=cpu()``. This package imports nothing of JAX or of
 ``mxnet_tpu``.
 
-Ported so far: serving ResNet v1 (forward only) and training the
-causal-attention LM through ``parallel.SPMDTrainer`` on one device, see
-ROADMAP.md.
+Ported so far: serving ResNet v1, training the causal-attention LM
+through ``parallel.SPMDTrainer`` and training ResNet v1 through
+``gluon.block.make_pure_fn`` and ``mx.mod.Module.fit``, each on one
+device; see ROADMAP.md.
 """
 from .base import MXNetError, get_env  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
@@ -30,4 +31,13 @@ from . import gluon  # noqa: F401
 from . import kernels  # noqa: F401
 from . import weights  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import lr_scheduler  # noqa: F401
+from . import imperative  # noqa: F401
+from . import autograd  # noqa: F401
+from . import metric  # noqa: F401
+from . import io  # noqa: F401
+from . import model  # noqa: F401
+from . import callback  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
 from . import parallel  # noqa: F401

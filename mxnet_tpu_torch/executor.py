@@ -1,11 +1,15 @@
 """Graph evaluation, shape inference and the bound Executor.
 
 Counterpart of ``mxnet_tpu/executor.py`` (``_GraphProgram``,
-``eval_graph``, ``forward_fn``, ``infer_graph_attrs``, ``Executor``) for
-forward-only use. The JAX package traces the whole graph into one XLA
-program; here the graph is evaluated op by op in topological order —
-PyTorch dispatches each op asynchronously on the device, and what XLA
-fused is either left to cuDNN/cuBLAS or a hand-written kernel.
+``eval_graph``, ``forward_fn``, ``fwd_bwd_fn``, ``train_step_fn``,
+``infer_graph_attrs``, ``Executor`` with gradients, ``simple_bind``).
+The JAX package traces the whole graph into one XLA program; here the
+graph is evaluated op by op in topological order — PyTorch dispatches
+each op asynchronously on the device, and what XLA fused is either left
+to cuDNN/cuBLAS or a hand-written kernel. Gradients are
+``torch.autograd`` over that evaluation; the JAX package's jitted,
+buffer-donating entry points are eager functions here (one captured
+CUDA graph per step is later work, ROADMAP).
 
 Shape inference runs the same op functions on ``meta`` tensors (shape
 and dtype only, no data, no device): the counterpart of
@@ -33,20 +37,28 @@ class _GraphProgram:
         self.aux_names = symbol.list_auxiliary_states()
         self.output_entries = list(symbol._outputs)
 
-    def _apply_node(self, node, raw_in):
+    def _apply_node(self, node, raw_in, train, aux_updates):
         params = dict(node.op.defaults)
         params.update(node.attrs)
         params.pop("num_args", None)
         params.pop("name", None)
         if node.op.takes_train:
-            params["_train"] = False
-        return node.op.apply(raw_in, params)
+            params["_train"] = bool(train)
+        outs = node.op.apply(raw_in, params)
+        if train and node.op.stateful_update is not None:
+            for in_idx, val in node.op.stateful_update(
+                    raw_in, outs, params).items():
+                child, _ = node.inputs[in_idx]
+                if child.op is None and child.name in self.aux_names:
+                    aux_updates[child.name] = val.detach()
+        return outs
 
-    def eval_graph(self, arg_dict, aux_dict):
-        """Evaluate the graph on raw tensors in inference mode. Returns
-        (outputs, aux_updates); aux updates are a training-mode matter
-        and stay empty here."""
+    def eval_graph(self, arg_dict, aux_dict, train=False):
+        """Evaluate the graph on raw tensors. Returns (outputs,
+        aux_updates): in training mode the new moving stats of every
+        stateful op (BatchNorm), by aux name, detached."""
         env = {}
+        aux_updates = {}
         for node in self.nodes:
             if node.op is None:
                 if node.name in arg_dict:
@@ -57,23 +69,96 @@ class _GraphProgram:
                     raise MXNetError("unbound variable %r" % node.name)
                 continue
             raw_in = [env[id(c)][idx] for c, idx in node.inputs]
-            env[id(node)] = self._apply_node(node, raw_in)
-        return [env[id(n)][idx] for n, idx in self.output_entries], {}
+            env[id(node)] = self._apply_node(node, raw_in, train,
+                                             aux_updates)
+        return [env[id(n)][idx] for n, idx in self.output_entries], \
+            aux_updates
 
-    def forward_fn(self):
+    def forward_fn(self, train=False):
         """``fn(args, aux) -> (outputs, aux_updates)`` over raw tensors,
         run without autograd."""
         def fn(args, aux):
             with torch.no_grad():
-                return self.eval_graph(args, aux)
+                return self.eval_graph(args, aux, train)
         return fn
+
+    def _vjp_over_graph(self, grad_names, args, aux, train):
+        """The one forward scaffold both ``fwd_bwd_fn`` and
+        ``train_step_fn`` run: the graph evaluated with ``grad_names``'s
+        tensors as fresh autograd leaves. Returns (outputs, leaves,
+        aux_updates)."""
+        leaves = {k: args[k].detach().requires_grad_(True)
+                  for k in grad_names}
+        with torch.enable_grad():
+            outs, aux_up = self.eval_graph({**args, **leaves}, aux, train)
+        return outs, leaves, aux_up
+
+    @staticmethod
+    def _grads(outs, leaves, head_grads=None):
+        """``{name: gradient}`` of the outputs (head gradients ones where
+        not given) with respect to the leaves; a leaf the outputs do not
+        reach gets zeros."""
+        pairs = [(o, head_grads[i] if head_grads is not None
+                  and head_grads[i] is not None else torch.ones_like(o))
+                 for i, o in enumerate(outs) if o.requires_grad]
+        names = list(leaves)
+        got = torch.autograd.grad([o for o, _ in pairs],
+                                  [leaves[n] for n in names],
+                                  [g for _, g in pairs],
+                                  allow_unused=True) if pairs else \
+            [None] * len(names)
+        return {n: (g if g is not None else torch.zeros_like(leaves[n]))
+                for n, g in zip(names, got)}
+
+    def fwd_bwd_fn(self, train, grad_names):
+        """``fn(args, aux, head_grads) -> (outputs, grads, aux_updates)``:
+        forward and backward in one call (parity: ``fwd_bwd_fn``);
+        outputs detached, gradients by argument name."""
+        grad_names = tuple(grad_names)
+
+        def fn(args, aux, head_grads=None):
+            outs, leaves, aux_up = self._vjp_over_graph(grad_names, args,
+                                                        aux, train)
+            grads = self._grads(outs, leaves, head_grads)
+            return [o.detach() for o in outs], grads, aux_up
+        return fn
+
+    def train_step_fn(self, update_names, add_names, update_fn):
+        """The whole training step (parity: ``train_step_fn``):
+        ``step(args, aux, add_grads) -> (outputs, aux_updates,
+        grads_out)`` runs forward and backward in training mode, casts each
+        gradient to its parameter's dtype, adds the running accumulator of
+        a ``grad_req='add'`` parameter, then hands the gradients, in
+        ``update_names`` order, to ``update_fn`` (the optimizer, which
+        updates the weights in place). Only the ``'add'`` accumulators come
+        back (``grads_out``); a ``'write'`` gradient lives and dies inside
+        the step."""
+        update_names = tuple(update_names)
+        add_names = frozenset(add_names)
+
+        def step(args, aux, add_grads):
+            outs, leaves, aux_up = self._vjp_over_graph(update_names, args,
+                                                        aux, True)
+            grads = self._grads(outs, leaves)
+            outs = [o.detach() for o in outs]
+            del leaves
+            gs, grads_out = [], {}
+            for k in update_names:
+                g = grads.pop(k).to(args[k].dtype)
+                if k in add_names:
+                    g = add_grads[k] + g
+                    grads_out[k] = g
+                gs.append(g)
+            update_fn(gs)
+            return outs, aux_up, grads_out
+        return step
 
 
 # ---------------------------------------------------------------------------
 # Shape inference over the graph
 # ---------------------------------------------------------------------------
 
-def infer_graph_attrs(symbol, known_shapes, partial=False,
+def infer_graph_attrs(symbol, known_shapes, known_types=None, partial=False,
                       default_dtype=torch.float32):
     """Joint shape+dtype inference (parity: the reference's InferShape and
     InferType passes). Unknown learnable-input shapes come from the op
@@ -84,7 +169,8 @@ def infer_graph_attrs(symbol, known_shapes, partial=False,
     from .ops.common import torch_dtype
     nodes = symbol._topo_nodes()
     var_shape = dict(known_shapes)
-    var_type = {}
+    var_type = {k: torch_dtype(v) for k, v in (known_types or {}).items()
+                if v is not None}
     shapes, types = {}, {}
 
     for node in nodes:
@@ -175,39 +261,94 @@ def infer_graph_shapes(symbol, known_shapes, partial=False):
 # Executor
 # ---------------------------------------------------------------------------
 
-class Executor:
-    """Bound forward-only graph (parity: python/mxnet/executor.py)."""
+_GRAD_REQS = ("null", "write", "add")
 
-    def __init__(self, symbol, ctx, arg_arrays, aux_arrays, program=None):
+
+class Executor:
+    """A bound graph (parity: python/mxnet/executor.py): forward in
+    inference or training mode, backward, forward_backward, gradient
+    arrays under ``grad_req`` write/add/null, and the moving-stat
+    writeback of training-mode forwards."""
+
+    def __init__(self, symbol, ctx, arg_arrays, aux_arrays, program=None,
+                 grad_arrays=None, grad_req="null"):
         self._symbol = symbol
         self._ctx = ctx or current_context()
         self._device = self._ctx.torch_device()
         self._prog = program or _GraphProgram(symbol)
         self._arg_names = self._prog.arg_names
         self._aux_names = self._prog.aux_names
+        if grad_arrays is None:
+            grad_arrays = [None] * len(self._arg_names)
         for name, arr in list(zip(self._arg_names, arg_arrays)) + \
-                list(zip(self._aux_names, aux_arrays)):
-            if arr._data.device != self._device:
+                list(zip(self._aux_names, aux_arrays)) + \
+                list(zip(self._arg_names, grad_arrays)):
+            if arr is not None and arr._data.device != self._device:
                 raise MXNetError("bind: array %r lives on %s, the executor "
                                  "on %s" % (name, arr.context, self._ctx))
         self.arg_arrays = list(arg_arrays)
         self.aux_arrays = list(aux_arrays)
+        self.grad_arrays = list(grad_arrays)
+        if isinstance(grad_req, str):
+            grad_req = {n: grad_req for n in self._arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            grad_req = dict(zip(self._arg_names, grad_req))
+        self._grad_req = {n: grad_req.get(n, "null") for n in self._arg_names}
+        for n, req in self._grad_req.items():
+            if req not in _GRAD_REQS:
+                raise MXNetError("grad_req %r for %r (use write, add or "
+                                 "null)" % (req, n))
+            if req != "null" and self.grad_dict.get(n) is None:
+                raise MXNetError("bind: %r has grad_req %r but no gradient "
+                                 "array" % (n, req))
         self.outputs = []
+        self._pending = None    # (outputs, leaves) of a training forward
 
     @property
     def arg_dict(self):
         return dict(zip(self._arg_names, self.arg_arrays))
 
     @property
+    def grad_dict(self):
+        return dict(zip(self._arg_names, self.grad_arrays))
+
+    @property
     def aux_dict(self):
         return dict(zip(self._aux_names, self.aux_arrays))
+
+    @property
+    def output_dict(self):
+        return dict(zip(self._symbol.list_outputs(), self.outputs))
+
+    @staticmethod
+    def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs):
+        """Allocate zero arrays for every argument, gradient and aux state
+        from the inferred shapes and dtypes (parity: ``simple_bind``);
+        a gradient takes its argument's dtype."""
+        from .ndarray import zeros
+        ctx = ctx or current_context()
+        (arg_shapes, _, aux_shapes, arg_types, _, aux_types) = \
+            infer_graph_attrs(symbol, shape_kwargs, known_types=type_dict)
+        arg_names = symbol.list_arguments()
+        if isinstance(grad_req, str):
+            reqs = {n: grad_req for n in arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            reqs = dict(zip(arg_names, grad_req))
+        else:
+            reqs = {n: grad_req.get(n, "null") for n in arg_names}
+        arg_arrays = [zeros(s, ctx=ctx, dtype=t)
+                      for s, t in zip(arg_shapes, arg_types)]
+        grad_arrays = [zeros(s, ctx=ctx, dtype=t)
+                       if reqs.get(n, "null") != "null" else None
+                       for n, s, t in zip(arg_names, arg_shapes, arg_types)]
+        aux_arrays = [zeros(s, ctx=ctx, dtype=t)
+                      for s, t in zip(aux_shapes, aux_types)]
+        return Executor(symbol, ctx, arg_arrays, aux_arrays,
+                        grad_arrays=grad_arrays, grad_req=reqs)
 
     @staticmethod
     def _bind(symbol, ctx, args, args_grad, grad_req, aux_states,
               shared_exec=None):
-        if args_grad is not None or grad_req not in ("null", None):
-            raise MXNetError("bind: gradients are not ported yet; bind with "
-                             "grad_req='null'")
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
         program = None
@@ -232,7 +373,14 @@ class Executor:
         missing = [n for n, a in zip(aux_names, aux_arrays) if a is None]
         if missing:
             raise MXNetError("bind: missing aux states %s" % missing)
-        return Executor(symbol, ctx, arg_arrays, aux_arrays, program=program)
+        grad_arrays = _as_list(args_grad, arg_names, "args_grad")
+        if grad_req is None:
+            grad_req = "null"
+        if isinstance(grad_req, str) and grad_req != "null":
+            grad_req = {n: (grad_req if g is not None else "null")
+                        for n, g in zip(arg_names, grad_arrays)}
+        return Executor(symbol, ctx, arg_arrays, aux_arrays, program=program,
+                        grad_arrays=grad_arrays, grad_req=grad_req)
 
     def _raw_args(self):
         return {n: a._data for n, a in zip(self._arg_names, self.arg_arrays)}
@@ -240,17 +388,108 @@ class Executor:
     def _raw_aux(self):
         return {n: a._data for n, a in zip(self._aux_names, self.aux_arrays)}
 
-    def forward(self, is_train=False, **kwargs):
-        """Run forward (parity: executor.py forward); kwargs feed inputs.
-        Inference only: training-mode evaluation is not ported yet."""
-        from .ndarray.ndarray import NDArray
-        if is_train:
-            raise MXNetError("forward(is_train=True) is not ported yet "
-                             "(inference only)")
+    def _grad_names(self):
+        return tuple(n for n in self._arg_names
+                     if self._grad_req[n] != "null")
+
+    def _feed(self, kwargs):
         for name, value in kwargs.items():
             if name not in self._arg_names:
                 raise MXNetError("forward: unknown input %r" % name)
             self.arg_dict[name][:] = value
-        outs, _ = self._prog.forward_fn()(self._raw_args(), self._raw_aux())
-        self.outputs = [NDArray(o, self._ctx) for o in outs]
+
+    def _set_outputs(self, outs):
+        from .ndarray.ndarray import NDArray
+        self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
+
+    def forward(self, is_train=False, **kwargs):
+        """Run forward (parity: executor.py forward); kwargs feed inputs.
+        In training mode BatchNorm takes batch statistics and its moving
+        stats are written back, and the graph is kept for ``backward``."""
+        self._feed(kwargs)
+        self._pending = None
+        if not is_train:
+            outs, _ = self._prog.forward_fn()(self._raw_args(),
+                                              self._raw_aux())
+        else:
+            outs, leaves, aux_up = self._prog._vjp_over_graph(
+                self._grad_names(), self._raw_args(), self._raw_aux(), True)
+            self._write_aux(aux_up)
+            if leaves:
+                self._pending = (outs, leaves)
+        self._set_outputs(outs)
         return self.outputs
+
+    def backward(self, out_grads=None, is_train=True):
+        """Gradients of the outputs into the gradient arrays (parity:
+        executor.py backward): from the graph of the last
+        ``forward(is_train=True)``, else through a forward-backward pass
+        that does not touch ``outputs`` (the JAX package's recompute)."""
+        hg = self._head_grads(out_grads)
+        if self._pending is not None:
+            outs, leaves = self._pending
+            self._pending = None
+            self._write_grads(_GraphProgram._grads(outs, leaves, hg))
+            return
+        self._run_fwd_bwd(hg, is_train, update_outputs=False)
+
+    def forward_backward(self, out_grads=None, is_train=True, **kwargs):
+        """Forward and backward in one pass (the Module path)."""
+        self._feed(kwargs)
+        self._pending = None
+        self._run_fwd_bwd(self._head_grads(out_grads), is_train,
+                          update_outputs=True)
+        return self.outputs
+
+    def _head_grads(self, out_grads):
+        from .ndarray.ndarray import NDArray
+        if out_grads is None:
+            return None
+        if isinstance(out_grads, NDArray):
+            out_grads = [out_grads]
+        return [g._data if isinstance(g, NDArray) else g for g in out_grads]
+
+    def _run_fwd_bwd(self, head_grads, is_train, update_outputs):
+        grad_names = self._grad_names()
+        if not grad_names:
+            if update_outputs:
+                self.forward(is_train=is_train)
+            return
+        outs, grads, aux_up = self._prog.fwd_bwd_fn(is_train, grad_names)(
+            self._raw_args(), self._raw_aux(), head_grads)
+        self._write_aux(aux_up)
+        if update_outputs:
+            self._set_outputs(outs)
+        self._write_grads(grads)
+
+    def _write_grads(self, grads):
+        gdict = self.grad_dict
+        with torch.no_grad():
+            for n, g in grads.items():
+                garr = gdict.get(n)
+                if garr is None:
+                    continue
+                g = g.to(garr._data.dtype)
+                if self._grad_req[n] == "add":
+                    garr._data.add_(g)
+                else:
+                    garr._data.copy_(g)
+
+    def _write_aux(self, aux_up):
+        d = self.aux_dict
+        with torch.no_grad():
+            for name, val in aux_up.items():
+                if name in d:
+                    d[name]._data.copy_(val)
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """(parity: executor.py copy_params_from)"""
+        for src, dst, what in ((arg_params or {}, self.arg_dict, "argument"),
+                               (aux_params or {}, self.aux_dict,
+                                "aux state")):
+            for name, arr in src.items():
+                if name in dst:
+                    dst[name][:] = arr
+                elif not allow_extra_params:
+                    raise MXNetError("unknown %s %r" % (what, name))

@@ -6,8 +6,10 @@ submodules; its parameters are Gluon ``Parameter``s named by the block
 prefixes (``resnetv10_stage1_conv0_weight``, ...) exactly as in the
 JAX package. ``HybridBlock`` runs ``hybrid_forward`` eagerly with
 ``F = ndarray``; called on a Symbol it captures the graph with
-``F = symbol``, which is what ``export`` writes. Hybridize/CachedOp
-(whole-graph tracing) is not ported.
+``F = symbol``, which is what ``export`` writes. ``make_pure_fn`` turns
+an initialised block into a pure function of its parameter tensors for
+``torch.autograd`` (the raw training step of ``bench.py``).
+Hybridize/CachedOp (whole-graph tracing) is not ported.
 """
 from __future__ import annotations
 
@@ -15,10 +17,12 @@ import threading
 
 import torch
 
+from .. import autograd
 from ..name import NameManager
+from ..ops import common as _common
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "make_pure_fn"]
 
 
 class _BlockScope:
@@ -195,3 +199,49 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+def make_pure_fn(block, train=False):
+    """A pure function of an initialised HybridBlock's parameters
+    (parity: ``gluon.block.make_pure_fn``).
+
+    Returns ``(fn, raw_params, names)``: ``fn(raw_params, raw_inputs,
+    rng=None) -> (outputs, aux_updates)`` runs the block eagerly on the
+    given parameter tensors (in ``collect_params`` order) and input
+    tensors, in train mode when ``train``, under the caller's
+    ``torch`` grad mode, so ``torch.autograd`` differentiates it.
+    ``aux_updates`` maps a parameter's index to its new value (BatchNorm
+    moving stats of a training call), detached; the block's own
+    parameters are left as they were. ``rng`` is accepted for the JAX
+    signature; no op on this path draws random numbers.
+
+    The JAX function keys its aux map by the raw array's id and so
+    returns it empty; this one keys by the parameter's NDArray.
+    """
+    params = list(block.collect_params().values())
+    names = [p.name for p in params]
+
+    def fn(raw_params, raw_inputs, rng=None):
+        from ..ndarray.ndarray import NDArray
+        nds = [p.data() for p in params]
+        idx = {id(nd): i for i, nd in enumerate(nds)}
+        originals = [nd._data for nd in nds]
+        collector = []
+        st = _common.state()
+        old = st.aux_collector
+        try:
+            st.aux_collector = collector
+            with autograd.pause(train_mode=train):
+                for nd, r in zip(nds, raw_params):
+                    nd._data = r
+                out = block._forward_eager(*[NDArray(r)
+                                             for r in raw_inputs])
+        finally:
+            st.aux_collector = old
+            for nd, orig in zip(nds, originals):
+                nd._data = orig
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        aux = {idx[id(t)]: v for t, v in collector if id(t) in idx}
+        return tuple(o._data for o in outs), aux
+
+    return fn, [p.data()._data for p in params], names

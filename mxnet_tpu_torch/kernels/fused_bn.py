@@ -11,14 +11,23 @@ folded BN apply coefficients, so the whole tail reads ``x`` and
 :func:`scale_bias_add_relu` dispatches on the tensor's device:
 
 * CUDA — the hand-written kernel ``csrc/fused_bn.cu`` (built by
-  ``_build``, bound through ``ctypes``); each launch adds one to
-  :data:`launches`;
-* CPU — :func:`scale_bias_add_relu_reference`, the plain PyTorch version;
+  ``_build``, bound through ``ctypes``) inside a ``torch.autograd.Function``
+  whose backward is :func:`scale_bias_add_relu_backward`; each launch adds
+  one to :data:`launches`;
+* CPU — :func:`scale_bias_add_relu_reference`, the plain PyTorch version,
+  under the same ``torch.autograd.Function`` (one backward for both
+  routes, as the JAX package runs its custom VJP in interpret mode too);
 * ``meta`` — an empty output of the right shape (shape inference).
 
 It never falls back from the kernel to the plain version, and never
 copies an activation: an input the kernel does not take raises.
-Forward only — the backward is the training slice's work.
+
+The backward is plain PyTorch, as the TPU module's is plain XLA
+(``_fused_vjp_bwd``, ``mxnet_tpu/pallas/fused_bn.py:100``): with ``m = out
+> 0``, ``dx = g*m*scale``, ``dres = g*m``, ``dscale = sum_rows(g*m*x)``
+and ``dbias = sum_rows(g*m)`` reduced in fp32. It is bound by bytes (g,
+out and x read, dx and dres written: the residual is not read); a
+kernel for it is optional later work.
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["scale_bias_add_relu", "scale_bias_add_relu_reference",
-           "launches"]
+           "scale_bias_add_relu_backward", "launches"]
 
 # kernel launches so far (CUDA path only); callers reset it to 0
 launches = 0
@@ -80,26 +89,70 @@ def _check(x, scale, bias, residual):
                     % (nm, v.stride()))
 
 
+def scale_bias_add_relu_backward(g, x, scale, bias, out, has_residual):
+    """The gradients of the block tail from its saved forward (plain
+    PyTorch; the TPU module's ``_fused_vjp_bwd``): ``(dx, dscale, dbias,
+    dres)``, ``dres`` None without a residual. ``dx`` and ``dres`` come in
+    ``x``'s dtype; the reductions run in fp32 and return in the dtype of
+    ``scale`` and ``bias`` (fp32 when the BN folding passed fp32)."""
+    gm = g * (out > 0).to(g.dtype)
+    red = tuple(range(x.ndim - 1))
+    dx = (gm * scale.to(g.dtype)).to(x.dtype)
+    gm32 = gm.float()
+    dscale = (gm32 * x.float()).sum(dim=red).to(scale.dtype)
+    dbias = gm32.sum(dim=red).to(bias.dtype)
+    dres = gm.to(x.dtype) if has_residual else None
+    return dx, dscale, dbias, dres
+
+
+class _ScaleBiasAddReLU(torch.autograd.Function):
+    """The block tail under autograd (the TPU module's custom VJP): the
+    kernel forward on a CUDA tensor, the plain version on a CPU one."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, residual):
+        if x.device.type == "cuda":
+            out = _launch(x, scale, bias, residual)
+        else:
+            out = scale_bias_add_relu_reference(x, scale, bias, residual)
+        ctx.save_for_backward(x, scale, bias, out)
+        ctx.has_residual = residual is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, out = ctx.saved_tensors
+        # the gradient may arrive as a strided view (channels-last
+        # permutations of cuDNN's outputs); the reductions need none of
+        # _check's contiguity, but a dense g keeps them single passes
+        return scale_bias_add_relu_backward(
+            g.contiguous(), x, scale, bias, out, ctx.has_residual)
+
+
 def scale_bias_add_relu(x, scale, bias, residual=None):
-    """``max(x * scale + bias [+ residual], 0)`` in one device pass.
+    """``max(x * scale + bias [+ residual], 0)`` in one device pass,
+    differentiable in every input.
 
     x: ``(..., C)`` channels-last activation, contiguous; scale/bias:
-    ``(C,)`` folded BN coefficients (cast to ``x.dtype``, as the TPU
-    kernel's wrapper does); residual: same shape, dtype and device as
-    ``x``, or None.
+    ``(C,)`` folded BN coefficients (cast to ``x.dtype`` for the kernel, as
+    the TPU kernel's wrapper does; their gradients return in their own
+    dtype); residual: same shape, dtype and device as ``x``, or None.
     """
-    global launches
     _check(x, scale, bias, residual)
     dev = x.device.type
     if dev == "meta":
         return torch.empty(x.shape, dtype=x.dtype, device="meta")
-    if dev == "cpu":
-        return scale_bias_add_relu_reference(x, scale, bias, residual)
-    if dev != "cuda":
+    if dev not in ("cpu", "cuda"):
         raise MXNetError("scale_bias_add_relu: no kernel for device %s"
                          % x.device)
-    s = scale.to(x.dtype).contiguous()
-    b = bias.to(x.dtype).contiguous()
+    return _ScaleBiasAddReLU.apply(x, scale, bias, residual)
+
+
+def _launch(x, scale, bias, residual):
+    """One launch of the CUDA kernel on detached inputs."""
+    global launches
+    s = scale.detach().to(x.dtype).contiguous()
+    b = bias.detach().to(x.dtype).contiguous()
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     if x.numel() == 0:
         return out

@@ -1,0 +1,258 @@
+"""Evaluation metrics.
+
+Counterpart of ``mxnet_tpu/metric.py``: ``EvalMetric`` with its
+registry and ``create``, ``CompositeEvalMetric``, ``Accuracy``,
+``TopKAccuracy``, ``CrossEntropy`` and ``Loss``. As in the JAX package,
+the hot metrics accumulate on the predictions' device (an fp32 running
+sum, fetched at ``get()``), so a training loop does not wait on the card
+once per batch; numpy inputs take the host path. The other built-ins
+(F1, Perplexity, MAE, MSE, RMSE, NLL, Pearson, CustomMetric) are not
+ported yet.
+"""
+from __future__ import annotations
+
+import numpy as _numpy
+import torch
+
+from .base import MXNetError
+from .ndarray.ndarray import NDArray
+
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "CrossEntropy", "Loss", "create", "register",
+           "check_label_shapes"]
+
+_REGISTRY = {}
+
+
+def register(cls=None, name=None):
+    """Register a metric class under its lower-cased name (or ``name``);
+    usable as ``@register`` and ``@register(name="acc")``."""
+    def _reg(c):
+        _REGISTRY[(name or c.__name__).lower()] = c
+        return c
+    return _reg(cls) if cls is not None else _reg
+
+
+def create(metric, *args, **kwargs):
+    """(parity: metric.create) a name, an instance, or a list of them."""
+    if isinstance(metric, EvalMetric):
+        return metric
+    if isinstance(metric, (list, tuple)):
+        composite = CompositeEvalMetric()
+        for child in metric:
+            composite.add(create(child, *args, **kwargs))
+        return composite
+    if callable(metric):
+        raise MXNetError("metric.create: CustomMetric is not ported yet")
+    key = str(metric).lower()
+    if key not in _REGISTRY:
+        raise MXNetError("metric %r is not registered (known: %s)"
+                         % (metric, sorted(_REGISTRY)))
+    return _REGISTRY[key](*args, **kwargs)
+
+
+def _as_numpy(x):
+    return x.asnumpy() if isinstance(x, NDArray) else _numpy.asarray(x)
+
+
+def _on_device_of(pred, label):
+    """The label tensor on the prediction's device (a host batch label
+    against a card output)."""
+    return label._data.to(pred._data.device)
+
+
+def check_label_shapes(labels, preds, shape=False):
+    if (not shape and len(labels) != len(preds)) or \
+            (shape and labels.shape != preds.shape):
+        raise MXNetError("Shape of labels %s does not match shape of "
+                         "predictions %s" % (len(labels), len(preds)))
+
+
+class EvalMetric:
+    """Base metric (parity: metric.EvalMetric)."""
+
+    def __init__(self, name, output_names=None, label_names=None, **kwargs):
+        self.name = str(name)
+        self.output_names = output_names
+        self.label_names = label_names
+        self._kwargs = kwargs
+        self.reset()
+
+    def __str__(self):
+        return "EvalMetric: {}".format(dict(self.get_name_value()))
+
+    def update(self, labels, preds):
+        raise NotImplementedError
+
+    def reset(self):
+        self.num_inst = 0
+        self.sum_metric = 0.0
+        self._dev_sum = None
+
+    def _accum_device(self, scalar, n):
+        """Add an fp32 device scalar to the running sum; no host sync."""
+        self._dev_sum = scalar if self._dev_sum is None \
+            else self._dev_sum + scalar
+        self.num_inst += n
+
+    def _flush_device(self):
+        if self._dev_sum is not None:
+            self.sum_metric += float(self._dev_sum)
+            self._dev_sum = None
+
+    def get(self):
+        self._flush_device()
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, self.sum_metric / self.num_inst)
+
+    def get_name_value(self):
+        name, value = self.get()
+        if not isinstance(name, list):
+            name = [name]
+        if not isinstance(value, list):
+            value = [value]
+        return list(zip(name, value))
+
+
+class CompositeEvalMetric(EvalMetric):
+    """(parity: metric.CompositeEvalMetric)"""
+
+    def __init__(self, metrics=None, name="composite", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.metrics = [create(m) for m in (metrics or [])]
+
+    def add(self, metric):
+        self.metrics.append(create(metric))
+
+    def get_metric(self, index):
+        return self.metrics[index]
+
+    def update(self, labels, preds):
+        for metric in self.metrics:
+            metric.update(labels, preds)
+
+    def reset(self):
+        for metric in getattr(self, "metrics", []):
+            metric.reset()
+
+    def get(self):
+        names, values = [], []
+        for metric in self.metrics:
+            name, value = metric.get()
+            if isinstance(name, list):
+                names.extend(name)
+                values.extend(value)
+            else:
+                names.append(name)
+                values.append(value)
+        return (names, values)
+
+
+@register
+@register(name="acc")
+class Accuracy(EvalMetric):
+    def __init__(self, axis=1, name="accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names, axis=axis)
+        self.axis = axis
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            if isinstance(label, NDArray) and isinstance(pred, NDArray):
+                p, l = pred._data, _on_device_of(pred, label)
+                if p.ndim > l.ndim:
+                    p = torch.argmax(p, dim=self.axis % p.ndim)
+                p = p.to(torch.int32).reshape(-1)
+                l = l.to(torch.int32).reshape(-1)
+                if p.shape != l.shape:
+                    raise MXNetError(
+                        "Shape of labels %s does not match shape of "
+                        "predictions %s" % (tuple(label.shape),
+                                            tuple(pred.shape)))
+                self._accum_device((p == l).sum().to(torch.float32),
+                                   int(l.numel()))
+                continue
+            label = _as_numpy(label)
+            pred = _as_numpy(pred)
+            if pred.ndim > label.ndim:
+                pred = _numpy.argmax(pred, axis=self.axis)
+            pred = pred.astype(_numpy.int32).flatten()
+            label = label.astype(_numpy.int32).flatten()
+            check_label_shapes(label, pred, shape=True)
+            self.sum_metric += float((pred == label).sum())
+            self.num_inst += len(label)
+
+
+@register
+@register(name="top_k_accuracy")
+@register(name="top_k_acc")
+class TopKAccuracy(EvalMetric):
+    def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names, top_k=top_k)
+        self.top_k = top_k
+        self.name += "_%d" % top_k
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            if isinstance(label, NDArray) and isinstance(pred, NDArray):
+                p = pred._data
+                if p.ndim != 2:
+                    raise MXNetError("TopKAccuracy: predictions must be 2-D")
+                l = _on_device_of(pred, label).to(torch.int64).reshape(-1, 1)
+                topk = torch.topk(p, self.top_k, dim=1).indices
+                self._accum_device((topk == l).sum().to(torch.float32),
+                                   int(l.shape[0]))
+                continue
+            pred = _as_numpy(pred)
+            label = _as_numpy(label).astype(_numpy.int32)
+            topk = _numpy.argsort(pred, axis=1)[:, -self.top_k:]
+            for j in range(self.top_k):
+                self.sum_metric += float((topk[:, j] == label.flatten()).sum())
+            self.num_inst += len(label)
+
+
+@register
+@register(name="ce")
+class CrossEntropy(EvalMetric):
+    def __init__(self, eps=1e-12, name="cross-entropy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names, eps=eps)
+        self.eps = eps
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            if isinstance(label, NDArray) and isinstance(pred, NDArray):
+                p = pred._data
+                l = _on_device_of(pred, label).reshape(-1).to(torch.int64)
+                if l.shape[0] != p.shape[0]:
+                    raise MXNetError("CrossEntropy: %d labels for %d rows"
+                                     % (l.shape[0], p.shape[0]))
+                prob = torch.gather(p.float(), 1, l[:, None])[:, 0]
+                self._accum_device(-torch.log(prob + self.eps).sum(),
+                                   int(l.shape[0]))
+                continue
+            label = _as_numpy(label).ravel().astype(_numpy.int32)
+            pred = _as_numpy(pred)
+            prob = pred[_numpy.arange(label.shape[0]), label]
+            self.sum_metric += float((-_numpy.log(prob + self.eps)).sum())
+            self.num_inst += label.shape[0]
+
+
+@register
+class Loss(EvalMetric):
+    """Mean of the raw outputs (parity: metric.Loss)."""
+
+    def __init__(self, name="loss", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, _, preds):
+        for pred in preds:
+            pred = _as_numpy(pred)
+            self.sum_metric += float(pred.sum())
+            self.num_inst += pred.size

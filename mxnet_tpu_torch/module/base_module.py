@@ -1,0 +1,233 @@
+"""BaseModule: the high-level train and evaluation loop.
+
+Counterpart of ``mxnet_tpu/module/base_module.py`` (parity: reference
+``base_module.py``: ``fit``, ``forward_backward``, ``fused_step``,
+``score``). The loop runs each batch through the subclass's
+fused batch step when it can and phase-split (``forward_backward``,
+``update``, ``update_metric``) otherwise, and never waits on the device
+inside an epoch unless a callback reads the metric. The JAX package's
+fault-tolerance extensions of ``fit`` (checkpoint manager, resume,
+divergence sentinel, elastic recovery) are not ported yet.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+from ..base import MXNetError
+from .. import metric as _metric
+from ..model import BatchEndParam
+from ..initializer import Uniform
+
+# stable fallback reason codes -> what they mean (the JAX package's
+# codes that can arise on one device)
+FUSED_FALLBACK_CODES = {
+    "env_pin": "MXNET_MODULE_FUSED_STEP=0 pins the phase-split A/B leg",
+    "inputs_need_grad": "data gradients are phase-split only",
+    "no_trainable_params": "nothing to update",
+    "not_initialised": "module not fully initialised",
+}
+
+
+class FusedFallback(str):
+    """Why one step ran phase-split: the message, with a stable ``code``
+    (one of ``FUSED_FALLBACK_CODES``)."""
+    __slots__ = ("code", "detail")
+
+    def __new__(cls, code, message, detail=None):
+        if code not in FUSED_FALLBACK_CODES:
+            raise MXNetError("unknown fallback code %r" % code)
+        self = str.__new__(cls, message)
+        self.code = code
+        self.detail = message if detail is None else detail
+        return self
+
+
+def _as_list(obj):
+    if obj is None:
+        return []
+    if isinstance(obj, (list, tuple)):
+        return list(obj)
+    return [obj]
+
+
+class BaseModule:
+    """(parity: base_module.BaseModule)"""
+
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    # -- things subclasses implement --------------------------------------
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError
+
+    def update(self):
+        raise NotImplementedError
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError
+
+    def update_metric(self, eval_metric, labels):
+        raise NotImplementedError
+
+    def bind(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def init_params(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def init_optimizer(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def get_params(self):
+        raise NotImplementedError
+
+    # -- composite ---------------------------------------------------------
+    def forward_backward(self, data_batch):
+        """(parity: base_module.forward_backward)"""
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def _fused_batch_step(self, data_batch, eval_metric=None):
+        """Run forward, backward, update and metric as one step and return
+        True, or return False for the phase-split path (the base class
+        always phase-splits)."""
+        return False
+
+    def fused_step(self, data, label=None, eval_metric=None):
+        """One whole training step — forward, backward, optimizer update
+        and metric update — through the fused batch step when it can run
+        (True) and phase-split otherwise (False); the ``Module.fit`` inner
+        loop for manual training loops. ``data`` is a DataBatch or
+        NDArray(s) with ``label`` beside."""
+        from ..io import DataBatch
+        if not isinstance(data, DataBatch):
+            d = list(data) if isinstance(data, (list, tuple)) else [data]
+            lab = None if label is None else (
+                list(label) if isinstance(label, (list, tuple)) else [label])
+            data = DataBatch(data=d, label=lab)
+        if self._fused_batch_step(data, eval_metric):
+            return True
+        self.forward_backward(data)
+        self.update()
+        if eval_metric is not None:
+            self.update_metric(eval_metric, data.label)
+        return False
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """(parity: base_module.score)"""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("score: bind and init_params first")
+        if reset:
+            eval_data.reset()
+        if not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+        eval_metric.reset()
+        actual_num_batch = 0
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            if batch_end_callback is not None:
+                param = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                      eval_metric=eval_metric,
+                                      locals=locals())
+                for cb in _as_list(batch_end_callback):
+                    cb(param)
+            actual_num_batch += 1
+        if score_end_callback:
+            param = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
+                                  eval_metric=eval_metric, locals=locals())
+            for cb in _as_list(score_end_callback):
+                cb(param)
+        return eval_metric.get_name_value()
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=Uniform(0.01), arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, checkpoint=None, resume=None,
+            divergence_check_every=0, divergence_policy="halt"):
+        """Train (parity: base_module.fit — bind, init_params,
+        init_optimizer, then per batch the fused step or forward_backward,
+        update and update_metric)."""
+        if num_epoch is None:
+            raise MXNetError("fit: please specify number of epochs")
+        if checkpoint is not None or resume not in (None, False) \
+                or divergence_check_every:
+            raise MXNetError("fit: checkpoint managers, resume and the "
+                             "divergence sentinel are not ported yet "
+                             "(ROADMAP Queue 1 item 4)")
+        if monitor is not None:
+            raise MXNetError("fit: monitors are not ported yet")
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label, for_training=True,
+                  force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        if not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+
+        train_data.reset()
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            for nbatch, data_batch in enumerate(train_data):
+                if not self._fused_batch_step(data_batch, eval_metric):
+                    self.forward_backward(data_batch)
+                    self.update()
+                    self.update_metric(eval_metric, data_batch.label)
+                if batch_end_callback is not None:
+                    param = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                          eval_metric=eval_metric,
+                                          locals=locals())
+                    for cb in _as_list(batch_end_callback):
+                        cb(param)
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.time() - tic)
+            if epoch_end_callback is not None:
+                arg_p, aux_p = self.get_params()
+                for cb in _as_list(epoch_end_callback):
+                    cb(epoch, self.symbol, arg_p, aux_p)
+            if eval_data is not None:
+                res = self.score(eval_data, validation_metric,
+                                 score_end_callback=eval_end_callback,
+                                 batch_end_callback=eval_batch_end_callback,
+                                 epoch=epoch)
+                for name, val in res:
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+            train_data.reset()
+
+    # -- params ------------------------------------------------------------
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init, allow_extra=allow_extra)
+
+    @property
+    def symbol(self):
+        return self._symbol

@@ -1,0 +1,400 @@
+"""Module — symbolic training on one bound executor.
+
+Counterpart of ``mxnet_tpu/module/module.py`` (parity: reference
+``module/module.py``) on one device: ``bind`` (``simple_bind`` with
+gradient arrays), ``init_params``, ``init_optimizer``,
+forward/backward/update, the fused batch step, ``get_params`` /
+``set_params`` and checkpoints. The JAX package compiles the fused step
+into one jitted program with donated buffers; here it is one eager
+function (``executor._GraphProgram.train_step_fn``): forward and
+backward through ``torch.autograd``, the ``FusedUpdater``'s loop over the
+parameters, the metric accumulated on the device. The phase-split path
+(``forward_backward``, ``update``, ``update_metric``) runs the same
+arithmetic, so the two give the same result.
+
+Not ported yet (ROADMAP Queue 1 item 6): several contexts (data
+parallelism, meshes, partition rules), kvstores other than None and
+``"local"`` on one device, ``group2ctxs``, gradient compression and the
+dist and elastic tiers.
+"""
+from __future__ import annotations
+
+import logging
+import os
+
+import torch
+
+from ..base import MXNetError, get_env
+from ..context import Context, current_context
+from ..initializer import Uniform
+from ..model import _create_kvstore, save_checkpoint, load_checkpoint
+from .. import optimizer as opt
+from .base_module import BaseModule, FusedFallback
+
+_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 6)"
+
+
+class Module(BaseModule):
+    """(parity: module.Module)"""
+
+    def __init__(self, symbol, data_names=("data",),
+                 label_names=("softmax_label",), logger=logging, context=None,
+                 work_load_list=None, fixed_param_names=None,
+                 state_names=None, group2ctxs=None,
+                 compression_params=None, partition_rules=None,
+                 mesh_axes=None):
+        super().__init__(logger=logger)
+        if context is None:
+            context = current_context()
+        if isinstance(context, Context):
+            context = [context]
+        if len(context) != 1:
+            raise MXNetError("Module: %d contexts; training on more than "
+                             "one device is %s" % (len(context), _NOT_PORTED))
+        for what, val in (("group2ctxs", group2ctxs),
+                          ("compression_params", compression_params),
+                          ("partition_rules", partition_rules),
+                          ("mesh_axes", mesh_axes)):
+            if val:
+                raise MXNetError("Module(%s=...) is %s" % (what, _NOT_PORTED))
+        self._context = list(context)
+        self._context[0].torch_device()     # no such device: raise now
+        self._symbol = symbol
+        self._data_names = list(data_names or [])
+        self._label_names = list(label_names or [])
+        self._state_names = list(state_names or [])
+        self._fixed_param_names = list(fixed_param_names or [])
+        input_names = self._data_names + self._label_names + self._state_names
+        self._param_names = [n for n in symbol.list_arguments()
+                             if n not in input_names]
+        self._aux_names = symbol.list_auxiliary_states()
+        self._output_names = symbol.list_outputs()
+        self._arg_params = None
+        self._aux_params = None
+        self._optimizer = None
+        self._updater = None
+        self._exec = None
+        self._data_shapes = None
+        self._label_shapes = None
+        self._grad_req = None
+        self._fused_fallback_reason = None
+        self._preload_opt_states = None
+
+    # -- introspection -----------------------------------------------------
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
+
+    @property
+    def output_names(self):
+        return self._output_names
+
+    @property
+    def data_shapes(self):
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        shapes = {d.name: d.shape for d in self._data_shapes
+                  + self._label_shapes}
+        _, out_shapes, _ = self._symbol.infer_shape(**shapes)
+        return list(zip(self._output_names, out_shapes))
+
+    # -- bind --------------------------------------------------------------
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        """(parity: module.bind) allocate the executor's arrays for these
+        input shapes and dtypes on the module's device."""
+        if force_rebind:
+            self._exec = None
+            self.binded = False
+        if self.binded:
+            self.logger.warning("Already bound, ignoring bind()")
+            return
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self._data_shapes = [_as_desc(d) for d in data_shapes]
+        self._label_shapes = [_as_desc(l) for l in label_shapes] \
+            if label_shapes else []
+        shape_kwargs = {d.name: d.shape
+                        for d in self._data_shapes + self._label_shapes}
+        type_dict = {d.name: d.dtype
+                     for d in self._data_shapes + self._label_shapes
+                     if getattr(d, "dtype", None) is not None}
+        reqs = {}
+        for name in self._symbol.list_arguments():
+            if name in self._data_names:
+                reqs[name] = "write" if inputs_need_grad else "null"
+            elif name in self._label_names or name in self._state_names \
+                    or name in self._fixed_param_names:
+                reqs[name] = "null"
+            else:
+                reqs[name] = grad_req if for_training else "null"
+        self._grad_req = reqs
+        self._exec = self._symbol.simple_bind(
+            ctx=self._context[0], grad_req=reqs, type_dict=type_dict,
+            **shape_kwargs)
+        self.binded = True
+        if shared_module is not None and shared_module.params_initialized:
+            self.set_params(*shared_module.get_params())
+        elif self.params_initialized and self._arg_params is not None:
+            # Module.load: the checkpoint's params install at bind time
+            self.set_params(self._arg_params, self._aux_params or {})
+
+    # -- params ------------------------------------------------------------
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
+                    aux_params=None, allow_missing=False, force_init=False,
+                    allow_extra=False):
+        """(parity: module.init_params) a given value (NDArray or numpy)
+        wins, else the initializer by parameter name."""
+        if self.params_initialized and not force_init:
+            return
+        if not self.binded:
+            raise MXNetError("call bind before init_params")
+        if arg_params is None and self._arg_params is not None:
+            arg_params = self._arg_params
+        if aux_params is None and self._aux_params is not None:
+            aux_params = self._aux_params
+        if not allow_extra:
+            extra = sorted(set(arg_params or {}) - set(self._param_names)) \
+                + sorted(set(aux_params or {}) - set(self._aux_names))
+            if extra:
+                raise MXNetError("init_params: unknown parameters %s"
+                                 % extra)
+        for name, arr in self._exec.arg_dict.items():
+            if name not in self._param_names:
+                continue
+            given = (arg_params or {}).get(name)
+            if given is not None:
+                arr[:] = given
+            elif initializer is not None:
+                initializer(name, arr)
+            elif not allow_missing:
+                raise MXNetError("no initializer and no value for %r" % name)
+        for name, arr in self._exec.aux_dict.items():
+            given = (aux_params or {}).get(name)
+            if given is not None:
+                arr[:] = given
+            elif initializer is not None:
+                initializer(name, arr)
+            elif not allow_missing:
+                raise MXNetError("no initializer and no value for %r" % name)
+        self.params_initialized = True
+
+    def get_params(self):
+        """(parity: module.get_params) copies of the parameters and aux
+        states, on the module's device."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("get_params: bind and init_params first")
+        arg_params = {n: arr.copy() for n, arr in self._exec.arg_dict.items()
+                      if n in self._param_names}
+        aux_params = {n: arr.copy() for n, arr in self._exec.aux_dict.items()}
+        return arg_params, aux_params
+
+    # -- optimizer ---------------------------------------------------------
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        """(parity: module.init_optimizer) ``rescale_grad`` defaults to
+        1.0, as in the JAX package (the reference uses 1/batch)."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("init_optimizer: bind and init_params first")
+        if self.optimizer_initialized and not force_init:
+            return
+        _create_kvstore(kvstore, len(self._context))  # a store raises
+        if isinstance(optimizer, str):
+            idx2name = dict(enumerate(self._param_names))
+            optimizer_params = dict(optimizer_params)
+            optimizer_params.setdefault("rescale_grad", 1.0)
+            optimizer = opt.create(optimizer, sym=self._symbol,
+                                   param_idx2name=idx2name,
+                                   **optimizer_params)
+        self._optimizer = optimizer
+        self._updater = opt.get_updater(optimizer)
+        self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    # -- compute -----------------------------------------------------------
+    def forward(self, data_batch, is_train=None):
+        """(parity: module.forward)"""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("forward: bind and init_params first")
+        if is_train is None:
+            is_train = self.for_training
+        self._set_batch(data_batch)
+        self._exec.forward(is_train=is_train)
+
+    def backward(self, out_grads=None):
+        self._exec.backward(out_grads=out_grads)
+
+    def forward_backward(self, data_batch):
+        """Forward and backward in one pass of the executor."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("forward_backward: bind and init_params first")
+        self._set_batch(data_batch)
+        self._exec.forward_backward()
+
+    def _set_batch(self, data_batch):
+        """Copy the batch's data (and labels) into the bound storage, on
+        the module's device in the bound dtype."""
+        arg_dict = self._exec.arg_dict
+        data = data_batch.data
+        if not isinstance(data, (list, tuple)):
+            data = [data]
+        for desc, arr in zip(self._data_shapes, data):
+            if tuple(arr.shape) != arg_dict[desc.name].shape:
+                raise MXNetError(
+                    "batch %r has shape %s, the module is bound to %s; "
+                    "reshaping is not ported yet"
+                    % (desc.name, tuple(arr.shape),
+                       arg_dict[desc.name].shape))
+            arg_dict[desc.name][:] = arr
+        label = data_batch.label
+        if label is not None and self._label_shapes:
+            if not isinstance(label, (list, tuple)):
+                label = [label]
+            for desc, arr in zip(self._label_shapes, label):
+                arg_dict[desc.name][:] = arr
+
+    def _live_params(self):
+        return [(i, n) for i, n in enumerate(self._param_names)
+                if self._grad_req.get(n, "null") != "null"]
+
+    def update(self):
+        """One optimizer step over every parameter with a gradient
+        (parity: module.update; the FusedUpdater's batch path)."""
+        if not (self.binded and self.params_initialized
+                and self.optimizer_initialized):
+            raise MXNetError("update: bind, init_params and "
+                             "init_optimizer first")
+        live = self._live_params()
+        if not live:
+            return
+        arg_dict, grad_dict = self._exec.arg_dict, self._exec.grad_dict
+        self._updater.update_batch([i for i, _ in live],
+                                   [grad_dict[n] for _, n in live],
+                                   [arg_dict[n] for _, n in live])
+
+    # -- the fused batch step ----------------------------------------------
+    def _fallback(self, code, message):
+        self._fused_fallback_reason = FusedFallback(code, message)
+        return False
+
+    def _fused_batch_step(self, data_batch, eval_metric=None):
+        """Forward, backward, optimizer update and metric update as one
+        step (``executor.train_step_fn``), for any optimizer the updater
+        takes. Returns False, with the reason in
+        ``_fused_fallback_reason``, when the caller must run the
+        phase-split path: ``MXNET_MODULE_FUSED_STEP=0`` (the A/B pin),
+        ``inputs_need_grad``, nothing to train."""
+        if not get_env("MXNET_MODULE_FUSED_STEP", 1, int):
+            return self._fallback("env_pin", "MXNET_MODULE_FUSED_STEP=0")
+        if not (self.binded and self.params_initialized
+                and self.optimizer_initialized):
+            return self._fallback("not_initialised",
+                                  "module not fully initialised")
+        if self.inputs_need_grad:
+            return self._fallback("inputs_need_grad", "inputs_need_grad")
+        live = self._live_params()
+        if not live:
+            return self._fallback("no_trainable_params",
+                                  "no trainable parameters")
+        updater = self._updater
+        ex = self._exec
+        arg_dict, grad_dict = ex.arg_dict, ex.grad_dict
+        indices = [i for i, _ in live]
+        names = [n for _, n in live]
+        weights = [arg_dict[n] for n in names]
+        add_names = [n for n in names if self._grad_req[n] == "add"]
+        self._set_batch(data_batch)
+        step = ex._prog.train_step_fn(
+            names, add_names,
+            lambda gs: updater.update_batch(indices, gs, weights))
+        outs, aux_up, grads_out = step(
+            ex._raw_args(), ex._raw_aux(),
+            {n: grad_dict[n]._data for n in add_names})
+        ex._write_aux(aux_up)
+        ex._set_outputs(outs)
+        with torch.no_grad():       # the accumulators, already summed
+            for n, g in grads_out.items():
+                grad_dict[n]._data.copy_(g)
+        if eval_metric is not None:
+            self.update_metric(eval_metric, data_batch.label)
+        self._fused_fallback_reason = None
+        return True
+
+    def get_outputs(self, merge_multi_context=True):
+        return list(self._exec.outputs)
+
+    def get_input_grads(self, merge_multi_context=True):
+        if not self.inputs_need_grad:
+            raise MXNetError("get_input_grads: bind with "
+                             "inputs_need_grad=True")
+        grads = self._exec.grad_dict
+        return [grads[n] for n in self._data_names if n in grads]
+
+    def update_metric(self, eval_metric, labels):
+        eval_metric.update(labels if isinstance(labels, (list, tuple))
+                           else [labels], self.get_outputs())
+
+    # -- checkpoints -------------------------------------------------------
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """(parity: module.save_checkpoint) the JAX package's files:
+        ``prefix-symbol.json``, ``prefix-%04d.params`` and, with
+        ``save_optimizer_states``, ``prefix-%04d.states``."""
+        arg_params, aux_params = self.get_params()
+        save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """(parity: Module.load) a Module whose params install at bind."""
+        ctx = kwargs.get("context")
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0]
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch,
+                                                         ctx=ctx)
+        mod = Module(symbol, **kwargs)
+        mod._arg_params = arg_params
+        mod._aux_params = aux_params
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_optimizer_states(self, fname):
+        """(parity: module.save_optimizer_states) the updater's pickled
+        states, written to a temporary name and renamed into place."""
+        if not self.optimizer_initialized:
+            raise MXNetError("save_optimizer_states: init_optimizer first")
+        tmp = "%s.tmp.%d" % (fname, os.getpid())
+        with open(tmp, "wb") as f:
+            f.write(self._updater.get_states())
+        os.replace(tmp, fname)
+
+    def load_optimizer_states(self, fname):
+        """Load states written by ``save_optimizer_states`` of either
+        package."""
+        if not self.optimizer_initialized:
+            raise MXNetError("load_optimizer_states: init_optimizer first")
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+
+
+def _as_desc(d):
+    from ..io import DataDesc
+    if isinstance(d, DataDesc):
+        return d
+    return DataDesc(d[0], d[1])

@@ -83,7 +83,10 @@ class NDArray:
         if isinstance(value, NDArray):
             value = value._data
         if isinstance(value, np.ndarray):
-            value = torch.from_numpy(np.ascontiguousarray(value))
+            value = np.ascontiguousarray(value)
+            if not value.flags.writeable:   # torch takes writable arrays
+                value = value.copy()
+            value = torch.from_numpy(value)
         with torch.no_grad():
             if isinstance(value, torch.Tensor):
                 self._data[key] = value.to(self._data.device,
@@ -112,7 +115,10 @@ def array(source_array, ctx=None, dtype=None):
         a = np.asarray(source_array)
         if a.dtype == np.float64:
             a = a.astype(np.float32)
-        src = torch.from_numpy(np.ascontiguousarray(a))
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:       # torch takes writable arrays
+            a = a.copy()
+        src = torch.from_numpy(a)
     dt = torch_dtype(dtype)
     if dt is None:
         dt = torch.float32 if src.dtype == torch.float64 else src.dtype

@@ -3,30 +3,13 @@
 Counterpart of ``mxnet_tpu/ndarray/register.py``: tensor arguments go
 positionally or by their reference names (``data=``, ``weight=`` …);
 trailing positional values map onto the op's params in declaration
-order. Ops run eagerly, without autograd (inference slice), and return
-their visible outputs only.
+order. Each call goes through ``imperative.invoke`` (train mode, aux
+updates) and returns the op's visible outputs only.
 """
 from __future__ import annotations
 
-import torch
-
+from ..imperative import invoke
 from ..ops import registry as _registry
-
-
-def invoke(op, inputs, kwargs):
-    """Run one op eagerly on NDArrays; a single NDArray or a list."""
-    from .ndarray import NDArray
-    params = dict(op.defaults)
-    params.update(kwargs)
-    params.pop("name", None)
-    if op.takes_train:
-        params["_train"] = False
-    ctx = next((x.context for x in inputs if isinstance(x, NDArray)), None)
-    raw = [x._data if isinstance(x, NDArray) else x for x in inputs]
-    with torch.no_grad():
-        outs = op.apply(raw, params)
-    outs = [NDArray(o, ctx) for o in outs[:op.visible_outputs or op.nout]]
-    return outs[0] if len(outs) == 1 else outs
 
 
 def make_op_func(op):

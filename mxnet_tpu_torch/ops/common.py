@@ -2,11 +2,14 @@
 
 Counterpart of ``mxnet_tpu/ops/common.py``: the reference's kwargs
 conventions (tuples serialized as strings in symbol JSON — both Python
-tuples and their string forms are accepted) and dtype names.
+tuples and their string forms are accepted), dtype names, and the
+thread-local execution state (train mode, recording, the aux-update
+collector).
 """
 from __future__ import annotations
 
 import ast
+import threading
 
 import numpy as np
 import torch
@@ -71,3 +74,32 @@ def as_tuple(v, ndim=None, name="param"):
     if ndim is not None and len(v) != ndim:
         raise MXNetError("%s must have %d elements, got %r" % (name, ndim, v))
     return v
+
+
+# ---------------------------------------------------------------------------
+# Execution state: train mode, recording, aux-update collection
+# ---------------------------------------------------------------------------
+
+class _ExecState(threading.local):
+    """Per-thread execution state (counterpart of the JAX package's
+    ``ops/common.py`` ``_ExecState``; no RNG provider: no op on the
+    ported paths draws random numbers)."""
+
+    def __init__(self):
+        self.train_mode = False
+        self.recording = False
+        # list of (NDArray, new value): stateful aux updates (BatchNorm
+        # moving stats) collected instead of written while a pure
+        # function is extracted (gluon.block.make_pure_fn)
+        self.aux_collector = None
+
+
+_STATE = _ExecState()
+
+
+def state():
+    return _STATE
+
+
+def is_train():
+    return _STATE.train_mode

@@ -1,8 +1,9 @@
 """Neural-network operators on the ResNet serving path.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution,
-Pooling, Activation, BatchNorm, _contrib_BatchNormAddReLU and
-SoftmaxOutput (forward). What the JAX package left to XLA is left to
+Pooling, Activation, BatchNorm and _contrib_BatchNormAddReLU (inference
+and training statistics, moving-stat updates) and SoftmaxOutput (with
+its hand-written gradient). What the JAX package left to XLA is left to
 PyTorch's own operators here (cuDNN/cuBLAS on the card); the fused block
 tail runs the hand-written kernel of ``kernels/fused_bn.py``.
 
@@ -168,9 +169,13 @@ def pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
 
 @register("Activation", defaults={"act_type": "relu"})
 def activation(data, act_type="relu"):
-    """relu/sigmoid/tanh/softrelu/softsign."""
+    """relu/sigmoid/tanh/softrelu/softsign. relu is ``max(x, 0)`` with
+    the JAX package's gradient: 1/2 at exactly 0 (``jnp.maximum``'s tie
+    rule, which ``torch.maximum`` shares; ``clamp_min`` passes 1). It
+    matters where a BatchNorm channel is constant over the batch and its
+    output is exactly beta = 0."""
     if act_type == "relu":
-        return torch.clamp_min(data, 0)
+        return torch.maximum(data, data.new_zeros(()))
     if act_type == "sigmoid":
         return torch.sigmoid(data)
     if act_type == "tanh":
@@ -186,13 +191,21 @@ def activation(data, act_type="relu"):
 # Normalisation
 # ---------------------------------------------------------------------------
 
-def _bn_stats(moving_mean, moving_var, _train, use_global_stats):
-    """Inference statistics: the moving stats. Batch statistics (training
-    mode) belong to the training slice."""
+def _bn_stats(data, moving_mean, moving_var, red, _train, use_global_stats):
+    """BN statistics, one source for BatchNorm and the fused tail: in
+    training mode the batch mean and the biased variance (``jnp.var``'s,
+    not ``torch.var``'s default) over ``red``, accumulated in fp32 for
+    half inputs; otherwise the moving stats, detached."""
     if _train and not use_global_stats:
-        raise MXNetError("BatchNorm: training-mode statistics are not "
-                         "ported yet (inference only)")
-    return moving_mean, moving_var
+        stat_in = data.float() if data.dtype in (torch.bfloat16,
+                                                 torch.float16) else data
+        var, mean = torch.var_mean(stat_in, dim=red, correction=0)
+        return mean.to(moving_mean.dtype), var.to(moving_var.dtype)
+    return moving_mean.detach(), moving_var.detach()
+
+
+def _reduce_axes(ndim, axis):
+    return tuple(i for i in range(ndim) if i != axis)
 
 
 @register("BatchNorm", nin=5,
@@ -204,15 +217,19 @@ def _bn_stats(moving_mean, moving_var, _train, use_global_stats):
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                output_mean_var=False, axis=1, cudnn_off=False, _train=False):
-    """Batch normalisation, inference mode, with the JAX package's
-    formula: fp32 data normalises as ``(x - mean) * (rsqrt(var+eps)*g)
-    + beta``; half data applies fp32-folded scale/offset in its own
-    dtype. Returns (out, mean, var)."""
+    """Batch normalisation with the JAX package's formula: fp32 data
+    normalises as ``(x - mean) * (rsqrt(var+eps)*g) + beta``; half data
+    applies fp32-folded scale/offset in its own dtype. In training mode
+    the statistics are the batch's and gradients flow through them into
+    the data; ``fix_gamma`` replaces gamma by ones (its gradient is
+    zero). Returns (out, mean, var)."""
     axis = int(axis) % data.ndim
     shape = [1] * data.ndim
     shape[axis] = data.shape[axis]
     g = torch.ones_like(gamma) if fix_gamma else gamma
-    mean, var = _bn_stats(moving_mean, moving_var, _train, use_global_stats)
+    mean, var = _bn_stats(data, moving_mean, moving_var,
+                          _reduce_axes(data.ndim, axis), _train,
+                          use_global_stats)
     if data.dtype in (torch.bfloat16, torch.float16):
         inv = torch.rsqrt(var.float() + eps)
         s = inv * g.float()
@@ -236,10 +253,28 @@ def _bn_param_dtypes(first_param_idx):
     return infer
 
 
+def _bn_stateful_update(mean_idx, var_idx):
+    """The moving-stat update of a training-mode call, ``new = m * old +
+    (1 - m) * batch`` (the JAX package's convention; not
+    ``F.batch_norm``'s), keyed by the aux input positions (BN 3/4, fused
+    tail 4/5). The values are detached: they never carry the graph."""
+
+    def update(raw_inputs, raw_outputs, params):
+        if not params.get("_train") or params.get("use_global_stats"):
+            return {}
+        m = params.get("momentum", 0.9)
+        _, mean, var = raw_outputs[:3]
+        return {mean_idx: m * raw_inputs[mean_idx] + (1 - m) * mean.detach(),
+                var_idx: m * raw_inputs[var_idx] + (1 - m) * var.detach()}
+
+    return update
+
+
 _bn = get_op("BatchNorm")
 _bn.visible_outputs = 1
 _bn.aux_inputs = (3, 4)
 _bn.param_dtype_infer = _bn_param_dtypes(1)
+_bn.stateful_update = _bn_stateful_update(3, 4)
 
 
 @register("_contrib_BatchNormAddReLU", nin=6,
@@ -262,7 +297,9 @@ def batch_norm_add_relu(data, addend, gamma, beta, moving_mean, moving_var,
     shape = [1] * data.ndim
     shape[axis] = data.shape[axis]
     g = torch.ones_like(gamma) if fix_gamma else gamma
-    mean, var = _bn_stats(moving_mean, moving_var, _train, use_global_stats)
+    mean, var = _bn_stats(data, moving_mean, moving_var,
+                          _reduce_axes(data.ndim, axis), _train,
+                          use_global_stats)
     inv = torch.rsqrt(var.float() + eps)
     s = inv * g.float()
     b = beta.float() - mean.float() * s
@@ -270,9 +307,9 @@ def batch_norm_add_relu(data, addend, gamma, beta, moving_mean, moving_var,
         from ..kernels.fused_bn import scale_bias_add_relu
         out = scale_bias_add_relu(data, s, b, addend)
     else:
-        out = torch.clamp_min(
-            data * s.to(data.dtype).reshape(shape)
-            + b.to(data.dtype).reshape(shape) + addend, 0)
+        y = data * s.to(data.dtype).reshape(shape) \
+            + b.to(data.dtype).reshape(shape) + addend
+        out = torch.maximum(y, y.new_zeros(()))   # jnp.maximum's gradient
     return out, mean, var
 
 
@@ -280,11 +317,60 @@ _bnar = get_op("_contrib_BatchNormAddReLU")
 _bnar.visible_outputs = 1
 _bnar.aux_inputs = (4, 5)
 _bnar.param_dtype_infer = _bn_param_dtypes(2)
+_bnar.stateful_update = _bn_stateful_update(4, 5)
 
 
 # ---------------------------------------------------------------------------
-# SoftmaxOutput (forward)
+# SoftmaxOutput
 # ---------------------------------------------------------------------------
+
+def _softmax_out_grad(prob, label, grad_scale, ignore_label, use_ignore,
+                      normalization, multi_output):
+    """SoftmaxOutput's gradient, ``prob - onehot(label)`` (parity: the
+    JAX package's ``_softmax_out_grad``), with ``use_ignore`` masking,
+    ``normalization`` null/batch/valid and ``grad_scale``."""
+    lab = label.long()
+    axis = 1 if multi_output else -1
+    k = prob.shape[axis]
+    shape = [1] * prob.ndim
+    shape[axis] = k
+    # a label outside [0, k) (an ignored -1) has an all-zero row, as
+    # jax.nn.one_hot gives it
+    oh = (lab.unsqueeze(axis) == torch.arange(k, device=prob.device)
+          .reshape(shape)).to(prob.dtype)
+    grad = prob - oh
+    valid = None
+    if use_ignore:
+        mask = (lab != int(ignore_label)).to(prob.dtype)
+        grad = grad * mask.unsqueeze(axis)
+        valid = torch.clamp_min(mask.sum(), 1.0)
+    if normalization == "valid" and valid is not None:
+        grad = grad / valid
+    elif normalization == "batch":
+        grad = grad / prob.shape[0]
+    return grad * grad_scale
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """Forward softmax; backward ``p - onehot`` (the JAX package's
+    ``custom_vjp``): a loss layer, so the incoming head gradient is
+    ignored, and the label gets a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, axis, grad_args):
+        prob = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(prob, label)
+        ctx.grad_args = grad_args
+        return prob
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        prob, label = ctx.saved_tensors
+        grad = _softmax_out_grad(prob, label, *ctx.grad_args)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad.to(prob.dtype), dlabel, None, None
+
 
 @register("SoftmaxOutput", nin=2, arg_names=["data", "label"],
           defaults={"grad_scale": 1.0, "ignore_label": -1.0,
@@ -295,18 +381,25 @@ _bnar.param_dtype_infer = _bn_param_dtypes(2)
 def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
                    multi_output=False, use_ignore=False, preserve_shape=False,
                    normalization="null", out_grad=False, smooth_alpha=0.0):
-    """Forward of the softmax loss layer: softmax over the class axis
-    (1 with multi_output, else the last). The label only has its shape
-    checked; the gradient belongs to the training slice."""
+    """The softmax loss layer: forward ``softmax(data)`` over the class
+    axis (1 with multi_output, else the last); backward ``(p -
+    onehot(label)) * grad_scale`` whatever the head gradient."""
     axis = 1 if multi_output else -1
     expected = ((data.shape[0],) + tuple(data.shape[2:]) if multi_output
                 else tuple(data.shape[:-1]))
     if tuple(label.shape) != expected:
         flat = (data.shape[0],
                 int(np.prod(data.shape[2:])) if data.ndim > 2 else 1)
-        if not (multi_output and tuple(label.shape) == flat):
+        if multi_output and tuple(label.shape) == flat:
+            label = label.reshape(expected)
+        else:
             raise MXNetError(
                 "SoftmaxOutput: label shape %s is inconsistent with data "
                 "shape %s (expected label %s)"
                 % (tuple(label.shape), tuple(data.shape), expected))
-    return torch.softmax(data, dim=axis)
+    if data.device.type == "meta":
+        return torch.softmax(data, dim=axis)
+    return _SoftmaxOutputFn.apply(
+        data, label, axis, (float(grad_scale), ignore_label,
+                            bool(use_ignore), normalization,
+                            bool(multi_output)))

@@ -1,7 +1,8 @@
 """Fused optimizer update rules as tensor functions.
 
-Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (so far ``sgd_update``
-and ``sgd_mom_update``; parity: reference ``optimizer_op.cc``). Each
+Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (so far ``sgd_update``,
+``sgd_mom_update`` and their multi-precision forms ``mp_sgd_update`` and
+``mp_sgd_mom_update``; parity: reference ``optimizer_op.cc``). Each
 function is pure: it returns the new weight (and new state) and leaves
 its inputs as they are, like the JAX ops. PyTorch runs each line as its
 own elementwise kernel on the card; one fused update kernel per
@@ -11,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sgd_update", "sgd_mom_update"]
+__all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_update",
+           "mp_sgd_mom_update"]
 
 
 def _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient):
@@ -33,3 +35,24 @@ def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
     g = _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient)
     mom = momentum * mom - lr * g
     return weight + mom, mom
+
+
+def mp_sgd_update(weight, grad, weight32, lr=0.01, wd=0.0, rescale_grad=1.0,
+                  clip_gradient=-1.0):
+    """Multi-precision SGD: a bf16/fp16 weight with its fp32 master copy.
+    Returns ``(new_weight, new_weight32)``; the low-precision weight is
+    the master rounded to nearest even."""
+    g = _apply_wd_clip(weight32, grad.float(), wd, rescale_grad,
+                       clip_gradient)
+    w32 = weight32 - lr * g
+    return w32.to(weight.dtype), w32
+
+
+def mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
+                      wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns ``(new_weight, new_mom, new_weight32)``."""
+    g = _apply_wd_clip(weight32, grad.float(), wd, rescale_grad,
+                       clip_gradient)
+    mom = momentum * mom - lr * g
+    w32 = weight32 + mom
+    return w32.to(weight.dtype), mom, w32

@@ -49,6 +49,9 @@ class OpDef:
         self.visible_outputs = None
         # indices of inputs that are auxiliary states (BN moving stats)
         self.aux_inputs = ()
+        # hook(raw_inputs, raw_outputs, params) -> {input_idx: new value}:
+        # the in-place aux update of a training-mode call (BN moving stats)
+        self.stateful_update = None
         # hook(input_shapes, params) -> {input_idx: shape} for learnable
         # inputs (reference FInferShape; see ops/shape_infer.py)
         self.param_shape_infer = None

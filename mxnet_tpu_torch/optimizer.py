@@ -3,23 +3,35 @@
 Counterpart of ``mxnet_tpu/optimizer.py`` (parity: reference
 ``python/mxnet/optimizer.py``): the ``Optimizer`` base with its
 learning-rate / weight-decay bookkeeping (``lr_mult``/``wd_mult``,
-``rescale_grad``, ``clip_gradient``, ``num_update``), the registry and
-``create``, and so far ``SGD`` and ``NAG``. ``update`` writes the new
-weight and state into the given NDArrays in place, as the reference's
-fused ops do; the math is ``ops/optimizer_ops.py``.
+``rescale_grad``, ``clip_gradient``, ``num_update``, multipliers from a
+Symbol's ``__lr_mult__``/``__wd_mult__`` attributes), multi-precision
+master weights (``multi_precision=True``: a bf16/fp16 weight keeps an
+fp32 master in its state), the registry and ``create``, ``SGD`` and
+``NAG``, and the updaters: ``Updater`` (per parameter, with
+``get_states``/``set_states`` in the JAX package's pickled format) and
+``FusedUpdater`` (``update_batch`` over a whole parameter set through the
+pure kernels of ``parallel/opt_kernels.py``, the loop Module's fused step
+runs). ``update`` writes the new weight and state into the given NDArrays
+in place, as the reference's fused ops do; the math is
+``ops/optimizer_ops.py``.
 
-Not ported yet (ROADMAP): the other optimizers, multi-precision master
-weights, row-sparse (lazy) updates, multipliers read from a Symbol's
-attributes, ``Updater``.
+Not ported yet (ROADMAP): the other optimizers, row-sparse (lazy)
+updates, one fused kernel (or CUDA graph) for a whole parameter set.
 """
 from __future__ import annotations
 
+import pickle
+
+import numpy as np
 import torch
 
 from .base import MXNetError
 from .ops import optimizer_ops as _O
 
-__all__ = ["Optimizer", "SGD", "NAG", "create", "register"]
+__all__ = ["Optimizer", "SGD", "NAG", "Updater", "FusedUpdater",
+           "get_updater", "create", "register"]
+
+_LOW_PRECISION = (torch.float16, torch.bfloat16)
 
 _REGISTRY = {}
 
@@ -46,12 +58,6 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None, **kwargs):
-        if sym is not None:
-            raise MXNetError("Optimizer(sym=...): multipliers from symbol "
-                             "attributes are not ported yet")
-        if multi_precision:
-            raise MXNetError("Optimizer(multi_precision=True) is not ported "
-                             "yet")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -66,6 +72,8 @@ class Optimizer:
         self.clip_gradient = clip_gradient
         self.multi_precision = multi_precision
         self.idx2name = dict(param_idx2name or {})
+        self.sym_info = (sym.attr_dict(), sym.list_arguments()) \
+            if sym is not None else ({}, [])
         self.param_dict = param_dict or {}
         self.set_lr_mult({})
         self.set_wd_mult({})
@@ -88,11 +96,27 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def create_state_multi_precision(self, index, weight):
+        """With ``multi_precision`` a half-precision weight's state is
+        ``(state of its fp32 copy, fp32 master)``."""
+        if self.multi_precision and _raw(weight).dtype in _LOW_PRECISION:
+            w32 = _wrap_like(weight, _raw(weight).float())
+            return (self.create_state(index, w32), w32)
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):
         raise NotImplementedError
 
+    def update_multi_precision(self, index, weight, grad, state):
+        self.update(index, weight, grad, state)
+
     def set_lr_mult(self, args_lr_mult):
-        self.lr_mult = dict(args_lr_mult)
+        self.lr_mult = {}
+        attr, arg_names = self.sym_info
+        for name in arg_names:
+            if name in attr and "__lr_mult__" in attr[name]:
+                self.lr_mult[name] = float(attr[name]["__lr_mult__"])
+        self.lr_mult.update(args_lr_mult)
 
     def set_wd_mult(self, args_wd_mult):
         self.wd_mult = {}
@@ -100,6 +124,10 @@ class Optimizer:
             # reference rule: no weight decay on 1-D params
             if not (n.endswith("_weight") or n.endswith("_gamma")):
                 self.wd_mult[n] = 0.0
+        attr, arg_names = self.sym_info
+        for name in arg_names:
+            if name in attr and "__wd_mult__" in attr[name]:
+                self.wd_mult[name] = float(attr[name]["__wd_mult__"])
         self.wd_mult.update(args_wd_mult)
 
     def _update_count(self, index):
@@ -141,6 +169,15 @@ def _raw(x):
     return x if isinstance(x, torch.Tensor) else x._data
 
 
+def _wrap_like(weight, tensor):
+    """``tensor`` as an NDArray on ``weight``'s context (a raw tensor
+    stays raw)."""
+    if isinstance(weight, torch.Tensor):
+        return tensor
+    from .ndarray.ndarray import NDArray
+    return NDArray(tensor, weight.context)
+
+
 @register
 class SGD(Optimizer):
     """SGD with momentum (parity: optimizer.SGD backed by the fused sgd
@@ -153,8 +190,7 @@ class SGD(Optimizer):
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return None
-        from .ndarray.ndarray import NDArray
-        return NDArray(torch.zeros_like(_raw(weight)))
+        return _wrap_like(weight, torch.zeros_like(_raw(weight)))
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
@@ -162,6 +198,19 @@ class SGD(Optimizer):
         w, g = _raw(weight), _raw(grad)
         kw = self._common_kwargs()
         with torch.no_grad():
+            if isinstance(state, tuple):        # multi-precision
+                mom, w32 = state
+                if mom is not None:
+                    new_w, new_m, new_w32 = _O.mp_sgd_mom_update(
+                        w, g, _raw(mom), _raw(w32), lr=lr, wd=wd,
+                        momentum=self.momentum, **kw)
+                    _raw(mom).copy_(new_m)
+                else:
+                    new_w, new_w32 = _O.mp_sgd_update(w, g, _raw(w32), lr=lr,
+                                                      wd=wd, **kw)
+                _raw(w32).copy_(new_w32)
+                w.copy_(new_w)
+                return
             if state is not None:
                 new_w, new_m = _O.sgd_mom_update(
                     w, g, _raw(state), lr=lr, wd=wd,
@@ -170,6 +219,8 @@ class SGD(Optimizer):
             else:
                 new_w = _O.sgd_update(w, g, lr=lr, wd=wd, **kw)
             w.copy_(new_w)
+
+    update_multi_precision = update
 
 
 @register
@@ -194,3 +245,216 @@ class NAG(SGD):
                 w.sub_(lr * g)
             else:
                 w.sub_(lr * (g + wd * w))
+
+
+# ---------------------------------------------------------------------------
+# Updaters
+# ---------------------------------------------------------------------------
+
+def _state_to_numpy(s):
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return tuple(_state_to_numpy(x) for x in s)
+    if isinstance(s, np.ndarray):        # loaded, not yet on a device
+        return s
+    t = _raw(s).detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+class Updater:
+    """Applies an optimizer to ``(index, grad, weight)`` calls (parity:
+    ``optimizer.Updater``). States are created at a parameter's first
+    update (``create_state_multi_precision``)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+        self.states_synced = {}
+
+    def __call__(self, index, grad, weight):
+        self._ensure_state(index, weight)
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.states[index])
+
+    def _ensure_state(self, index, weight):
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state_multi_precision(
+                index, weight)
+            self.states_synced[index] = True
+        elif not self.states_synced.get(index, True):
+            self._sync_state(index, weight)
+        return self.states[index]
+
+    def _sync_state(self, index, weight):
+        """Host states from ``set_states`` -> NDArrays on the weight's
+        context (fp32 states stay fp32)."""
+        from .ndarray.ndarray import NDArray
+        dev = _raw(weight).device
+
+        def conv(s):
+            if s is None:
+                return None
+            if isinstance(s, tuple):
+                return tuple(conv(x) for x in s)
+            t = _raw(s) if isinstance(s, (NDArray, torch.Tensor)) \
+                else torch.from_numpy(np.array(s))
+            return _wrap_like(weight, t.to(dev, copy=True))
+        self.states[index] = conv(self.states[index])
+        self.states_synced[index] = True
+
+    def update_batch(self, indices, grads, weights):
+        """Per-index loop; ``FusedUpdater`` runs the kernel path."""
+        for i, g, w in zip(indices, grads, weights):
+            self(i, g, w)
+
+    def get_states(self, dump_optimizer=False):
+        """The states pickled as ``{index: numpy array, tuple of them or
+        None}``, the JAX package's format (a multi-precision entry is
+        ``(momentum, fp32 master)``)."""
+        if dump_optimizer:
+            raise MXNetError("get_states(dump_optimizer=True) is not "
+                             "ported: the pickled optimizer would not load "
+                             "in the JAX package")
+        return pickle.dumps({k: _state_to_numpy(v)
+                             for k, v in self.states.items()})
+
+    def set_states(self, states):
+        """Load states written by ``get_states`` of either package
+        (unpickles: pass only bytes one of them wrote)."""
+        states = pickle.loads(states)
+        if isinstance(states, tuple) and len(states) == 2:
+            raise MXNetError("set_states: states saved with the optimizer "
+                             "(dump_optimizer=True) are not ported")
+        self.states = states
+        self.states_synced = {k: False for k in self.states}
+
+
+def _make_batch_update(kname, statics, mp, inner_n):
+    """The whole-parameter-set update ``(ws, states, gs, lrs, wds, ts) ->
+    (new_ws, new_states)`` applying one pure kernel per parameter (parity:
+    ``optimizer._make_batch_update``). ``mp[i]`` marks multi-precision
+    entries whose state tuple ends with the fp32 master; ``inner_n[i]`` is
+    the kernel-owned state count."""
+    from .parallel.opt_kernels import get_kernel
+    _, update_fn = get_kernel(kname)
+
+    def step(ws, states, gs, lrs, wds, ts):
+        new_ws, new_states = [], []
+        for i in range(len(mp)):
+            w, s, g = ws[i], states[i], gs[i]
+            h = dict(statics)
+            h["lr"], h["wd"] = lrs[i], wds[i]
+            if mp[i]:
+                p = s[-1]                       # fp32 master
+                inner = s[:-1]
+                p_new, inner_new = update_fn(p, g.to(p.dtype), inner, ts[i],
+                                             h)
+                new_ws.append(p_new.to(w.dtype))
+                new_states.append(tuple(
+                    x.to(o.dtype) for x, o in zip(inner_new[:inner_n[i]],
+                                                  inner)) + (p_new,))
+            else:
+                w_new, s_new = update_fn(w, g, s, ts[i], h)
+                new_ws.append(w_new.to(w.dtype))
+                new_states.append(tuple(
+                    x.to(o.dtype) for x, o in zip(s_new[:inner_n[i]], s)))
+        return new_ws, new_states
+
+    return step
+
+
+class FusedUpdater(Updater):
+    """Updater whose ``update_batch`` applies the optimizer's pure kernel
+    (``parallel/opt_kernels.py``) to a whole parameter set, the same
+    arithmetic for the phase-split ``Module.update`` and the fused batch
+    step (parity: ``optimizer.FusedUpdater``). Here it is an eager loop
+    over the parameters, writing in place; one captured CUDA graph for
+    it is later work. Falls back to the per-index ``Updater`` path when
+    the optimizer has no kernel or a state layout does not fit one."""
+
+    def __init__(self, optimizer):
+        super().__init__(optimizer)
+        self._mp_flags = {}
+
+    def set_states(self, states):
+        super().set_states(states)
+        self._mp_flags.clear()
+
+    def _is_mp(self, index, weight):
+        if index not in self._mp_flags:
+            self._mp_flags[index] = bool(
+                self.optimizer.multi_precision
+                and _raw(weight).dtype in _LOW_PRECISION)
+        return self._mp_flags[index]
+
+    @staticmethod
+    def _pack_state(state):
+        """A state as a flat tuple of NDArrays, or None when the layout
+        does not fit a kernel."""
+        from .ndarray.ndarray import NDArray
+        if state is None:
+            return ()
+        if isinstance(state, NDArray):
+            return (state,)
+        if isinstance(state, tuple) and all(isinstance(x, NDArray)
+                                            for x in state):
+            return tuple(state)
+        return None
+
+    def _gather_batch(self, kname, indices, weights):
+        """``(packed, mp, inner_n)`` for a kernel step, creating or syncing
+        states as needed, or ``(None, None, None)`` when an entry's layout
+        cannot ride the kernel."""
+        packed, mp, inner_n = [], [], []
+        for i, w in zip(indices, weights):
+            st = self._ensure_state(i, w)
+            is_mp = self._is_mp(i, w)
+            if is_mp:
+                inner, w32 = st
+                tup = self._pack_state(inner)
+                tup = tup + (w32,) if tup is not None else None
+            else:
+                tup = self._pack_state(st)
+            if tup is None or (kname == "nag"
+                               and len(tup) == (1 if is_mp else 0)):
+                return None, None, None
+            packed.append(tup)
+            mp.append(is_mp)
+            inner_n.append(len(tup) - (1 if is_mp else 0))
+        return packed, mp, inner_n
+
+    def update_batch(self, indices, grads, weights):
+        """One optimizer step over parallel lists of (index, grad, weight)
+        NDArrays (or raw gradient tensors)."""
+        from .parallel import opt_kernels as _ok
+        opt = self.optimizer
+        try:
+            kname, hyper = _ok.hyper_from_optimizer(opt)
+        except MXNetError:
+            return Updater.update_batch(self, indices, grads, weights)
+        packed, mp, inner_n = self._gather_batch(kname, indices, weights)
+        if packed is None:
+            return Updater.update_batch(self, indices, grads, weights)
+        # host bookkeeping as the per-index path does it: update counts
+        # first, then the scheduler-aware lr/wd of each index
+        for i in indices:
+            opt._update_count(i)
+        ts = [opt._index_update_count[i] for i in indices]
+        lrs = [opt._get_lr(i) for i in indices]
+        wds = [opt._get_wd(i) for i in indices]
+        statics = {k: v for k, v in hyper.items() if k not in ("lr", "wd")}
+        step = _make_batch_update(kname, statics, mp, inner_n)
+        with torch.no_grad():
+            new_ws, new_states = step(
+                [_raw(w) for w in weights],
+                [tuple(_raw(x) for x in tup) for tup in packed],
+                [_raw(g) for g in grads], lrs, wds, ts)
+            for w, tup, nw, ntup in zip(weights, packed, new_ws, new_states):
+                _raw(w).copy_(nw)
+                for x, nx in zip(tup, ntup):
+                    _raw(x).copy_(nx)
+
+
+def get_updater(optimizer):
+    return FusedUpdater(optimizer)

@@ -156,11 +156,26 @@ class Symbol:
     # -- binding -----------------------------------------------------------
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="null",
              aux_states=None, shared_exec=None):
-        """Bind arrays for a forward-only executor (training binds are a
-        later slice)."""
+        """Bind given arrays (and gradient arrays, where ``grad_req`` is
+        not null) to an Executor."""
         from ..executor import Executor
         return Executor._bind(self, ctx, args, args_grad, grad_req,
                               aux_states, shared_exec=shared_exec)
+
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    **shapes):
+        """Bind freshly allocated zero arrays of the inferred shapes and
+        dtypes (parity: ``Symbol.simple_bind``); ``grad_req`` is one
+        string or a per-argument dict/list."""
+        from ..executor import Executor
+        return Executor._simple_bind(self, ctx, grad_req, type_dict or {},
+                                     {k: tuple(v) for k, v in shapes.items()})
+
+    def attr_dict(self):
+        """{node name: its user attributes} for every node that has some
+        (parity: ``Symbol.attr_dict``; ``__lr_mult__``, ``__shape__``...)."""
+        return {n.name: dict(n._extra_attrs) for n in self._topo_nodes()
+                if n._extra_attrs}
 
     # -- operators ---------------------------------------------------------
     def __add__(self, other):

@@ -13,7 +13,11 @@ checked copy:
   parameter name;
 * :func:`tree_from_numpy` copies a plain ``{name: array}`` dict (the
   parameters of a pure ``apply_fn``, as ``parallel.SPMDTrainer`` takes
-  them) onto a device as tensors.
+  them) onto a device as tensors;
+* :func:`load_into_module` sets a JAX ``Module``'s ``arg_params`` /
+  ``aux_params`` and optimizer states (as numpy: the unpickled
+  ``Updater.get_states()``) on a bound port ``Module``, and
+  :func:`module_to_numpy` reads the port's back out in the same form.
 
 They raise ``MXNetError`` on a missing or extra name, a shape mismatch,
 or a value that is not an array.
@@ -28,7 +32,8 @@ from .context import current_context
 from .ndarray.ndarray import NDArray, array
 from .ops.common import torch_dtype
 
-__all__ = ["params_from_numpy", "load_into_block", "tree_from_numpy"]
+__all__ = ["params_from_numpy", "load_into_block", "tree_from_numpy",
+           "load_into_module", "module_to_numpy"]
 
 _AUX_SUFFIXES = ("running_mean", "running_var", "moving_mean", "moving_var")
 
@@ -128,3 +133,57 @@ def tree_from_numpy(params, ctx=None, dtype=None):
         to = dt or (torch.float32 if t.dtype == torch.float64 else t.dtype)
         out[name] = t.detach().to(dev, to, copy=True)
     return out
+
+
+def _np(a):
+    if isinstance(a, NDArray):
+        return a.asnumpy()
+    return np.asarray(a)
+
+
+def load_into_module(mod, arg_params, aux_params, opt_states=None):
+    """Set a bound port ``Module``'s parameters, aux states and (when
+    given, after ``init_optimizer``) optimizer states from numpy.
+
+    arg_params / aux_params : ``{name: array}`` (numpy or NDArrays of
+        either package's ``get_params()``, converted with ``asnumpy``);
+        every parameter and aux state of the module must be there, with
+        its bound shape.
+    opt_states : ``{param index: array, tuple of arrays or None}`` — the
+        unpickled ``Updater.get_states()`` of the JAX package (a
+        multi-precision entry is ``(momentum, fp32 master)``).
+    """
+    if not mod.binded:
+        raise MXNetError("load_into_module: bind the module first")
+    args = {k: _np(v) for k, v in arg_params.items()}
+    auxs = {k: _np(v) for k, v in aux_params.items()}
+    _check_names(list(args), mod._param_names, "module parameters")
+    _check_names(list(auxs), mod._aux_names, "module aux states")
+    ex = mod._exec
+    for table, bound in ((args, ex.arg_dict), (auxs, ex.aux_dict)):
+        for name, a in table.items():
+            if tuple(a.shape) != bound[name].shape:
+                raise MXNetError("weights: %r has shape %s, the module "
+                                 "needs %s" % (name, a.shape,
+                                               bound[name].shape))
+    mod.set_params(args, auxs)
+    if opt_states is not None:
+        if not mod.optimizer_initialized:
+            raise MXNetError("load_into_module: opt_states need "
+                             "init_optimizer first")
+        import pickle
+        mod._updater.set_states(pickle.dumps(
+            {int(k): v for k, v in opt_states.items()}))
+
+
+def module_to_numpy(mod):
+    """``(arg_params, aux_params, opt_states)`` of a port ``Module`` as
+    numpy, in :func:`load_into_module`'s form (``opt_states`` None before
+    ``init_optimizer``)."""
+    import pickle
+    arg_p, aux_p = mod.get_params()
+    states = None
+    if mod.optimizer_initialized:
+        states = pickle.loads(mod._updater.get_states())
+    return ({k: v.asnumpy() for k, v in arg_p.items()},
+            {k: v.asnumpy() for k, v in aux_p.items()}, states)

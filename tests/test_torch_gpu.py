@@ -98,6 +98,174 @@ def test_small_resnet_on_card_matches_cpu(monkeypatch):
     np.testing.assert_allclose(served, want, rtol=1e-4, atol=1e-4 * scale)
 
 
+# -- K1 under autograd: the ResNet training slice ----------------------------
+
+TAIL_SHAPES = [(32, 56, 56, 256), (32, 7, 7, 2048), (3, 5, 7, 33),
+               (2, 2, 2, 600)]
+
+
+def _masked_tail(x, scale, bias, residual, mask):
+    """The plain block tail (``scale_bias_add_relu_reference``'s ops) with
+    the ReLU's branch given per element, in place of the sign of its own
+    sum: the plain version recomputed on another computation's branches
+    (a bf16 sum within an ulp of zero can land on either side)."""
+    y = x * scale.to(x.dtype) + bias.to(x.dtype)
+    if residual is not None:
+        y = y + residual
+    return torch.where(mask, y, torch.zeros((), dtype=y.dtype,
+                                            device=y.device))
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TAIL_SHAPES)
+def test_kernel_backward_matches_plain_version(shape, dtype, residual):
+    """The kernel forward under ``torch.autograd.Function`` against
+    autograd through the plain version, with the incoming gradient a
+    non-contiguous view (as cuDNN's channels-last permutations hand it
+    over): forward bit-equal in fp32, within 2e-2 in bf16; gradients
+    within 1e-5 (fp32) and 2e-2 (bf16) of the largest magnitude; one
+    launch per forward. The plain version's backward takes the kernel's
+    ReLU branches: in bf16 the kernel rounds the sum once and the plain
+    chain after each op, so a sum within an ulp of zero lands on either
+    side (0.03% of the elements measured), and the gradient of such an
+    element is all or nothing; in fp32 no branch may differ."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    c = shape[-1]
+    rnd = lambda s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    x, r = rnd(shape).to(dtype), rnd(shape).to(dtype)
+    s, b = rnd((c,)) + 1.0, rnd((c,))
+    perm = (0, 3, 1, 2)
+    grad = rnd(tuple(shape[i] for i in perm)).to(dtype).permute(0, 2, 3, 1)
+    assert not grad.is_contiguous()
+    ins = [x, s, b] + ([r] if residual else [])
+    leaves = [t.clone().requires_grad_() for t in ins]
+    ref_leaves = [t.clone().requires_grad_() for t in ins]
+    before = K.launches
+    out = K.scale_bias_add_relu(*leaves[:3],
+                                leaves[3] if residual else None)
+    assert K.launches == before + 1
+    assert type(out.grad_fn).__name__ == "_ScaleBiasAddReLUBackward"
+    res_in = ref_leaves[3] if residual else None
+    want = K.scale_bias_add_relu_reference(*ref_leaves[:3], res_in)
+    mask = out.detach() > 0
+    flips = int((mask != (want.detach() > 0)).sum())
+    masked = _masked_tail(*ref_leaves[:3], res_in, mask)
+    got_g = torch.autograd.grad(out, leaves, grad)
+    want_g = torch.autograd.grad(masked, ref_leaves, grad)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1          # the backward launches nothing
+    if dtype == torch.float32:
+        assert torch.equal(out, want) and flips == 0
+    assert flips <= 1e-3 * out.numel(), flips
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    _close(out, want, tol)
+    for a, w in zip(got_g, want_g):
+        assert a.dtype == w.dtype
+        scale = w.float().abs().max().item()
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                   atol=tol * max(scale, 1e-30))
+
+
+def test_block_tail_gradients_reach_every_input_on_card():
+    """The repaired fault: through the kernel, the channels-last
+    ``_contrib_BatchNormAddReLU`` in training mode passes gradients to
+    data, addend, gamma and beta (they were silently lost), equal to the
+    CPU's within 1e-4 of the largest magnitude (TF32 plays no part)."""
+    _need_card()
+    from mxnet_tpu_torch.ops.registry import get_op
+    op = get_op("_contrib_BatchNormAddReLU")
+    rs = np.random.RandomState(5)
+    shape, c = (8, 7, 7, 64), 64
+    host = [rs.randn(*shape), rs.randn(*shape), rs.rand(c) + 0.5,
+            rs.randn(c), rs.randn(c), rs.rand(c) + 0.5]
+    cot = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in host]
+        leaves = [a.requires_grad_() for a in t[:4]]
+        before = K.launches
+        out = op.fn(*leaves, *t[4:], axis=3, eps=1e-5, fix_gamma=False,
+                    _train=True)[0]
+        assert K.launches == before + (dev == "cuda")
+        res[dev] = [gr.cpu() for gr in torch.autograd.grad(
+            out, leaves, cot.to(dev))]
+    for a, b, name in zip(res["cuda"], res["cpu"],
+                          ("data", "addend", "gamma", "beta")):
+        assert float(a.abs().max()) > 0, name
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def _raw_steps(net, x, y, steps, ctx):
+    """``bench.py``'s raw step in fp32 through ``make_pure_fn``: SGD
+    momentum 0.9, lr 0.05, BN running stats from the aux map."""
+    from mxnet_tpu_torch.gluon.block import make_pure_fn
+    from mxnet_tpu_torch.ops import optimizer_ops as O
+    dev = ctx.torch_device()
+    fn, raw, names = make_pure_fn(net, train=True)
+    master = [r.detach().to(dev, copy=True) for r in raw]
+    mom = [torch.zeros_like(m) for m in master]
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    losses = []
+    for _ in range(steps):
+        full = [m.detach().requires_grad_() for m in master]
+        (logits,), aux = fn(full, [xt])
+        loss = -torch.log_softmax(logits, -1).gather(1, yt[:, None]).mean()
+        grads = torch.autograd.grad(loss, full, allow_unused=True)
+        losses.append(float(loss.detach()))
+        with torch.no_grad():
+            for i, gr in enumerate(grads):
+                if i in aux:
+                    master[i] = aux[i]
+                elif gr is not None:
+                    master[i], mom[i] = O.sgd_mom_update(
+                        master[i], gr, mom[i], lr=0.05, momentum=0.9)
+    return losses, [m.cpu().numpy() for m in master], names
+
+
+def test_small_resnet_raw_step_on_card_matches_cpu(monkeypatch):
+    """Two raw training steps of the small fused-tail ResNet v1 on the
+    card (4 kernel launches per step) and on the CPU from the same
+    weights, TF32 off: losses within 1e-4 relative, every weight within
+    1e-3 of its tensor's largest magnitude (the conv biases: of all
+    weights')."""
+    _need_card()
+    monkeypatch.setenv("MXNET_FUSED_BN_ADD_RELU", "1")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    mt.layout.set_default_layout("NHWC")
+    try:
+        with mt.name.NameManager():
+            net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                                  [8, 16, 32, 64, 128], classes=10,
+                                  thumbnail=True)
+    finally:
+        mt.layout.set_default_layout(None)
+    net.initialize(mt.init.Xavier(generator=torch.Generator().manual_seed(0)),
+                   ctx=mt.cpu())
+    net(mt.nd.zeros((1, 32, 32, 3), ctx=mt.cpu()))
+    rs = np.random.RandomState(1)
+    x = rs.uniform(-1, 1, (16, 32, 32, 3)).astype(np.float32)
+    y = rs.randint(0, 10, 16).astype(np.int64)
+    before = K.launches
+    card = _raw_steps(net, x, y, 2, mt.gpu(0))
+    assert K.launches == before + 8
+    host = _raw_steps(net, x, y, 2, mt.cpu())
+    np.testing.assert_allclose(card[0], host[0], rtol=1e-4)
+    assert card[0][1] < card[0][0]
+    largest = max(np.abs(b).max() for b in host[1])
+    for n, a, b in zip(card[2], card[1], host[1]):
+        # a conv bias ahead of a BatchNorm has a zero gradient in exact
+        # arithmetic: its value is rounding noise on both sides, held to
+        # the largest magnitude of all weights
+        scale = largest if "conv" in n and n.endswith("_bias") \
+            else np.abs(b).max()
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-3 * max(scale, 1e-30), err_msg=n)
+
+
 # -- flash attention: K2 (forward / carry) and K3 (backward) ----------------
 
 # (B, H, Sq, Skv, D): small, ragged in both lengths, head dims 3..128 (3,

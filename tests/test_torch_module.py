@@ -1,0 +1,460 @@
+"""``mx.mod.Module`` of the PyTorch port against the JAX package's.
+
+The small bottleneck ResNet v1 (32x32 NHWC, fused block tails) captured
+as a symbol with ``SoftmaxOutput`` on top, the same way ``HybridBlock.export``
+captures it, trains 6 batches through ``Module.fit`` in both packages
+from the same carried weights (``weights.load_into_module``) on the same
+``NDArrayIter`` batches: the port's fused batch step and its phase-split
+path, mirroring ``tests/test_module_fused_step.py``. Also: ``grad_req='add'``,
+the iterator's batch order under ``shuffle``, and checkpoints and
+optimizer states across the two packages' file formats.
+
+Tolerances: within the port, fused and phase-split are bit-equal (one
+arithmetic). Against JAX: parameters, aux states and momenta rtol 1e-4,
+atol 1e-5; the accuracy sums exactly equal; the cross-entropy 1e-5
+relative (an fp32 running sum).
+"""
+import os
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu as mx
+from mxnet_tpu.gluon.model_zoo.vision import resnet as jres
+
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres
+
+B, HW, CLASSES, NBATCH = 8, 32, 10, 6
+OPT = {"learning_rate": 0.05, "momentum": 0.9, "rescale_grad": 1.0 / B}
+
+
+@pytest.fixture
+def pin(monkeypatch):
+    """Pin MXNET_MODULE_FUSED_STEP (the fused/phase-split A/B knob)."""
+    def _pin(fused):
+        monkeypatch.setenv("MXNET_MODULE_FUSED_STEP", "1" if fused else "0")
+    return _pin
+
+
+def _resnet_symbol(pkg, res, monkeypatch):
+    monkeypatch.setenv("MXNET_FUSED_BN_ADD_RELU", "1")
+    pkg.layout.set_default_layout("NHWC")
+    try:
+        with pkg.name.NameManager():
+            net = res.ResNetV1(res.BottleneckV1, [1, 1, 1, 1],
+                               [8, 16, 32, 64, 128], classes=CLASSES,
+                               thumbnail=True)
+            out = net(pkg.sym.Variable("data"))
+            return pkg.sym.SoftmaxOutput(out, pkg.sym.Variable(
+                "softmax_label"), name="softmax")
+    finally:
+        pkg.layout.set_default_layout(None)
+
+
+def _data():
+    rs = np.random.RandomState(0)
+    return (rs.uniform(-1, 1, (NBATCH * B, HW, HW, 3)).astype(np.float32),
+            rs.randint(0, CLASSES, NBATCH * B).astype(np.float32))
+
+
+def _shapes():
+    return ([("data", (B, HW, HW, 3))], [("softmax_label", (B,))])
+
+
+def _jax_module(sym):
+    mod = mx.mod.Module(sym, context=mx.cpu())
+    mod.bind(*_shapes())
+    np.random.seed(3)
+    mod.init_params(mx.initializer.Xavier())
+    return mod
+
+
+def _port_module(sym, arg, aux):
+    mod = mt.mod.Module(sym, context=mt.cpu())
+    mod.bind(*_shapes())
+    mt.weights.load_into_module(mod, arg, aux)
+    return mod
+
+
+def _fit(pkg, mod, x, y):
+    np.random.seed(5)
+    it = pkg.io.NDArrayIter(x, y, batch_size=B, shuffle=True)
+    metric = pkg.metric.create(["acc", "ce"])
+    mod.fit(it, eval_metric=metric, optimizer="sgd", optimizer_params=OPT,
+            num_epoch=1)
+    return metric
+
+
+def _jax_numpy(mod):
+    arg, aux = mod.get_params()
+    states = pickle.loads(mod._updater.get_states())
+    return ({k: v.asnumpy() for k, v in arg.items()},
+            {k: v.asnumpy() for k, v in aux.items()}, states)
+
+
+def test_module_fit_matches_jax_fused_and_phase_split(monkeypatch, pin):
+    x, y = _data()
+    jsym = _resnet_symbol(mx, jres, monkeypatch)
+    tsym = _resnet_symbol(mt, tres, monkeypatch)
+    assert jsym.list_arguments() == tsym.list_arguments()
+    assert jsym.list_auxiliary_states() == tsym.list_auxiliary_states()
+    jmod = _jax_module(jsym)
+    arg0, aux0, _ = _jax_numpy_params(jmod)
+    jmetric = _fit(mx, jmod, x, y)
+    j_arg, j_aux, j_states = _jax_numpy(jmod)
+    runs = {}
+    for fused in (True, False):
+        pin(fused)
+        tmod = _port_module(tsym, arg0, aux0)
+        metric = _fit(mt, tmod, x, y)
+        assert (tmod._fused_fallback_reason is None) == fused
+        if not fused:
+            assert tmod._fused_fallback_reason.code == "env_pin"
+        runs[fused] = (mt.weights.module_to_numpy(tmod), metric)
+    (f_arg, f_aux, f_states), f_metric = runs[True]
+    (s_arg, s_aux, s_states), s_metric = runs[False]
+    for k in f_arg:
+        np.testing.assert_array_equal(f_arg[k], s_arg[k], err_msg=k)
+    for k in f_aux:
+        np.testing.assert_array_equal(f_aux[k], s_aux[k], err_msg=k)
+    assert sorted(f_states) == sorted(s_states) == sorted(j_states)
+    for i in f_states:
+        np.testing.assert_array_equal(f_states[i], s_states[i])
+    assert f_metric.get() == s_metric.get()
+    for got, want in ((f_arg, j_arg), (f_aux, j_aux)):
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+    for i in j_states:
+        np.testing.assert_allclose(f_states[i], np.asarray(j_states[i]),
+                                   rtol=1e-4, atol=1e-5, err_msg=str(i))
+    (jn, jv), (tn, tv) = jmetric.get(), f_metric.get()
+    assert jn == tn == ["accuracy", "cross-entropy"]
+    acc_j, acc_t = jmetric.get_metric(0), f_metric.get_metric(0)
+    assert (acc_t.sum_metric, acc_t.num_inst) == \
+        (acc_j.sum_metric, acc_j.num_inst)
+    np.testing.assert_allclose(tv[1], jv[1], rtol=1e-5)
+
+
+def _jax_numpy_params(mod):
+    arg, aux = mod.get_params()
+    return ({k: v.asnumpy() for k, v in arg.items()},
+            {k: v.asnumpy() for k, v in aux.items()}, None)
+
+
+def _mlp(pkg):
+    data = pkg.sym.Variable("data")
+    net = pkg.sym.FullyConnected(data, num_hidden=16, name="fc1")
+    net = pkg.sym.Activation(net, act_type="relu")
+    net = pkg.sym.FullyConnected(net, num_hidden=4, name="fc2")
+    return pkg.sym.SoftmaxOutput(net, pkg.sym.Variable("softmax_label"),
+                                 name="softmax")
+
+
+def _mlp_batches(pkg, nbatch=6, batch=16, d=8, seed=7):
+    rs = np.random.RandomState(seed)
+    ctx = {"ctx": mt.cpu()} if pkg is mt else {}
+    return [pkg.io.DataBatch(
+        data=[pkg.nd.array(rs.uniform(-1, 1, (batch, d)).astype(np.float32),
+                           **ctx)],
+        label=[pkg.nd.array(rs.randint(0, 4, batch).astype(np.float32),
+                            **ctx)], pad=0) for _ in range(nbatch)]
+
+
+def _mlp_module(pkg, grad_req, arg=None):
+    ctx = mt.cpu() if pkg is mt else mx.cpu()
+    mod = pkg.mod.Module(_mlp(pkg), context=ctx)
+    mod.bind(data_shapes=[("data", (16, 8))],
+             label_shapes=[("softmax_label", (16,))], grad_req=grad_req)
+    if arg is None:
+        np.random.seed(11)
+        mod.init_params(mx.initializer.Xavier())
+    else:
+        mt.weights.load_into_module(mod, arg, {})
+    mod.init_optimizer(kvstore=None, optimizer="sgd", optimizer_params={
+        "learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4})
+    return mod
+
+
+@pytest.mark.parametrize("grad_req", ["write", "add"])
+def test_fused_step_grad_req_matches_jax(grad_req, pin):
+    """``fused_step`` over 6 batches of an MLP with weight decay: with
+    ``grad_req='add'`` the gradient arrays accumulate across steps and the
+    updates read the running sums; the port's fused and phase-split steps
+    agree bit for bit, and both the JAX package's (params, momenta,
+    accumulators, accuracy)."""
+    jmod = _mlp_module(mx, grad_req)
+    arg0 = {k: v.asnumpy() for k, v in jmod.get_params()[0].items()}
+    jmetric = mx.metric.Accuracy()
+    for b in _mlp_batches(mx):
+        assert jmod.fused_step(b, eval_metric=jmetric)
+    results = {}
+    for fused in (True, False):
+        pin(fused)
+        tmod = _mlp_module(mt, grad_req, arg0)
+        metric = mt.metric.Accuracy()
+        for b in _mlp_batches(mt):
+            assert tmod.fused_step(b, eval_metric=metric) == fused
+        grads = {n: g.asnumpy() for n, g in tmod._exec.grad_dict.items()
+                 if g is not None}
+        results[fused] = (mt.weights.module_to_numpy(tmod), grads,
+                          metric.get())
+    (fa, _, fs), fg, fm = results[True]
+    (sa, _, ss), sg, sm = results[False]
+    assert fm == sm
+    for k in fa:
+        np.testing.assert_array_equal(fa[k], sa[k], err_msg=k)
+    for i in fs:
+        np.testing.assert_array_equal(fs[i], ss[i])
+    ja, _, js = _jax_numpy(jmod)
+    for k in ja:
+        np.testing.assert_allclose(fa[k], ja[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    for i in js:
+        np.testing.assert_allclose(fs[i], np.asarray(js[i]), rtol=1e-4,
+                                   atol=1e-5)
+    assert fm == jmetric.get()
+    if grad_req == "add":
+        for n, g in jmod._exec.grad_dict.items():
+            if g is None:
+                continue
+            np.testing.assert_array_equal(fg[n], sg[n], err_msg=n)
+            np.testing.assert_allclose(fg[n], g.asnumpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=n)
+            assert np.abs(fg[n]).max() > 0
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_fused_step_takes_any_optimizer(momentum, pin):
+    """The fused batch step serves whatever optimizer the updater takes:
+    NAG with momentum (its batch kernel) and without (no state, so the
+    updater's per-parameter loop) runs fused, bit-equal to the
+    phase-split path and within rtol 1e-4, atol 1e-5 of the JAX
+    package's NAG."""
+    params = {"learning_rate": 0.05, "momentum": momentum, "wd": 1e-4}
+    jmod = _mlp_module(mx, "write")
+    jmod.init_optimizer(kvstore=None, optimizer="nag",
+                        optimizer_params=params, force_init=True)
+    arg0 = {k: v.asnumpy() for k, v in jmod.get_params()[0].items()}
+    for b in _mlp_batches(mx):
+        jmod.fused_step(b)
+    runs = {}
+    for fused in (True, False):
+        pin(fused)
+        tmod = _mlp_module(mt, "write", arg0)
+        tmod.init_optimizer(kvstore=None, optimizer="nag",
+                            optimizer_params=params, force_init=True)
+        for b in _mlp_batches(mt):
+            assert tmod.fused_step(b) == fused
+        runs[fused] = mt.weights.module_to_numpy(tmod)[0]
+    ja = _jax_numpy(jmod)[0]
+    for k in ja:
+        np.testing.assert_array_equal(runs[True][k], runs[False][k])
+        np.testing.assert_allclose(runs[True][k], ja[k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+
+
+def test_bf16_master_weights_fused_equals_phase_split(pin):
+    """A bf16 data desc binds a bf16 executor; ``multi_precision`` keeps
+    fp32 masters in the optimizer state (``(momentum, master)``), and the
+    weights are the masters rounded to nearest even; fused and
+    phase-split agree bit for bit."""
+    out = {}
+    for fused in (True, False):
+        pin(fused)
+        mod = mt.mod.Module(_mlp(mt), context=mt.cpu())
+        mod.bind(data_shapes=[mt.io.DataDesc("data", (16, 8),
+                                             dtype="bfloat16")],
+                 label_shapes=[("softmax_label", (16,))])
+        mod.init_params(mt.init.Xavier(
+            generator=torch.Generator().manual_seed(0)))
+        mod.init_optimizer(kvstore=None, optimizer="sgd", optimizer_params={
+            "learning_rate": 0.05, "momentum": 0.9,
+            "multi_precision": True})
+        for b in _mlp_batches(mt):
+            mod.fused_step(b)
+        w = mod._exec.arg_dict["fc1_weight"]._data
+        assert w.dtype == torch.bfloat16
+        mom, master = mod._updater.states[0]
+        assert master._data.dtype == torch.float32
+        assert torch.equal(master._data.to(torch.bfloat16), w)
+        out[fused] = mt.weights.module_to_numpy(mod)
+    for k in out[True][0]:
+        np.testing.assert_array_equal(out[True][0][k], out[False][0][k])
+    for i in out[True][2]:
+        for a, b in zip(out[True][2][i], out[False][2][i]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_ndarray_iter_batch_order_matches_jax():
+    """Same numpy seed, same batches: shuffle at construction and at every
+    reset, and the wrapped pad of the short last batch."""
+    rs = np.random.RandomState(2)
+    x = rs.randn(23, 3).astype(np.float32)
+    y = np.arange(23).astype(np.float32)
+    seqs = []
+    for pkg in (mx, mt):
+        np.random.seed(1)
+        it = pkg.io.NDArrayIter(x, y, batch_size=5, shuffle=True)
+        seq = []
+        for _ in range(2):
+            for b in it:
+                seq.append((b.data[0].asnumpy(), b.label[0].asnumpy(),
+                            b.pad))
+            it.reset()
+        assert [d.name for d in it.provide_data] == ["data"]
+        assert it.provide_label[0].shape == (5,)
+        seqs.append(seq)
+    assert len(seqs[0]) == len(seqs[1]) == 10
+    for (jd, jl, jp), (td, tl, tp) in zip(*seqs):
+        np.testing.assert_array_equal(jd, td)
+        np.testing.assert_array_equal(jl, tl)
+        assert jp == tp
+    assert seqs[1][4][2] == 2                     # 23 = 4 * 5 + 3
+    for pkg in (mx, mt):
+        it = pkg.io.NDArrayIter(x, y, batch_size=5,
+                                last_batch_handle="discard")
+        assert len(list(it)) == 4
+
+
+def test_checkpoints_cross_load_between_packages(tmp_path, pin):
+    """``save_checkpoint`` (symbol, params, optimizer states) of the port
+    loads in the JAX package and the JAX package's in the port."""
+    jmod = _mlp_module(mx, "write")
+    for b in _mlp_batches(mx, nbatch=2):
+        jmod.fused_step(b)
+    jprefix = str(tmp_path / "jax")
+    jmod.save_checkpoint(jprefix, 3, save_optimizer_states=True)
+    tmod = mt.mod.Module.load(jprefix, 3, load_optimizer_states=True,
+                              context=mt.cpu())
+    tmod.bind(data_shapes=[("data", (16, 8))],
+              label_shapes=[("softmax_label", (16,))])
+    tmod.init_optimizer(kvstore=None, optimizer="sgd", optimizer_params={
+        "learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4})
+    ja, _, js = _jax_numpy(jmod)
+    ta, _, ts = mt.weights.module_to_numpy(tmod)
+    for k in ja:
+        np.testing.assert_array_equal(ta[k], ja[k])
+    for i in js:
+        np.testing.assert_array_equal(ts[i], np.asarray(js[i]))
+    # one more batch each from the same state: still together
+    b_j, b_t = _mlp_batches(mx, 1, seed=9)[0], _mlp_batches(mt, 1, seed=9)[0]
+    jmod.fused_step(b_j)
+    tmod.fused_step(b_t)
+    ja, _, _ = _jax_numpy(jmod)
+    ta, _, _ = mt.weights.module_to_numpy(tmod)
+    for k in ja:
+        np.testing.assert_allclose(ta[k], ja[k], rtol=1e-5, atol=1e-6)
+    # and back: the port's checkpoint in the JAX package
+    tprefix = str(tmp_path / "port")
+    tmod.save_checkpoint(tprefix, 4, save_optimizer_states=True)
+    sym, arg, aux = mx.model.load_checkpoint(tprefix, 4)
+    assert sym.list_arguments() == tmod.symbol.list_arguments()
+    for k in ta:
+        np.testing.assert_array_equal(arg[k].asnumpy(), ta[k])
+    jmod2 = _mlp_module(mx, "write")
+    jmod2.load_optimizer_states("%s-0004.states" % tprefix)
+    _, _, ts = mt.weights.module_to_numpy(tmod)
+    for i, st in ts.items():
+        np.testing.assert_array_equal(
+            np.asarray(getattr(jmod2._updater.states[i], "asnumpy",
+                               lambda: jmod2._updater.states[i])()), st)
+
+
+def test_fit_callbacks_write_jax_checkpoints(tmp_path, caplog):
+    """``do_checkpoint``/``module_checkpoint`` as epoch-end callbacks and
+    ``Speedometer``/``log_train_metric`` as batch-end callbacks of the
+    port's ``fit``: the checkpoints load in the JAX package."""
+    import logging
+    caplog.set_level(logging.INFO)
+    x = np.random.RandomState(4).uniform(-1, 1, (48, 8)).astype(np.float32)
+    y = np.random.RandomState(5).randint(0, 4, 48).astype(np.float32)
+    mod = mt.mod.Module(_mlp(mt), context=mt.cpu())
+    prefix = str(tmp_path / "cb")
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=16), num_epoch=2,
+            optimizer_params={"learning_rate": 0.1},
+            initializer=mt.init.Xavier(
+                generator=torch.Generator().manual_seed(0)),
+            epoch_end_callback=[mt.callback.do_checkpoint(prefix),
+                                mt.callback.module_checkpoint(
+                                    mod, prefix + "-m", period=2,
+                                    save_optimizer_states=True)],
+            batch_end_callback=[mt.callback.Speedometer(16, frequent=1),
+                                mt.callback.log_train_metric(1)])
+    assert "samples/sec" in caplog.text and "Train-accuracy" in caplog.text
+    arg, _ = mod.get_params()
+    for epoch in (1, 2):
+        sym, jarg, _ = mx.model.load_checkpoint(prefix, epoch)
+        assert sym.list_arguments() == mod.symbol.list_arguments()
+    for k, v in arg.items():
+        np.testing.assert_array_equal(jarg[k].asnumpy(), v.asnumpy())
+    _, marg, _ = mx.model.load_checkpoint(prefix + "-m", 2)
+    for k, v in arg.items():
+        np.testing.assert_array_equal(marg[k].asnumpy(), v.asnumpy())
+    assert os.path.exists(prefix + "-m-0002.states")
+    assert not os.path.exists(prefix + "-m-0001.params")
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("FactorScheduler", {"step": 3, "factor": 0.5, "stop_factor_lr": 1e-3}),
+    ("MultiFactorScheduler", {"step": [2, 5, 9], "factor": 0.3}),
+    ("PolyScheduler", {"max_update": 12, "pwr": 2}),
+    ("CosineScheduler", {"max_update": 12, "warmup_steps": 3})])
+def test_lr_schedulers_match_jax(name, kwargs):
+    """The port's schedulers give the JAX package's rates, and SGD with a
+    scheduler takes the same steps."""
+    js = getattr(mx.lr_scheduler, name)(base_lr=0.1, **kwargs)
+    ts = getattr(mt.lr_scheduler, name)(base_lr=0.1, **kwargs)
+    assert [js(n) for n in range(16)] == [ts(n) for n in range(16)]
+    weights = []
+    for pkg, ctx in ((mx, {}), (mt, {"ctx": mt.cpu()})):
+        opt = pkg.optimizer.create("sgd", learning_rate=0.1,
+                                   lr_scheduler=getattr(
+                                       pkg.lr_scheduler, name)(**kwargs))
+        w = pkg.nd.ones((2,), **ctx)
+        for _ in range(6):
+            opt.update(0, w, pkg.nd.ones((2,), **ctx), None)
+            weights.append(float(w.asnumpy()[0]))
+    np.testing.assert_allclose(weights[6:], weights[:6], rtol=1e-6)
+
+
+def test_forward_then_backward_equals_forward_backward():
+    """``forward(is_train=True)`` then ``backward()`` (the graph of the
+    training forward is kept) gives the gradients and updates of one
+    ``forward_backward()``; moving stats of a BN graph are written once."""
+    results = []
+    for split in (True, False):
+        mod = _mlp_module(mt, "write", {
+            "fc1_weight": np.full((16, 8), 0.1, np.float32),
+            "fc1_bias": np.zeros(16, np.float32),
+            "fc2_weight": np.linspace(-1, 1, 64, dtype=np.float32)
+            .reshape(4, 16), "fc2_bias": np.zeros(4, np.float32)})
+        for b in _mlp_batches(mt, nbatch=3):
+            if split:
+                mod.forward(b, is_train=True)
+                mod.backward()
+            else:
+                mod.forward_backward(b)
+            mod.update()
+        results.append(mt.weights.module_to_numpy(mod))
+    for k in results[0][0]:
+        np.testing.assert_array_equal(results[0][0][k], results[1][0][k])
+    sym = mt.sym.BatchNorm(mt.sym.Variable("data"), name="bn")
+    ex = sym.simple_bind(ctx=mt.cpu(), grad_req="write", data=(6, 3))
+    ex.arg_dict["data"][:] = np.arange(18, dtype=np.float32).reshape(6, 3)
+    ex.forward(is_train=True)
+    ex.backward(mt.nd.ones((6, 3), ctx=mt.cpu()))
+    np.testing.assert_allclose(ex.aux_dict["bn_moving_mean"].asnumpy(),
+                               0.1 * np.array([7.5, 8.5, 9.5]), rtol=1e-6)
+
+
+def test_module_defaults_to_the_card():
+    """Without ``context`` a Module runs on ``gpu(0)``: with no CUDA
+    device it raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        mt.mod.Module(_mlp(mt))
