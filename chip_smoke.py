@@ -72,7 +72,23 @@ Phases (any failure exits non-zero; no error is swallowed):
    of each tensor's largest value on the card's ReLU branches. Last,
    K1's backward against its plain version at the batch-32 tail shapes
    (fp32 and bf16, strided incoming gradient) with its time and bound.
-8. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+8. decode — ``bench.py``'s decode workload on the port: the KV-cached
+   ``AttentionDecodeCell`` (vocab 8192, embed 512, 8 heads of 64,
+   max_len 512, fp32, TF32 off, ``init_params(1)``) through
+   ``DecodeEngine`` with 16 slots. Four prompts one at a time, then all
+   at once (``keep_logits``): tokens equal; then recomputed by the port
+   on the CPU: tokens equal up to the first top-2 logit margin under
+   1e-4 of the largest |logit|, logits within that. Then bench.py's
+   static (wave-synchronised) and continuous (open-loop) legs, 4 waves
+   of one 192-token and fifteen 16-token generations: tok/s, token and
+   request latency percentiles, steps, peak memory, and the allocator's
+   segment count after warmup and after both legs, which must be equal;
+   a profile of one full-bucket decode step and one prefill (device
+   busy, idle share, device operations per call); a short bf16 run and
+   the LSTM cell at the attention cell's widths against the CPU. The
+   path runs no hand-written kernel: the JAX package's decode is plain
+   ``jnp``.
+9. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
@@ -81,7 +97,7 @@ Phases (any failure exits non-zero; no error is swallowed):
    ``launches`` is the count on that kernel's main paths (K1: serving and
    training) — and, last, the ``{"ok": true, "device": {...}}`` line.
 
-``--cpu-rehearsal`` runs phases 3-7 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-8 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -283,9 +299,10 @@ def kernel_phase(dev, rate):
 
 
 def profile_forward(fn, reps=3):
-    """Host wall time and device busy time per call of ``fn`` from a
-    ``torch.profiler`` trace (CUDA kernel self time summed by name); the
-    device numbers are None when the trace holds no device events."""
+    """Host wall time, device busy time and device operations (kernels and
+    copies) per call of ``fn`` from a ``torch.profiler`` trace (CUDA self
+    time summed by name); the device numbers are None when the trace
+    holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -302,13 +319,17 @@ def profile_forward(fn, reps=3):
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0),
                   key=lambda kv: -kv[1])
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0) / reps
     busy = sum(ms for _, ms in kern) if kern else None
     classes = collections.Counter()
     for k, ms in kern:
         classes[_kernel_class(k)] += ms
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": None if busy is None else 1 - busy / wall_ms,
-            "kernels": len(kern), "device_ms_by_class": dict(classes),
+            "kernels": len(kern), "device_ops_per_call": launches,
+            "device_ms_by_class": dict(classes),
             "top": [[k[:80], ms] for k, ms in kern[:8]]}
 
 
@@ -1374,8 +1395,209 @@ def resnet_training_phase(mx, ctx, dev, rate, rehearsal):
     return launches, tail_backward_phase(dev, rate, rehearsal)
 
 
+# bench.py:991-994, decode_child: the attention cell at the repo's full
+# decode width, 16 slots, 4 waves of one 192-token and fifteen 16-token
+# generations from 16-token prompts; the rehearsal takes bench.py's own
+# smoke sizes (:985-988)
+_DECODE = {False: (dict(vocab=8192, embed=512, heads=8, head_dim=64,
+                        max_len=512), 16, 4, 16, 192, 16),
+           True: (dict(vocab=256, embed=64, heads=8, head_dim=16,
+                       max_len=64), 8, 4, 4, 32, 4)}
+_DECODE_TOL = 1e-4      # card against CPU, of the largest |logit|
+
+
+def _margin_cut(logits, tol):
+    """First position whose top-2 logit margin is under ``tol`` (the
+    length when there is none): from it on, rounding may pick the other
+    token; logits rows up to it depend only on the tokens before it."""
+    top2 = np.sort(logits, axis=-1)[:, -2:]
+    small = np.nonzero(top2[:, 1] - top2[:, 0] < tol)[0]
+    return int(small[0]) if small.size else len(logits)
+
+
+def _against_cpu(mx, cell, params, prompts, got, **kw):
+    """The same prompts recomputed by the port on the CPU: tokens equal up
+    to the first thin top-2 margin, logits rows to it within
+    ``_DECODE_TOL`` of the largest |logit|. Returns the error, the
+    positions compared and the positions cut."""
+    from mxnet_tpu_torch.decode import DecodeEngine
+    with DecodeEngine(cell, params, slots=len(prompts), keep_logits=True,
+                      ctx=mx.cpu(), **kw) as ce:
+        want = [ce.generate(p) for p in prompts]
+    worst, compared, cut_total = 0.0, 0, 0
+    for g, w in zip(got, want):
+        scale = float(np.abs(w.logits).max())
+        cut = _margin_cut(w.logits, _DECODE_TOL * scale)
+        assert g.tokens[:cut] == w.tokens[:cut], (g.tokens, w.tokens, cut)
+        rows = min(cut + 1, len(w.logits))
+        worst = max(worst, float(np.abs(g.logits[:rows] - w.logits[:rows])
+                                 .max()) / scale)
+        compared += cut
+        cut_total += len(w.tokens) - cut
+    assert worst <= _DECODE_TOL, worst
+    return {"max_abs_err_over_max_logit": worst, "tol": _DECODE_TOL,
+            "positions_compared": compared, "positions_cut": cut_total}
+
+
+def _segments(gpu):
+    return torch.cuda.memory_stats()["segment.all.allocated"] if gpu \
+        else None
+
+
+def _pcts(samples):
+    a = np.asarray(samples, np.float64)
+    return {"p50_ms": float(np.percentile(a, 50)),
+            "p95_ms": float(np.percentile(a, 95)),
+            "p99_ms": float(np.percentile(a, 99))} if a.size else None
+
+
+def decode_phase(mx, ctx, rehearsal):
+    """bench.py's decode_child on the port: equivalence on the card and
+    against the CPU, the static and continuous legs, a profile of one
+    full-bucket step and one prefill, then bf16 and the LSTM cell."""
+    from mxnet_tpu_torch.decode import (DecodeEngine, AttentionDecodeCell,
+                                        LSTMDecodeCell)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = ctx.device_type == "gpu"
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+    dims, slots, waves, short, long_, prompt_len = _DECODE[rehearsal]
+    cell = AttentionDecodeCell(**dims)
+    params = cell.init_params(1)
+    kw = dict(slots=slots, max_prompt_len=prompt_len * 2)
+    check = [np.random.RandomState(1 + i).randint(
+        1, cell.vocab - 1, prompt_len).astype(np.int32) for i in range(4)]
+
+    # -- 1-2. equivalence: one at a time, then all at once, then the CPU --
+    with DecodeEngine(cell, params, keep_logits=True, max_new_tokens=32,
+                      ctx=ctx, **kw) as eq:
+        serial = [eq.generate(p) for p in check]
+        futs = [eq.submit(p) for p in check]
+        batched = [f.result(timeout=600) for f in futs]
+    for a, b in zip(serial, batched):
+        assert a.tokens == b.tokens, (a.tokens, b.tokens)
+    bucket_gap = max(float(np.abs(a.logits - b.logits).max()
+                           / np.abs(a.logits).max())
+                     for a, b in zip(serial, batched))
+    emit({"decode_equivalence": {
+        "prompts": len(check), "new_tokens": 32, "tf32": False,
+        "serial_vs_batched_tokens_equal": True,
+        "serial_vs_batched_max_abs_err_over_max_logit": bucket_gap,
+        "cpu_recompute": _against_cpu(mx, cell, params, check, serial,
+                                      max_new_tokens=32,
+                                      max_prompt_len=prompt_len * 2)}})
+
+    # -- 3. bench.py's two legs, counts read around them -------------------
+    rng = np.random.RandomState(0)
+
+    def prompt():
+        return rng.randint(1, cell.vocab - 1, prompt_len).astype(np.int32)
+
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = DecodeEngine(cell, params, max_new_tokens=long_, ctx=ctx, **kw)
+    startup = time.perf_counter() - t0
+    seg_warm = _segments(gpu)
+    plan = [[(prompt(), long_ if s == 0 else short) for s in range(slots)]
+            for _ in range(waves)]
+    total = sum(n for wave in plan for _, n in wave)
+    stream = sorted((seq for wave in plan for seq in wave),
+                    key=lambda s: -s[1])
+    legs, outs = {}, []
+    for leg in ("static", "continuous"):
+        # the engine's own latency samples, sliced to this leg
+        n_tok, n_req = len(eng._tok_lat), len(eng._req_lat)
+        steps0 = eng.stats()["steps"]
+        t0 = time.perf_counter()
+        if leg == "static":      # wave-synchronised
+            for wave in plan:
+                futs = [eng.submit(p, max_new_tokens=n) for p, n in wave]
+                outs += [(f.result(timeout=600), n)
+                         for f, (_, n) in zip(futs, wave)]
+        else:                    # the same work, open-loop
+            futs = [eng.submit(p, max_new_tokens=n) for p, n in stream]
+            outs += [(f.result(timeout=600), n)
+                     for f, (_, n) in zip(futs, stream)]
+        dt = time.perf_counter() - t0
+        legs[leg] = {"tok_per_s": total / dt, "seconds": dt,
+                     "steps": eng.stats()["steps"] - steps0,
+                     "token_latency_ms": _pcts(list(eng._tok_lat)[n_tok:]),
+                     "request_latency_ms": _pcts(list(eng._req_lat)[n_req:])}
+    seg_end = _segments(gpu)
+    st = eng.stats()
+    for res, n in outs:
+        assert len(res.tokens) == n, (len(res.tokens), n)
+        assert all(0 <= t < cell.vocab for t in res.tokens)
+    emit({"decode": {
+        "cell": dict(dims, dtype="float32"), "slots": slots,
+        "waves": waves, "gen_short": short, "gen_long": long_,
+        "prompt_len": prompt_len, "total_tokens": total,
+        "engine_startup_s": startup, "kv_cache_bytes": eng.kv_cache_bytes(),
+        "param_bytes": sum(t.nbytes for t in eng._params.values()),
+        "static_tok_s": legs["static"]["tok_per_s"],
+        "continuous_tok_s": legs["continuous"]["tok_per_s"],
+        "decode_speedup": legs["continuous"]["tok_per_s"]
+        / legs["static"]["tok_per_s"],
+        "legs": legs,
+        "stats": {k: st[k] for k in ("tokens", "steps", "slot_fill",
+                                     "shed_requests", "retries",
+                                     "dispatch_failures")},
+        "max_memory_allocated": torch.cuda.max_memory_allocated()
+        if gpu else None,
+        "segments_after_warmup": seg_warm, "segments_after_legs": seg_end}})
+    assert st["tokens"] == 2 * total and not st["shed_requests"], st
+    assert seg_end == seg_warm, ("new allocator segments in steady state",
+                                 seg_warm, seg_end)
+
+    # -- 4. profile of one full-bucket decode step and one prefill ---------
+    if gpu:
+        ids = np.arange(slots, dtype=np.int32)
+        ones = np.ones(slots, np.int32)
+        pos = np.full(slots, prompt_len, np.int32)
+        toks = np.ones(eng.prompt_bucket_for(prompt_len), np.int32)
+        step = lambda: eng._decode_prog(eng._params, eng._cache, ids, ones,
+                                        pos)[1].cpu()
+        prefill = lambda: eng._prefill_prog(eng._params, eng._cache, 0,
+                                            toks, prompt_len)[1].item()
+        emit({"decode_profile": {"full_bucket_step": profile_forward(step),
+                                 "prefill": profile_forward(prefill)}})
+    eng.close()
+
+    # -- 5. bf16, and the LSTM cell at the attention cell's widths --------
+    bcell = AttentionDecodeCell(dtype="bfloat16", **dims)
+    with DecodeEngine(bcell, bcell.init_params(1), keep_logits=True,
+                      max_new_tokens=32, ctx=ctx, **kw) as be:
+        bf = [f.result(timeout=600) for f in [be.submit(p) for p in check]]
+    for r in bf:
+        assert len(r.tokens) == 32 and np.isfinite(r.logits).all()
+        assert all(0 <= t < bcell.vocab for t in r.tokens)
+    lcell = LSTMDecodeCell(vocab=dims["vocab"], embed=dims["embed"],
+                           hidden=dims["embed"], max_len=dims["max_len"])
+    lparams = lcell.init_params(1)
+    with DecodeEngine(lcell, lparams, keep_logits=True, max_new_tokens=32,
+                      ctx=ctx, **kw) as le:
+        t0 = time.perf_counter()
+        lo = [f.result(timeout=600) for f in [le.submit(p) for p in check]]
+        l_s = time.perf_counter() - t0
+    emit({"decode_bf16": {"prompts": len(bf), "new_tokens": 32,
+                          "tokens_in_range": True, "logits_finite": True},
+          "decode_lstm": {
+              "cell": {"vocab": lcell.vocab, "embed": lcell.embed,
+                       "hidden": lcell.hidden, "max_len": lcell.max_len},
+              "widths": "borrowed from the attention cell: no repo file "
+                        "gives the LSTM a full-width configuration",
+              "tok_per_s": 4 * 32 / l_s,
+              "cpu_recompute": _against_cpu(mx, lcell, lparams, check, lo,
+                                            max_new_tokens=32,
+                                            max_prompt_len=prompt_len * 2)}})
+    return legs
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
-          "resnet_training")
+          "resnet_training", "decode")
 
 
 def main(argv=None):
@@ -1422,6 +1644,9 @@ def main(argv=None):
         with phase("resnet_training"):
             res["k1_train_launches"], res["k1_bwd"] = \
                 resnet_training_phase(mx, ctx, dev, rate, rehearsal)
+    if "decode" in todo:
+        with phase("decode"):
+            decode_phase(mx, ctx, rehearsal)
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))

@@ -10,7 +10,8 @@ passes ``ctx=cpu()``. This package imports nothing of JAX or of
 
 Ported so far: serving ResNet v1, training the causal-attention LM
 through ``parallel.SPMDTrainer`` and training ResNet v1 through
-``gluon.block.make_pure_fn`` and ``mx.mod.Module.fit``, each on one
+``gluon.block.make_pure_fn`` and ``mx.mod.Module.fit``, and
+continuous-batching decode through ``decode.DecodeEngine``, each on one
 device; see ROADMAP.md.
 """
 from .base import MXNetError, get_env  # noqa: F401
@@ -41,3 +42,5 @@ from . import callback  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import parallel  # noqa: F401
+from . import rnn  # noqa: F401
+from . import decode  # noqa: F401

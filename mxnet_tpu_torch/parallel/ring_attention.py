@@ -47,18 +47,22 @@ def attention(q, k, v, causal=False, scale=None, q_offset=0, kv_offset=0):
 
 
 def decode_attention(q, k_cache, v_cache, length, scale=None):
-    """Single-query attention against a KV cache: ``q`` (H, D),
-    ``k_cache``/``v_cache`` (H, T, D) with positions ``[0, length)``
-    valid; returns (H, D). A fully masked row (``length == 0``) is 0."""
+    """Single-query attention against a KV cache: ``q`` (..., H, D),
+    ``k_cache``/``v_cache`` (..., H, T, D) with positions ``[0, length)``
+    valid; returns (..., H, D). ``length`` is an int or a tensor of the
+    leading dims' shape, one length per row (the decode engine's batched
+    step gives each slot its own). A fully masked row (``length == 0``)
+    is 0."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    scores = torch.einsum("hd,htd->ht", q, k_cache) * scale
-    pos = torch.arange(k_cache.shape[1], device=q.device)
-    scores = torch.where(pos[None, :] < length, scores, -math.inf)
+    scores = torch.einsum("...hd,...htd->...ht", q, k_cache) * scale
+    pos = torch.arange(k_cache.shape[-2], device=q.device)
+    length = torch.as_tensor(length, device=q.device)
+    scores = torch.where(pos < length[..., None, None], scores, -math.inf)
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(torch.isfinite(scores).any(-1, keepdim=True), probs,
                         0.0)
-    return torch.einsum("ht,htd->hd", probs, v_cache)
+    return torch.einsum("...ht,...htd->...hd", probs, v_cache)
 
 
 # -- shared with ulysses -------------------------------------------------------

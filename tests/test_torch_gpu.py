@@ -560,3 +560,83 @@ def test_lm_trains_on_card_through_both_routes(monkeypatch):
         assert np.isfinite(on_card).all()
         np.testing.assert_allclose(on_card, run(fn, mt.cpu()), rtol=1e-5,
                                    atol=1e-6)
+
+
+# -- continuous-batching decode ---------------------------------------------
+
+DECODE_PROMPTS = ([3, 1, 4, 1, 5], [9, 2, 6], [5, 3, 5, 8, 9, 7, 9, 3],
+                  [2, 7])
+
+
+def _decode_cell(kind):
+    from mxnet_tpu_torch.decode import AttentionDecodeCell, LSTMDecodeCell
+    if kind == "attn":
+        return AttentionDecodeCell(vocab=29, embed=16, heads=4, head_dim=8,
+                                   max_len=48)
+    return LSTMDecodeCell(vocab=23, embed=8, hidden=16, max_len=32)
+
+
+def _decode_engine(cell, ctx, **kw):
+    from mxnet_tpu_torch.decode import DecodeEngine
+    return DecodeEngine(cell, cell.init_params(1), slots=4,
+                        max_prompt_len=16, max_new_tokens=10,
+                        keep_logits=True, ctx=ctx, **kw)
+
+
+@pytest.mark.parametrize("kind", ["attn", "lstm"])
+def test_decode_engine_on_card_matches_cpu(kind, monkeypatch):
+    """The small engine on gpu(0), one at a time and all at once, gives
+    the port's CPU tokens; logits within 1e-5 of the largest |logit|."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cell = _decode_cell(kind)
+    prompts = [np.array(p, np.int32) for p in DECODE_PROMPTS]
+    runs = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        with _decode_engine(cell, ctx) as eng:
+            serial = [eng.generate(p) for p in prompts]
+            futs = [eng.submit(p) for p in prompts]
+            runs[ctx.device_type] = serial + [f.result(timeout=120)
+                                              for f in futs]
+    for got, want in zip(runs["gpu"], runs["cpu"]):
+        assert got.tokens == want.tokens
+        np.testing.assert_allclose(got.logits, want.logits, rtol=0,
+                                   atol=1e-5 * np.abs(want.logits).max())
+
+
+def test_decode_padding_lanes_write_nothing_on_card():
+    """A bucket-4 step with two live lanes (slots 2 and 0) and two padding
+    lanes: slots 1 and 3 stay byte-identical, the live slots change only
+    at their own positions."""
+    _need_card()
+    with _decode_engine(_decode_cell("attn"), mt.gpu(0)) as eng:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        for leaf in eng._cache.values():
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda"))
+        before = {n: t.clone() for n, t in eng._cache.items()}
+        pos = np.array([7, 30, 0, 0], np.int32)
+        eng._decode_prog(eng._params, eng._cache,
+                         np.array([2, 0, 4, 4], np.int32),
+                         np.array([5, 6, 0, 0], np.int32), pos)
+        torch.cuda.synchronize()
+        for n, t in eng._cache.items():
+            for slot in (1, 3):
+                assert torch.equal(t[slot], before[n][slot]), (n, slot)
+            for slot, p in ((2, 7), (0, 30)):
+                changed = (t[slot] != before[n][slot]).any(-1).any(0)
+                assert changed.nonzero().flatten().tolist() == [p], (n, slot)
+
+
+def test_decode_steady_state_allocates_no_segment():
+    """After warmup the pool is zero, and traffic over every prompt and
+    slot bucket opens no new CUDA allocator segment."""
+    _need_card()
+    with _decode_engine(_decode_cell("attn"), mt.gpu(0)) as eng:
+        assert all(not t.any() for t in eng._cache.values())
+        segs = torch.cuda.memory_stats()["segment.all.allocated"]
+        prompts = [np.arange(1, n + 1, dtype=np.int32) % 29
+                   for n in (1, 2, 3, 5, 9, 16)]
+        for k in (1, 2, 3, 4, 6):
+            futs = [eng.submit(p) for p in prompts[:k]]
+            assert all(f.result(timeout=120).tokens for f in futs)
+        assert torch.cuda.memory_stats()["segment.all.allocated"] == segs
