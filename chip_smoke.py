@@ -72,7 +72,21 @@ Phases (any failure exits non-zero; no error is swallowed):
    of each tensor's largest value on the card's ReLU branches. Last,
    K1's backward against its plain version at the batch-32 tail shapes
    (fp32 and bf16, strided incoming gradient) with its time and bound.
-8. decode — ``bench.py``'s decode workload on the port: the KV-cached
+8. gluon_training — README.md's Gluon loop on the same ``resnet50_v1``
+   (fp32, TF32 off, cudnn deterministic, batch 32, one fixed synthetic
+   batch, seeded weights): ``autograd.record`` → ``SoftmaxCrossEntropyLoss``
+   → ``backward`` → ``gluon.Trainer('sgd', lr 0.05, momentum 0.9).step``,
+   5 steps unhybridized, then 5 hybridized from the same start. First the
+   raw step of PR 4 (``make_pure_fn`` + ``torch.autograd`` +
+   ``FusedUpdater``, same loss and optimizer) on the same weights and
+   batch, timed. Step 1 of each leg must agree with it (loss 1e-5
+   relative, parameters 1e-4 of each tensor's largest value), the two
+   legs with each other, K1 must launch exactly 16 times per forward,
+   and neither the peak nor the held memory may grow from step 2 to step
+   5. Printed per leg: CUDA-event ms and host wall ms per step, img/s,
+   peak and held bytes per step and a profile of one step (device busy,
+   idle share, device time by class).
+9. decode — ``bench.py``'s decode workload on the port: the KV-cached
    ``AttentionDecodeCell`` (vocab 8192, embed 512, 8 heads of 64,
    max_len 512, fp32, TF32 off, ``init_params(1)``) through
    ``DecodeEngine`` with 16 slots. Four prompts one at a time, then all
@@ -88,16 +102,21 @@ Phases (any failure exits non-zero; no error is swallowed):
    the LSTM cell at the attention cell's widths against the CPU. The
    path runs no hand-written kernel: the JAX package's decode is plain
    ``jnp``.
-9. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+10. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
    and ``library_ms`` device times (``event_ms`` beside), ``plain_ms`` by
    CUDA events; each
-   ``launches`` is the count on that kernel's main paths (K1: serving and
-   training) — and, last, the ``{"ok": true, "device": {...}}`` line.
+   ``launches`` is the count on that kernel's main paths (K1: serving,
+   training and the Gluon loop) — and, last, the ``{"ok": true,
+   "device": {...}}`` line.
 
-``--cpu-rehearsal`` runs phases 3-8 on the CPU at a small size, where
+The kernels phase also gives each batch-1 case the kernel's device time
+from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
+time, which includes the wrapper's host time.
+
+``--cpu-rehearsal`` runs phases 3-9 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -282,6 +301,13 @@ def kernel_phase(dev, rate):
                     rec.update({"us": ms * 1e3, "plain_us": plain * 1e3,
                                 "bound_us": bound * 1e3, "bytes": nbytes,
                                 "roofline_share": bound / ms})
+                    if shape[0] == 1:
+                        # the kernel alone, without the wrapper's host time
+                        dms, _ = device_time(
+                            lambda: K.scale_bias_add_relu(x, s, b, r),
+                            match="scale_bias_add_relu")
+                        rec.update({"device_us": dms * 1e3,
+                                    "device_roofline_share": bound / dms})
                     if main_shape and shape[0] == 32 and with_res \
                             and dtype == torch.float32:
                         n = next(k for hw, cc, k in _R50_TAILS if cc == c)
@@ -1395,6 +1421,218 @@ def resnet_training_phase(mx, ctx, dev, rate, rehearsal):
     return launches, tail_backward_phase(dev, rate, rehearsal)
 
 
+# README.md's Gluon loop (gluon.Trainer, sgd, lr 0.05, momentum 0.9)
+_GLUON_LR, _GLUON_MOMENTUM = 0.05, 0.9
+
+
+class _GluonRawStep:
+    """PR 4's route on the Gluon loop's weights and batch, in fp32: the
+    pure function of ``make_pure_fn(net, train=True)``, the mean of the
+    softmax cross-entropy (what ``SoftmaxCrossEntropyLoss`` + ``backward``
+    + ``Trainer.step(batch)`` differentiate), ``torch.autograd.grad`` and
+    ``FusedUpdater.update_batch`` of the same SGD; BN running stats from
+    the aux map."""
+
+    def __init__(self, mx, net, x, y):
+        from mxnet_tpu_torch.gluon.block import make_pure_fn
+        self.fn, raw, _ = make_pure_fn(net, train=True)
+        params = list(net.collect_params().values())
+        self.live = [i for i, p in enumerate(params) if p.grad_req != "null"]
+        self.w = [mx.nd.NDArray(r.detach().clone()) for r in raw]
+        self.upd = mx.optimizer.get_updater(mx.optimizer.SGD(
+            learning_rate=_GLUON_LR, momentum=_GLUON_MOMENTUM))
+        self.NDArray = mx.nd.NDArray
+        self.x, self.y = x, y
+
+    def __call__(self):
+        full = [w._data.detach().requires_grad_() for w in self.w]
+        (logits,), aux = self.fn(full, [self.x])
+        loss = -torch.log_softmax(logits, dim=-1).gather(
+            1, self.y[:, None]).mean()
+        grads = torch.autograd.grad(loss, [full[i] for i in self.live])
+        self.upd.update_batch(self.live, [self.NDArray(g) for g in grads],
+                              [self.w[i] for i in self.live])
+        with torch.no_grad():
+            for i, v in aux.items():
+                self.w[i]._data.copy_(v)
+        return loss.detach()
+
+
+def _timed_steps(step, n, gpu):
+    """``n`` calls of ``step``: (results, CUDA-event ms of each, host wall
+    ms of each)."""
+    out, ms, wall = [], [], []
+    for _ in range(n):
+        if gpu:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        t0 = time.perf_counter()
+        out.append(step())
+        if gpu:
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return out, ms, wall
+
+
+def _gluon_leg(mx, net, init, X, Y, batch, hybridize, gpu, steps=5):
+    """README.md:47-54 on the card: ``net.hybridize()`` (or not), then per
+    step ``autograd.record`` → ``SoftmaxCrossEntropyLoss`` →
+    ``backward`` → ``Trainer.step(batch)``, from the weights ``init``.
+    Returns the record, step 1's parameters and the parameters after the
+    last step."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    params = net.collect_params()
+    with torch.no_grad():
+        for k, p in params.items():
+            p.data()._data.copy_(init[k])
+    net.hybridize(hybridize)
+    L = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    tr = mx.gluon.Trainer(params, "sgd", {"learning_rate": _GLUON_LR,
+                                          "momentum": _GLUON_MOMENTUM})
+
+    def step():
+        with mx.autograd.record():
+            loss = L(net(X), Y)
+        loss.backward()
+        tr.step(batch)
+        return loss.mean()
+
+    peaks, held = [], []
+
+    def tracked():
+        if gpu:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        out = step()
+        if gpu:
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            held.append(torch.cuda.memory_allocated())
+        return float(out.asscalar())     # keep no device tensor across steps
+
+    # -- the main path: counts zeroed just before, read just after --------
+    K.launches = 0
+    first, ms1, wall1 = _timed_steps(tracked, 1, gpu)
+    snap1 = _host_copy(params)
+    rest, ms, wall = _timed_steps(tracked, steps - 1, gpu)
+    launches = K.launches
+    # ---------------------------------------------------------------------
+    losses = first + rest
+    rec = {"leg": "gluon_hybridized" if hybridize else "gluon_eager",
+           "steps": steps, "losses": losses, "k1_launches": launches,
+           "k1_launches_expected": 16 * steps if gpu else 0}
+    if gpu:
+        rec.update({"step1_ms": ms1[0], "step_ms": ms,
+                    "step_ms_mean": float(np.mean(ms)),
+                    "step_wall_ms": wall, "img_per_s":
+                        batch / float(np.mean(ms)) * 1e3,
+                    "peak_bytes_per_step": peaks,
+                    "held_bytes_after_step": held,
+                    "step_profile": profile_forward(step, reps=1)})
+    last = _host_copy(params)
+    net.hybridize(False)
+    return rec, snap1, last
+
+
+def _host_copy(params):
+    """The parameters' values on the host (the comparisons hold no device
+    memory across the legs, so their peaks compare)."""
+    return {k: p.data()._data.to("cpu", copy=True)
+            for k, p in params.items()}
+
+
+def _max_scaled(a, b):
+    """Largest |a - b| of any tensor over that tensor's largest |b|."""
+    return max(float((a[k].float() - b[k].float()).abs().max())
+               / max(float(b[k].float().abs().max()), 1e-30) for k in b)
+
+
+def gluon_training_phase(mx, ctx, rehearsal):
+    """Train ``resnet50_v1`` at full width through the Gluon loop of
+    README.md, unhybridized then hybridized, from the same seeded weights
+    on one fixed batch of 32 (fp32, TF32 off, cudnn deterministic), held
+    step 1 against the raw step of PR 4 and each other. Returns the K1
+    launches of both legs."""
+    gpu = ctx.device_type == "gpu"
+    dev = ctx.torch_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+    net, _, hw, classes = _resnet_net(mx, ctx, rehearsal)
+    batch = 4 if rehearsal else 32
+    rs = np.random.RandomState(0)
+    x = rs.uniform(-1, 1, (batch, hw, hw, 3)).astype(np.float32)
+    y = rs.randint(0, classes, batch)
+    X, Y = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+    params = net.collect_params()
+    init = {k: p.data()._data.clone() for k, p in params.items()}
+
+    raw = _GluonRawStep(mx, net, X._data, torch.from_numpy(y).to(dev))
+    raw_losses, raw_ms, raw_wall = _timed_steps(raw, 1, gpu)
+    raw1 = dict(zip(params.keys(), (w._data.to("cpu", copy=True)
+                                    for w in raw.w)))
+    more, ms, wall = _timed_steps(raw, 4, gpu)
+    raw_rec = {"leg": "raw_step_fp32", "batch": batch,
+               "losses": [float(v) for v in raw_losses + more]}
+    if gpu:
+        raw_rec.update({"step_ms": ms, "step_ms_mean": float(np.mean(ms)),
+                        "step_wall_ms": wall})
+    emit({"gluon_training": raw_rec})
+    del raw, more
+    if gpu:
+        torch.cuda.empty_cache()
+
+    recs, launches = {}, 0
+    for hybridize in (False, True):
+        rec, snap1, last = _gluon_leg(mx, net, init, X, Y, batch, hybridize,
+                                      gpu)
+        snap1 = _max_scaled(snap1, raw1)
+        rec.update({
+            "model": "resnet_v1_small" if rehearsal else "resnet50_v1",
+            "input": [hw, hw, 3], "classes": classes, "batch": batch,
+            "precision": "fp32, TF32 off, cudnn deterministic",
+            "lr": _GLUON_LR, "momentum": _GLUON_MOMENTUM,
+            "step1_loss_rel_err_vs_raw":
+                abs(rec["losses"][0] - raw_rec["losses"][0])
+                / abs(raw_rec["losses"][0]),
+            "step1_param_scaled_err_vs_raw": snap1})
+        recs[hybridize] = (rec, last)
+        launches += rec["k1_launches"]
+        emit({"gluon_training": rec})
+        assert all(np.isfinite(rec["losses"])), rec["losses"]
+        assert rec["losses"][-1] < rec["losses"][0], rec["losses"]
+        assert rec["k1_launches"] == rec["k1_launches_expected"], rec
+        assert rec["step1_loss_rel_err_vs_raw"] <= 1e-5, rec
+        assert rec["step1_param_scaled_err_vs_raw"] <= 1e-4, rec
+        if gpu:
+            # no growth: the tape frees its graph every step
+            p = rec["peak_bytes_per_step"]
+            assert p[4] <= p[1], ("peak memory grew from step 2 to 5", p)
+            h = rec["held_bytes_after_step"]
+            assert h[4] <= h[1], ("memory held grew from step 2 to 5", h)
+    (e_rec, e_last), (h_rec, h_last) = recs[False], recs[True]
+    cmp = {"hybridized_vs_eager_loss_max_rel": max(
+        abs(a - b) / abs(b) for a, b in zip(h_rec["losses"],
+                                            e_rec["losses"])),
+        "hybridized_vs_eager_param_scaled": _max_scaled(h_last, e_last)}
+    emit({"gluon_training": cmp})
+    assert cmp["hybridized_vs_eager_loss_max_rel"] <= 1e-5, cmp
+    assert cmp["hybridized_vs_eager_param_scaled"] <= 1e-4, cmp
+    torch.backends.cudnn.deterministic = det
+    mx.layout.set_default_layout(None)
+    del net, raw1, init
+    if gpu:
+        torch.cuda.empty_cache()
+    return launches
+
+
 # bench.py:991-994, decode_child: the attention cell at the repo's full
 # decode width, 16 slots, 4 waves of one 192-token and fifteen 16-token
 # generations from 16-token prompts; the rehearsal takes bench.py's own
@@ -1597,7 +1835,7 @@ def decode_phase(mx, ctx, rehearsal):
 
 
 PHASES = ("kernels", "serving", "attention_kernels", "training",
-          "resnet_training", "decode")
+          "resnet_training", "gluon_training", "decode")
 
 
 def main(argv=None):
@@ -1644,6 +1882,10 @@ def main(argv=None):
         with phase("resnet_training"):
             res["k1_train_launches"], res["k1_bwd"] = \
                 resnet_training_phase(mx, ctx, dev, rate, rehearsal)
+    if "gluon_training" in todo:
+        with phase("gluon_training"):
+            res["k1_gluon_launches"] = gluon_training_phase(mx, ctx,
+                                                            rehearsal)
     if "decode" in todo:
         with phase("decode"):
             decode_phase(mx, ctx, rehearsal)
@@ -1657,9 +1899,11 @@ def main(argv=None):
         "name": "scale_bias_add_relu", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/fused_bn.cu",
         "replaces": "mxnet_tpu/pallas/fused_bn.py:_kernel",
-        "launches": res["k1_launches"] + res["k1_train_launches"],
+        "launches": res["k1_launches"] + res["k1_train_launches"]
+        + res["k1_gluon_launches"],
         "serving_launches": res["k1_launches"],
         "training_launches": res["k1_train_launches"],
+        "gluon_training_launches": res["k1_gluon_launches"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",

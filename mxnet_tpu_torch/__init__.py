@@ -9,10 +9,11 @@ passes ``ctx=cpu()``. This package imports nothing of JAX or of
 ``mxnet_tpu``.
 
 Ported so far: serving ResNet v1, training the causal-attention LM
-through ``parallel.SPMDTrainer`` and training ResNet v1 through
-``gluon.block.make_pure_fn`` and ``mx.mod.Module.fit``, and
-continuous-batching decode through ``decode.DecodeEngine``, each on one
-device; see ROADMAP.md.
+through ``parallel.SPMDTrainer``, training ResNet v1 through
+``gluon.block.make_pure_fn``, ``mx.mod.Module.fit`` and the Gluon loop
+(``autograd.record``, ``gluon.loss``, ``gluon.Trainer``, ``hybridize``),
+and continuous-batching decode through ``decode.DecodeEngine``, each on
+one device; see ROADMAP.md.
 """
 from .base import MXNetError, get_env  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401

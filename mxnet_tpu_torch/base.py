@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["MXNetError", "get_env"]
+__all__ = ["MXNetError", "get_env", "latency_percentiles"]
 
 
 class MXNetError(RuntimeError):
@@ -29,3 +29,23 @@ def get_env(name, default=None, typ=None):
     if typ is float or isinstance(default, float):
         return float(val)
     return val
+
+
+def _percentile(sorted_vals, q):
+    """Nearest-rank percentile over an already-sorted list (the JAX
+    package's ``telemetry._percentile``)."""
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, max(0, int(round(
+        q / 100.0 * (len(sorted_vals) - 1)))))
+    return sorted_vals[i]
+
+
+def latency_percentiles(samples_ms):
+    """``{p50_ms, p95_ms, p99_ms}`` of latency samples in ms, by the
+    nearest rank and rounded to 4 decimals as the JAX package reports
+    them; None without samples."""
+    s = sorted(float(x) for x in samples_ms)
+    if not s:
+        return None
+    return {"p%d_ms" % q: round(_percentile(s, q), 4) for q in (50, 95, 99)}

@@ -52,7 +52,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, latency_percentiles
 from .context import current_context
 from .ops.common import numpy_dtype, torch_dtype
 from .parallel.ring_attention import attention, decode_attention
@@ -978,8 +978,4 @@ class DecodeEngine:
 
 
 def _percentiles(samples):
-    if not samples.size:
-        return None
-    return {"p50_ms": float(np.percentile(samples, 50)),
-            "p95_ms": float(np.percentile(samples, 95)),
-            "p99_ms": float(np.percentile(samples, 99))}
+    return latency_percentiles(samples)

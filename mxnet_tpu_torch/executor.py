@@ -36,6 +36,20 @@ class _GraphProgram:
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_entries = list(symbol._outputs)
+        # the position of each node's last reader: its outputs are
+        # dropped from the evaluation's environment after it (outputs of
+        # the graph are kept), so a forward holds no more than eager code
+        last = {}
+        for pos, node in enumerate(self.nodes):
+            for child, _ in node.inputs:
+                last[id(child)] = pos
+        for node, _ in self.output_entries:
+            last[id(node)] = len(self.nodes)
+        self._drop_after = [[] for _ in self.nodes]
+        for node in self.nodes:
+            pos = last.get(id(node))
+            if pos is not None and pos < len(self.nodes):
+                self._drop_after[pos].append(id(node))
 
     def _apply_node(self, node, raw_in, train, aux_updates):
         params = dict(node.op.defaults)
@@ -59,7 +73,7 @@ class _GraphProgram:
         stateful op (BatchNorm), by aux name, detached."""
         env = {}
         aux_updates = {}
-        for node in self.nodes:
+        for pos, node in enumerate(self.nodes):
             if node.op is None:
                 if node.name in arg_dict:
                     env[id(node)] = (arg_dict[node.name],)
@@ -71,6 +85,9 @@ class _GraphProgram:
             raw_in = [env[id(c)][idx] for c, idx in node.inputs]
             env[id(node)] = self._apply_node(node, raw_in, train,
                                              aux_updates)
+            del raw_in
+            for key in self._drop_after[pos]:
+                env.pop(key, None)
         return [env[id(n)][idx] for n, idx in self.output_entries], \
             aux_updates
 

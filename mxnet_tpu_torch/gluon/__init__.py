@@ -1,5 +1,9 @@
-"""Gluon: imperative blocks with symbolic export."""
-from .parameter import Parameter, ParameterDict  # noqa: F401
+"""Gluon: imperative blocks, hybridize, losses and the Trainer."""
+from .parameter import (Parameter, ParameterDict,  # noqa: F401
+                        DeferredInitializationError)
 from .block import Block, HybridBlock  # noqa: F401
+from .trainer import Trainer  # noqa: F401
 from . import nn  # noqa: F401
+from . import loss  # noqa: F401
+from . import utils  # noqa: F401
 from . import model_zoo  # noqa: F401

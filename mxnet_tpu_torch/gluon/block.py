@@ -6,18 +6,23 @@ submodules; its parameters are Gluon ``Parameter``s named by the block
 prefixes (``resnetv10_stage1_conv0_weight``, ...) exactly as in the
 JAX package. ``HybridBlock`` runs ``hybrid_forward`` eagerly with
 ``F = ndarray``; called on a Symbol it captures the graph with
-``F = symbol``, which is what ``export`` writes. ``make_pure_fn`` turns
-an initialised block into a pure function of its parameter tensors for
-``torch.autograd`` (the raw training step of ``bench.py``).
-Hybridize/CachedOp (whole-graph tracing) is not ported.
+``F = symbol``, which is what ``export`` writes and what ``hybridize``
+traces: a hybridized block runs through a ``_CachedOp``, one symbol per
+(input shapes, dtypes, train) evaluated by the executor's
+``_GraphProgram``. ``make_pure_fn`` turns an initialised block into a
+pure function of its parameter tensors for ``torch.autograd`` (the raw
+training step of ``bench.py``).
 """
 from __future__ import annotations
 
+import re
 import threading
 
 import torch
 
 from .. import autograd
+from .. import imperative as _imp
+from ..base import MXNetError
 from ..name import NameManager
 from ..ops import common as _common
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
@@ -87,6 +92,11 @@ class Block(torch.nn.Module):
     def _alias(self):
         return self.__class__.__name__.lower()
 
+    def __repr__(self):
+        modstr = "\n".join("  (%s): %s" % (key, _indent(repr(block), 2))
+                           for key, block in self._children.items())
+        return "%s(\n%s\n)" % (self.__class__.__name__, modstr)
+
     def __setattr__(self, name, value):
         if isinstance(value, Block):
             if "_children" in self.__dict__:
@@ -111,13 +121,19 @@ class Block(torch.nn.Module):
     def params(self):
         return self._params
 
-    def collect_params(self):
+    def collect_params(self, select=None):
         """(parity: Block.collect_params) this block's and its children's
-        parameters."""
+        parameters; ``select`` is a regular expression the names must
+        match (from their start)."""
         ret = ParameterDict(self._params.prefix)
-        ret.update(self.params)
+        if select is None:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({k: v for k, v in self.params.items()
+                        if pattern.match(k)})
         for child in self._children.values():
-            ret.update(child.collect_params())
+            ret.update(child.collect_params(select=select))
         return ret
 
     def register_child(self, block, name=None):
@@ -131,6 +147,37 @@ class Block(torch.nn.Module):
         self.collect_params().initialize(init, ctx=ctx,
                                          force_reinit=force_reinit)
 
+    def save_params(self, filename):
+        """Write the parameters, names without this block's prefix, in
+        ``nd.save``'s format (either package loads them)."""
+        self.collect_params().save(filename, strip_prefix=self.prefix)
+
+    save_parameters = save_params
+
+    def load_params(self, filename, ctx=None, allow_missing=False,
+                    ignore_extra=False):
+        self.collect_params().load(filename, ctx, allow_missing,
+                                   ignore_extra, restore_prefix=self.prefix)
+
+    load_parameters = load_params
+
+    def cast(self, dtype):
+        for child in self._children.values():
+            child.cast(dtype)
+        for _, param in self.params.items():
+            param.cast(dtype)
+
+    def hybridize(self, active=True, **kwargs):
+        for child in self._children.values():
+            child.hybridize(active, **kwargs)
+
+    def apply(self, fn):
+        """``fn`` on every child (recursively), then on this block."""
+        for child in self._children.values():
+            child.apply(fn)
+        fn(self)
+        return self
+
     def __call__(self, *args):
         return self.forward(*args)
 
@@ -140,6 +187,22 @@ class Block(torch.nn.Module):
 
 class HybridBlock(Block):
     """(parity: gluon.HybridBlock)"""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._cached_op = None
+
+    def hybridize(self, active=True, **kwargs):
+        """Run this block through a ``_CachedOp`` from its next call (and
+        its children, when called on their own)."""
+        self._active = active
+        self._cached_op = None
+        super().hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        self._cached_op = None
+        super().cast(dtype)
 
     def export(self, path):
         """Write ``path-symbol.json`` + ``path-0000.params`` (arg:/aux:
@@ -163,6 +226,10 @@ class HybridBlock(Block):
         from ..symbol import Symbol
         if args and isinstance(args[0], Symbol):
             return self._forward_symbol(*args)
+        if self._active:
+            if self._cached_op is None:
+                self._cached_op = _CachedOp(self)
+            return self._cached_op(*args)
         return self._forward_eager(*args)
 
     def _forward_symbol(self, x, *args):
@@ -245,3 +312,84 @@ def make_pure_fn(block, train=False):
         return tuple(o._data for o in outs), aux
 
     return fn, [p.data()._data for p in params], names
+
+
+class _CachedOp:
+    """A hybridized block's executor (parity: the JAX package's
+    ``_CachedOp``, upstream ``CachedOp``): ``hybrid_forward`` traced once
+    per (input shapes, dtypes, train) into a symbol, run by
+    ``executor._GraphProgram`` on the parameters' tensors. Under
+    ``autograd.record`` the graph evaluation is recorded like one op (its
+    operators build ``torch.autograd``'s graph from the parameters'
+    aliases); in training mode the BatchNorm moving stats the program
+    returns are written back. A block with deferred shapes runs eagerly
+    once first, as in the JAX package. No CUDA graph is captured here."""
+
+    def __init__(self, block):
+        self.block = block
+        self._cache = {}
+
+    def _params(self, inputs):
+        params = list(self.block.collect_params().values())
+        try:
+            for p in params:
+                p.data()
+        except DeferredInitializationError:
+            with autograd.pause():
+                self.block._forward_eager(*inputs)
+        return params
+
+    def _build(self, n_inputs):
+        from .. import symbol as sym
+        from ..executor import _GraphProgram
+        names = ["data"] if n_inputs == 1 else \
+            ["data%d" % i for i in range(n_inputs)]
+        out = self.block(*[sym.Variable(n) for n in names])
+        single = not isinstance(out, (list, tuple))
+        if not single:
+            out = sym.Group(list(out))
+        return _GraphProgram(out), names, single
+
+    def __call__(self, *inputs):
+        from ..ndarray.ndarray import NDArray
+        params = self._params(inputs)
+        train = autograd.is_training()
+        key = (tuple((x.shape, x._data.dtype) for x in inputs), train)
+        entry = self._cache.get(key)
+        if entry is None:
+            entry = self._cache[key] = self._build(len(inputs))
+        prog, names, single = entry
+        by_name = dict(zip(names, inputs))
+        by_name.update((p.name, p.data()) for p in params)
+        missing = [n for n in prog.arg_names + prog.aux_names
+                   if n not in by_name]
+        if missing:
+            raise MXNetError("hybridize: %s has no value for %s"
+                             % (self.block.name, missing))
+        record = _imp.should_record(list(by_name.values()))
+        raw = dict(zip(by_name, _imp.read_inputs(list(by_name.values()),
+                                                 record)))
+        args = {n: raw[n] for n in prog.arg_names}
+        aux = {n: raw[n] for n in prog.aux_names}
+        if record:
+            with torch.enable_grad():
+                outs, aux_up = prog.eval_graph(args, aux, train)
+        else:
+            outs, aux_up = prog.eval_graph(args, aux, train)
+        _imp.write_aux([(by_name[n], v) for n, v in aux_up.items()])
+        ctx = inputs[0].context if inputs else None
+        results = []
+        for o in outs:
+            nd = NDArray(o, ctx)
+            nd._tape = record
+            results.append(nd)
+        return results[0] if single else results
+
+
+def _indent(s, num_spaces):
+    lines = s.split("\n")
+    if len(lines) == 1:
+        return s
+    first = lines.pop(0)
+    return first + "\n" + "\n".join(" " * num_spaces + line
+                                      for line in lines)

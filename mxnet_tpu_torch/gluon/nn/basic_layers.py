@@ -73,9 +73,10 @@ class Dense(HybridBlock):
 
 
 class BatchNorm(HybridBlock):
-    """(parity: nn.BatchNorm) inference: running stats are parameters,
-    ``center`` (a training attribute) is accepted and unused; the default
-    axis follows the default layout (-1 when channels-last)."""
+    """(parity: nn.BatchNorm) the running stats are parameters without
+    gradients (``grad_req='null'``), as gamma is without ``scale`` and
+    beta without ``center``; the default axis follows the default layout
+    (-1 when channels-last)."""
 
     def __init__(self, axis=None, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -91,13 +92,17 @@ class BatchNorm(HybridBlock):
             self._epsilon = epsilon
             self._scale = scale
             self._use_global_stats = use_global_stats
-            for name, init in (("gamma", gamma_initializer),
-                               ("beta", beta_initializer),
-                               ("running_mean", running_mean_initializer),
-                               ("running_var", running_variance_initializer)):
+            for name, init, req in (
+                    ("gamma", gamma_initializer,
+                     "write" if scale else "null"),
+                    ("beta", beta_initializer, "write" if center else "null"),
+                    ("running_mean", running_mean_initializer, "null"),
+                    ("running_var", running_variance_initializer, "null")):
                 setattr(self, name, self.params.get(
-                    name, shape=(in_channels,), init=_init.create(init),
-                    allow_deferred_init=True))
+                    name, grad_req=req, shape=(in_channels,),
+                    init=_init.create(init), allow_deferred_init=True,
+                    differentiable=name not in ("running_mean",
+                                                "running_var")))
 
     def _shape_hook(self, x, *args):
         c = x.shape[self._axis]

@@ -1,22 +1,45 @@
-"""Imperative runtime: eager op invocation and the recording state.
+"""Imperative runtime: eager op invocation and the autograd tape.
 
-Counterpart of ``mxnet_tpu/imperative.py`` (``invoke``,
-``is_recording``/``is_training``/``set_recording``/``set_training``).
-PyTorch's CUDA ops are already asynchronous and stream-ordered, so
-"invoke" is a function call on the registered op. Gradients are
-PyTorch's own: an op runs under whatever ``torch`` grad mode the caller
-set, so a caller that differentiates a pure function of its parameters
-(``gluon.block.make_pure_fn``, the executor's training entry points)
-gets ``torch.autograd`` through every op. The JAX package's per-NDArray
-tape (``attach_grad``/``backward`` under ``autograd.record``) is not
-ported yet (ROADMAP); the recording flag is kept as state.
+Counterpart of ``mxnet_tpu/imperative.py`` (``invoke``, the recording
+state, ``mark_variables`` and ``backward``). PyTorch's CUDA ops are
+already asynchronous and stream-ordered, so "invoke" is a function call
+on the registered op. The tape is ``torch.autograd``'s graph:
+
+* ``mark_variables`` (``attach_grad``, a gluon ``Parameter``) makes an
+  NDArray a *leaf*: it gets a gradient buffer and a ``grad_req``. Its
+  own tensor never requires grad, so in-place writes to it (optimizer
+  updates, ``a[:] = x``) stay legal and an op outside ``record`` builds
+  no graph. A recorded op reads the leaf through its *alias*, a detached
+  view of the same storage that requires grad, made once per tensor.
+* ``invoke`` decides per op: it records when ``is_recording()``, the op
+  is differentiable and an input is a leaf or carries the tape (the
+  output of a recorded op); it then runs under ``torch.enable_grad()``
+  and marks its outputs as carrying the tape. Otherwise it reads tape
+  tensors detached and runs under the caller's grad mode, which is what
+  ``gluon.block.make_pure_fn`` and the executor's training entry points
+  differentiate through.
+* ``backward`` takes ``torch.autograd.grad`` over every live leaf alias
+  and writes (``grad_req='write'``), adds (``'add'``) or skips
+  (``'null'``) into each leaf's gradient buffer. Without
+  ``retain_graph`` the graph is freed and the heads leave the tape: a
+  second backward raises.
 """
 from __future__ import annotations
 
+import weakref
+
+import torch
+
+from .base import MXNetError
 from .ops import common as _common
 
 __all__ = ["invoke", "is_recording", "is_training", "set_recording",
-           "set_training"]
+           "set_training", "backward", "mark_variables"]
+
+# id -> leaf (NDArray) that may hold an alias; a backward differentiates
+# with respect to every live one (keyed by id: NDArray's == is the
+# elementwise op)
+_LEAVES = weakref.WeakValueDictionary()
 
 
 def is_recording():
@@ -39,35 +62,197 @@ def set_training(flag):
     return prev
 
 
-def invoke(op, inputs, kwargs):
+# ---------------------------------------------------------------------------
+# Leaves and tape tensors
+# ---------------------------------------------------------------------------
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Attach gradient buffers (parity: ``autograd.mark_variables``)."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, grad, req in zip(variables, gradients, grad_reqs):
+        if req not in ("write", "add", "null"):
+            raise MXNetError("invalid grad_req %r" % (req,))
+        var._grad = grad
+        var._grad_req = req
+        var._tape = False
+        var._alias = None
+        _LEAVES[id(var)] = var
+
+
+def on_tape(x):
+    """True for a leaf or the output of a recorded op."""
+    return x._tape or x._grad_req is not None
+
+
+def tape_tensor(x):
+    """The tensor a recorded op reads for NDArray ``x``: its own for a
+    tape output, its alias for a leaf."""
+    if x._tape:
+        return x._data
+    alias = x._alias
+    if alias is None or alias[0] is not x._data:
+        alias = (x._data, x._data.detach().requires_grad_(True))
+        x._alias = alias
+    return alias[1]
+
+
+def plain_tensor(x):
+    """The tensor an unrecorded op reads: a tape output detached (it
+    must not grow the recorded graph), anything else as it is."""
+    return x._data.detach() if x._tape else x._data
+
+
+def read_inputs(inputs, record):
+    """Raw tensors for ``inputs`` (NDArrays or anything else)."""
+    from .ndarray.ndarray import NDArray
+    out = []
+    for x in inputs:
+        if not isinstance(x, NDArray):
+            out.append(x)
+        elif record and on_tape(x):
+            out.append(tape_tensor(x))
+        else:
+            out.append(plain_tensor(x))
+    return out
+
+
+def should_record(nds, no_grad=False):
+    return (is_recording() and not no_grad
+            and any(x is not None and on_tape(x) for x in nds))
+
+
+def write_aux(pairs):
+    """Write stateful aux updates ``[(NDArray, tensor)]`` (BatchNorm
+    moving stats) in place, detached, or hand them to the active
+    collector (``make_pure_fn``)."""
+    collector = _common.state().aux_collector
+    for nd, val in pairs:
+        val = val.detach()
+        if collector is not None:
+            collector.append((nd, val))
+        else:
+            with torch.no_grad():
+                nd._data.copy_(val)
+
+
+# ---------------------------------------------------------------------------
+# Invoke
+# ---------------------------------------------------------------------------
+
+def invoke(op, inputs, kwargs, out=None):
     """Run one op eagerly on NDArrays (parity: ``imperative.invoke``);
-    returns a single NDArray or a list of its visible outputs.
+    returns a single NDArray or a list of its visible outputs (or
+    ``out``, written).
 
     Train-mode ops get ``_train=is_training()``. A training-mode call of
-    a stateful op (BatchNorm) updates its aux inputs: the new values are
-    written in place, detached, or appended to the active aux collector
-    (``make_pure_fn``) instead."""
-    import torch
+    a stateful op (BatchNorm) updates its aux inputs (``write_aux``)."""
     from .ndarray.ndarray import NDArray
     params = dict(op.defaults)
     params.update(kwargs)
     params.pop("name", None)
+    if op.nin != 0:
+        params.pop("ctx", None)
     if op.takes_train:
         params["_train"] = is_training()
     nds = [x if isinstance(x, NDArray) else None for x in inputs]
     ctx = next((x.context for x in nds if x is not None), None)
-    raw = [x._data if isinstance(x, NDArray) else x for x in inputs]
-    outs = op.apply(raw, params)
+    record = should_record(nds, op.no_grad)
+    raw = read_inputs(inputs, record)
+    if record:
+        with torch.enable_grad():
+            outs = op.apply(raw, params)
+    else:
+        outs = op.apply(raw, params)
     if op.stateful_update is not None:
-        collector = _common.state().aux_collector
-        for idx, val in op.stateful_update(raw, outs, params).items():
-            if nds[idx] is None:
+        write_aux([(nds[idx], val) for idx, val in
+                   op.stateful_update(raw, outs, params).items()
+                   if nds[idx] is not None])
+    n_visible = min(op.visible_outputs or len(outs), len(outs))
+    results = []
+    for o in outs[:n_visible]:
+        nd = NDArray(o, ctx)
+        nd._tape = record
+        results.append(nd)
+    if out is not None:
+        targets = out if isinstance(out, (list, tuple)) else [out]
+        for t, r in zip(targets, results):
+            t._assign(r)
+        return out
+    return results[0] if len(results) == 1 else results
+
+
+# ---------------------------------------------------------------------------
+# Backward over the tape
+# ---------------------------------------------------------------------------
+
+def head_grad(y, g):
+    from .ndarray.ndarray import NDArray
+    if g is None:
+        return torch.ones_like(y._data)
+    if isinstance(g, NDArray):
+        return g._data.to(y._data.dtype)
+    return torch.as_tensor(g, dtype=y._data.dtype, device=y._data.device)
+
+
+def head_pairs(outputs, head_grads):
+    if head_grads is None:
+        head_grads = [None] * len(outputs)
+    if not any(y._tape for y in outputs):
+        raise MXNetError("backward: outputs are not in a recorded graph "
+                         "(use autograd.record())")
+    # a recorded head that needs no grad (BlockGrad) contributes zeros
+    return [(y, head_grad(y, g)) for y, g in zip(outputs, head_grads)
+            if y._tape and y._data.requires_grad]
+
+
+def autograd_grad(heads, hgs, wrt, retain_graph, create_graph=False):
+    """``torch.autograd.grad`` with torch's "backward through the graph
+    a second time" as an MXNetError. No head needing grad: no
+    gradient."""
+    if not heads:
+        return [None] * len(wrt)
+    try:
+        return torch.autograd.grad(heads, wrt, hgs, retain_graph=retain_graph,
+                                   create_graph=create_graph,
+                                   allow_unused=True)
+    except RuntimeError as e:
+        if "second time" in str(e):
+            raise MXNetError("backward: the graph was freed by an earlier "
+                             "backward (pass retain_graph=True to run "
+                             "backward twice)") from e
+        raise
+
+
+def free_heads(outputs):
+    """The heads of a backward without ``retain_graph`` leave the tape."""
+    for y in outputs:
+        y._tape = False
+
+
+def backward(outputs, head_grads=None, retain_graph=False, train_mode=True):
+    """Reverse mode over the recorded ops (parity:
+    ``Imperative::Backward``): the gradients of ``outputs`` (head
+    gradients ones where not given) written into the leaves' buffers."""
+    pairs = head_pairs(outputs, head_grads)
+    leaves = [v for v in list(_LEAVES.values())
+              if v._alias is not None and v._grad is not None
+              and v._grad_req in ("write", "add")]
+    if leaves and pairs:
+        grads = autograd_grad([y._data for y, _ in pairs],
+                              [g for _, g in pairs],
+                              [v._alias[1] for v in leaves],
+                              retain_graph=bool(retain_graph))
+    else:
+        grads = []
+    if not retain_graph:
+        free_heads(y for y, _ in pairs)
+    with torch.no_grad():
+        for v, g in zip(leaves, grads):
+            if g is None:
                 continue
-            val = val.detach()
-            if collector is not None:
-                collector.append((nds[idx], val))
+            dst = v._grad._data
+            if v._grad_req == "add":
+                dst.add_(g.to(dst.dtype))
             else:
-                with torch.no_grad():
-                    nds[idx]._data.copy_(val)
-    outs = [NDArray(o, ctx) for o in outs[:op.visible_outputs or op.nout]]
-    return outs[0] if len(outs) == 1 else outs
+                dst.copy_(g)

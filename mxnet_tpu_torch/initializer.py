@@ -10,14 +10,27 @@ never give the same numbers, and tests carry weights across instead
 """
 from __future__ import annotations
 
+import json
 import math
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["Initializer", "Uniform", "Normal", "Zero", "One",
+__all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Zero", "One",
            "Xavier", "create"]
+
+
+class InitDesc(str):
+    """A parameter's name with its attributes (parity:
+    initializer.InitDesc); an ``__init__`` attribute names the
+    initializer of that one parameter."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        obj = super().__new__(cls, name)
+        obj.attrs = attrs or {}
+        obj.global_init = global_init
+        return obj
 
 
 class Initializer:
@@ -36,9 +49,25 @@ class Initializer:
             self._generator = torch.Generator().manual_seed(0)
         return self._generator
 
+    def dumps(self):
+        """``'["name", {kwargs}]'``, the form an ``__init__`` attribute
+        holds (parity: Initializer.dumps)."""
+        kwargs = {k: v for k, v in vars(self).items()
+                  if not k.startswith("_")}
+        return json.dumps([self.__class__.__name__.lower(), kwargs])
+
     def __call__(self, desc, arr):
-        """Initialise ``arr`` by the suffix of the parameter name ``desc``
-        (parity with the reference's rules)."""
+        """Initialise ``arr``: by the ``__init__`` attribute of an
+        ``InitDesc`` where it has one, else by the suffix of the parameter
+        name (parity with the reference's rules)."""
+        if isinstance(desc, InitDesc) and desc.attrs.get("__init__"):
+            spec = desc.attrs["__init__"]
+            try:
+                name, kwargs = json.loads(spec)
+            except (ValueError, TypeError):
+                name, kwargs = spec, {}     # a plain registry name
+            create(name, **kwargs)._init_weight(desc, arr)
+            return
         if desc.endswith("weight"):
             self._init_weight(desc, arr)
         elif desc.endswith("bias"):

@@ -32,7 +32,7 @@ def _create_kvstore(kvstore, num_device):
                            and "dist" not in kvstore):
         return None, False
     raise MXNetError("kvstore %r: kvstores and multi-device training are "
-                     "not ported yet (ROADMAP Queue 1 item 6)" % (kvstore,))
+                     "not ported yet (ROADMAP Queue 1 item 4)" % (kvstore,))
 
 
 def _replace_into(path, write):

@@ -26,7 +26,7 @@ import torch
 
 from ..base import MXNetError, get_env
 from ..context import Context, current_context
-from ..initializer import Uniform
+from ..initializer import InitDesc, Uniform
 from ..model import _create_kvstore, save_checkpoint, load_checkpoint
 from .. import optimizer as opt
 from .base_module import BaseModule, FusedFallback
@@ -155,7 +155,12 @@ class Module(BaseModule):
                     aux_params=None, allow_missing=False, force_init=False,
                     allow_extra=False):
         """(parity: module.init_params) a given value (NDArray or numpy)
-        wins, else the initializer by parameter name."""
+        wins, else the initializer, called with an ``InitDesc`` carrying
+        the symbol's attributes (a variable's ``__init__`` picks its own
+        initializer). Names in ``arg_params``/``aux_params`` that the
+        symbol lacks are ignored, as in the JAX package, whatever
+        ``allow_extra`` says (upstream MXNet 0.12 raises for them unless
+        ``allow_extra`` is set)."""
         if self.params_initialized and not force_init:
             return
         if not self.binded:
@@ -164,12 +169,7 @@ class Module(BaseModule):
             arg_params = self._arg_params
         if aux_params is None and self._aux_params is not None:
             aux_params = self._aux_params
-        if not allow_extra:
-            extra = sorted(set(arg_params or {}) - set(self._param_names)) \
-                + sorted(set(aux_params or {}) - set(self._aux_names))
-            if extra:
-                raise MXNetError("init_params: unknown parameters %s"
-                                 % extra)
+        attrs = self._symbol.attr_dict()
         for name, arr in self._exec.arg_dict.items():
             if name not in self._param_names:
                 continue
@@ -177,7 +177,7 @@ class Module(BaseModule):
             if given is not None:
                 arr[:] = given
             elif initializer is not None:
-                initializer(name, arr)
+                initializer(InitDesc(name, attrs.get(name)), arr)
             elif not allow_missing:
                 raise MXNetError("no initializer and no value for %r" % name)
         for name, arr in self._exec.aux_dict.items():
@@ -185,7 +185,7 @@ class Module(BaseModule):
             if given is not None:
                 arr[:] = given
             elif initializer is not None:
-                initializer(name, arr)
+                initializer(InitDesc(name, attrs.get(name)), arr)
             elif not allow_missing:
                 raise MXNetError("no initializer and no value for %r" % name)
         self.params_initialized = True

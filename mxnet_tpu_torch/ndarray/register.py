@@ -4,7 +4,8 @@ Counterpart of ``mxnet_tpu/ndarray/register.py``: tensor arguments go
 positionally or by their reference names (``data=``, ``weight=`` …);
 trailing positional values map onto the op's params in declaration
 order. Each call goes through ``imperative.invoke`` (train mode, aux
-updates) and returns the op's visible outputs only.
+updates, the tape) and returns the op's visible outputs, or writes them
+into ``out=``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ def make_op_func(op):
     param_order = list(op.defaults)
 
     def generic_op(*args, **kwargs):
+        out = kwargs.pop("out", None)
         from .ndarray import NDArray
         inputs = []
         i = 0
@@ -26,13 +28,15 @@ def make_op_func(op):
         for j, val in enumerate(args[i:]):
             if j < len(param_order):
                 kwargs.setdefault(param_order[j], val)
-        if op.nin != -1 and len(inputs) < len(arg_names):
+        if op.nin == -1:
+            kwargs.pop("num_args", None)
+        elif len(inputs) < len(arg_names):
             for name in arg_names[len(inputs):]:
                 if name in kwargs and isinstance(kwargs[name], NDArray):
                     inputs.append(kwargs.pop(name))
                 else:
                     break
-        return invoke(op, inputs, kwargs)
+        return invoke(op, inputs, kwargs, out=out)
 
     generic_op.__name__ = op.name
     generic_op.__doc__ = op.doc

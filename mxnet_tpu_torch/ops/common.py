@@ -76,6 +76,30 @@ def as_tuple(v, ndim=None, name="param"):
     return v
 
 
+def as_axis(axis):
+    """Normalise reduce-style axis params: None, int, tuple, or string forms."""
+    if axis is None or axis == "()" or axis == ():
+        return None
+    if isinstance(axis, str):
+        axis = ast.literal_eval(axis)
+    if isinstance(axis, (list, tuple)):
+        return tuple(int(a) for a in axis)
+    return int(axis)
+
+
+def reduce_axes(axis, ndim, exclude=False):
+    """MXNet reduce semantics (axis + exclude) as a concrete axis tuple."""
+    axis = as_axis(axis)
+    if axis is None:
+        return () if exclude else tuple(range(ndim))
+    if isinstance(axis, int):
+        axis = (axis,)
+    axes = tuple(sorted(a % ndim for a in axis))
+    if exclude:
+        axes = tuple(a for a in range(ndim) if a not in axes)
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # Execution state: train mode, recording, aux-update collection
 # ---------------------------------------------------------------------------

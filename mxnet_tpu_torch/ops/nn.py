@@ -403,3 +403,22 @@ def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
         data, label, axis, (float(grad_scale), ignore_label,
                             bool(use_ignore), normalization,
                             bool(multi_output)))
+
+
+# ---------------------------------------------------------------------------
+# Softmax family
+# ---------------------------------------------------------------------------
+
+@register("softmax", defaults={"axis": -1, "temperature": None})
+def softmax(data, axis=-1, temperature=None):
+    """(parity: softmax-inl.h)"""
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
+    return torch.softmax(data, dim=int(axis))
+
+
+@register("log_softmax", defaults={"axis": -1, "temperature": None})
+def log_softmax(data, axis=-1, temperature=None):
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
+    return torch.log_softmax(data, dim=int(axis))

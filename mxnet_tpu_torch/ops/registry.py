@@ -27,10 +27,11 @@ class OpDef:
     nin : number of tensor inputs; -1 = variadic.
     nout : number of outputs (static).
     arg_names : names of the tensor inputs, in order.
+    no_grad : the op is not differentiable; the tape does not record it.
     """
 
     def __init__(self, name, fn, nin=1, nout=1, arg_names=None,
-                 defaults=None):
+                 defaults=None, no_grad=False):
         self.name = name
         self.fn = fn
         self.nin = nin
@@ -39,6 +40,7 @@ class OpDef:
             ["data"] if nin in (1, -1) else ["lhs", "rhs"] if nin == 2 else
             ["arg%d" % i for i in range(max(nin, 0))])
         self.defaults = dict(defaults or {})
+        self.no_grad = no_grad
         self.doc = fn.__doc__ if fn is not None else None
         # ops that behave differently at train time declare a `_train` kwarg
         try:
@@ -91,12 +93,13 @@ class OpDef:
         return out if isinstance(out, tuple) else (out,)
 
 
-def register(name, nin=1, nout=1, arg_names=None, defaults=None, aliases=()):
+def register(name, nin=1, nout=1, arg_names=None, defaults=None, aliases=(),
+             no_grad=False):
     """Decorator registering a plain tensor function as an operator."""
 
     def _reg(fn):
         op = OpDef(name, fn, nin=nin, nout=nout, arg_names=arg_names,
-                   defaults=defaults)
+                   defaults=defaults, no_grad=no_grad)
         if name in _OPS:
             raise MXNetError("op %r already registered" % name)
         _OPS[name] = op

@@ -20,6 +20,7 @@ updates, one fused kernel (or CUDA graph) for a whole parameter set.
 """
 from __future__ import annotations
 
+import io
 import pickle
 
 import numpy as np
@@ -246,6 +247,16 @@ class NAG(SGD):
             else:
                 w.sub_(lr * (g + wd * w))
 
+    def update_multi_precision(self, index, weight, grad, state):
+        """NAG's own rule (SGD's alias would bind ``SGD.update``): on the
+        fp32 master for a multi-precision state, then cast back."""
+        if not isinstance(state, tuple):
+            return self.update(index, weight, grad, state)
+        mom, w32 = state
+        self.update(index, w32, _wrap_like(grad, _raw(grad).float()), mom)
+        with torch.no_grad():
+            _raw(weight).copy_(_raw(w32))
+
 
 # ---------------------------------------------------------------------------
 # Updaters
@@ -260,6 +271,32 @@ def _state_to_numpy(s):
         return s
     t = _raw(s).detach()
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+class _ForeignStub:
+    """Stands in for an object of another package in pickled states."""
+
+    def __new__(cls, *args, **kwargs):
+        return object.__new__(cls)
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+class _StatesUnpickler(pickle.Unpickler):
+    """Unpickles optimizer states (numpy arrays in dicts and tuples);
+    any other class loads as a stub, so a pickled foreign optimizer needs
+    no import of its package."""
+
+    _KEEP = ("numpy", "builtins", "copyreg", "collections", "_codecs")
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in self._KEEP:
+            return super().find_class(module, name)
+        return _ForeignStub
 
 
 class Updater:
@@ -320,12 +357,13 @@ class Updater:
                              for k, v in self.states.items()})
 
     def set_states(self, states):
-        """Load states written by ``get_states`` of either package
-        (unpickles: pass only bytes one of them wrote)."""
-        states = pickle.loads(states)
+        """Load states written by ``get_states`` of either package, or by
+        the JAX package's ``gluon.Trainer.save_states``, which pickles its
+        optimizer beside them: that optimizer is not read (this updater
+        keeps its own). Unpickles: pass only bytes one of them wrote."""
+        states = _StatesUnpickler(io.BytesIO(states)).load()
         if isinstance(states, tuple) and len(states) == 2:
-            raise MXNetError("set_states: states saved with the optimizer "
-                             "(dump_optimizer=True) are not ported")
+            states = states[0]
         self.states = states
         self.states_synced = {k: False for k in self.states}
 

@@ -44,7 +44,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, latency_percentiles
 from .ops.common import numpy_dtype
 from .predictor import Predictor
 
@@ -418,11 +418,7 @@ class InferenceEngine:
             "rows_hist": rows_hist,
             "bucket_ms": bucket_ms,
             "max_inflight": self._max_inflight,
-            "latency_ms": {
-                "p50_ms": float(np.percentile(lat, 50)),
-                "p95_ms": float(np.percentile(lat, 95)),
-                "p99_ms": float(np.percentile(lat, 99)),
-            } if lat.size else None,
+            "latency_ms": latency_percentiles(lat),
         }
 
     # -- lifecycle ----------------------------------------------------------

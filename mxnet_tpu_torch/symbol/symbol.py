@@ -11,6 +11,8 @@ from __future__ import annotations
 import ast
 import json
 
+import numpy as np
+
 from ..base import MXNetError
 from ..name import NameManager
 from ..attribute import AttrScope
@@ -34,6 +36,8 @@ class _SymNode:
     def num_outputs(self):
         if self.op is None:
             return 1
+        if self.op.nout == -1:          # SliceChannel: from its params
+            return int(self.attrs.get("num_outputs", 1))
         return self.op.visible_outputs or self.op.nout
 
 
@@ -51,6 +55,23 @@ class Symbol:
 
     def __repr__(self):
         return "<Symbol %s>" % ", ".join(n.name for n, _ in self._outputs)
+
+    def __iter__(self):
+        return (Symbol([o]) for o in self._outputs)
+
+    def __len__(self):
+        return len(self._outputs)
+
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("output %r not found in %s"
+                                 % (index, names))
+            index = names.index(index)
+        if isinstance(index, slice):
+            return Symbol(self._outputs[index])
+        return Symbol([self._outputs[index]])
 
     # -- graph traversal ---------------------------------------------------
     def _topo_nodes(self):
@@ -177,30 +198,124 @@ class Symbol:
         return {n.name: dict(n._extra_attrs) for n in self._topo_nodes()
                 if n._extra_attrs}
 
-    # -- operators ---------------------------------------------------------
+    # -- operators (parity: the reference Symbol's) -------------------------
+    def _binary(self, other, op_name, scalar_op):
+        if isinstance(other, Symbol):
+            return _create(op_name, [self, other], {})
+        if isinstance(other, (int, float)):
+            return _create(scalar_op, [self], {"scalar": other})
+        raise TypeError("unsupported operand %r" % (other,))
+
+    def _rscalar(self, other, scalar_op):
+        if isinstance(other, (int, float)):
+            return _create(scalar_op, [self], {"scalar": other})
+        raise TypeError("unsupported operand %r" % (other,))
+
     def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise TypeError("unsupported operand %r" % (other,))
-        return _create("elemwise_add", [self, other], {})
+        return self._binary(other, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._rscalar(other, "_rminus_scalar")
+
+    def __mul__(self, other):
+        return self._binary(other, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._rscalar(other, "_rdiv_scalar")
+
+    __div__ = __truediv__
+
+    def __pow__(self, other):
+        return self._binary(other, "broadcast_power", "_power_scalar")
+
+    def __neg__(self):
+        return _create("negative", [self], {})
+
+    def __gt__(self, other):
+        return self._binary(other, "broadcast_greater", "_greater_scalar")
+
+    def __lt__(self, other):
+        return self._binary(other, "broadcast_lesser", "_lesser_scalar")
+
+    def __ge__(self, other):
+        return self._binary(other, "broadcast_greater_equal",
+                            "_greater_equal_scalar")
+
+    def __le__(self, other):
+        return self._binary(other, "broadcast_lesser_equal",
+                            "_lesser_equal_scalar")
+
+    # convenience mirrors of NDArray methods
+    def reshape(self, shape, **kw):
+        return _create("Reshape", [self], {"shape": shape, **kw})
+
+    def sum(self, **kw):
+        return _create("sum", [self], kw)
+
+    def mean(self, **kw):
+        return _create("mean", [self], kw)
+
+    def flatten(self):
+        return _create("Flatten", [self], {})
+
+    def transpose(self, axes=()):
+        return _create("transpose", [self], {"axes": axes})
+
+    def slice_axis(self, axis, begin, end):
+        return _create("slice_axis", [self], {"axis": axis, "begin": begin,
+                                              "end": end})
+
+    def astype(self, dtype):
+        return _create("Cast", [self], {"dtype": dtype})
 
 
 # ---------------------------------------------------------------------------
 # builders
 # ---------------------------------------------------------------------------
 
-def Variable(name, attr=None, shape=None, dtype=None, **kwargs):
-    """Create a symbolic variable (parity: mx.sym.Variable)."""
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, stype=None, **kwargs):
+    """Create a symbolic variable (parity: mx.sym.Variable): ``lr_mult``,
+    ``wd_mult`` and ``init`` (a name or an Initializer) become the
+    ``__lr_mult__``/``__wd_mult__``/``__init__`` attributes, ``dtype`` the
+    numpy name in ``__dtype__``."""
     node = _SymNode(None, name, {}, [])
     extra = dict(AttrScope.current.get(attr))
     if shape is not None:
         extra["__shape__"] = str(tuple(shape))
+    if lr_mult is not None:
+        extra["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        extra["__wd_mult__"] = str(wd_mult)
     if dtype is not None:
-        extra["__dtype__"] = str(dtype)
+        extra["__dtype__"] = _dtype_name(dtype)
+    if init is not None:
+        extra["__init__"] = init if isinstance(init, str) else init.dumps()
     node._extra_attrs = extra
     return Symbol([(node, 0)])
 
 
 var = Variable
+
+
+def _dtype_name(dtype):
+    """The numpy name of a dtype (``'float32'``; ``'bfloat16'`` too)."""
+    import torch
+    if isinstance(dtype, str):
+        return dtype
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return str(np.dtype(dtype))
 
 
 def Group(symbols):

@@ -9,8 +9,8 @@ checked copy:
   ``{name: p.data().asnumpy()}`` of a Gluon block — into the port's
   ``arg:``/``aux:`` dict of NDArrays, ready for ``Predictor`` and
   ``InferenceEngine``;
-* :func:`load_into_block` sets the same blob on a port Gluon block by
-  parameter name;
+* :func:`load_into_block` sets the same blob, or a JAX Gluon net's
+  ``collect_params()``, on a port Gluon block by parameter name;
 * :func:`tree_from_numpy` copies a plain ``{name: array}`` dict (the
   parameters of a pure ``apply_fn``, as ``parallel.SPMDTrainer`` takes
   them) onto a device as tensors;
@@ -18,6 +18,8 @@ checked copy:
   ``aux_params`` and optimizer states (as numpy: the unpickled
   ``Updater.get_states()``) on a bound port ``Module``, and
   :func:`module_to_numpy` reads the port's back out in the same form.
+  (A ``gluon.Trainer``'s ``save_states`` file loads in either package's
+  ``load_states`` as it is.)
 
 They raise ``MXNetError`` on a missing or extra name, a shape mismatch,
 or a value that is not an array.
@@ -96,7 +98,10 @@ def params_from_numpy(blob, ctx=None, dtype=None, symbol=None,
 
 def load_into_block(block, blob, ctx=None):
     """Set every parameter of a port Gluon ``block`` from ``blob`` (same
-    forms as :func:`params_from_numpy`), by full parameter name."""
+    forms as :func:`params_from_numpy`, or the ``collect_params()`` of a
+    Gluon net of either package), by full parameter name."""
+    if not isinstance(blob, dict):
+        blob = {k: _np(p.data()) for k, p in blob.items()}
     items = _split(blob)
     params = block.collect_params()
     _check_names(list(items), list(params.keys()), "block parameters")

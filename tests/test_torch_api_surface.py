@@ -1,0 +1,130 @@
+"""The port's user surface against the JAX package's (the counterpart of
+``tests/test_api_surface.py``).
+
+Every public name of ``mx.nd``, ``mx.sym``, ``mx.autograd``,
+``mx.gluon``, ``mx.gluon.loss`` and ``mx.gluon.nn`` in ``mxnet_tpu``
+either exists in ``mxnet_tpu_torch`` or sits on the skip list below,
+under the ROADMAP.md item that will port it. A name ported since must
+leave the list (the test fails on a stale entry), so the list shrinks
+PR by PR. Modules a namespace merely imports (``jax``, ``numpy``) are
+not names of the surface.
+"""
+import types
+
+import pytest
+
+import mxnet_tpu as mx
+
+import mxnet_tpu_torch as mt
+
+_NN_OPS = ["Convolution_v1", "CuDNNBatchNorm", "Deconvolution", "Dropout",
+           "InstanceNorm", "L2Normalization", "LRN", "LayerNorm",
+           "LeakyReLU", "LinearRegressionOutput", "LogisticRegressionOutput",
+           "MAERegressionOutput", "MakeLoss", "Pooling_v1", "SVMOutput",
+           "SequenceLast", "SequenceMask", "SequenceReverse",
+           "SoftmaxActivation", "UpSampling", "softmax_cross_entropy"]
+_LINALG = ["linalg_gemm", "linalg_gemm2", "linalg_potrf", "linalg_potri",
+           "linalg_sumlogdiag", "linalg_syrk", "linalg_trmm", "linalg_trsm"]
+_RANDOM = ["normal", "random_exponential", "random_gamma",
+           "random_generalized_negative_binomial", "random_negative_binomial",
+           "random_normal", "random_poisson", "random_uniform",
+           "sample_exponential", "sample_gamma", "sample_multinomial",
+           "sample_normal", "sample_poisson", "sample_uniform", "shuffle",
+           "uniform"]
+_UPDATE_OPS = ["adam_update", "ftrl_update", "mp_sgd_mom_update",
+               "mp_sgd_update", "rmsprop_update", "rmspropalex_update",
+               "sgd_mom_update", "sgd_update"]
+_LONG_TAIL_OPS = ["BatchNorm_v1", "Correlation", "DeformableConvolution",
+                  "IdentityAttachKLSparseReg", "Proposal", "dequantize",
+                  "fft", "ifft", "quantize", "BilinearSampler",
+                  "GridGenerator", "SpatialTransformer", "Crop",
+                  "MultiProposal", "linalg_gelqf", "linalg_syevd", "Custom",
+                  "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
+                  "ROIPooling", "RNN", "ctc_loss"]
+
+# {namespace: {ROADMAP item: [names]}}
+SKIP = {
+    "nd": {
+        "Queue 1 item 3.1: the rest of ops/nn.py": _NN_OPS,
+        "Queue 1 item 3.1: linalg": _LINALG + ["linalg"],
+        "Queue 1 item 3.1: random_ops": _RANDOM + ["random"],
+        "Queue 1 item 3.4: the optimizers' update ops": _UPDATE_OPS,
+        "Queue 1 item 5: bf16 nd.save and load_frombuffer":
+            ["load_frombuffer"],
+        "Queue 1 item 6: long tail (contrib, spatial, ctc, rnn ops, "
+        "sparse, image)": _LONG_TAIL_OPS + [
+            "CSRNDArray", "RowSparseNDArray", "cast_storage", "contrib",
+            "sparse", "imdecode"],
+    },
+    "sym": {
+        "Queue 1 item 3.1: the rest of ops/nn.py": _NN_OPS,
+        "Queue 1 item 3.1: linalg": _LINALG,
+        "Queue 1 item 3.1: random_ops": _RANDOM,
+        "Queue 1 item 3.4: the optimizers' update ops": _UPDATE_OPS,
+        "Queue 1 item 6: long tail (contrib, spatial, ctc, rnn ops, "
+        "sparse)": _LONG_TAIL_OPS + ["contrib", "sparse"],
+    },
+    "autograd": {
+        "Queue 1 item 3.2: autograd.get_symbol": ["get_symbol"],
+    },
+    "gluon": {
+        "Queue 1 item 3.3: SymbolBlock and gluon.data":
+            ["SymbolBlock", "data"],
+        "Queue 1 item 6: gluon.rnn, gluon.contrib": ["rnn", "contrib"],
+    },
+    "gluon.loss": {
+        "Queue 1 item 6: CTCLoss (needs the ctc op)": ["CTCLoss"],
+    },
+    "gluon.nn": {
+        "Queue 1 item 3.3: the rest of gluon.nn": [
+            "AvgPool1D", "AvgPool2D", "AvgPool3D", "Conv1D",
+            "Conv1DTranspose", "Conv2DTranspose", "Conv3D",
+            "Conv3DTranspose", "Dropout", "Embedding", "GlobalAvgPool1D",
+            "GlobalAvgPool3D", "GlobalMaxPool1D", "GlobalMaxPool2D",
+            "GlobalMaxPool3D", "HybridLambda", "InstanceNorm", "Lambda",
+            "LayerNorm", "LeakyReLU", "MaxPool1D", "MaxPool3D",
+            "Sequential"],
+    },
+}
+
+
+def _module(pkg, path):
+    for part in path.split("."):
+        pkg = getattr(pkg, part)
+    return pkg
+
+
+def _public(mod):
+    out = set()
+    for n in dir(mod):
+        if n.startswith("_"):
+            continue
+        v = getattr(mod, n)
+        if isinstance(v, types.ModuleType) and \
+                v.__name__.split(".")[0] in ("jax", "jaxlib", "numpy"):
+            continue
+        out.add(n)
+    return out
+
+
+@pytest.mark.parametrize("ns", sorted(SKIP))
+def test_surface_is_ported_or_listed(ns):
+    want = _public(_module(mx, ns))
+    have = _public(_module(mt, ns))
+    listed = {n: item for item, names in SKIP[ns].items() for n in names}
+    missing = sorted(n for n in want - have if n not in listed)
+    assert not missing, "%s: not ported and not on the skip list: %s" % (
+        ns, missing)
+    stale = sorted(n for n in listed if n in have or n not in want)
+    assert not stale, "%s: ported (or gone), take off the list: %s" % (
+        ns, stale)
+
+
+def test_skip_list_names_a_roadmap_item():
+    import os
+    roadmap = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "ROADMAP.md")).read()
+    for items in SKIP.values():
+        for item in items:
+            assert item.startswith("Queue 1 item "), item
+            assert "Queue 1" in roadmap

@@ -488,3 +488,24 @@ def test_mesh_of_more_than_one_device_raises():
                      mesh_axes={"dp": 1, "mp": -1})
     with _engine(cell, partition_rules=[], contexts=[CPU]) as eng:
         assert eng.generate(_prompts()[3], max_new_tokens=2).tokens
+
+
+def test_latency_percentiles_take_the_jax_rule():
+    """Token and request latency percentiles by the nearest rank, rounded
+    to 4 decimals, as the JAX package's telemetry (ROADMAP Queue 3,
+    fault 5)."""
+    from mxnet_tpu import telemetry
+    samples = [0.5, 1.25, 0.75, 3.0, 0.9, 1.1, 2.2, 0.8, 1.33333]
+    _, cell = _cells("attn")
+    eng = _engine(cell)
+    try:
+        eng._tok_lat.extend(samples)
+        eng._req_lat.extend(samples[:4])
+        st = eng.stats()
+    finally:
+        eng.close()
+    for key, vals in (("token_latency_ms", samples),
+                      ("request_latency_ms", samples[:4])):
+        s = sorted(vals)
+        assert st[key] == {"p%d_ms" % q: round(telemetry._percentile(s, q),
+                                               4) for q in (50, 95, 99)}

@@ -640,3 +640,98 @@ def test_decode_steady_state_allocates_no_segment():
             futs = [eng.submit(p) for p in prompts[:k]]
             assert all(f.result(timeout=120).tokens for f in futs)
         assert torch.cuda.memory_stats()["segment.all.allocated"] == segs
+
+
+# -- the Gluon loop: NDArray tape, hybridize, gluon.loss, gluon.Trainer ------
+
+def _small_gluon_net(ctx):
+    mt.layout.set_default_layout("NHWC")
+    try:
+        with mt.name.NameManager():
+            net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                                  [8, 16, 32, 64, 128], classes=10,
+                                  thumbnail=True)
+    finally:
+        mt.layout.set_default_layout(None)
+    net.initialize(mt.init.Xavier(generator=torch.Generator().manual_seed(0)),
+                   ctx=ctx)
+    net(mt.nd.zeros((1, 32, 32, 3), ctx=ctx))
+    return net
+
+
+@pytest.mark.parametrize("hybridize", [False, True])
+def test_gluon_step1_on_card_matches_raw_step(hybridize, monkeypatch):
+    """Step 1 of README.md's loop on the card (record, SoftmaxCELoss,
+    backward, Trainer.step) against the raw step (make_pure_fn +
+    torch.autograd + FusedUpdater) on the same weights and batch, TF32
+    off, cudnn deterministic: loss within 1e-5 relative, parameters within
+    1e-4 of each tensor's largest value; 4 K1 launches per forward."""
+    _need_card()
+    monkeypatch.setenv("MXNET_FUSED_BN_ADD_RELU", "1")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    from mxnet_tpu_torch.gluon.block import make_pure_fn
+    ctx = mt.gpu(0)
+    net = _small_gluon_net(ctx)
+    params = net.collect_params()
+    rs = np.random.RandomState(2)
+    x = rs.uniform(-1, 1, (8, 32, 32, 3)).astype(np.float32)
+    y = rs.randint(0, 10, 8)
+    X, Y = mt.nd.array(x, ctx=ctx), mt.nd.array(y, ctx=ctx)
+    # the raw step
+    fn, raw, _ = make_pure_fn(net, train=True)
+    w = [mt.nd.NDArray(r.detach().clone()) for r in raw]
+    live = [i for i, p in enumerate(params.values()) if p.grad_req != "null"]
+    full = [t._data.detach().requires_grad_() for t in w]
+    (logits,), aux = fn(full, [X._data])
+    loss = -torch.log_softmax(logits, -1).gather(
+        1, torch.from_numpy(y).cuda()[:, None]).mean()
+    grads = torch.autograd.grad(loss, [full[i] for i in live])
+    upd = mt.optimizer.get_updater(mt.optimizer.SGD(learning_rate=0.05,
+                                                    momentum=0.9))
+    upd.update_batch(live, [mt.nd.NDArray(g) for g in grads],
+                     [w[i] for i in live])
+    with torch.no_grad():
+        for i, v in aux.items():
+            w[i]._data.copy_(v)
+    # the Gluon step
+    net.hybridize(hybridize)
+    tr = mt.gluon.Trainer(params, "sgd", {"learning_rate": 0.05,
+                                          "momentum": 0.9})
+    before = K.launches
+    with mt.autograd.record():
+        l = mt.gluon.loss.SoftmaxCrossEntropyLoss()(net(X), Y)
+    l.backward()
+    tr.step(8)
+    torch.cuda.synchronize()
+    assert K.launches == before + 4
+    np.testing.assert_allclose(float(l.mean().asscalar()), float(loss.detach()),
+                               rtol=1e-5)
+    for (name, p), ref in zip(params.items(), w):
+        got, want = p.data().asnumpy(), ref.asnumpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * max(
+            np.abs(want).max(), 1e-30), err_msg=name)
+
+
+@pytest.mark.parametrize("req", ["write", "add", "null"])
+def test_tape_grad_req_on_card(req):
+    """``grad_req`` write overwrites, add accumulates, null leaves the
+    buffer, on CUDA tensors; an op outside ``record`` builds no graph;
+    a second backward without ``retain_graph`` raises."""
+    _need_card()
+    ctx = mt.gpu(0)
+    x = mt.nd.array(np.array([1.0, -2.0, 3.0], np.float32), ctx=ctx)
+    g = mt.nd.array(np.full(3, 7.0, np.float32), ctx=ctx)
+    mt.autograd.mark_variables([x], [g], req)
+    for _ in range(2):
+        with mt.autograd.record():
+            y = (x * x * 3).sum()
+        y.backward()
+    assert g._data.is_cuda
+    want = {"write": 6 * x.asnumpy(), "add": 7 + 12 * x.asnumpy(),
+            "null": np.full(3, 7.0)}[req]
+    np.testing.assert_allclose(g.asnumpy(), want, rtol=1e-6)
+    assert not (x * 2)._data.requires_grad
+    with pytest.raises(mt.MXNetError):
+        y.backward()

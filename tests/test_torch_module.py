@@ -458,3 +458,50 @@ def test_module_defaults_to_the_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(mt.MXNetError, match="no CUDA device"):
         mt.mod.Module(_mlp(mt))
+
+
+def _init_attr_module(pkg, **kw):
+    w = pkg.sym.Variable("fc_weight", attr={"__init__": '["one", {}]'})
+    b = pkg.sym.Variable("fc_bias", init="zeros")
+    net = pkg.sym.FullyConnected(pkg.sym.Variable("data"), weight=w, bias=b,
+                                 num_hidden=3, name="fc")
+    net = pkg.sym.SoftmaxOutput(net, name="softmax")
+    mod = pkg.mod.Module(net, **kw)
+    mod.bind(data_shapes=[("data", (2, 4))],
+             label_shapes=[("softmax_label", (2,))])
+    return mod
+
+
+def test_init_params_honours_init_attribute_like_jax():
+    """A variable's ``__init__`` attribute picks its own initializer
+    (``InitDesc``), as in the JAX package (ROADMAP Queue 3, fault 2: the
+    port drew Xavier for the all-ones row)."""
+    got = []
+    for pkg, kw in ((mx, {}), (mt, {"context": mt.cpu()})):
+        mod = _init_attr_module(pkg, **kw)
+        mod.init_params(initializer=pkg.init.Xavier())
+        arg, _ = mod.get_params()
+        got.append({k: v.asnumpy() for k, v in arg.items()})
+    for k in got[0]:
+        np.testing.assert_array_equal(got[1][k], got[0][k], err_msg=k)
+    np.testing.assert_array_equal(got[1]["fc_weight"], np.ones((3, 4)))
+
+
+def test_init_params_accepts_extra_names_like_jax():
+    """Names the symbol lacks are ignored, as the JAX package ignores them
+    (ROADMAP Queue 3, fault 4: the port raised)."""
+    rs = np.random.RandomState(0)
+    given = {"fc_weight": rs.randn(3, 4).astype(np.float32),
+             "fc_bias": rs.randn(3).astype(np.float32),
+             "bogus": rs.randn(2).astype(np.float32)}
+    got = []
+    for pkg, kw in ((mx, {}), (mt, {"context": mt.cpu()})):
+        mod = _init_attr_module(pkg, **kw)
+        mod.init_params(arg_params={k: pkg.nd.array(v)
+                                    if pkg is mx else v
+                                    for k, v in given.items()})
+        arg, _ = mod.get_params()
+        got.append({k: v.asnumpy() for k, v in arg.items()})
+    assert sorted(got[0]) == sorted(got[1]) == ["fc_bias", "fc_weight"]
+    for k in got[0]:
+        np.testing.assert_array_equal(got[1][k], got[0][k])

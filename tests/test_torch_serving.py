@@ -451,3 +451,23 @@ def test_per_request_deadline_sheds_stale_request():
     st = eng.stats()
     assert st["shed_by_cause"] == {"coalesce": 1}
     assert st["buckets"] == {"2": 1} and st["queue_depth"] == 0
+
+
+_LAT_SAMPLES = [5.0, 1.0, 2.25, 3.0, 4.0, 10.123456, 7.0, 2.0, 6.5, 9.0, 8.0]
+
+
+def test_latency_percentiles_take_the_jax_rule():
+    """``stats()['latency_ms']`` by the nearest rank, rounded to 4
+    decimals, as the JAX package's telemetry computes it (ROADMAP Queue 3,
+    fault 5: the port interpolated with ``np.percentile``)."""
+    from mxnet_tpu import telemetry
+    _, _, eng = _engine()
+    try:
+        eng._latencies.extend(_LAT_SAMPLES)
+        got = eng.stats()["latency_ms"]
+    finally:
+        eng.close()
+    s = sorted(_LAT_SAMPLES)
+    assert got == {"p%d_ms" % q: round(telemetry._percentile(s, q), 4)
+                   for q in (50, 95, 99)}
+    assert got["p95_ms"] == got["p99_ms"] == 10.1235
