@@ -102,21 +102,47 @@ Phases (any failure exits non-zero; no error is swallowed):
    the LSTM cell at the attention cell's widths against the CPU. The
    path runs no hand-written kernel: the JAX package's decode is plain
    ``jnp``.
-10. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+10. rnn_training — the LSTM family at published widths (fp32, both TF32
+   flags off, cudnn deterministic; the card's name and power limit in
+   each record). (a) The word language model of
+   ``examples/gluon/word_language_model/train.py`` at upstream MXNet's
+   medium configuration (2 layers, emsize = nhid = 650, vocab 10,000,
+   bptt 35, batch 32, 19.8 M parameters, synthetic tokens from a seed):
+   step 1 at dropout 0 against the port's CPU recompute (loss 1e-4
+   relative, parameters 1e-3 of each tensor's largest value) and
+   hybridized against eager; then 5 eager and 5 hybridized steps at
+   dropout 0.5 from the same start and ``mx.random.seed`` (whether
+   their masks agree is printed): ms per step (CUDA events), host wall,
+   tokens/s, peak memory per step (no growth from step 2 to 5), and a
+   profile of one step with the count of ``aten::_cudnn_rnn`` calls
+   (one per layer: cuDNN's fused RNN, no loop over time steps). (b)
+   ``examples/rnn/bucketing_lstm.py`` at upstream
+   ``lstm_bucketing.py``'s widths (2 layers of 200, embed 200, vocab
+   10,000, batch 32, buckets 10-60, 1024 sentences of 5-60 tokens from
+   the example's generator): ``BucketingModule.fit`` over three passes
+   with Adam, fused then phase-split (bit-equal), batch 1 against the
+   CPU: ms per batch by bucket length (first batches, which bind, apart),
+   bound modules (6), parameter copies per bucket switch, Perplexity
+   (``score`` after the passes under the vocabulary size), the peak of
+   each pass (none above the second once every module is bound), a
+   profile of one step at length 60. K1-K3 launch 0 times on this
+   path.
+11. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
    and ``library_ms`` device times (``event_ms`` beside), ``plain_ms`` by
    CUDA events; each
    ``launches`` is the count on that kernel's main paths (K1: serving,
-   training and the Gluon loop) — and, last, the ``{"ok": true,
+   training and the Gluon loop), ``rnn_training_launches`` its count on
+   the recurrent path (0) — and, last, the ``{"ok": true,
    "device": {...}}`` line.
 
 The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-9 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-10 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -220,13 +246,18 @@ def sass_tensor_ops(lib_path):
     return counts
 
 
-def device_phase():
-    name = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    smi = subprocess.run(
+def _card_line():
+    """``nvidia-smi``'s name and power limit of the first card."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def device_phase():
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = _card_line()
     print(smi, flush=True)
     rate = next(r for key, r in _MEM_RATE if key in name)
     emit({"device": name, "count": count, "nvidia_smi": smi,
@@ -1834,8 +1865,532 @@ def decode_phase(mx, ctx, rehearsal):
     return legs
 
 
+# The recurrent family. (a) The medium configuration of upstream MXNet's
+# example/gluon/word_language_model (2 layers, emsize = nhid = 650,
+# dropout 0.5, bptt 35, batch 32, PTB's 10,000 words) trained by
+# examples/gluon/word_language_model/train.py's loop on synthetic tokens.
+# (b) upstream example/rnn/bucketing/lstm_bucketing.py's widths (2 layers,
+# num_hidden = num_embed = 200, batch 32, buckets 10..60, vocabulary
+# 10,000) through examples/rnn/bucketing_lstm.py's BucketingModule.fit.
+_WLM = {False: dict(vocab=10000, emsize=650, nhid=650, nlayers=2,
+                    dropout=0.5, bptt=35, batch=32),
+        True: dict(vocab=60, emsize=32, nhid=32, nlayers=2, dropout=0.5,
+                   bptt=8, batch=8)}
+_BUCKETING = {False: dict(vocab=10000, num_hidden=200, num_embed=200,
+                          num_layers=2, batch=32,
+                          buckets=[10, 20, 30, 40, 50, 60], sentences=1024),
+              True: dict(vocab=50, num_hidden=16, num_embed=8, num_layers=2,
+                         batch=4, buckets=[6, 9, 12], sentences=96)}
+_RNN_LOSS_TOL, _RNN_PARAM_TOL = 1e-4, 1e-3     # step 1 against the CPU
+
+
+def _word_lm(mx, cfg):
+    """``examples/gluon/word_language_model/train.py``'s RNNModel (its
+    states begin on the input's context)."""
+    gluon = mx.gluon
+
+    class RNNModel(gluon.Block):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = gluon.nn.Dropout(cfg["dropout"])
+                self.encoder = gluon.nn.Embedding(cfg["vocab"], cfg["emsize"])
+                self.rnn = gluon.rnn.LSTM(cfg["nhid"], cfg["nlayers"],
+                                          dropout=cfg["dropout"],
+                                          input_size=cfg["emsize"])
+                self.decoder = gluon.nn.Dense(cfg["vocab"],
+                                              in_units=cfg["nhid"])
+                self.hidden_dim = cfg["nhid"]
+
+        def forward(self, inputs, hidden=None):
+            emb = self.drop(self.encoder(inputs))
+            if hidden is None:
+                hidden = self.rnn.begin_state(batch_size=inputs.shape[1],
+                                              ctx=inputs.context)
+            output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            decoded = self.decoder(output.reshape((-1, self.hidden_dim)))
+            return decoded, hidden
+
+    with mx.name.NameManager():
+        return RNNModel()
+
+
+def _set_dropout(model, p, hybridize):
+    """The model's two dropout rates (the Dropout blocks' and the LSTM's
+    between its layers) set to ``p``; hybridize(...) drops cached graphs."""
+    model.drop._rate = p
+    model.rnn._dropout = p
+    model.hybridize(hybridize)
+
+
+class _WordLMSteps:
+    """train.py's inner loop from a given start: per step, the next bptt
+    chunk, ``detach()`` of the carried state, ``autograd.record`` →
+    ``SoftmaxCrossEntropyLoss().sum()`` → ``backward`` →
+    ``clip_global_norm(grads, 0.25 * batch)`` → ``Trainer.step(bptt)``."""
+
+    def __init__(self, mx, model, tokens, cfg, ctx):
+        self.mx, self.model, self.tokens, self.cfg = mx, model, tokens, cfg
+        self.ctx = ctx
+        self.trainer = mx.gluon.Trainer(
+            model.collect_params(), "sgd",
+            {"learning_rate": 1.0, "rescale_grad": 1.0 / cfg["batch"]})
+        self.loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        self.grads = [p.grad() for p in model.collect_params().values()
+                      if p.grad_req != "null"]
+        self.hidden, self.i = None, 0
+
+    def __call__(self):
+        mx, bptt, batch = self.mx, self.cfg["bptt"], self.cfg["batch"]
+        i = self.i
+        self.i += bptt
+        x = mx.nd.array(self.tokens[i:i + bptt], ctx=self.ctx)
+        y = mx.nd.array(self.tokens[i + 1:i + 1 + bptt].reshape(-1),
+                        ctx=self.ctx)
+        if self.hidden is not None:
+            self.hidden = [h.detach() for h in self.hidden]
+        with mx.autograd.record():
+            out, self.hidden = self.model(x, self.hidden)
+            loss = self.loss_fn(out, y).sum()
+        loss.backward()
+        mx.gluon.utils.clip_global_norm(self.grads, 0.25 * batch)
+        self.trainer.step(bptt)
+        return float(loss.asnumpy()) / (bptt * batch)
+
+
+def _load_params(model, values):
+    with torch.no_grad():
+        for k, p in model.collect_params().items():
+            p.data()._data.copy_(values[k])
+
+
+def _rnn_profile(fn):
+    """``profile_forward`` of one call, with the count of ATen's fused-RNN
+    ops it dispatched (one per LSTM layer: no loop over time steps)."""
+    from torch.profiler import ProfilerActivity, profile
+    rec = profile_forward(fn, reps=1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rec["fused_rnn_ops"] = {e.key: e.count for e in prof.key_averages()
+                            if e.key in ("aten::_cudnn_rnn", "aten::lstm",
+                                         "aten::_cudnn_rnn_backward")}
+    return rec
+
+
+def _word_lm_leg(mx, ctx, rehearsal, card):
+    """(a): the word LM on the card, dropout 0 step 1 against the CPU and
+    hybridized against eager, then 5 eager and 5 hybridized steps at
+    dropout 0.5 from the same start and seed."""
+    gpu = ctx.device_type == "gpu"
+    cfg = _WLM[rehearsal]
+    model = _word_lm(mx, cfg)
+    model.initialize(mx.init.Xavier(generator=torch.Generator().manual_seed(
+        0)), ctx=ctx)
+    params = model.collect_params()
+    n_params = sum(p.data().size for p in params.values())
+    init = _host_copy(params)
+    tokens = np.random.RandomState(0).randint(
+        0, cfg["vocab"], (cfg["bptt"] * 5 + 1, cfg["batch"])).astype(
+            np.float32)
+    rec = {"config": dict(cfg), "parameters": int(n_params),
+           "precision": "fp32; torch.backends.cuda.matmul.allow_tf32 and "
+                        "torch.backends.cudnn.allow_tf32 False; cudnn "
+                        "deterministic", "card": card}
+
+    # step 1 at dropout 0: eager, hybridized, and the CPU recompute
+    firsts = {}
+    for hyb in (False, True):
+        _load_params(model, init)
+        _set_dropout(model, 0.0, hyb)
+        loss = _WordLMSteps(mx, model, tokens, cfg, ctx)()
+        firsts[hyb] = (loss, _host_copy(params))
+    cpu = _word_lm(mx, dict(cfg, dropout=0.0))
+    cpu.initialize(ctx=mx.cpu())
+    _load_params(cpu, init)
+    cpu_loss = _WordLMSteps(mx, cpu, tokens, cfg, mx.cpu())()
+    cpu_params = _host_copy(cpu.collect_params())
+    del cpu
+    (e_loss, e_par), (h_loss, h_par) = firsts[False], firsts[True]
+    rec["step1_dropout0"] = {
+        "loss": e_loss, "cpu_loss": cpu_loss,
+        "loss_rel_err_vs_cpu": abs(e_loss - cpu_loss) / abs(cpu_loss),
+        "param_scaled_err_vs_cpu": _max_scaled(e_par, cpu_params),
+        "hybridized_loss": h_loss,
+        "hybridized_vs_eager_loss_abs": abs(h_loss - e_loss),
+        "hybridized_vs_eager_param_scaled": _max_scaled(h_par, e_par),
+        "hybridized_bit_equal": h_loss == e_loss and all(
+            torch.equal(h_par[k], e_par[k]) for k in e_par)}
+    s1 = rec["step1_dropout0"]
+    assert s1["loss_rel_err_vs_cpu"] <= _RNN_LOSS_TOL, s1
+    assert s1["param_scaled_err_vs_cpu"] <= _RNN_PARAM_TOL, s1
+    assert s1["hybridized_vs_eager_param_scaled"] <= 1e-5, s1
+    del firsts, e_par, h_par, cpu_params
+
+    # 5 eager then 5 hybridized steps at dropout 0.5, same start and seed
+    legs = {}
+    for hyb in (False, True):
+        _load_params(model, init)
+        _set_dropout(model, cfg["dropout"], hyb)
+        mx.random.seed(1)
+        steps = _WordLMSteps(mx, model, tokens, cfg, ctx)
+        peaks = []
+
+        def tracked():
+            if gpu:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            out = steps()
+            if gpu:
+                torch.cuda.synchronize()
+                peaks.append(torch.cuda.max_memory_allocated())
+            return out
+
+        losses, ms, wall = _timed_steps(tracked, 5, gpu)
+        leg = {"leg": "hybridized" if hyb else "eager", "steps": 5,
+               "dropout": cfg["dropout"], "losses": losses}
+        if gpu:
+            tok = cfg["bptt"] * cfg["batch"]
+            leg.update({
+                "step_ms": ms, "step_ms_mean_2_5": float(np.mean(ms[1:])),
+                "step_wall_ms": wall,
+                "tokens_per_s": tok / float(np.mean(ms[1:])) * 1e3,
+                "peak_bytes_per_step": peaks})
+            steps.i = 0                     # one more chunk, profiled
+            leg["step_profile"] = _rnn_profile(steps)
+        legs[hyb] = (leg, _host_copy(params))
+        assert all(np.isfinite(losses)), losses
+        if gpu:
+            assert peaks[4] <= peaks[1], ("peak grew from step 2 to 5",
+                                          peaks)
+            fused = leg["step_profile"]["fused_rnn_ops"]
+            assert fused.get("aten::_cudnn_rnn", 0) == cfg["nlayers"], fused
+        rec[leg["leg"]] = leg
+    if gpu:
+        rec["rnn_op_vs_nn_lstm"] = _rnn_op_vs_library(cfg)
+    (el, ep), (hl, hp) = legs[False], legs[True]
+    rec["dropout_masks"] = {
+        "hybridized_vs_eager_loss_max_abs": max(
+            abs(a - b) for a, b in zip(hl["losses"], el["losses"])),
+        "hybridized_vs_eager_param_scaled": _max_scaled(hp, ep),
+        "masks_agree": hl["losses"] == el["losses"]}
+    _set_dropout(model, cfg["dropout"], False)
+    emit({"rnn_training": {"word_lm": rec}})
+    return rec
+
+
+def _rnn_op_vs_library(cfg):
+    """The fused RNN op (forward + backward, the LM's two layers at its
+    shape) against ``torch.nn.LSTM`` with its weights flattened into
+    cuDNN's one buffer, on the same inputs and weights: the difference
+    is what the op's per-layer views cost (ATen copies them into one
+    buffer at each call). Device time from the profiler."""
+    from mxnet_tpu_torch.ops.rnn import rnn, rnn_param_size
+    T, N, E, H, L = (cfg["bptt"], cfg["batch"], cfg["emsize"], cfg["nhid"],
+                     cfg["nlayers"])
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dev = torch.device("cuda")
+    x = torch.randn(T, N, E, generator=g, device=dev).requires_grad_()
+    flat = (0.05 * torch.randn(rnn_param_size(E, H, L, "lstm"),
+                               generator=g, device=dev)).requires_grad_()
+    h0 = torch.zeros(L, N, H, device=dev)
+    lib = torch.nn.LSTM(E, H, L).to(dev)
+    with torch.no_grad():
+        off = 0
+        for layer in range(L):
+            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                w = getattr(lib, "%s_l%d" % (name, layer))
+                w.copy_(flat[off:off + w.numel()].view_as(w))
+                off += w.numel()
+    lib.flatten_parameters()
+
+    def port():
+        out = rnn(x, flat, h0, h0, state_size=H, num_layers=L,
+                  mode="lstm", state_outputs=True)[0]
+        out.sum().backward()
+        return out
+
+    def library():
+        out = lib(x, (h0, h0))[0]
+        out.sum().backward()
+        return out
+
+    err = float((port() - library()).abs().max())
+    port_ms, _ = device_time(port, reps=10)
+    lib_ms, _ = device_time(library, reps=10)
+    port_ev, lib_ev = time_cuda(port, 10, 2), time_cuda(library, 10, 2)
+    x.grad = flat.grad = None
+    return {"shape": [T, N, E, H, L], "max_abs_err": err,
+            "ms": port_ms, "library_ms": lib_ms, "event_ms": port_ev,
+            "library_event_ms": lib_ev,
+            "library_call": "torch.nn.LSTM (flattened weights), fwd+bwd"}
+
+
+def _bucket_sentences(cfg, seed=0):
+    """``examples/rnn/bucketing_lstm.py``'s ``synthetic_sentences`` (next
+    token = token + 1 mod vocab), lengths 5 to the largest bucket."""
+    rng = np.random.RandomState(seed)
+    top = max(cfg["buckets"])
+    out = []
+    for _ in range(cfg["sentences"]):
+        length = rng.randint(min(5, top - 1), top + 1)
+        start = rng.randint(0, cfg["vocab"])
+        out.append([(start + t) % cfg["vocab"] for t in range(length)])
+    return out
+
+
+def _bucket_sym_gen(mx, cfg):
+    """``examples/rnn/bucketing_lstm.py``'s ``sym_gen``."""
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data=data, input_dim=cfg["vocab"],
+                                 output_dim=cfg["num_embed"], name="embed")
+        stack = mx.rnn.SequentialRNNCell()
+        for i in range(cfg["num_layers"]):
+            stack.add(mx.rnn.LSTMCell(num_hidden=cfg["num_hidden"],
+                                      prefix="lstm_l%d_" % i))
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, cfg["num_hidden"]))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=cfg["vocab"],
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, use_ignore=True,
+                                    ignore_label=-1, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def _bucket_iter(mx, cfg):
+    import random
+    random.seed(1)
+    np.random.seed(1)
+    return mx.rnn.BucketSentenceIter(_bucket_sentences(cfg), cfg["batch"],
+                                     buckets=list(cfg["buckets"]))
+
+
+def _bucket_module(mx, cfg, ctx, it, init):
+    mod = mx.mod.BucketingModule(_bucket_sym_gen(mx, cfg),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=init, aux_params={})
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": 0.01,
+                                         "rescale_grad": 1.0 / cfg["batch"]})
+    return mod
+
+
+def _bucketing_fit(mx, cfg, ctx, init, fused, epochs=3):
+    """``fit`` over three passes of the data: per batch, the CUDA-event
+    and host ms by bucket length (a bucket's first batch, which binds its
+    module, apart; the rest from the last pass); the state after batch 1
+    (parameters, batch, its Perplexity); the peak of each pass. The
+    first pass binds the modules one by one, so a bucket's batch may run
+    there before the others' arrays exist: the second pass is the first
+    whose every batch runs with all six bound, and the third must not
+    peak above it."""
+    import random
+    gpu = ctx.device_type == "gpu"
+    os.environ["MXNET_MODULE_FUSED_STEP"] = "1" if fused else "0"
+    it = _bucket_iter(mx, cfg)
+    mod = _bucket_module(mx, cfg, ctx, it, init)
+    seen, first, marks, peaks = set(), {}, [], []
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def mark():
+        ev = None
+        if gpu:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        return ev, time.perf_counter()
+
+    def on_batch(param):
+        batch = param.locals["data_batch"]
+        marks.append((param.epoch, batch.bucket_key) + mark())
+        seen.add(batch.bucket_key)
+        if param.epoch == 0 and param.nbatch == 0:
+            met = mx.metric.Perplexity(ignore_label=-1)
+            met.update(batch.label, mod.get_outputs())
+            first.update(batch=batch, ppl=met.get()[1],
+                         params=_host_copy_dict(mod.get_params()[0]))
+
+    def on_epoch(*_):
+        if gpu:
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+    random.seed(2)
+    np.random.seed(2)
+    met = mx.metric.Perplexity(ignore_label=-1)
+    start = mark()
+    mod.fit(it, eval_metric=met, num_epoch=epochs,
+            batch_end_callback=on_batch, epoch_end_callback=on_epoch)
+    if gpu:
+        torch.cuda.synchronize()
+    os.environ.pop("MXNET_MODULE_FUSED_STEP")
+    first_ms, by_len, prev = {}, collections.defaultdict(list), start
+    for epoch, key, ev, t in marks:
+        dev_ms = prev[0].elapsed_time(ev) if ev is not None else None
+        if key not in first_ms:
+            first_ms[key] = dev_ms
+        elif epoch == epochs - 1:
+            by_len[key].append((dev_ms, (t - prev[1]) * 1e3))
+        prev = (ev, t)
+    params = _host_copy_dict(mod.get_params()[0])
+    res = {"route": "fused" if fused else "phase_split", "epochs": epochs,
+           "batches": len(marks),
+           "batches_per_pass": len(marks) // epochs,
+           "fit_perplexity_last_pass": met.get()[1],
+           "bound_modules": len(mod._buckets),
+           "bucket_switches": mod.bucket_switches,
+           "param_copies": mod.param_copies,
+           "param_copies_per_switch": mod.param_copies
+           / max(mod.bucket_switches, 1),
+           "buckets_seen": sorted(seen)}
+    if gpu:
+        res.update({
+            "first_batch_ms_by_len": dict(sorted(first_ms.items())),
+            "ms_per_batch_by_len": {k: float(np.mean([m for m, _ in v]))
+                                    for k, v in sorted(by_len.items())},
+            "host_ms_per_batch_by_len": {
+                k: float(np.mean([w for _, w in v]))
+                for k, v in sorted(by_len.items())},
+            "batches_by_len_last_pass": {k: len(v) for k, v in
+                                         sorted(by_len.items())},
+            "peak_bytes_per_pass": peaks})
+    it.reset()
+    res["score_perplexity"] = dict(mod.score(
+        it, mx.metric.Perplexity(ignore_label=-1)))["perplexity"]
+    if gpu and fused:
+        # one more fused step of the longest bucket, profiled
+        top = max(cfg["buckets"])
+        it.reset()
+        batch = next(b for b in it if b.bucket_key == top)
+        res["profile_len_%d" % top] = profile_forward(
+            lambda: mod._fused_batch_step(batch), reps=1)
+    return res, first, params
+
+
+def _host_copy_dict(arrays):
+    return {k: v._data.to("cpu", copy=True) for k, v in arrays.items()}
+
+
+def _bucketing_leg(mx, ctx, rehearsal, card):
+    """(b): BucketingModule.fit, fused then phase-split on the same
+    batches from the same weights, batch 1 against the CPU."""
+    cfg = _BUCKETING[rehearsal]
+    it = _bucket_iter(mx, cfg)
+    sym, _, _ = _bucket_sym_gen(mx, cfg)(it.default_bucket_key)
+    shapes, _, _ = sym.infer_shape(data=it.provide_data[0].shape,
+                                   softmax_label=it.provide_label[0].shape)
+    init_fn = mx.init.Xavier(generator=torch.Generator().manual_seed(0))
+    init = {}
+    for name, shape in zip(sym.list_arguments(), shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        arr = mx.nd.zeros(shape, ctx=mx.cpu())
+        init_fn(mx.init.InitDesc(name), arr)
+        init[name] = arr.asnumpy()
+    fused, first, fused_params = _bucketing_fit(mx, cfg, ctx, init, True)
+    split, _, split_params = _bucketing_fit(mx, cfg, ctx, init, False)
+    # batch 1 recomputed on the CPU: the same bucket's module, the same
+    # weights, batch and Adam step
+    batch = first["batch"]
+    cpu_mod = mx.mod.Module(*_bucket_sym_gen(mx, cfg)(batch.bucket_key),
+                            context=mx.cpu())
+    cpu_mod.bind(batch.provide_data, batch.provide_label)
+    cpu_mod.init_params(arg_params=init, aux_params={})
+    cpu_mod.init_optimizer(optimizer="adam",
+                           optimizer_params={"learning_rate": 0.01,
+                                             "rescale_grad":
+                                                 1.0 / cfg["batch"]})
+    cpu_met = mx.metric.Perplexity(ignore_label=-1)
+    cpu_mod.forward_backward(batch)
+    cpu_mod.update()
+    cpu_met.update(batch.label, cpu_mod.get_outputs())
+    cpu_params = _host_copy_dict(cpu_mod.get_params()[0])
+    rec = {"config": {k: v for k, v in cfg.items()}, "card": card,
+           "precision": "fp32; both TF32 flags False; cudnn deterministic",
+           "fused": fused, "phase_split": split,
+           "fused_vs_phase_split_bit_equal":
+               fused["fit_perplexity_last_pass"]
+               == split["fit_perplexity_last_pass"]
+               and all(torch.equal(fused_params[k], split_params[k])
+                       for k in fused_params),
+           "batch1": {"bucket": batch.bucket_key, "perplexity": first["ppl"],
+                      "cpu_perplexity": cpu_met.get()[1],
+                      "ppl_rel_err_vs_cpu": abs(first["ppl"]
+                                                - cpu_met.get()[1])
+                      / cpu_met.get()[1],
+                      "param_scaled_err_vs_cpu": _max_scaled(
+                          first["params"], cpu_params)}}
+    emit({"rnn_training": {"bucketing": rec}})
+    b1 = rec["batch1"]
+    assert b1["ppl_rel_err_vs_cpu"] <= _RNN_LOSS_TOL, b1
+    assert b1["param_scaled_err_vs_cpu"] <= _RNN_PARAM_TOL, b1
+    assert rec["fused_vs_phase_split_bit_equal"], rec
+    for leg in (fused, split):
+        assert leg["bound_modules"] == len(cfg["buckets"]), leg
+        assert leg["buckets_seen"] == sorted(cfg["buckets"]), leg
+        assert leg["batches_per_pass"] >= (24 if not rehearsal else 6), leg
+        assert np.isfinite(leg["fit_perplexity_last_pass"]), leg
+        assert leg["score_perplexity"] < cfg["vocab"], leg
+        if "peak_bytes_per_pass" in leg:
+            p = leg["peak_bytes_per_pass"]
+            assert p[2] <= p[1], ("peak grew from pass 2 to 3", p)
+    return rec
+
+
+def _kernel_counts():
+    from mxnet_tpu_torch.kernels import fused_bn as K1
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    return K1.launches, FA.fwd_launches, FA.bwd_launches
+
+
+def rnn_training_phase(mx, ctx, rehearsal):
+    """Train the recurrent family at published widths: the Gluon word
+    language model over ``gluon.rnn.LSTM`` (cuDNN's fused RNN) and the
+    bucketing LSTM through ``BucketingModule.fit``. Returns the K1-K3
+    launches of the main path (0: the path has no hand-written kernel)."""
+    gpu = ctx.device_type == "gpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+    card = _card_line() if gpu else "CPU rehearsal"
+    from mxnet_tpu_torch.kernels import fused_bn as K1
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    # -- the main path: counts zeroed just before, read just after --------
+    K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+    _word_lm_leg(mx, ctx, rehearsal, card)
+    _bucketing_leg(mx, ctx, rehearsal, card)
+    counts = _kernel_counts()
+    # ---------------------------------------------------------------------
+    emit({"rnn_training": {"k1_launches": counts[0],
+                           "k2_launches": counts[1],
+                           "k3_launches": counts[2],
+                           "note": "the recurrent path runs no "
+                                   "hand-written kernel (the JAX package's "
+                                   "RNN op is lax.scan); cuDNN's fused "
+                                   "RNN and cuBLAS do its work"}})
+    assert counts == (0, 0, 0), counts
+    torch.backends.cudnn.deterministic = det
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+    return counts
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
-          "resnet_training", "gluon_training", "decode")
+          "resnet_training", "gluon_training", "decode", "rnn_training")
 
 
 def main(argv=None):
@@ -1889,6 +2444,9 @@ def main(argv=None):
     if "decode" in todo:
         with phase("decode"):
             decode_phase(mx, ctx, rehearsal)
+    if "rnn_training" in todo:
+        with phase("rnn_training"):
+            res["rnn_launches"] = rnn_training_phase(mx, ctx, rehearsal)
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -1904,6 +2462,7 @@ def main(argv=None):
         "serving_launches": res["k1_launches"],
         "training_launches": res["k1_train_launches"],
         "gluon_training_launches": res["k1_gluon_launches"],
+        "rnn_training_launches": res["rnn_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -1915,7 +2474,9 @@ def main(argv=None):
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:_attn_kernel",
-        "launches": launches["fwd"], "max_abs_err": attn["fwd_max_abs_err"],
+        "launches": launches["fwd"],
+        "rnn_training_launches": res["rnn_launches"][1],
+        "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
         "plain_ms": attn["fwd_plain_us"] / 1e3,
@@ -1927,7 +2488,9 @@ def main(argv=None):
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:_bwd_kernel",
-        "launches": launches["bwd"], "max_abs_err": attn["bwd_max_abs_err"],
+        "launches": launches["bwd"],
+        "rnn_training_launches": res["rnn_launches"][2],
+        "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,
         "plain_ms": attn["bwd_plain_us"] / 1e3,

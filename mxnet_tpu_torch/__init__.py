@@ -12,8 +12,10 @@ Ported so far: serving ResNet v1, training the causal-attention LM
 through ``parallel.SPMDTrainer``, training ResNet v1 through
 ``gluon.block.make_pure_fn``, ``mx.mod.Module.fit`` and the Gluon loop
 (``autograd.record``, ``gluon.loss``, ``gluon.Trainer``, ``hybridize``),
-and continuous-batching decode through ``decode.DecodeEngine``, each on
-one device; see ROADMAP.md.
+continuous-batching decode through ``decode.DecodeEngine``, and the
+recurrent family (``gluon.rnn`` over the fused ``RNN`` op, the symbolic
+cells of ``mx.rnn`` through ``mx.mod.BucketingModule``), each on one
+device; see ROADMAP.md.
 """
 from .base import MXNetError, get_env  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
@@ -22,6 +24,8 @@ from .attribute import AttrScope  # noqa: F401
 from . import ops  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
+from . import random  # noqa: F401
+from .random import seed  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import initializer  # noqa: F401
@@ -45,3 +49,8 @@ from . import module as mod  # noqa: F401
 from . import parallel  # noqa: F401
 from . import rnn  # noqa: F401
 from . import decode  # noqa: F401
+
+# mx.random's samplers (parity: mx.random.uniform is nd.random.uniform)
+for _name in nd.random.__all__:
+    setattr(random, _name, getattr(nd.random, _name))
+del _name

@@ -23,6 +23,8 @@ import torch
 
 from .base import MXNetError
 from .context import current_context
+from .ops.common import take_rng
+from .ops.tensor import creation_device
 
 __all__ = ["Executor", "infer_graph_attrs", "infer_graph_shapes"]
 
@@ -51,13 +53,18 @@ class _GraphProgram:
             if pos is not None and pos < len(self.nodes):
                 self._drop_after[pos].append(id(node))
 
-    def _apply_node(self, node, raw_in, train, aux_updates):
+    def _apply_node(self, node, raw_in, train, aux_updates, device):
         params = dict(node.op.defaults)
         params.update(node.attrs)
         params.pop("num_args", None)
         params.pop("name", None)
         if node.op.takes_train:
             params["_train"] = bool(train)
+        if node.op.nin == 0 and params.get("ctx") is None:
+            params["ctx"] = device
+        if node.op.takes_rng:
+            params["_rng"] = take_rng(raw_in[0].device if raw_in
+                                      else creation_device(params["ctx"]))
         outs = node.op.apply(raw_in, params)
         if train and node.op.stateful_update is not None:
             for in_idx, val in node.op.stateful_update(
@@ -70,9 +77,13 @@ class _GraphProgram:
     def eval_graph(self, arg_dict, aux_dict, train=False):
         """Evaluate the graph on raw tensors. Returns (outputs,
         aux_updates): in training mode the new moving stats of every
-        stateful op (BatchNorm), by aux name, detached."""
+        stateful op (BatchNorm), by aux name, detached. A creation op
+        makes its tensor on the device of the arguments, and a random op
+        draws from that device's generator (``ops/common.take_rng``), in
+        the graph's topological order."""
         env = {}
         aux_updates = {}
+        device = next((t.device for t in arg_dict.values()), None)
         for pos, node in enumerate(self.nodes):
             if node.op is None:
                 if node.name in arg_dict:
@@ -84,7 +95,7 @@ class _GraphProgram:
                 continue
             raw_in = [env[id(c)][idx] for c, idx in node.inputs]
             env[id(node)] = self._apply_node(node, raw_in, train,
-                                             aux_updates)
+                                             aux_updates, device)
             del raw_in
             for key in self._drop_after[pos]:
                 env.pop(key, None)
@@ -242,6 +253,10 @@ def infer_graph_attrs(symbol, known_shapes, known_types=None, partial=False,
                              % (node.name, missing))
         if node.op.takes_train:
             params["_train"] = False
+        if node.op.takes_rng:
+            params["_rng"] = None
+        if node.op.nin == 0 and params.get("ctx") is None:
+            params["ctx"] = torch.device("meta")
         metas = [torch.empty(s, dtype=t, device="meta")
                  for s, t in zip(in_shapes, in_types)]
         try:
@@ -425,6 +440,7 @@ class Executor:
         stats are written back, and the graph is kept for ``backward``."""
         self._feed(kwargs)
         self._pending = None
+        self.outputs = []       # the last outputs die before new ones live
         if not is_train:
             outs, _ = self._prog.forward_fn()(self._raw_args(),
                                               self._raw_aux())
@@ -454,6 +470,7 @@ class Executor:
         """Forward and backward in one pass (the Module path)."""
         self._feed(kwargs)
         self._pending = None
+        self.outputs = []
         self._run_fwd_bwd(self._head_grads(out_grads), is_train,
                           update_outputs=True)
         return self.outputs

@@ -1,9 +1,11 @@
-"""Gluon: imperative blocks, hybridize, losses and the Trainer."""
+"""Gluon: imperative blocks, hybridize, layers, recurrent layers and
+cells, losses and the Trainer."""
 from .parameter import (Parameter, ParameterDict,  # noqa: F401
                         DeferredInitializationError)
 from .block import Block, HybridBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from . import nn  # noqa: F401
+from . import rnn  # noqa: F401
 from . import loss  # noqa: F401
 from . import utils  # noqa: F401
 from . import model_zoo  # noqa: F401

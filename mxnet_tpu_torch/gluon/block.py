@@ -279,8 +279,9 @@ def make_pure_fn(block, train=False):
     ``torch`` grad mode, so ``torch.autograd`` differentiates it.
     ``aux_updates`` maps a parameter's index to its new value (BatchNorm
     moving stats of a training call), detached; the block's own
-    parameters are left as they were. ``rng`` is accepted for the JAX
-    signature; no op on this path draws random numbers.
+    parameters are left as they were. ``rng`` is the ``torch.Generator``
+    every random op of the call draws from (Dropout, the RNN op's
+    inter-layer dropout); None: the global generator of the device.
 
     The JAX function keys its aux map by the raw array's id and so
     returns it empty; this one keys by the parameter's NDArray.
@@ -298,7 +299,7 @@ def make_pure_fn(block, train=False):
         old = st.aux_collector
         try:
             st.aux_collector = collector
-            with autograd.pause(train_mode=train):
+            with autograd.pause(train_mode=train), _common.rng_scope(rng):
                 for nd, r in zip(nds, raw_params):
                     nd._data = r
                 out = block._forward_eager(*[NDArray(r)
@@ -322,8 +323,10 @@ class _CachedOp:
     ``autograd.record`` the graph evaluation is recorded like one op (its
     operators build ``torch.autograd``'s graph from the parameters'
     aliases); in training mode the BatchNorm moving stats the program
-    returns are written back. A block with deferred shapes runs eagerly
-    once first, as in the JAX package. No CUDA graph is captured here."""
+    returns are written back. Random ops draw from the global generator
+    of the device in the graph's order, which is the eager order. A
+    block with deferred shapes runs eagerly once first, as in the JAX
+    package. No CUDA graph is captured here."""
 
     def __init__(self, block):
         self.block = block
@@ -344,7 +347,7 @@ class _CachedOp:
         from ..executor import _GraphProgram
         names = ["data"] if n_inputs == 1 else \
             ["data%d" % i for i in range(n_inputs)]
-        out = self.block(*[sym.Variable(n) for n in names])
+        out = self.block._forward_symbol(*[sym.Variable(n) for n in names])
         single = not isinstance(out, (list, tuple))
         if not single:
             out = sym.Group(list(out))

@@ -1,16 +1,59 @@
 """Basic gluon layers.
 
-Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: HybridSequential,
-Dense, BatchNorm, FusedBNAddReLU, Flatten, Activation.
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: Sequential,
+HybridSequential, Dense, Dropout, BatchNorm, FusedBNAddReLU, Embedding,
+Flatten, Activation.
 """
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
+
 from ... import initializer as _init
 from ... import layout as _layout
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "FusedBNAddReLU",
-           "Flatten", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "FusedBNAddReLU", "Embedding", "Flatten", "Activation"]
+
+
+class Sequential(Block):
+    """(parity: nn.Sequential) children called in order."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+    def hybridize(self, active=True, **kwargs):
+        if self._children and all(isinstance(c, HybridBlock)
+                                  for c in self._children.values()):
+            warnings.warn("All children are HybridBlocks; consider "
+                          "HybridSequential for one fused program.")
+        super().hybridize(active, **kwargs)
 
 
 class HybridSequential(HybridBlock):
@@ -72,6 +115,19 @@ class Dense(HybridBlock):
         return out
 
 
+class Dropout(HybridBlock):
+    """(parity: nn.Dropout) the ``Dropout`` op: identity outside
+    ``autograd.record(train_mode=True)``."""
+
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+
 class BatchNorm(HybridBlock):
     """(parity: nn.BatchNorm) the running stats are parameters without
     gradients (``grad_req='null'``), as gamma is without ``scale`` and
@@ -129,6 +185,25 @@ class FusedBNAddReLU(BatchNorm):
             eps=self._epsilon, momentum=self._momentum,
             fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis)
+
+
+class Embedding(HybridBlock):
+    """(parity: nn.Embedding) rows of a (input_dim, output_dim) weight;
+    its gradient is dense (``sparse_grad`` is not ported)."""
+
+    def __init__(self, input_dim, output_dim, dtype=np.float32,
+                 weight_initializer=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self._input_dim = input_dim
+            self._output_dim = output_dim
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
 
 
 class Flatten(HybridBlock):

@@ -1,0 +1,3 @@
+"""Gluon recurrent layers and cells (parity: gluon.rnn)."""
+from .rnn_layer import *  # noqa: F401,F403
+from .rnn_cell import *  # noqa: F401,F403

@@ -145,8 +145,11 @@ def invoke(op, inputs, kwargs, out=None):
     returns a single NDArray or a list of its visible outputs (or
     ``out``, written).
 
-    Train-mode ops get ``_train=is_training()``. A training-mode call of
-    a stateful op (BatchNorm) updates its aux inputs (``write_aux``)."""
+    Train-mode ops get ``_train=is_training()``, random ops the
+    generator of their device (``_rng``, ``ops/common.take_rng``). A
+    training-mode call of a stateful op (BatchNorm) updates its aux
+    inputs (``write_aux``); an update op (``op.mutate``) writes its
+    outputs back into the inputs it names and returns the first."""
     from .ndarray.ndarray import NDArray
     params = dict(op.defaults)
     params.update(kwargs)
@@ -157,6 +160,8 @@ def invoke(op, inputs, kwargs, out=None):
         params["_train"] = is_training()
     nds = [x if isinstance(x, NDArray) else None for x in inputs]
     ctx = next((x.context for x in nds if x is not None), None)
+    if op.takes_rng:
+        params["_rng"] = _common.take_rng(_rng_device(nds, params))
     record = should_record(nds, op.no_grad)
     raw = read_inputs(inputs, record)
     if record:
@@ -168,7 +173,18 @@ def invoke(op, inputs, kwargs, out=None):
         write_aux([(nds[idx], val) for idx, val in
                    op.stateful_update(raw, outs, params).items()
                    if nds[idx] is not None])
-    n_visible = min(op.visible_outputs or len(outs), len(outs))
+    if op.mutate:
+        with torch.no_grad():
+            for j, idx in enumerate(op.mutate):
+                if j < len(outs) and nds[idx] is not None:
+                    nds[idx]._data.copy_(outs[j])
+        primary = nds[op.mutate[0]]
+        if out is not None and out is not primary:
+            with torch.no_grad():
+                out._data.copy_(outs[0])
+            return out
+        return primary
+    n_visible = min(op.n_visible(params) or len(outs), len(outs))
     results = []
     for o in outs[:n_visible]:
         nd = NDArray(o, ctx)
@@ -180,6 +196,16 @@ def invoke(op, inputs, kwargs, out=None):
             t._assign(r)
         return out
     return results[0] if len(results) == 1 else results
+
+
+def _rng_device(nds, params):
+    """The device a random op draws on: its first NDArray input's, else
+    its ``ctx`` (a creation op; default the current context)."""
+    from .ops.tensor import creation_device
+    for x in nds:
+        if x is not None:
+            return x._data.device
+    return creation_device(params.get("ctx"))
 
 
 # ---------------------------------------------------------------------------

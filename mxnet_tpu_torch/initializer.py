@@ -1,9 +1,9 @@
 """Weight initializers.
 
 Counterpart of ``mxnet_tpu/initializer.py`` (Uniform, Normal, Zero, One,
-Xavier and the name-based default rules for bias/gamma/beta/moving
-stats). Random draws come from an explicit ``torch.Generator`` on the
-CPU and are then copied to the parameter's device, so one seed gives the
+Xavier, LSTMBias, FusedRNN and the name-based default rules for
+bias/gamma/beta/moving stats). Random draws come from an explicit
+``torch.Generator`` on the CPU and are then copied to the parameter's device, so one seed gives the
 same weights on every device. The JAX package draws from numpy: the two
 never give the same numbers, and tests carry weights across instead
 (``weights.py``).
@@ -18,7 +18,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Zero", "One",
-           "Xavier", "create"]
+           "Xavier", "LSTMBias", "FusedRNN", "create"]
 
 
 class InitDesc(str):
@@ -163,8 +163,62 @@ class Xavier(Initializer):
             raise MXNetError("invalid rnd_type %r" % self.rnd_type)
 
 
+class LSTMBias(Initializer):
+    """The forget gate's bias ``forget_bias``, the other gates' 0, for the
+    i,f,c,o gate order (parity: initializer.LSTMBias)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__()
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = torch.zeros(tuple(arr.shape), dtype=torch.float32)
+        n = arr.shape[0] // 4
+        b[n:2 * n] = self.forget_bias
+        arr[:] = b
+
+    _init_bias = _init_weight
+
+
+class FusedRNN(Initializer):
+    """A fused RNN's packed parameter vector, initialised array by array:
+    unpacked into its per-layer, per-gate arrays
+    (``rnn.FusedRNNCell.unpack_weights``), each given to ``init``, the
+    LSTM forget gates' biases set to ``forget_bias``, and packed back
+    (parity: initializer.FusedRNN). ``init`` is an Initializer or its
+    ``dumps()``."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        super().__init__()
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = create(klass, **kwargs)
+        self._init = init
+        self.init = init.dumps() if init is not None else None
+        self.num_hidden = num_hidden
+        self.num_layers = num_layers
+        self.mode = mode
+        self.bidirectional = bidirectional
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .rnn import rnn_cell
+        cell = rnn_cell.FusedRNNCell(
+            self.num_hidden, self.num_layers, self.mode, self.bidirectional,
+            forget_bias=self.forget_bias, prefix="")
+        args = cell.unpack_weights({"parameters": arr})
+        for name in args:
+            if self.mode == "lstm" and name.endswith("_f_bias"):
+                args[name][:] = self.forget_bias
+            elif self._init is not None:
+                self._init(InitDesc(name), args[name])
+        arr[:] = cell.pack_weights(args)["parameters"]
+
+
 _REGISTRY = {"uniform": Uniform, "normal": Normal, "zero": Zero,
-             "zeros": Zero, "one": One, "ones": One, "xavier": Xavier}
+             "zeros": Zero, "one": One, "ones": One, "xavier": Xavier,
+             "lstmbias": LSTMBias, "fusedrnn": FusedRNN}
 
 
 def create(name, **kwargs):

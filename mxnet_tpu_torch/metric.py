@@ -2,11 +2,11 @@
 
 Counterpart of ``mxnet_tpu/metric.py``: ``EvalMetric`` with its
 registry and ``create``, ``CompositeEvalMetric``, ``Accuracy``,
-``TopKAccuracy``, ``CrossEntropy`` and ``Loss``. As in the JAX package,
-the hot metrics accumulate on the predictions' device (an fp32 running
-sum, fetched at ``get()``), so a training loop does not wait on the card
-once per batch; numpy inputs take the host path. The other built-ins
-(F1, Perplexity, MAE, MSE, RMSE, NLL, Pearson, CustomMetric) are not
+``TopKAccuracy``, ``CrossEntropy``, ``Perplexity`` and ``Loss``. As in
+the JAX package, the hot metrics accumulate on the predictions' device
+(a running sum, fetched at ``get()``), so a training loop does not wait
+on the card once per batch; numpy inputs take the host path. The other
+built-ins (F1, MAE, MSE, RMSE, NLL, Pearson, CustomMetric) are not
 ported yet.
 """
 from __future__ import annotations
@@ -242,6 +242,64 @@ class CrossEntropy(EvalMetric):
             prob = pred[_numpy.arange(label.shape[0]), label]
             self.sum_metric += float((-_numpy.log(prob + self.eps)).sum())
             self.num_inst += label.shape[0]
+
+
+@register
+class Perplexity(EvalMetric):
+    """(parity: metric.Perplexity) per update, over all its (label, pred)
+    pairs: ``loss`` the summed ``-log(max(1e-10, p[label]))`` and ``num``
+    the labels counted, an ``ignore_label`` position taking p = 1 and
+    not counted; the running sum gains ``exp(loss / num) * num`` and the
+    count ``num``, the reference's accumulation. Device predictions stay
+    on the device (the sum in fp64 there); the count comes from the
+    labels, which a Module's batches keep on the host."""
+
+    def __init__(self, ignore_label=None, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names,
+                         ignore_label=ignore_label)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        loss, num = None, 0
+        for label, pred in zip(labels, preds):
+            if isinstance(pred, NDArray):
+                lab = label._data if isinstance(label, NDArray) \
+                    else torch.from_numpy(_numpy.asarray(label))
+                lab = lab.reshape(-1).to(torch.int64)
+                p = pred._data.reshape(-1, pred.shape[-1])
+                lab_dev = lab.to(p.device)
+                probs = p.gather(1, lab_dev.clamp(0, p.shape[1] - 1)[:, None])
+                probs = probs[:, 0]
+                n = lab.numel()
+                if self.ignore_label is not None:
+                    ignore = lab_dev == int(self.ignore_label)
+                    probs = torch.where(ignore, torch.ones_like(probs), probs)
+                    n -= int((lab == int(self.ignore_label)).sum())
+                part = -torch.log(torch.clamp(probs, min=1e-10)) \
+                    .double().sum()
+            else:
+                lab = _as_numpy(label).astype(_numpy.int32).flatten()
+                p = _as_numpy(pred)
+                p = p.reshape(-1, p.shape[-1])
+                probs = p[_numpy.arange(lab.size), lab]
+                n = lab.size
+                if self.ignore_label is not None:
+                    ignore = lab == self.ignore_label
+                    probs = _numpy.where(ignore, 1.0, probs)
+                    n -= int(ignore.sum())
+                part = float(-_numpy.log(_numpy.maximum(1e-10, probs)).sum())
+            loss = part if loss is None else loss + part
+            num += n
+        if loss is None:
+            return
+        if isinstance(loss, torch.Tensor):
+            self._accum_device(torch.exp(loss / max(num, 1)) * num, num)
+        else:
+            self.sum_metric += float(_numpy.exp(loss / max(num, 1))) * num
+            self.num_inst += num
 
 
 @register

@@ -318,6 +318,7 @@ class Module(BaseModule):
         weights = [arg_dict[n] for n in names]
         add_names = [n for n in names if self._grad_req[n] == "add"]
         self._set_batch(data_batch)
+        ex.outputs = []         # the last outputs die before new ones live
         step = ex._prog.train_step_fn(
             names, add_names,
             lambda gs: updater.update_batch(indices, gs, weights))

@@ -14,6 +14,7 @@ from .utils import save, load
 from . import register as _register
 
 _register.populate(globals())
+from . import random  # noqa: E402,F401
 
 
 def _binary(name, arr_fn, np_fn):

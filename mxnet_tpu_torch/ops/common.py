@@ -4,7 +4,7 @@ Counterpart of ``mxnet_tpu/ops/common.py``: the reference's kwargs
 conventions (tuples serialized as strings in symbol JSON — both Python
 tuples and their string forms are accepted), dtype names, and the
 thread-local execution state (train mode, recording, the aux-update
-collector).
+collector, the random-number provider).
 """
 from __future__ import annotations
 
@@ -106,12 +106,14 @@ def reduce_axes(axis, ndim, exclude=False):
 
 class _ExecState(threading.local):
     """Per-thread execution state (counterpart of the JAX package's
-    ``ops/common.py`` ``_ExecState``; no RNG provider: no op on the
-    ported paths draws random numbers)."""
+    ``ops/common.py`` ``_ExecState``)."""
 
     def __init__(self):
         self.train_mode = False
         self.recording = False
+        # callable (torch.device) -> torch.Generator installed by
+        # rng_scope; None: the global per-device generator (random.py)
+        self.rng_provider = None
         # list of (NDArray, new value): stateful aux updates (BatchNorm
         # moving stats) collected instead of written while a pure
         # function is extracted (gluon.block.make_pure_fn)
@@ -127,3 +129,37 @@ def state():
 
 def is_train():
     return _STATE.train_mode
+
+
+def take_rng(device):
+    """The ``torch.Generator`` a random op on ``device`` draws from: the
+    one an ``rng_scope`` installed, else the global generator of that
+    device (``mxnet_tpu_torch.random``). A ``meta`` tensor draws
+    nothing: None."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return None
+    if _STATE.rng_provider is not None:
+        return _STATE.rng_provider(device)
+    from .. import random as _random
+    return _random.generator(device)
+
+
+class rng_scope:
+    """Route every random op to ``gen`` (a ``torch.Generator``) while
+    active (parity: the JAX package's ``rng_scope``, which installs a
+    traced key); ``gen=None`` leaves the global generators in place."""
+
+    def __init__(self, gen):
+        self._gen = gen
+        self._old = None
+
+    def __enter__(self):
+        self._old = _STATE.rng_provider
+        if self._gen is not None:
+            gen = self._gen
+            _STATE.rng_provider = lambda device: gen
+        return self
+
+    def __exit__(self, *exc):
+        _STATE.rng_provider = self._old

@@ -1,11 +1,12 @@
-"""Neural-network operators on the ResNet serving path.
+"""Neural-network operators.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution,
 Pooling, Activation, BatchNorm and _contrib_BatchNormAddReLU (inference
-and training statistics, moving-stat updates) and SoftmaxOutput (with
-its hand-written gradient). What the JAX package left to XLA is left to
-PyTorch's own operators here (cuDNN/cuBLAS on the card); the fused block
-tail runs the hand-written kernel of ``kernels/fused_bn.py``.
+and training statistics, moving-stat updates), Dropout and
+SoftmaxOutput (with its hand-written gradient). What the JAX package
+left to XLA is left to PyTorch's own operators here (cuDNN/cuBLAS on the
+card); the fused block tail runs the hand-written kernel of
+``kernels/fused_bn.py``.
 
 Layouts are the JAX package's logical ones: channels-last activations
 are N+spatial+C tensors and their conv weights are O+spatial+I. For
@@ -403,6 +404,31 @@ def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
         data, label, axis, (float(grad_scale), ignore_label,
                             bool(use_ignore), normalization,
                             bool(multi_output)))
+
+
+# ---------------------------------------------------------------------------
+# Dropout
+# ---------------------------------------------------------------------------
+
+def drop_out(x, p, gen, mask_shape=None):
+    """``x`` with each element (or each slice along the axes
+    ``mask_shape`` sets to 1) kept with probability ``1 - p`` and scaled
+    by ``1 / (1 - p)``, the rest zeroed; the keep mask is drawn from
+    ``gen`` (a ``torch.Generator``)."""
+    keep = torch.empty(mask_shape or x.shape, dtype=torch.float32,
+                       device=x.device).bernoulli_(1.0 - p, generator=gen)
+    return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
+
+
+@register("Dropout", defaults={"p": 0.5, "mode": "training", "axes": ()})
+def dropout(data, p=0.5, mode="training", axes=(), _train=False, _rng=None):
+    """(parity: reference dropout-inl.h) identity outside training unless
+    ``mode="always"``; one mask value per slice along ``axes``."""
+    if (not _train and mode != "always") or p <= 0 or _rng is None:
+        return data
+    axes = as_tuple(axes) or ()
+    shape = tuple(1 if i in axes else s for i, s in enumerate(data.shape))
+    return drop_out(data, p, _rng, shape)
 
 
 # ---------------------------------------------------------------------------

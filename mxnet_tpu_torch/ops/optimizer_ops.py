@@ -1,19 +1,23 @@
 """Fused optimizer update rules as tensor functions.
 
 Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (so far ``sgd_update``,
-``sgd_mom_update`` and their multi-precision forms ``mp_sgd_update`` and
-``mp_sgd_mom_update``; parity: reference ``optimizer_op.cc``). Each
-function is pure: it returns the new weight (and new state) and leaves
-its inputs as they are, like the JAX ops. PyTorch runs each line as its
-own elementwise kernel on the card; one fused update kernel per
-parameter is later work.
+``sgd_mom_update``, their multi-precision forms ``mp_sgd_update`` and
+``mp_sgd_mom_update``, and ``adam_update``; parity: reference
+``optimizer_op.cc``). Each function is pure: it returns the new weight
+(and new state) and leaves its inputs as they are, like the JAX ops.
+``adam_update`` is also the registered op ``mx.nd.adam_update``, whose
+imperative call writes the new weight, mean and var back into its
+inputs. PyTorch runs each line as its own elementwise kernel on the
+card; one fused update kernel per parameter is later work.
 """
 from __future__ import annotations
 
 import torch
 
+from .registry import register
+
 __all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_update",
-           "mp_sgd_mom_update"]
+           "mp_sgd_mom_update", "adam_update"]
 
 
 def _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient):
@@ -56,3 +60,19 @@ def mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
     mom = momentum * mom - lr * g
     w32 = weight32 + mom
     return w32.to(weight.dtype), mom, w32
+
+
+@register("adam_update", nin=4, nout=3,
+          arg_names=["weight", "grad", "mean", "var"],
+          defaults={"lr": 0.001, "beta1": 0.9, "beta2": 0.999,
+                    "epsilon": 1e-8, "wd": 0.0, "rescale_grad": 1.0,
+                    "clip_gradient": -1.0},
+          no_grad=True, mutate=(0, 2, 3))
+def adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns ``(new_weight, new_mean, new_var)``; ``lr`` is already
+    bias-corrected (``optimizer.Adam`` folds the correction in)."""
+    g = _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient)
+    mean = beta1 * mean + (1 - beta1) * g
+    var = beta2 * var + (1 - beta2) * torch.square(g)
+    return weight - lr * mean / (torch.sqrt(var) + epsilon), mean, var

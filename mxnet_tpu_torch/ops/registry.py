@@ -28,10 +28,12 @@ class OpDef:
     nout : number of outputs (static).
     arg_names : names of the tensor inputs, in order.
     no_grad : the op is not differentiable; the tape does not record it.
+    mutate : indices of inputs the imperative call writes its outputs
+        back into, in order (the optimizer update ops).
     """
 
     def __init__(self, name, fn, nin=1, nout=1, arg_names=None,
-                 defaults=None, no_grad=False):
+                 defaults=None, no_grad=False, mutate=()):
         self.name = name
         self.fn = fn
         self.nin = nin
@@ -41,13 +43,18 @@ class OpDef:
             ["arg%d" % i for i in range(max(nin, 0))])
         self.defaults = dict(defaults or {})
         self.no_grad = no_grad
+        self.mutate = tuple(mutate)
         self.doc = fn.__doc__ if fn is not None else None
-        # ops that behave differently at train time declare a `_train` kwarg
+        # ops that behave differently at train time declare a `_train`
+        # kwarg, random ops a `_rng` kwarg (a torch.Generator)
         try:
-            self.takes_train = "_train" in inspect.signature(fn).parameters
+            sig = inspect.signature(fn).parameters
+            self.takes_train = "_train" in sig
+            self.takes_rng = "_rng" in sig
         except (TypeError, ValueError):
-            self.takes_train = False
-        # how many outputs user code sees (BatchNorm computes 3, shows 1)
+            self.takes_train = self.takes_rng = False
+        # how many outputs user code sees (BatchNorm computes 3, shows 1):
+        # a count, or a function of the params (RNN's state_outputs)
         self.visible_outputs = None
         # indices of inputs that are auxiliary states (BN moving stats)
         self.aux_inputs = ()
@@ -63,6 +70,11 @@ class OpDef:
 
     def __repr__(self):
         return "OpDef(%s)" % self.name
+
+    def n_visible(self, params):
+        """The visible output count for these params (None: all)."""
+        vis = self.visible_outputs
+        return vis(params) if callable(vis) else vis
 
     def accepted_params(self):
         """Names this op accepts as keyword params (from the registry
@@ -83,7 +95,7 @@ class OpDef:
         except (TypeError, ValueError):
             pass
         keys -= set(self.arg_names)
-        keys.discard("_train")
+        keys -= {"_train", "_rng"}
         self._accepted_params = keys
         return keys
 
@@ -94,12 +106,12 @@ class OpDef:
 
 
 def register(name, nin=1, nout=1, arg_names=None, defaults=None, aliases=(),
-             no_grad=False):
+             no_grad=False, mutate=()):
     """Decorator registering a plain tensor function as an operator."""
 
     def _reg(fn):
         op = OpDef(name, fn, nin=nin, nout=nout, arg_names=arg_names,
-                   defaults=defaults, no_grad=no_grad)
+                   defaults=defaults, no_grad=no_grad, mutate=mutate)
         if name in _OPS:
             raise MXNetError("op %r already registered" % name)
         _OPS[name] = op

@@ -56,9 +56,15 @@ def _softmax_output(shapes, params):
     return {1: (data[0],)}
 
 
+def _embedding(shapes, params):
+    return {1: (int(params.get("input_dim", 0)),
+                int(params.get("output_dim", 0)))}
+
+
 def install():
     get_op("SoftmaxOutput").param_shape_infer = _softmax_output
     get_op("FullyConnected").param_shape_infer = _fc
     get_op("Convolution").param_shape_infer = _conv
     get_op("BatchNorm").param_shape_infer = _bn
     get_op("_contrib_BatchNormAddReLU").param_shape_infer = _bn_add_relu
+    get_op("Embedding").param_shape_infer = _embedding

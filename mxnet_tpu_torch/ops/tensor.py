@@ -283,8 +283,15 @@ def one_hot(indices, depth=1, on_value=1.0, off_value=0.0, dtype="float32"):
                     "sparse_grad": False})
 def embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
               sparse_grad=False):
-    """Embedding lookup (parity: indexing_op.cc Embedding)."""
-    return F.embedding(data.long(), weight)
+    """Embedding lookup (parity: indexing_op.cc Embedding). A negative
+    index counts from the end, as ``jnp.take`` in the JAX package does
+    (``BucketSentenceIter`` pads with -1); the rest clip into range, as
+    upstream MXNet's do (the JAX package gives NaN rows), so no index
+    leaves the table on the card."""
+    idx = data.long()
+    n = weight.shape[0]
+    idx = torch.clamp(torch.where(idx < 0, idx + n, idx), 0, n - 1)
+    return F.embedding(idx, weight)
 
 
 @register("gather_nd", nin=2, arg_names=["data", "indices"])
@@ -312,16 +319,25 @@ def _scatter_nd_acc(data, indices, shape=()):
 
 # ---------------------------------------------------------------------------
 # Creation ops (nin=0; parity: init_op.cc). ``ctx`` is a Context (default
-# the current one, gpu(0)).
+# the current one, gpu(0)) or, inside a graph, the evaluation's device.
 # ---------------------------------------------------------------------------
 
-def _creation(shape, dtype, ctx):
+def creation_device(ctx):
+    """The ``torch.device`` a creation (or random) op makes its tensor on:
+    a graph evaluation hands its own (``meta`` for inference), else a
+    Context, its string form or None for the current context."""
     from ..context import Context
+    if isinstance(ctx, torch.device):
+        return ctx
     if isinstance(ctx, str):                # "cpu(0)" in a symbol's JSON
         name, _, dev_id = ctx.rstrip(")").partition("(")
         ctx = Context(name, int(dev_id or 0))
-    dev = (ctx or current_context()).torch_device()
-    return as_tuple(shape) or (), torch_dtype(dtype) or torch.float32, dev
+    return (ctx or current_context()).torch_device()
+
+
+def _creation(shape, dtype, ctx):
+    return (as_tuple(shape) or (), torch_dtype(dtype) or torch.float32,
+            creation_device(ctx))
 
 
 @register("_zeros", nin=0, defaults={"shape": (), "dtype": "float32"},

@@ -6,8 +6,8 @@ learning-rate / weight-decay bookkeeping (``lr_mult``/``wd_mult``,
 ``rescale_grad``, ``clip_gradient``, ``num_update``, multipliers from a
 Symbol's ``__lr_mult__``/``__wd_mult__`` attributes), multi-precision
 master weights (``multi_precision=True``: a bf16/fp16 weight keeps an
-fp32 master in its state), the registry and ``create``, ``SGD`` and
-``NAG``, and the updaters: ``Updater`` (per parameter, with
+fp32 master in its state), the registry and ``create``, ``SGD``,
+``NAG`` and ``Adam``, and the updaters: ``Updater`` (per parameter, with
 ``get_states``/``set_states`` in the JAX package's pickled format) and
 ``FusedUpdater`` (``update_batch`` over a whole parameter set through the
 pure kernels of ``parallel/opt_kernels.py``, the loop Module's fused step
@@ -21,6 +21,7 @@ updates, one fused kernel (or CUDA graph) for a whole parameter set.
 from __future__ import annotations
 
 import io
+import math
 import pickle
 
 import numpy as np
@@ -29,7 +30,7 @@ import torch
 from .base import MXNetError
 from .ops import optimizer_ops as _O
 
-__all__ = ["Optimizer", "SGD", "NAG", "Updater", "FusedUpdater",
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "Updater", "FusedUpdater",
            "get_updater", "create", "register"]
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
@@ -254,6 +255,49 @@ class NAG(SGD):
             return self.update(index, weight, grad, state)
         mom, w32 = state
         self.update(index, w32, _wrap_like(grad, _raw(grad).float()), mom)
+        with torch.no_grad():
+            _raw(weight).copy_(_raw(w32))
+
+
+@register
+class Adam(Optimizer):
+    """(parity: optimizer.Adam backed by the fused ``adam_update`` op): the
+    bias correction ``sqrt(1 - beta2^t) / (1 - beta1^t)`` folds into the
+    learning rate, ``t`` the parameter's update count."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_wrap_like(weight, torch.zeros_like(_raw(weight))),
+                _wrap_like(weight, torch.zeros_like(_raw(weight))))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        lr = lr * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        mean, var = state
+        with torch.no_grad():
+            new_w, new_m, new_v = _O.adam_update(
+                _raw(weight), _raw(grad), _raw(mean), _raw(var), lr=lr,
+                wd=wd, beta1=self.beta1, beta2=self.beta2,
+                epsilon=self.epsilon, **self._common_kwargs())
+            _raw(mean).copy_(new_m)
+            _raw(var).copy_(new_v)
+            _raw(weight).copy_(new_w)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """On the fp32 master for a multi-precision state, then cast back
+        (the JAX package's Adam has no multi-precision path)."""
+        if not isinstance(state[0], tuple):     # (mean, var)
+            return self.update(index, weight, grad, state)
+        moments, w32 = state
+        self.update(index, w32, _wrap_like(grad, _raw(grad).float()), moments)
         with torch.no_grad():
             _raw(weight).copy_(_raw(w32))
 

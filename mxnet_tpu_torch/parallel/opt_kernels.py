@@ -1,16 +1,18 @@
 """Pure optimizer kernels for the SPMD train step.
 
-Counterpart of ``mxnet_tpu/parallel/opt_kernels.py`` (so far ``sgd`` and
-``nag``). Each kernel is ``(init_fn, update_fn)``:
+Counterpart of ``mxnet_tpu/parallel/opt_kernels.py`` (so far ``sgd``,
+``nag`` and ``adam``). Each kernel is ``(init_fn, update_fn)``:
 
   init_fn(param) -> tuple of state tensors (possibly empty)
   update_fn(param, grad, state, t, hyper) -> (new_param, new_state)
 
 with ``t`` the 1-based update count and ``hyper`` a dict of scalars. The
-SGD rule is the fused update of ``ops/optimizer_ops.py``, shared with
-``mx.optimizer.SGD``.
+SGD and Adam rules are the fused updates of ``ops/optimizer_ops.py``,
+shared with ``mx.optimizer.SGD`` and ``mx.optimizer.Adam``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -49,9 +51,25 @@ def _nag_update(p, g, s, t, h):
     return w, (m,)
 
 
+def _adam_init(p):
+    return (torch.zeros_like(p), torch.zeros_like(p))
+
+
+def _adam_update(p, g, s, t, h):
+    # bias-corrected lr, as mx.optimizer.Adam folds it in before the op
+    lr_t = h["lr"] * math.sqrt(1.0 - h["beta2"] ** t) \
+        / (1.0 - h["beta1"] ** t)
+    w, mean, var = _O.adam_update(
+        p, g, s[0], s[1], lr=lr_t, beta1=h["beta1"], beta2=h["beta2"],
+        epsilon=h["epsilon"], wd=h["wd"], rescale_grad=h["rescale_grad"],
+        clip_gradient=h["clip_gradient"])
+    return w, (mean, var)
+
+
 _KERNELS = {
     "sgd": (_sgd_init, _sgd_update),
     "nag": (_sgd_init, _nag_update),
+    "adam": (_adam_init, _adam_update),
 }
 
 
@@ -82,6 +100,11 @@ def hyper_from_optimizer(optimizer):
         h["momentum"] = float(optimizer.momentum)
         h["momentum_static"] = float(optimizer.momentum)
         return "sgd", h
+    if isinstance(optimizer, opt.Adam):
+        h.update(beta1=float(optimizer.beta1), beta2=float(optimizer.beta2),
+                 epsilon=float(optimizer.epsilon))
+        return "adam", h
     raise MXNetError("no SPMD kernel mapping for optimizer %s in the port "
-                     "(ported: SGD, NAG; the others are not ported yet)"
+                     "(ported: SGD, NAG, Adam; the others are not ported "
+                     "yet)"
                      % type(optimizer).__name__)

@@ -1,8 +1,15 @@
-"""Recurrent cells.
+"""Symbolic recurrent cells, bucketed sequence IO and RNN checkpoints.
 
-Counterpart of ``mxnet_tpu/rnn``. So far only ``rnn_cell.lstm_decode_step``,
-the single LSTM step of the decode engine's ``LSTMDecodeCell``; the
-symbolic cells (``RNNCell`` ... ``ConvGRUCell``) are still to be ported
-(ROADMAP queue 1, item 7).
+Counterpart of ``mxnet_tpu/rnn`` (parity: python/mxnet/rnn/): the
+symbolic cells, ``BucketSentenceIter``/``encode_sentences``, the
+checkpoint helpers, and ``rnn_cell.lstm_decode_step`` for the decode
+engine. The convolutional cells (``ConvRNNCell``, ``ConvLSTMCell``,
+``ConvGRUCell``, ``BaseConvRNNCell``) are not ported yet (ROADMAP).
 """
-from .rnn_cell import lstm_decode_step  # noqa: F401
+from .rnn_cell import (BaseRNNCell, RNNCell, LSTMCell, GRUCell,  # noqa: F401
+                       FusedRNNCell, SequentialRNNCell, BidirectionalCell,
+                       DropoutCell, ZoneoutCell, ResidualCell, RNNParams,
+                       ModifierCell, lstm_decode_step)
+from .io import BucketSentenceIter, encode_sentences  # noqa: F401
+from .rnn import (save_rnn_checkpoint, load_rnn_checkpoint,  # noqa: F401
+                  do_rnn_checkpoint)

@@ -38,7 +38,9 @@ class _SymNode:
             return 1
         if self.op.nout == -1:          # SliceChannel: from its params
             return int(self.attrs.get("num_outputs", 1))
-        return self.op.visible_outputs or self.op.nout
+        params = dict(self.op.defaults)
+        params.update(self.attrs)
+        return self.op.n_visible(params) or self.op.nout
 
 
 class Symbol:
@@ -347,6 +349,9 @@ def _create(op_name, input_syms, kwargs, name=None):
             arg_name = op.arg_names[ai]
             if no_bias and arg_name == "bias":
                 continue
+            if op.name == "RNN" and arg_name == "state_cell" and \
+                    kwargs.get("mode", "lstm") != "lstm":
+                continue        # upstream lists state_cell for LSTM only
             inputs.append(Variable("%s_%s" % (name, arg_name))._outputs[0])
     node = _SymNode(op, name, kwargs, inputs)
     if attr:

@@ -17,9 +17,15 @@ checked copy:
 * :func:`load_into_module` sets a JAX ``Module``'s ``arg_params`` /
   ``aux_params`` and optimizer states (as numpy: the unpickled
   ``Updater.get_states()``) on a bound port ``Module``, and
-  :func:`module_to_numpy` reads the port's back out in the same form.
-  (A ``gluon.Trainer``'s ``save_states`` file loads in either package's
-  ``load_states`` as it is.)
+  :func:`module_to_numpy` reads the port's back out in the same form;
+  both take a ``BucketingModule`` too (its current bucket's module and
+  the updater every bucket shares). (A ``gluon.Trainer``'s
+  ``save_states`` file loads in either package's ``load_states`` as it
+  is.) A Gluon RNN layer's per-layer parameters carry by name like any
+  block's;
+* :func:`fused_rnn_from_numpy` gives a ``rnn.FusedRNNCell``'s packed
+  ``parameters`` vector from the JAX cell's packed vector or from its
+  ``unpack_weights`` arrays, checked against the cell's layout.
 
 They raise ``MXNetError`` on a missing or extra name, a shape mismatch,
 or a value that is not an array.
@@ -30,12 +36,12 @@ import numpy as np
 import torch
 
 from .base import MXNetError
-from .context import current_context
+from .context import cpu, current_context
 from .ndarray.ndarray import NDArray, array
 from .ops.common import torch_dtype
 
 __all__ = ["params_from_numpy", "load_into_block", "tree_from_numpy",
-           "load_into_module", "module_to_numpy"]
+           "load_into_module", "module_to_numpy", "fused_rnn_from_numpy"]
 
 _AUX_SUFFIXES = ("running_mean", "running_var", "moving_mean", "moving_var")
 
@@ -146,7 +152,8 @@ def _np(a):
     return np.asarray(a)
 
 
-def load_into_module(mod, arg_params, aux_params, opt_states=None):
+def load_into_module(mod, arg_params, aux_params, opt_states=None,
+                     update_counts=None):
     """Set a bound port ``Module``'s parameters, aux states and (when
     given, after ``init_optimizer``) optimizer states from numpy.
 
@@ -157,9 +164,15 @@ def load_into_module(mod, arg_params, aux_params, opt_states=None):
     opt_states : ``{param index: array, tuple of arrays or None}`` — the
         unpickled ``Updater.get_states()`` of the JAX package (a
         multi-precision entry is ``(momentum, fp32 master)``).
+    update_counts : ``{param index: updates so far}`` — the JAX
+        optimizer's ``_index_update_count``, which the pickled states do
+        not hold and Adam's bias correction reads.
     """
     if not mod.binded:
         raise MXNetError("load_into_module: bind the module first")
+    bucketing = getattr(mod, "_curr_module", None)
+    if bucketing is not None:
+        mod = bucketing
     args = {k: _np(v) for k, v in arg_params.items()}
     auxs = {k: _np(v) for k, v in aux_params.items()}
     _check_names(list(args), mod._param_names, "module parameters")
@@ -179,6 +192,15 @@ def load_into_module(mod, arg_params, aux_params, opt_states=None):
         import pickle
         mod._updater.set_states(pickle.dumps(
             {int(k): v for k, v in opt_states.items()}))
+    if update_counts is not None:
+        if not mod.optimizer_initialized:
+            raise MXNetError("load_into_module: update_counts need "
+                             "init_optimizer first")
+        opt = mod._optimizer
+        opt._index_update_count = {int(k): int(v)
+                                   for k, v in update_counts.items()}
+        opt.num_update = max([opt.num_update]
+                             + list(opt._index_update_count.values()))
 
 
 def module_to_numpy(mod):
@@ -187,8 +209,35 @@ def module_to_numpy(mod):
     ``init_optimizer``)."""
     import pickle
     arg_p, aux_p = mod.get_params()
+    mod = getattr(mod, "_curr_module", None) or mod
     states = None
     if mod.optimizer_initialized:
         states = pickle.loads(mod._updater.get_states())
     return ({k: v.asnumpy() for k, v in arg_p.items()},
             {k: v.asnumpy() for k, v in aux_p.items()}, states)
+
+
+def fused_rnn_from_numpy(cell, blob, ctx=None):
+    """``{"<prefix>parameters": NDArray}`` for a port ``rnn.FusedRNNCell``
+    from numpy: either that one packed vector (the JAX cell's argument of
+    the same name) or the per-layer, per-gate arrays of the JAX cell's
+    ``unpack_weights``. The vector's size must fit the cell's layout."""
+    name = "%sparameters" % cell._prefix
+    items = {k: _np(v) for k, v in blob.items()}
+    if name in items:
+        if len(items) != 1:
+            raise MXNetError("weights: %r and unpacked arrays %s given "
+                             "together" % (name, sorted(set(items) - {name})))
+        flat = items[name].ravel()
+        cell._infer_input_size(flat.size)
+    else:
+        probe = "%sl0_i2h%s_weight" % (cell._prefix, cell._gate_names[0])
+        if probe not in items:
+            raise MXNetError("weights: no %r among the fused RNN arrays"
+                             % probe)
+        layout, _ = cell._blob_layout(items[probe].shape[1])
+        _check_names(list(items), [n for n, _, _ in layout],
+                     "fused RNN arrays")
+        flat = cell.pack_weights({k: array(v, ctx=cpu())
+                                  for k, v in items.items()})[name].asnumpy()
+    return {name: array(flat.astype(np.float32), ctx=ctx)}

@@ -2,7 +2,8 @@
 ``tests/test_api_surface.py``).
 
 Every public name of ``mx.nd``, ``mx.sym``, ``mx.autograd``,
-``mx.gluon``, ``mx.gluon.loss`` and ``mx.gluon.nn`` in ``mxnet_tpu``
+``mx.gluon``, ``mx.gluon.loss``, ``mx.gluon.nn``, ``mx.gluon.rnn``,
+``mx.rnn`` and ``mx.mod`` in ``mxnet_tpu``
 either exists in ``mxnet_tpu_torch`` or sits on the skip list below,
 under the ROADMAP.md item that will port it. A name ported since must
 leave the list (the test fails on a stale entry), so the list shrinks
@@ -17,21 +18,14 @@ import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
 
-_NN_OPS = ["Convolution_v1", "CuDNNBatchNorm", "Deconvolution", "Dropout",
-           "InstanceNorm", "L2Normalization", "LRN", "LayerNorm",
+_NN_OPS = ["Convolution_v1", "CuDNNBatchNorm", "Deconvolution", "InstanceNorm", "L2Normalization", "LRN", "LayerNorm",
            "LeakyReLU", "LinearRegressionOutput", "LogisticRegressionOutput",
            "MAERegressionOutput", "MakeLoss", "Pooling_v1", "SVMOutput",
            "SequenceLast", "SequenceMask", "SequenceReverse",
            "SoftmaxActivation", "UpSampling", "softmax_cross_entropy"]
 _LINALG = ["linalg_gemm", "linalg_gemm2", "linalg_potrf", "linalg_potri",
            "linalg_sumlogdiag", "linalg_syrk", "linalg_trmm", "linalg_trsm"]
-_RANDOM = ["normal", "random_exponential", "random_gamma",
-           "random_generalized_negative_binomial", "random_negative_binomial",
-           "random_normal", "random_poisson", "random_uniform",
-           "sample_exponential", "sample_gamma", "sample_multinomial",
-           "sample_normal", "sample_poisson", "sample_uniform", "shuffle",
-           "uniform"]
-_UPDATE_OPS = ["adam_update", "ftrl_update", "mp_sgd_mom_update",
+_UPDATE_OPS = ["ftrl_update", "mp_sgd_mom_update",
                "mp_sgd_update", "rmsprop_update", "rmspropalex_update",
                "sgd_mom_update", "sgd_update"]
 _LONG_TAIL_OPS = ["BatchNorm_v1", "Correlation", "DeformableConvolution",
@@ -40,14 +34,13 @@ _LONG_TAIL_OPS = ["BatchNorm_v1", "Correlation", "DeformableConvolution",
                   "GridGenerator", "SpatialTransformer", "Crop",
                   "MultiProposal", "linalg_gelqf", "linalg_syevd", "Custom",
                   "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
-                  "ROIPooling", "RNN", "ctc_loss"]
+                  "ROIPooling", "ctc_loss"]
 
 # {namespace: {ROADMAP item: [names]}}
 SKIP = {
     "nd": {
         "Queue 1 item 3.1: the rest of ops/nn.py": _NN_OPS,
         "Queue 1 item 3.1: linalg": _LINALG + ["linalg"],
-        "Queue 1 item 3.1: random_ops": _RANDOM + ["random"],
         "Queue 1 item 3.4: the optimizers' update ops": _UPDATE_OPS,
         "Queue 1 item 5: bf16 nd.save and load_frombuffer":
             ["load_frombuffer"],
@@ -59,7 +52,6 @@ SKIP = {
     "sym": {
         "Queue 1 item 3.1: the rest of ops/nn.py": _NN_OPS,
         "Queue 1 item 3.1: linalg": _LINALG,
-        "Queue 1 item 3.1: random_ops": _RANDOM,
         "Queue 1 item 3.4: the optimizers' update ops": _UPDATE_OPS,
         "Queue 1 item 6: long tail (contrib, spatial, ctc, rnn ops, "
         "sparse)": _LONG_TAIL_OPS + ["contrib", "sparse"],
@@ -70,7 +62,7 @@ SKIP = {
     "gluon": {
         "Queue 1 item 3.3: SymbolBlock and gluon.data":
             ["SymbolBlock", "data"],
-        "Queue 1 item 6: gluon.rnn, gluon.contrib": ["rnn", "contrib"],
+        "Queue 1 item 6: gluon.contrib": ["contrib"],
     },
     "gluon.loss": {
         "Queue 1 item 6: CTCLoss (needs the ctc op)": ["CTCLoss"],
@@ -79,11 +71,21 @@ SKIP = {
         "Queue 1 item 3.3: the rest of gluon.nn": [
             "AvgPool1D", "AvgPool2D", "AvgPool3D", "Conv1D",
             "Conv1DTranspose", "Conv2DTranspose", "Conv3D",
-            "Conv3DTranspose", "Dropout", "Embedding", "GlobalAvgPool1D",
+            "Conv3DTranspose", "GlobalAvgPool1D",
             "GlobalAvgPool3D", "GlobalMaxPool1D", "GlobalMaxPool2D",
             "GlobalMaxPool3D", "HybridLambda", "InstanceNorm", "Lambda",
-            "LayerNorm", "LeakyReLU", "MaxPool1D", "MaxPool3D",
-            "Sequential"],
+            "LayerNorm", "LeakyReLU", "MaxPool1D", "MaxPool3D"],
+    },
+    "gluon.rnn": {},
+    "rnn": {
+        "Queue 1 item 6: the convolutional RNN cells": [
+            "BaseConvRNNCell", "ConvGRUCell", "ConvLSTMCell",
+            "ConvRNNCell"],
+    },
+    "mod": {
+        "Queue 1 item 3.4: SequentialModule, PythonModule": [
+            "PythonLossModule", "PythonModule", "SequentialModule",
+            "python_module", "sequential_module"],
     },
 }
 

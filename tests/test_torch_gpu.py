@@ -735,3 +735,162 @@ def test_tape_grad_req_on_card(req):
     assert not (x * 2)._data.requires_grad
     with pytest.raises(mt.MXNetError):
         y.backward()
+
+
+# ---------------------------------------------------------------------------
+# The recurrent family (slice 7): cuDNN's fused RNN, Dropout, the samplers
+# and BucketingModule on the card against the port on the CPU
+# ---------------------------------------------------------------------------
+
+def _rnn_param_size(i, h, layers, mode, bi):
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+    return rnn_param_size(i, h, layers, mode, bi)
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_rnn_op_on_card_matches_cpu(mode, bidirectional, monkeypatch):
+    """The fused RNN op through cuDNN (2 layers, TF32 off) against ATen's
+    CPU loop: outputs, states and gradients within 1e-5 of the largest;
+    1e-4 in ``rnn_tanh`` mode, whose tanh in cuDNN differs from ATen's
+    CPU tanh by up to 3e-5 relative (measured on an H100, where the
+    other modes agree within 1e-5)."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rs = np.random.RandomState(0)
+    d = 2 if bidirectional else 1
+    arrs = [rs.randn(7, 4, 5), 0.3 * rs.randn(_rnn_param_size(
+        5, 6, 2, mode, bidirectional)), rs.randn(2 * d, 4, 6),
+            rs.randn(2 * d, 4, 6)]
+    arrs = [a.astype(np.float32) for a in arrs[:4 if mode == "lstm" else 3]]
+    res = []
+    for ctx in (mt.gpu(0), mt.cpu()):
+        xs = [mt.nd.array(a, ctx=ctx) for a in arrs]
+        for x in xs:
+            x.attach_grad()
+        with mt.autograd.record():
+            outs = mt.nd.RNN(*xs, state_size=6, num_layers=2, mode=mode,
+                             bidirectional=bidirectional, state_outputs=True)
+            loss = sum((o * o).sum() for o in outs)
+        loss.backward()
+        res.append([o.asnumpy() for o in outs] +
+                   [x.grad.asnumpy() for x in xs])
+    tol = 1e-4 if mode == "rnn_tanh" else 1e-5
+    for a, b in zip(*res):
+        np.testing.assert_allclose(a, b, rtol=tol,
+                                   atol=tol * np.abs(b).max())
+
+
+def test_gluon_lstm_on_card_runs_cudnn_and_hybridized_equals_eager(
+        monkeypatch):
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gpu = mt.gpu(0)
+    net = mt.gluon.rnn.LSTM(32, 2, input_size=16)
+    net.initialize(mt.init.Xavier(generator=torch.Generator().manual_seed(0)),
+                   ctx=gpu)
+    x = mt.nd.array(np.random.RandomState(1).randn(9, 4, 16), ctx=gpu)
+    outs = []
+    for hyb in (False, True):
+        net.hybridize(hyb)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with mt.autograd.record():
+                out, states = net(x, net.begin_state(4))
+            out.backward()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()}
+        assert counts.get("aten::_cudnn_rnn", 0) == 2, counts
+        outs.append((out.asnumpy(), [s.asnumpy() for s in states],
+                     {k: p.grad().asnumpy().copy()
+                      for k, p in net.collect_params().items()}))
+    (eo, es, eg), (ho, hs, hg) = outs
+    np.testing.assert_array_equal(ho, eo)
+    for a, b in zip(hs, es):
+        np.testing.assert_array_equal(a, b)
+    for k in eg:
+        np.testing.assert_array_equal(hg[k], eg[k])
+
+
+def test_dropout_and_samplers_on_card():
+    _need_card()
+    gpu = mt.gpu(0)
+    x = mt.nd.ones((300, 300), ctx=gpu)
+    mt.random.seed(4)
+    with mt.autograd.record():
+        a = mt.nd.Dropout(x, p=0.3).asnumpy()
+    mt.random.seed(4)
+    with mt.autograd.record():
+        b = mt.nd.Dropout(x, p=0.3).asnumpy()
+    np.testing.assert_array_equal(a, b)
+    kept = (a != 0).mean()
+    assert abs(kept - 0.7) <= 4 * np.sqrt(0.21 / a.size)
+    np.testing.assert_allclose(np.unique(a[a != 0]), 1 / 0.7, rtol=1e-6)
+    u = mt.nd.random.uniform(-1, 3, shape=(400, 400), ctx=gpu)
+    assert u.context == gpu and u.shape == (400, 400)
+    assert abs(float(u.asnumpy().mean()) - 1.0) < 0.02
+    n = mt.nd.random.normal(2, 0.5, shape=(400, 400), ctx=gpu).asnumpy()
+    assert abs(n.mean() - 2) < 0.01 and abs(n.std() - 0.5) < 0.01
+
+
+def test_bucketing_module_on_card_matches_cpu(monkeypatch):
+    """A small bucketing LSTM (2 buckets, Adam) fitted on the card and on
+    the CPU from the same weights: parameters within 1e-4 of each tensor's
+    largest magnitude, Perplexity within 1e-4 relative."""
+    _need_card()
+    import random
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    vocab, hidden = 30, 16
+
+    def sym_gen(seq_len):
+        data = mt.sym.Variable("data")
+        label = mt.sym.Variable("softmax_label")
+        embed = mt.sym.Embedding(data=data, input_dim=vocab, output_dim=8,
+                                 name="embed")
+        stack = mt.rnn.SequentialRNNCell()
+        for i in range(2):
+            stack.add(mt.rnn.LSTMCell(num_hidden=hidden,
+                                      prefix="lstm_l%d_" % i))
+        out, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mt.sym.FullyConnected(mt.sym.Reshape(out, shape=(-1, hidden)),
+                                     num_hidden=vocab, name="pred")
+        pred = mt.sym.SoftmaxOutput(pred, mt.sym.Reshape(label, shape=(-1,)),
+                                    use_ignore=True, ignore_label=-1,
+                                    name="softmax")
+        return pred, ("data",), ("softmax_label",)
+
+    rng = np.random.RandomState(0)
+    sents = []
+    for _ in range(64):
+        n, s = rng.randint(5, 20), rng.randint(0, vocab)
+        sents.append([(s + t) % vocab for t in range(n)])
+    init, results = None, []
+    for ctx in (mt.gpu(0), mt.cpu()):
+        random.seed(1)
+        np.random.seed(1)
+        it = mt.rnn.BucketSentenceIter(sents, 8, buckets=[10, 20])
+        mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=20,
+                                     context=ctx)
+        mod.bind(it.provide_data, it.provide_label)
+        if init is None:
+            mod.init_params(mt.init.Xavier(
+                generator=torch.Generator().manual_seed(0)))
+            init = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        else:
+            mod.init_params(arg_params=init, aux_params={})
+        mod.init_optimizer(optimizer="adam", optimizer_params={
+            "learning_rate": 0.01, "rescale_grad": 1 / 8})
+        random.seed(2)
+        np.random.seed(2)
+        met = mt.metric.Perplexity(ignore_label=-1)
+        mod.fit(it, eval_metric=met, num_epoch=2)
+        results.append(({k: v.asnumpy()
+                         for k, v in mod.get_params()[0].items()},
+                        met.get()[1]))
+    (gp, gppl), (cp, cppl) = results
+    assert abs(gppl - cppl) <= 1e-4 * cppl
+    for k in cp:
+        assert np.abs(gp[k] - cp[k]).max() <= 1e-4 * np.abs(cp[k]).max(), k
