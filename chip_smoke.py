@@ -127,22 +127,55 @@ Phases (any failure exits non-zero; no error is swallowed):
    each pass (none above the second once every module is bound), a
    profile of one step at length 60. K1-K3 launch 0 times on this
    path.
-11. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+11. image_classification — the recipe of
+   ``examples/image-classification`` (fp32, both TF32 flags off, cudnn
+   deterministic). (a) ``common/fit.py``'s loop on
+   ``symbols/inception_v3.py`` (299x299x3, 1000 classes, 23,834,568
+   parameters, batch 32, seeded synthetic images): ``Module.fit`` with
+   ``kvstore=mx.kvstore.create("device")`` (the optimizer in the store),
+   SGD 0.05 with momentum 0.9 and wd 1e-4, ``MultiFactorScheduler`` from
+   ``--lr-step-epochs 1``, ``Speedometer``, ``do_checkpoint``; 2 epochs of
+   6 unshuffled batches: the rate at each update, ms per batch (CUDA
+   events, host), a profiled batch, the peak per epoch (epoch 2 at most
+   epoch 1's); no store and phase-split bit-equal over 2 batches; a
+   fresh Module resumed from epoch 1 with the parameters only (rates
+   equal) and with the store's optimizer states (bit-equal); ``score``
+   and ``predict`` (a padded last batch); step 1 at Dropout 0, in fp32
+   and in fp64 on the card, against the CPU's fp32 and fp64 steps
+   (``_step1_gate``: per tensor, with planted faults). (b)
+   ``benchmark_score.py`` for the ten networks of ``symbols/`` at batch
+   32 (img/s), then ``Module.reshape`` to batch 2: the logits within
+   1e-3 of the CPU's largest. (c) ``fine_tune.py``'s stage 2 from (a)'s
+   checkpoint: cut at the flatten output, a 10-class head, the backbone
+   fixed and bit-identical after 3 batches.
+12. gluon_zoo — ``get_model`` for alexnet, vgg16, squeezenet1_0,
+   densenet121, inception_v3 (299), mobilenet1_0 and resnet50_v1 at
+   batch 32 in inference (img/s, 2 rows within 1e-3 of the CPU's largest
+   logit); densenet121 (224x224x3, batch 32, fp32) trained through the
+   Gluon loop from ``DataLoader(ArrayDataset, shuffle=True,
+   last_batch="discard", num_workers=2)`` with a store: 5 steps eager,
+   5 hybridized (bit-equal), 2 thread and 2 process workers against 0
+   (the same batches, no shared memory left), a store against none
+   (bit-equal), step 1 as in (a), ms per step,
+   a profiled step, peaks flat from step 2. K1-K3 launch 0 times on both
+   phases (the zoo's resnet50_v1 has no fused tails).
+13. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
    and ``library_ms`` device times (``event_ms`` beside), ``plain_ms`` by
    CUDA events; each
    ``launches`` is the count on that kernel's main paths (K1: serving,
-   training and the Gluon loop), ``rnn_training_launches`` its count on
-   the recurrent path (0) — and, last, the ``{"ok": true,
+   training and the Gluon loop), ``rnn_training_launches``,
+   ``image_classification_launches`` and ``gluon_zoo_launches`` its
+   counts on those paths (0) — and, last, the ``{"ok": true,
    "device": {...}}`` line.
 
 The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-10 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-12 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -2346,6 +2379,1382 @@ def _bucketing_leg(mx, ctx, rehearsal, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The image-classification symbols: copies of
+# examples/image-classification/symbols/*.py (each whole file, body
+# unchanged), each wrapped in a function of the package ``mx`` that
+# returns the file's ``get_symbol``
+# ---------------------------------------------------------------------------
+
+
+def _ic_mlp(mx):
+    """examples/image-classification/symbols/mlp.py:1-13, whole."""
+    def get_symbol(num_classes=10, **kwargs):
+        data = mx.sym.Variable("data")
+        data = mx.sym.Flatten(data=data)
+        fc1 = mx.sym.FullyConnected(data=data, name="fc1", num_hidden=128)
+        act1 = mx.sym.Activation(data=fc1, name="relu1", act_type="relu")
+        fc2 = mx.sym.FullyConnected(data=act1, name="fc2", num_hidden=64)
+        act2 = mx.sym.Activation(data=fc2, name="relu2", act_type="relu")
+        fc3 = mx.sym.FullyConnected(data=act2, name="fc3", num_hidden=num_classes)
+        return mx.sym.SoftmaxOutput(data=fc3, name="softmax")
+    return get_symbol
+
+
+def _ic_lenet(mx):
+    """examples/image-classification/symbols/lenet.py:1-19, whole."""
+    def get_symbol(num_classes=10, **kwargs):
+        data = mx.sym.Variable("data")
+        conv1 = mx.sym.Convolution(data=data, kernel=(5, 5), num_filter=20)
+        tanh1 = mx.sym.Activation(data=conv1, act_type="tanh")
+        pool1 = mx.sym.Pooling(data=tanh1, pool_type="max", kernel=(2, 2),
+                               stride=(2, 2))
+        conv2 = mx.sym.Convolution(data=pool1, kernel=(5, 5), num_filter=50)
+        tanh2 = mx.sym.Activation(data=conv2, act_type="tanh")
+        pool2 = mx.sym.Pooling(data=tanh2, pool_type="max", kernel=(2, 2),
+                               stride=(2, 2))
+        flatten = mx.sym.Flatten(data=pool2)
+        fc1 = mx.sym.FullyConnected(data=flatten, num_hidden=500)
+        tanh3 = mx.sym.Activation(data=fc1, act_type="tanh")
+        fc2 = mx.sym.FullyConnected(data=tanh3, num_hidden=num_classes)
+        return mx.sym.SoftmaxOutput(data=fc2, name="softmax")
+    return get_symbol
+
+
+def _ic_alexnet(mx):
+    """examples/image-classification/symbols/alexnet.py:1-38, whole."""
+    def get_symbol(num_classes=1000, **kwargs):
+        data = mx.sym.Variable("data")
+        conv1 = mx.sym.Convolution(data=data, kernel=(11, 11), stride=(4, 4),
+                                   num_filter=96)
+        relu1 = mx.sym.Activation(data=conv1, act_type="relu")
+        lrn1 = mx.sym.LRN(data=relu1, alpha=0.0001, beta=0.75, knorm=2, nsize=5)
+        pool1 = mx.sym.Pooling(data=lrn1, kernel=(3, 3), stride=(2, 2),
+                               pool_type="max")
+        conv2 = mx.sym.Convolution(data=pool1, kernel=(5, 5), pad=(2, 2),
+                                   num_filter=256)
+        relu2 = mx.sym.Activation(data=conv2, act_type="relu")
+        lrn2 = mx.sym.LRN(data=relu2, alpha=0.0001, beta=0.75, knorm=2, nsize=5)
+        pool2 = mx.sym.Pooling(data=lrn2, kernel=(3, 3), stride=(2, 2),
+                               pool_type="max")
+        conv3 = mx.sym.Convolution(data=pool2, kernel=(3, 3), pad=(1, 1),
+                                   num_filter=384)
+        relu3 = mx.sym.Activation(data=conv3, act_type="relu")
+        conv4 = mx.sym.Convolution(data=relu3, kernel=(3, 3), pad=(1, 1),
+                                   num_filter=384)
+        relu4 = mx.sym.Activation(data=conv4, act_type="relu")
+        conv5 = mx.sym.Convolution(data=relu4, kernel=(3, 3), pad=(1, 1),
+                                   num_filter=256)
+        relu5 = mx.sym.Activation(data=conv5, act_type="relu")
+        pool3 = mx.sym.Pooling(data=relu5, kernel=(3, 3), stride=(2, 2),
+                               pool_type="max")
+        flatten = mx.sym.Flatten(data=pool3)
+        fc1 = mx.sym.FullyConnected(data=flatten, num_hidden=4096)
+        relu6 = mx.sym.Activation(data=fc1, act_type="relu")
+        drop1 = mx.sym.Dropout(data=relu6, p=0.5)
+        fc2 = mx.sym.FullyConnected(data=drop1, num_hidden=4096)
+        relu7 = mx.sym.Activation(data=fc2, act_type="relu")
+        drop2 = mx.sym.Dropout(data=relu7, p=0.5)
+        fc3 = mx.sym.FullyConnected(data=drop2, num_hidden=num_classes)
+        return mx.sym.SoftmaxOutput(data=fc3, name="softmax")
+    return get_symbol
+
+
+def _ic_resnet(mx):
+    """examples/image-classification/symbols/resnet.py:1-85, whole."""
+    def residual_unit(data, num_filter, stride, dim_match, name,
+                      bottle_neck=True):
+        if bottle_neck:
+            body = mx.sym.Convolution(data=data, num_filter=num_filter // 4,
+                                      kernel=(1, 1), stride=stride, no_bias=True,
+                                      name=name + "_conv1")
+            body = mx.sym.BatchNorm(data=body, fix_gamma=False, eps=2e-5,
+                                    momentum=0.9, name=name + "_bn1")
+            body = mx.sym.Activation(data=body, act_type="relu")
+            body = mx.sym.Convolution(data=body, num_filter=num_filter // 4,
+                                      kernel=(3, 3), pad=(1, 1), no_bias=True,
+                                      name=name + "_conv2")
+            body = mx.sym.BatchNorm(data=body, fix_gamma=False, eps=2e-5,
+                                    momentum=0.9, name=name + "_bn2")
+            body = mx.sym.Activation(data=body, act_type="relu")
+            body = mx.sym.Convolution(data=body, num_filter=num_filter,
+                                      kernel=(1, 1), no_bias=True,
+                                      name=name + "_conv3")
+            body = mx.sym.BatchNorm(data=body, fix_gamma=False, eps=2e-5,
+                                    momentum=0.9, name=name + "_bn3")
+        else:
+            body = mx.sym.Convolution(data=data, num_filter=num_filter,
+                                      kernel=(3, 3), stride=stride, pad=(1, 1),
+                                      no_bias=True, name=name + "_conv1")
+            body = mx.sym.BatchNorm(data=body, fix_gamma=False, eps=2e-5,
+                                    momentum=0.9, name=name + "_bn1")
+            body = mx.sym.Activation(data=body, act_type="relu")
+            body = mx.sym.Convolution(data=body, num_filter=num_filter,
+                                      kernel=(3, 3), pad=(1, 1), no_bias=True,
+                                      name=name + "_conv2")
+            body = mx.sym.BatchNorm(data=body, fix_gamma=False, eps=2e-5,
+                                    momentum=0.9, name=name + "_bn2")
+        if dim_match:
+            shortcut = data
+        else:
+            shortcut = mx.sym.Convolution(data=data, num_filter=num_filter,
+                                          kernel=(1, 1), stride=stride,
+                                          no_bias=True, name=name + "_sc")
+            shortcut = mx.sym.BatchNorm(data=shortcut, fix_gamma=False, eps=2e-5,
+                                        momentum=0.9, name=name + "_sc_bn")
+        return mx.sym.Activation(data=body + shortcut, act_type="relu")
+
+
+    def get_symbol(num_classes=1000, num_layers=18, image_shape="3,224,224",
+                   **kwargs):
+        configs = {
+            18: ([2, 2, 2, 2], False),
+            34: ([3, 4, 6, 3], False),
+            50: ([3, 4, 6, 3], True),
+            101: ([3, 4, 23, 3], True),
+            152: ([3, 8, 36, 3], True),
+        }
+        units, bottle_neck = configs[num_layers]
+        filter_list = [256, 512, 1024, 2048] if bottle_neck \
+            else [64, 128, 256, 512]
+
+        data = mx.sym.Variable("data")
+        body = mx.sym.Convolution(data=data, num_filter=64, kernel=(7, 7),
+                                  stride=(2, 2), pad=(3, 3), no_bias=True,
+                                  name="conv0")
+        body = mx.sym.BatchNorm(data=body, fix_gamma=False, eps=2e-5,
+                                momentum=0.9, name="bn0")
+        body = mx.sym.Activation(data=body, act_type="relu")
+        body = mx.sym.Pooling(data=body, kernel=(3, 3), stride=(2, 2),
+                              pad=(1, 1), pool_type="max")
+
+        for i, (n_units, n_filter) in enumerate(zip(units, filter_list)):
+            stride = (1, 1) if i == 0 else (2, 2)
+            body = residual_unit(body, n_filter, stride, False,
+                                 "stage%d_unit1" % (i + 1), bottle_neck)
+            for j in range(n_units - 1):
+                body = residual_unit(body, n_filter, (1, 1), True,
+                                     "stage%d_unit%d" % (i + 1, j + 2),
+                                     bottle_neck)
+
+        pool = mx.sym.Pooling(data=body, global_pool=True, kernel=(7, 7),
+                              pool_type="avg")
+        flat = mx.sym.Flatten(data=pool)
+        fc1 = mx.sym.FullyConnected(data=flat, num_hidden=num_classes, name="fc1")
+        return mx.sym.SoftmaxOutput(data=fc1, name="softmax")
+    return get_symbol
+
+
+def _ic_vgg(mx):
+    """examples/image-classification/symbols/vgg.py:1-37, whole."""
+    # layers-per-stage for each supported depth (VGG paper table 1)
+    CONFIGS = {
+        11: ([1, 1, 2, 2, 2], [64, 128, 256, 512, 512]),
+        13: ([2, 2, 2, 2, 2], [64, 128, 256, 512, 512]),
+        16: ([2, 2, 3, 3, 3], [64, 128, 256, 512, 512]),
+        19: ([2, 2, 4, 4, 4], [64, 128, 256, 512, 512]),
+    }
+
+
+    def get_symbol(num_classes, num_layers=16, batch_norm=False, **kwargs):
+        if num_layers not in CONFIGS:
+            raise ValueError("vgg depth must be one of %s" % list(CONFIGS))
+        layers, filters = CONFIGS[num_layers]
+        net = mx.sym.Variable("data")
+        for stage, (n, f) in enumerate(zip(layers, filters)):
+            for i in range(n):
+                net = mx.sym.Convolution(net, kernel=(3, 3), pad=(1, 1),
+                                         num_filter=f,
+                                         name="conv%d_%d" % (stage + 1, i + 1))
+                if batch_norm:
+                    net = mx.sym.BatchNorm(net,
+                                           name="bn%d_%d" % (stage + 1, i + 1))
+                net = mx.sym.Activation(net, act_type="relu")
+            net = mx.sym.Pooling(net, pool_type="max", kernel=(2, 2),
+                                 stride=(2, 2), name="pool%d" % (stage + 1))
+        net = mx.sym.Flatten(net)
+        for i, hidden in enumerate((4096, 4096)):
+            net = mx.sym.FullyConnected(net, num_hidden=hidden,
+                                        name="fc%d" % (6 + i))
+            net = mx.sym.Activation(net, act_type="relu")
+            net = mx.sym.Dropout(net, p=0.5)
+        net = mx.sym.FullyConnected(net, num_hidden=num_classes, name="fc8")
+        return mx.sym.SoftmaxOutput(net, name="softmax")
+    return get_symbol
+
+
+def _ic_googlenet(mx):
+    """examples/image-classification/symbols/googlenet.py:1-52, whole."""
+    def conv(data, num_filter, kernel, stride=(1, 1), pad=(0, 0), name=None):
+        c = mx.sym.Convolution(data, num_filter=num_filter, kernel=kernel,
+                               stride=stride, pad=pad, name="conv_%s" % name)
+        return mx.sym.Activation(c, act_type="relu", name="relu_%s" % name)
+
+
+    def inception(data, f1, f3r, f3, f5r, f5, proj, name):
+        b1 = conv(data, f1, (1, 1), name="%s_1x1" % name)
+        b3 = conv(data, f3r, (1, 1), name="%s_3x3r" % name)
+        b3 = conv(b3, f3, (3, 3), pad=(1, 1), name="%s_3x3" % name)
+        b5 = conv(data, f5r, (1, 1), name="%s_5x5r" % name)
+        b5 = conv(b5, f5, (5, 5), pad=(2, 2), name="%s_5x5" % name)
+        bp = mx.sym.Pooling(data, kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                            pool_type="max", name="%s_pool" % name)
+        bp = conv(bp, proj, (1, 1), name="%s_proj" % name)
+        return mx.sym.Concat(b1, b3, b5, bp, name="%s_concat" % name)
+
+
+    def get_symbol(num_classes, **kwargs):
+        data = mx.sym.Variable("data")
+        net = conv(data, 64, (7, 7), stride=(2, 2), pad=(3, 3), name="stem1")
+        net = mx.sym.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                             pool_type="max")
+        net = conv(net, 64, (1, 1), name="stem2r")
+        net = conv(net, 192, (3, 3), pad=(1, 1), name="stem2")
+        net = mx.sym.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                             pool_type="max")
+        net = inception(net, 64, 96, 128, 16, 32, 32, "3a")
+        net = inception(net, 128, 128, 192, 32, 96, 64, "3b")
+        net = mx.sym.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                             pool_type="max")
+        net = inception(net, 192, 96, 208, 16, 48, 64, "4a")
+        net = inception(net, 160, 112, 224, 24, 64, 64, "4b")
+        net = inception(net, 128, 128, 256, 24, 64, 64, "4c")
+        net = inception(net, 112, 144, 288, 32, 64, 64, "4d")
+        net = inception(net, 256, 160, 320, 32, 128, 128, "4e")
+        net = mx.sym.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                             pool_type="max")
+        net = inception(net, 256, 160, 320, 32, 128, 128, "5a")
+        net = inception(net, 384, 192, 384, 48, 128, 128, "5b")
+        net = mx.sym.Pooling(net, kernel=(7, 7), stride=(1, 1),
+                             pool_type="avg", global_pool=True)
+        net = mx.sym.Flatten(net)
+        net = mx.sym.Dropout(net, p=0.4)
+        net = mx.sym.FullyConnected(net, num_hidden=num_classes, name="fc")
+        return mx.sym.SoftmaxOutput(net, name="softmax")
+    return get_symbol
+
+
+def _ic_mobilenet(mx):
+    """examples/image-classification/symbols/mobilenet.py:1-38, whole."""
+    def conv_bn(data, num_filter, kernel, stride=(1, 1), pad=(0, 0),
+                num_group=1, name=None):
+        c = mx.sym.Convolution(data, num_filter=num_filter, kernel=kernel,
+                               stride=stride, pad=pad, num_group=num_group,
+                               no_bias=True, name="%s_conv" % name)
+        c = mx.sym.BatchNorm(c, fix_gamma=False, name="%s_bn" % name)
+        return mx.sym.Activation(c, act_type="relu", name="%s_relu" % name)
+
+
+    def dw_sep(data, in_ch, out_ch, stride, name):
+        """depthwise 3x3 (groups == channels) then pointwise 1x1"""
+        dw = conv_bn(data, in_ch, (3, 3), stride=stride, pad=(1, 1),
+                     num_group=in_ch, name="%s_dw" % name)
+        return conv_bn(dw, out_ch, (1, 1), name="%s_pw" % name)
+
+
+    def get_symbol(num_classes, alpha=1.0, **kwargs):
+        def ch(n):
+            return max(8, int(n * alpha))
+        data = mx.sym.Variable("data")
+        net = conv_bn(data, ch(32), (3, 3), stride=(2, 2), pad=(1, 1),
+                      name="stem")
+        plan = [(32, 64, 1), (64, 128, 2), (128, 128, 1), (128, 256, 2),
+                (256, 256, 1), (256, 512, 2)] \
+            + [(512, 512, 1)] * 5 + [(512, 1024, 2), (1024, 1024, 1)]
+        for i, (cin, cout, s) in enumerate(plan):
+            net = dw_sep(net, ch(cin), ch(cout), (s, s), "sep%d" % i)
+        net = mx.sym.Pooling(net, kernel=(7, 7), pool_type="avg",
+                             global_pool=True)
+        net = mx.sym.Flatten(net)
+        net = mx.sym.FullyConnected(net, num_hidden=num_classes, name="fc")
+        return mx.sym.SoftmaxOutput(net, name="softmax")
+    return get_symbol
+
+
+def _ic_resnext(mx):
+    """examples/image-classification/symbols/resnext.py:1-64, whole."""
+    def resnext_unit(data, num_filter, stride, dim_match, num_group, name):
+        mid = num_filter // 2
+        body = mx.sym.Convolution(data, num_filter=mid, kernel=(1, 1),
+                                  no_bias=True, name=name + "_conv1")
+        body = mx.sym.BatchNorm(body, fix_gamma=False, eps=2e-5,
+                                name=name + "_bn1")
+        body = mx.sym.Activation(body, act_type="relu")
+        body = mx.sym.Convolution(body, num_filter=mid, kernel=(3, 3),
+                                  stride=stride, pad=(1, 1),
+                                  num_group=num_group, no_bias=True,
+                                  name=name + "_conv2")
+        body = mx.sym.BatchNorm(body, fix_gamma=False, eps=2e-5,
+                                name=name + "_bn2")
+        body = mx.sym.Activation(body, act_type="relu")
+        body = mx.sym.Convolution(body, num_filter=num_filter, kernel=(1, 1),
+                                  no_bias=True, name=name + "_conv3")
+        body = mx.sym.BatchNorm(body, fix_gamma=False, eps=2e-5,
+                                name=name + "_bn3")
+        if dim_match:
+            shortcut = data
+        else:
+            shortcut = mx.sym.Convolution(data, num_filter=num_filter,
+                                          kernel=(1, 1), stride=stride,
+                                          no_bias=True, name=name + "_sc")
+            shortcut = mx.sym.BatchNorm(shortcut, fix_gamma=False, eps=2e-5,
+                                        name=name + "_sc_bn")
+        return mx.sym.Activation(body + shortcut, act_type="relu")
+
+
+    # depth -> units per stage (same table as resnet bottleneck depths)
+    UNITS = {50: [3, 4, 6, 3], 101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
+
+
+    def get_symbol(num_classes, num_layers=50, num_group=32, **kwargs):
+        if num_layers not in UNITS:
+            raise ValueError("resnext depth must be one of %s" % list(UNITS))
+        units = UNITS[num_layers]
+        filters = [256, 512, 1024, 2048]
+        data = mx.sym.Variable("data")
+        net = mx.sym.Convolution(data, num_filter=64, kernel=(7, 7),
+                                 stride=(2, 2), pad=(3, 3), no_bias=True,
+                                 name="conv0")
+        net = mx.sym.BatchNorm(net, fix_gamma=False, eps=2e-5, name="bn0")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                             pool_type="max")
+        for stage, (n, f) in enumerate(zip(units, filters)):
+            stride = (1, 1) if stage == 0 else (2, 2)
+            net = resnext_unit(net, f, stride, False, num_group,
+                               "stage%d_unit0" % stage)
+            for i in range(1, n):
+                net = resnext_unit(net, f, (1, 1), True, num_group,
+                                   "stage%d_unit%d" % (stage, i))
+        net = mx.sym.Pooling(net, kernel=(7, 7), pool_type="avg",
+                             global_pool=True)
+        net = mx.sym.Flatten(net)
+        net = mx.sym.FullyConnected(net, num_hidden=num_classes, name="fc")
+        return mx.sym.SoftmaxOutput(net, name="softmax")
+    return get_symbol
+
+
+def _ic_inception_bn(mx):
+    """examples/image-classification/symbols/inception_bn.py:1-66, whole."""
+    def conv(data, num_filter, kernel, stride=(1, 1), pad=(0, 0), name=None):
+        c = mx.sym.Convolution(data, num_filter=num_filter, kernel=kernel,
+                               stride=stride, pad=pad, no_bias=True,
+                               name="%s_conv" % name)
+        c = mx.sym.BatchNorm(c, fix_gamma=False, name="%s_bn" % name)
+        return mx.sym.Activation(c, act_type="relu", name="%s_relu" % name)
+
+
+    def inception(data, f1, f3r, f3, fd3r, fd3, proj, pool, name):
+        b1 = conv(data, f1, (1, 1), name="%s_1x1" % name)
+        b3 = conv(data, f3r, (1, 1), name="%s_3x3r" % name)
+        b3 = conv(b3, f3, (3, 3), pad=(1, 1), name="%s_3x3" % name)
+        bd = conv(data, fd3r, (1, 1), name="%s_d3x3r" % name)
+        bd = conv(bd, fd3, (3, 3), pad=(1, 1), name="%s_d3x3a" % name)
+        bd = conv(bd, fd3, (3, 3), pad=(1, 1), name="%s_d3x3b" % name)
+        bp = mx.sym.Pooling(data, kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                            pool_type=pool, name="%s_pool" % name)
+        bp = conv(bp, proj, (1, 1), name="%s_proj" % name)
+        return mx.sym.Concat(b1, b3, bd, bp, name="%s_concat" % name)
+
+
+    def inception_down(data, f3r, f3, fd3r, fd3, name):
+        """stride-2 module: no 1x1 branch, pool passes through un-projected"""
+        b3 = conv(data, f3r, (1, 1), name="%s_3x3r" % name)
+        b3 = conv(b3, f3, (3, 3), stride=(2, 2), pad=(1, 1),
+                  name="%s_3x3" % name)
+        bd = conv(data, fd3r, (1, 1), name="%s_d3x3r" % name)
+        bd = conv(bd, fd3, (3, 3), pad=(1, 1), name="%s_d3x3a" % name)
+        bd = conv(bd, fd3, (3, 3), stride=(2, 2), pad=(1, 1),
+                  name="%s_d3x3b" % name)
+        bp = mx.sym.Pooling(data, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                            pool_type="max", name="%s_pool" % name)
+        return mx.sym.Concat(b3, bd, bp, name="%s_concat" % name)
+
+
+    def get_symbol(num_classes, **kwargs):
+        data = mx.sym.Variable("data")
+        net = conv(data, 64, (7, 7), stride=(2, 2), pad=(3, 3), name="stem1")
+        net = mx.sym.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                             pool_type="max")
+        net = conv(net, 64, (1, 1), name="stem2r")
+        net = conv(net, 192, (3, 3), pad=(1, 1), name="stem2")
+        net = mx.sym.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                             pool_type="max")
+        net = inception(net, 64, 64, 64, 64, 96, 32, "avg", "3a")
+        net = inception(net, 64, 64, 96, 64, 96, 64, "avg", "3b")
+        net = inception_down(net, 128, 160, 64, 96, "3c")
+        net = inception(net, 224, 64, 96, 96, 128, 128, "avg", "4a")
+        net = inception(net, 192, 96, 128, 96, 128, 128, "avg", "4b")
+        net = inception(net, 160, 128, 160, 128, 160, 128, "avg", "4c")
+        net = inception(net, 96, 128, 192, 160, 192, 128, "avg", "4d")
+        net = inception_down(net, 128, 192, 192, 256, "4e")
+        net = inception(net, 352, 192, 320, 160, 224, 128, "avg", "5a")
+        net = inception(net, 352, 192, 320, 192, 224, 128, "max", "5b")
+        net = mx.sym.Pooling(net, kernel=(7, 7), pool_type="avg",
+                             global_pool=True)
+        net = mx.sym.Flatten(net)
+        net = mx.sym.FullyConnected(net, num_hidden=num_classes, name="fc")
+        return mx.sym.SoftmaxOutput(net, name="softmax")
+    return get_symbol
+
+
+def _ic_inception_v3(mx):
+    """examples/image-classification/symbols/inception_v3.py:1-108, whole."""
+    def conv(data, num_filter, kernel, stride=(1, 1), pad=(0, 0), name=None):
+        c = mx.sym.Convolution(data, num_filter=num_filter, kernel=kernel,
+                               stride=stride, pad=pad, no_bias=True,
+                               name="%s_conv" % name)
+        c = mx.sym.BatchNorm(c, fix_gamma=True, eps=0.001, name="%s_bn" % name)
+        return mx.sym.Activation(c, act_type="relu", name="%s_relu" % name)
+
+
+    def inc_a(data, proj, name):
+        b1 = conv(data, 64, (1, 1), name="%s_1x1" % name)
+        b5 = conv(data, 48, (1, 1), name="%s_5x5r" % name)
+        b5 = conv(b5, 64, (5, 5), pad=(2, 2), name="%s_5x5" % name)
+        b3 = conv(data, 64, (1, 1), name="%s_3x3r" % name)
+        b3 = conv(b3, 96, (3, 3), pad=(1, 1), name="%s_3x3a" % name)
+        b3 = conv(b3, 96, (3, 3), pad=(1, 1), name="%s_3x3b" % name)
+        bp = mx.sym.Pooling(data, kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                            pool_type="avg")
+        bp = conv(bp, proj, (1, 1), name="%s_proj" % name)
+        return mx.sym.Concat(b1, b5, b3, bp)
+
+
+    def red_a(data, name):
+        b3 = conv(data, 384, (3, 3), stride=(2, 2), name="%s_3x3" % name)
+        bd = conv(data, 64, (1, 1), name="%s_d3x3r" % name)
+        bd = conv(bd, 96, (3, 3), pad=(1, 1), name="%s_d3x3a" % name)
+        bd = conv(bd, 96, (3, 3), stride=(2, 2), name="%s_d3x3b" % name)
+        bp = mx.sym.Pooling(data, kernel=(3, 3), stride=(2, 2),
+                            pool_type="max")
+        return mx.sym.Concat(b3, bd, bp)
+
+
+    def inc_b(data, mid, name):
+        b1 = conv(data, 192, (1, 1), name="%s_1x1" % name)
+        b7 = conv(data, mid, (1, 1), name="%s_7r" % name)
+        b7 = conv(b7, mid, (1, 7), pad=(0, 3), name="%s_1x7" % name)
+        b7 = conv(b7, 192, (7, 1), pad=(3, 0), name="%s_7x1" % name)
+        bd = conv(data, mid, (1, 1), name="%s_d7r" % name)
+        bd = conv(bd, mid, (7, 1), pad=(3, 0), name="%s_d7a" % name)
+        bd = conv(bd, mid, (1, 7), pad=(0, 3), name="%s_d7b" % name)
+        bd = conv(bd, mid, (7, 1), pad=(3, 0), name="%s_d7c" % name)
+        bd = conv(bd, 192, (1, 7), pad=(0, 3), name="%s_d7d" % name)
+        bp = mx.sym.Pooling(data, kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                            pool_type="avg")
+        bp = conv(bp, 192, (1, 1), name="%s_proj" % name)
+        return mx.sym.Concat(b1, b7, bd, bp)
+
+
+    def red_b(data, name):
+        b3 = conv(data, 192, (1, 1), name="%s_3r" % name)
+        b3 = conv(b3, 320, (3, 3), stride=(2, 2), name="%s_3x3" % name)
+        b7 = conv(data, 192, (1, 1), name="%s_7r" % name)
+        b7 = conv(b7, 192, (1, 7), pad=(0, 3), name="%s_1x7" % name)
+        b7 = conv(b7, 192, (7, 1), pad=(3, 0), name="%s_7x1" % name)
+        b7 = conv(b7, 192, (3, 3), stride=(2, 2), name="%s_3x3b" % name)
+        bp = mx.sym.Pooling(data, kernel=(3, 3), stride=(2, 2),
+                            pool_type="max")
+        return mx.sym.Concat(b3, b7, bp)
+
+
+    def inc_c(data, name):
+        b1 = conv(data, 320, (1, 1), name="%s_1x1" % name)
+        b3 = conv(data, 384, (1, 1), name="%s_3r" % name)
+        b3a = conv(b3, 384, (1, 3), pad=(0, 1), name="%s_1x3" % name)
+        b3b = conv(b3, 384, (3, 1), pad=(1, 0), name="%s_3x1" % name)
+        bd = conv(data, 448, (1, 1), name="%s_dr" % name)
+        bd = conv(bd, 384, (3, 3), pad=(1, 1), name="%s_d3" % name)
+        bda = conv(bd, 384, (1, 3), pad=(0, 1), name="%s_d1x3" % name)
+        bdb = conv(bd, 384, (3, 1), pad=(1, 0), name="%s_d3x1" % name)
+        bp = mx.sym.Pooling(data, kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                            pool_type="avg")
+        bp = conv(bp, 192, (1, 1), name="%s_proj" % name)
+        return mx.sym.Concat(b1, b3a, b3b, bda, bdb, bp)
+
+
+    def get_symbol(num_classes, **kwargs):
+        data = mx.sym.Variable("data")
+        net = conv(data, 32, (3, 3), stride=(2, 2), name="stem1")
+        net = conv(net, 32, (3, 3), name="stem2")
+        net = conv(net, 64, (3, 3), pad=(1, 1), name="stem3")
+        net = mx.sym.Pooling(net, kernel=(3, 3), stride=(2, 2),
+                             pool_type="max")
+        net = conv(net, 80, (1, 1), name="stem4")
+        net = conv(net, 192, (3, 3), name="stem5")
+        net = mx.sym.Pooling(net, kernel=(3, 3), stride=(2, 2),
+                             pool_type="max")
+        net = inc_a(net, 32, "mixed0")
+        net = inc_a(net, 64, "mixed1")
+        net = inc_a(net, 64, "mixed2")
+        net = red_a(net, "mixed3")
+        net = inc_b(net, 128, "mixed4")
+        net = inc_b(net, 160, "mixed5")
+        net = inc_b(net, 160, "mixed6")
+        net = inc_b(net, 192, "mixed7")
+        net = red_b(net, "mixed8")
+        net = inc_c(net, "mixed9")
+        net = inc_c(net, "mixed10")
+        net = mx.sym.Pooling(net, kernel=(8, 8), pool_type="avg",
+                             global_pool=True)
+        net = mx.sym.Flatten(net)
+        net = mx.sym.Dropout(net, p=0.5)
+        net = mx.sym.FullyConnected(net, num_hidden=num_classes, name="fc")
+        return mx.sym.SoftmaxOutput(net, name="softmax")
+    return get_symbol
+
+
+IC_SYMBOLS = {"mlp": _ic_mlp, "lenet": _ic_lenet, "alexnet": _ic_alexnet,
+              "resnet": _ic_resnet, "vgg": _ic_vgg,
+              "googlenet": _ic_googlenet, "mobilenet": _ic_mobilenet,
+              "resnext": _ic_resnext, "inception-bn": _ic_inception_bn,
+              "inception-v3": _ic_inception_v3}
+
+
+def ic_symbol(mx, network, num_classes, **kwargs):
+    """``symbols.get_symbol`` of examples/image-classification/symbols/
+    __init__.py:20-21 over the copies above, in package ``mx``."""
+    return IC_SYMBOLS[network](mx)(num_classes=num_classes, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# image_classification: fit.py's recipe on Inception-v3, the symbol zoo
+# through benchmark_score.py, fine_tune.py's stage 2
+# ---------------------------------------------------------------------------
+
+_IC_SEED = 17           # the generator (Dropout) at the start of each run
+
+
+def _fitpy_lr(lr, factor, step_epochs, load_epoch, epoch_size, mx):
+    """``_lr_scheduler`` of examples/image-classification/common/fit.py:
+    31-45 (copied): the rate and scheduler of a run that begins at
+    ``load_epoch``."""
+    begin = load_epoch or 0
+    for e in step_epochs:
+        if begin >= e:
+            lr *= factor
+    steps = [epoch_size * (e - begin) for e in step_epochs if e > begin]
+    if not steps:
+        return lr, None
+    return lr, mx.lr_scheduler.MultiFactorScheduler(step=steps,
+                                                    factor=factor)
+
+
+def _free(gpu):
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+
+
+def _host_params(mod):
+    arg, aux = mod.get_params()
+    return ({k: v._data.to("cpu", copy=True) for k, v in arg.items()},
+            {k: v._data.to("cpu", copy=True) for k, v in aux.items()})
+
+
+def _bit_equal(a, b):
+    return all(torch.equal(a[k], b[k]) for k in b) and sorted(a) == sorted(b)
+
+
+def _ic_data(n, hw, classes, seed):
+    rs = np.random.RandomState(seed)
+    return (rs.uniform(-1, 1, (n, 3, hw, hw)).astype(np.float32),
+            rs.randint(0, classes, n).astype(np.float32))
+
+
+class _BatchLog:
+    """A batch-end callback of fit.py's loop: the rate of each update,
+    CUDA events and host time per batch, the weights after batch
+    ``snap_at`` of the first epoch, the peak memory per epoch."""
+
+    def __init__(self, mod, gpu, snap_at=None):
+        self.mod, self.gpu, self.snap_at = mod, gpu, snap_at
+        self.rates, self.events, self.wall, self.snap = [], [], [], None
+        self.peaks = []
+
+    def __call__(self, param):
+        self.rates.append(self.mod._optimizer.learning_rate)
+        self.wall.append(time.perf_counter())
+        if self.gpu:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+        if param.epoch == 0 and param.nbatch == self.snap_at:
+            self.snap = _host_params(self.mod)
+
+    def epoch_end(self, epoch, sym, arg, aux):
+        if self.gpu:
+            torch.cuda.synchronize()
+            self.peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+    def ms_per_batch(self, per_epoch):
+        """(CUDA-event ms, host ms) of each batch after an epoch's first."""
+        if self.gpu:
+            torch.cuda.synchronize()
+        ev, wall = [], []
+        for i in range(1, len(self.wall)):
+            if i % per_epoch == 0:
+                continue
+            wall.append((self.wall[i] - self.wall[i - 1]) * 1e3)
+            if self.gpu:
+                ev.append(self.events[i - 1].elapsed_time(self.events[i]))
+        return ev, wall
+
+
+def _ic_fit(mx, sym, ctx, train, kv, opt, log=None, arg=None, aux=None,
+            mod=None, begin_epoch=0, num_epoch=2, epoch_end=None, val=None):
+    """fit.py:79-93 (copied, the loop): ``Module.fit`` with fit.py's
+    arguments."""
+    if mod is None:
+        mod = mx.mod.Module(sym, context=ctx)
+    batch_end = [mx.callback.Speedometer(train.batch_size, 3)]
+    if log is not None:
+        log.mod = mod
+        batch_end.append(log)
+    mod.fit(train, eval_data=val, eval_metric=["acc"], optimizer="sgd",
+            optimizer_params=opt, arg_params=arg, aux_params=aux,
+            initializer=mx.initializer.Xavier(magnitude=2.0),
+            num_epoch=num_epoch, begin_epoch=begin_epoch,
+            batch_end_callback=batch_end, epoch_end_callback=epoch_end,
+            kvstore=kv)
+    return mod
+
+
+def _fitpy_opt(mx, load_epoch, epoch_size, batch):
+    """fit.py:57-71's optimizer parameters for ``--lr 0.05 --momentum
+    0.9 --wd 1e-4 --lr-step-epochs 1``."""
+    lr, sched = _fitpy_lr(0.05, 0.1, [1], load_epoch, epoch_size, mx)
+    opt = {"learning_rate": lr, "wd": 1e-4, "rescale_grad": 1.0 / batch,
+           "momentum": 0.9}
+    if sched is not None:
+        opt["lr_scheduler"] = sched
+    return opt
+
+
+_EPS32 = float(np.finfo(np.float32).eps)
+_EPS64 = float(np.finfo(np.float64).eps)
+
+
+def _step1_gate(card, card64, cpu, cpu64, w0, n=6):
+    """Step 1's weights on the card against the CPU's, tensor by tensor,
+    with the CPU's fp64 step (``cpu64``, from the weights ``w0``) as the
+    arbiter; ``upd`` is a tensor's largest update there, ``top`` its
+    largest |value|.
+
+    (A) The card's fp64 step: within 1e-6 of ``upd`` plus 4 fp64 ulps of
+    ``top``, on every tensor.
+    (B) The card's fp32 step: within 1e-3 of ``top`` or twice the CPU
+    fp32's largest error on any tensor of its kind (``weight``, ``beta``,
+    ...); and within a quarter of ``upd`` plus 4 fp32 ulps of ``top``, or
+    twice the CPU fp32's error on that very tensor (where fp32 cannot
+    resolve the update on the CPU either). One step leaves each
+    BatchNorm shift a cancelling sum that fp32 rounds to a few percent on
+    either device, so the first condition alone passes a dropped shift
+    update; the second fails it wherever the CPU's fp32 resolves the
+    update (twice its error below the update), and (A) fails it on every
+    tensor.
+    Control: a dropped update and one of the opposite sign, planted on
+    each tensor in turn, must fail (A) on every tensor the step moves;
+    the tensors (B) catches them on are counted. Returns (ok, report)."""
+    def err(got, ref):
+        return float((got.double() - ref).abs().max())
+
+    rows, fam = {}, collections.defaultdict(float)
+    for k, ref in cpu64.items():
+        ref = ref.double()
+        kind = k.rsplit("_", 1)[-1]
+        r = {"kind": kind, "ref": ref, "w0": w0[k].double(),
+             "upd": float((ref - w0[k].double()).abs().max()),
+             "top": float(ref.abs().max()), "e_cpu": err(cpu[k], ref)}
+        fam[kind] = max(fam[kind], r["e_cpu"])
+        rows[k] = r
+
+    def ok_a(r, got64):
+        return err(got64, r["ref"]) <= 1e-6 * r["upd"] + 4 * _EPS64 * r["top"]
+
+    def ok_b(r, got):
+        e = err(got, r["ref"])
+        return (e <= max(1e-3 * r["top"], 2 * fam[r["kind"]])
+                and e <= max(0.25 * r["upd"] + 4 * _EPS32 * r["top"],
+                             2 * r["e_cpu"]))
+
+    kinds = sorted(fam)
+    rep = {k: collections.Counter() for k in kinds}
+    fail_a, fail_b, missed = [], [], []
+    for k, r in rows.items():
+        c = rep[r["kind"]]
+        c["total"] += 1
+        r["e_card"], r["e_card64"] = err(card[k], r["ref"]), \
+            err(card64[k], r["ref"])
+        c["within_1e-3_of_top"] += r["e_card"] <= 1e-3 * r["top"]
+        if not ok_a(r, card64[k]):
+            fail_a.append(k)
+        if not ok_b(r, card[k]):
+            fail_b.append(k)
+        if r["upd"] == 0:
+            c["not_moved"] += 1
+            continue
+        w0k = r["w0"]
+        planted_a = (w0k, 2 * w0k - card64[k].double())
+        planted_b = (w0k, 2 * w0k - card[k].double())
+        caught_a = not any(ok_a(r, t) for t in planted_a)
+        caught_b = not any(ok_b(r, t) for t in planted_b)
+        c["planted_caught_fp64"] += caught_a
+        c["planted_caught_fp32"] += caught_b
+        c["fp32_resolves_update"] += 2 * r["e_cpu"] < r["upd"]
+        if not caught_a:
+            missed.append(k)
+    worst = sorted(rows, key=lambda k: -rows[k]["e_card"]
+                   / max(rows[k]["upd"], 1e-30))[:n]
+    report = {
+        "by_kind": {k: dict(v) for k, v in rep.items()},
+        "fp64_worst_err_over_update": max(
+            r["e_card64"] / max(r["upd"], 1e-30) for r in rows.values()),
+        "fp32_worst_err_over_update": max(
+            r["e_card"] / max(r["upd"], 1e-30) for r in rows.values()),
+        "failed_fp64": fail_a[:n], "failed_fp32": fail_b[:n],
+        "planted_not_caught": missed[:n],
+        "worst_fp32": [[k, rows[k]["e_card"], rows[k]["e_cpu"],
+                        rows[k]["upd"], rows[k]["top"]] for k in worst]}
+    return not (fail_a or fail_b or missed), report
+
+
+def _softmax_ce(prob, label):
+    p = prob.double()[torch.arange(prob.shape[0]), label.long()]
+    return float(-torch.log(p.clamp_min(1e-30)).mean())
+
+
+def _ic_first_step(mx, sym, ctx, arg, aux, x, y, dtype="float32"):
+    """One fused batch step of fit.py's optimizer through a store, from
+    ``arg``/``aux``, in ``dtype``: (cross-entropy of the outputs, weights
+    after)."""
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([mx.io.DataDesc("data", x.shape, dtype)],
+             [mx.io.DataDesc("softmax_label", y.shape, dtype)])
+    mod.init_params(arg_params={k: v.to(getattr(torch, dtype))
+                                for k, v in arg.items()},
+                    aux_params={k: v.to(getattr(torch, dtype))
+                                for k, v in aux.items()})
+    mod.init_optimizer(kvstore=mx.kvstore.create("device"), optimizer="sgd",
+                       optimizer_params=_fitpy_opt(mx, None, 6, x.shape[0]))
+    assert mod.fused_step(mx.io.DataBatch(
+        [mx.nd.array(x, ctx=mx.cpu(), dtype=dtype)],
+        [mx.nd.array(y, ctx=mx.cpu(), dtype=dtype)]))
+    ce = _softmax_ce(mod.get_outputs()[0]._data, torch.from_numpy(y).to(
+        mod.get_outputs()[0]._data.device))
+    return ce, _host_params(mod)[0]
+
+
+def _fit_leg(mx, ctx, rehearsal, card, tmp):
+    """(a) fit.py on Inception-v3, resumed both ways; score and predict;
+    step 1 against the CPU."""
+    gpu = ctx.device_type == "gpu"
+    batch, per_epoch, hw = (2, 2, 75) if rehearsal else (32, 6, 299)
+    with mx.name.NameManager():
+        sym = ic_symbol(mx, "inception-v3", 1000)
+    shapes = sym.infer_shape(data=(batch, 3, hw, hw))[0]
+    n_params = sum(int(np.prod(s)) for n, s in zip(sym.list_arguments(),
+                                                   shapes)
+                   if n not in ("data", "softmax_label"))
+    if not rehearsal:
+        assert n_params == 23834568, n_params
+    x, y = _ic_data(batch * per_epoch, hw, 1000, seed=1)
+    vx, vy = _ic_data(batch + batch // 2 + 1, hw, 1000, seed=2)
+
+    def train(n=None):
+        return mx.io.NDArrayIter(x[:n], y[:n], batch_size=batch)
+    val = mx.io.NDArrayIter(vx, vy, batch_size=batch)
+    # the weights every run starts from (Xavier, magnitude 2, seeded)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([("data", (batch, 3, hw, hw))], [("softmax_label", (batch,))])
+    mod.init_params(mx.initializer.Xavier(
+        magnitude=2.0, generator=torch.Generator().manual_seed(0)))
+    arg0, aux0 = _host_params(mod)
+    del mod
+    _free(gpu)
+    pa, pb = os.path.join(tmp, "ic-a"), os.path.join(tmp, "ic-b")
+
+    # the uninterrupted run: 2 epochs, the rate steps after epoch 1
+    log = _BatchLog(None, gpu, snap_at=1)
+    whole = mx.mod.Module(sym, context=ctx)
+
+    def reseed(epoch, *_):
+        mx.random.seed(_IC_SEED + epoch + 1)
+    if gpu:
+        torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(_IC_SEED)
+    t0 = time.perf_counter()
+    _ic_fit(mx, sym, ctx, train(), mx.kvstore.create("device"),
+            _fitpy_opt(mx, None, per_epoch, batch), log=log, arg=arg0,
+            aux=aux0, mod=whole, val=val,
+            epoch_end=[mx.callback.do_checkpoint(pa),
+                       mx.callback.module_checkpoint(
+                           whole, pb, save_optimizer_states=True),
+                       log.epoch_end, reseed])
+    fit_s = time.perf_counter() - t0
+    assert whole._update_on_kvstore and whole._fused_fallback_reason is None
+    rates = list(log.rates)
+    want_rates = [0.05] * per_epoch + [0.05 * 0.1] * per_epoch
+    assert rates == want_rates, rates
+    ev, wall = log.ms_per_batch(per_epoch)
+    final = _host_params(whole)
+    store = whole._kvstore._store
+    assert all(torch.equal(store[i]._data.cpu(), final[0][n])
+               for i, n in enumerate(whole._param_names))
+    res = mx.metric.Accuracy()
+    score = whole.score(val, res)
+    pred = whole.predict(val)
+    assert pred.shape == (len(vx), 1000), pred.shape
+    p = pred._data.float()
+    assert bool(torch.isfinite(p).all())
+    assert float((p.sum(1) - 1).abs().max()) < 1e-3
+    prof = profile_forward(lambda: whole.fused_step(next(iter(train()))),
+                           reps=1) if gpu else None
+    emit({"image_classification_fit": {
+        "card": card, "network": "inception-v3", "params": n_params,
+        "batch": batch, "image": [3, hw, hw], "dtype": "float32",
+        "batches_per_epoch": per_epoch, "epochs": 2,
+        "kvstore": "device (update_on_kvstore)", "fit_s": fit_s,
+        "rate_per_update": rates,
+        "ms_per_batch_events": ev, "ms_per_batch_host": wall,
+        "images_per_s": [batch * 1e3 / m for m in (ev or wall)],
+        "peak_bytes_per_epoch": log.peaks, "score": score,
+        "predict_shape": list(pred.shape), "profile_one_batch": prof}})
+    if gpu:
+        assert log.peaks[1] <= log.peaks[0], log.peaks
+    snap2 = log.snap
+    del whole, pred, p
+    _free(gpu)
+
+    # routes over the first two batches: no store, phase-split
+    routes = {}
+    for name, kv, fused in (("kvstore=None fused", None, "1"),
+                            ("store phase-split", "store", "0")):
+        os.environ["MXNET_MODULE_FUSED_STEP"] = fused
+        mx.random.seed(_IC_SEED)
+        mod = _ic_fit(mx, sym, ctx, train(2 * batch),
+                      mx.kvstore.create("device") if kv else None,
+                      _fitpy_opt(mx, None, per_epoch, batch), arg=arg0,
+                      aux=aux0, num_epoch=1)
+        os.environ.pop("MXNET_MODULE_FUSED_STEP", None)
+        got = _host_params(mod)
+        routes[name] = _bit_equal(got[0], snap2[0]) and \
+            _bit_equal(got[1], snap2[1])
+        del mod
+        _free(gpu)
+
+    # resume from epoch 1: fit.py:55-57 (parameters only), then with the
+    # optimizer's states (Module.load + the store's states)
+    _, arg1, aux1 = mx.model.load_checkpoint(pa, 1, ctx=ctx)
+    log_p = _BatchLog(None, gpu)
+    mod = _ic_fit(mx, sym, ctx, train(), mx.kvstore.create("device"),
+                  _fitpy_opt(mx, 1, per_epoch, batch), log=log_p, arg=arg1,
+                  aux=aux1, begin_epoch=1)
+    params_route = _host_params(mod)[0]
+    params_gap = max(float((params_route[k] - final[0][k]).abs().max())
+                     for k in final[0])
+    del mod, arg1, aux1
+    _free(gpu)
+    log_s = _BatchLog(None, gpu)
+    mod = mx.mod.Module.load(pb, 1, load_optimizer_states=True, context=ctx)
+    mx.random.seed(_IC_SEED + 1)
+    _ic_fit(mx, sym, ctx, train(), mx.kvstore.create("device"),
+            _fitpy_opt(mx, 1, per_epoch, batch), log=log_s, mod=mod,
+            begin_epoch=1, epoch_end=[log_s.epoch_end])
+    states_route = _host_params(mod)
+    resumed = {"params_only": {"rates": log_p.rates,
+                               "rates_equal": log_p.rates == rates[per_epoch:],
+                               "max_abs_gap_to_uninterrupted": params_gap},
+               "with_states": {"rates": log_s.rates,
+                               "rates_equal": log_s.rates == rates[per_epoch:],
+                               "bit_equal": _bit_equal(states_route[0],
+                                                       final[0])
+                               and _bit_equal(states_route[1], final[1]),
+                               "peak_bytes": log_s.peaks}}
+    del mod
+    _free(gpu)
+
+    # step 1 against the CPU, Dropout at 0 (the generators differ)
+    sym0 = mx.sym.load_json(sym.tojson().replace('"p": "0.5"', '"p": "0"'))
+    ce_card, w_card = _ic_first_step(mx, sym0, ctx, arg0, aux0, x[:batch],
+                                     y[:batch])
+    _free(gpu)
+    if gpu:
+        ce64_card, w64_card = _ic_first_step(mx, sym0, ctx, arg0, aux0,
+                                             x[:batch], y[:batch],
+                                             dtype="float64")
+        _free(gpu)
+        t0 = time.perf_counter()
+        ce_cpu, w_cpu = _ic_first_step(mx, sym0, mx.cpu(), arg0, aux0,
+                                       x[:batch], y[:batch])
+        ce64, w64 = _ic_first_step(mx, sym0, mx.cpu(), arg0, aux0,
+                                   x[:batch], y[:batch], dtype="float64")
+        cpu_s = time.perf_counter() - t0
+        loss_rel = abs(ce_card - ce_cpu) / abs(ce_cpu)
+        loss64_rel = abs(ce64_card - ce64) / abs(ce64)
+        params_ok, gate = _step1_gate(w_card, w64_card, w_cpu, w64, arg0)
+        param_rel = _max_scaled(w_card, w_cpu)
+    else:
+        ce_cpu, loss_rel, loss64_rel, param_rel, cpu_s = \
+            ce_card, 0.0, 0.0, 0.0, 0.0
+        params_ok, gate = True, None
+    emit({"image_classification_routes": {
+        "card": card, "bit_equal_after_2_batches": routes,
+        "resumed_epoch_2": resumed,
+        "step1_vs_cpu": {"ce_card": ce_card, "ce_cpu": ce_cpu,
+                         "loss_rel": loss_rel, "loss_rel_fp64": loss64_rel,
+                         "param_rel_to_max": param_rel,
+                         "params_within_gate": params_ok, "gate": gate,
+                         "cpu_s": cpu_s, "dropout": 0}}})
+    assert all(routes.values()), routes
+    assert resumed["params_only"]["rates_equal"], resumed
+    assert resumed["with_states"]["rates_equal"], resumed
+    assert resumed["with_states"]["bit_equal"], resumed
+    assert params_gap > 0, "momentum restarted, yet the weights are equal"
+    assert loss_rel <= 1e-4 and loss64_rel <= 1e-9 and params_ok, \
+        (loss_rel, loss64_rel, gate)
+    return pa, batch, hw, x, y
+
+
+_BENCH_NETS = (("mlp", 28, {}), ("lenet", 28, {}), ("alexnet", 224, {}),
+               ("resnet", 224, {"num_layers": 50}),
+               ("vgg", 224, {"num_layers": 16}), ("googlenet", 224, {}),
+               ("mobilenet", 224, {}), ("resnext", 224, {"num_layers": 50}),
+               ("inception-bn", 224, {}), ("inception-v3", 299, {}))
+
+
+def _score_leg(mx, ctx, rehearsal, card):
+    """(b) benchmark_score.py:10-38 for the ten networks of
+    symbols/__init__.py at batch 32: images/s, then ``Module.reshape`` to
+    batch 2 and the 2 rows against the CPU (logits: the SoftmaxOutput's
+    input, grouped beside it)."""
+    gpu = ctx.device_type == "gpu"
+    batch, reps = (2, 1) if rehearsal else (32, 10)
+    out = []
+    for net, hw, kw in _BENCH_NETS:
+        if rehearsal and hw > 28:
+            hw = 75 if net == "inception-v3" else 67
+        with mx.name.NameManager():
+            sym = ic_symbol(mx, net, 1000, **kw)
+        grouped = mx.sym.Group([sym, sym.get_children()[0]])
+        shape = (batch, 1 if hw == 28 else 3, hw, hw)
+        mod = mx.mod.Module(grouped, label_names=["softmax_label"],
+                            context=ctx)
+        mod.bind(data_shapes=[("data", shape)],
+                 label_shapes=[("softmax_label", (batch,))],
+                 for_training=False)
+        mod.init_params(mx.initializer.Xavier(
+            generator=torch.Generator().manual_seed(1)))
+        xs = np.random.RandomState(3).rand(*shape).astype(np.float32)
+        data = mx.io.DataBatch(data=[mx.nd.array(xs, ctx=mx.cpu())],
+                               label=[mx.nd.zeros((batch,), ctx=mx.cpu())])
+        mod.forward(data, is_train=False)           # warm-up
+        mod.get_outputs()[0].wait_to_read()
+        t0 = time.perf_counter()
+        if gpu:
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            a.record()
+        for _ in range(reps):
+            mod.forward(data, is_train=False)
+        mod.get_outputs()[0].wait_to_read()
+        if gpu:
+            b.record()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms = a.elapsed_time(b) / reps if gpu else wall * 1e3 / reps
+        big = mod.get_outputs()[1]._data[:2].float().cpu()
+        held = {n: a_ for n, a_ in mod._exec.arg_dict.items()
+                if n in mod._param_names}
+        mod.reshape([("data", (2,) + shape[1:])], [("softmax_label", (2,))])
+        assert all(mod._exec.arg_dict[n] is a_ for n, a_ in held.items())
+        two = mx.io.DataBatch(data=[mx.nd.array(xs[:2], ctx=mx.cpu())],
+                              label=[mx.nd.zeros((2,), ctx=mx.cpu())])
+        mod.forward(two, is_train=False)
+        small = mod.get_outputs()[1]._data.float().cpu()
+        arg, aux = mod.get_params()
+        cpu = mx.mod.Module(grouped, label_names=["softmax_label"],
+                            context=mx.cpu())
+        cpu.bind(data_shapes=[("data", (2,) + shape[1:])],
+                 label_shapes=[("softmax_label", (2,))], for_training=False)
+        cpu.init_params(arg_params={k: v.asnumpy() for k, v in arg.items()},
+                        aux_params={k: v.asnumpy() for k, v in aux.items()})
+        cpu.forward(two, is_train=False)
+        want = cpu.get_outputs()[1]._data.float()
+        rec = {"network": net, "image": list(shape[1:]), "batch": batch,
+               "ms_per_batch": ms, "images_per_s": batch * 1e3 / ms,
+               "host_ms_per_batch": wall * 1e3 / reps,
+               "finite": bool(torch.isfinite(big).all()
+                              and torch.isfinite(small).all()),
+               "batch32_rows_vs_cpu": _rel_to_max(big, want)[1],
+               "batch2_vs_cpu": _rel_to_max(small, want)[1]}
+        out.append(rec)
+        del mod, cpu, arg, aux, held
+        _free(gpu)
+    emit({"image_classification_score": {"card": card, "networks": out}})
+    for rec in out:
+        assert rec["finite"], rec
+        assert rec["batch32_rows_vs_cpu"] <= 1e-3, rec
+        assert rec["batch2_vs_cpu"] <= 1e-3, rec
+
+
+def _fine_tune_leg(mx, ctx, rehearsal, card, prefix, batch, hw, x, y):
+    """(c) fine_tune.py:85-123's stage 2 on leg (a)'s checkpoint: cut at
+    the flatten output, a fresh 10-class head, the backbone fixed."""
+    gpu = ctx.device_type == "gpu"
+    sym, arg_params, aux_params = mx.model.load_checkpoint(prefix, 2,
+                                                           ctx=ctx)
+    internals = sym.get_internals()
+    flat = [n for n in internals.list_outputs()
+            if n.startswith("flatten") and n.endswith("_output")]
+    assert len(flat) == 1, flat
+    features = internals[flat[0]]
+    net = mx.sym.FullyConnected(features, num_hidden=10, name="tgt_fc")
+    net = mx.sym.SoftmaxOutput(net, name="softmax")
+    backbone = [n for n in net.list_arguments()
+                if n not in ("data", "softmax_label")
+                and not n.startswith("tgt_fc")]
+    it = mx.io.NDArrayIter(x[:3 * batch], y[:3 * batch] % 10,
+                           batch_size=batch, shuffle=True)
+    tuned = mx.mod.Module(net, context=ctx, fixed_param_names=backbone)
+    before = {n: arg_params[n]._data.to("cpu", copy=True) for n in backbone}
+    np.random.seed(5)
+    tuned.fit(it, num_epoch=1, arg_params=arg_params, aux_params=aux_params,
+              allow_missing=True, initializer=mx.initializer.Xavier(
+                  generator=torch.Generator().manual_seed(2)),
+              optimizer_params={"learning_rate": 0.01})
+    after = _host_params(tuned)[0]
+    frozen = all(torch.equal(after[n], before[n]) for n in backbone)
+    head = float(after["tgt_fc_weight"].abs().max())
+    emit({"image_classification_fine_tune": {
+        "card": card, "cut_at": flat[0], "frozen_params": len(backbone),
+        "trained": ["tgt_fc_weight", "tgt_fc_bias"], "batches": 3,
+        "frozen_bit_identical": frozen, "head_max_abs": head}})
+    assert frozen and np.isfinite(head)
+    del tuned, arg_params, aux_params
+    _free(gpu)
+
+
+def image_classification_phase(mx, ctx, rehearsal):
+    """(a) fit.py on Inception-v3 through a store, resumed; (b) the ten
+    symbols through benchmark_score.py; (c) fine_tune.py's stage 2.
+    Returns the K1-K3 launches of the path (0: no hand-written kernel)."""
+    gpu = ctx.device_type == "gpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _free(gpu)
+    card = _card_line() if gpu else "CPU rehearsal"
+    from mxnet_tpu_torch.kernels import fused_bn as K1
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- the main path: counts zeroed just before, read just after ----
+        K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+        t0 = time.perf_counter()
+        prefix, batch, hw, x, y = _fit_leg(mx, ctx, rehearsal, card, tmp)
+        t1 = time.perf_counter()
+        _score_leg(mx, ctx, rehearsal, card)
+        t2 = time.perf_counter()
+        _fine_tune_leg(mx, ctx, rehearsal, card, prefix, batch, hw, x, y)
+        counts = _kernel_counts()
+        # -----------------------------------------------------------------
+    emit({"image_classification": {
+        "leg_s": {"fit": t1 - t0, "score": t2 - t1,
+                  "fine_tune": time.perf_counter() - t2},
+        "k1_launches": counts[0], "k2_launches": counts[1],
+        "k3_launches": counts[2],
+        "note": "no hand-written kernel on this path: the JAX package "
+                "runs it through XLA; cuDNN, cuBLAS and ATen do its work"}})
+    assert counts == (0, 0, 0), counts
+    torch.backends.cudnn.deterministic = det
+    _free(gpu)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# gluon_zoo: the Gluon model zoo, and densenet121 trained from gluon.data
+# ---------------------------------------------------------------------------
+
+_ZOO_NETS = (("alexnet", 224), ("vgg16", 224), ("squeezenet1_0", 224),
+             ("densenet121", 224), ("inception_v3", 299),
+             ("mobilenet1_0", 224), ("resnet50_v1", 224))
+
+
+def _zoo_copy(mx, name, params, ctx, x1, **kw):
+    """The zoo network ``name`` on ``ctx`` holding ``params`` (host
+    tensors by name; the ``zoo_`` prefix keeps the names equal), its
+    shapes completed by a forward of ``x1``."""
+    net = mx.gluon.model_zoo.vision.get_model(name, prefix="zoo_", **kw)
+    net.initialize(ctx=ctx)
+    net(mx.nd.array(x1, ctx=ctx))
+    for k, p in net.collect_params().items():
+        p.set_data(mx.nd.array(params[k], ctx=ctx))
+    return net
+
+
+def _zoo_inference_leg(mx, ctx, rehearsal, card):
+    gpu = ctx.device_type == "gpu"
+    batch, reps = (2, 1) if rehearsal else (32, 10)
+    out = []
+    for name, hw in _ZOO_NETS:
+        if rehearsal and name != "inception_v3":
+            hw = 67
+        net = mx.gluon.model_zoo.vision.get_model(name, prefix="zoo_")
+        net.initialize(mx.init.Xavier(
+            generator=torch.Generator().manual_seed(4)), ctx=ctx)
+        xs = np.random.RandomState(5).uniform(-1, 1, (batch, 3, hw, hw)) \
+            .astype(np.float32)
+        xd = mx.nd.array(xs, ctx=ctx)
+        big = net(xd)                               # deferred shapes, warm
+        big.wait_to_read()
+        t0 = time.perf_counter()
+        if gpu:
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            a.record()
+        for _ in range(reps):
+            big = net(xd)
+        big.wait_to_read()
+        if gpu:
+            b.record()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms = a.elapsed_time(b) / reps if gpu else wall * 1e3 / reps
+        small = net(mx.nd.array(xs[:2], ctx=ctx))._data.float().cpu()
+        params = {k: p.data()._data.to("cpu", copy=True)
+                  for k, p in net.collect_params().items()}
+        n_values = sum(int(v.numel()) for v in params.values())
+        cpu_net = _zoo_copy(mx, name, params, mx.cpu(), xs[:1])
+        want = cpu_net(mx.nd.array(xs[:2], ctx=mx.cpu()))._data.float()
+        bigr = big._data[:2].float().cpu()
+        rec = {"model": name, "image": [3, hw, hw], "batch": batch,
+               "parameter_values": n_values, "ms_per_batch": ms,
+               "images_per_s": batch * 1e3 / ms,
+               "host_ms_per_batch": wall * 1e3 / reps,
+               "finite": bool(torch.isfinite(bigr).all()
+                              and torch.isfinite(small).all()),
+               "batch32_rows_vs_cpu": _rel_to_max(bigr, want)[1],
+               "batch2_vs_cpu": _rel_to_max(small, want)[1]}
+        out.append(rec)
+        del net, cpu_net, big, xd, params
+        _free(gpu)
+    emit({"gluon_zoo_inference": {"card": card, "models": out}})
+    for rec in out:
+        assert rec["finite"], rec
+        assert rec["batch32_rows_vs_cpu"] <= 1e-3, rec
+        assert rec["batch2_vs_cpu"] <= 1e-3, rec
+
+
+def _zoo_train(mx, params, ctx, loader, hybridize, kvstore, steps, seed,
+               x1, dtype="float32"):
+    """The Gluon loop on densenet121 from ``params``: DataLoader batches
+    moved to ``ctx``, ``autograd.record`` -> SoftmaxCrossEntropyLoss ->
+    ``backward`` -> ``Trainer.step``. Returns (losses, CUDA ms, host ms,
+    peak and held bytes per step, the host batches, the weights after
+    each step, the net and its step function)."""
+    gpu = ctx.device_type == "gpu"
+    net = _zoo_copy(mx, "densenet121", params, ctx, x1)
+    if dtype != "float32":
+        net.cast(dtype)
+    if hybridize:
+        net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.05, "momentum": 0.9,
+                                "wd": 1e-4}, kvstore=kvstore)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    np.random.seed(seed)
+    batches = list(loader)[:steps]
+    it = iter(batches)
+    losses, peaks, held, snaps = [], [], [], []
+
+    def step(data_label=None):
+        data, label = data_label or next(it)
+        d, l_ = data.as_in_context(ctx), label.as_in_context(ctx)
+        if dtype != "float32":
+            d, l_ = d.astype(dtype), l_.astype(dtype)
+        with mx.autograd.record():
+            loss = loss_fn(net(d), l_)
+        loss.backward()
+        trainer.step(d.shape[0])
+        return loss
+
+    ms, wall = [], []
+    for i in range(steps):
+        if gpu:
+            torch.cuda.reset_peak_memory_stats()
+        loss, m, w = _timed_steps(step, 1, gpu)
+        losses.append(float(loss[0].asnumpy().mean()))
+        ms += m
+        wall += w
+        if gpu:
+            peaks.append(torch.cuda.max_memory_allocated())
+            held.append(torch.cuda.memory_allocated())
+        snaps.append(_host_copy(net.collect_params()))
+    host = [[b.asnumpy() for b in pair] for pair in batches]
+    return losses, ms, wall, peaks, held, host, snaps, net, \
+        (lambda: step(batches[0]))
+
+
+def _shm_segments():
+    return set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") \
+        else set()
+
+
+def _process_workers(loader, want, steps):
+    """``DataLoader(num_workers=2, thread_pool=False)``: two spawned
+    processes batch with numpy into shared memory (they never touch the
+    card). Its batches under seed 8 against ``want`` (num_workers=0's),
+    then an iterator closed after one batch: the segments left behind."""
+    before = _shm_segments()
+    np.random.seed(8)
+    t0 = time.perf_counter()
+    got = [[b.asnumpy() for b in pair] for pair in loader(2, False)][:steps]
+    secs = time.perf_counter() - t0
+    it = iter(loader(2, False))
+    next(it)
+    it.close()
+    leaked = set()
+    for _ in range(20):
+        leaked = _shm_segments() - before
+        if not leaked:
+            break
+        time.sleep(0.25)
+    return {"equal_0": len(got) == len(want) and all(
+        np.array_equal(a[i], b[i]) for a, b in zip(got, want)
+        for i in (0, 1)), "epoch_s": secs, "leaked_segments": sorted(leaked)}
+
+
+def _zoo_training_leg(mx, ctx, rehearsal, card):
+    """(d) densenet121 through the Gluon loop fed by gluon.data."""
+    gpu = ctx.device_type == "gpu"
+    batch, n, hw, steps = (4, 12, 32, 2) if rehearsal else (32, 160, 224, 5)
+    rs = np.random.RandomState(6)
+    X = rs.uniform(-1, 1, (n, 3, hw, hw)).astype(np.float32)
+    Y = rs.randint(0, 1000, n).astype(np.float32)
+    ds = mx.gluon.data.ArrayDataset(X, Y)
+
+    def loader(workers, thread_pool=True):
+        return mx.gluon.data.DataLoader(ds, batch_size=batch, shuffle=True,
+                                        last_batch="discard",
+                                        num_workers=workers,
+                                        thread_pool=thread_pool)
+    net = mx.gluon.model_zoo.vision.get_model("densenet121", prefix="zoo_")
+    net.initialize(mx.init.Xavier(generator=torch.Generator().manual_seed(7)),
+                   ctx=mx.cpu())
+    net(mx.nd.array(X[:1], ctx=mx.cpu()))
+    init = {k: p.data()._data.clone() for k, p in
+            net.collect_params().items()}
+    n_values = sum(int(v.numel()) for v in init.values())
+    if not rehearsal:
+        assert n_values == 8062504, n_values
+    del net
+    runs = {}
+    for name, hyb in (("eager", False), ("hybridized", True)):
+        runs[name] = _zoo_train(mx, init, ctx, loader(2), hyb,
+                                mx.kvstore.create("device"), steps, 8, X[:1])
+        if name == "eager":
+            prof = profile_forward(runs[name][-1], reps=1) if gpu else None
+        runs[name] = runs[name][:-2]
+        _free(gpu)
+    e, h = runs["eager"], runs["hybridized"]
+    np.random.seed(8)
+    zero = [[b.asnumpy() for b in pair] for pair in loader(0)][:steps]
+    workers_equal = all(np.array_equal(a[i], b[i]) for a, b in zip(e[5], zero)
+                        for i in (0, 1))
+    procs = _process_workers(loader, zero, steps)
+    none = _zoo_train(mx, init, ctx, loader(0), False, None, 2, 8,
+                      X[:1])[:-2]
+    _free(gpu)
+    store_vs_none = _bit_equal(none[6][1], e[6][1])
+    hyb_equal = e[0] == h[0] and all(_bit_equal(a, b)
+                                     for a, b in zip(h[6], e[6]))
+    # step 1 recomputed on the CPU
+    if gpu:
+        card64 = _zoo_train(mx, init, ctx, loader(0), False,
+                            mx.kvstore.create("device"), 1, 8, X[:1],
+                            dtype="float64")[:-2]
+        _free(gpu)
+        t0 = time.perf_counter()
+        cpu = _zoo_train(mx, init, mx.cpu(), loader(0), False, None, 1, 8,
+                         X[:1])
+        cpu64 = _zoo_train(mx, init, mx.cpu(), loader(0), False, None, 1, 8,
+                           X[:1], dtype="float64")
+        cpu_s = time.perf_counter() - t0
+        loss_rel = abs(e[0][0] - cpu[0][0]) / abs(cpu[0][0])
+        loss64_rel = abs(card64[0][0] - cpu64[0][0]) / abs(cpu64[0][0])
+        params_ok, gate = _step1_gate(e[6][0], card64[6][0], cpu[6][0],
+                                      cpu64[6][0], init)
+        param_rel = _max_scaled(e[6][0], cpu[6][0])
+    else:
+        loss_rel, loss64_rel, param_rel, cpu_s, params_ok, gate = \
+            0.0, 0.0, 0.0, 0.0, True, None
+    emit({"gluon_zoo_training": {
+        "card": card, "model": "densenet121", "parameter_values": n_values,
+        "batch": batch, "image": [3, hw, hw], "dtype": "float32",
+        "images": n, "loader": "DataLoader(ArrayDataset, shuffle, "
+        "last_batch=discard, num_workers=2)",
+        "kvstore": "device (update_on_kvstore)",
+        "eager": {"loss": e[0], "ms_per_step_events": e[1],
+                  "ms_per_step_host": e[2], "peak_bytes": e[3],
+                  "held_bytes": e[4]},
+        "hybridized": {"loss": h[0], "ms_per_step_events": h[1],
+                       "ms_per_step_host": h[2], "peak_bytes": h[3],
+                       "held_bytes": h[4]},
+        "profile_one_eager_step": prof,
+        "hybridized_bit_equal_eager": hyb_equal,
+        "workers_2_equal_0": workers_equal,
+        "process_workers_2": procs,
+        "store_bit_equal_none_after_2_steps": store_vs_none,
+        "step1_vs_cpu": {"loss_rel": loss_rel, "loss_rel_fp64": loss64_rel,
+                         "param_rel_to_max": param_rel,
+                         "params_within_gate": params_ok, "gate": gate,
+                         "cpu_s": cpu_s}}})
+    assert all(np.isfinite(e[0])) and hyb_equal and workers_equal
+    assert procs["equal_0"] and not procs["leaked_segments"], procs
+    assert store_vs_none, "kvstore store and None differ"
+    assert loss_rel <= 1e-4 and loss64_rel <= 1e-9 and params_ok, \
+        (loss_rel, loss64_rel, gate)
+    if gpu:
+        for r in (e, h):
+            assert max(r[3][1:]) <= r[3][1] and max(r[4][1:]) <= r[4][1], r
+
+
+def gluon_zoo_phase(mx, ctx, rehearsal):
+    """(d) the Gluon model zoo at batch 32 in inference, and densenet121
+    trained through the Gluon loop from ``gluon.data``. Returns the K1-K3
+    launches of the path."""
+    gpu = ctx.device_type == "gpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _free(gpu)
+    card = _card_line() if gpu else "CPU rehearsal"
+    from mxnet_tpu_torch.kernels import fused_bn as K1
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    # -- the main path: counts zeroed just before, read just after --------
+    K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+    t0 = time.perf_counter()
+    _zoo_inference_leg(mx, ctx, rehearsal, card)
+    t1 = time.perf_counter()
+    _zoo_training_leg(mx, ctx, rehearsal, card)
+    counts = _kernel_counts()
+    # ---------------------------------------------------------------------
+    emit({"gluon_zoo": {
+        "leg_s": {"inference": t1 - t0, "training": time.perf_counter() - t1},
+        "k1_launches": counts[0], "k2_launches": counts[1],
+        "k3_launches": counts[2],
+        "note": "the zoo's resnet50_v1 runs without "
+                "MXNET_FUSED_BN_ADD_RELU=1, so its tails stay unfused and "
+                "K1 launches 0 times; no other hand-written kernel lies "
+                "on this path"}})
+    assert counts == (0, 0, 0), counts
+    torch.backends.cudnn.deterministic = det
+    _free(gpu)
+    return counts
+
+
 def _kernel_counts():
     from mxnet_tpu_torch.kernels import fused_bn as K1
     from mxnet_tpu_torch.kernels import flash_attention as FA
@@ -2390,7 +3799,8 @@ def rnn_training_phase(mx, ctx, rehearsal):
 
 
 PHASES = ("kernels", "serving", "attention_kernels", "training",
-          "resnet_training", "gluon_training", "decode", "rnn_training")
+          "resnet_training", "gluon_training", "decode", "rnn_training",
+          "image_classification", "gluon_zoo")
 
 
 def main(argv=None):
@@ -2447,6 +3857,13 @@ def main(argv=None):
     if "rnn_training" in todo:
         with phase("rnn_training"):
             res["rnn_launches"] = rnn_training_phase(mx, ctx, rehearsal)
+    if "image_classification" in todo:
+        with phase("image_classification"):
+            res["ic_launches"] = image_classification_phase(mx, ctx,
+                                                            rehearsal)
+    if "gluon_zoo" in todo:
+        with phase("gluon_zoo"):
+            res["zoo_launches"] = gluon_zoo_phase(mx, ctx, rehearsal)
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -2456,13 +3873,15 @@ def main(argv=None):
     emit({"kernels": [{
         "name": "scale_bias_add_relu", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/fused_bn.cu",
-        "replaces": "mxnet_tpu/pallas/fused_bn.py:_kernel",
+        "replaces": "mxnet_tpu/pallas/fused_bn.py:44",
         "launches": res["k1_launches"] + res["k1_train_launches"]
         + res["k1_gluon_launches"],
         "serving_launches": res["k1_launches"],
         "training_launches": res["k1_train_launches"],
         "gluon_training_launches": res["k1_gluon_launches"],
         "rnn_training_launches": res["rnn_launches"][0],
+        "image_classification_launches": res["ic_launches"][0],
+        "gluon_zoo_launches": res["zoo_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -2473,9 +3892,11 @@ def main(argv=None):
         "bwd_max_scaled_err": bwd["bwd_max_scaled_err"]}, {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "mxnet_tpu/pallas/flash_attention.py:_attn_kernel",
+        "replaces": "mxnet_tpu/pallas/flash_attention.py:83",
         "launches": launches["fwd"],
         "rnn_training_launches": res["rnn_launches"][1],
+        "image_classification_launches": res["ic_launches"][1],
+        "gluon_zoo_launches": res["zoo_launches"][1],
         "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
@@ -2487,9 +3908,11 @@ def main(argv=None):
         "shape": attn["shape"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "mxnet_tpu/pallas/flash_attention.py:_bwd_kernel",
+        "replaces": "mxnet_tpu/pallas/flash_attention.py:261",
         "launches": launches["bwd"],
         "rnn_training_launches": res["rnn_launches"][2],
+        "image_classification_launches": res["ic_launches"][2],
+        "gluon_zoo_launches": res["zoo_launches"][2],
         "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,

@@ -14,8 +14,10 @@ through ``parallel.SPMDTrainer``, training ResNet v1 through
 (``autograd.record``, ``gluon.loss``, ``gluon.Trainer``, ``hybridize``),
 continuous-batching decode through ``decode.DecodeEngine``, and the
 recurrent family (``gluon.rnn`` over the fused ``RNN`` op, the symbolic
-cells of ``mx.rnn`` through ``mx.mod.BucketingModule``), each on one
-device; see ROADMAP.md.
+cells of ``mx.rnn`` through ``mx.mod.BucketingModule``), and image
+classification beyond ResNet (``mx.kvstore``, the ``fit.py`` recipe,
+``gluon.data`` and the Gluon model zoo), each on one device; see
+ROADMAP.md.
 """
 from .base import MXNetError, get_env  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
@@ -43,6 +45,9 @@ from . import autograd  # noqa: F401
 from . import metric  # noqa: F401
 from . import io  # noqa: F401
 from . import model  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
+from .kvstore import KVStore  # noqa: F401
 from . import callback  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401

@@ -1,5 +1,5 @@
 """Gluon: imperative blocks, hybridize, layers, recurrent layers and
-cells, losses and the Trainer."""
+cells, losses, the Trainer, the data pipeline and the model zoo."""
 from .parameter import (Parameter, ParameterDict,  # noqa: F401
                         DeferredInitializationError)
 from .block import Block, HybridBlock  # noqa: F401
@@ -9,3 +9,4 @@ from . import rnn  # noqa: F401
 from . import loss  # noqa: F401
 from . import utils  # noqa: F401
 from . import model_zoo  # noqa: F401
+from . import data  # noqa: F401

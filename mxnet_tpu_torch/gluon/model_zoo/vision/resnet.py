@@ -1,9 +1,10 @@
-"""ResNet v1 (parity: python/mxnet/gluon/model_zoo/vision/resnet.py).
+"""ResNet v1 and v2 (parity: python/mxnet/gluon/model_zoo/vision/resnet.py).
 
-Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``, V1 only
-(He et al. 2015; bottleneck blocks for 50 layers and more). Built under
+Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``: V1 (He et
+al. 2015; bottleneck blocks for 50 layers and more) and V2
+(pre-activation, 2016). Built under
 ``layout.set_default_layout("NHWC")`` with ``MXNET_FUSED_BN_ADD_RELU=1``,
-every block tail is one ``FusedBNAddReLU`` — the hand-written block-tail
+every V1 block tail is one ``FusedBNAddReLU`` — the hand-written block-tail
 kernel on the card.
 """
 from __future__ import annotations
@@ -12,7 +13,9 @@ from ....base import MXNetError, get_env
 from ...block import HybridBlock
 from ... import nn
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "resnet18_v1",
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
+           "BottleneckV1", "BottleneckV2", "resnet18_v2", "resnet34_v2",
+           "resnet50_v2", "resnet101_v2", "resnet152_v2", "resnet18_v1",
            "resnet34_v1", "resnet50_v1", "resnet101_v1", "resnet152_v1",
            "get_resnet"]
 
@@ -98,6 +101,67 @@ class BottleneckV1(HybridBlock):
         return F.Activation(x + residual, act_type="relu")
 
 
+class BasicBlockV2(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = nn.BatchNorm()
+        self.conv1 = _conv3x3(channels, stride, in_channels)
+        self.bn2 = nn.BatchNorm()
+        self.conv2 = _conv3x3(channels, 1, channels)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.bn1(x)
+        x = F.Activation(x, act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv2(x)
+        return x + residual
+
+
+class BottleneckV2(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = nn.BatchNorm()
+        self.conv1 = nn.Conv2D(channels // 4, kernel_size=1, strides=1,
+                               use_bias=False)
+        self.bn2 = nn.BatchNorm()
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4)
+        self.bn3 = nn.BatchNorm()
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.bn1(x)
+        x = F.Activation(x, act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv2(x)
+        x = self.bn3(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv3(x)
+        return x + residual
+
+
 class ResNetV1(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
                  **kwargs):
@@ -144,17 +208,60 @@ resnet_spec = {
     101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
     152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
-_blocks = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+class ResNetV2(HybridBlock):
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 **kwargs):
+        super().__init__(**kwargs)
+        assert len(layers) == len(channels) - 1
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(nn.BatchNorm(scale=False, center=False))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False))
+                self.features.add(nn.BatchNorm())
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels=in_channels))
+                in_channels = channels[i + 1]
+            self.features.add(nn.BatchNorm())
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D())
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels)
+
+    _make_layer = ResNetV1._make_layer
+
+    def hybrid_forward(self, F, x):
+        x = self.features(x)
+        return self.output(x)
 
 
-def get_resnet(version, num_layers, **kwargs):
-    """(parity: model_zoo get_resnet; V1 only, no pretrained download)"""
+_blocks = {1: {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+           2: {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2}}
+_nets = {1: ResNetV1, 2: ResNetV2}
+
+
+def get_resnet(version, num_layers, pretrained=False, ctx=None,
+               root="~/.mxnet/models", **kwargs):
+    """(parity: model_zoo get_resnet; no pretrained download)"""
     if num_layers not in resnet_spec:
         raise MXNetError("invalid resnet depth %d" % num_layers)
-    if version != 1:
-        raise MXNetError("only ResNet v1 is ported")
+    if version not in (1, 2):
+        raise MXNetError("resnet version must be 1 or 2")
+    if pretrained:
+        from ..model_store import get_model_file
+        get_model_file("resnet%d_v%d" % (num_layers, version), root=root)
     block_type, layers, channels = resnet_spec[num_layers]
-    return ResNetV1(_blocks[block_type], layers, channels, **kwargs)
+    return _nets[version](_blocks[version][block_type], layers, channels,
+                          **kwargs)
 
 
 def resnet18_v1(**kwargs):
@@ -175,3 +282,23 @@ def resnet101_v1(**kwargs):
 
 def resnet152_v1(**kwargs):
     return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

@@ -1,8 +1,11 @@
 """Convolution and pooling gluon layers.
 
-Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py`` (Conv2D, MaxPool2D
-and GlobalAvgPool2D so far). Under a channels-last layout a conv weight
-is O+spatial+I, as in the JAX package.
+Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py``: the 1-, 2- and 3-D
+convolutions and the max, average and global pools (``ceil_mode`` is
+``pooling_convention="full"``). Under a channels-last layout a conv
+weight is O+spatial+I, as in the JAX package. The transposed
+convolutions wait for the ``Deconvolution`` op (ROADMAP Queue 1 item
+3.3).
 """
 from __future__ import annotations
 
@@ -12,7 +15,10 @@ from ... import initializer as _init
 from ... import layout as _layout
 from ..block import HybridBlock
 
-__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "MaxPool1D", "MaxPool2D",
+           "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
+           "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
+           "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D"]
 
 
 def _tuple(v, n):
@@ -89,7 +95,9 @@ def _make_conv(name, ndim):
     return Conv
 
 
+Conv1D = _make_conv("Conv1D", 1)
 Conv2D = _make_conv("Conv2D", 2)
+Conv3D = _make_conv("Conv3D", 3)
 
 
 class _Pooling(HybridBlock):
@@ -136,5 +144,15 @@ def _make_pool(name, ndim, pool_type, global_pool=False):
     return Pool
 
 
+MaxPool1D = _make_pool("MaxPool1D", 1, "max")
 MaxPool2D = _make_pool("MaxPool2D", 2, "max")
+MaxPool3D = _make_pool("MaxPool3D", 3, "max")
+AvgPool1D = _make_pool("AvgPool1D", 1, "avg")
+AvgPool2D = _make_pool("AvgPool2D", 2, "avg")
+AvgPool3D = _make_pool("AvgPool3D", 3, "avg")
+GlobalMaxPool1D = _make_pool("GlobalMaxPool1D", 1, "max", global_pool=True)
+GlobalMaxPool2D = _make_pool("GlobalMaxPool2D", 2, "max", global_pool=True)
+GlobalMaxPool3D = _make_pool("GlobalMaxPool3D", 3, "max", global_pool=True)
+GlobalAvgPool1D = _make_pool("GlobalAvgPool1D", 1, "avg", global_pool=True)
 GlobalAvgPool2D = _make_pool("GlobalAvgPool2D", 2, "avg", global_pool=True)
+GlobalAvgPool3D = _make_pool("GlobalAvgPool3D", 3, "avg", global_pool=True)

@@ -4,10 +4,15 @@ Counterpart of ``mxnet_tpu/gluon/trainer.py``: ``step`` rescales the
 gradients by ``1/batch_size`` and applies the optimizer to every
 parameter whose ``grad_req`` is not ``'null'`` in one
 ``FusedUpdater.update_batch`` (the loop ``Module``'s fused step runs),
-writing the weights and states in place. With one device the kvstore
-types ``None``, ``'local'`` and ``'device'`` mean no store, as in the
-JAX package (``model._create_kvstore``); a ``dist*`` store waits for the
-distributed slice (ROADMAP Queue 1 item 4) and raises.
+writing the weights and states in place. The kvstore follows
+``model._create_kvstore``: ``None`` and the in-process type names mean
+no store on one device; a store object gets every parameter at the
+first step, and under ``update_on_kvstore`` the optimizer. The live
+parameters then go through the store as one key list (the JAX Trainer
+pushes key by key), so the store's updater runs ``update_batch`` as
+``Module.update`` does: push the gradients and pull the weights. A
+``dist*`` store waits for the distributed slice (ROADMAP Queue 1 item 4)
+and raises.
 """
 from __future__ import annotations
 
@@ -38,8 +43,13 @@ class Trainer:
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
-        self._kvstore_type = kvstore
-        self._init_kvstore()        # a dist* store raises here
+        # a dist* type raises here; the keys go in at the first step,
+        # when deferred parameters have their shapes
+        self._kvstore, self._update_on_kvstore = _create_kvstore(
+            kvstore, 1, {p.name: p for p in self._params})
+        if self._kvstore is not None and compression_params:
+            self._kvstore.set_gradient_compression(compression_params)
+        self._kv_initialized = False
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: param for i, param in enumerate(self._params)}
@@ -55,9 +65,15 @@ class Trainer:
         self._updaters = opt.get_updater(self._optimizer)
 
     def _init_kvstore(self):
-        """(parity: trainer._init_kvstore) one device: no store."""
-        self._kvstore, self._update_on_kvstore = _create_kvstore(
-            self._kvstore_type, 1)
+        """(parity: trainer._init_kvstore) every parameter into the store
+        by index, and the optimizer under ``update_on_kvstore``."""
+        kv = self._kvstore
+        if kv is not None:
+            for i, param in enumerate(self._params):
+                kv.init(i, param.data())
+            if self._update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
+        self._kv_initialized = True
 
     @property
     def learning_rate(self):
@@ -69,35 +85,67 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """One optimizer step, the gradients normalised by
         ``batch_size`` (parity: trainer.step)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
-        """Sum the gradients across devices: with one device, nothing."""
+        """Sum the gradients through the store (when it does not update
+        the weights itself)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._allreduce_grads()
 
+    def _live(self):
+        live = [(i, p) for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+        return ([i for i, _ in live], [p.grad() for _, p in live],
+                [p.data() for _, p in live])
+
     def _allreduce_grads(self):
-        """One device and no store: the gradients are already whole."""
+        if self._kvstore is None or self._update_on_kvstore:
+            return
+        keys, grads, _ = self._live()
+        if keys:
+            self._kvstore.push(keys, grads)
+            self._kvstore.pull(keys, out=grads)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The optimizer step of ``step`` without the all-reduce."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
-        live = [(i, p) for i, p in enumerate(self._params)
-                if p.grad_req != "null"]
-        self._updaters.update_batch([i for i, _ in live],
-                                    [p.grad() for _, p in live],
-                                    [p.data() for _, p in live])
+        keys, grads, weights = self._live()
+        if not keys:
+            return
+        if self._update_on_kvstore:
+            self._kvstore.push(keys, grads)
+            self._kvstore.pull(keys, out=weights)
+        else:
+            self._updaters.update_batch(keys, grads, weights)
 
     def save_states(self, fname):
-        """The optimizer states, pickled in the JAX package's format."""
+        """The optimizer states (the store's under ``update_on_kvstore``),
+        pickled in the JAX package's format."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with open(fname, "wb") as f:
             f.write(self._updaters.get_states())
 
     def load_states(self, fname):
         """States written by ``save_states`` of either package."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             self._updaters.set_states(f.read())

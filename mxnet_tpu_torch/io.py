@@ -6,11 +6,19 @@ seed (``shuffle`` draws one permutation with ``np.random.shuffle`` at
 construction and at every ``reset``) and the same ``last_batch_handle``
 semantics. Batches are host arrays (``cpu()`` NDArrays), as in the
 reference; a Module copies each into its bound storage on its device.
-The other iterators (``ResizeIter``, ``PrefetchingIter``, ``MNISTIter``,
-``CSVIter``, ``LibSVMIter``, ``ImageRecordIter``) are not ported yet.
+``ResizeIter`` (a fixed number of batches per epoch), ``PrefetchingIter``
+(one background thread ahead of its iterator) and ``MNISTIter`` (MNIST
+idx files, plain or gzipped) are ported too; ``CSVIter``, ``LibSVMIter``
+and ``ImageRecordIter`` are not yet (ROADMAP Queue 1 items 3.4 and 6).
 """
 from __future__ import annotations
 
+import gzip
+import os
+import queue as _queue
+import struct
+import threading
+import time
 from collections import namedtuple
 
 import numpy as np
@@ -19,7 +27,8 @@ from .base import MXNetError
 from .context import cpu
 from .ndarray.ndarray import NDArray, array as _nd_array
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter", "MNISTIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -187,3 +196,178 @@ def _init_data(data, allow_empty, default_name):
             arr = arr.asnumpy()
         out.append((name, np.asarray(arr)))
     return out
+
+
+class ResizeIter(DataIter):
+    """``size`` batches per epoch of another iterator, which restarts when
+    it runs out (parity: io.ResizeIter)."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class PrefetchingIter(DataIter):
+    """One background thread runs ``prefetch_depth`` batches ahead of a
+    single backing iterator (parity: io.PrefetchingIter). ``reset`` stops
+    the thread before it resets the backing iterator, and raises if the
+    thread stays inside the backing ``next()`` longer than
+    ``reset_join_timeout`` seconds."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 prefetch_depth=2):
+        if not isinstance(iters, (list, tuple)):
+            iters = [iters]
+        super().__init__(iters[0].batch_size)
+        if len(iters) != 1:
+            raise MXNetError("PrefetchingIter takes a single backing "
+                             "iterator, as in the JAX package")
+        self.iter = iters[0]
+        self._prefetch_depth = prefetch_depth
+        self.reset_join_timeout = 5.0
+        self._queue = _queue.Queue(maxsize=prefetch_depth)
+        self._stop = threading.Event()
+        self._thread = None
+        self._start()
+
+    @property
+    def provide_data(self):
+        return self.iter.provide_data
+
+    @property
+    def provide_label(self):
+        return self.iter.provide_label
+
+    def _start(self):
+        # the worker holds its own stop event and queue, so a reset that
+        # swaps them in never races a worker that is still draining
+        stop, queue, backing = self._stop, self._queue, self.iter
+
+        def worker():
+            while not stop.is_set():
+                try:
+                    batch = backing.next()
+                except StopIteration:
+                    queue.put(None)
+                    return
+                queue.put(batch)
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def reset(self):
+        self._stop.set()
+        deadline = time.monotonic() + self.reset_join_timeout
+        while self._thread is not None and self._thread.is_alive():
+            try:
+                while True:     # unblock a worker waiting on a full queue
+                    self._queue.get_nowait()
+            except _queue.Empty:
+                pass
+            self._thread.join(timeout=0.05)
+            if time.monotonic() > deadline and self._thread.is_alive():
+                raise MXNetError(
+                    "PrefetchingIter.reset(): the prefetch thread did not "
+                    "exit within %.1fs; it is blocked inside the backing "
+                    "iterator's next(). Call reset() again once the source "
+                    "unblocks." % self.reset_join_timeout)
+        self.iter.reset()
+        self._stop = threading.Event()
+        self._queue = _queue.Queue(maxsize=self._prefetch_depth)
+        self._start()
+
+    def next(self):
+        batch = self._queue.get()
+        if batch is None:
+            raise StopIteration
+        return batch
+
+    def iter_next(self):
+        raise NotImplementedError
+
+
+def _idx_open(path):
+    return gzip.open(path, "rb") if path.endswith(".gz") else open(path, "rb")
+
+
+def _read_idx_images(path):
+    with _idx_open(path) as f:
+        magic, num, rows, cols = struct.unpack(">IIII", f.read(16))
+        if magic != 2051:
+            raise MXNetError("bad MNIST image file %r" % path)
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(num, rows,
+                                                               cols)
+
+
+def _read_idx_labels(path):
+    with _idx_open(path) as f:
+        magic, _ = struct.unpack(">II", f.read(8))
+        if magic != 2049:
+            raise MXNetError("bad MNIST label file %r" % path)
+        return np.frombuffer(f.read(), dtype=np.uint8)
+
+
+class MNISTIter(NDArrayIter):
+    """MNIST idx files, plain or gzipped, as float32 images in [0, 1]
+    (N, 1, 28, 28), or (N, 784) with ``flat`` (parity:
+    src/io/iter_mnist.cc as the JAX package reads it). ``shuffle`` draws
+    from numpy's global state; ``seed`` is accepted and unused there
+    too."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128,
+                 shuffle=True, flat=False, silent=False, seed=0,
+                 input_shape=None, **kwargs):
+        for p in (image, label):
+            if not os.path.exists(p) and not os.path.exists(p + ".gz"):
+                raise MXNetError("MNIST file %r not found" % p)
+        image = image if os.path.exists(image) else image + ".gz"
+        label = label if os.path.exists(label) else label + ".gz"
+        imgs = _read_idx_images(image).astype(np.float32) / 255.0
+        lbls = _read_idx_labels(label).astype(np.float32)
+        if flat:
+            imgs = imgs.reshape(len(imgs), -1)
+        else:
+            imgs = imgs.reshape(len(imgs), 1, imgs.shape[1], imgs.shape[2])
+        super().__init__(imgs, lbls, batch_size=int(batch_size),
+                         shuffle=bool(shuffle),
+                         num_parts=int(kwargs.get("num_parts", 1)),
+                         part_index=int(kwargs.get("part_index", 0)))

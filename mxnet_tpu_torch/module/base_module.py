@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/module/base_module.py`` (parity: reference
 ``base_module.py``: ``fit``, ``forward_backward``, ``fused_step``,
-``score``). The loop runs each batch through the subclass's
+``score``, ``predict``, ``iter_predict``, ``save_params``/``load_params``).
+The loop runs each batch through the subclass's
 fused batch step when it can and phase-split (``forward_backward``,
 ``update``, ``update_metric``) otherwise, and never waits on the device
 inside an epoch unless a callback reads the metric. The JAX package's
@@ -154,6 +155,48 @@ class BaseModule:
                 cb(param)
         return eval_metric.get_name_value()
 
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, nbatch, batch)`` per batch, each output with
+        the batch's ``pad`` rows trimmed (parity:
+        base_module.iter_predict)."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("iter_predict: bind and init_params first")
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad]
+                       for out in self.get_outputs()]
+            yield outputs, nbatch, eval_batch
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False,
+                sparse_row_id_fn=None):
+        """The outputs over ``eval_data`` with each batch's ``pad`` rows
+        trimmed (parity: base_module.predict): with ``merge_batches`` one
+        array per output, concatenated on the device (the array itself
+        for one output unless ``always_output_list``), else a list of
+        per-batch output lists."""
+        from ..ndarray import concatenate
+        output_list = [outs for outs, _, _ in
+                       self.iter_predict(eval_data, num_batch, reset)]
+        if not output_list:
+            return output_list
+        if not merge_batches:
+            return output_list
+        num_outputs = len(output_list[0])
+        if any(len(out) != num_outputs for out in output_list):
+            raise MXNetError("Cannot merge batches: different number of "
+                             "outputs per batch")
+        merged = [concatenate([out[i] for out in output_list])
+                  for i in range(num_outputs)]
+        if num_outputs == 1 and not always_output_list:
+            return merged[0]
+        return merged
+
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",
             optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
@@ -211,6 +254,8 @@ class BaseModule:
                 arg_p, aux_p = self.get_params()
                 for cb in _as_list(epoch_end_callback):
                     cb(epoch, self.symbol, arg_p, aux_p)
+                # the copies must not live through the next epoch
+                del arg_p, aux_p
             if eval_data is not None:
                 res = self.score(eval_data, validation_metric,
                                  score_end_callback=eval_end_callback,
@@ -227,6 +272,50 @@ class BaseModule:
         self.init_params(initializer=None, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init, allow_extra=allow_extra)
+
+    def prepare(self, data_batch, sparse_row_id_fn=None):
+        """(parity: base_module.prepare) nothing to prepare without
+        sparse storage."""
+
+    def get_states(self, merge_multi_context=True):
+        """States of stateful modules: none here (parity:
+        base_module.get_states)."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("get_states: bind and init_params first")
+        return []
+
+    def set_states(self, states=None, value=None):
+        """(parity: base_module.set_states) nothing to set in a module
+        without states."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("set_states: bind and init_params first")
+        if states or value:
+            raise MXNetError("set_states: this module has no states")
+
+    def save_params(self, fname):
+        """The parameters and aux states in one ``nd.save`` file with
+        ``arg:``/``aux:`` keys (parity: base_module.save_params)."""
+        from ..ndarray import save
+        arg_params, aux_params = self.get_params()
+        blob = {("arg:%s" % k): v for k, v in arg_params.items()}
+        blob.update({("aux:%s" % k): v for k, v in aux_params.items()})
+        save(fname, blob)
+
+    def load_params(self, fname):
+        """Parameters written by ``save_params`` of either package (read
+        to the host, then copied into the bound arrays)."""
+        from ..context import cpu
+        from ..ndarray import load
+        arg_params, aux_params = {}, {}
+        for k, value in load(fname, ctx=cpu()).items():
+            kind, name = k.split(":", 1)
+            if kind == "arg":
+                arg_params[name] = value
+            elif kind == "aux":
+                aux_params[name] = value
+            else:
+                raise MXNetError("Invalid param file: " + fname)
+        self.set_params(arg_params, aux_params)
 
     @property
     def symbol(self):

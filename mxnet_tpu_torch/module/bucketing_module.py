@@ -132,10 +132,7 @@ class BucketingModule(BaseModule):
             if self._curr_module.params_initialized:
                 self._carry_params(module, allow_missing=False)
             if self._curr_module.optimizer_initialized:
-                cur = self._curr_module
-                module._optimizer = cur._optimizer
-                module._updater = cur._updater
-                module.optimizer_initialized = True
+                module.borrow_optimizer(self._curr_module)
         elif self._curr_module is not module and \
                 self._curr_module.params_initialized:
             self._carry_params(module)

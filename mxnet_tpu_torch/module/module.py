@@ -2,20 +2,23 @@
 
 Counterpart of ``mxnet_tpu/module/module.py`` (parity: reference
 ``module/module.py``) on one device: ``bind`` (``simple_bind`` with
-gradient arrays), ``init_params``, ``init_optimizer``,
-forward/backward/update, the fused batch step, ``get_params`` /
-``set_params`` and checkpoints. The JAX package compiles the fused step
-into one jitted program with donated buffers; here it is one eager
-function (``executor._GraphProgram.train_step_fn``): forward and
-backward through ``torch.autograd``, the ``FusedUpdater``'s loop over the
-parameters, the metric accumulated on the device. The phase-split path
+gradient arrays), ``reshape``, ``init_params``, ``init_optimizer`` with
+or without a kvstore, forward/backward/update, the fused batch step,
+``get_params`` / ``set_params``, ``borrow_optimizer`` and checkpoints.
+The JAX package compiles the fused step into one jitted program with
+donated buffers; here it is one eager function
+(``executor._GraphProgram.train_step_fn``): forward and backward through
+``torch.autograd``, the ``FusedUpdater``'s loop over the parameters, the
+metric accumulated on the device. The phase-split path
 (``forward_backward``, ``update``, ``update_metric``) runs the same
-arithmetic, so the two give the same result.
+arithmetic, so the two give the same result. With a store object
+(``update_on_kvstore``) the optimizer lives in the store: ``update``
+pushes the gradients and pulls the weights, and the fused step runs the
+store's updater and then copies the new weights into the store's copies.
 
-Not ported yet (ROADMAP Queue 1 item 6): several contexts (data
-parallelism, meshes, partition rules), kvstores other than None and
-``"local"`` on one device, ``group2ctxs``, gradient compression and the
-dist and elastic tiers.
+Not ported yet (ROADMAP Queue 1 item 4): several contexts (data
+parallelism, meshes, partition rules), the ``dist*`` stores,
+``group2ctxs``, gradient compression and the elastic tiers.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from ..model import _create_kvstore, save_checkpoint, load_checkpoint
 from .. import optimizer as opt
 from .base_module import BaseModule, FusedFallback
 
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 6)"
+_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 4)"
 
 
 class Module(BaseModule):
@@ -73,6 +76,8 @@ class Module(BaseModule):
         self._aux_params = None
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._exec = None
         self._data_shapes = None
         self._label_shapes = None
@@ -150,6 +155,44 @@ class Module(BaseModule):
             # Module.load: the checkpoint's params install at bind time
             self.set_params(self._arg_params, self._aux_params or {})
 
+    def reshape(self, data_shapes, label_shapes=None):
+        """(parity: module.reshape) rebind at new input shapes over the
+        same parameter, gradient and aux arrays: nothing is copied or
+        re-initialised, and the optimizer and store stay as they are."""
+        if not self.binded:
+            raise MXNetError("reshape: bind first")
+        from ..executor import Executor, infer_graph_attrs
+        from ..ndarray import zeros
+        self._data_shapes = [_as_desc(d) for d in data_shapes]
+        self._label_shapes = [_as_desc(l) for l in label_shapes] \
+            if label_shapes else []
+        descs = self._data_shapes + self._label_shapes
+        arg_shapes, _, _, arg_types, _, _ = infer_graph_attrs(
+            self._symbol, {d.name: d.shape for d in descs},
+            known_types={d.name: d.dtype for d in descs
+                         if getattr(d, "dtype", None) is not None})
+        old = self._exec
+        old_args, old_grads = old.arg_dict, old.grad_dict
+        ctx = self._context[0]
+        args, grads = [], []
+        for name, shape, dtype in zip(self._symbol.list_arguments(),
+                                      arg_shapes, arg_types):
+            if name in self._param_names:
+                if old_args[name].shape != tuple(shape):
+                    raise MXNetError("reshape: parameter %r would change "
+                                     "shape %s -> %s"
+                                     % (name, old_args[name].shape,
+                                        tuple(shape)))
+                args.append(old_args[name])
+                grads.append(old_grads[name])
+                continue
+            args.append(zeros(shape, ctx=ctx, dtype=dtype))
+            grads.append(zeros(shape, ctx=ctx, dtype=dtype)
+                         if self._grad_req[name] != "null" else None)
+        self._exec = Executor(self._symbol, ctx, args, old.aux_arrays,
+                              program=old._prog, grad_arrays=grads,
+                              grad_req=self._grad_req)
+
     # -- params ------------------------------------------------------------
     def init_params(self, initializer=Uniform(0.01), arg_params=None,
                     aux_params=None, allow_missing=False, force_init=False,
@@ -190,6 +233,12 @@ class Module(BaseModule):
                 raise MXNetError("no initializer and no value for %r" % name)
         self.params_initialized = True
 
+    def init_params_from_preloaded(self):
+        """Install the parameters ``Module.load`` read, once bound
+        (``bind`` does this itself)."""
+        if self.binded and self._arg_params is not None:
+            self.set_params(self._arg_params, self._aux_params or {})
+
     def get_params(self):
         """(parity: module.get_params) copies of the parameters and aux
         states, on the module's device."""
@@ -205,12 +254,17 @@ class Module(BaseModule):
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
         """(parity: module.init_optimizer) ``rescale_grad`` defaults to
-        1.0, as in the JAX package (the reference uses 1/batch)."""
+        1.0, as in the JAX package (the reference uses 1/batch). A store
+        (``model._create_kvstore``) gets every parameter by index and,
+        under ``update_on_kvstore``, the optimizer."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("init_optimizer: bind and init_params first")
         if self.optimizer_initialized and not force_init:
             return
-        _create_kvstore(kvstore, len(self._context))  # a store raises
+        arg_dict = self._exec.arg_dict
+        kv, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context),
+            {n: arg_dict[n] for n in self._param_names})
         if isinstance(optimizer, str):
             idx2name = dict(enumerate(self._param_names))
             optimizer_params = dict(optimizer_params)
@@ -219,11 +273,37 @@ class Module(BaseModule):
                                    param_idx2name=idx2name,
                                    **optimizer_params)
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        if kv is not None:
+            for i, name in enumerate(self._param_names):
+                kv.init(i, arg_dict[name])
+            if update_on_kvstore:
+                kv.set_optimizer(optimizer)
+        self._kvstore = kv
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None if update_on_kvstore \
+            else opt.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
+
+    def _active_updater(self):
+        """The updater that owns the optimizer states: the store's under
+        ``update_on_kvstore``, else the module's."""
+        return self._kvstore._updater if self._update_on_kvstore \
+            else self._updater
+
+    def borrow_optimizer(self, shared_module):
+        """Share another module's optimizer, updater and store (parity:
+        module.borrow_optimizer)."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("borrow_optimizer: the shared module has no "
+                             "optimizer")
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
 
     # -- compute -----------------------------------------------------------
     def forward(self, data_batch, is_train=None):
@@ -256,7 +336,7 @@ class Module(BaseModule):
             if tuple(arr.shape) != arg_dict[desc.name].shape:
                 raise MXNetError(
                     "batch %r has shape %s, the module is bound to %s; "
-                    "reshaping is not ported yet"
+                    "call reshape first"
                     % (desc.name, tuple(arr.shape),
                        arg_dict[desc.name].shape))
             arg_dict[desc.name][:] = arr
@@ -272,8 +352,11 @@ class Module(BaseModule):
                 if self._grad_req.get(n, "null") != "null"]
 
     def update(self):
-        """One optimizer step over every parameter with a gradient
-        (parity: module.update; the FusedUpdater's batch path)."""
+        """One optimizer step over every parameter with a gradient, the
+        whole key list in one call (parity: module.update): push the
+        gradients and pull the weights under ``update_on_kvstore``, else
+        push/pull the gradients through the store (when there is one)
+        and run the module's ``update_batch``."""
         if not (self.binded and self.params_initialized
                 and self.optimizer_initialized):
             raise MXNetError("update: bind, init_params and "
@@ -282,9 +365,18 @@ class Module(BaseModule):
         if not live:
             return
         arg_dict, grad_dict = self._exec.arg_dict, self._exec.grad_dict
-        self._updater.update_batch([i for i, _ in live],
-                                   [grad_dict[n] for _, n in live],
-                                   [arg_dict[n] for _, n in live])
+        keys = [i for i, _ in live]
+        grads = [grad_dict[n] for _, n in live]
+        weights = [arg_dict[n] for _, n in live]
+        kv = self._kvstore
+        if kv is not None and self._update_on_kvstore:
+            kv.push(keys, grads)
+            kv.pull(keys, out=weights)
+            return
+        if kv is not None:
+            kv.push(keys, grads)
+            kv.pull(keys, out=grads)
+        self._updater.update_batch(keys, grads, weights)
 
     # -- the fused batch step ----------------------------------------------
     def _fallback(self, code, message):
@@ -310,7 +402,7 @@ class Module(BaseModule):
         if not live:
             return self._fallback("no_trainable_params",
                                   "no trainable parameters")
-        updater = self._updater
+        updater = self._active_updater()
         ex = self._exec
         arg_dict, grad_dict = ex.arg_dict, ex.grad_dict
         indices = [i for i, _ in live]
@@ -330,6 +422,12 @@ class Module(BaseModule):
         with torch.no_grad():       # the accumulators, already summed
             for n, g in grads_out.items():
                 grad_dict[n]._data.copy_(g)
+            if self._update_on_kvstore:
+                # the store serves pulls and checkpoints from its copies:
+                # keep them equal to the weights the step just wrote
+                store = self._kvstore._store
+                for i, w in zip(indices, weights):
+                    store[i]._data.copy_(w._data)
         if eval_metric is not None:
             self.update_metric(eval_metric, data_batch.label)
         self._fused_fallback_reason = None
@@ -377,9 +475,13 @@ class Module(BaseModule):
 
     def save_optimizer_states(self, fname):
         """(parity: module.save_optimizer_states) the updater's pickled
-        states, written to a temporary name and renamed into place."""
+        states (the store's under ``update_on_kvstore``), written to a
+        temporary name and renamed into place."""
         if not self.optimizer_initialized:
             raise MXNetError("save_optimizer_states: init_optimizer first")
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         tmp = "%s.tmp.%d" % (fname, os.getpid())
         with open(tmp, "wb") as f:
             f.write(self._updater.get_states())
@@ -390,6 +492,9 @@ class Module(BaseModule):
         package."""
         if not self.optimizer_initialized:
             raise MXNetError("load_optimizer_states: init_optimizer first")
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
 

@@ -157,8 +157,14 @@ class NDArray:
         """Copy into another NDArray (its dtype and device kept) or to a
         Context (parity: CopyFromTo)."""
         if isinstance(other, Context):
-            return NDArray(self._data.detach().to(other.torch_device(),
-                                                  copy=True), other)
+            dev = other.torch_device()
+            src = self._data.detach()
+            # a page-locked host source copies asynchronously on the
+            # current stream (the pinned allocator keeps it until done)
+            non_blocking = dev.type == "cuda" and src.device.type == "cpu" \
+                and src.is_pinned()
+            return NDArray(src.to(dev, copy=True, non_blocking=non_blocking),
+                           other)
         if isinstance(other, NDArray):
             with torch.no_grad():
                 other._data.copy_(self._data)
@@ -443,14 +449,16 @@ def _shape(shape):
 
 def array(source_array, ctx=None, dtype=None):
     """Create an NDArray (always a copy) from any array-like. Python
-    lists and float64 sources default to float32 (MXNet convention)."""
+    lists and float64 sources default to float32 (MXNet convention); a
+    float64 numpy source keeps its precision when ``dtype`` asks for it."""
     if isinstance(source_array, NDArray):
         src = source_array._data
     elif isinstance(source_array, torch.Tensor):
         src = source_array
     else:
         a = np.asarray(source_array)
-        if a.dtype == np.float64:
+        if a.dtype == np.float64 and not isinstance(source_array,
+                                                    np.ndarray):
             a = a.astype(np.float32)
         a = np.ascontiguousarray(a)
         if not a.flags.writeable:       # torch takes writable arrays

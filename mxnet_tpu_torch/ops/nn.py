@@ -2,7 +2,7 @@
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution,
 Pooling, Activation, BatchNorm and _contrib_BatchNormAddReLU (inference
-and training statistics, moving-stat updates), Dropout and
+and training statistics, moving-stat updates), LRN, Dropout and
 SoftmaxOutput (with its hand-written gradient). What the JAX package
 left to XLA is left to PyTorch's own operators here (cuDNN/cuBLAS on the
 card); the fused block tail runs the hand-written kernel of
@@ -125,8 +125,19 @@ def pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
                 out = out / int(np.prod([data.shape[a] for a in axes]))
             return out
         raise MXNetError("bad pool_type %r" % pool_type)
+    if ndim == 1:
+        # one spatial dim: the same windows over (1, W)
+        ax = 1 if is_cl else 2
+        out = pooling(data.unsqueeze(ax), kernel=(1,) + as_tuple(kernel, 1),
+                      pool_type=pool_type,
+                      stride=(1,) + (as_tuple(stride, 1) or (1,)),
+                      pad=(0,) + (as_tuple(pad, 1) or (0,)),
+                      pooling_convention=pooling_convention,
+                      layout="NHWC" if is_cl else None)
+        return out.squeeze(ax)
     if ndim not in _MAXPOOL:
-        raise MXNetError("Pooling: windows over 2 or 3 spatial dims only")
+        raise MXNetError("Pooling: windows over 1, 2 or 3 spatial dims "
+                         "only")
     kernel = as_tuple(kernel, ndim)
     stride = as_tuple(stride, ndim) or (1,) * ndim
     pad = as_tuple(pad, ndim) or (0,) * ndim
@@ -245,11 +256,15 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
 
 
 def _bn_param_dtypes(first_param_idx):
-    """gamma/beta/moving stats stay fp32 under half-precision data."""
+    """gamma/beta/moving stats stay fp32 under half-precision data and
+    take fp64 data's type (upstream's AccReal; the JAX package keeps fp32
+    for every type, which rounds fp64 batch statistics to fp32)."""
     idxs = tuple(range(first_param_idx, first_param_idx + 4))
 
     def infer(in_types, params):
-        return {i: torch.float32 for i in idxs}
+        dt = torch.float64 if in_types[0] == torch.float64 \
+            else torch.float32
+        return {i: dt for i in idxs}
 
     return infer
 
@@ -434,6 +449,21 @@ def dropout(data, p=0.5, mode="training", axes=(), _train=False, _rng=None):
 # ---------------------------------------------------------------------------
 # Softmax family
 # ---------------------------------------------------------------------------
+
+@register("LRN", defaults={"alpha": 1e-4, "beta": 0.75, "knorm": 2.0,
+                           "nsize": 5})
+def lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response norm across channels (parity: the reference's
+    lrn-inl.h): ``x * (knorm + alpha * sum_window(x^2) / nsize)^-beta``
+    over the ``nsize`` channels from ``c - nsize//2`` to
+    ``c + (nsize-1)//2``, zero outside. ``F.local_response_norm`` pads
+    the channel axis by the same amounts and divides the window sum by
+    ``nsize`` (an average pool), so it computes the same function."""
+    x = data if data.ndim >= 3 else data.reshape(*data.shape, 1)
+    out = F.local_response_norm(x, int(nsize), alpha=alpha, beta=beta,
+                                k=knorm)
+    return out.reshape(data.shape)
+
 
 @register("softmax", defaults={"axis": -1, "temperature": None})
 def softmax(data, axis=-1, temperature=None):

@@ -5,8 +5,8 @@ Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (so far ``sgd_update``,
 ``mp_sgd_mom_update``, and ``adam_update``; parity: reference
 ``optimizer_op.cc``). Each function is pure: it returns the new weight
 (and new state) and leaves its inputs as they are, like the JAX ops.
-``adam_update`` is also the registered op ``mx.nd.adam_update``, whose
-imperative call writes the new weight, mean and var back into its
+Each is also the registered op of its name (``mx.nd.sgd_update``...),
+whose imperative call writes the new weight and states back into its
 inputs. PyTorch runs each line as its own elementwise kernel on the
 card; one fused update kernel per parameter is later work.
 """
@@ -27,12 +27,21 @@ def _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient):
     return grad + wd * weight
 
 
+@register("sgd_update", nin=2, arg_names=["weight", "grad"],
+          defaults={"lr": 0.01, "wd": 0.0, "rescale_grad": 1.0,
+                    "clip_gradient": -1.0},
+          no_grad=True, mutate=(0,))
 def sgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
                clip_gradient=-1.0):
     g = _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient)
     return weight - lr * g
 
 
+@register("sgd_mom_update", nin=3, nout=2,
+          arg_names=["weight", "grad", "mom"],
+          defaults={"lr": 0.01, "momentum": 0.0, "wd": 0.0,
+                    "rescale_grad": 1.0, "clip_gradient": -1.0},
+          no_grad=True, mutate=(0, 2))
 def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
                    rescale_grad=1.0, clip_gradient=-1.0):
     """Returns ``(new_weight, new_mom)``."""
@@ -41,6 +50,11 @@ def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
     return weight + mom, mom
 
 
+@register("mp_sgd_update", nin=3, nout=2,
+          arg_names=["weight", "grad", "weight32"],
+          defaults={"lr": 0.01, "wd": 0.0, "rescale_grad": 1.0,
+                    "clip_gradient": -1.0},
+          no_grad=True, mutate=(0, 2))
 def mp_sgd_update(weight, grad, weight32, lr=0.01, wd=0.0, rescale_grad=1.0,
                   clip_gradient=-1.0):
     """Multi-precision SGD: a bf16/fp16 weight with its fp32 master copy.
@@ -52,6 +66,11 @@ def mp_sgd_update(weight, grad, weight32, lr=0.01, wd=0.0, rescale_grad=1.0,
     return w32.to(weight.dtype), w32
 
 
+@register("mp_sgd_mom_update", nin=4, nout=3,
+          arg_names=["weight", "grad", "mom", "weight32"],
+          defaults={"lr": 0.01, "momentum": 0.0, "wd": 0.0,
+                    "rescale_grad": 1.0, "clip_gradient": -1.0},
+          no_grad=True, mutate=(0, 2, 3))
 def mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
     """Returns ``(new_weight, new_mom, new_weight32)``."""

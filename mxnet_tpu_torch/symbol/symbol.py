@@ -127,6 +127,83 @@ class Symbol:
                 outs.append("%s_output%d" % (node.name, idx))
         return outs
 
+    def __copy__(self):
+        return Symbol(list(self._outputs))
+
+    def __deepcopy__(self, memo):
+        return load_json(self.tojson())
+
+    def get_internals(self):
+        """Every node's outputs in topological order, so that
+        ``get_internals()["flatten_output"]`` picks one by name (parity:
+        Symbol.get_internals)."""
+        return Symbol([(node, i) for node in self._topo_nodes()
+                       for i in range(node.num_outputs())])
+
+    def get_children(self):
+        """The inputs of this symbol's outputs, or None for a variable
+        (parity: Symbol.get_children)."""
+        inputs = [inp for node, _ in self._outputs for inp in node.inputs]
+        return Symbol(inputs) if inputs else None
+
+    # -- attributes --------------------------------------------------------
+    def attr(self, key):
+        """One user attribute of the (first) output's node, or None."""
+        return self._outputs[0][0]._extra_attrs.get(key)
+
+    def _set_attr(self, **kwargs):
+        self._outputs[0][0]._extra_attrs.update(kwargs)
+
+    def list_attr(self, recursive=False):
+        """The user attributes of this node (parity: Symbol.list_attr;
+        ``attr_dict`` gives every node's)."""
+        if recursive:
+            raise MXNetError("list_attr(recursive=True) was removed in the "
+                             "reference too; use attr_dict() instead")
+        return {k: str(v) for k, v in self._outputs[0][0]._extra_attrs.items()}
+
+    def list_inputs(self):
+        """Arguments, then auxiliary states (parity: Symbol.list_inputs)."""
+        return self.list_arguments() + self.list_auxiliary_states()
+
+    def debug_str(self):
+        """The graph node by node, in the JAX package's text form."""
+        lines = []
+        for node in self._topo_nodes():
+            if node.op is None:
+                lines.append("Variable:%s" % node.name)
+            else:
+                ins = ", ".join(n.name for n, _ in node.inputs)
+                attrs = "".join(", %s=%r" % kv
+                                for kv in sorted(node.attrs.items()))
+                lines.append("Op:%s, Name=%s\n  Inputs: %s%s"
+                             % (node.op.name, node.name, ins, attrs))
+        return "\n".join(lines) + "\n"
+
+    def gradient(self, wrt):
+        """(parity: Symbol.gradient) not implemented upstream either."""
+        raise MXNetError("symbol.gradient is not implemented (the "
+                         "reference raises too); use executor backward "
+                         "or autograd")
+
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types) as numpy dtypes (None where
+        unknown; torch's bfloat16 as itself, numpy has none), from the
+        given input types and the variables' ``__dtype__`` (parity:
+        Symbol.infer_type)."""
+        from ..executor import infer_graph_attrs
+        known = {}
+        for name, dt in zip(self.list_arguments(), args):
+            if dt is not None:
+                known[name] = dt
+        known.update({k: v for k, v in kwargs.items() if v is not None})
+        res = infer_graph_attrs(self, {}, known_types=known, partial=True)
+        return tuple([_np_dtype(t) for t in ts] for ts in res[3:])
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind the given arrays and run forward (parity: Symbol.eval)."""
+        return self.bind(ctx=ctx, args=kwargs).forward()
+
     # -- shape inference ---------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes); raises when a shape
@@ -318,6 +395,28 @@ def _dtype_name(dtype):
     if isinstance(dtype, torch.dtype):
         return str(dtype).replace("torch.", "")
     return str(np.dtype(dtype))
+
+
+def _np_dtype(t):
+    if t is None:
+        return None
+    name = str(t).replace("torch.", "")
+    return t if name == "bfloat16" else np.dtype(name)
+
+
+def _not_for_symbol(name):
+    def method(self, *args, **kwargs):
+        raise MXNetError("operation %s is not supported for Symbol "
+                         "(parity: symbol.py NotImplementedForSymbol)"
+                         % name)
+    method.__name__ = name
+    return method
+
+
+for _name in ["wait_to_read", "asnumpy", "asscalar", "copy",
+              "as_in_context", "detach", "backward"]:
+    setattr(Symbol, _name, _not_for_symbol(_name))
+del _name
 
 
 def Group(symbols):

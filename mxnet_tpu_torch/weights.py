@@ -190,7 +190,7 @@ def load_into_module(mod, arg_params, aux_params, opt_states=None,
             raise MXNetError("load_into_module: opt_states need "
                              "init_optimizer first")
         import pickle
-        mod._updater.set_states(pickle.dumps(
+        mod._active_updater().set_states(pickle.dumps(
             {int(k): v for k, v in opt_states.items()}))
     if update_counts is not None:
         if not mod.optimizer_initialized:
@@ -212,7 +212,7 @@ def module_to_numpy(mod):
     mod = getattr(mod, "_curr_module", None) or mod
     states = None
     if mod.optimizer_initialized:
-        states = pickle.loads(mod._updater.get_states())
+        states = pickle.loads(mod._active_updater().get_states())
     return ({k: v.asnumpy() for k, v in arg_p.items()},
             {k: v.asnumpy() for k, v in aux_p.items()}, states)
 

@@ -894,3 +894,89 @@ def test_bucketing_module_on_card_matches_cpu(monkeypatch):
     assert abs(gppl - cppl) <= 1e-4 * cppl
     for k in cp:
         assert np.abs(gp[k] - cp[k]).max() <= 1e-4 * np.abs(cp[k]).max(), k
+
+
+# ---------------------------------------------------------------------------
+# image classification beyond ResNet: LRN, the store, pinned batches, the
+# model zoo
+# ---------------------------------------------------------------------------
+
+def _no_tf32(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def test_lrn_on_card_matches_cpu():
+    _need_card()
+    x = np.random.RandomState(0).randn(4, 96, 13, 13).astype(np.float32)
+    outs = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        a = mt.nd.array(x, ctx=ctx)
+        a.attach_grad()
+        with mt.autograd.record():
+            y = mt.nd.LRN(a, alpha=1e-4, beta=0.75, knorm=2, nsize=5)
+        y.backward()
+        outs[ctx.device_type] = (y.asnumpy(), a.grad.asnumpy())
+    for g, c in zip(outs["gpu"], outs["cpu"]):
+        assert np.abs(g - c).max() <= 1e-5 * np.abs(c).max()
+
+
+def test_store_push_pull_on_card_matches_cpu():
+    _need_card()
+    rs = np.random.RandomState(1)
+    w, g1, g2 = (rs.randn(64, 33).astype(np.float32) for _ in range(3))
+    got = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        kv = mt.kvstore.create("device")
+        kv.init("w", mt.nd.array(w, ctx=ctx))
+        kv.set_optimizer(mt.optimizer.create("sgd", learning_rate=0.1,
+                                             momentum=0.9, wd=1e-4))
+        for _ in range(3):
+            kv.push("w", [mt.nd.array(g1, ctx=ctx),
+                          mt.nd.array(g2, ctx=ctx)])
+        out = mt.nd.zeros((64, 33), ctx=ctx)
+        kv.pull("w", out=out)
+        assert kv._store["w"].context == ctx
+        got[ctx.device_type] = out.asnumpy()
+    np.testing.assert_allclose(got["gpu"], got["cpu"], rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_dataloader_pinned_batches_copy_to_the_card():
+    _need_card()
+    x = np.random.RandomState(2).randn(20, 3, 8, 8).astype(np.float32)
+    y = np.arange(20, dtype=np.float32)
+    ds = mt.gluon.data.ArrayDataset(x, y)
+    plain = list(mt.gluon.data.DataLoader(ds, batch_size=6))
+    pinned = list(mt.gluon.data.DataLoader(ds, batch_size=6,
+                                           pin_memory=True, num_workers=2))
+    for (pa, pb), (qa, qb) in zip(plain, pinned):
+        assert qa._data.is_pinned() and qb._data.is_pinned()
+        dev = qa.as_in_context(mt.gpu(0))
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(dev.asnumpy(), pa.asnumpy())
+        np.testing.assert_array_equal(qb.asnumpy(), pb.asnumpy())
+
+
+@pytest.mark.parametrize("name,hw", [("densenet121", 64),
+                                     ("squeezenet1.0", 64),
+                                     ("mobilenet0.5", 64)])
+def test_zoo_forward_on_card_matches_cpu(name, hw, monkeypatch):
+    _need_card()
+    _no_tf32(monkeypatch)
+    x = np.random.RandomState(3).uniform(-1, 1, (2, 3, hw, hw)) \
+        .astype(np.float32)
+    nets = {}
+    for ctx in (mt.cpu(), mt.gpu(0)):
+        net = mt.gluon.model_zoo.vision.get_model(name, classes=10,
+                                                  prefix="zoo_")
+        net.initialize(mt.init.Xavier(
+            generator=torch.Generator().manual_seed(0)), ctx=ctx)
+        net(mt.nd.array(x, ctx=ctx))
+        nets[ctx.device_type] = net
+    for k, p in nets["cpu"].collect_params().items():
+        nets["gpu"].collect_params()[k].set_data(
+            mt.nd.array(p.data().asnumpy(), ctx=mt.gpu(0)))
+    want = nets["cpu"](mt.nd.array(x, ctx=mt.cpu())).asnumpy()
+    got = nets["gpu"](mt.nd.array(x, ctx=mt.gpu(0))).asnumpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

@@ -7,7 +7,12 @@ from the same carried weights (``weights.load_into_module``) on the same
 ``NDArrayIter`` batches: the port's fused batch step and its phase-split
 path, mirroring ``tests/test_module_fused_step.py``. Also: ``grad_req='add'``,
 the iterator's batch order under ``shuffle``, and checkpoints and
-optimizer states across the two packages' file formats.
+optimizer states across the two packages' file formats; the inference
+and state surface (``predict`` with a padded last batch, ``iter_predict``,
+``score``, ``save_params``/``load_params`` both ways, ``get_states``/
+``set_states``, ``reshape``, ``borrow_optimizer``) and the legacy
+``FeedForward`` against the JAX package's: outputs within 1e-6,
+parameters within 1.2e-6.
 
 Tolerances: within the port, fused and phase-split are bit-equal (one
 arithmetic). Against JAX: parameters, aux states and momenta rtol 1e-4,
@@ -505,3 +510,217 @@ def test_init_params_accepts_extra_names_like_jax():
     assert sorted(got[0]) == sorted(got[1]) == ["fc_bias", "fc_weight"]
     for k in got[0]:
         np.testing.assert_array_equal(got[1][k], got[0][k])
+
+
+# ---------------------------------------------------------------------------
+# the inference and state surface, and FeedForward
+# ---------------------------------------------------------------------------
+
+def _infer_pair(batch=4, seed=11):
+    """The MLP bound for inference in both packages on the same weights."""
+    jmod = mx.mod.Module(_mlp(mx), context=mx.cpu())
+    jmod.bind(data_shapes=[("data", (batch, 8))],
+              label_shapes=[("softmax_label", (batch,))], for_training=False)
+    np.random.seed(seed)
+    jmod.init_params(mx.initializer.Xavier())
+    arg, aux, _ = _jax_numpy_params(jmod)
+    tmod = mt.mod.Module(_mlp(mt), context=mt.cpu())
+    tmod.bind(data_shapes=[("data", (batch, 8))],
+              label_shapes=[("softmax_label", (batch,))], for_training=False)
+    mt.weights.load_into_module(tmod, arg, aux)
+    return jmod, tmod
+
+
+def _rows(n=10, seed=2):
+    rs = np.random.RandomState(seed)
+    return (rs.uniform(-1, 1, (n, 8)).astype(np.float32),
+            rs.randint(0, 4, n).astype(np.float32))
+
+
+def test_predict_iter_predict_and_score_match_jax():
+    """10 rows at batch 4: the last batch has 2 padding rows, which
+    predict and iter_predict trim."""
+    x, y = _rows()
+    jmod, tmod = _infer_pair()
+    its = {pkg: pkg.io.NDArrayIter(x, y, batch_size=4)
+           for pkg in (mx, mt)}
+    want = jmod.predict(its[mx])
+    got = tmod.predict(its[mt])
+    assert got.shape == want.shape == (10, 4)
+    np.testing.assert_allclose(got.asnumpy(), want.asnumpy(), rtol=0,
+                               atol=1e-6)
+    lists = tmod.predict(its[mt], merge_batches=False)
+    assert [o[0].shape[0] for o in lists] == [4, 4, 2]
+    one = tmod.predict(its[mt], always_output_list=True)
+    assert isinstance(one, list) and len(one) == 1
+    assert len(tmod.predict(its[mt], num_batch=2)) == 8
+    rows = []
+    for (outs, nbatch, batch), (jouts, jn, jb) in zip(
+            tmod.iter_predict(its[mt]), jmod.iter_predict(its[mx])):
+        assert nbatch == jn and batch.pad == jb.pad
+        np.testing.assert_allclose(outs[0].asnumpy(), jouts[0].asnumpy(),
+                                   rtol=0, atol=1e-6)
+        rows.append(outs[0].shape[0])
+    assert rows == [4, 4, 2]
+    res = {}
+    for pkg, mod in ((mx, jmod), (mt, tmod)):
+        metric = pkg.metric.Accuracy()
+        res[pkg.__name__] = mod.score(its[pkg], metric)
+    assert res["mxnet_tpu"] == res["mxnet_tpu_torch"]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_save_params_load_params_both_ways(tmp_path, writer):
+    x, y = _rows()
+    jmod, tmod = _infer_pair()
+    src, dst = (tmod, None) if writer == "port" else (jmod, None)
+    fname = str(tmp_path / "m.params")
+    src.save_params(fname)
+    if writer == "port":
+        dst = mx.mod.Module(_mlp(mx), context=mx.cpu())
+    else:
+        dst = mt.mod.Module(_mlp(mt), context=mt.cpu())
+    dst.bind(data_shapes=[("data", (4, 8))],
+             label_shapes=[("softmax_label", (4,))], for_training=False)
+    dst.load_params(fname)
+    a, _ = src.get_params()
+    b, _ = dst.get_params()
+    for k in a:
+        np.testing.assert_array_equal(b[k].asnumpy(), a[k].asnumpy())
+
+
+def test_states_reshape_and_borrow_optimizer():
+    x, y = _rows()
+    jmod, tmod = _infer_pair()
+    assert tmod.get_states() == jmod.get_states() == []
+    tmod.set_states()
+    with pytest.raises(mt.MXNetError, match="no states"):
+        tmod.set_states(states=[1])
+    # reshape keeps the very parameter arrays, rebinds the inputs
+    before = {n: a for n, a in tmod._exec.arg_dict.items()
+              if n in tmod._param_names}
+    want = tmod.predict(mt.io.NDArrayIter(x, y, batch_size=4)).asnumpy()
+    for mod in (tmod, jmod):
+        mod.reshape([("data", (2, 8))], [("softmax_label", (2,))])
+    after = tmod._exec.arg_dict
+    assert all(after[n] is a for n, a in before.items())
+    assert tmod.data_shapes[0].shape == (2, 8)
+    got = tmod.predict(mt.io.NDArrayIter(x, y, batch_size=2)).asnumpy()
+    jgot = jmod.predict(mx.io.NDArrayIter(x, y, batch_size=2)).asnumpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, jgot, rtol=0, atol=1e-6)
+    # borrow_optimizer: two modules share one optimizer, store and states
+    batches = _mlp_batches(mt, nbatch=2)
+    owner = _mlp_module(mt, "write")
+    arg, aux = owner.get_params()
+    other = mt.mod.Module(_mlp(mt), context=mt.cpu())
+    other.bind(data_shapes=[("data", (16, 8))],
+               label_shapes=[("softmax_label", (16,))])
+    other.init_params(arg_params=arg, aux_params=aux)
+    other.borrow_optimizer(owner)
+    assert other._optimizer is owner._optimizer
+    assert other._active_updater() is owner._active_updater()
+    owner.fused_step(batches[0])
+    other.fused_step(batches[1])
+    assert owner._optimizer.num_update == 2
+    with pytest.raises(mt.MXNetError, match="no optimizer"):
+        other.borrow_optimizer(mt.mod.Module(_mlp(mt), context=mt.cpu()))
+
+
+def test_feedforward_fit_predict_save_load_match_jax(tmp_path):
+    rs = np.random.RandomState(8)
+    x = rs.uniform(-1, 1, (40, 8)).astype(np.float32)
+    y = rs.randint(0, 4, 40).astype(np.float32)
+    jmod, _ = _infer_pair(batch=8)
+    arg, aux, _ = _jax_numpy_params(jmod)
+    models = {}
+    for pkg, kw in ((mx, {}), (mt, {"ctx": mt.cpu()})):
+        ff = pkg.model.FeedForward(
+            _mlp(pkg), num_epoch=2, numpy_batch_size=8,
+            arg_params={k: pkg.nd.array(v, **kw) for k, v in arg.items()},
+            aux_params={}, learning_rate=0.1, momentum=0.9, **kw)
+        np.random.seed(4)           # fit's shuffled NDArrayIter
+        ff.fit(x, y)
+        models[pkg] = ff
+    got = {k: v.asnumpy() for k, v in models[mt].arg_params.items()}
+    want = {k: v.asnumpy() for k, v in models[mx].arg_params.items()}
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1.2e-6,
+                                   err_msg=k)
+    pred = models[mt].predict(x[:13])
+    jpred = models[mx].predict(x[:13])
+    assert pred.shape == jpred.shape == (13, 4)
+    np.testing.assert_allclose(pred, jpred, rtol=0, atol=1e-6)
+    assert models[mt].score(mt.io.NDArrayIter(x, y, batch_size=8)) == \
+        pytest.approx(models[mx].score(mx.io.NDArrayIter(x, y,
+                                                         batch_size=8)))
+    models[mt].save(str(tmp_path / "ff"))
+    # a loaded model binds from its data: give it the label too, or the
+    # label reads as a parameter (both packages)
+    loaded = mx.model.FeedForward.load(str(tmp_path / "ff"), 2,
+                                       numpy_batch_size=8)
+    np.testing.assert_allclose(
+        loaded.predict(mx.io.NDArrayIter(x[:13], y[:13], batch_size=8)),
+        pred, rtol=0, atol=1e-6)
+    back = mt.model.FeedForward.load(str(tmp_path / "ff"), 2,
+                                     ctx=mt.cpu(), numpy_batch_size=8)
+    np.testing.assert_array_equal(
+        back.predict(mt.io.NDArrayIter(x[:13], y[:13], batch_size=8)), pred)
+
+
+def test_fit_releases_epoch_end_copies_before_the_next_epoch():
+    """``fit`` hands its epoch-end callbacks copies of the parameters;
+    they must be gone before the next epoch trains (they held a second
+    copy of every weight through it: 95 MB more peak for Inception-v3
+    on the card)."""
+    import gc
+    import weakref
+    refs, alive = [], []
+    mod = mt.mod.Module(_mlp(mt), context=mt.cpu())
+    x, y = _rows(16)
+
+    def epoch_end(epoch, sym, arg, aux):
+        refs.extend(weakref.ref(v) for v in arg.values())
+
+    def batch_end(param):
+        if param.epoch == 1 and param.nbatch == 0:
+            gc.collect()
+            alive.append(sum(r() is not None for r in refs))
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=2,
+            epoch_end_callback=epoch_end, batch_end_callback=batch_end)
+    assert refs and alive == [0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batchnorm_parameters_take_the_data_type(dtype):
+    """A Module over BatchNorm binds gamma, beta and the moving statistics
+    in the data's type (fp32 for fp32 and half data, fp64 for fp64, as
+    upstream's AccReal), so a training batch normalises with unrounded
+    statistics: within 1e-12 (fp64) of numpy's fp64 formula, relative
+    to the largest |output|. The data sit at 100 with a spread of 0.01,
+    so fp32 itself rounds the centred values by up to ulp(100) /
+    sqrt(var + eps) ~ 2e-4 (held within 1e-3)."""
+    rs = np.random.RandomState(0)
+    x = (rs.randn(4, 3, 5, 5) * 0.01 + 100.0).astype(dtype)
+    np.testing.assert_array_equal(
+        mt.nd.array(x, ctx=mt.cpu(), dtype=dtype).asnumpy(), x)
+    sym = mt.sym.BatchNorm(mt.sym.Variable("data"), fix_gamma=False,
+                           eps=1e-3, name="bn")
+    mod = mt.mod.Module(sym, label_names=None, context=mt.cpu())
+    mod.bind([mt.io.DataDesc("data", x.shape, dtype)], for_training=True)
+    mod.init_params(mt.initializer.Uniform(0.5))
+    arg, aux = mod.get_params()
+    assert {str(v.dtype) for v in list(arg.values()) + list(aux.values())} \
+        == {dtype}
+    mod.forward(mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu(), dtype=dtype)]),
+                is_train=True)
+    got = mod.get_outputs()[0].asnumpy()
+    assert got.dtype == np.dtype(dtype)
+    g = arg["bn_gamma"].asnumpy().astype(np.float64).reshape(1, 3, 1, 1)
+    b = arg["bn_beta"].asnumpy().astype(np.float64).reshape(1, 3, 1, 1)
+    x64 = x.astype(np.float64)
+    mean = x64.mean(axis=(0, 2, 3), keepdims=True)
+    var = x64.var(axis=(0, 2, 3), keepdims=True)
+    want = (x64 - mean) / np.sqrt(var + 1e-3) * g + b
+    tol = 1e-12 if dtype == "float64" else 1e-3
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()

@@ -4,7 +4,13 @@ the JAX package.
 A graph the JAX package exports loads in the port with the same
 arguments, auxiliary states and inferred shapes; the same Gluon model
 built in both packages exports the same JSON nodes and the same
-parameter names and shapes, so weights carry across by name.
+parameter names and shapes, so weights carry across by name. The graph
+surface (``get_internals`` and name lookup on it, ``get_children``,
+``attr``/``list_attr``, ``list_inputs``, ``infer_type``, ``debug_str``,
+copies, ``eval``) gives what the JAX package's gives, and
+``examples/image-classification/fine_tune.py``'s protocol at its own
+12x12 size keeps the frozen weights bit-equal and the new head within
+1e-6 of JAX's.
 """
 import json
 import os
@@ -154,3 +160,166 @@ def test_float16_variable_binds_float16_like_jax():
         ex = net.simple_bind(**kw, **shapes)
         types.append([np.dtype(a.dtype).name for a in ex.arg_arrays])
     assert types[0] == types[1] == ["float16"] * 3
+
+
+# ---------------------------------------------------------------------------
+# the graph surface: internals, children, attributes, types, eval
+# ---------------------------------------------------------------------------
+
+def _small_graph(pkg):
+    with pkg.name.NameManager():
+        data = pkg.sym.Variable("data", lr_mult=2.0)
+        net = pkg.sym.Convolution(data, kernel=(3, 3), num_filter=4,
+                                  pad=(1, 1), name="conv1")
+        net = pkg.sym.BatchNorm(net, fix_gamma=False, name="bn1")
+        net = pkg.sym.Activation(net, act_type="relu", name="relu1")
+        net = pkg.sym.Flatten(net, name="flatten")
+        net = pkg.sym.FullyConnected(net, num_hidden=3, name="fc")
+        return pkg.sym.SoftmaxOutput(net, name="softmax")
+
+
+def test_graph_surface_matches_jax():
+    j, t = _small_graph(mj), _small_graph(mt)
+    ji, ti = j.get_internals(), t.get_internals()
+    assert ti.list_outputs() == ji.list_outputs()
+    assert "flatten_output" in ti.list_outputs()
+    feat_j, feat_t = ji["flatten_output"], ti["flatten_output"]
+    assert feat_t.list_arguments() == feat_j.list_arguments()
+    assert feat_t.list_auxiliary_states() == feat_j.list_auxiliary_states()
+    assert t.get_children().list_outputs() == \
+        j.get_children().list_outputs()
+    assert ti["data"].get_children() is None
+    assert t.list_inputs() == j.list_inputs()
+    assert ti["data"].attr("__lr_mult__") == ji["data"].attr("__lr_mult__")
+    assert ti["data"].list_attr() == ji["data"].list_attr()
+    assert t.attr("nonexistent") is None
+    with pytest.raises(mt.MXNetError):
+        t.list_attr(recursive=True)
+    assert t.debug_str() == j.debug_str()
+    jt = j.infer_type(data=np.float32)
+    tt = t.infer_type(data=np.float32)
+    assert tt == jt
+    assert all(d == np.float32 for d in tt[0] + tt[1] + tt[2])
+    import copy
+    assert copy.copy(t).list_outputs() == t.list_outputs()
+    deep = copy.deepcopy(t)
+    assert deep.tojson() == t.tojson() and deep is not t
+    for name in ("copy", "asnumpy", "wait_to_read", "backward"):
+        with pytest.raises(mt.MXNetError, match="not supported for Symbol"):
+            getattr(t, name)()
+    with pytest.raises(mt.MXNetError, match="not implemented"):
+        t.gradient(["data"])
+
+
+def test_symbol_eval_matches_jax():
+    rs = np.random.RandomState(0)
+    a, b = rs.randn(2, 3).astype(np.float32), rs.randn(2, 3).astype(np.float32)
+    outs = {}
+    for pkg, kw in ((mj, {}), (mt, {"ctx": mt.cpu()})):
+        x, y = pkg.sym.Variable("x"), pkg.sym.Variable("y")
+        s = pkg.sym.relu(x * y + 1.5)
+        got = s.eval(x=pkg.nd.array(a, **kw), y=pkg.nd.array(b, **kw), **kw)
+        outs[pkg] = got[0].asnumpy()
+    # XLA's jitted graph contracts x*y+1.5 into one FMA
+    np.testing.assert_allclose(outs[mt], outs[mj], rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# examples/image-classification/fine_tune.py at its own 12x12 size
+# ---------------------------------------------------------------------------
+
+IMG = 12
+
+
+def _draw(rs, cls, n):
+    """fine_tune.py:33-51 (copied): oriented bars, 4 source classes."""
+    x = np.zeros((n, 1, IMG, IMG), np.float32)
+    for i in range(n):
+        c = int(cls[i])
+        a = np.zeros((IMG, IMG), np.float32)
+        p = rs.randint(2, IMG - 2)
+        if c == 0:
+            a[p, :] = 1.0
+        elif c == 1:
+            a[:, p] = 1.0
+        elif c == 2:
+            np.fill_diagonal(a, 1.0)
+        else:
+            a[p, :] = 1.0
+            a[:, p] = 1.0
+        x[i, 0] = a + 0.1 * rs.normal(size=(IMG, IMG))
+    return x
+
+
+def _backbone(pkg, data):
+    """fine_tune.py:54-63 (copied)."""
+    net = pkg.sym.Convolution(data, kernel=(3, 3), num_filter=8,
+                              pad=(1, 1), name="conv1")
+    net = pkg.sym.Activation(net, act_type="relu")
+    net = pkg.sym.Pooling(net, pool_type="max", kernel=(2, 2),
+                          stride=(2, 2))
+    net = pkg.sym.Convolution(net, kernel=(3, 3), num_filter=16,
+                              pad=(1, 1), name="conv2")
+    net = pkg.sym.Activation(net, act_type="relu")
+    return pkg.sym.Flatten(net, name="flatten")
+
+
+def test_fine_tune_protocol_matches_jax(tmp_path):
+    """fine_tune.py:66-123: stage 1 trains the source task (the JAX
+    package) and checkpoints it; stage 2, in both packages, cuts the
+    loaded graph at ``get_internals()["flatten_output"]``, adds a 3-class
+    head (zero-initialised in both, ``allow_missing``) and fits with the
+    backbone in ``fixed_param_names``. The frozen weights stay bit-equal
+    to the checkpoint's, the head is within 1e-6 of JAX's, and the head
+    alone learns the target task."""
+    rs = np.random.RandomState(0)
+    prefix = str(tmp_path / "source")
+    ys = rs.randint(0, 4, 512).astype(np.float32)
+    xs = _draw(rs, ys, 512)
+    np.random.seed(1)
+    it = mj.io.NDArrayIter(xs, ys, batch_size=32, shuffle=True,
+                           label_name="softmax_label")
+    src = mj.sym.SoftmaxOutput(
+        mj.sym.FullyConnected(_backbone(mj, mj.sym.Variable("data")),
+                              num_hidden=4, name="src_fc"), name="softmax")
+    mod = mj.mod.Module(src, context=mj.cpu())
+    mod.fit(it, num_epoch=3, initializer=mj.initializer.Xavier(),
+            optimizer_params={"learning_rate": 0.01})
+    mod.save_checkpoint(prefix, 3)
+    yt = rs.randint(0, 3, 384).astype(np.float32)
+    xt = _draw(rs, yt, 384)
+    heads, accs = {}, {}
+    for pkg, kw in ((mj, {}), (mt, {"ctx": mt.cpu()})):
+        sym, arg_params, aux_params = pkg.model.load_checkpoint(prefix, 3,
+                                                                **kw)
+        features = sym.get_internals()["flatten_output"]
+        net = pkg.sym.FullyConnected(features, num_hidden=3, name="tgt_fc")
+        net = pkg.sym.SoftmaxOutput(net, name="softmax")
+        backbone = [n for n in net.list_arguments()
+                    if n.startswith(("conv1", "conv2"))]
+        assert backbone == ["conv1_weight", "conv1_bias", "conv2_weight",
+                            "conv2_bias"]
+        np.random.seed(2)
+        it2 = pkg.io.NDArrayIter(xt, yt, batch_size=32, shuffle=True,
+                                 label_name="softmax_label")
+        tuned = pkg.mod.Module(net, context=kw.get("ctx", mj.cpu()),
+                               fixed_param_names=backbone)
+        before = {n: arg_params[n].asnumpy() for n in backbone}
+        tuned.fit(it2, num_epoch=3, arg_params=arg_params,
+                  aux_params=aux_params, allow_missing=True,
+                  initializer=pkg.initializer.Zero(),
+                  optimizer_params={"learning_rate": 0.01})
+        after, _ = tuned.get_params()
+        for n in backbone:
+            np.testing.assert_array_equal(after[n].asnumpy(), before[n],
+                                          err_msg=n)
+        heads[pkg] = {n: after[n].asnumpy() for n in after
+                      if n.startswith("tgt_fc")}
+        metric = pkg.metric.Accuracy()
+        it2.reset()
+        tuned.score(it2, metric)
+        accs[pkg] = metric.get()[1]
+    for n in heads[mj]:
+        np.testing.assert_allclose(heads[mt][n], heads[mj][n], rtol=0,
+                                   atol=1e-6, err_msg=n)
+    assert accs[mt] == accs[mj] and accs[mt] > 0.9, accs
