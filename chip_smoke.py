@@ -455,10 +455,13 @@ def _randomize_bn(net, gen):
             p.data()[:] = torch.randn(n, generator=gen) * 0.1
 
 
-def serving_phase(mx, ctx, rehearsal, seed=0):
+def _served_resnet(mx, ctx, rehearsal, seed=0):
+    """The serving phase's model and traffic: ``resnet50_v1`` (NHWC, fused
+    tails, seeded Xavier weights, random BN) exported and loaded as a
+    symbol and its parameters on ``ctx``, with 64 requests of 1-4 rows
+    and a burst of 256 single rows (rehearsal: a narrow ResNet v1, 8 and
+    16). Returns (sym, params, hw, classes, max_batch, reqs, burst)."""
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
-    from mxnet_tpu_torch.kernels import fused_bn as K
-    from mxnet_tpu_torch.serving import InferenceEngine
     os.environ["MXNET_FUSED_BN_ADD_RELU"] = "1"
     mx.layout.set_default_layout("NHWC")
     if rehearsal:   # a narrow ResNet v1 with a fused tail in every block
@@ -478,15 +481,24 @@ def serving_phase(mx, ctx, rehearsal, seed=0):
     with mx.name.NameManager():
         net.export(os.path.join(tmp, "resnet"))
     sym = mx.sym.load(os.path.join(tmp, "resnet-symbol.json"))
-    graph_ops = collections.Counter(n.op.name for n in sym._topo_nodes()
-                                    if n.op is not None)
-    n_fused = graph_ops["_contrib_BatchNormAddReLU"]
     params = mx.nd.load(os.path.join(tmp, "resnet-0000.params"), ctx=ctx)
     rng = np.random.RandomState(seed)
     reqs = [rng.uniform(-1, 1, (int(rng.randint(1, 5)), hw, hw, 3))
             .astype(np.float32) for _ in range(n_req)]
     burst = [rng.uniform(-1, 1, (1, hw, hw, 3)).astype(np.float32)
              for _ in range(n_burst)]
+    return sym, params, hw, classes, max_batch, reqs, burst
+
+
+def serving_phase(mx, ctx, rehearsal, seed=0):
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    from mxnet_tpu_torch.serving import InferenceEngine
+    sym, params, hw, classes, max_batch, reqs, burst = _served_resnet(
+        mx, ctx, rehearsal, seed)
+    n_req, n_burst = len(reqs), len(burst)
+    graph_ops = collections.Counter(n.op.name for n in sym._topo_nodes()
+                                    if n.op is not None)
+    n_fused = graph_ops["_contrib_BatchNormAddReLU"]
     tf32 = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
             "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
 
@@ -3798,9 +3810,615 @@ def rnn_training_phase(mx, ctx, rehearsal):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# observability: telemetry, faults, the flight recorder, autotune and
+# mx.profiler around serving, decode and Module.fit
+# ---------------------------------------------------------------------------
+
+# dense peak rates of one card by nvidia-smi name (NVIDIA data sheets):
+# (fp32 on the CUDA cores, TF32 on the tensor cores), FLOP/s; the
+# "80GB HBM3" part is the SXM5 card
+_PEAKS = (("H100 PCIe", 51e12, 378e12), ("H100 NVL", 60e12, 417.5e12),
+          ("H100", 67e12, 494.7e12))
+
+
+def _peak_flops(card_name):
+    """The data-sheet peak for the math the serving forward uses: its
+    convolutions run in TF32 when ``torch.backends.cudnn.allow_tf32``
+    (PyTorch's default), else in fp32. Returns (FLOP/s, which)."""
+    fp32, tf32 = next((f, t) for key, f, t in _PEAKS if key in card_name)
+    if torch.backends.cudnn.allow_tf32:
+        return tf32, "TF32 dense (convolutions: cudnn.allow_tf32)"
+    return fp32, "fp32 (CUDA cores)"
+
+
+def _conv_fc_flops(sym, shapes):
+    """Analytic 2*MAC count of the graph's Convolution and FullyConnected
+    nodes: output elements x prod(weight.shape[1:]) (the program cards
+    count these and nothing elementwise)."""
+    internals = sym.get_internals()
+    arg_shapes, out_shapes, _ = internals.infer_shape(**shapes)
+    args = dict(zip(internals.list_arguments(), arg_shapes))
+    outs = dict(zip(internals.list_outputs(), out_shapes))
+    nodes = json.loads(sym.tojson())["nodes"]
+    total = 0
+    for node in nodes:
+        if node["op"] in ("Convolution", "FullyConnected"):
+            w = args[nodes[node["inputs"][1][0]]["name"]]
+            total += 2 * int(np.prod(outs[node["name"] + "_output"])) \
+                * int(np.prod(w[1:]))
+    return total
+
+
+def _load_flight_view():
+    """``tools/flight_view.py`` (stdlib only) imported by its path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "flight_view.py")
+    spec = importlib.util.spec_from_file_location("flight_view", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _op_cost_s(fn, iters=20000, reps=5):
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter_ns()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter_ns() - t0) / iters)
+    return best / 1e9
+
+
+def _telemetry_ops(tel, batches, counter_calls):
+    """The registry's own exact op counts over a window, per batch:
+    spans, ``counter_inc`` calls (counted by the caller) plus the direct
+    counter bumps (transfers, dispatches, host syncs), events, ledger
+    tracks and card dispatch bumps."""
+    counts = tel.counters()
+    direct = sum(v for k, v in counts.items()
+                 if k.endswith("_count")
+                 or k.startswith(("dispatch.", "host_sync.")))
+    return {
+        "spans": sum(tel.span_count(n) for n in tel.span_stats()) / batches,
+        "counter_ops": (counter_calls + direct) / batches,
+        "events": len(tel.events()) / batches,
+        "ledger_tracks": sum(st.get("tracked_total", 0)
+                             for st in tel.ledger().values()) / batches,
+        "card_bumps": sum(c.get("dispatches", 0)
+                          for c in tel.programs().values()) / batches}
+
+
+def _overhead_guard(tel, flight, ops, batch_s):
+    """tests/test_telemetry.py's overhead guard on the card's host: the
+    telemetry ops per batch times each op's microbenchmarked cost must
+    stay under 2% of the batch time."""
+    class _Obj:
+        pass
+
+    def one_span():
+        with tel.span("_guard_probe", ctx={"req_id": 0}):
+            pass
+
+    _card = {"id": "_guard_card"}
+    cost = {"spans": _op_cost_s(one_span),
+            "counter_ops": _op_cost_s(lambda: tel.counter_inc("_guard")),
+            "events": _op_cost_s(lambda: tel.record_event("_guard")),
+            "ledger_tracks": _op_cost_s(lambda: tel.ledger_track(
+                _Obj(), "cpu(0)", 128, shape=(32,), dtype="float32"),
+                iters=5000),
+            "card_bumps": _op_cost_s(lambda: tel.program_dispatch(_card))}
+    tick_s = _op_cost_s(lambda: flight._build_sample({}, 0.05), iters=500)
+    work = sum(ops[k] * cost[k] for k in cost)
+    return {"ops_per_batch": ops,
+            "cost_us": {k: v * 1e6 for k, v in cost.items()},
+            "work_us_per_batch": work * 1e6, "batch_ms": batch_s * 1e3,
+            "share": work / batch_s, "bound": 0.02,
+            "sampler_tick_us": tick_s * 1e6}
+
+
+def _serve(eng, reqs, timeout=600):
+    """Submit ``reqs`` at once and wait: (outputs, req_ids, per-request
+    submit-to-result ms, seconds)."""
+    t0 = time.perf_counter()
+    futs = [(time.perf_counter(), eng.submit(data=x)) for x in reqs]
+    outs, lat = [], []
+    for ts, f in futs:
+        outs.append(f.result(timeout=timeout)[0])
+        lat.append((time.perf_counter() - ts) * 1e3)
+    return outs, [f.req_id for _, f in futs], lat, \
+        time.perf_counter() - t0
+
+
+def _obs_serving(mx, ctx, rehearsal, card, tmp):
+    """Legs (a)-(d) and (g) on the serving phase's net. Returns the K1
+    launches of the leg's forwards and (a)'s telemetry figures."""
+    from mxnet_tpu_torch import telemetry as tel, faults, flight, \
+        compile_cache
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    from mxnet_tpu_torch.serving import InferenceEngine, CircuitOpen
+    gpu = ctx.device_type == "gpu"
+    sym, params, hw, classes, max_batch, reqs, burst = _served_resnet(
+        mx, ctx, rehearsal)
+    shapes = {"data": (1, hw, hw, 3)}
+    n_tails = sum(1 for n in sym._topo_nodes() if n.op is not None
+                  and n.op.name == "_contrib_BatchNormAddReLU")
+    per_image = _conv_fc_flops(sym, {"data": (1, hw, hw, 3)})
+    tel.enable()
+    tel.reset()
+    flight.series_clear()
+    forwards = 1          # the forward that finished the net's deferred init
+
+    # (a) telemetry on serving (the registry reset before the engine, so
+    # its warm-up cards stay registered with 0 dispatches)
+    eng = InferenceEngine(sym, params, shapes, max_batch=max_batch,
+                          max_wait_ms=2.0, ctx=ctx)
+    forwards += len(eng.buckets)
+    inc, calls = tel.counter_inc, [0]
+
+    def counting_inc(name, n=1):       # the guard's exact call count
+        calls[0] += 1
+        inc(name, n)
+    tel.counter_inc = counting_inc
+    try:
+        t0 = time.perf_counter()
+        outs, ids, _, _ = _serve(eng, reqs)
+        bouts, bids, _, _ = _serve(eng, burst)
+        wall = time.perf_counter() - t0
+    finally:
+        tel.counter_inc = inc
+    st = eng.stats()
+    forwards += st["batches"]
+    answered = len(outs) + len(bouts)
+    c = tel.counters()
+    for x, o in zip(reqs + burst, outs + bouts):
+        assert o.shape == (x.shape[0], classes) and np.isfinite(o).all()
+    assert tel.span_count("serve_request") == answered, \
+        (tel.span_count("serve_request"), answered)
+    assert tel.span_count("serve_batch") == st["batches"]
+    assert c["serving.requests"] == len(reqs) + len(burst)
+    assert c["serving.rows"] == sum(x.shape[0] for x in reqs + burst)
+    cards = eng.program_cards()
+    by_bucket = {}
+    for cid, cd in cards.items():
+        b = next(e for e in cd["signature"] if "'data'" in e[0])[1][0]
+        by_bucket[b] = cd
+    assert sorted(by_bucket) == eng.buckets, (sorted(by_bucket), eng.buckets)
+    flops_err = {}
+    for b, cd in by_bucket.items():
+        assert cd["dispatches"] == st["buckets"].get(str(b), 0), \
+            (b, cd["dispatches"], st["buckets"])
+        flops_err[str(b)] = abs(cd["flops"] - per_image * b) \
+            / (per_image * b)
+        assert flops_err[str(b)] <= 0.01, (b, cd["flops"], per_image * b)
+    peak, peak_kind = _peak_flops(card) if gpu else (None, None)
+    tel.set_peak_flops(peak)
+    online = tel.online()
+    flops_total = online["flops_dispatched"]
+    batch_s = tel.span_seconds("serve_batch")
+    spans = {k: {q: v[q] for q in ("count", "p50_ms", "p95_ms", "p99_ms")}
+             for k, v in tel.span_stats().items() if k in tel.SERVE_SPANS}
+    trace_path = os.path.join(tmp, "serving_chrome_events.json")
+    with open(trace_path, "w") as f:
+        json.dump(tel.chrome_events(since_trace_start=False), f)
+    with open(trace_path) as f:
+        evs = json.load(f)
+    flows = collections.Counter(e["id"] for e in evs
+                                if e.get("cat") == "flow")
+    missing = [i for i in ids + bids if flows.get("req:%d" % i, 0) < 2]
+    assert not missing, missing[:10]
+    # the device-time MFU of one bucket-32 forward (the profiler)
+    device = None
+    if gpu:
+        xb = torch.zeros((max_batch, hw, hw, 3), device=ctx.torch_device())
+        args = dict(eng._param_raw, data=xb)
+        args.update(eng._bucket_extras(max_batch))
+        fwd = lambda: eng._forward._fn(args, eng._aux_raw)
+        prof = profile_forward(fwd)
+        busy = prof["device_busy_ms"]
+        device = {"device_busy_ms": busy, "wall_ms": prof["wall_ms"],
+                  "model_flops_per_s": per_image * max_batch / busy * 1e3
+                  if busy else None,
+                  "mfu": per_image * max_batch / busy * 1e3 / peak
+                  if busy else None}
+        forwards += 1 + 3      # profile_forward's warm call and 3 reps
+    ops = _telemetry_ops(tel, st["batches"], calls[0])
+    # the per-call signature key of the instrumented forward (computed
+    # with telemetry on or off), over a bucket's full argument set
+    from mxnet_tpu_torch.executor import _dispatch_key
+    kargs = (dict(eng._param_raw, data=torch.zeros(
+        (1, hw, hw, 3), device=ctx.torch_device())), eng._aux_raw)
+    key_us = _op_cost_s(lambda: hash(_dispatch_key(kargs)), iters=200) * 1e6
+    guard = _overhead_guard(tel, flight, ops, wall / st["batches"])
+    emit({"observability_serving": {
+        "card": card, "requests": answered, "batches": st["batches"],
+        "buckets": st["buckets"], "req_per_s": answered / wall,
+        "spans": spans, "span_counts_ok": True,
+        "cards": {str(b): {"dispatches": cd["dispatches"],
+                           "flops": cd["flops"],
+                           "peak_bytes": cd["peak_bytes"],
+                           "argument_bytes": cd["argument_bytes"]}
+                  for b, cd in sorted(by_bucket.items())},
+        "analytic_flops_per_image": per_image,
+        "card_flops_rel_err": flops_err,
+        "tf32": {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                 "cuda.matmul.allow_tf32":
+                     torch.backends.cuda.matmul.allow_tf32},
+        "peak_flops": peak, "peak_is": peak_kind,
+        "online": online,
+        "online_over_serve_batch_spans": {
+            "flops": flops_total, "serve_batch_s": batch_s,
+            "model_flops_per_s": flops_total / batch_s if batch_s else None,
+            "mfu": flops_total / batch_s / peak if batch_s and peak
+            else None,
+            "note": "host span time (asynchronous launch), not device "
+                    "time"},
+        "device_time_bucket32": device,
+        "dispatch_key_us": key_us,
+        "dispatch_key_leaves": len(kargs[0]) + len(kargs[1]),
+        "chrome_trace_events": len(evs),
+        "request_flows": len([i for i in ids + bids])}})
+    emit({"observability_overhead_guard": guard})
+    assert guard["share"] < 0.02, guard
+
+    # (b) telemetry's cost: 3 rounds on and 3 off in turns (on, off,
+    # off, on, on, off), with the garbage collector's pauses per round
+    rounds = []
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    full = [reqs[0][:1].repeat(max_batch, axis=0) * (1 + 0.1 * i)
+            for i in range(2)]
+    full_out = {}
+    gc_log = {"s": 0.0, "n": collections.Counter(), "t0": None}
+
+    def gc_timer(ph, info):
+        if ph == "start":
+            gc_log["t0"] = time.perf_counter()
+        elif gc_log["t0"] is not None:
+            gc_log["s"] += time.perf_counter() - gc_log["t0"]
+            gc_log["n"][info["generation"]] += 1
+    gc.callbacks.append(gc_timer)
+    try:
+        for on in (True, False, False, True, True, False):
+            (tel.enable if on else tel.disable)()
+            gc_log["s"], gc_log["n"] = 0.0, collections.Counter()
+            _, _, lat, secs = _serve(eng, reqs)
+            fo, _, _, _ = _serve(eng, full)
+            full_out.setdefault(on, []).append(fo)
+            rounds.append({"telemetry": on, "req_per_s": len(reqs) / secs,
+                           "p50_ms": float(np.percentile(lat, 50)),
+                           "gc_pause_ms": gc_log["s"] * 1e3,
+                           "gc_collections": dict(gc_log["n"])})
+    finally:
+        gc.callbacks.remove(gc_timer)
+    tel.enable()
+    for fo in full_out[True] + full_out[False]:
+        for a, b in zip(fo, full_out[True][0]):
+            assert np.array_equal(a, b), "telemetry changed the outputs"
+    torch.backends.cudnn.deterministic = det
+    st_b = eng.stats()
+    forwards += st_b["batches"] - st["batches"]
+    emit({"observability_cost": {
+        "rounds": rounds, "outputs_bit_equal_on_off": True,
+        "on_req_per_s": [r["req_per_s"] for r in rounds if r["telemetry"]],
+        "off_req_per_s": [r["req_per_s"] for r in rounds
+                          if not r["telemetry"]]}})
+
+    # (c) autotune from (a)'s corpus record
+    corpus = os.path.join(tmp, "card_corpus.jsonl")
+    os.environ["MXNET_CARD_CORPUS"] = corpus
+    try:
+        assert compile_cache.corpus_append(eng.corpus_record())
+        tuned = InferenceEngine(sym, params, shapes, max_batch=max_batch,
+                                max_wait_ms=2.0, ctx=ctx, autotune=True)
+    finally:
+        os.environ.pop("MXNET_CARD_CORPUS", None)
+    forwards += len(tuned.buckets)
+    plan = tuned.stats()["autotune_plan"]
+    assert plan is not None and tuned.buckets == plan["buckets"]
+    tcards = tuned.program_cards()
+    assert tcards and all(cd.get("autotune_plan") == plan
+                          for cd in tcards.values())
+    touts, _, _, secs = _serve(tuned, reqs)
+    forwards += tuned.stats()["batches"]
+    tol = 1e-3 * max(float(np.abs(o).max()) for o in outs)
+    worst = max(float(np.abs(a - b).max()) for a, b in zip(touts, outs))
+    emit({"observability_autotune": {
+        "plan": plan, "buckets": tuned.buckets,
+        "max_inflight": tuned._max_inflight,
+        "req_per_s": len(reqs) / secs, "max_abs_err": worst, "tol": tol}})
+    assert worst <= tol, (worst, tol)
+    tuned.close()
+
+    # (g) mx.profiler around 3 bucket-32 forwards of the serving engine
+    prof_file = os.path.join(tmp, "profile.json")
+    mx.profiler.set_config(filename=prof_file)
+    tel.reset()
+    mx.profiler.set_state("run")
+    gouts, _, _, _ = _serve(eng, [full[0]] * 3)
+    mx.profiler.set_state("stop")
+    mx.profiler.dump()
+    forwards += 3
+    with open(prof_file) as f:
+        trace = json.load(f)
+    tev = trace["traceEvents"]
+    batches = [e for e in tev if e.get("cat") == "host"
+               and e.get("name") == "serve_batch"]
+    kern = [e for e in tev if e.get("cat") == "kernel"]
+    k1 = [e for e in kern if "scale_bias_add_relu" in e.get("name", "")]
+    conv = [e for e in kern if _kernel_class(e.get("name", "")).startswith(
+        "convolutions")]
+    assert len(batches) == 3, len(batches)
+    overlap = []
+    for b in batches:
+        lo, hi = b["ts"], b["ts"] + b["dur"]
+        overlap.append(sum(1 for e in k1 if lo <= e["ts"] <= hi))
+    emit({"observability_profiler": {
+        "file_bytes": os.path.getsize(prof_file), "events": len(tev),
+        "host_spans": sum(1 for e in tev if e.get("cat") == "host"),
+        "flow_events": sum(1 for e in tev if e.get("cat") == "flow"),
+        "kernel_events": len(kern), "k1_events": len(k1),
+        "conv_gemm_events": len(conv),
+        "k1_events_inside_each_serve_batch": overlap}})
+    if gpu:
+        assert len(k1) >= 3 * n_tails and conv, (len(k1), len(conv))
+        assert all(n > 0 for n in overlap), overlap
+
+    # (d) faults and the flight recorder
+    fv = _load_flight_view()
+    flight.configure(tmp)
+    try:
+        faults.configure("d2h:raise:n=1")
+        answered = retried = 0
+        for x in reqs[:8]:
+            try:
+                eng.submit(data=x).result(timeout=600)
+            except faults.InjectedFault:
+                retried += 1
+                eng.submit(data=x).result(timeout=600)
+            answered += 1
+        assert answered == 8 and retried == 1
+        assert tel.counters()["faults.injected.d2h"] == 1
+        faults.clear()
+        forwards += 8 + retried
+        beng = InferenceEngine(sym, params, shapes, max_batch=max_batch,
+                               max_wait_ms=2.0, ctx=ctx, retry_budget=0,
+                               breaker_threshold=3)
+        forwards += len(beng.buckets)
+        # postmortems of one reason are throttled to one a second: the
+        # d2h failure above dumped serving_dispatch_failure already
+        time.sleep(1.1)
+        faults.configure("dispatch:raise:every=1")
+        failed = []
+        for x in reqs[:3]:
+            f = beng.submit(data=x)
+            try:
+                f.result(timeout=600)
+            except faults.InjectedFault:
+                failed.append(f.req_id)
+        assert len(failed) == 3, failed
+        try:
+            beng.submit(data=reqs[0])
+            raise AssertionError("the breaker did not open")
+        except CircuitOpen:
+            pass
+        dumps = sorted(d for d in os.listdir(tmp)
+                       if d.startswith("postmortem-"))
+        fail_dump = [fv.load_dump(os.path.join(tmp, d)) for d in dumps
+                     if "serving_dispatch_failure" in d]
+        fail_dump = [r for r in fail_dump
+                     if r["exception"].get("fault_site") == "dispatch"]
+        assert fail_dump and any("breaker_trip" in d for d in dumps), dumps
+        rec = fail_dump[0]
+        summary = fv.summarize(rec)
+        assert rec["reason"] == "serving_dispatch_failure"
+        assert rec["extra"]["req_ids"] == [failed[0]], rec["extra"]
+        assert rec["exception"]["fault_site"] == "dispatch"
+        faults.clear()
+        beng.reset_breaker()
+        ok = [beng.submit(data=x).result(timeout=600) for x in reqs[:8]]
+        assert len(ok) == 8
+        faults.configure("dispatch:nan:n=1")
+        nan_out = beng.submit(data=reqs[0]).result(timeout=600)[0]
+        after = beng.submit(data=reqs[0]).result(timeout=600)[0]
+        faults.clear()
+        assert np.isnan(nan_out).all() and np.isfinite(after).all()
+        forwards += beng.stats()["batches"]
+        beng.close()
+        emit({"observability_faults": {
+            "d2h_raise_retried": retried, "answered": answered,
+            "faults_injected_d2h": 1,
+            "breaker_open_after_failures": len(failed),
+            "postmortems": dumps, "postmortem_reason": rec["reason"],
+            "postmortem_req_ids": rec["extra"]["req_ids"],
+            "flight_view_summary_keys": sorted(summary),
+            "after_reset_answered": len(ok),
+            "dispatch_nan_outputs_all_nan": True}})
+    finally:
+        faults.clear()
+        flight.configure(None)
+        flight.uninstall()
+    eng.close()
+    return forwards * n_tails if gpu else 0, forwards, n_tails
+
+
+def _obs_decode(mx, ctx, rehearsal, card):
+    """Leg (e): the decode phase's full-width cell through DecodeEngine
+    with TelemetryLogger.log_decode, the flight sampler at 50 ms and the
+    OpenMetrics endpoint on the loopback."""
+    import urllib.request
+    from mxnet_tpu_torch import telemetry as tel, flight
+    from mxnet_tpu_torch.decode import DecodeEngine, AttentionDecodeCell
+    dims, slots, _, _, _, prompt_len = _DECODE[rehearsal]
+    cell = AttentionDecodeCell(**dims)
+    params = cell.init_params(1)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cell.vocab - 1, int(rng.randint(
+        2, prompt_len + 1))).astype(np.int32) for _ in range(4 * slots)]
+    # no registry reset: the scrape must hold the serving legs' counters
+    flight.series_clear()
+    port = flight.metrics_http_start(port=0, host="127.0.0.1")
+    flight.sampler_start(50)
+    try:
+        eng = DecodeEngine(cell, params, slots=slots,
+                           max_prompt_len=prompt_len * 2, max_new_tokens=48,
+                           ctx=ctx, telemetry_logger=mx.callback
+                           .TelemetryLogger(frequent=16))
+        with eng:
+            base = {n: tel.span_count(n) for n in tel.DECODE_SPANS}
+            futs = [eng.submit(p) for p in prompts]
+            res = [f.result(timeout=600) for f in futs]
+            time.sleep(0.15)          # one more sampler tick with state
+            st = eng.stats()
+            text = urllib.request.urlopen(
+                "http://127.0.0.1:%d/metrics" % port, timeout=30) \
+                .read().decode()
+    finally:
+        flight.sampler_stop()
+        flight.metrics_http_stop()
+    assert all(len(r.tokens) == 48 for r in res)
+    counts = {n: tel.span_count(n) - base[n] for n in tel.DECODE_SPANS}
+    assert counts["serve_prefill"] == st["slot_admit"] == len(prompts), \
+        (counts, st["slot_admit"])
+    assert counts["serve_decode_step"] == st["steps"], (counts, st["steps"])
+    assert counts["serve_detokenize"] == st["resolved"]
+    samples = flight.series()
+    with_state = [s for s in samples if s["serving"]["engines"] >= 1
+                  and s["serving"]["active_slots"] > 0]
+    assert with_state, samples[-3:]
+    # OpenMetrics: every sample line is `name{labels} value`, one TYPE per
+    # family, '# EOF' last
+    lines = text.rstrip("\n").split("\n")
+    assert lines[-1] == "# EOF"
+    families = [ln.split()[2] for ln in lines if ln.startswith("# TYPE ")]
+    assert len(families) == len(set(families))
+    for ln in lines[:-1]:
+        if ln.startswith("#"):
+            continue
+        name, value = ln.rsplit(" ", 1)
+        float(value)
+        assert "{" in name and name.endswith("}"), ln
+    for want in ("mxnet_tpu_serving_requests_total",
+                 "mxnet_tpu_decode_tokens_total",
+                 "mxnet_tpu_decode_steps_total"):
+        assert want in text, want
+    tick = _op_cost_s(lambda: flight._build_sample({}, 0.05), iters=200)
+    emit({"observability_decode": {
+        "card": card, "prompts": len(prompts), "new_tokens": 48,
+        "slots": slots, "span_counts": counts, "steps": st["steps"],
+        "prefills": st["slot_admit"],
+        "token_latency_ms": st["token_latency_ms"],
+        "series_samples": len(samples),
+        "samples_with_engine_state": len(with_state),
+        "sampler_tick_us": tick * 1e6,
+        "openmetrics_lines": len(lines),
+        "decode_cards": len(eng.program_cards())}})
+
+
+def _obs_fit(mx, ctx, rehearsal, card):
+    """Leg (f): 2 batches of the resnet_training phase's fp32 batch-32
+    ``Module.fit`` with a ``device`` store and a TelemetryLogger, fused,
+    then phase-split: the fit-phase spans by (epoch, nbatch), the store's
+    push/pull counts and the host time per step by span."""
+    from mxnet_tpu_torch import telemetry as tel
+    net, sym, hw, classes = _resnet_net(mx, ctx, rehearsal)
+    aux_names = set(sym.list_auxiliary_states())
+    params = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    arg = {k: v for k, v in params.items() if k not in aux_names}
+    aux = {k: v for k, v in params.items() if k in aux_names}
+    del net
+    batch = 4 if rehearsal else 32
+    X, Y = _module_data(2, batch, hw, classes)
+    out = {}
+    for fused in (True, False):
+        os.environ["MXNET_MODULE_FUSED_STEP"] = "1" if fused else "0"
+        try:
+            mod = mx.mod.Module(sym, context=ctx)
+            mod.bind(data_shapes=[("data", (batch, hw, hw, 3))],
+                     label_shapes=[("softmax_label", (batch,))])
+            mod.init_params(arg_params=arg, aux_params=aux)
+            kv = mx.kvstore.create("device")
+            it = mx.io.NDArrayIter(X, Y, batch_size=batch)
+            tel.reset()
+            mod.fit(it, eval_metric="acc", optimizer="sgd", kvstore=kv,
+                    optimizer_params={"learning_rate": _BENCH_LR,
+                                      "momentum": _BENCH_MOMENTUM,
+                                      "rescale_grad": 1.0 / batch},
+                    num_epoch=1,
+                    batch_end_callback=mx.callback.TelemetryLogger(1))
+            if ctx.device_type == "gpu":
+                torch.cuda.synchronize()
+        finally:
+            os.environ.pop("MXNET_MODULE_FUSED_STEP", None)
+        snap = mod.telemetry_snapshot()
+        steps = collections.defaultdict(set)
+        for sp in tel.recent_spans():
+            cx = sp["ctx"] or {}
+            if "nbatch" in cx and sp["name"] in tel.FIT_PHASE_SPANS:
+                steps[(cx["epoch"], cx["nbatch"])].add(sp["name"])
+        assert sorted(steps) == [(0, 0), (0, 1)], sorted(steps)
+        for names in steps.values():
+            assert {"fit_batch", "feed", "step"} <= names, names
+        c = snap["counters"]
+        if not fused:
+            assert c["kvstore.push"] == 2 and c["kvstore.pull"] == 2, c
+        out["fused" if fused else "phase_split"] = {
+            "spans_by_step": {"%d:%d" % k: sorted(v)
+                              for k, v in sorted(steps.items())},
+            "kvstore_push": c.get("kvstore.push", 0),
+            "kvstore_pull": c.get("kvstore.pull", 0),
+            "host_ms_by_span": {k: v["total_ms"] for k, v in
+                                snap["spans"].items()
+                                if k in tel.FIT_PHASE_SPANS},
+            "dispatches": {k: v for k, v in c.items()
+                           if k.startswith("dispatch.")},
+            "card_flops": {k: cd["flops"] for k, cd in
+                           snap["programs"].items()}}
+        out["snapshot_keys"] = sorted(snap)
+    emit({"observability_fit": dict(out, card=card, batch=batch,
+                                    note="the fused step subsumes the "
+                                         "store; the phase-split step "
+                                         "pushes and pulls through it")})
+    # forwards: the deferred-init one, 2 batches fused, 2 phase-split
+    return 5
+
+
+def observability_phase(mx, ctx, rehearsal, card):
+    """The serving path's instruments and controls: telemetry, its cost,
+    autotune, faults and the flight recorder, mx.profiler (serving),
+    then decode and Module.fit. Returns the K1 launches of the phase's
+    forwards (16 per full-width forward, counted from the card)."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    gpu = ctx.device_type == "gpu"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # -- the main path: counts zeroed just before, read just after --------
+    K.launches = 0
+    _, forwards, n_tails = _obs_serving(mx, ctx, rehearsal, card, tmp)
+    _obs_decode(mx, ctx, rehearsal, card)
+    forwards += _obs_fit(mx, ctx, rehearsal, card)
+    launches = K.launches
+    # ---------------------------------------------------------------------
+    expect = forwards * n_tails if gpu else 0
+    emit({"observability_k1": {"forwards": forwards, "tails": n_tails,
+                               "launches": launches, "expected": expect}})
+    assert launches == expect, (launches, expect)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    mx.layout.set_default_layout(None)
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+    return launches
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
           "resnet_training", "gluon_training", "decode", "rnn_training",
-          "image_classification", "gluon_zoo")
+          "image_classification", "gluon_zoo", "observability")
 
 
 def main(argv=None):
@@ -3864,6 +4482,10 @@ def main(argv=None):
     if "gluon_zoo" in todo:
         with phase("gluon_zoo"):
             res["zoo_launches"] = gluon_zoo_phase(mx, ctx, rehearsal)
+    if "observability" in todo:
+        with phase("observability"):
+            res["obs_launches"] = observability_phase(
+                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -3875,8 +4497,9 @@ def main(argv=None):
         "source": "mxnet_tpu_torch/kernels/csrc/fused_bn.cu",
         "replaces": "mxnet_tpu/pallas/fused_bn.py:44",
         "launches": res["k1_launches"] + res["k1_train_launches"]
-        + res["k1_gluon_launches"],
+        + res["k1_gluon_launches"] + res["obs_launches"],
         "serving_launches": res["k1_launches"],
+        "observability_launches": res["obs_launches"],
         "training_launches": res["k1_train_launches"],
         "gluon_training_launches": res["k1_gluon_launches"],
         "rnn_training_launches": res["rnn_launches"][0],

@@ -16,9 +16,15 @@ continuous-batching decode through ``decode.DecodeEngine``, and the
 recurrent family (``gluon.rnn`` over the fused ``RNN`` op, the symbolic
 cells of ``mx.rnn`` through ``mx.mod.BucketingModule``), and image
 classification beyond ResNet (``mx.kvstore``, the ``fit.py`` recipe,
-``gluon.data`` and the Gluon model zoo), each on one device; see
+``gluon.data`` and the Gluon model zoo), each on one device, and the
+instruments and controls around them (``mx.telemetry``, ``mx.faults``,
+``mx.flight``, ``mx.profiler``, the autotuned serving plan); see
 ROADMAP.md.
 """
+from . import log  # noqa: F401
+from . import telemetry  # noqa: F401
+from . import faults  # noqa: F401
+from . import checkpoint  # noqa: F401
 from .base import MXNetError, get_env  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
 from . import name, attribute, layout  # noqa: F401
@@ -54,8 +60,17 @@ from . import module as mod  # noqa: F401
 from . import parallel  # noqa: F401
 from . import rnn  # noqa: F401
 from . import decode  # noqa: F401
+from . import flight  # noqa: F401
+from . import compile_cache  # noqa: F401
+from . import tuner  # noqa: F401
+from . import profiler  # noqa: F401
 
 # mx.random's samplers (parity: mx.random.uniform is nd.random.uniform)
 for _name in nd.random.__all__:
     setattr(random, _name, getattr(nd.random, _name))
 del _name
+
+# the env knobs of the flight recorder (MXNET_FLIGHT_DIR,
+# MXNET_METRICS_INTERVAL_MS, MXNET_METRICS_PORT), as the JAX package
+# adopts them at import; each defaults OFF
+flight._maybe_autostart()

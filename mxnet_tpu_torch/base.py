@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import os
 
+from .telemetry import _percentile
+
 __all__ = ["MXNetError", "get_env", "latency_percentiles"]
 
 
@@ -31,20 +33,11 @@ def get_env(name, default=None, typ=None):
     return val
 
 
-def _percentile(sorted_vals, q):
-    """Nearest-rank percentile over an already-sorted list (the JAX
-    package's ``telemetry._percentile``)."""
-    if not sorted_vals:
-        return 0.0
-    i = min(len(sorted_vals) - 1, max(0, int(round(
-        q / 100.0 * (len(sorted_vals) - 1)))))
-    return sorted_vals[i]
-
-
 def latency_percentiles(samples_ms):
     """``{p50_ms, p95_ms, p99_ms}`` of latency samples in ms, by the
-    nearest rank and rounded to 4 decimals as the JAX package reports
-    them; None without samples."""
+    nearest rank (``telemetry._percentile``, the one percentile rule)
+    and rounded to 4 decimals as the JAX package reports them; None
+    without samples."""
     s = sorted(float(x) for x in samples_ms)
     if not s:
         return None

@@ -9,7 +9,9 @@ a queued prompt takes it immediately, so the decode batch stays full
 while a static whole-batch decoder would idle its finished lanes until
 the longest member completes.
 
-Two program families, each a plain callable over the cache pool:
+Two program families, each an ``executor._InstrumentedProgram`` over
+the cache pool (one program card per bucket signature, the ``dispatch``
+fault site; a test may swap in a plain callable):
 
 * **prefill** (``_prefill_prog``) — per bucketed PROMPT length: one
   slot's state, the teacher-forced padded prompt, the slot's cache
@@ -21,10 +23,10 @@ Two program families, each a plain callable over the cache pool:
   live slot (read only) and their rows are never written back.
 
 Both update the pool IN PLACE, the counterpart of the reference's
-donated buffers. There is nothing to compile: ``warmup()`` dispatches
-every bucket once on the scheduler thread, so cuBLAS handles, their
-workspaces and the allocator's segments exist before traffic, and
-writes nothing.
+donated buffers. There is nothing to compile: ``warmup()`` runs every
+bucket once on the scheduler thread (building its card, counting no
+dispatch), so cuBLAS handles, their workspaces and the allocator's
+segments exist before traffic, and writes nothing.
 
 Overload semantics follow serving's: bounded admission
 (shed/``QueueOverflow`` or block), per-sequence deadlines enforced
@@ -34,11 +36,16 @@ circuit breaker over consecutive dispatch failures. ``stats()`` reports
 per-token latency (each decode step's wall time, dispatch through the
 token fetch) and request latency (submit to terminal), computed here.
 
-Not ported yet: telemetry counters, spans and events; the telemetry
-logger; program cards; the buffer ledger's ``kv_cache`` charge; the
-compile-cache corpus record; the flight recorder; partition rules over
-more than one device (a one-device mesh shards nothing); one captured
-CUDA graph per slot bucket.
+Telemetry as in the JAX package: the ``decode.*`` counters and events,
+the ``serve_prefill`` / ``serve_decode_step`` / ``serve_detokenize``
+spans (``telemetry.DECODE_SPANS``) under the causal request ids, the
+``kv_cache`` ledger charge, ``corpus_record()``, ``telemetry_logger=``
+and flight-recorder postmortems (a rebuilt pool, a breaker trip, a
+dying scheduler).
+
+Not ported yet: partition rules over more than one device (a one-device
+mesh shards nothing; ROADMAP Queue 1 item 4); one captured CUDA graph
+per slot bucket (item 1).
 """
 from __future__ import annotations
 
@@ -54,6 +61,9 @@ import torch
 
 from .base import MXNetError, latency_percentiles
 from .context import current_context
+from .executor import _InstrumentedProgram, record_dispatch
+from . import telemetry
+from . import flight
 from .ops.common import numpy_dtype, torch_dtype
 from .parallel.ring_attention import attention, decode_attention
 from .rnn.rnn_cell import lstm_decode_step
@@ -299,6 +309,8 @@ class DecodeEngine:
     warmup : dispatch every bucket once at construction
     keep_logits : fetch and return per-token logits rows (one more
         device-to-host copy per step)
+    telemetry_logger : optional ``callback.TelemetryLogger``; the engine
+        calls its ``log_decode()`` after every decode step
     """
 
     def __init__(self, cell, params, slots=8, max_prompt_len=None,
@@ -307,7 +319,7 @@ class DecodeEngine:
                  max_queue=None, deadline_ms=None, overload="shed",
                  retry_budget=2, retry_backoff_ms=5.0,
                  breaker_threshold=5, breaker_reset_s=30.0,
-                 warmup=True, keep_logits=False):
+                 warmup=True, keep_logits=False, telemetry_logger=None):
         self.cell = cell
         self.slots = int(slots)
         if self.slots < 1:
@@ -336,6 +348,7 @@ class DecodeEngine:
         self._breaker_threshold = max(0, int(breaker_threshold))
         self._breaker_reset_s = float(breaker_reset_s)
         self._keep_logits = bool(keep_logits)
+        self._logger = telemetry_logger
 
         if ctx is None:
             ctx = current_context()
@@ -354,8 +367,16 @@ class DecodeEngine:
         self._stream = torch.cuda.current_stream(self._device) \
             if self._device.type == "cuda" else None
 
-        self._prefill_prog = self._make_prefill_impl()
-        self._decode_prog = self._make_decode_impl()
+        # one program card per (family, bucket) signature; the bodies
+        # return (cache, tokens, logits) and ``nan`` poisons the logits
+        self._prefill_prog = _InstrumentedProgram(
+            "decode_prefill", self._make_prefill_impl(),
+            argnames=("params", "cache", "slot", "tokens", "length"),
+            out_index=2, on_card=self._prefill_compiled)
+        self._decode_prog = _InstrumentedProgram(
+            "decode", self._make_decode_impl(),
+            argnames=("params", "cache", "ids", "toks", "pos"),
+            out_index=2)
 
         self._lock = threading.Lock()
         # admission backpressure + close wakeup: a Condition over the
@@ -374,15 +395,43 @@ class DecodeEngine:
         self._thread = threading.Thread(target=self._decode_loop,
                                         name="mx-decode-sched", daemon=True)
         self._thread.start()
+        flight.register_engine(self)
         if warmup:
             self.warmup()
 
     # -- placement ----------------------------------------------------------
     def _make_cache(self):
-        """A fresh zeroed slot pool on the device."""
-        return {name: torch.zeros(shape, dtype=dtype, device=self._device)
-                for name, (shape, dtype)
-                in self.cell.cache_spec(self.slots).items()}
+        """A fresh zeroed slot pool on the device, charged to the buffer
+        ledger as ``kv_cache`` (a rebuilt pool's old tensors release
+        their charge when collected)."""
+        cache = {name: torch.zeros(shape, dtype=dtype, device=self._device)
+                 for name, (shape, dtype)
+                 in self.cell.cache_spec(self.slots).items()}
+        for t in cache.values():
+            telemetry.ledger_track(t, str(self._ctx), t.nbytes,
+                                   shape=tuple(t.shape), dtype=str(t.dtype),
+                                   kind="kv_cache")
+        return cache
+
+    def partition_summary(self):
+        """The decode mesh's layout; None on the port's one device (the
+        distributed slice, ROADMAP Queue 1 item 4, brings meshes)."""
+        return None
+
+    def _prefill_compiled(self, card):
+        telemetry.counter_inc("decode.prefill_compiles")
+
+    def program_cards(self):
+        """{card_id: card} for BOTH of this engine's program families —
+        one card per (family, bucket) signature."""
+        out = {}
+        for prog in (self._prefill_prog, self._decode_prog):
+            entry = getattr(prog, "entry", None)
+            if entry is None:          # a swapped-in plain callable
+                continue
+            out.update({k: c for k, c in telemetry.programs().items()
+                        if k == entry or k.startswith(entry + "/")})
+        return out
 
     @contextlib.contextmanager
     def _device_scope(self):
@@ -470,18 +519,22 @@ class DecodeEngine:
         return call.future.result()
 
     def _warmup_now(self):
+        # ``build`` runs the call and makes its card without counting a
+        # dispatch (the JAX package's warm-up compiles without executing)
         S = self.slots
+        prefill = getattr(self._prefill_prog, "build", self._prefill_prog)
+        decode = getattr(self._decode_prog, "build", self._decode_prog)
         for lb in self.prompt_buckets:
-            _, tok, logits = self._prefill_prog(
-                self._params, self._cache, S, np.zeros(lb, np.int32), 1)
+            _, tok, logits = prefill(
+                self._params, self._cache, np.int32(S),
+                np.zeros(lb, np.int32), np.int32(1))
             tok.item()
             if self._keep_logits:
                 self._fetch_rows(logits)
         for sb in self.slot_buckets:
             pad = np.full(sb, S, np.int32)
             z = np.zeros(sb, np.int32)
-            _, toks, logits = self._decode_prog(self._params, self._cache,
-                                                pad, z, z)
+            _, toks, logits = decode(self._params, self._cache, pad, z, z)
             toks.cpu()
             if self._keep_logits:
                 self._fetch_rows(logits)
@@ -508,6 +561,7 @@ class DecodeEngine:
             with self._lock:
                 self._stats["breaker_fastfail"] += 1
                 consecutive = self._consecutive_failures
+            telemetry.counter_inc("decode.breaker_fastfail")
             raise CircuitOpen(
                 "decode: breaker open after %d consecutive dispatch "
                 "failures — fast-failing instead of queuing onto a "
@@ -542,13 +596,22 @@ class DecodeEngine:
                              self.eos_id if eos_id is None else eos_id,
                              deadline=deadline)
 
-        def _drop_locked(exc, shed=False):
-            # admission-rejected: never enqueued, but its rejection time
-            # is a latency sample and a shed is accounted
+        def _drop_locked(exc, shed=False, deadline_hit=False):
+            # admission-rejected: never enqueued, but the spans entered
+            # at construction close, its rejection time is a latency
+            # sample and a shed is accounted
+            req.wait_span.__exit__(None, None, None)
+            req.req_span.__exit__(None, None, None)
             self._record_latency_locked(req)
             if shed:
                 self._stats["shed_requests"] += 1
                 self._stats["shed.admission"] += 1
+                telemetry.counter_inc("decode.shed")
+                telemetry.counter_inc("decode.shed.admission")
+                telemetry.record_event("decode.shed", req_id=req.req_id,
+                                       cause="admission")
+                if deadline_hit:
+                    telemetry.counter_inc("decode.deadline_exceeded")
             raise exc
 
         with self._space:
@@ -568,13 +631,14 @@ class DecodeEngine:
                     _drop_locked(DeadlineExceeded(
                         "decode: deadline expired while blocked on a "
                         "full admission queue (max_queue=%d)"
-                        % self.max_queue), shed=True)
+                        % self.max_queue), shed=True, deadline_hit=True)
                 if self._closed:
                     _drop_locked(EngineClosed("decode: engine is "
                                               "closed"))
             self._stats["requests"] += 1
             self._queued += 1
             self._q.put(req)
+        telemetry.counter_inc("decode.requests")
         return req.future
 
     def generate(self, prompt, **kwargs):
@@ -628,6 +692,37 @@ class DecodeEngine:
             "request_latency_ms": _percentiles(req_lat),
         }
 
+    def corpus_record(self):
+        """One JSON-safe record of measured decode data for the card
+        corpus. None until at least one step ran."""
+        from . import compile_cache
+        st = self.stats()
+        if not st["steps"]:
+            return None
+        cards = {
+            k: {kk: c.get(kk) for kk in
+                ("kind", "flops", "bytes_accessed", "peak_bytes",
+                 "compile_ms", "deserialize_ms", "source", "dispatches")}
+            for k, c in self.program_cards().items()}
+        spans = {k: v for k, v in telemetry.span_stats().items()
+                 if k in telemetry.DECODE_SPANS}
+        return {
+            "kind": "decode",
+            "ts": time.time(),
+            "env": compile_cache.env_meta(),
+            "slots": self.slots,
+            "slot_buckets": list(self.slot_buckets),
+            "prompt_buckets": list(self.prompt_buckets),
+            "layout": self.partition_summary(),
+            "cell": type(self.cell).__name__,
+            "tokens": st["tokens"],
+            "steps": st["steps"],
+            "requests": st["requests"],
+            "kv_cache_bytes": st["kv_cache_bytes"],
+            "spans": spans,
+            "cards": cards,
+        }
+
     def kv_cache_bytes(self):
         """Device bytes of this engine's cache pool."""
         cache = self._cache        # one atomic read: the scheduler may
@@ -663,6 +758,19 @@ class DecodeEngine:
         if already:
             return
         self._thread.join()
+        try:
+            from . import compile_cache
+            if compile_cache.corpus_path() is not None:
+                rec = self.corpus_record()
+                if rec is not None:
+                    compile_cache.corpus_append(rec)
+        except Exception:
+            pass
+        if self._logger is not None:
+            try:
+                self._logger.log_decode(self, force=True)
+            except Exception:
+                pass
 
     def __enter__(self):
         return self
@@ -688,10 +796,20 @@ class DecodeEngine:
         with self._lock:
             self._stats["dispatch_failures"] += 1
             self._consecutive_failures += 1
-            if self._breaker_threshold > 0 and \
-                    self._consecutive_failures >= self._breaker_threshold:
+            consecutive = self._consecutive_failures
+            trip = (self._breaker_threshold > 0
+                    and consecutive >= self._breaker_threshold)
+            if trip:
                 self._breaker_open_at = time.monotonic()
                 self._stats["breaker_trips"] += 1
+        telemetry.counter_inc("decode.dispatch_failures")
+        if trip:
+            telemetry.counter_inc("decode.breaker_trips")
+            telemetry.record_event("decode.breaker_trip",
+                                   consecutive=consecutive)
+            flight.postmortem("breaker_trip",
+                              extra={"engine": self.overload_state(),
+                                     "consecutive": consecutive})
 
     def _dispatch_succeeded(self):
         with self._lock:
@@ -704,11 +822,19 @@ class DecodeEngine:
         account it by cause; the future resolves exactly once."""
         if req.future.done():
             return
+        req.wait_span.__exit__(None, None, None)
+        req.req_span.__exit__(None, None, None)
         req.future.set_exception(exc)
         with self._lock:
             self._record_latency_locked(req)
             self._stats["shed_requests"] += 1
             self._stats["shed.%s" % cause] += 1
+        telemetry.counter_inc("decode.shed")
+        telemetry.counter_inc("decode.shed.%s" % cause)
+        telemetry.record_event("decode.shed", req_id=req.req_id,
+                               cause=cause)
+        if isinstance(exc, DeadlineExceeded):
+            telemetry.counter_inc("decode.deadline_exceeded")
 
     def _fail_requests(self, reqs, exc):
         """Resolve every still-pending member with ``exc``: a failed
@@ -716,6 +842,8 @@ class DecodeEngine:
         failed = 0
         for r in reqs:
             if not r.future.done():
+                r.wait_span.__exit__(None, None, None)
+                r.req_span.__exit__(None, None, None)
                 r.future.set_exception(exc)
                 with self._lock:
                     self._record_latency_locked(r)
@@ -723,20 +851,30 @@ class DecodeEngine:
         if failed:
             with self._lock:
                 self._stats["failed_requests"] += failed
+            telemetry.counter_inc("decode.failed_requests", failed)
 
     def _retire(self, req):
-        """One sequence finished: assemble the result on the host, free
-        the slot, resolve the future."""
-        logits = None
-        if self._keep_logits and req.out_logits:
-            logits = np.stack(req.out_logits)
-        result = DecodeResult(tokens=list(req.out_tokens), logits=logits)
+        """One sequence finished: assemble the result on the host
+        (``serve_detokenize``, the flow chain's last hop before
+        serve_request), free the slot, resolve the future."""
+        with telemetry.span("serve_detokenize",
+                            ctx={"req_id": req.req_id}):
+            logits = None
+            if self._keep_logits and req.out_logits:
+                logits = np.stack(req.out_logits)
+            result = DecodeResult(tokens=list(req.out_tokens),
+                                  logits=logits)
         with self._space:
             self._slot_table[req.slot] = None
             self._stats["resolved"] += 1
             self._stats["slot_retire"] += 1
             self._record_latency_locked(req)
             self._space.notify_all()
+        telemetry.counter_inc("decode.resolved")
+        telemetry.counter_inc("decode.slot_retire")
+        telemetry.record_event("decode.retire", req_id=req.req_id,
+                               slot=req.slot, tokens=len(req.out_tokens))
+        req.req_span.__exit__(None, None, None)
         if not req.future.done():
             req.future.set_result(result)
 
@@ -747,6 +885,7 @@ class DecodeEngine:
             self._slot_table[req.slot] = None
             self._stats["slot_retire"] += 1
             self._space.notify_all()
+        telemetry.counter_inc("decode.slot_retire")
         self._shed(req, cause, exc)
 
     # -- scheduler -----------------------------------------------------------
@@ -828,6 +967,7 @@ class DecodeEngine:
             return False
         with self._lock:
             self._stats["retries"] += 1
+        telemetry.counter_inc("decode.retries")
         time.sleep(self._retry_backoff_s * (2 ** attempt))
         return True
 
@@ -835,6 +975,7 @@ class DecodeEngine:
         """Admit one sequence into ``slot``: dispatch its prompt bucket's
         prefill (writes the slot's cache, returns the first generated
         token) and install the cursor."""
+        req.wait_span.__exit__(None, None, None)
         lp = int(req.prompt.size)
         lb = self.prompt_bucket_for(lp)
         toks = np.zeros(lb, np.int32)
@@ -842,14 +983,17 @@ class DecodeEngine:
         attempt = 0
         while True:
             try:
-                self._cache, tok0, logits0 = self._prefill_prog(
-                    self._params, self._cache, np.int32(slot), toks,
-                    np.int32(lp))
-                # the generated token IS the next step's input: the one
-                # host sync of a step
-                tok_host = int(tok0.item())
-                row = self._fetch_rows(logits0) if self._keep_logits \
-                    else None
+                record_dispatch("decode_prefill")
+                with telemetry.span("serve_prefill",
+                                    ctx={"req_id": req.req_id}):
+                    self._cache, tok0, logits0 = self._prefill_prog(
+                        self._params, self._cache, np.int32(slot), toks,
+                        np.int32(lp))
+                    # the generated token IS the next step's input: the
+                    # one host sync of a step
+                    tok_host = int(tok0.item())
+                    row = self._fetch_rows(logits0) \
+                        if self._keep_logits else None
                 break
             except Exception as e:
                 if self._should_retry(attempt, e):
@@ -868,6 +1012,10 @@ class DecodeEngine:
             self._slot_table[slot] = req
             self._stats["slot_admit"] += 1
             self._stats["tokens"] += 1
+        telemetry.counter_inc("decode.slot_admit")
+        telemetry.counter_inc("decode.tokens")
+        telemetry.record_event("decode.admit", req_id=req.req_id,
+                               slot=slot, prompt_len=lp)
         if req.finished:                  # max_new == 1, or instant EOS
             self._retire(req)
 
@@ -885,15 +1033,19 @@ class DecodeEngine:
             ids[i] = req.slot
             toks[i] = req.next_token
             pos[i] = req.pos
+        rids = [r.req_id for r in active]
         attempt = 0
         while True:
             t0 = time.perf_counter()
             try:
-                self._cache, toks_out, logits_out = self._decode_prog(
-                    self._params, self._cache, ids, toks, pos)
-                toks_host = toks_out.cpu().numpy()
-                rows = self._fetch_rows(logits_out[:n]) \
-                    if self._keep_logits else None
+                record_dispatch("decode")
+                with telemetry.span("serve_decode_step",
+                                    ctx={"req_ids": rids}):
+                    self._cache, toks_out, logits_out = self._decode_prog(
+                        self._params, self._cache, ids, toks, pos)
+                    toks_host = toks_out.cpu().numpy()
+                    rows = self._fetch_rows(logits_out[:n]) \
+                        if self._keep_logits else None
                 break
             except Exception as e:
                 if self._should_retry(attempt, e):
@@ -907,6 +1059,8 @@ class DecodeEngine:
             self._stats["steps"] += 1
             self._stats["tokens"] += n
             self._tok_lat.append(dt_ms)
+        telemetry.counter_inc("decode.steps")
+        telemetry.counter_inc("decode.tokens", n)
         now = time.monotonic()
         for i, req in enumerate(active):
             tok = int(toks_host[i])
@@ -921,6 +1075,11 @@ class DecodeEngine:
                 self._shed_active(req, "decode", DeadlineExceeded(
                     "decode: deadline expired after %d tokens"
                     % len(req.out_tokens)))
+        if self._logger is not None:
+            try:
+                self._logger.log_decode(self)
+            except Exception:
+                pass
 
     def _poisoned(self, phase, req, exc):
         """A prefill/decode dispatch failed for good. The pool was being
@@ -944,6 +1103,12 @@ class DecodeEngine:
         self._fail_requests(victims, err)
         with self._space:
             self._space.notify_all()
+        telemetry.record_event("decode.pool_rebuilt", phase=phase,
+                               failed=len(victims))
+        flight.postmortem("decode_dispatch_failure", exc=exc,
+                          extra={"engine": self.overload_state(),
+                                 "phase": phase,
+                                 "req_ids": [r.req_id for r in victims]})
 
     def _scheduler_died(self, pending, exc):
         """Terminal cleanup for a dying scheduler thread: every pending,
@@ -975,6 +1140,10 @@ class DecodeEngine:
         for r in left:
             self._shed(r, "scheduler_death", err)
         self._fail_requests(active, err)
+        flight.postmortem("decode_scheduler_death", exc=exc,
+                          extra={"engine": self.overload_state(),
+                                 "failed_requests": len(left)
+                                 + len(active)})
 
 
 def _percentiles(samples):

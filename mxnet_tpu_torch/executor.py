@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/executor.py`` (``_GraphProgram``,
 ``eval_graph``, ``forward_fn``, ``fwd_bwd_fn``, ``train_step_fn``,
-``infer_graph_attrs``, ``Executor`` with gradients, ``simple_bind``).
+``infer_graph_attrs``, ``Executor`` with gradients, ``simple_bind``,
+``record_dispatch`` and the program cards of ``_InstrumentedProgram``).
 The JAX package traces the whole graph into one XLA program; here the
 graph is evaluated op by op in topological order — PyTorch dispatches
 each op asynchronously on the device, and what XLA fused is either left
@@ -11,6 +12,16 @@ to cuDNN/cuBLAS or a hand-written kernel. Gradients are
 buffer-donating entry points are eager functions here (one captured
 CUDA graph per step is later work, ROADMAP).
 
+Every entry point (``forward_fn``, ``fwd_bwd_fn``, ``train_step_fn``)
+runs through ``_InstrumentedProgram``: the ``dispatch`` fault site, and
+one PROGRAM CARD per entry point and abstract signature in
+``telemetry.programs()`` with the JAX package's card schema, built at
+the signature's first call. Nothing is compiled, so ``trace_ms`` and
+``compile_ms`` stay None; ``flops`` counts what
+``torch.utils.flop_counter.FlopCounterMode`` sees (aten matmuls and
+convolutions at 2 FLOPs per multiply-add; elementwise work and kernels
+launched through ``ctypes`` count 0).
+
 Shape inference runs the same op functions on ``meta`` tensors (shape
 and dtype only, no data, no device): the counterpart of
 ``jax.eval_shape``.
@@ -18,15 +29,211 @@ and dtype only, no data, no device): the counterpart of
 from __future__ import annotations
 
 import ast
+import hashlib
+import itertools
 
+import numpy as np
 import torch
 
 from .base import MXNetError
 from .context import current_context
 from .ops.common import take_rng
 from .ops.tensor import creation_device
+from . import telemetry
+from . import faults
 
-__all__ = ["Executor", "infer_graph_attrs", "infer_graph_shapes"]
+__all__ = ["Executor", "infer_graph_attrs", "infer_graph_shapes",
+           "record_dispatch", "make_card"]
+
+
+# ---------------------------------------------------------------------------
+# Dispatch accounting
+# ---------------------------------------------------------------------------
+# One call per program execution (a serving batch, a training step, an
+# executor forward), not per op. Every dispatch fans out through
+# ``telemetry.dispatch_event`` — the counter registry plus every
+# ``telemetry.on_dispatch(cb)`` subscriber. ``dispatch_hook`` is the
+# single-slot shim (a callable taking one tag string) kept as in the JAX
+# package; prefer the multi-subscriber registry.
+dispatch_hook = None
+
+
+def record_dispatch(kind):
+    """Report one program execution to the telemetry dispatch registry
+    (and the single-slot ``dispatch_hook`` shim)."""
+    if dispatch_hook is not None:
+        dispatch_hook(kind)
+    telemetry.dispatch_event(kind)
+
+
+# ---------------------------------------------------------------------------
+# Instrumented entry points (program cards)
+# ---------------------------------------------------------------------------
+
+_PROG_SEQ = itertools.count(1)
+
+
+def make_card(kind, entry, signature, flops=None, argument_bytes=None,
+              output_bytes=None, peak_bytes=None):
+    """One JSON-safe program card with the JAX package's schema
+    (``executor.card_from_compiled``'s keys). The fields only an XLA
+    compile can fill (bytes accessed, transcendentals, aliasing, temp
+    arena, code size, trace and compile time) stay None."""
+    return {
+        "id": entry, "kind": kind, "signature": signature,
+        "donated": [], "dispatches": 0,
+        "flops": flops, "bytes_accessed": None, "transcendentals": None,
+        "peak_bytes": peak_bytes, "argument_bytes": argument_bytes,
+        "output_bytes": output_bytes, "alias_bytes": None,
+        "temp_bytes": None, "generated_code_bytes": None,
+        "trace_ms": None, "compile_ms": None, "source": "eager",
+    }
+
+
+def _leaves(tree, path=""):
+    """(path, leaf) pairs of nested dicts/lists/tuples, dict keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from _leaves(tree[k], "%s[%r]" % (path, k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, "%s[%d]" % (path, i))
+    else:
+        yield path, tree
+
+
+def _leaf_key(leaf):
+    if isinstance(leaf, (torch.Tensor, np.ndarray)):
+        return (tuple(leaf.shape), str(leaf.dtype))
+    return type(leaf).__name__
+
+
+def _dispatch_key(tree):
+    """The abstract signature as a hashable key, cheap enough for every
+    call (shapes and dtypes, no strings built; a Python scalar keys by its
+    type): one key per card."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return tree.shape, tree.dtype
+    if isinstance(tree, dict):
+        return tuple((k, (v.shape, v.dtype) if type(v) is torch.Tensor
+                      else _dispatch_key(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(_dispatch_key(v) for v in tree)
+    return type(tree)
+
+
+def _nbytes(tree):
+    total = 0
+    for _, leaf in _leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        elif isinstance(leaf, np.ndarray):
+            total += leaf.nbytes
+    return total
+
+
+class _InstrumentedProgram:
+    """One entry point with the JAX package's instrumentation contract:
+
+    * one PROGRAM CARD per abstract signature (argument shapes and dtypes;
+      a Python scalar keys by its type, as a traced scalar does), built at
+      the signature's first call: ``flops`` from ``FlopCounterMode``
+      around that call, ``argument_bytes``/``output_bytes`` from the
+      tensors, ``peak_bytes`` from the allocator's peak around it (None
+      off CUDA). The first call runs exactly as any other; only the
+      counting wraps it;
+    * ``program_dispatch`` bumps the card's count on every call;
+    * the ``dispatch`` fault site fires before every call (``nan`` fills
+      the call's outputs with NaN);
+    * ``build(*args)`` runs the call and builds its card WITHOUT counting
+      a dispatch or consulting the fault site — the warm-up path, so
+      cards count the same dispatches as the JAX package's, whose
+      warm-up compiles without executing.
+
+    ``out_index`` picks the element of the result that holds the call's
+    outputs (the ``nan`` payload); ``on_card`` is called with each new
+    card.
+    """
+
+    __slots__ = ("kind", "entry", "argnames", "out_index", "on_card",
+                 "_fn", "_cards")
+
+    def __init__(self, kind, fn, argnames=(), out_index=0, on_card=None,
+                 entry=None, cards=None):
+        self.kind = kind
+        self.entry = entry or "%s@p%d" % (kind, next(_PROG_SEQ))
+        self.argnames = tuple(argnames)
+        self.out_index = out_index
+        self.on_card = on_card
+        self._fn = fn
+        self._cards = {} if cards is None else cards
+
+    def _signature(self, args):
+        """The card's named signature: [[path, shape, dtype, None], ...]
+        (the JAX card's layout; no sharding) — built once per card."""
+        sig = []
+        for i, a in enumerate(args):
+            head = self.argnames[i] if i < len(self.argnames) \
+                else "[%d]" % i
+            for path, leaf in _leaves(a, head):
+                k = _leaf_key(leaf)
+                if isinstance(k, tuple):
+                    sig.append([path, list(k[0]), k[1], None])
+                else:
+                    sig.append([path, [], k, None])
+        return sig
+
+    def _run_carded(self, key, args):
+        """The signature's first call: run it under the counters and
+        register its card."""
+        from torch.utils.flop_counter import FlopCounterMode
+        sig = self._signature(args)
+        dev = next((leaf.device for a in args for _, leaf in _leaves(a)
+                    if isinstance(leaf, torch.Tensor)), None)
+        cuda = dev is not None and dev.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            result = self._fn(*args)
+        out = result[self.out_index] \
+            if isinstance(result, (list, tuple)) else result
+        card = make_card(
+            self.kind, "%s/s%d" % (self.entry, len(self._cards)), sig,
+            flops=float(counter.get_total_flops()),
+            argument_bytes=_nbytes(args), output_bytes=_nbytes(out),
+            peak_bytes=(torch.cuda.max_memory_allocated(dev) - base
+                        + _nbytes(args)) if cuda else None)
+        self._cards[key] = card
+        telemetry.record_program(card)
+        if self.on_card is not None:
+            self.on_card(card)
+        return result
+
+    def build(self, *args):
+        """Run one call and build its signature's card (when telemetry
+        is on and the card is new) without counting a dispatch."""
+        key = _dispatch_key(args)
+        if key not in self._cards and telemetry.enabled():
+            return self._run_carded(key, args)
+        return self._fn(*args)
+
+    def __call__(self, *args):
+        key = _dispatch_key(args)
+        card = self._cards.get(key)
+        telemetry.program_dispatch(card)
+        act = faults.fire("dispatch")
+        if card is None and telemetry.enabled():
+            result = self._run_carded(key, args)
+            telemetry.program_dispatch(self._cards[key])
+        else:
+            result = self._fn(*args)
+        if act == "nan":
+            out = result[self.out_index] \
+                if isinstance(result, (list, tuple)) else result
+            faults.poison([t for _, t in _leaves(out)])
+        return result
 
 
 class _GraphProgram:
@@ -34,6 +241,7 @@ class _GraphProgram:
 
     def __init__(self, symbol):
         self.symbol = symbol
+        self._entries = {}      # (kind, statics) -> (entry id, cards)
         self.nodes = symbol._topo_nodes()
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -102,13 +310,50 @@ class _GraphProgram:
         return [env[id(n)][idx] for n, idx in self.output_entries], \
             aux_updates
 
+    def graph_fingerprint(self):
+        """JSON-safe fingerprint of this program's graph, computed as the
+        JAX package computes it (the symbol's JSON hashed, plus the
+        ambient layout default), so both packages fingerprint one symbol
+        alike: the autotuner's corpus filter reads it."""
+        fp = self.__dict__.get("_graph_fp")
+        if fp is None:
+            from . import layout
+            fp = self._graph_fp = [
+                hashlib.sha256(self.symbol.tojson().encode()).hexdigest(),
+                layout.get_default_layout()]
+        return fp
+
+    def _instrumented(self, kind, statics, fn, argnames):
+        """``fn`` behind one instrumented entry per (kind, statics): the
+        entry id and its cards outlive the closure, so every call of
+        ``forward_fn(train)`` shares one card per signature."""
+        ent = self._entries.get((kind, statics))
+        if ent is None:
+            ent = self._entries[(kind, statics)] = (
+                "%s@p%d" % (kind, next(_PROG_SEQ)), {})
+        return _InstrumentedProgram(kind, fn, argnames=argnames,
+                                    entry=ent[0], cards=ent[1])
+
     def forward_fn(self, train=False):
         """``fn(args, aux) -> (outputs, aux_updates)`` over raw tensors,
-        run without autograd."""
+        run without autograd (an ``_InstrumentedProgram``)."""
         def fn(args, aux):
             with torch.no_grad():
                 return self.eval_graph(args, aux, train)
-        return fn
+        return self._instrumented("forward", (bool(train),), fn,
+                                  ("args", "aux"))
+
+    def forward_train_fn(self, grad_names):
+        """``fn(args, aux) -> (outputs, leaves, aux_updates)``: the
+        training forward that keeps its graph for a later backward (the
+        executor's ``forward(is_train=True)``), instrumented like
+        ``forward_fn``."""
+        grad_names = tuple(grad_names)
+
+        def fn(args, aux):
+            return self._vjp_over_graph(grad_names, args, aux, True)
+        return self._instrumented("forward", (True, grad_names), fn,
+                                  ("args", "aux"))
 
     def _vjp_over_graph(self, grad_names, args, aux, train):
         """The one forward scaffold both ``fwd_bwd_fn`` and
@@ -149,7 +394,8 @@ class _GraphProgram:
                                                         aux, train)
             grads = self._grads(outs, leaves, head_grads)
             return [o.detach() for o in outs], grads, aux_up
-        return fn
+        return self._instrumented("fwd_bwd", (bool(train), grad_names), fn,
+                                  ("args", "aux", "head_grads"))
 
     def train_step_fn(self, update_names, add_names, update_fn):
         """The whole training step (parity: ``train_step_fn``):
@@ -179,7 +425,9 @@ class _GraphProgram:
                 gs.append(g)
             update_fn(gs)
             return outs, aux_up, grads_out
-        return step
+        return self._instrumented(
+            "train_step", (update_names, tuple(sorted(add_names))), step,
+            ("args", "aux", "add_grads"))
 
 
 # ---------------------------------------------------------------------------
@@ -425,10 +673,17 @@ class Executor:
                      if self._grad_req[n] != "null")
 
     def _feed(self, kwargs):
-        for name, value in kwargs.items():
-            if name not in self._arg_names:
-                raise MXNetError("forward: unknown input %r" % name)
-            self.arg_dict[name][:] = value
+        """Install keyword-fed inputs into bound storage (a ``feed``
+        span; numpy feeds count toward the h2d transfer register)."""
+        if not kwargs:
+            return
+        with telemetry.span("feed"):
+            for name, value in kwargs.items():
+                if name not in self._arg_names:
+                    raise MXNetError("forward: unknown input %r" % name)
+                if isinstance(value, np.ndarray):
+                    telemetry.record_transfer(value.nbytes)
+                self.arg_dict[name][:] = value
 
     def _set_outputs(self, outs):
         from .ndarray.ndarray import NDArray
@@ -441,12 +696,15 @@ class Executor:
         self._feed(kwargs)
         self._pending = None
         self.outputs = []       # the last outputs die before new ones live
+        record_dispatch("forward")
         if not is_train:
-            outs, _ = self._prog.forward_fn()(self._raw_args(),
-                                              self._raw_aux())
+            with telemetry.span("step"):
+                outs, _ = self._prog.forward_fn()(self._raw_args(),
+                                                  self._raw_aux())
         else:
-            outs, leaves, aux_up = self._prog._vjp_over_graph(
-                self._grad_names(), self._raw_args(), self._raw_aux(), True)
+            with telemetry.span("step"):
+                outs, leaves, aux_up = self._prog.forward_train_fn(
+                    self._grad_names())(self._raw_args(), self._raw_aux())
             self._write_aux(aux_up)
             if leaves:
                 self._pending = (outs, leaves)
@@ -489,8 +747,11 @@ class Executor:
             if update_outputs:
                 self.forward(is_train=is_train)
             return
-        outs, grads, aux_up = self._prog.fwd_bwd_fn(is_train, grad_names)(
-            self._raw_args(), self._raw_aux(), head_grads)
+        record_dispatch("fwd_bwd")
+        with telemetry.span("step"):
+            outs, grads, aux_up = self._prog.fwd_bwd_fn(
+                is_train, grad_names)(self._raw_args(), self._raw_aux(),
+                                      head_grads)
         self._write_aux(aux_up)
         if update_outputs:
             self._set_outputs(outs)

@@ -26,6 +26,8 @@ import numpy as np
 from .base import MXNetError
 from .context import cpu
 from .ndarray.ndarray import NDArray, array as _nd_array
+from . import telemetry
+from . import faults
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "MNISTIter"]
@@ -59,6 +61,22 @@ class DataBatch:
         self.provide_label = provide_label
 
 
+def _poison_batch(batch):
+    """The ``io_next`` site's ``nan`` payload transform: corrupt the
+    batch's DATA arrays (NDArray or numpy) via ``faults.poison``,
+    leaving labels intact — a poisoned label would fail loudly in the
+    loss layer instead of exercising the numeric-divergence path."""
+    data = batch.data
+    single = not isinstance(data, (list, tuple))
+    items = [data] if single else list(data)
+    for i, arr in enumerate(items):
+        if isinstance(arr, NDArray):
+            arr[:] = faults.poison([arr.asnumpy()])[0]
+        elif isinstance(arr, np.ndarray):
+            items[i] = faults.poison([arr])[0]
+    batch.data = items[0] if single else items
+
+
 class DataIter:
     """Base iterator (parity: io.DataIter)."""
 
@@ -78,7 +96,18 @@ class DataIter:
         raise StopIteration
 
     def __next__(self):
-        return self.next()
+        # the io phase of the merged host+device trace: time spent
+        # PRODUCING batches. Only the epoch-end StopIteration cancels
+        # the sample; the ``io_next`` fault site fires per batch
+        with telemetry.span("io_next") as sp:
+            try:
+                batch = self.next()
+            except StopIteration:
+                sp.cancel()
+                raise
+            if faults.active() and faults.fire("io_next") == "nan":
+                _poison_batch(batch)
+            return batch
 
     def iter_next(self):
         raise NotImplementedError

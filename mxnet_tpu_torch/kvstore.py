@@ -21,6 +21,8 @@ import os
 
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
+from . import telemetry
+from . import faults
 
 __all__ = ["KVStore", "create"]
 
@@ -69,7 +71,20 @@ class KVStore:
     def push(self, key, value, priority=0):
         """(parity: kvstore.push) a list value is the key's per-device
         shard list, summed; a key list is one batched push, updated
-        through ``update_batch`` when the updater has one."""
+        through ``update_batch`` when the updater has one. The
+        ``kv_push`` fault site fires first: a raise is a lost push;
+        ``nan`` corrupts the pushed gradients in place."""
+        if faults.active() and faults.fire("kv_push") == "nan":
+            flat = value if isinstance(value, (list, tuple)) else [value]
+            for v in flat:
+                for x in (v if isinstance(v, (list, tuple)) else [v]):
+                    if isinstance(x, NDArray):
+                        x[:] = faults.poison([x.asnumpy()])[0]
+        with telemetry.span("kv_push"):
+            self._push_impl(key, value)
+        telemetry.counter_inc("kvstore.push")
+
+    def _push_impl(self, key, value):
         keys, values = _key_value(key, value, allow_list_value=True)
         merged_list = []
         for vlist in values:
@@ -100,14 +115,17 @@ class KVStore:
         """(parity: kvstore.pull) copy each key's value into its outs."""
         if out is None:
             raise MXNetError("pull requires out=")
-        keys, outs = _key_value(key, out, allow_list_value=True)
-        for k, olist in zip(keys, outs):
-            if k not in self._store:
-                raise MXNetError("pull: key %r was not init()ed" % (k,))
-            src = self._store[k]
-            for o in (olist if isinstance(olist, (list, tuple))
-                      else [olist]):
-                src.copyto(o)
+        telemetry.counter_inc("kvstore.pull")
+        with telemetry.span("kv_pull"):
+            keys, outs = _key_value(key, out, allow_list_value=True)
+            for k, olist in zip(keys, outs):
+                if k not in self._store:
+                    raise MXNetError("pull: key %r was not init()ed"
+                                     % (k,))
+                src = self._store[k]
+                for o in (olist if isinstance(olist, (list, tuple))
+                          else [olist]):
+                    src.copyto(o)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         raise MXNetError("row_sparse_pull: sparse storage is not ported "

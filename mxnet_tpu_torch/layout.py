@@ -34,6 +34,10 @@ def set_default_layout(layout):
     _default = layout
 
 
+def get_default_layout():
+    return _default
+
+
 if os.environ.get("MXTPU_IMAGE_LAYOUT"):
     set_default_layout(os.environ["MXTPU_IMAGE_LAYOUT"])
 

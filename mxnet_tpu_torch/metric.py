@@ -16,6 +16,7 @@ import torch
 
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
+from . import telemetry
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "CrossEntropy", "Loss", "create", "register",
@@ -71,6 +72,11 @@ def check_label_shapes(labels, preds, shape=False):
 class EvalMetric:
     """Base metric (parity: metric.EvalMetric)."""
 
+    # whether Module's fused step accumulates the metric as part of the
+    # step (the JAX package's ``device_kernel``) instead of a separate
+    # ``update_metric`` phase
+    fused_in_step = False
+
     def __init__(self, name, output_names=None, label_names=None, **kwargs):
         self.name = str(name)
         self.output_names = output_names
@@ -97,7 +103,11 @@ class EvalMetric:
 
     def _flush_device(self):
         if self._dev_sum is not None:
-            self.sum_metric += float(self._dev_sum)
+            # THE metric synchronisation point: the only blocking fetch
+            # the device accumulation ever issues
+            telemetry.record_host_sync("metric_fetch")
+            with telemetry.span("metric_fetch"):
+                self.sum_metric += float(self._dev_sum)
             self._dev_sum = None
 
     def get(self):
@@ -153,6 +163,11 @@ class CompositeEvalMetric(EvalMetric):
 @register
 @register(name="acc")
 class Accuracy(EvalMetric):
+    # Module's fused step accumulates this metric as part of the step
+    # (no ``metric_update`` span), as the JAX package's step program
+    # runs Accuracy's device kernel in-program
+    fused_in_step = True
+
     def __init__(self, axis=1, name="accuracy", output_names=None,
                  label_names=None):
         super().__init__(name, output_names, label_names, axis=axis)

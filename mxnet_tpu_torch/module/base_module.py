@@ -6,7 +6,9 @@ Counterpart of ``mxnet_tpu/module/base_module.py`` (parity: reference
 The loop runs each batch through the subclass's
 fused batch step when it can and phase-split (``forward_backward``,
 ``update``, ``update_metric``) otherwise, and never waits on the device
-inside an epoch unless a callback reads the metric. The JAX package's
+inside an epoch unless a callback reads the metric. Each batch records
+the fit-phase spans (``telemetry.FIT_PHASE_SPANS``) under the causal
+ids ``(epoch, nbatch)``. The JAX package's
 fault-tolerance extensions of ``fit`` (checkpoint manager, resume,
 divergence sentinel, elastic recovery) are not ported yet.
 """
@@ -17,6 +19,7 @@ import time
 
 from ..base import MXNetError
 from .. import metric as _metric
+from .. import telemetry
 from ..model import BatchEndParam
 from ..initializer import Uniform
 
@@ -103,6 +106,39 @@ class BaseModule:
         True, or return False for the phase-split path (the base class
         always phase-splits)."""
         return False
+
+    def _note_fused_fallback(self):
+        """Account one phase-split step: count the fallback event in the
+        telemetry registry (keyed by the stable ``FusedFallback.code``)
+        and log it as a structured warning ONCE per module per code."""
+        reason = getattr(self, "_fused_fallback_reason", None)
+        if reason is None:
+            return
+        code = getattr(reason, "code", "unknown")
+        telemetry.record_fallback(code)
+        logged = self.__dict__.setdefault("_fused_fallback_logged", set())
+        if code not in logged:
+            logged.add(code)
+            from .. import log as _log
+            _log.get_logger("mxnet_tpu_torch.module").warning(
+                "fused-step fallback code=%s: %s (detail: %s) — this "
+                "module trains phase-split (see "
+                "mx.mod.FUSED_FALLBACK_CODES)",
+                code, str(reason), getattr(reason, "detail", str(reason)))
+
+    def telemetry_snapshot(self):
+        """The process-wide ``telemetry.snapshot()`` (dispatch counts,
+        fused-fallback codes, transfer bytes, blocking host syncs, span
+        p50/p95/p99, the program cards with their FLOPs and footprint,
+        the online MFU estimate and the device-buffer ledger) plus this
+        module's last fused-fallback reason/code. JSON-serializable end
+        to end."""
+        snap = telemetry.snapshot()
+        reason = getattr(self, "_fused_fallback_reason", None)
+        snap["fused_fallback_reason"] = None if reason is None \
+            else str(reason)
+        snap["fused_fallback_code"] = getattr(reason, "code", None)
+        return snap
 
     def fused_step(self, data, label=None, eval_metric=None):
         """One whole training step — forward, backward, optimizer update
@@ -235,25 +271,50 @@ class BaseModule:
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
-            for nbatch, data_batch in enumerate(train_data):
-                if not self._fused_batch_step(data_batch, eval_metric):
-                    self.forward_backward(data_batch)
-                    self.update()
-                    self.update_metric(eval_metric, data_batch.label)
+            nbatch = 0
+            data_iter = iter(train_data)
+            end_of_batch = False
+            try:
+                next_data_batch = next(data_iter)
+            except StopIteration:
+                end_of_batch = True
+            while not end_of_batch:
+                data_batch = next_data_batch
+                # the causal() scope stamps (epoch, nbatch) on every span
+                # this batch records (fit_batch, feed, step, opt_update,
+                # ...); the next batch is fetched inside it, as in the
+                # JAX package, while this one runs on the device
+                with telemetry.causal(epoch=epoch, nbatch=nbatch), \
+                        telemetry.span("fit_batch"):
+                    fused = self._fused_batch_step(data_batch, eval_metric)
+                    if not fused:
+                        self._note_fused_fallback()
+                        self.forward_backward(data_batch)
+                        self.update()
+                    try:
+                        next_data_batch = next(data_iter)
+                    except StopIteration:
+                        end_of_batch = True
+                    if not fused:
+                        self.update_metric(eval_metric, data_batch.label)
                 if batch_end_callback is not None:
-                    param = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                          eval_metric=eval_metric,
-                                          locals=locals())
-                    for cb in _as_list(batch_end_callback):
-                        cb(param)
+                    with telemetry.span("callbacks"):
+                        param = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                              eval_metric=eval_metric,
+                                              locals=locals())
+                        for cb in _as_list(batch_end_callback):
+                            cb(param)
+                nbatch += 1
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
                              time.time() - tic)
             if epoch_end_callback is not None:
-                arg_p, aux_p = self.get_params()
-                for cb in _as_list(epoch_end_callback):
-                    cb(epoch, self.symbol, arg_p, aux_p)
+                with telemetry.span("epoch_sync"):
+                    arg_p, aux_p = self.get_params()
+                with telemetry.span("callbacks"):
+                    for cb in _as_list(epoch_end_callback):
+                        cb(epoch, self.symbol, arg_p, aux_p)
                 # the copies must not live through the next epoch
                 del arg_p, aux_p
             if eval_data is not None:

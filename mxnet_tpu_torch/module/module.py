@@ -29,6 +29,8 @@ import torch
 
 from ..base import MXNetError, get_env
 from ..context import Context, current_context
+from ..executor import record_dispatch
+from .. import telemetry
 from ..initializer import InitDesc, Uniform
 from ..model import _create_kvstore, save_checkpoint, load_checkpoint
 from .. import optimizer as opt
@@ -327,7 +329,11 @@ class Module(BaseModule):
 
     def _set_batch(self, data_batch):
         """Copy the batch's data (and labels) into the bound storage, on
-        the module's device in the bound dtype."""
+        the module's device in the bound dtype (a ``feed`` span)."""
+        with telemetry.span("feed"):
+            self._set_batch_impl(data_batch)
+
+    def _set_batch_impl(self, data_batch):
         arg_dict = self._exec.arg_dict
         data = data_batch.data
         if not isinstance(data, (list, tuple)):
@@ -369,14 +375,16 @@ class Module(BaseModule):
         grads = [grad_dict[n] for _, n in live]
         weights = [arg_dict[n] for _, n in live]
         kv = self._kvstore
-        if kv is not None and self._update_on_kvstore:
-            kv.push(keys, grads)
-            kv.pull(keys, out=weights)
-            return
-        if kv is not None:
-            kv.push(keys, grads)
-            kv.pull(keys, out=grads)
-        self._updater.update_batch(keys, grads, weights)
+        record_dispatch("opt_update")
+        with telemetry.span("opt_update"):
+            if kv is not None and self._update_on_kvstore:
+                kv.push(keys, grads)
+                kv.pull(keys, out=weights)
+                return
+            if kv is not None:
+                kv.push(keys, grads)
+                kv.pull(keys, out=grads)
+            self._updater.update_batch(keys, grads, weights)
 
     # -- the fused batch step ----------------------------------------------
     def _fallback(self, code, message):
@@ -414,9 +422,11 @@ class Module(BaseModule):
         step = ex._prog.train_step_fn(
             names, add_names,
             lambda gs: updater.update_batch(indices, gs, weights))
-        outs, aux_up, grads_out = step(
-            ex._raw_args(), ex._raw_aux(),
-            {n: grad_dict[n]._data for n in add_names})
+        record_dispatch("train_step")
+        with telemetry.span("step"):
+            outs, aux_up, grads_out = step(
+                ex._raw_args(), ex._raw_aux(),
+                {n: grad_dict[n]._data for n in add_names})
         ex._write_aux(aux_up)
         ex._set_outputs(outs)
         with torch.no_grad():       # the accumulators, already summed
@@ -429,7 +439,12 @@ class Module(BaseModule):
                 for i, w in zip(indices, weights):
                     store[i]._data.copy_(w._data)
         if eval_metric is not None:
-            self.update_metric(eval_metric, data_batch.label)
+            if eval_metric.fused_in_step:
+                labels = data_batch.label
+                eval_metric.update(labels if isinstance(labels, (list, tuple))
+                                   else [labels], self.get_outputs())
+            else:
+                self.update_metric(eval_metric, data_batch.label)
         self._fused_fallback_reason = None
         return True
 
@@ -444,8 +459,11 @@ class Module(BaseModule):
         return [grads[n] for n in self._data_names if n in grads]
 
     def update_metric(self, eval_metric, labels):
-        eval_metric.update(labels if isinstance(labels, (list, tuple))
-                           else [labels], self.get_outputs())
+        # the non-blocking per-batch accumulate; the blocking host fetch
+        # records separately as "metric_fetch"
+        with telemetry.span("metric_update"):
+            eval_metric.update(labels if isinstance(labels, (list, tuple))
+                               else [labels], self.get_outputs())
 
     # -- checkpoints -------------------------------------------------------
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):

@@ -21,6 +21,7 @@ from ..context import Context, current_context, context_of
 from ..ops.common import torch_dtype, numpy_dtype
 from ..ops import registry as _registry
 from .. import imperative as _imp
+from .. import telemetry
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "moveaxis", "transpose", "waitall",
@@ -47,6 +48,13 @@ class NDArray:
         self._grad_req = None
         self._tape = False
         self._alias = None
+        # the live buffer ledger: charge this array's bytes to its
+        # context until it is collected (a weakref.finalize; no cycle)
+        if telemetry.enabled():
+            telemetry.ledger_track(self, str(self._ctx),
+                                   data.numel() * data.element_size(),
+                                   shape=tuple(data.shape),
+                                   dtype=str(data.dtype))
 
     def _assign(self, other):
         """Take ``other``'s value: rebind to a recorded result (it carries
@@ -101,6 +109,7 @@ class NDArray:
     # -- sync points -------------------------------------------------------
     def wait_to_read(self):
         """Block until the value is computed (parity: WaitToRead)."""
+        telemetry.record_host_sync("wait_to_read")
         if self._data.is_cuda:
             torch.cuda.current_stream(self._data.device).synchronize()
 
@@ -109,6 +118,9 @@ class NDArray:
     def asnumpy(self):
         """Copy to a numpy array; synchronises. bfloat16 widens exactly to
         float32 (numpy has no bfloat16)."""
+        telemetry.record_host_sync("asnumpy")
+        telemetry.record_transfer(
+            self._data.numel() * self._data.element_size(), direction="d2h")
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -468,6 +480,8 @@ def array(source_array, ctx=None, dtype=None):
     if dt is None:
         dt = torch.float32 if src.dtype == torch.float64 else src.dtype
     ctx, dev = _device(ctx)
+    if dev.type == "cuda" and src.device.type == "cpu":
+        telemetry.record_transfer(src.numel() * src.element_size())
     return NDArray(src.detach().to(dev, dt, copy=True), ctx)
 
 

@@ -3,9 +3,14 @@
 Counterpart of ``mxnet_tpu/serving.py`` (``InferenceEngine``):
 
 * **batch buckets** — powers of two up to ``max_batch`` (``max_batch``
-  itself is always a bucket). Parameters are device-resident once and
-  shared by every bucket; ``warmup()`` runs one forward per bucket so
-  cuDNN picks its algorithms before traffic arrives.
+  itself is always a bucket), or an explicit ``buckets=`` set, or the
+  autotuner's plan (``autotune=True``: ``tuner.plan_serving`` over the
+  program-card corpus, ``compile_cache.corpus_records``). Parameters are
+  device-resident once and shared by every bucket; ``warmup()`` runs one
+  forward per bucket so cuDNN picks its algorithms before traffic
+  arrives, and builds each bucket's program card (those warm-up calls
+  count no dispatch, as the JAX package's warm-up compiles without
+  executing).
 * **a dynamic micro-batcher** — ``submit()`` enqueues a request and
   returns a ``concurrent.futures.Future``; a coalescer thread packs
   pending requests into the smallest covering bucket (zero-padding the
@@ -20,13 +25,21 @@ Counterpart of ``mxnet_tpu/serving.py`` (``InferenceEngine``):
   resolution, retry with backoff of transient launch failures, and a
   breaker that fast-fails after ``breaker_threshold`` consecutive
   failures.
+* **telemetry** — the ``serving.*`` counters and events of the JAX
+  engine, and the ``serve_wait`` / ``serve_batch`` / ``serve_d2h`` /
+  ``serve_request`` spans (``telemetry.SERVE_SPANS``) under the causal
+  ``req_id`` each ``submit()`` stamps (batch spans carry the member
+  ``req_ids``). The ``dispatch`` (executor) and ``d2h`` fault sites
+  fire on this path; a terminal batch failure, a breaker trip or a
+  dying coalescer dumps a flight-recorder postmortem (inert without
+  ``MXNET_FLIGHT_DIR``). ``close()`` banks ``corpus_record()`` into the
+  corpus when one is configured.
 * ``stats()`` — counters and the request-latency percentiles, computed
   here from every request's submit-to-terminal time.
 
-Not ported yet: the autotuned bucket plan and its corpus, partition
-rules and serving meshes, the flight recorder, telemetry spans and
-program cards, the persisted compile cache, and one captured CUDA graph
-per bucket.
+Not ported yet: partition rules and serving meshes (``partition_rules=``,
+``mesh_axes=`` and ``contexts=`` raise, ROADMAP Queue 1 item 4), and one
+captured CUDA graph per bucket (item 1).
 
 Every graph output must be batch-major (dim 0 = batch); padded rows are
 sliced off before a future resolves. bfloat16 outputs reach the caller
@@ -45,11 +58,18 @@ import numpy as np
 import torch
 
 from .base import MXNetError, latency_percentiles
+from .executor import record_dispatch
 from .ops.common import numpy_dtype
 from .predictor import Predictor
+from . import telemetry
+from . import faults
+from . import flight
 
-__all__ = ["InferenceEngine", "bucket_sizes", "DeadlineExceeded",
-           "QueueOverflow", "CircuitOpen", "EngineClosed"]
+__all__ = ["InferenceEngine", "bucket_sizes", "validate_buckets",
+           "DeadlineExceeded", "QueueOverflow", "CircuitOpen",
+           "EngineClosed"]
+
+_MESH = "not ported yet (ROADMAP Queue 1 item 4, the distributed slice)"
 
 
 class DeadlineExceeded(MXNetError):
@@ -81,11 +101,30 @@ def bucket_sizes(max_batch):
     return sizes
 
 
+def validate_buckets(buckets, max_batch):
+    """Normalise a custom bucket set (e.g. an autotuner plan): unique,
+    sorted, clamped to [1, max_batch], and always topped by
+    ``max_batch`` itself so a full batch never pads and every request
+    has a covering bucket."""
+    try:
+        bs = sorted({int(b) for b in buckets})
+    except (TypeError, ValueError):
+        raise MXNetError("serving: buckets must be a list of ints, got %r"
+                         % (buckets,))
+    bs = [b for b in bs if 1 <= b <= max_batch]
+    if not bs or bs[-1] != max_batch:
+        bs.append(int(max_batch))
+    return bs
+
+
+# process-global request-id source: the CAUSAL id that rides one
+# request through submit -> coalesce -> batch dispatch -> d2h -> resolve
 _REQ_SEQ = itertools.count(1)
 
 
 class _Request:
-    __slots__ = ("arrays", "rows", "future", "deadline", "req_id", "t0")
+    __slots__ = ("arrays", "rows", "future", "deadline", "req_id", "t0",
+                 "wait_span", "req_span")
 
     def __init__(self, arrays, rows, deadline=None):
         self.arrays = arrays          # {input name: np.ndarray (rows,...)}
@@ -95,6 +134,13 @@ class _Request:
         self.t0 = time.perf_counter()
         self.future = Future()
         self.future.req_id = self.req_id
+        # entered on the submitting thread, closed on the coalescer /
+        # resolver threads: explicit causal ctx (thread-local ids would
+        # not follow the request across threads)
+        ctx = {"req_id": self.req_id}
+        self.wait_span = telemetry.span("serve_wait", ctx=ctx).__enter__()
+        self.req_span = telemetry.span("serve_request",
+                                       ctx=ctx).__enter__()
 
     def expired(self, now=None):
         return self.deadline is not None \
@@ -119,18 +165,35 @@ class InferenceEngine:
         input shape is the batch; requests carry 1..max_batch rows)
     ctx : Context — the device (default ``gpu(0)``; ``MXNetError`` when
         no CUDA device is present and no ``ctx=cpu()`` was given)
-    max_batch, max_wait_ms, max_inflight (default 2), dtype, warmup,
-    predictor, max_queue_rows, deadline_ms, overload
-    ("shed"|"block"), retry_budget, retry_backoff_ms,
+    max_batch, max_wait_ms, max_inflight (default 2, or the autotuner
+    plan's), dtype, warmup, predictor, max_queue_rows, deadline_ms,
+    overload ("shed"|"block"), retry_budget, retry_backoff_ms,
     breaker_threshold, breaker_reset_s : as in the JAX package's engine.
+    telemetry_logger : optional ``callback.TelemetryLogger``; the engine
+        calls its ``log_serving()`` after every batch
+    buckets : optional explicit batch-bucket list replacing the pow-2
+        default (normalised by ``validate_buckets``)
+    autotune : derive ``buckets``/``max_inflight`` from the card corpus
+        (``tuner.plan_serving``); the pow-2 defaults when the corpus holds
+        no serving record for this graph. The plan is stamped onto every
+        bucket card (``autotune_plan``) and reported by ``stats()``
+    partition_rules, mesh_axes, contexts : serving meshes, not ported
+        yet: each raises ``MXNetError`` (ROADMAP Queue 1 item 4)
     """
 
     def __init__(self, symbol=None, params=None, input_shapes=None,
                  ctx=None, max_batch=32, max_wait_ms=2.0, max_inflight=None,
-                 dtype=None, warmup=True, predictor=None,
+                 dtype=None, warmup=True, telemetry_logger=None,
+                 predictor=None, buckets=None, autotune=False,
                  max_queue_rows=None, deadline_ms=None, overload="shed",
                  retry_budget=2, retry_backoff_ms=5.0,
-                 breaker_threshold=5, breaker_reset_s=30.0):
+                 breaker_threshold=5, breaker_reset_s=30.0,
+                 partition_rules=None, mesh_axes=None, contexts=None):
+        for name, val in (("partition_rules", partition_rules),
+                          ("mesh_axes", mesh_axes), ("contexts", contexts)):
+            if val is not None:
+                raise MXNetError("serving: %s= (serving meshes) is %s"
+                                 % (name, _MESH))
         if predictor is None:
             if symbol is None or input_shapes is None:
                 raise MXNetError("InferenceEngine needs (symbol, params, "
@@ -145,8 +208,17 @@ class InferenceEngine:
         self._device = ex._device
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
+        self._autotune_plan = None
+        if autotune and buckets is None:
+            plan = self._load_plan()
+            if plan and plan.get("buckets"):
+                self._autotune_plan = plan
+                buckets = plan["buckets"]
+                if max_inflight is None and plan.get("max_inflight"):
+                    max_inflight = plan["max_inflight"]
         self._max_inflight = max(1, int(max_inflight or 2))
-        self.buckets = bucket_sizes(self.max_batch)
+        self.buckets = bucket_sizes(self.max_batch) if buckets is None \
+            else validate_buckets(buckets, self.max_batch)
         self._input_names = list(predictor._input_names)
         self._row_shapes = {n: tuple(predictor._input_shapes[n][1:])
                             for n in self._input_names}
@@ -181,10 +253,14 @@ class InferenceEngine:
         self._consecutive_failures = 0   # guarded by: self._lock
         self._queued_rows = 0            # guarded by: self._lock
 
+        self._logger = telemetry_logger
         self._lock = threading.Lock()
         self._space = threading.Condition(self._lock)
         self._stats = collections.Counter()            # guarded by: self._lock
         self._bucket_batches = collections.Counter()   # guarded by: self._lock
+        # the measured serving data the card corpus persists for the
+        # autotuner: coalesced-batch row counts (pre-padding) and
+        # dispatch->resolution wall-time per bucket
         self._rows_hist = collections.Counter()        # guarded by: self._lock
         self._bucket_lat = {}                          # guarded by: self._lock
         self._latencies = collections.deque(maxlen=100000)  # guarded by: self._lock
@@ -197,8 +273,35 @@ class InferenceEngine:
         self._thread = threading.Thread(target=self._coalesce_loop,
                                         name="mx-serve-coalesce", daemon=True)
         self._thread.start()
+        # the flight recorder's sampler/postmortems read this engine's
+        # queue/breaker state (weakly held — close() is not required)
+        flight.register_engine(self)
         if warmup:
             self.warmup()
+
+    def partition_summary(self):
+        """The serving mesh's layout; None, since the port serves from
+        one device until the distributed slice (ROADMAP Queue 1 item 4)."""
+        return None
+
+    def _load_plan(self):
+        """The autotuner plan for this engine's ``max_batch`` from the
+        card corpus, filtered to THIS graph's fingerprint, or None (no
+        corpus / no serving records / tuner failure — autotune must
+        never break construction)."""
+        try:
+            from . import compile_cache
+            from .tuner import plan_serving
+            records = compile_cache.corpus_records(kind="serving")
+            return plan_serving(records, max_batch=self.max_batch,
+                                graph=self._prog.graph_fingerprint(),
+                                layout=self.partition_summary())
+        except Exception as e:
+            from . import log as _log
+            _log.get_logger("mxnet_tpu_torch.serving").warning(
+                "serving: autotune plan unavailable (%s); using pow-2 "
+                "bucket defaults", e)
+            return None
 
     # -- device staging -----------------------------------------------------
     def _put_batch(self, buf, name):
@@ -206,7 +309,9 @@ class InferenceEngine:
 
     def warmup(self):
         """One forward per bucket, synchronised: cuDNN settles its
-        algorithm choice for every bucket shape before traffic."""
+        algorithm choice for every bucket shape before traffic, and each
+        bucket's program card is built (``_forward.build``: no dispatch
+        counted). An autotuned engine stamps its plan on every card."""
         for b in self.buckets:
             args = dict(self._param_raw)
             for n in self._input_names:
@@ -214,9 +319,13 @@ class InferenceEngine:
                     np.zeros((b,) + self._row_shapes[n],
                              self._host_dtypes[n]), n)
             args.update(self._bucket_extras(b))
-            outs, _ = self._forward(args, self._aux_raw)
+            outs, _ = self._forward.build(args, self._aux_raw)
             for o in outs:
                 o.cpu()
+        if self._autotune_plan is not None:
+            for cid in self.program_cards():
+                telemetry.card_annotate(cid,
+                                        autotune_plan=self._autotune_plan)
 
     def _bucket_extras(self, bucket):
         """Device-resident zero dummies (softmax labels etc.) at this
@@ -252,21 +361,38 @@ class InferenceEngine:
         raise MXNetError("serving: %d rows exceed max_batch=%d"
                          % (rows, self.max_batch))
 
+    def program_cards(self):
+        """{card_id: card} for THIS engine's forward programs — one card
+        per (bucket, dtype) signature."""
+        entry = self._forward.entry
+        return {k: c for k, c in telemetry.programs().items()
+                if k == entry or k.startswith(entry + "/")}
+
     # -- request surface ----------------------------------------------------
     def _record_latency_locked(self, req):
         self._latencies.append((time.perf_counter() - req.t0) * 1e3)
 
     def _shed(self, req, cause, exc):
         """Resolve one request's future with a structured shed error and
-        account it by cause."""
+        account it by cause (engine stats + telemetry). The wait/request
+        spans still close — shed time is real queue time."""
         if req.future.done():
             return
+        req.wait_span.__exit__(None, None, None)
+        req.req_span.__exit__(None, None, None)
         req.future.set_exception(exc)
         with self._lock:
             self._record_latency_locked(req)
             self._stats["shed_requests"] += 1
             self._stats["shed_rows"] += req.rows
             self._stats["shed.%s" % cause] += 1
+        telemetry.counter_inc("serving.shed_requests")
+        telemetry.counter_inc("serving.shed_rows", req.rows)
+        telemetry.counter_inc("serving.shed.%s" % cause)
+        telemetry.record_event("serving.shed", req_id=req.req_id,
+                               cause=cause, rows=req.rows)
+        if isinstance(exc, DeadlineExceeded):
+            telemetry.counter_inc("serving.deadline_exceeded")
 
     def submit(self, *args, deadline_ms=None, **kwargs):
         """Enqueue one request; returns a Future resolving to the list of
@@ -280,6 +406,7 @@ class InferenceEngine:
             with self._lock:
                 self._stats["breaker_fastfail"] += 1
                 consecutive = self._consecutive_failures
+            telemetry.counter_inc("serving.breaker_fastfail")
             raise CircuitOpen(
                 "serving: breaker open after %d consecutive dispatch "
                 "failures — fast-failing (retries again %.1fs after the "
@@ -318,14 +445,25 @@ class InferenceEngine:
         deadline = None if dl_s is None else time.monotonic() + dl_s
         req = _Request(arrays, rows, deadline=deadline)
 
-        def _drop_locked(exc, shed=False):
-            # an admission-rejected request never enters the queue; its
-            # rejection time is still a latency sample
+        def _drop_locked(exc, shed=False, deadline_hit=False):
+            # an admission-rejected request never enters the queue, but
+            # its spans were entered at _Request construction: close
+            # them (the rejection time is a real latency sample) and
+            # account the shed
+            req.wait_span.__exit__(None, None, None)
+            req.req_span.__exit__(None, None, None)
             self._record_latency_locked(req)
             if shed:
                 self._stats["shed_requests"] += 1
                 self._stats["shed_rows"] += rows
                 self._stats["shed.admission"] += 1
+                telemetry.counter_inc("serving.shed_requests")
+                telemetry.counter_inc("serving.shed_rows", rows)
+                telemetry.counter_inc("serving.shed.admission")
+                telemetry.record_event("serving.shed", req_id=req.req_id,
+                                       cause="admission", rows=rows)
+                if deadline_hit:
+                    telemetry.counter_inc("serving.deadline_exceeded")
             raise exc
 
         with self._space:
@@ -346,13 +484,16 @@ class InferenceEngine:
                     _drop_locked(DeadlineExceeded(
                         "serving: deadline expired while blocked on a full "
                         "admission queue (max_queue_rows=%d)"
-                        % self.max_queue_rows), shed=True)
+                        % self.max_queue_rows), shed=True,
+                        deadline_hit=True)
                 if self._closed:
                     _drop_locked(EngineClosed("serving: engine is closed"))
             self._stats["requests"] += 1
             self._stats["rows"] += rows
             self._queued_rows += rows
             self._q.put(req)
+        telemetry.counter_inc("serving.requests")
+        telemetry.counter_inc("serving.rows", rows)
         return req.future
 
     def predict(self, *args, **kwargs):
@@ -372,8 +513,9 @@ class InferenceEngine:
         with self._lock:
             st = dict(self._stats)
             rows_hist = {str(k): v for k, v in sorted(self._rows_hist.items())}
-            bucket_ms = {str(b): {"count": c, "total_ms": t * 1e3,
-                                  "mean_ms": t / c * 1e3}
+            bucket_ms = {str(b): {"count": c,
+                                  "total_ms": round(t * 1e3, 3),
+                                  "mean_ms": round(t / c * 1e3, 3)}
                          for b, (t, c) in sorted(self._bucket_lat.items())
                          if c}
             buckets = {str(k): v for k, v in
@@ -387,6 +529,7 @@ class InferenceEngine:
         done = st.get("resolved", 0) + st.get("shed_requests", 0) \
             + st.get("failed_requests", 0) - st.get("shed.admission", 0)
         return {
+            "process": telemetry.process_identity(),
             "requests": st.get("requests", 0),
             "resolved": st.get("resolved", 0),
             "failed_requests": st.get("failed_requests", 0),
@@ -395,11 +538,12 @@ class InferenceEngine:
             "rows": st.get("rows", 0),
             "pad_rows": pad,
             "pad_bytes": st.get("pad_bytes", 0),
-            "batch_fill": rows / (rows + pad) if rows + pad else None,
+            "batch_fill": round(rows / (rows + pad), 4) if rows + pad
+            else None,
             "queued_rows": queued_rows,
             "max_queue_rows": self.max_queue_rows,
             "deadline_ms": None if self.deadline_s is None
-            else self.deadline_s * 1e3,
+            else round(self.deadline_s * 1e3, 3),
             "overload": self.overload,
             "shed_requests": st.get("shed_requests", 0),
             "shed_rows": st.get("shed_rows", 0),
@@ -418,7 +562,71 @@ class InferenceEngine:
             "rows_hist": rows_hist,
             "bucket_ms": bucket_ms,
             "max_inflight": self._max_inflight,
+            "autotune_plan": self._autotune_plan,
+            "device_bytes": self.device_bytes(),
             "latency_ms": latency_percentiles(lat),
+        }
+
+    def device_bytes(self):
+        """Live device bytes the buffer ledger charges to this engine's
+        context, split by ledger kind (``{"context", "total",
+        "by_kind"}``): the figure capacity planning and OOM postmortems
+        read. Reads host-side counters only."""
+        key = str(self._ctx)
+        led = telemetry.ledger().get(key, {})
+        return {"context": key,
+                "total": int(led.get("alive_bytes", 0)),
+                "by_kind": {k: int(v) for k, v in
+                            led.get("by_kind", {}).items()}}
+
+    def overload_state(self):
+        """Light lock-held view of the queue/breaker state — what the
+        flight recorder's sampler reads every tick and a postmortem
+        embeds."""
+        with self._lock:
+            return {
+                "queued_rows": self._queued_rows,
+                "max_queue_rows": self.max_queue_rows,
+                "breaker_open": self._breaker_tripped(),
+                "consecutive_failures": self._consecutive_failures,
+                "closed": self._closed,
+                "max_inflight": self._max_inflight,
+            }
+
+    def corpus_record(self):
+        """One JSON-safe record of this engine's measured serving data
+        for the card corpus — what ``tuner.plan_serving`` turns into the
+        next engine's bucket plan. None until a batch has dispatched."""
+        from . import compile_cache
+        st = self.stats()
+        if not st["batches"]:
+            return None
+        cards = {
+            k: {kk: c.get(kk) for kk in
+                ("kind", "flops", "bytes_accessed", "peak_bytes",
+                 "compile_ms", "deserialize_ms", "source", "dispatches")}
+            for k, c in self.program_cards().items()}
+        spans = {k: v for k, v in telemetry.span_stats().items()
+                 if k in telemetry.SERVE_SPANS}
+        return {
+            "kind": "serving",
+            "ts": time.time(),
+            "env": compile_cache.env_meta(),
+            "graph": self._prog.graph_fingerprint(),
+            "max_batch": self.max_batch,
+            "buckets": list(self.buckets),
+            "layout": self.partition_summary(),
+            "max_inflight": self._max_inflight,
+            "max_wait_ms": round(self.max_wait_s * 1e3, 3),
+            "requests": st["requests"],
+            "batches": st["batches"],
+            "batch_rows": st["rows"],
+            "pad_rows": st["pad_rows"],
+            "batch_fill": st["batch_fill"],
+            "rows_hist": st["rows_hist"],
+            "bucket_ms": st["bucket_ms"],
+            "spans": spans,
+            "cards": cards,
         }
 
     # -- lifecycle ----------------------------------------------------------
@@ -437,6 +645,22 @@ class InferenceEngine:
             return
         self._thread.join()
         self._pool.shutdown(wait=True)
+        # bank this engine's measured serving data into the card corpus
+        # (when one is configured) for the next engine's autotuner —
+        # telemetry, never state: a failure must not fail the shutdown
+        try:
+            from . import compile_cache
+            if compile_cache.corpus_path() is not None:
+                rec = self.corpus_record()
+                if rec is not None:
+                    compile_cache.corpus_append(rec)
+        except Exception:
+            pass
+        if self._logger is not None:
+            try:
+                self._logger.log_serving(force=True)
+            except Exception:
+                pass
 
     def __enter__(self):
         return self
@@ -543,6 +767,9 @@ class InferenceEngine:
                          "dispatched" % (type(exc).__name__, exc))
         for r in left:
             self._shed(r, "coalescer_death", err)
+        flight.postmortem("coalescer_death", exc=exc,
+                          extra={"engine": self.overload_state(),
+                                 "failed_requests": len(left)})
 
     def _drain_after_shutdown(self):
         """Backstop: dispatch anything enqueued behind the sentinel."""
@@ -586,6 +813,10 @@ class InferenceEngine:
         failed = 0
         for r in reqs:
             if not r.future.done():
+                # the spans entered at admission close on EVERY terminal
+                # path (exiting one twice records it once)
+                r.wait_span.__exit__(None, None, None)
+                r.req_span.__exit__(None, None, None)
                 r.future.set_exception(exc)
                 with self._lock:
                     self._record_latency_locked(r)
@@ -593,16 +824,30 @@ class InferenceEngine:
         if failed:
             with self._lock:
                 self._stats["failed_requests"] += failed
+            telemetry.counter_inc("serving.failed_requests", failed)
 
     def _dispatch_failed(self):
+        """One coalesced batch's pipeline failed for good (at launch or at
+        the resolution fetch): bump the consecutive count and trip the
+        breaker at the threshold — a flight-recorder moment."""
         with self._lock:
             self._stats["dispatch_failures"] += 1
             self._consecutive_failures += 1
             self._breaker_probing = False
-            if self._breaker_threshold > 0 and \
-                    self._consecutive_failures >= self._breaker_threshold:
+            consecutive = self._consecutive_failures
+            trip = (self._breaker_threshold > 0
+                    and consecutive >= self._breaker_threshold)
+            if trip:
                 self._breaker_open_at = time.monotonic()
                 self._stats["breaker_trips"] += 1
+        telemetry.counter_inc("serving.dispatch_failures")
+        if trip:
+            telemetry.counter_inc("serving.breaker_trips")
+            telemetry.record_event("serving.breaker_trip",
+                                   consecutive=consecutive)
+            flight.postmortem("breaker_trip",
+                              extra={"engine": self.overload_state(),
+                                     "consecutive": consecutive})
 
     def _dispatch_succeeded(self):
         with self._lock:
@@ -627,14 +872,21 @@ class InferenceEngine:
         if fastfail:
             with self._lock:
                 self._stats["breaker_fastfail"] += len(reqs)
+            telemetry.counter_inc("serving.breaker_fastfail", len(reqs))
             exc = CircuitOpen("serving: breaker open — dispatch suppressed")
             for r in reqs:
                 self._shed(r, "breaker", exc)
             return
+        # the batch's member ids: the serve_batch/serve_d2h spans carry
+        # them and a terminal failure's postmortem names them
+        ids = [r.req_id for r in reqs]
+        bucket = None
         self._inflight.acquire()
         try:
             rows = sum(r.rows for r in reqs)
             bucket = self.bucket_for(rows)
+            for r in reqs:
+                r.wait_span.__exit__(None, None, None)
             args = dict(self._param_raw)
             pad_bytes = 0
             for n in self._input_names:
@@ -647,12 +899,16 @@ class InferenceEngine:
                 pad_bytes += (bucket - rows) * int(np.prod(
                     self._row_shapes[n], dtype=np.int64)) \
                     * self._in_dtypes[n].itemsize
+                telemetry.record_transfer(buf.nbytes)
                 args[n] = self._put_batch(buf, n)
             args.update(self._bucket_extras(bucket))
             attempt = 0
             while True:
                 try:
-                    outs, _ = self._forward(args, self._aux_raw)
+                    record_dispatch("serve")
+                    with telemetry.span("serve_batch",
+                                        ctx={"req_ids": ids}):
+                        outs, _ = self._forward(args, self._aux_raw)
                     break
                 except Exception as e:
                     if attempt >= self._retry_budget or not _is_transient(e):
@@ -660,6 +916,7 @@ class InferenceEngine:
                     attempt += 1
                     with self._lock:
                         self._stats["retries"] += 1
+                    telemetry.counter_inc("serving.retries")
                     time.sleep(self._retry_backoff_s * (2 ** (attempt - 1)))
             with self._lock:
                 self._stats["batches"] += 1
@@ -668,20 +925,47 @@ class InferenceEngine:
                 self._stats["pad_bytes"] += pad_bytes
                 self._bucket_batches[bucket] += 1
                 self._rows_hist[rows] += 1
+            telemetry.counter_inc("serving.batches")
+            telemetry.counter_inc("serving.batch_rows", rows)
+            telemetry.counter_inc("serving.pad_rows", bucket - rows)
+            telemetry.counter_inc("serving.pad_bytes", pad_bytes)
+            telemetry.record_event("serving.batch", req_ids=ids,
+                                   bucket=bucket, rows=rows,
+                                   pad_rows=bucket - rows)
             self._pool.submit(self._resolve, outs, reqs, bucket,
                               time.perf_counter())
         except BaseException as e:
             self._inflight.release()
             self._dispatch_failed()
             self._fail_requests(reqs, e)
+            telemetry.record_event("serving.batch_failed", req_ids=ids,
+                                   bucket=bucket, error=type(e).__name__)
+            flight.postmortem("serving_dispatch_failure", exc=e,
+                              extra={"req_ids": ids, "bucket": bucket,
+                                     "engine": self.overload_state()})
+        else:
+            if self._logger is not None:
+                try:
+                    self._logger.log_serving()
+                except Exception:
+                    pass
 
     def _resolve(self, outs, reqs, bucket, t_disp):
         """Resolver-pool worker: blocking device-to-host fetch of the whole
         padded batch, then each request's rows — or ``DeadlineExceeded``
-        when the result arrived past the request's deadline."""
+        when the result arrived past the request's deadline. The ``d2h``
+        fault site fires first: a raise is a failed fetch, ``nan``
+        corrupts the host copy."""
         try:
-            host = [(o.float() if o.dtype == torch.bfloat16 else o)
-                    .cpu().numpy() for o in outs]
+            act = faults.fire("d2h") if faults.active() else None
+            with telemetry.span("serve_d2h",
+                                ctx={"req_ids": [r.req_id for r in reqs]}):
+                host = [(o.float() if o.dtype == torch.bfloat16 else o)
+                        .cpu().numpy() for o in outs]
+            if act == "nan":
+                host = faults.poison(host)
+            # the fetch landing is the real success signal (a dead
+            # device surfaces here, not at launch)
             self._dispatch_succeeded()
             dt = time.perf_counter() - t_disp
             with self._lock:
@@ -698,12 +982,20 @@ class InferenceEngine:
                         "serving: result arrived %.1fms past the request "
                         "deadline" % ((now - r.deadline) * 1e3)))
                     continue
+                r.req_span.__exit__(None, None, None)
                 with self._lock:
                     self._record_latency_locked(r)
                     self._stats["resolved"] += 1
+                telemetry.counter_inc("serving.resolved")
                 r.future.set_result(sl)
         except BaseException as e:
             self._dispatch_failed()
             self._fail_requests(reqs, e)
+            ids = [r.req_id for r in reqs]
+            telemetry.record_event("serving.batch_failed", req_ids=ids,
+                                   bucket=bucket, error=type(e).__name__)
+            flight.postmortem("serving_dispatch_failure", exc=e,
+                              extra={"req_ids": ids, "bucket": bucket,
+                                     "engine": self.overload_state()})
         finally:
             self._inflight.release()

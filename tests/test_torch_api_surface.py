@@ -4,8 +4,11 @@
 Every public name of ``mx.nd``, ``mx.sym``, ``mx.autograd``,
 ``mx.gluon``, ``mx.gluon.loss``, ``mx.gluon.nn``, ``mx.gluon.rnn``,
 ``mx.gluon.data``, ``mx.gluon.data.vision``, ``mx.gluon.model_zoo.vision``,
-``mx.kvstore``, ``mx.rnn`` and ``mx.mod`` in ``mxnet_tpu``, and every
-public method of ``Symbol``, ``Module`` and ``KVStore``,
+``mx.kvstore``, ``mx.rnn``, ``mx.mod``, ``mx.telemetry``, ``mx.faults``,
+``mx.flight``, ``mx.profiler``, ``mx.log``, ``mx.tuner``,
+``mx.compile_cache``, ``mx.checkpoint``, ``mx.callback`` and
+``mx.serving`` in ``mxnet_tpu``, and every public method of ``Symbol``,
+``Module``, ``KVStore``, ``InferenceEngine`` and ``DecodeEngine``,
 either exists in ``mxnet_tpu_torch`` or sits on the skip list below,
 under the ROADMAP.md item that will port it. A name ported since must
 leave the list (the test fails on a stale entry), so the list shrinks
@@ -43,7 +46,7 @@ SKIP = {
         "Queue 1 item 3.1: the rest of ops/nn.py": _NN_OPS,
         "Queue 1 item 3.1: linalg": _LINALG + ["linalg"],
         "Queue 1 item 3.4: the optimizers' update ops": _UPDATE_OPS,
-        "Queue 1 item 5: bf16 nd.save and load_frombuffer":
+        "Queue 1 item 6: bf16 nd.save and load_frombuffer":
             ["load_frombuffer"],
         "Queue 1 item 6: long tail (contrib, spatial, ctc, rnn ops, "
         "sparse, image)": _LONG_TAIL_OPS + [
@@ -78,9 +81,7 @@ SKIP = {
         "Queue 1 item 6: recordio and image/": ["RecordFileDataset"],
     },
     "gluon.model_zoo.vision": {},
-    "kvstore": {
-        "Queue 1 item 5: telemetry and faults": ["faults", "telemetry"],
-    },
+    "kvstore": {},
     "kvstore.KVStore": {
         "Queue 1 item 4: the dist stores' elastic membership": [
             "fused_dist_step", "live_ranks"],
@@ -90,7 +91,6 @@ SKIP = {
         "Queue 1 item 3.4: monitor.py and fit's divergence sentinel": [
             "finite_check", "install_monitor"],
         "Queue 1 item 4: partition rules": ["partition_summary"],
-        "Queue 1 item 5: telemetry": ["telemetry_snapshot"],
     },
     "gluon.rnn": {},
     "rnn": {
@@ -103,6 +103,38 @@ SKIP = {
             "PythonLossModule", "PythonModule", "SequentialModule",
             "python_module", "sequential_module"],
     },
+    "telemetry": {},
+    "faults": {},
+    "flight": {},
+    "log": {},
+    "callback": {},
+    "profiler": {
+        "Queue 1 item 6: config.py (MXNET_PROFILER_AUTOSTART)":
+            ["get_env"],
+    },
+    "tuner": {
+        "Queue 1 item 6: OperatorTuner": [
+            "OperatorTuner", "get_env", "get_logger", "tuned_choice",
+            "tuner"],
+    },
+    "compile_cache": {
+        "Queue 1 item 6: the compile cache's executable store": [
+            "cache_dir", "enabled", "entry_path", "faults", "index_get",
+            "index_put", "load", "lowered_key", "persistable",
+            "programs_record", "quick_key", "source_fingerprint",
+            "store"],
+    },
+    "checkpoint": {
+        "Queue 1 item 3.4: CheckpointManager": [
+            "CheckpointManager", "DivergenceError", "MXNetError",
+            "TrainingPreempted", "telemetry"],
+    },
+    "serving": {
+        "Queue 1 item 6: DeviceMemoryError (OOM errors enriched with "
+        "the ledger)": ["DeviceMemoryError"],
+    },
+    "serving.InferenceEngine": {},
+    "decode.DecodeEngine": {},
 }
 
 

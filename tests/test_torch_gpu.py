@@ -980,3 +980,93 @@ def test_zoo_forward_on_card_matches_cpu(name, hw, monkeypatch):
     want = nets["cpu"](mt.nd.array(x, ctx=mt.cpu())).asnumpy()
     got = nets["gpu"](mt.nd.array(x, ctx=mt.gpu(0))).asnumpy()
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# -- the instruments (cards, faults, the profiler) on the card --------------
+
+def _fused_resnet_engine(monkeypatch, max_batch=4):
+    """A narrow fused-tail ResNet v1 (NHWC, 4 K1 tails) served on the
+    card."""
+    monkeypatch.setenv("MXNET_FUSED_BN_ADD_RELU", "1")
+    mt.layout.set_default_layout("NHWC")
+    try:
+        with mt.name.NameManager():
+            net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                                  [16, 32, 64, 128, 256], classes=10)
+        net.initialize(mt.init.Xavier(
+            generator=torch.Generator().manual_seed(0)), ctx=mt.gpu(0))
+        net(mt.nd.zeros((1, 32, 32, 3), ctx=mt.gpu(0)))
+        with mt.name.NameManager():
+            sym = net(mt.sym.Variable("data"))
+        params = {"arg:" + k: p.data() for k, p in
+                  net.collect_params().items()
+                  if not k.endswith(("running_mean", "running_var"))}
+        params.update({"aux:" + k: p.data() for k, p in
+                       net.collect_params().items()
+                       if k.endswith(("running_mean", "running_var"))})
+        return mt.serving.InferenceEngine(sym, params,
+                                          {"data": (1, 32, 32, 3)},
+                                          max_batch=max_batch,
+                                          ctx=mt.gpu(0))
+    finally:
+        mt.layout.set_default_layout(None)
+
+
+def test_program_cards_on_the_card(monkeypatch):
+    """Bucket cards carry the allocator's peak on the card; K1 (ctypes)
+    adds no FLOPs, so the card's FLOPs scale exactly with the bucket."""
+    _need_card()
+    from mxnet_tpu_torch import telemetry
+    telemetry.enable()
+    telemetry.reset()
+    with _fused_resnet_engine(monkeypatch) as eng:
+        cards = eng.program_cards()
+        by_b = {next(e for e in c["signature"] if "'data'" in e[0])[1][0]: c
+                for c in cards.values()}
+        assert sorted(by_b) == [1, 2, 4]
+        for b, c in by_b.items():
+            assert c["peak_bytes"] and c["peak_bytes"] > 0
+            assert c["dispatches"] == 0
+            assert c["flops"] == by_b[1]["flops"] * b
+        out = eng.predict(data=np.ones((3, 32, 32, 3), np.float32))[0]
+        assert np.isfinite(out).all()
+        assert eng.device_bytes()["total"] > 0
+
+
+def test_dispatch_nan_fills_cuda_outputs(monkeypatch):
+    _need_card()
+    from mxnet_tpu_torch import faults
+    with _fused_resnet_engine(monkeypatch) as eng:
+        faults.configure("dispatch:nan:n=1")
+        try:
+            bad = eng.predict(data=np.ones((2, 32, 32, 3), np.float32))[0]
+            good = eng.predict(data=np.ones((2, 32, 32, 3), np.float32))[0]
+        finally:
+            faults.clear()
+    assert np.isnan(bad).all() and np.isfinite(good).all()
+
+
+def test_profiler_merges_cuda_kernels_and_host_spans(tmp_path, monkeypatch):
+    """One JSON with the K1 kernels and the host ``serve_batch`` spans on
+    one timebase: each span encloses the start of a K1 kernel it
+    launched."""
+    _need_card()
+    import json
+    from mxnet_tpu_torch import telemetry
+    telemetry.enable()
+    fname = str(tmp_path / "profile.json")
+    with _fused_resnet_engine(monkeypatch) as eng:
+        mt.profiler.set_config(filename=fname)
+        mt.profiler.set_state("run")
+        for _ in range(3):
+            eng.predict(data=np.ones((4, 32, 32, 3), np.float32))
+        mt.profiler.set_state("stop")
+    with open(fname) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "scale_bias_add_relu" in e.get("name", "")]
+    spans = [e for e in events if e.get("cat") == "host"
+             and e["name"] == "serve_batch"]
+    assert len(k1) >= 12 and len(spans) == 3
+    for s in spans:
+        assert any(s["ts"] <= e["ts"] <= s["ts"] + s["dur"] for e in k1)
