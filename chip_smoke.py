@@ -159,7 +159,30 @@ Phases (any failure exits non-zero; no error is swallowed):
    (bit-equal), step 1 as in (a), ms per step,
    a profiled step, peaks flat from step 2. K1-K3 launch 0 times on both
    phases (the zoo's resnet50_v1 has no fused tails).
-13. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+13. observability — the instruments around serving, decode and
+   ``Module.fit`` (telemetry and its cost, autotune, faults and
+   postmortems, the sampler, a merged profile).
+14. dense_prediction — FCN-16s on VGG-16 (``fcn16s_symbol``: the
+   pattern of ``examples/fcn-xs/fcn_xs.py`` at the FCN paper's widths,
+   134,815,994 parameters, fp32, TF32 off, cudnn deterministic, batch 8
+   x 3 x 384 x 384, 21 classes with a 255 void band, random weights):
+   (a) the logits within 1e-3 of the CPU's largest; (b) ``Module.fit``
+   for 2 epochs x 4 batches (SGD 1e-3, momentum 0.9, wd 5e-4): ms per
+   batch, a profiled batch (device busy, idle share), the train-step
+   card's FLOPs against the 3.0 T reckoned from the shapes, the peak per
+   epoch (no growth); step 1 at Dropout 0 through ``_step1_gate``;
+   (c) the same fit preempted by SIGTERM at epoch 1 batch 2 and resumed
+   in a fresh Module: parameters, optimizer states and update counts
+   bit-equal, the signal handlers restored, the checkpoint's sizes;
+   (d) ``dispatch:nan`` at epoch 1 batch 3 under each divergence policy;
+   (e) a monitor on the deconvolutions against the CPU's (1e-4), the
+   ``monitor`` fallback counted; (f) ``gluon.SymbolBlock`` bit-equal to
+   the Module's forward, eager and hybridized; (g) the ten new
+   optimizers, 3 updates of the card's gradients, against CPU fp64 on
+   sampled elements; (h) ``examples/module/seq_module.py``,
+   ``vae.py``, ``autoencoder.py`` and each new ``gluon.nn`` block on
+   the card against the CPU. K1-K3 launch 0 times on this path.
+15. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
@@ -167,15 +190,16 @@ Phases (any failure exits non-zero; no error is swallowed):
    CUDA events; each
    ``launches`` is the count on that kernel's main paths (K1: serving,
    training and the Gluon loop), ``rnn_training_launches``,
-   ``image_classification_launches`` and ``gluon_zoo_launches`` its
-   counts on those paths (0) — and, last, the ``{"ok": true,
+   ``image_classification_launches``, ``gluon_zoo_launches`` and
+   ``dense_prediction_launches`` its counts on those paths (0) — and,
+   last, the ``{"ok": true,
    "device": {...}}`` line.
 
 The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-12 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-14 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -4416,9 +4440,837 @@ def observability_phase(mx, ctx, rehearsal, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# dense_prediction: FCN-16s on VGG-16 through Module.fit, the rest of the
+# Module toolbox (slice 10)
+# ---------------------------------------------------------------------------
+
+_VGG16_LAYERS = (2, 2, 3, 3, 3)
+# Long, Shelhamer and Darrell (CVPR 2015) at PASCAL VOC's 21 classes; the
+# rehearsal (and tests/test_torch_fcn.py) cut the widths by 16
+_FCN = {False: dict(widths=(64, 128, 256, 512, 512), fc=4096, classes=21,
+                    hw=384, batch=8, epochs=2, batches=4, step1_batch=1,
+                    params=134815994),
+        True: dict(widths=(4, 8, 16, 32, 32), fc=64, classes=5, hw=64,
+                   batch=2, epochs=2, batches=3, step1_batch=1,
+                   params=None)}
+_FCN_SEED = 23
+_FCN_OPT = (("learning_rate", 1e-3), ("momentum", 0.9), ("wd", 5e-4))
+
+
+def fcn16s_symbol(mx, classes, widths=(64, 128, 256, 512, 512), fc=4096,
+                  p=0.5, head=True):
+    """examples/fcn-xs/fcn_xs.py:23-50's FCN-16s pattern (score head at
+    /32, a 2x Deconvolution cropped onto the /16 skip score and added, a
+    16x Deconvolution cropped onto the input) over the VGG-16 body of
+    examples/image-classification/symbols/vgg.py:19-28 (``CONFIGS[16]``,
+    the copy ``_ic_vgg`` above), with the FCN paper's head: ``fc6`` a 7x7
+    pad-3 convolution to ``fc`` channels, ``fc7`` 1x1, ReLU and Dropout
+    after each, ``score_fr`` and ``score_pool4`` 1x1 to ``classes``,
+    ``upscore2`` 4/2 and ``upscore16`` 32/16 without bias, the crops at
+    offsets 1 and 8. ``head`` adds the per-pixel loss over VOC labels
+    (255 void, normalised by the valid pixels); without it the symbol
+    ends at the cropped scores."""
+    data = mx.sym.Variable("data")
+    net, pool4 = data, None
+    for stage, (n, f) in enumerate(zip(_VGG16_LAYERS, widths)):
+        for i in range(n):
+            name = "%d_%d" % (stage + 1, i + 1)
+            net = mx.sym.Convolution(net, kernel=(3, 3), pad=(1, 1),
+                                     num_filter=f, name="conv" + name)
+            net = mx.sym.Activation(net, act_type="relu", name="relu" + name)
+        net = mx.sym.Pooling(net, pool_type="max", kernel=(2, 2),
+                             stride=(2, 2), name="pool%d" % (stage + 1))
+        if stage == 3:
+            pool4 = net
+    for name, k, pad in (("6", 7, 3), ("7", 1, 0)):
+        net = mx.sym.Convolution(net, kernel=(k, k), pad=(pad, pad),
+                                 num_filter=fc, name="fc" + name)
+        net = mx.sym.Activation(net, act_type="relu", name="relu" + name)
+        net = mx.sym.Dropout(net, p=p, name="drop" + name)
+    score_fr = mx.sym.Convolution(net, kernel=(1, 1), num_filter=classes,
+                                  name="score_fr")
+    score_pool4 = mx.sym.Convolution(pool4, kernel=(1, 1),
+                                     num_filter=classes, name="score_pool4")
+    upscore2 = mx.sym.Deconvolution(score_fr, kernel=(4, 4), stride=(2, 2),
+                                    num_filter=classes, no_bias=True,
+                                    name="upscore2")
+    fuse = mx.sym.Crop(upscore2, score_pool4, offset=(1, 1),
+                       name="score_pool4c") + score_pool4
+    upscore16 = mx.sym.Deconvolution(fuse, kernel=(32, 32), stride=(16, 16),
+                                     num_filter=classes, no_bias=True,
+                                     name="upscore16")
+    score = mx.sym.Crop(upscore16, data, offset=(8, 8), name="score")
+    if not head:
+        return score
+    return mx.sym.SoftmaxOutput(score, multi_output=True, use_ignore=True,
+                                ignore_label=255, normalization="valid",
+                                name="softmax")
+
+
+def fcn_init(mx):
+    """The FCN's initializer: ``mx.init.Mixed`` of bilinear upsampling
+    kernels for ``upscore*`` and Xavier (magnitude 2) elsewhere. The
+    bilinear kernel goes on the channel diagonal only (class c upsamples
+    class c), as upstream example/fcn-xs/init_fcnxs.py places it:
+    ``mx.init.Bilinear`` alone fills every (in, out) channel pair with
+    the same kernel, and then the upsampling's backward sums ``p - onehot``
+    over the classes, which is 0 at every pixel: the body's gradient would
+    be rounding noise."""
+    class DiagonalBilinear(mx.init.Bilinear):
+        def _init_weight(self, name, arr):
+            super()._init_weight(name, arr)
+            w = np.array(arr.asnumpy())
+            keep = np.zeros(w.shape[:2], bool)
+            keep[np.arange(min(w.shape[:2])), np.arange(min(w.shape[:2]))] \
+                = True
+            w[~keep] = 0
+            arr[:] = w
+
+    return mx.init.Mixed(["upscore.*", ".*"],
+                         [DiagonalBilinear(), mx.init.Xavier(magnitude=2)])
+
+
+def fcn_data(seed, n, hw, classes):
+    """examples/fcn-xs/fcn_xs.py:53-65's images (copied: a class
+    rectangle per image, the class written into its pixels), with a void
+    band (label 255) of ``max(1, hw // 64)`` pixels each side of every
+    rectangle's edge, as VOC marks object boundaries."""
+    rs = np.random.RandomState(seed)
+    x = rs.uniform(0, 0.2, (n, 3, hw, hw)).astype(np.float32)
+    y = np.zeros((n, hw, hw), np.float32)
+    b = max(1, hw // 64)
+    for i in range(n):
+        cls = rs.randint(1, classes)
+        h0, w0 = rs.randint(0, hw // 2, 2)
+        h1 = h0 + rs.randint(hw // 4, hw // 2)
+        w1 = w0 + rs.randint(hw // 4, hw // 2)
+        y[i, h0:h1, w0:w1] = cls
+        x[i, :, h0:h1, w0:w1] += cls / float(classes)
+        ring = np.zeros((hw, hw), bool)
+        ring[max(h0 - b, 0):h1 + b, max(w0 - b, 0):w1 + b] = True
+        ring[h0 + b:h1 - b, w0 + b:w1 - b] = False
+        y[i][ring] = 255
+    return x, y
+
+
+def seq_module_parts(mx, ctx):
+    """examples/module/seq_module.py:38-77 (copied): the host hinge
+    gradient and the stage builders, on ``ctx``."""
+    def mc_hinge_grad(scores, labels):
+        scores = scores.asnumpy()
+        labels = labels.asnumpy().astype(int)
+        n, _ = scores.shape
+        grad = np.zeros_like(scores)
+        for i in range(n):
+            margin = 1.0 + scores[i] - scores[i, labels[i]]
+            margin[labels[i]] = 0.0
+            pred = int(margin.argmax())
+            if margin[pred] > 0:
+                grad[i, labels[i]] -= 1.0
+                grad[i, pred] += 1.0
+        return grad / n
+
+    def feature_module():
+        data = mx.sym.Variable("data")
+        fc1 = mx.sym.FullyConnected(data, name="fc1", num_hidden=128)
+        act1 = mx.sym.Activation(fc1, name="relu1", act_type="relu")
+        return mx.mod.Module(act1, label_names=[], context=ctx)
+
+    def head_module():
+        data = mx.sym.Variable("data")
+        fc2 = mx.sym.FullyConnected(data, name="fc2", num_hidden=64)
+        act2 = mx.sym.Activation(fc2, name="relu2", act_type="relu")
+        fc3 = mx.sym.FullyConnected(act2, name="fc3", num_hidden=10)
+        sm = mx.sym.SoftmaxOutput(fc3, name="softmax")
+        return mx.mod.Module(sm, context=ctx)
+
+    return mc_hinge_grad, feature_module, head_module
+
+
+def seq_module_data(mx):
+    """seq_module.py:31-35 and 155-163 (copied): 10 Gaussian prototypes of
+    64 features, 1024 training samples, batch 64, shuffled (numpy's
+    global state, seeded here)."""
+    rs = np.random.RandomState(7)
+    protos = rs.normal(0, 1.0, (10, 64)).astype(np.float32)
+    y = rs.randint(0, 10, 1024).astype(np.float32)
+    x = protos[y.astype(int)] + 0.25 * rs.normal(size=(1024, 64)).astype(
+        np.float32)
+    np.random.seed(5)
+    return mx.io.NDArrayIter(x, y, batch_size=64, shuffle=True,
+                             label_name="softmax_label")
+
+
+def vae_symbol(mx, ndim=24, nhid=32, nz=4):
+    """examples/vae/vae.py:23-38 (copied): encoder, reparameterised
+    sample from a fed ``eps``, decoder, a MakeLoss head beside the
+    BlockGrad'ed reconstruction."""
+    data = mx.sym.Variable("data")
+    eps = mx.sym.Variable("eps")
+    h = mx.sym.FullyConnected(data, num_hidden=nhid, name="enc1")
+    h = mx.sym.Activation(h, act_type="tanh")
+    mu = mx.sym.FullyConnected(h, num_hidden=nz, name="mu")
+    logvar = mx.sym.FullyConnected(h, num_hidden=nz, name="logvar")
+    z = mu + mx.sym.exp(0.5 * logvar) * eps
+    d = mx.sym.FullyConnected(z, num_hidden=nhid, name="dec1")
+    d = mx.sym.Activation(d, act_type="tanh")
+    y = mx.sym.FullyConnected(d, num_hidden=ndim, name="dec2")
+    rec = mx.sym.sum(mx.sym.square(y - data), axis=1)
+    kl = -0.5 * mx.sym.sum(1 + logvar - mx.sym.square(mu)
+                           - mx.sym.exp(logvar), axis=1)
+    loss = mx.sym.MakeLoss(mx.sym.mean(rec + 0.1 * kl), name="vae_loss")
+    return mx.sym.Group([loss, mx.sym.BlockGrad(y)])
+
+
+def autoencoder_symbol(mx, dims=(32, 24, 8)):
+    """examples/autoencoder/autoencoder.py:16-25 (copied): an MLP
+    encoder and decoder trained on reconstruction with
+    LinearRegressionOutput (the data is the label)."""
+    data = mx.sym.Variable("data")
+    x = data
+    for i, d in enumerate(dims[1:]):
+        x = mx.sym.FullyConnected(x, num_hidden=d, name="enc%d" % i)
+        x = mx.sym.Activation(x, act_type="relu")
+    for i, d in enumerate(reversed(dims[:-1])):
+        x = mx.sym.FullyConnected(x, num_hidden=d, name="dec%d" % i)
+        if i < len(dims) - 2:
+            x = mx.sym.Activation(x, act_type="relu")
+    return mx.sym.LinearRegressionOutput(x, data, name="rec")
+
+
+
+_FCN_OPTIMIZERS = (
+    ("sgld", dict(learning_rate=1e-4)),
+    ("dcasgd", dict(learning_rate=1e-3, momentum=0.9)),
+    ("adagrad", dict(learning_rate=1e-3)),
+    ("rmsprop", dict(learning_rate=1e-4)),
+    ("rmsprop", dict(learning_rate=1e-4, centered=True)),
+    ("adadelta", dict()),
+    ("ftrl", dict(learning_rate=1e-2)),
+    ("test", dict()),
+    ("ccsgd", dict(learning_rate=1e-3, momentum=0.9)),
+    ("adamax", dict(learning_rate=2e-4)),
+    ("nadam", dict(learning_rate=1e-4)),
+)
+_FUSED_KERNELS = ("rmsprop", "adagrad", "adadelta", "ftrl")
+
+
+def _keeping_monitor(mx, *args, **kwargs):
+    """A ``Monitor`` whose ``toc_print`` (what ``fit`` calls) keeps the
+    rows in ``rows``."""
+    mon = mx.mon.Monitor(*args, **kwargs)
+    mon.rows = []
+    mon.toc_print = lambda: mon.rows.extend(mon.toc())
+    return mon
+
+
+def _fcn_macs(cfg):
+    """Multiply-accumulates of one image's forward, reckoned from the
+    shapes: the 3x3 convolutions, fc6/fc7, the scores and the two
+    transposed convolutions (each input pixel times its kernel)."""
+    hw, c_in, macs = cfg["hw"], 3, 0
+    for n, f in zip(_VGG16_LAYERS, cfg["widths"]):
+        for _ in range(n):
+            macs += hw * hw * 9 * c_in * f
+            c_in = f
+        hw //= 2
+    k = cfg["classes"]
+    macs += hw * hw * (49 * c_in * cfg["fc"] + cfg["fc"] * cfg["fc"]
+                       + cfg["fc"] * k)
+    macs += (2 * hw) ** 2 * c_in * k            # score_pool4
+    macs += hw * hw * 16 * k * k                # upscore2
+    up = 2 * hw                                 # the fused /16 map
+    macs += up * up * 32 * 32 * k * k           # upscore16
+    return macs
+
+
+def _fcn_iter(mx, x, y, batch):
+    return mx.io.NDArrayIter(x, y, batch_size=batch, shuffle=False)
+
+
+def _fcn_fit(mx, sym, ctx, arg0, it, num_epoch, mod=None, **kw):
+    """``Module.fit`` of the FCN from the weights ``arg0`` with the
+    paper's SGD (lr 1e-3, momentum 0.9, wd 5e-4) and pixel accuracy."""
+    if mod is None:
+        mod = mx.mod.Module(sym, context=ctx)
+    mod.fit(it, optimizer="sgd", optimizer_params=_FCN_OPT,
+            arg_params=arg0, initializer=fcn_init(mx), num_epoch=num_epoch,
+            eval_metric="acc", **kw)
+    return mod
+
+
+def _fcn_states(mod):
+    import pickle
+    return pickle.loads(mod._updater.get_states())
+
+
+def _fcn_forward_leg(mx, cfg, ctx, arg0, x, card):
+    """(a) the forward against the CPU's; (f) SymbolBlock over the
+    symbol without its loss head, bit-equal to the Module's forward."""
+    gpu = ctx.device_type == "gpu"
+    score = fcn16s_symbol(mx, cfg["classes"], cfg["widths"], cfg["fc"],
+                          p=0.5, head=False)
+    xb = x[:2]
+
+    def forward(c):
+        mod = mx.mod.Module(score, label_names=[], context=c)
+        mod.bind([mx.io.DataDesc("data", xb.shape)], for_training=False)
+        mod.init_params(arg_params=arg0)
+        mod.forward(mx.io.DataBatch([mx.nd.array(xb, ctx=mx.cpu())], None),
+                    is_train=False)
+        return mod.get_outputs()[0]._data
+    got = forward(ctx)
+    want = forward(mx.cpu()) if gpu else got
+    err, rel = _rel_to_max(got.cpu(), want)
+    blk = mx.gluon.SymbolBlock(score, mx.sym.var("data"))
+    mx.weights.load_into_block(blk, {k: v.numpy() for k, v in arg0.items()},
+                               ctx=ctx)
+    xin = mx.nd.array(xb, ctx=ctx)
+    eager = blk(xin)._data
+    blk.hybridize()
+    hyb = blk(xin)._data
+    bit = bool(torch.equal(eager, got) and torch.equal(hyb, got))
+    emit({"dense_prediction_forward": {
+        "card": card, "rows": 2, "logits_max_abs_err": err,
+        "logits_err_over_largest": rel, "tolerance": 1e-3,
+        "symbol_block_bit_equal_eager_and_hybridized": bit}})
+    assert rel <= 1e-3 and bit, (rel, bit)
+    del blk, eager, hyb, got, want
+
+
+def _fcn_train_leg(mx, cfg, sym, ctx, arg0, x, y, card, tmp):
+    """(b) fit: ms per batch, a profiled batch, peaks per epoch; (c) the
+    same fit preempted by SIGTERM at epoch 1 batch 2 and resumed in a
+    fresh Module: parameters and optimizer states bit-equal. Returns the
+    per-batch ms."""
+    import signal
+    gpu = ctx.device_type == "gpu"
+    batch, nb = cfg["batch"], cfg["batches"]
+    log = _BatchLog(None, gpu)
+    handlers = [signal.getsignal(s) for s in (signal.SIGTERM,
+                                              signal.SIGINT)]
+    mx.random.seed(_FCN_SEED)
+    mod = mx.mod.Module(sym, context=ctx)
+    log.mod = mod
+    ref_mgr = mx.CheckpointManager(os.path.join(tmp, "ref"), keep_last=2)
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _fcn_fit(mx, sym, ctx, arg0, _fcn_iter(mx, x, y, batch),
+             cfg["epochs"], mod=mod, checkpoint=ref_mgr,
+             batch_end_callback=log, epoch_end_callback=log.epoch_end)
+    fit_s = time.perf_counter() - t0
+    ev, wall = log.ms_per_batch(nb)
+    ref_params, ref_states = _host_params(mod)[0], _fcn_states(mod)
+    ref_counts = dict(mod._optimizer._index_update_count)
+    acc = dict(mod.score(_fcn_iter(mx, x, y, batch), "acc"))
+    one = mx.io.DataBatch([mx.nd.array(x[:batch], ctx=mx.cpu())],
+                          [mx.nd.array(y[:batch], ctx=mx.cpu())])
+    prof = profile_forward(lambda: mod.fused_step(one), reps=2) if gpu \
+        else None
+    step_flops = [c["flops"] for c in mx.telemetry.programs().values()
+                  if c["kind"] == "train_step" and c["flops"]]
+    del mod
+    _free(gpu)
+    # (c) preempted at epoch 1 batch 2, resumed in a fresh Module
+    mgr = mx.CheckpointManager(os.path.join(tmp, "pre"), keep_last=2)
+
+    def preempt(param):
+        if (param.epoch, param.nbatch) == (1, 1):
+            os.kill(os.getpid(), signal.SIGTERM)
+    mx.random.seed(_FCN_SEED)
+    try:
+        _fcn_fit(mx, sym, ctx, arg0, _fcn_iter(mx, x, y, batch),
+                 cfg["epochs"], checkpoint=mgr, batch_end_callback=preempt)
+        raise AssertionError("SIGTERM did not preempt fit")
+    except mx.checkpoint.TrainingPreempted as e:
+        where = (e.epoch, e.nbatch)
+    restored = [signal.getsignal(s) for s in (signal.SIGTERM,
+                                              signal.SIGINT)] == handlers
+    meta = mgr.latest()
+    sizes = {ext: os.path.getsize("%s-%04d.%s" % (mgr.prefix,
+                                                   meta["epoch"], ext))
+             for ext in ("params", "states", "meta.json")}
+    _free(gpu)
+    mx.random.seed(_FCN_SEED + 1)       # the checkpoint's state must win
+    t0 = time.perf_counter()
+    res = _fcn_fit(mx, sym, ctx, arg0, _fcn_iter(mx, x, y, batch),
+                   cfg["epochs"], resume=True,
+                   checkpoint=mx.CheckpointManager(mgr.prefix, keep_last=2))
+    resume_s = time.perf_counter() - t0
+    params, states = _host_params(res)[0], _fcn_states(res)
+    bit_params = _bit_equal(params, ref_params)
+    bit_states = sorted(states) == sorted(ref_states) and all(
+        np.array_equal(states[k], ref_states[k]) for k in ref_states)
+    counts_equal = dict(res._optimizer._index_update_count) == ref_counts
+    del res
+    _free(gpu)
+    emit({"dense_prediction_fit": {
+        "card": card, "batch": batch, "hw": cfg["hw"],
+        "classes": cfg["classes"], "epochs": cfg["epochs"],
+        "batches_per_epoch": nb, "fit_s": fit_s,
+        "ms_per_batch_cuda_events": ev, "ms_per_batch_host": wall,
+        "pixel_accuracy_after": acc, "peak_bytes_per_epoch": log.peaks,
+        "train_step_card_flops": step_flops,
+        "flops_reckoned": 3 * 2 * _fcn_macs(cfg) * batch,
+        "profiled_batch": prof}})
+    emit({"dense_prediction_resume": {
+        "card": card, "preempted_at": where, "handlers_restored": restored,
+        "checkpoint_bytes": sizes, "resume_fit_s": resume_s,
+        "params_bit_equal": bit_params, "states_bit_equal": bit_states,
+        "update_counts_equal": counts_equal}})
+    assert all(np.isfinite(v.numpy()).all() for v in ref_params.values())
+    if gpu:
+        assert log.peaks[1] <= log.peaks[0], log.peaks
+    assert where == (1, 2) and restored, (where, restored)
+    assert bit_params and bit_states and counts_equal, \
+        (bit_params, bit_states, counts_equal)
+    return ev
+
+
+def _fcn_divergence_leg(mx, cfg, sym, ctx, arg0, x, y, card, tmp):
+    """(d) ``dispatch:nan`` at the 3rd batch of epoch 1 with
+    ``divergence_check_every=1``: halt raises, rollback restores epoch
+    0's checkpoint and finishes finite, skip counts and goes on."""
+    gpu = ctx.device_type == "gpu"
+    at = cfg["batches"] + 3
+    out = {}
+    for policy in ("halt", "rollback", "skip"):
+        mx.telemetry.reset()
+        mx.faults.configure("dispatch:nan:n=%d" % at)
+        mgr = mx.CheckpointManager(os.path.join(tmp, "div_" + policy), 2)
+        try:
+            mod = _fcn_fit(mx, sym, ctx, arg0,
+                           _fcn_iter(mx, x, y, cfg["batch"]), cfg["epochs"],
+                           checkpoint=mgr, divergence_check_every=1,
+                           divergence_policy=policy)
+            finite = all(np.isfinite(v.numpy()).all()
+                         for v in _host_params(mod)[0].values())
+            raised = False
+            del mod
+        except mx.checkpoint.DivergenceError:
+            finite, raised = None, True
+        finally:
+            fired = mx.faults.counts().get("dispatch", {}).get("fired")
+            mx.faults.clear()
+        c = mx.telemetry.counters()
+        out[policy] = {"raised": raised, "params_finite": finite,
+                       "fault_fired": fired,
+                       "detected": c.get("divergence.detected", 0),
+                       "skipped": c.get("divergence.skipped", 0),
+                       "rolled_back": c.get("divergence.rollback", 0)}
+        _free(gpu)
+    emit({"dense_prediction_divergence": {"card": card, "fault_at_step": at,
+                                          "policies": out}})
+    assert out["halt"]["raised"] and out["halt"]["detected"] == 1, out
+    assert not out["rollback"]["raised"] and out["rollback"]["params_finite"]
+    assert out["rollback"]["rolled_back"] == 1, out
+    assert not out["skip"]["raised"] and out["skip"]["skipped"] == 1, out
+    assert all(v["fault_fired"] == 1 for v in out.values()), out
+
+
+def _fcn_step(mx, sym0, ctx, arg0, x, y, dtype, monitor=None):
+    """One fit step at Dropout 0 in ``dtype`` (with ``monitor`` installed
+    it phase-splits): (module, weights after on the host)."""
+    tdt = getattr(torch, dtype)
+    mod = mx.mod.Module(sym0, context=ctx)
+    mod.bind([mx.io.DataDesc("data", x.shape, dtype)],
+             [mx.io.DataDesc("softmax_label", y.shape, dtype)])
+    mod.init_params(arg_params={k: v.to(tdt) for k, v in arg0.items()})
+    it = _fcn_iter(mx, x.astype(dtype), y.astype(dtype), x.shape[0])
+    _fcn_fit(mx, sym0, ctx, None, it, 1, mod=mod, monitor=monitor)
+    return mod, _host_params(mod)[0]
+
+
+def _fcn_monitor_step1_leg(mx, cfg, ctx, arg0, x, y, card):
+    """(e) Monitor on the deconvolutions through ``fit(monitor=)`` on the
+    card and the CPU (1e-4 relative; the fused step falls back with the
+    ``monitor`` code); (b)'s step-1 gate on the same step, with fp64
+    steps on both devices. Returns the card module (its gradients feed
+    the optimizer leg)."""
+    gpu = ctx.device_type == "gpu"
+    sym0 = fcn16s_symbol(mx, cfg["classes"], cfg["widths"], cfg["fc"], p=0.0)
+    n = cfg["step1_batch"]
+    xs, ys = x[:n], y[:n]
+    mx.telemetry.reset()
+    mon = _keeping_monitor(mx, 1, pattern=".*upscore.*", sort=True)
+    mod, w_card = _fcn_step(mx, sym0, ctx, arg0, xs, ys, "float32", mon)
+    fallbacks = mx.telemetry.counters().get("fused_fallback.monitor", 0)
+    code = getattr(mod._fused_fallback_reason, "code", None)
+    if gpu:
+        mon_cpu = _keeping_monitor(mx, 1, pattern=".*upscore.*", sort=True)
+        _, w_cpu = _fcn_step(mx, sym0, mx.cpu(), arg0, xs, ys, "float32",
+                             mon_cpu)
+        _, w64_card = _fcn_step(mx, sym0, ctx, arg0, xs, ys, "float64")
+        _free(gpu)
+        _, w64 = _fcn_step(mx, sym0, mx.cpu(), arg0, xs, ys, "float64")
+        rows_cpu = mon_cpu.rows
+        ok, gate = _step1_gate(w_card, w64_card, w_cpu, w64, arg0)
+    else:
+        rows_cpu, ok, gate = mon.rows, True, None
+    names = [r[1] for r in mon.rows]
+    stat_rel = max(abs(float(a[2]) - float(b[2])) / abs(float(b[2]))
+                   for a, b in zip(mon.rows, rows_cpu))
+    emit({"dense_prediction_monitor": {
+        "card": card, "rows": [[r[1], float(r[2])] for r in mon.rows],
+        "max_rel_to_cpu": stat_rel, "tolerance": 1e-4,
+        "fallback_code": code, "fused_fallback.monitor": fallbacks}})
+    emit({"dense_prediction_step1": {"card": card, "batch": n,
+                                     "dropout": 0, "within_gate": ok,
+                                     "gate": gate}})
+    assert names == ["upscore16_output", "upscore16_weight",
+                     "upscore2_output", "upscore2_weight"], names
+    assert [r[1] for r in rows_cpu] == names
+    assert stat_rel <= 1e-4 and code == "monitor" and fallbacks == 1, \
+        (stat_rel, code, fallbacks)
+    assert ok, gate
+    return mod
+
+
+def _sample_idx(names, params, k=4096):
+    g = torch.Generator().manual_seed(_FCN_SEED)
+    return {n: (torch.randperm(params[n].numel(), generator=g)[:k]
+                if params[n].numel() > k else
+                torch.arange(params[n].numel())) for n in names}
+
+
+def _opt_run(mx, name, kw, names, ws, gs, fused):
+    """3 updates of every parameter by optimizer ``name``: through
+    ``FusedUpdater.update_batch`` where ``fused``, else per parameter."""
+    opt = mx.optimizer.create(name, param_idx2name=dict(enumerate(names)),
+                              wd=5e-4, **kw)
+    upd = mx.optimizer.get_updater(opt) if fused \
+        else mx.optimizer.Updater(opt)
+    for _ in range(3):
+        if fused:
+            upd.update_batch(list(range(len(names))), gs, ws)
+        else:
+            for i, (g, w) in enumerate(zip(gs, ws)):
+                upd(i, g, w)
+    return upd
+
+
+def _fcn_optimizer_leg(mx, ctx, mod, arg0, card):
+    """(g) each new optimizer: 3 updates of the full FCN from one card
+    backward's gradients, against the same updates on CPU fp64 copies of
+    sampled elements (4096 per tensor; every rule is elementwise):
+    within 1e-5 relative (the JAX package's optimizer tests) plus 1e-6 of
+    the tensor's largest; SGLD's noise by its mean and variance."""
+    NDArray = mx.nd.NDArray
+    names = list(mod._param_names)
+    grads = {n: mod._exec.grad_dict[n]._data for n in names}
+    idx = _sample_idx(names, arg0)
+    dev = grads[names[0]].device
+    rows = {}
+    for name, kw in _FCN_OPTIMIZERS:
+        fused = name in _FUSED_KERNELS and not kw.get("centered")
+        ws = [NDArray(arg0[n].to(dev, copy=True), ctx) for n in names]
+        gs = [NDArray(grads[n], ctx) for n in names]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _opt_run(mx, name, kw, names, ws, gs, fused)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        got = {n: w._data.reshape(-1)[idx[n].to(dev)].double().cpu()
+               for n, w in zip(names, ws)}
+        del ws, gs
+        cw = [NDArray(arg0[n].reshape(-1)[idx[n]].double(), mx.cpu())
+              for n in names]
+        cg = [NDArray(grads[n].reshape(-1)[idx[n].to(dev)].double().cpu(),
+                      mx.cpu()) for n in names]
+        key = "%s%s" % (name, "_centered" if kw.get("centered") else "")
+        if name == "sgld":
+            lr, wd = kw["learning_rate"], 5e-4
+            resid = []
+            for n, w, g in zip(names, cw, cg):
+                det = w._data.clone()
+                mult = 0.0 if not n.endswith("_weight") else 1.0
+                for _ in range(3):
+                    det = det - lr / 2 * (g._data + mult * wd * det)
+                resid.append(got[n] - det)
+            r = torch.cat(resid)
+            var_ratio = float(r.var() / (3 * lr))
+            mean_sigmas = float(r.mean().abs() / (3 * lr / r.numel()) ** 0.5)
+            rows[key] = {"noise_var_over_3lr": var_ratio,
+                         "noise_mean_in_sigmas": mean_sigmas,
+                         "card_s": card_s, "route": "per parameter"}
+            continue
+        cupd = mx.optimizer.Updater(mx.optimizer.create(
+            name, param_idx2name=dict(enumerate(names)), wd=5e-4, **kw))
+        for i, w in enumerate(cw):        # fp64 states on the CPU side
+            st = cupd.optimizer.create_state_multi_precision(i, w)
+            cupd.states[i] = _to_f64(mx, st)
+            cupd.states_synced[i] = True
+        for _ in range(3):
+            for i, (g, w) in enumerate(zip(cg, cw)):
+                cupd(i, g, w)
+        worst, nans = 0.0, 0
+        for n, w in zip(names, cw):
+            ref, val = w._data, got[n]
+            nan = torch.isnan(ref)
+            if not torch.equal(nan, torch.isnan(val)):
+                worst = float("inf")
+                continue
+            nans += int(nan.sum())
+            ref, val = ref[~nan], val[~nan]
+            if ref.numel() == 0:
+                continue
+            top = float(ref.abs().max())
+            bound = 1e-5 * ref.abs() + 1e-6 * top
+            worst = max(worst, float(((val - ref).abs() / bound).max()))
+        rows[key] = {"worst_err_over_tolerance": worst, "nan_elements": nans,
+                     "card_s": card_s,
+                     "route": "fused kernel" if fused else "per parameter"}
+    emit({"dense_prediction_optimizers": {"card": card, "updates": 3,
+                                          "sampled_per_tensor": 4096,
+                                          "optimizers": rows}})
+    for key, r in rows.items():
+        if key == "sgld":
+            assert abs(r["noise_var_over_3lr"] - 1) < 0.03 and \
+                r["noise_mean_in_sigmas"] < 4, r
+        else:
+            assert r["worst_err_over_tolerance"] <= 1.0, (key, r)
+
+
+def _to_f64(mx, st):
+    if st is None:
+        return None
+    if isinstance(st, tuple):
+        return tuple(_to_f64(mx, s) for s in st)
+    return mx.nd.NDArray(st._data.double(), st.context)
+
+
+def _card_vs_cpu(mx, run, ctx):
+    """``run(ctx)`` -> {name: host tensor} on the card and on the CPU:
+    the largest gap of any tensor over its largest |value|."""
+    got = run(ctx)
+    return _max_scaled(got, run(mx.cpu()))
+
+
+def _seq_leg(mx, python_loss):
+    """examples/module/seq_module.py:79-118 (copied): the SequentialModule
+    of a feature stage and a softmax head, or of the feature stage and a
+    PythonLossModule with the host hinge gradient; the first 4 batches of
+    an epoch (16 batches of the softmax head's summed gradient, lr 0.02,
+    leave the card 8.1e-4 of the largest weight from the CPU: ReLU units
+    near zero flip)."""
+    def run(ctx):
+        hinge, feature, head = seq_module_parts(mx, ctx)
+        mod = mx.mod.SequentialModule()
+        mod.add(feature())
+        if python_loss:
+            mod.add(mx.mod.PythonLossModule(grad_func=hinge),
+                    take_labels=True, auto_wiring=True)
+        else:
+            mod.add(head(), take_labels=True, auto_wiring=True)
+        mod.fit(mx.io.ResizeIter(seq_module_data(mx), 4),
+                optimizer_params={"learning_rate": 0.1 if python_loss
+                                  else 0.02},
+                initializer=mx.initializer.Xavier(), num_epoch=1)
+        return _host_params(mod)[0]
+    return run
+
+
+def _vae_leg(mx):
+    """examples/vae/vae.py:54-84 (copied, 2 epochs): MakeLoss + BlockGrad
+    heads, Adam 1e-2, forward/backward/update by hand."""
+    def run(ctx):
+        rs = np.random.RandomState(0)
+        basis = rs.normal(size=(4, 24)).astype(np.float32)
+        codes = rs.normal(size=(768, 4)).astype(np.float32)
+        x = codes @ basis + 0.05 * rs.normal(size=(768, 24)).astype(
+            np.float32)
+        mod = mx.mod.Module(vae_symbol(mx), data_names=["data", "eps"],
+                            label_names=[], context=ctx)
+        it = mx.io.NDArrayIter({"data": x, "eps": rs.normal(
+            size=(768, 4)).astype(np.float32)}, batch_size=64)
+        mod.bind(data_shapes=it.provide_data)
+        mod.init_params(mx.initializer.Xavier())
+        mod.init_optimizer(optimizer="adam",
+                           optimizer_params={"learning_rate": 1e-2})
+        for _ in range(2):
+            it = mx.io.NDArrayIter({"data": x, "eps": rs.normal(
+                size=(768, 4)).astype(np.float32)}, batch_size=64)
+            for batch in it:
+                mod.forward(batch, is_train=True)
+                mod.backward()
+                mod.update()
+        return _host_params(mod)[0]
+    return run
+
+
+def _autoencoder_leg(mx):
+    """examples/autoencoder/autoencoder.py:33-60 (copied, 2 epochs):
+    LinearRegressionOutput against the data, Adam 1e-2."""
+    def run(ctx):
+        rs = np.random.RandomState(0)
+        basis = rs.normal(size=(4, 32)).astype(np.float32)
+        codes = rs.normal(size=(512, 4)).astype(np.float32)
+        x = codes @ basis + 0.05 * rs.normal(size=(512, 32)).astype(
+            np.float32)
+        np.random.seed(0)
+        it = mx.io.NDArrayIter(x, x[:, 0], batch_size=64, shuffle=True)
+        mod = mx.mod.Module(autoencoder_symbol(mx), data_names=["data"],
+                            label_names=[], context=ctx)
+        mod.bind(data_shapes=it.provide_data)
+        mod.init_params(mx.initializer.Xavier())
+        mod.init_optimizer(optimizer="adam",
+                           optimizer_params={"learning_rate": 1e-2})
+        for _ in range(2):
+            it.reset()
+            for batch in it:
+                mod.forward(batch, is_train=True)
+                mod.backward()
+                mod.update()
+        return _host_params(mod)[0]
+    return run
+
+
+_GLUON_BLOCKS = (
+    ("Conv1DTranspose", lambda nn: nn.Conv1DTranspose(
+        8, 3, strides=2, output_padding=1, prefix="ct1_"), (4, 6, 33)),
+    ("Conv2DTranspose", lambda nn: nn.Conv2DTranspose(
+        16, 4, strides=2, padding=1, prefix="ct2_"), (4, 8, 24, 24)),
+    ("Conv3DTranspose", lambda nn: nn.Conv3DTranspose(
+        4, 2, strides=2, prefix="ct3_"), (2, 4, 6, 6, 6)),
+    ("InstanceNorm", lambda nn: nn.InstanceNorm(scale=True, prefix="in_"),
+     (4, 8, 16, 16)),
+    ("LayerNorm", lambda nn: nn.LayerNorm(prefix="ln_"), (8, 32, 64)),
+    ("LeakyReLU", lambda nn: nn.LeakyReLU(0.1, prefix="lr_"), (8, 64)),
+    ("Lambda", lambda nn: nn.Lambda("tanh", prefix="la_"), (8, 64)),
+    ("HybridLambda", lambda nn: nn.HybridLambda(
+        lambda F, x: F.LeakyReLU(x, act_type="elu", slope=0.5),
+        prefix="hl_"), (8, 64)),
+)
+
+
+def _gluon_block_leg(mx, ctx, hybridize):
+    """Each new ``gluon.nn`` block's forward and backward, with its
+    parameters and input from one seed."""
+    def run_block(make, shape):
+        def run(c):
+            blk = make(mx.gluon.nn)
+            blk.initialize(mx.init.Xavier(), ctx=c)
+            x = mx.nd.array(np.random.RandomState(3).uniform(
+                -1, 1, shape).astype(np.float32), ctx=c)
+            blk(x)              # finish deferred shapes
+            if hybridize and isinstance(blk, mx.gluon.HybridBlock):
+                blk.hybridize()
+            x.attach_grad()
+            with mx.autograd.record():
+                out = blk(x)
+            head = np.random.RandomState(4).uniform(-1, 1, out.shape)
+            out.backward(mx.nd.array(head.astype(np.float32), ctx=c))
+            res = {"out": out._data.detach().cpu(),
+                   "dx": x.grad._data.cpu()}
+            for k, p in blk.collect_params().items():
+                if p.grad_req != "null":
+                    res[k] = p.grad()._data.cpu()
+            return res
+        return run
+    return {name: _card_vs_cpu(mx, run_block(make, shape), ctx)
+            for name, make, shape in _GLUON_BLOCKS}
+
+
+def _fcn_module_legs(mx, ctx, card):
+    """(h) the Module and Gluon legs at their examples' own sizes, the
+    card against the CPU: the trained parameters within 1e-3 of each
+    tensor's largest (§2's gate for a training path), each block's
+    forward and gradients within 1e-4."""
+    t0 = time.perf_counter()
+    gaps = {"seq_module_softmax_head": _card_vs_cpu(mx, _seq_leg(mx, False),
+                                                    ctx),
+            "seq_module_python_loss": _card_vs_cpu(mx, _seq_leg(mx, True),
+                                                   ctx),
+            "vae": _card_vs_cpu(mx, _vae_leg(mx), ctx),
+            "autoencoder": _card_vs_cpu(mx, _autoencoder_leg(mx), ctx)}
+    blocks = {"eager": _gluon_block_leg(mx, ctx, False),
+              "hybridized": _gluon_block_leg(mx, ctx, True)}
+    emit({"dense_prediction_module_legs": {
+        "card": card, "max_gap_over_largest": gaps, "gluon_blocks": blocks,
+        "tolerance": {"trained_parameters": 1e-3, "blocks": 1e-4},
+        "s": time.perf_counter() - t0}})
+    assert max(gaps.values()) <= 1e-3, gaps
+    assert max(max(v.values()) for v in blocks.values()) <= 1e-4, blocks
+
+
+def dense_prediction_phase(mx, ctx, rehearsal, card):
+    """FCN-16s on VGG-16 through ``Module.fit`` (a)-(g), then the Module
+    and Gluon legs (h). Returns the K1-K3 launches of the path (0: it
+    has no hand-written kernel)."""
+    gpu = ctx.device_type == "gpu"
+    cfg = _FCN[rehearsal]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _free(gpu)
+    from mxnet_tpu_torch.kernels import fused_bn as K1
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    sym = fcn16s_symbol(mx, cfg["classes"], cfg["widths"], cfg["fc"], p=0.5)
+    n = cfg["batches"] * cfg["batch"]
+    x, y = fcn_data(_FCN_SEED, n, cfg["hw"], cfg["classes"])
+    init = mx.mod.Module(sym, context=mx.cpu())
+    init.bind([mx.io.DataDesc("data", (1,) + x.shape[1:])],
+              [mx.io.DataDesc("softmax_label", (1,) + y.shape[1:])],
+              for_training=False)
+    init.init_params(fcn_init(mx))
+    arg0 = _host_params(init)[0]
+    del init
+    n_params = sum(v.numel() for v in arg0.values())
+    emit({"dense_prediction_model": {
+        "card": card, "parameters": n_params, "batch": cfg["batch"],
+        "input": [3, cfg["hw"], cfg["hw"]], "classes": cfg["classes"],
+        "void_label": 255, "widths": cfg["widths"], "fc": cfg["fc"]}})
+    if cfg["params"] is not None:
+        assert n_params == cfg["params"], n_params
+    legs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- the main path: counts zeroed just before, read just after ----
+        K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+        t = time.perf_counter()
+        _fcn_forward_leg(mx, cfg, ctx, arg0, x, card)
+        legs["forward"], t = time.perf_counter() - t, time.perf_counter()
+        _fcn_train_leg(mx, cfg, sym, ctx, arg0, x, y, card, tmp)
+        legs["fit_and_resume"], t = time.perf_counter() - t, \
+            time.perf_counter()
+        _fcn_divergence_leg(mx, cfg, sym, ctx, arg0, x, y, card, tmp)
+        legs["divergence"], t = time.perf_counter() - t, time.perf_counter()
+        mod = _fcn_monitor_step1_leg(mx, cfg, ctx, arg0, x, y, card)
+        legs["monitor_and_step1"], t = time.perf_counter() - t, \
+            time.perf_counter()
+        _fcn_optimizer_leg(mx, ctx, mod, arg0, card)
+        del mod
+        _free(gpu)
+        legs["optimizers"], t = time.perf_counter() - t, time.perf_counter()
+        _fcn_module_legs(mx, ctx, card)
+        legs["module_and_gluon"] = time.perf_counter() - t
+        counts = _kernel_counts()
+        # -----------------------------------------------------------------
+    emit({"dense_prediction": {
+        "card": card, "leg_s": legs, "k1_launches": counts[0],
+        "k2_launches": counts[1], "k3_launches": counts[2],
+        "note": "no hand-written kernel on this path: the JAX package "
+                "runs it through XLA; cuDNN (convolutions and their "
+                "transposes), cuBLAS and ATen do its work"}})
+    assert counts == (0, 0, 0), counts
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    torch.backends.cudnn.deterministic = det
+    _free(gpu)
+    return counts
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
           "resnet_training", "gluon_training", "decode", "rnn_training",
-          "image_classification", "gluon_zoo", "observability")
+          "image_classification", "gluon_zoo", "observability",
+          "dense_prediction")
 
 
 def main(argv=None):
@@ -4486,6 +5338,10 @@ def main(argv=None):
         with phase("observability"):
             res["obs_launches"] = observability_phase(
                 mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
+    if "dense_prediction" in todo:
+        with phase("dense_prediction"):
+            res["dense_launches"] = dense_prediction_phase(
+                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -4505,6 +5361,7 @@ def main(argv=None):
         "rnn_training_launches": res["rnn_launches"][0],
         "image_classification_launches": res["ic_launches"][0],
         "gluon_zoo_launches": res["zoo_launches"][0],
+        "dense_prediction_launches": res["dense_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -4520,6 +5377,7 @@ def main(argv=None):
         "rnn_training_launches": res["rnn_launches"][1],
         "image_classification_launches": res["ic_launches"][1],
         "gluon_zoo_launches": res["zoo_launches"][1],
+        "dense_prediction_launches": res["dense_launches"][1],
         "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
@@ -4536,6 +5394,7 @@ def main(argv=None):
         "rnn_training_launches": res["rnn_launches"][2],
         "image_classification_launches": res["ic_launches"][2],
         "gluon_zoo_launches": res["zoo_launches"][2],
+        "dense_prediction_launches": res["dense_launches"][2],
         "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,

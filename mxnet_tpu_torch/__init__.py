@@ -64,6 +64,10 @@ from . import flight  # noqa: F401
 from . import compile_cache  # noqa: F401
 from . import tuner  # noqa: F401
 from . import profiler  # noqa: F401
+from . import monitor  # noqa: F401
+from . import monitor as mon  # noqa: F401
+from .monitor import Monitor  # noqa: F401
+from .checkpoint import CheckpointManager  # noqa: F401
 
 # mx.random's samplers (parity: mx.random.uniform is nd.random.uniform)
 for _name in nd.random.__all__:

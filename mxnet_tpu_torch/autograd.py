@@ -5,7 +5,8 @@ Counterpart of ``mxnet_tpu/autograd.py``: ``record``, ``pause``,
 thread-local state that train-mode ops read and the tape records under;
 ``mark_variables``, ``backward`` and ``grad`` (with ``create_graph`` for
 higher orders) work on the NDArray tape of ``imperative.py``, which is
-``torch.autograd``'s graph. ``Function`` is a user-defined op whose
+``torch.autograd``'s graph; ``get_symbol`` rebuilds a Symbol from the
+ops the tape recorded. ``Function`` is a user-defined op whose
 backward runs the user's NDArray ``backward`` under ``pause()``.
 """
 from __future__ import annotations
@@ -17,13 +18,14 @@ from . import imperative as _imp
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad", "Function"]
+           "backward", "grad", "get_symbol", "Function"]
 
 is_recording = _imp.is_recording
 is_training = _imp.is_training
 set_recording = _imp.set_recording
 set_training = _imp.set_training
 mark_variables = _imp.mark_variables
+get_symbol = _imp.get_symbol
 
 
 class _RecordingStateScope:

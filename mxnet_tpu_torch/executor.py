@@ -29,6 +29,7 @@ and dtype only, no data, no device): the counterpart of
 from __future__ import annotations
 
 import ast
+import contextlib
 import hashlib
 import itertools
 
@@ -241,6 +242,9 @@ class _GraphProgram:
 
     def __init__(self, symbol):
         self.symbol = symbol
+        # callable(output name, raw tensor) fed every op output of an
+        # evaluation while set (the executor's monitor callback)
+        self.tap = None
         self._entries = {}      # (kind, statics) -> (entry id, cards)
         self.nodes = symbol._topo_nodes()
         self.arg_names = symbol.list_arguments()
@@ -305,10 +309,21 @@ class _GraphProgram:
             env[id(node)] = self._apply_node(node, raw_in, train,
                                              aux_updates, device)
             del raw_in
+            if self.tap is not None:
+                self._tap_outputs(node, env[id(node)])
             for key in self._drop_after[pos]:
                 env.pop(key, None)
         return [env[id(n)][idx] for n, idx in self.output_entries], \
             aux_updates
+
+    def _tap_outputs(self, node, outs):
+        """Each visible output of ``node`` to ``tap`` under the name
+        ``get_internals().list_outputs()`` gives it, detached."""
+        n = node.num_outputs()
+        for i in range(n):
+            name = node.name + "_output" if n == 1 \
+                else "%s_output%d" % (node.name, i)
+            self.tap(name, outs[i].detach())
 
     def graph_fingerprint(self):
         """JSON-safe fingerprint of this program's graph, computed as the
@@ -583,6 +598,7 @@ class Executor:
                                  "array" % (n, req))
         self.outputs = []
         self._pending = None    # (outputs, leaves) of a training forward
+        self._monitor_callback = None
 
     @property
     def arg_dict(self):
@@ -697,19 +713,50 @@ class Executor:
         self._pending = None
         self.outputs = []       # the last outputs die before new ones live
         record_dispatch("forward")
-        if not is_train:
-            with telemetry.span("step"):
+        with self._monitored(), telemetry.span("step"):
+            if not is_train:
                 outs, _ = self._prog.forward_fn()(self._raw_args(),
                                                   self._raw_aux())
-        else:
-            with telemetry.span("step"):
+            else:
                 outs, leaves, aux_up = self._prog.forward_train_fn(
                     self._grad_names())(self._raw_args(), self._raw_aux())
+        if is_train:
             self._write_aux(aux_up)
             if leaves:
                 self._pending = (outs, leaves)
         self._set_outputs(outs)
         return self.outputs
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Feed ``callback(name, NDArray)`` every op output of each
+        forward (and of the forward a ``forward_backward`` runs), as
+        ``get_internals()`` names them (parity:
+        Executor.set_monitor_callback; ``monitor_all`` also feeds the
+        arguments and aux states)."""
+        self._monitor_callback = callback
+        self._monitor_all = bool(monitor_all)
+
+    def _monitored(self):
+        """A context in which the program taps its op outputs into the
+        monitor callback (nothing without one)."""
+        cb = self._monitor_callback
+        if cb is None:
+            return contextlib.nullcontext()
+        from .ndarray.ndarray import NDArray
+        prog, ctx = self._prog, self._ctx
+
+        @contextlib.contextmanager
+        def tapping():
+            prog.tap = lambda name, t: cb(name, NDArray(t, ctx))
+            try:
+                yield
+            finally:
+                prog.tap = None
+            if self._monitor_all:
+                for name, arr in list(self.arg_dict.items()) + \
+                        list(self.aux_dict.items()):
+                    cb(name, arr)
+        return tapping()
 
     def backward(self, out_grads=None, is_train=True):
         """Gradients of the outputs into the gradient arrays (parity:
@@ -748,7 +795,8 @@ class Executor:
                 self.forward(is_train=is_train)
             return
         record_dispatch("fwd_bwd")
-        with telemetry.span("step"):
+        with (self._monitored() if update_outputs
+              else contextlib.nullcontext()), telemetry.span("step"):
             outs, grads, aux_up = self._prog.fwd_bwd_fn(
                 is_train, grad_names)(self._raw_args(), self._raw_aux(),
                                       head_grads)

@@ -2,7 +2,7 @@
 cells, losses, the Trainer, the data pipeline and the model zoo."""
 from .parameter import (Parameter, ParameterDict,  # noqa: F401
                         DeferredInitializationError)
-from .block import Block, HybridBlock  # noqa: F401
+from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from . import nn  # noqa: F401
 from . import rnn  # noqa: F401

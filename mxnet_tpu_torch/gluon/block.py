@@ -9,7 +9,8 @@ JAX package. ``HybridBlock`` runs ``hybrid_forward`` eagerly with
 ``F = symbol``, which is what ``export`` writes and what ``hybridize``
 traces: a hybridized block runs through a ``_CachedOp``, one symbol per
 (input shapes, dtypes, train) evaluated by the executor's
-``_GraphProgram``. ``make_pure_fn`` turns an initialised block into a
+``_GraphProgram``; ``SymbolBlock`` runs a given Symbol the same way.
+``make_pure_fn`` turns an initialised block into a
 pure function of its parameter tensors for ``torch.autograd`` (the raw
 training step of ``bench.py``).
 """
@@ -27,7 +28,7 @@ from ..name import NameManager
 from ..ops import common as _common
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock", "make_pure_fn"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "make_pure_fn"]
 
 
 class _BlockScope:
@@ -364,29 +365,104 @@ class _CachedOp:
         prog, names, single = entry
         by_name = dict(zip(names, inputs))
         by_name.update((p.name, p.data()) for p in params)
-        missing = [n for n in prog.arg_names + prog.aux_names
-                   if n not in by_name]
-        if missing:
-            raise MXNetError("hybridize: %s has no value for %s"
-                             % (self.block.name, missing))
-        record = _imp.should_record(list(by_name.values()))
-        raw = dict(zip(by_name, _imp.read_inputs(list(by_name.values()),
-                                                 record)))
-        args = {n: raw[n] for n in prog.arg_names}
-        aux = {n: raw[n] for n in prog.aux_names}
-        if record:
-            with torch.enable_grad():
-                outs, aux_up = prog.eval_graph(args, aux, train)
-        else:
-            outs, aux_up = prog.eval_graph(args, aux, train)
-        _imp.write_aux([(by_name[n], v) for n, v in aux_up.items()])
-        ctx = inputs[0].context if inputs else None
-        results = []
-        for o in outs:
-            nd = NDArray(o, ctx)
-            nd._tape = record
-            results.append(nd)
+        results = _run_program(prog, by_name, train, self.block.name)
         return results[0] if single else results
+
+
+def _run_program(prog, by_name, train, owner):
+    """Evaluate ``prog`` on the NDArrays ``by_name`` (its arguments and
+    aux states), recorded like one op under ``autograd.record``; the
+    moving stats of a training call are written back. Returns the
+    outputs as NDArrays on the first argument's context."""
+    from ..ndarray.ndarray import NDArray
+    missing = [n for n in prog.arg_names + prog.aux_names
+               if n not in by_name]
+    if missing:
+        raise MXNetError("%s has no value for %s" % (owner, missing))
+    record = _imp.should_record(list(by_name.values()))
+    raw = dict(zip(by_name, _imp.read_inputs(list(by_name.values()),
+                                             record)))
+    args = {n: raw[n] for n in prog.arg_names}
+    aux = {n: raw[n] for n in prog.aux_names}
+    if record:
+        with torch.enable_grad():
+            outs, aux_up = prog.eval_graph(args, aux, train)
+    else:
+        outs, aux_up = prog.eval_graph(args, aux, train)
+    _imp.write_aux([(by_name[n], v) for n, v in aux_up.items()])
+    ctx = next(iter(by_name.values())).context if by_name else None
+    results = []
+    for o in outs:
+        nd = NDArray(o, ctx)
+        nd._tape = record
+        results.append(nd)
+    return results
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol as a Block (parity: mxnet_tpu/gluon/block.py:499-554,
+    gluon.SymbolBlock), to run a Module-trained graph in Gluon code: each
+    argument that is not an input becomes a parameter named as in the
+    symbol (prefix ""), an aux state one without gradient. Parameter
+    shapes defer to the first call, inferred from the inputs'
+    (``infer_shape_partial``). Hybridized or not, a call evaluates the
+    stored graph through ``executor._GraphProgram``, recorded under
+    ``autograd.record``."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        from ..symbol import Symbol, Group
+        from ..executor import _GraphProgram
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(list(outputs))
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._out_symbol = outputs
+        self._in_names = [i.name if isinstance(i, Symbol) else i
+                          for i in inputs]
+        aux_names = set(outputs.list_auxiliary_states())
+        for name in outputs.list_arguments() + sorted(aux_names):
+            if name not in self._in_names:
+                self._params.get(name, allow_deferred_init=True,
+                                 grad_req="null" if name in aux_names
+                                 else "write")
+        self._prog = _GraphProgram(outputs)
+        self._single = len(outputs.list_outputs()) == 1
+
+    def __call__(self, *args):
+        from ..symbol import Symbol
+        if args and isinstance(args[0], Symbol):
+            raise MXNetError("SymbolBlock: call it on NDArrays; its graph "
+                             "is the stored symbol")
+        if len(args) != len(self._in_names):
+            raise MXNetError("SymbolBlock takes %d inputs (%s), got %d"
+                             % (len(self._in_names), self._in_names,
+                                len(args)))
+        params = self._params._params
+        if any(p.shape is None or 0 in p.shape or p._deferred_init
+               is not None for p in params.values()):
+            self._infer_shapes(args)
+        by_name = dict(zip(self._in_names, args))
+        by_name.update((n, p.data()) for n, p in params.items())
+        results = _run_program(self._prog, by_name, autograd.is_training(),
+                               "SymbolBlock")
+        return results[0] if self._single else results
+
+    def _infer_shapes(self, args):
+        """Parameter shapes from the inputs' (deferred initialisation)."""
+        sym = self._out_symbol
+        arg_shapes, _, aux_shapes = sym.infer_shape_partial(
+            **{n: a.shape for n, a in zip(self._in_names, args)})
+        params = self._params._params
+        for names, shapes in ((sym.list_arguments(), arg_shapes),
+                              (sym.list_auxiliary_states(), aux_shapes)):
+            for n, shape in zip(names, shapes):
+                p = params.get(n)
+                if p is not None and shape is not None:
+                    p._update_shape(shape)
+
+    def hybrid_forward(self, F, *args, **kwargs):
+        raise MXNetError("SymbolBlock uses its stored symbol")
 
 
 def _indent(s, num_spaces):

@@ -1,8 +1,9 @@
 """Basic gluon layers.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: Sequential,
-HybridSequential, Dense, Dropout, BatchNorm, FusedBNAddReLU, Embedding,
-Flatten, Activation.
+HybridSequential, Dense, Dropout, BatchNorm, FusedBNAddReLU,
+InstanceNorm, LayerNorm, Embedding, Flatten, Activation, LeakyReLU,
+Lambda, HybridLambda.
 """
 from __future__ import annotations
 
@@ -10,12 +11,14 @@ import warnings
 
 import numpy as np
 
+from ...base import MXNetError
 from ... import initializer as _init
 from ... import layout as _layout
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "FusedBNAddReLU", "Embedding", "Flatten", "Activation"]
+           "FusedBNAddReLU", "InstanceNorm", "LayerNorm", "Embedding",
+           "Flatten", "Activation", "LeakyReLU", "Lambda", "HybridLambda"]
 
 
 class Sequential(Block):
@@ -225,3 +228,114 @@ class Activation(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Activation(x, act_type=self._act_type)
+
+
+class InstanceNorm(HybridBlock):
+    """(parity: mxnet_tpu/gluon/nn/basic_layers.py:220-245) gamma learns
+    only with ``scale``, beta only with ``center``; ``axis`` is accepted
+    and the channel axis is 1, as in the JAX package."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self._epsilon = epsilon
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=_init.create(gamma_initializer),
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=_init.create(beta_initializer),
+                allow_deferred_init=True)
+
+    def _shape_hook(self, x, *args):
+        c = x.shape[1]
+        self.gamma._update_shape((c,))
+        self.beta._update_shape((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class LayerNorm(HybridBlock):
+    """Normalisation over ``axis`` (parity:
+    mxnet_tpu/gluon/nn/basic_layers.py:248-270)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self._axis = axis
+            self._epsilon = epsilon
+            self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                         allow_deferred_init=True,
+                                         differentiable=scale)
+            self.beta = self.params.get("beta", shape=(in_channels,),
+                                        allow_deferred_init=True,
+                                        differentiable=center)
+
+    def _shape_hook(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma._update_shape((c,))
+        self.beta._update_shape((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
+
+
+class LeakyReLU(HybridBlock):
+    """(parity: nn.LeakyReLU) slope ``alpha`` below zero."""
+
+    def __init__(self, alpha, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class Lambda(Block):
+    """A function as a Block: a callable, or the name of an ``mx.nd``
+    function (parity: nn.Lambda)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as F
+            if not hasattr(F, function):
+                raise MXNetError("function %r not found in mx.nd" % function)
+            self._func_impl = getattr(F, function)
+        else:
+            self._func_impl = function
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return "Lambda(%s)" % getattr(self._func_impl, "__name__",
+                                      self._func_impl)
+
+
+class HybridLambda(HybridBlock):
+    """A function ``f(F, x, *args)`` (or the name of an ``F`` function)
+    as a HybridBlock (parity: nn.HybridLambda)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_name = function
+            self._func_impl = None
+        else:
+            self._func_impl = function
+            self._func_name = getattr(function, "__name__", "lambda")
+
+    def hybrid_forward(self, F, x, *args):
+        if self._func_impl is not None:
+            return self._func_impl(F, x, *args)
+        return getattr(F, self._func_name)(x, *args)
+
+    def __repr__(self):
+        return "HybridLambda(%s)" % self._func_name

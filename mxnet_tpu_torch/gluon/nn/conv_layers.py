@@ -1,21 +1,22 @@
 """Convolution and pooling gluon layers.
 
 Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py``: the 1-, 2- and 3-D
-convolutions and the max, average and global pools (``ceil_mode`` is
+convolutions, their transposed forms over ``Deconvolution``, and the
+max, average and global pools (``ceil_mode`` is
 ``pooling_convention="full"``). Under a channels-last layout a conv
-weight is O+spatial+I, as in the JAX package. The transposed
-convolutions wait for the ``Deconvolution`` op (ROADMAP Queue 1 item
-3.3).
+weight is O+spatial+I, as in the JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ...base import MXNetError
 from ... import initializer as _init
 from ... import layout as _layout
 from ..block import HybridBlock
 
-__all__ = ["Conv1D", "Conv2D", "Conv3D", "MaxPool1D", "MaxPool2D",
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "Conv3DTranspose", "MaxPool1D", "MaxPool2D",
            "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
            "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
            "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D"]
@@ -98,6 +99,64 @@ def _make_conv(name, ndim):
 Conv1D = _make_conv("Conv1D", 1)
 Conv2D = _make_conv("Conv2D", 2)
 Conv3D = _make_conv("Conv3D", 3)
+
+
+class _ConvTranspose(_Conv):
+    """Transposed convolution over the ``Deconvolution`` op (parity:
+    mxnet_tpu/gluon/nn/conv_layers.py:30-127, its ``transposed``
+    branch): weight (in_channels, channels/groups, *kernel),
+    channels-first only."""
+
+    def __init__(self, channels, kernel_size, strides, padding,
+                 output_padding, dilation, groups, in_channels, activation,
+                 use_bias, weight_initializer, bias_initializer, layout,
+                 prefix, params):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, 0, activation, use_bias, weight_initializer,
+                         bias_initializer, layout=layout, prefix=prefix,
+                         params=params)
+        if self._channels_last:
+            raise MXNetError("transposed conv supports channels-first "
+                             "layouts only")
+        self._output_padding = _tuple(output_padding, len(kernel_size))
+        self.weight.shape = (in_channels, channels // groups) + kernel_size
+
+    def _shape_hook(self, x, *args):
+        self.weight._update_shape(
+            (x.shape[1], self._channels // self._groups) + self._kernel)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.Deconvolution(x, weight, bias, kernel=self._kernel,
+                              stride=self._strides, pad=self._padding,
+                              dilate=self._dilation,
+                              adj=self._output_padding,
+                              num_filter=self._channels,
+                              num_group=self._groups, no_bias=bias is None)
+        if self._act_type is not None:
+            out = F.Activation(out, act_type=self._act_type)
+        return out
+
+
+def _make_conv_transpose(name, ndim):
+    class ConvTranspose(_ConvTranspose):
+        def __init__(self, channels, kernel_size, strides=1, padding=0,
+                     output_padding=0, dilation=1, groups=1, layout=None,
+                     activation=None, use_bias=True, weight_initializer=None,
+                     bias_initializer="zeros", in_channels=0, prefix=None,
+                     params=None):
+            super().__init__(channels, _tuple(kernel_size, ndim), strides,
+                             padding, output_padding, dilation, groups,
+                             in_channels, activation, use_bias,
+                             weight_initializer, bias_initializer, layout,
+                             prefix, params)
+    ConvTranspose.__name__ = name
+    ConvTranspose.__qualname__ = name
+    return ConvTranspose
+
+
+Conv1DTranspose = _make_conv_transpose("Conv1DTranspose", 1)
+Conv2DTranspose = _make_conv_transpose("Conv2DTranspose", 2)
+Conv3DTranspose = _make_conv_transpose("Conv3DTranspose", 3)
 
 
 class _Pooling(HybridBlock):

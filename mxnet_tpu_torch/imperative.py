@@ -34,7 +34,7 @@ from .base import MXNetError
 from .ops import common as _common
 
 __all__ = ["invoke", "is_recording", "is_training", "set_recording",
-           "set_training", "backward", "mark_variables"]
+           "set_training", "backward", "mark_variables", "get_symbol"]
 
 # id -> leaf (NDArray) that may hold an alias; a backward differentiates
 # with respect to every live one (keyed by id: NDArray's == is the
@@ -140,6 +140,26 @@ def write_aux(pairs):
 # Invoke
 # ---------------------------------------------------------------------------
 
+class TapeNode:
+    """What ``autograd.get_symbol`` needs of one recorded op: the op, its
+    params and, per input, where its value came from: ``(TapeNode,
+    output index)``, ``(leaf NDArray, 0)``, ``(None, 0)`` for a recorded
+    value without this record (a hybridized block's output), or None
+    for a constant. The values themselves live in torch's graph."""
+
+    __slots__ = ("op", "params", "parents")
+
+    def __init__(self, op, params, nds):
+        self.op = op
+        self.params = {k: v for k, v in params.items()
+                       if k not in ("_train", "_rng")}
+        self.parents = [None if x is None else
+                        x._tape if isinstance(x._tape, tuple) else
+                        (None, 0) if x._tape else
+                        (x, 0) if x._grad_req is not None else None
+                        for x in nds]
+
+
 def invoke(op, inputs, kwargs, out=None):
     """Run one op eagerly on NDArrays (parity: ``imperative.invoke``);
     returns a single NDArray or a list of its visible outputs (or
@@ -185,10 +205,11 @@ def invoke(op, inputs, kwargs, out=None):
             return out
         return primary
     n_visible = min(op.n_visible(params) or len(outs), len(outs))
+    node = TapeNode(op, params, nds) if record else None
     results = []
-    for o in outs[:n_visible]:
+    for i, o in enumerate(outs[:n_visible]):
         nd = NDArray(o, ctx)
-        nd._tape = record
+        nd._tape = (node, i) if record else False
         results.append(nd)
     if out is not None:
         targets = out if isinstance(out, (list, tuple)) else [out]
@@ -282,3 +303,43 @@ def backward(outputs, head_grads=None, retain_graph=False, train_mode=True):
                 dst.add_(g.to(dst.dtype))
             else:
                 dst.copy_(g)
+
+
+def get_symbol(x):
+    """The Symbol of the recorded ops that computed ``x`` (parity:
+    mxnet_tpu/imperative.py:338-380, autograd.get_symbol): a leaf becomes
+    ``var<i>``, a constant input ``const<i>``, an op ``<op name><i>``,
+    numbered in the order a depth-first walk from ``x`` meets them, as
+    the JAX package names them."""
+    from .ndarray.ndarray import NDArray
+    from .symbol.symbol import Symbol, _SymNode
+    if not isinstance(x, NDArray) or not isinstance(x._tape, tuple):
+        raise MXNetError("get_symbol: array is not part of a recorded "
+                         "graph (use autograd.record())")
+    cache, counters = {}, {}
+
+    def name_for(base):
+        i = counters.get(base, 0)
+        counters[base] = i + 1
+        return "%s%d" % (base, i)
+
+    def conv(node):
+        got = cache.get(id(node))
+        if got is not None:
+            return got
+        if isinstance(node, NDArray):
+            sn = _SymNode(None, name_for("var"), {}, [])
+        elif node is None:
+            raise MXNetError("get_symbol: a recorded value has no symbol "
+                             "information (a hybridized block's output)")
+        else:
+            inputs = [(_SymNode(None, name_for("const"), {}, []), 0)
+                      if p is None else (conv(p[0]), p[1])
+                      for p in node.parents]
+            sn = _SymNode(node.op, name_for(node.op.name.lower()),
+                          node.params, inputs)
+        cache[id(node)] = sn
+        return sn
+
+    node, i = x._tape
+    return Symbol([(conv(node), i)])

@@ -1,24 +1,30 @@
 """Weight initializers.
 
 Counterpart of ``mxnet_tpu/initializer.py`` (Uniform, Normal, Zero, One,
-Xavier, LSTMBias, FusedRNN and the name-based default rules for
-bias/gamma/beta/moving stats). Random draws come from an explicit
-``torch.Generator`` on the CPU and are then copied to the parameter's device, so one seed gives the
-same weights on every device. The JAX package draws from numpy: the two
-never give the same numbers, and tests carry weights across instead
-(``weights.py``).
+Constant, Orthogonal, Xavier, MSRAPrelu, Bilinear, LSTMBias, Load, Mixed,
+FusedRNN and the name-based default rules for bias/gamma/beta/moving
+stats). Uniform, Normal and Xavier (so MSRAPrelu) draw from an explicit
+``torch.Generator`` on the CPU and then copy to the parameter's device,
+so one seed gives the same weights on every device; the JAX package
+draws them from numpy, and tests carry such weights across instead
+(``weights.py``). Orthogonal draws from numpy's global state as the JAX
+package does, so one ``np.random.seed`` gives both packages the same
+array; Constant and Bilinear are deterministic and bit-equal.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 
+import numpy as np
 import torch
 
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Zero", "One",
-           "Xavier", "LSTMBias", "FusedRNN", "create"]
+           "Constant", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "Load", "Mixed", "FusedRNN", "create", "register"]
 
 
 class InitDesc(str):
@@ -163,6 +169,66 @@ class Xavier(Initializer):
             raise MXNetError("invalid rnd_type %r" % self.rnd_type)
 
 
+class Constant(Initializer):
+    """Every element ``value`` (parity: mxnet_tpu/initializer.py:151)."""
+
+    def __init__(self, value=0.0):
+        super().__init__()
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        arr[:] = torch.full(tuple(arr.shape), float(self.value),
+                            dtype=torch.float32)
+
+
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal basis from the SVD of a numpy draw
+    (parity: mxnet_tpu/initializer.py:161-179; ``np.random`` as there)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__()
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = np.random.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = np.random.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == (nout, nin) else v
+        arr[:] = torch.from_numpy(
+            (self.scale * q).reshape(arr.shape).astype(np.float32))
+
+
+class MSRAPrelu(Xavier):
+    """Xavier, gaussian, magnitude ``2 / (1 + slope^2)`` (parity:
+    mxnet_tpu/initializer.py:214)."""
+
+    def __init__(self, factor_type="avg", slope=0.25, generator=None):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
+                         generator=generator)
+        self.slope = slope
+
+
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a (C, 1, k, k) deconvolution
+    weight (parity: mxnet_tpu/initializer.py:222-236, vectorised: the
+    same float64 arithmetic per element, then float32)."""
+
+    def _init_weight(self, _, arr):
+        shape = tuple(arr.shape)
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(int(np.prod(shape)))
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = ((1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c)))
+        arr[:] = torch.from_numpy(weight.astype(np.float32).reshape(shape))
+
+
 class LSTMBias(Initializer):
     """The forget gate's bias ``forget_bias``, the other gates' 0, for the
     i,f,c,o gate order (parity: initializer.LSTMBias)."""
@@ -216,9 +282,69 @@ class FusedRNN(Initializer):
         arr[:] = cell.pack_weights(args)["parameters"]
 
 
+class Load(Initializer):
+    """Values from a ``.params`` file or a dict of arrays (``arg:``/
+    ``aux:`` prefixes dropped), ``default_init`` for the rest (parity:
+    mxnet_tpu/initializer.py:255-280)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        super().__init__()
+        if isinstance(param, str):
+            from .context import cpu
+            from .ndarray import load as _nd_load
+            param = _nd_load(param, ctx=cpu())
+        self.param = {k[4:] if k.startswith(("arg:", "aux:")) else k: v
+                      for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            value = self.param[name]
+            if tuple(value.shape) != tuple(arr.shape):
+                raise MXNetError("Load: shape mismatch for %s: %s against "
+                                 "%s" % (name, tuple(value.shape),
+                                         tuple(arr.shape)))
+            arr[:] = value
+        elif self.default_init is None:
+            raise MXNetError("Load: no init for %s" % name)
+        else:
+            self.default_init(name, arr)
+
+
+class Mixed(Initializer):
+    """The first initializer whose pattern matches the name (parity:
+    mxnet_tpu/initializer.py:283-301)."""
+
+    def __init__(self, patterns, initializers):
+        super().__init__()
+        if len(patterns) != len(initializers):
+            raise MXNetError("Mixed: patterns/initializers length mismatch")
+        self.map = [(re.compile(p), init) for p, init in
+                    zip(patterns, initializers)]
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise MXNetError("Mixed: no pattern matches %r; add a '.*' "
+                         "catch-all" % name)
+
+
 _REGISTRY = {"uniform": Uniform, "normal": Normal, "zero": Zero,
-             "zeros": Zero, "one": One, "ones": One, "xavier": Xavier,
-             "lstmbias": LSTMBias, "fusedrnn": FusedRNN}
+             "zeros": Zero, "one": One, "ones": One, "constant": Constant,
+             "orthogonal": Orthogonal, "xavier": Xavier,
+             "msraprelu": MSRAPrelu, "bilinear": Bilinear,
+             "lstmbias": LSTMBias, "load": Load, "mixed": Mixed,
+             "fusedrnn": FusedRNN}
+
+
+def register(cls):
+    """Register an initializer class under its lower-cased name (parity:
+    initializer.register)."""
+    _REGISTRY[cls.__name__.lower()] = cls
+    return cls
 
 
 def create(name, **kwargs):

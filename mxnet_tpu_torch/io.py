@@ -7,9 +7,10 @@ construction and at every ``reset``) and the same ``last_batch_handle``
 semantics. Batches are host arrays (``cpu()`` NDArrays), as in the
 reference; a Module copies each into its bound storage on its device.
 ``ResizeIter`` (a fixed number of batches per epoch), ``PrefetchingIter``
-(one background thread ahead of its iterator) and ``MNISTIter`` (MNIST
-idx files, plain or gzipped) are ported too; ``CSVIter``, ``LibSVMIter``
-and ``ImageRecordIter`` are not yet (ROADMAP Queue 1 items 3.4 and 6).
+(one background thread ahead of its iterator), ``MNISTIter`` (MNIST
+idx files, plain or gzipped) and ``CSVIter`` are ported too;
+``LibSVMIter`` (CSR batches) and ``ImageRecordIter`` are not yet
+(ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from . import telemetry
 from . import faults
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
-           "PrefetchingIter", "MNISTIter"]
+           "PrefetchingIter", "MNISTIter", "CSVIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -398,5 +399,29 @@ class MNISTIter(NDArrayIter):
             imgs = imgs.reshape(len(imgs), 1, imgs.shape[1], imgs.shape[2])
         super().__init__(imgs, lbls, batch_size=int(batch_size),
                          shuffle=bool(shuffle),
+                         num_parts=int(kwargs.get("num_parts", 1)),
+                         part_index=int(kwargs.get("part_index", 0)))
+
+
+class CSVIter(NDArrayIter):
+    """Rows of a CSV file as float32 samples of ``data_shape``, with
+    labels from ``label_csv`` (a (1,) label flattens to a vector); a
+    short last batch pads with ``round_batch``, else it is dropped
+    (parity: mxnet_tpu/io.py:446-462, src/io/iter_csv.cc)."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None,
+                 label_shape=(1,), batch_size=1, round_batch=True,
+                 **kwargs):
+        data = np.loadtxt(data_csv, delimiter=",", dtype=np.float32)
+        data = data.reshape((-1,) + tuple(data_shape))
+        label = None
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=np.float32)
+            label = label.reshape((-1,) + tuple(label_shape))
+            if label.shape[1:] == (1,):
+                label = label[:, 0]
+        super().__init__(data, label, batch_size=int(batch_size),
+                         last_batch_handle="pad" if round_batch
+                         else "discard",
                          num_parts=int(kwargs.get("num_parts", 1)),
                          part_index=int(kwargs.get("part_index", 0)))

@@ -2,12 +2,13 @@
 
 Counterpart of ``mxnet_tpu/metric.py``: ``EvalMetric`` with its
 registry and ``create``, ``CompositeEvalMetric``, ``Accuracy``,
-``TopKAccuracy``, ``CrossEntropy``, ``Perplexity`` and ``Loss``. As in
-the JAX package, the hot metrics accumulate on the predictions' device
-(a running sum, fetched at ``get()``), so a training loop does not wait
-on the card once per batch; numpy inputs take the host path. The other
-built-ins (F1, MAE, MSE, RMSE, NLL, Pearson, CustomMetric) are not
-ported yet.
+``TopKAccuracy``, ``F1``, ``Perplexity``, ``MAE``, ``MSE``, ``RMSE``,
+``CrossEntropy``, ``NegativeLogLikelihood``, ``PearsonCorrelation``,
+``Loss``, ``Torch``, ``Caffe``, ``CustomMetric`` and ``np``. As in the
+JAX package, the hot metrics (accuracy, cross entropy, perplexity)
+accumulate on the predictions' device (a running sum, fetched at
+``get()``), so a training loop does not wait on the card once per
+batch; the others, and numpy inputs, take the host path.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ from .ndarray.ndarray import NDArray
 from . import telemetry
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "Loss", "create", "register",
+           "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
+           "NegativeLogLikelihood", "PearsonCorrelation", "Loss", "Torch",
+           "Caffe", "CustomMetric", "np", "create", "register",
            "check_label_shapes"]
 
 _REGISTRY = {}
@@ -36,6 +39,8 @@ def register(cls=None, name=None):
 
 def create(metric, *args, **kwargs):
     """(parity: metric.create) a name, an instance, or a list of them."""
+    if callable(metric):
+        return CustomMetric(metric, *args, **kwargs)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, (list, tuple)):
@@ -43,8 +48,6 @@ def create(metric, *args, **kwargs):
         for child in metric:
             composite.add(create(child, *args, **kwargs))
         return composite
-    if callable(metric):
-        raise MXNetError("metric.create: CustomMetric is not ported yet")
     key = str(metric).lower()
     if key not in _REGISTRY:
         raise MXNetError("metric %r is not registered (known: %s)"
@@ -329,3 +332,162 @@ class Loss(EvalMetric):
             pred = _as_numpy(pred)
             self.sum_metric += float(pred.sum())
             self.num_inst += pred.size
+
+
+@register
+class F1(EvalMetric):
+    """Binary F1 of argmax predictions, averaged over updates (parity:
+    mxnet_tpu/metric.py:341-363)."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred = _as_numpy(pred)
+            label = _as_numpy(label).astype(_numpy.int32)
+            pred_label = _numpy.argmax(pred, axis=1)
+            if len(_numpy.unique(label)) > 2:
+                raise MXNetError("F1 currently only supports binary labels")
+            tp = float(((pred_label == 1) & (label == 1)).sum())
+            fp = float(((pred_label == 1) & (label == 0)).sum())
+            fn = float(((pred_label == 0) & (label == 1)).sum())
+            precision = tp / (tp + fp) if tp + fp > 0 else 0.0
+            recall = tp / (tp + fn) if tp + fn > 0 else 0.0
+            f1 = 2 * precision * recall / (precision + recall) \
+                if precision + recall > 0 else 0.0
+            self.sum_metric += f1
+            self.num_inst += 1
+
+
+def _as_columns(label, pred):
+    """Host copies, a 1-D label or prediction as one column."""
+    label, pred = _as_numpy(label), _as_numpy(pred)
+    if label.ndim == 1:
+        label = label.reshape(label.shape[0], 1)
+    if pred.ndim == 1:
+        pred = pred.reshape(pred.shape[0], 1)
+    return label, pred
+
+
+class _Regression(EvalMetric):
+    """A mean over updates of ``_err(label - pred)`` (parity:
+    mxnet_tpu/metric.py:398-452)."""
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label, pred = _as_columns(label, pred)
+            self.sum_metric += float(self._err(label - pred))
+            self.num_inst += 1
+
+
+@register
+class MAE(_Regression):
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    @staticmethod
+    def _err(d):
+        return _numpy.abs(d).mean()
+
+
+@register
+class MSE(_Regression):
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    @staticmethod
+    def _err(d):
+        return (d ** 2).mean()
+
+
+@register
+class RMSE(_Regression):
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    @staticmethod
+    def _err(d):
+        return _numpy.sqrt((d ** 2).mean())
+
+
+@register
+@register(name="nll_loss")
+class NegativeLogLikelihood(EvalMetric):
+    """CrossEntropy under its own name (parity: mxnet_tpu/metric.py:482)."""
+
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names, eps=eps)
+        self.eps = eps
+
+    update = CrossEntropy.update
+
+
+@register
+@register(name="pearsonr")
+class PearsonCorrelation(EvalMetric):
+    """Pearson's r of each (pred, label) pair, averaged over updates."""
+
+    def __init__(self, name="pearsonr", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = _as_numpy(label).ravel()
+            pred = _as_numpy(pred).ravel()
+            self.sum_metric += float(_numpy.corrcoef(pred, label)[0, 1])
+            self.num_inst += 1
+
+
+@register
+class Torch(Loss):
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class Caffe(Loss):
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class CustomMetric(EvalMetric):
+    """A metric from ``feval(label, pred)`` on host arrays, returning a
+    value or ``(num_inst, sum_metric)`` (parity: metric.CustomMetric)."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False,
+                 output_names=None, label_names=None):
+        if name is None:
+            name = feval.__name__
+            if name.find("<") != -1:
+                name = "custom(%s)" % name
+        super().__init__(name, output_names, label_names, feval=feval,
+                         allow_extra_outputs=allow_extra_outputs)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            reval = self._feval(_as_numpy(label), _as_numpy(pred))
+            if isinstance(reval, tuple):
+                num_inst, sum_metric = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """(parity: metric.np) a CustomMetric over a numpy ``feval``."""
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)

@@ -8,14 +8,20 @@ fused batch step when it can and phase-split (``forward_backward``,
 ``update``, ``update_metric``) otherwise, and never waits on the device
 inside an epoch unless a callback reads the metric. Each batch records
 the fit-phase spans (``telemetry.FIT_PHASE_SPANS``) under the causal
-ids ``(epoch, nbatch)``. The JAX package's
-fault-tolerance extensions of ``fit`` (checkpoint manager, resume,
-divergence sentinel, elastic recovery) are not ported yet.
+ids ``(epoch, nbatch)``. ``fit``'s fault-tolerance extensions are the
+JAX package's (``mxnet_tpu/module/base_module.py:236-560``): a
+``CheckpointManager`` that saves at each epoch end and on SIGTERM/SIGINT
+mid-epoch, ``resume``, a monitor, and the divergence sentinel with its
+``halt``/``skip``/``rollback`` policies. Elastic recovery (a peer lost
+across processes) waits for the distributed slice (ROADMAP Queue 1
+item 4).
 """
 from __future__ import annotations
 
 import logging
 import time
+
+import numpy as np
 
 from ..base import MXNetError
 from .. import metric as _metric
@@ -27,6 +33,7 @@ from ..initializer import Uniform
 # codes that can arise on one device)
 FUSED_FALLBACK_CODES = {
     "env_pin": "MXNET_MODULE_FUSED_STEP=0 pins the phase-split A/B leg",
+    "monitor": "per-op monitor taps need the phase-split programs",
     "inputs_need_grad": "data gradients are phase-split only",
     "no_trainable_params": "nothing to update",
     "not_initialised": "module not fully initialised",
@@ -240,33 +247,85 @@ class BaseModule:
             initializer=Uniform(0.01), arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            monitor=None, checkpoint=None, resume=None,
-            divergence_check_every=0, divergence_policy="halt"):
+            monitor=None, sparse_row_id_fn=None, checkpoint=None,
+            resume=None, divergence_check_every=0,
+            divergence_policy="halt"):
         """Train (parity: base_module.fit — bind, init_params,
         init_optimizer, then per batch the fused step or forward_backward,
-        update and update_metric)."""
+        update and update_metric), with the JAX package's extensions:
+
+        - ``checkpoint``: a ``CheckpointManager`` (or a prefix) that saves
+          at each epoch end and, with SIGTERM/SIGINT armed for the
+          duration of ``fit``, after the batch in flight when a signal
+          comes, then raises ``TrainingPreempted``;
+        - ``resume``: True (from ``checkpoint``'s latest) or a manager or
+          prefix: parameters, optimizer states and update counts, the
+          generators; the batches already applied in the resumed epoch
+          are drawn from the iterator and not computed. No checkpoint is
+          a fresh start;
+        - ``monitor``: installed on the executor (the step phase-splits);
+        - ``divergence_check_every`` N: every N batches ``finite_check``;
+          on a non-finite value ``divergence_policy`` ``halt`` raises
+          ``DivergenceError``, ``skip`` counts and goes on, ``rollback``
+          restores the latest checkpoint (halts without one)."""
+        from ..checkpoint import CheckpointManager
         if num_epoch is None:
             raise MXNetError("fit: please specify number of epochs")
-        if checkpoint is not None or resume not in (None, False) \
-                or divergence_check_every:
-            raise MXNetError("fit: checkpoint managers, resume and the "
-                             "divergence sentinel are not ported yet "
-                             "(ROADMAP Queue 1 item 4)")
-        if monitor is not None:
-            raise MXNetError("fit: monitors are not ported yet")
+        if divergence_policy not in ("halt", "skip", "rollback"):
+            raise MXNetError("divergence_policy must be halt|skip|rollback, "
+                             "got %r" % (divergence_policy,))
+        ckpt = CheckpointManager(checkpoint) if isinstance(checkpoint, str) \
+            else checkpoint
+        rmgr = None
+        if resume is not None and resume is not False:
+            rmgr = ckpt if resume is True else resume
+            if isinstance(rmgr, str):
+                rmgr = CheckpointManager(rmgr)
+            if rmgr is None:
+                raise MXNetError("fit(resume=True) needs checkpoint=")
+        resume_meta = rmgr.latest() if rmgr is not None else None
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        skip_batches = 0
+        if resume_meta is not None:
+            rmgr.restore(self, resume_meta)
+            begin_epoch = int(resume_meta["epoch"])
+            skip_batches = int(resume_meta.get("nbatch", 0))
+            self.logger.info("Resuming from checkpoint %s: epoch=%d "
+                             "nbatch=%d", rmgr.prefix, begin_epoch,
+                             skip_batches)
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
+        if ckpt is not None:
+            ckpt.clear_preempt()
+            ckpt.arm_signals()
+        try:
+            self._fit_loop(train_data, eval_data, eval_metric,
+                           validation_metric, epoch_end_callback,
+                           batch_end_callback, eval_end_callback,
+                           eval_batch_end_callback, monitor, begin_epoch,
+                           num_epoch, skip_batches, ckpt,
+                           divergence_check_every, divergence_policy)
+        finally:
+            if ckpt is not None:
+                ckpt.disarm_signals()
 
+    def _fit_loop(self, train_data, eval_data, eval_metric,
+                  validation_metric, epoch_end_callback, batch_end_callback,
+                  eval_end_callback, eval_batch_end_callback, monitor,
+                  begin_epoch, num_epoch, skip_batches, ckpt,
+                  divergence_check_every, divergence_policy):
+        """The epochs of ``fit`` (parity: base_module._fit_loop)."""
         train_data.reset()
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
@@ -274,12 +333,24 @@ class BaseModule:
             nbatch = 0
             data_iter = iter(train_data)
             end_of_batch = False
+            if epoch == begin_epoch and skip_batches:
+                # mid-epoch resume: these batches' updates are in the
+                # checkpoint; draw them without compute so the rest of
+                # the epoch sees the data the interrupted run would have
+                for _ in range(skip_batches):
+                    try:
+                        next(data_iter)
+                    except StopIteration:
+                        break
+                nbatch = skip_batches
             try:
                 next_data_batch = next(data_iter)
             except StopIteration:
                 end_of_batch = True
             while not end_of_batch:
                 data_batch = next_data_batch
+                if monitor is not None:
+                    monitor.tic()
                 # the causal() scope stamps (epoch, nbatch) on every span
                 # this batch records (fit_batch, feed, step, opt_update,
                 # ...); the next batch is fetched inside it, as in the
@@ -297,6 +368,13 @@ class BaseModule:
                         end_of_batch = True
                     if not fused:
                         self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
+                if divergence_check_every > 0 \
+                        and (nbatch + 1) % divergence_check_every == 0 \
+                        and not self.finite_check():
+                    self._handle_divergence(divergence_policy, ckpt, epoch,
+                                            nbatch)
                 if batch_end_callback is not None:
                     with telemetry.span("callbacks"):
                         param = BatchEndParam(epoch=epoch, nbatch=nbatch,
@@ -305,6 +383,10 @@ class BaseModule:
                         for cb in _as_list(batch_end_callback):
                             cb(param)
                 nbatch += 1
+                # the preemption point: nbatch batches of this epoch are
+                # applied, so (epoch, nbatch) resumes exactly here
+                if ckpt is not None and ckpt.preempt_requested:
+                    self._preempted(ckpt, epoch, nbatch)
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -317,6 +399,9 @@ class BaseModule:
                         cb(epoch, self.symbol, arg_p, aux_p)
                 # the copies must not live through the next epoch
                 del arg_p, aux_p
+            if ckpt is not None:
+                # epoch complete: the resume point is the next epoch
+                ckpt.save(self, epoch + 1, 0)
             if eval_data is not None:
                 res = self.score(eval_data, validation_metric,
                                  score_end_callback=eval_end_callback,
@@ -326,6 +411,74 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+
+    def _preempted(self, ckpt, epoch, nbatch):
+        """Save at ``(epoch, nbatch)``, count it, write a postmortem and
+        raise ``TrainingPreempted``."""
+        from ..checkpoint import TrainingPreempted
+        from .. import flight as _flight
+        source = ckpt.preempt_requested
+        ckpt.save(self, epoch, nbatch)
+        telemetry.counter_inc("training.preempted")
+        telemetry.record_event("training.preempted", source=source,
+                               epoch=epoch, nbatch=nbatch)
+        _flight.postmortem("training_preempted",
+                           extra={"source": source, "epoch": epoch,
+                                  "nbatch": nbatch, "prefix": ckpt.prefix})
+        raise TrainingPreempted(
+            "training preempted by %s at epoch %d batch %d; checkpoint "
+            "saved under %r — fit(resume=...) continues from here"
+            % (source, epoch, nbatch, ckpt.prefix),
+            epoch=epoch, nbatch=nbatch, prefix=ckpt.prefix)
+
+    def finite_check(self):
+        """True when the last step's outputs are all finite (the base
+        class folds the output heads on the host; ``Module`` folds
+        outputs, gradients and parameters on the device)."""
+        for o in self.get_outputs():
+            a = o.asnumpy()
+            if np.issubdtype(a.dtype, np.floating) \
+                    and not np.isfinite(a).all():
+                return False
+        return True
+
+    def _handle_divergence(self, policy, ckpt, epoch, nbatch):
+        """The divergence policy after ``finite_check()`` failed (parity:
+        base_module._handle_divergence): count, then skip, roll back or
+        halt."""
+        from ..checkpoint import DivergenceError
+        from .. import flight as _flight
+        from .. import log as _log
+        telemetry.counter_inc("divergence.detected")
+        telemetry.record_event("divergence.detected", epoch=epoch,
+                               nbatch=nbatch, policy=policy)
+        where = "epoch %d batch %d" % (epoch, nbatch)
+        logger = _log.get_logger("mxnet_tpu_torch.module")
+        if policy == "skip":
+            telemetry.counter_inc("divergence.skipped")
+            logger.warning("divergence sentinel: non-finite loss/params at "
+                           "%s — policy=skip, continuing", where)
+            return
+        if policy == "rollback":
+            if ckpt is not None and ckpt.latest() is not None:
+                meta = ckpt.restore(self)
+                telemetry.counter_inc("divergence.rollback")
+                logger.warning("divergence sentinel: non-finite "
+                               "loss/params at %s — rolled back to "
+                               "checkpoint epoch=%d nbatch=%d", where,
+                               meta["epoch"], meta.get("nbatch", 0))
+                return
+            logger.warning("divergence sentinel: policy=rollback but no "
+                           "checkpoint to roll back to — halting")
+        err = DivergenceError("divergence sentinel: non-finite loss/params "
+                              "at %s (policy=%s)" % (where, policy))
+        _flight.postmortem("divergence", exc=err,
+                           extra={"epoch": epoch, "nbatch": nbatch,
+                                  "policy": policy})
+        raise err
+
+    def install_monitor(self, mon):
+        """(parity: base_module.install_monitor) nothing to tap here."""
 
     # -- params ------------------------------------------------------------
     def set_params(self, arg_params, aux_params, allow_missing=False,

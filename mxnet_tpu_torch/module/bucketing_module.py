@@ -43,6 +43,7 @@ class BucketingModule(BaseModule):
         self._curr_module = None
         self._curr_bucket_key = None
         self._params_dirty = False
+        self._monitor = None
         self.param_copies = 0
         self.bucket_switches = 0
 
@@ -129,6 +130,8 @@ class BucketingModule(BaseModule):
         if not module.binded:
             module.bind(data_shapes, label_shapes, self.for_training,
                         self.inputs_need_grad)
+            if self._monitor is not None:
+                module.install_monitor(self._monitor)
             if self._curr_module.params_initialized:
                 self._carry_params(module, allow_missing=False)
             if self._curr_module.optimizer_initialized:
@@ -140,6 +143,27 @@ class BucketingModule(BaseModule):
             self._curr_module._exec.outputs = []
         self._curr_module = module
         self._curr_bucket_key = bucket_key
+
+    def install_monitor(self, mon):
+        """Tap every bound bucket's executor into ``mon``, and each bucket
+        bound later (parity: reference bucketing_module.install_monitor;
+        the JAX package taps only the buckets already bound)."""
+        self._check_bound()
+        self._monitor = mon
+        for module in self._buckets.values():
+            if module.binded:
+                module.install_monitor(mon)
+
+    def get_states(self, merge_multi_context=True):
+        """The current bucket's states (parity:
+        bucketing_module.get_states)."""
+        self._check_bound(params=True)
+        return self._curr_module.get_states(merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        """(parity: bucketing_module.set_states)"""
+        self._check_bound(params=True)
+        self._curr_module.set_states(states, value)
 
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
                     allow_missing=False, force_init=False, allow_extra=False):

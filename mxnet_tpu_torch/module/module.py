@@ -23,7 +23,6 @@ parallelism, meshes, partition rules), the ``dist*`` stores,
 from __future__ import annotations
 
 import logging
-import os
 
 import torch
 
@@ -406,6 +405,8 @@ class Module(BaseModule):
                                   "module not fully initialised")
         if self.inputs_need_grad:
             return self._fallback("inputs_need_grad", "inputs_need_grad")
+        if self._exec._monitor_callback is not None:
+            return self._fallback("monitor", "monitor installed")
         live = self._live_params()
         if not live:
             return self._fallback("no_trainable_params",
@@ -465,6 +466,32 @@ class Module(BaseModule):
             eval_metric.update(labels if isinstance(labels, (list, tuple))
                                else [labels], self.get_outputs())
 
+    def install_monitor(self, mon):
+        """Tap the executor's op outputs into ``mon`` (parity:
+        module.install_monitor); the fused step then phase-splits."""
+        if not self.binded:
+            raise MXNetError("install_monitor: bind first")
+        mon.install(self._exec)
+
+    def finite_check(self):
+        """The divergence sentinel's verdict (parity: module.finite_check):
+        ``isfinite`` folded on the device over the last step's outputs,
+        every gradient array and every parameter, then one host read."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("finite_check: bind and init_params first")
+        ex = self._exec
+        leaves = [o._data for o in ex.outputs]
+        leaves += [g._data for g in ex.grad_dict.values() if g is not None]
+        leaves += [ex.arg_dict[n]._data for n in self._param_names]
+        leaves = [t for t in leaves if t.is_floating_point()]
+        if not leaves:
+            return True
+        record_dispatch("finite_check")
+        with telemetry.span("divergence_check"), torch.no_grad():
+            ok = torch.stack([torch.isfinite(t).all() for t in leaves]).all()
+            telemetry.record_host_sync("divergence_check")
+            return bool(ok)
+
     # -- checkpoints -------------------------------------------------------
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """(parity: module.save_checkpoint) the JAX package's files:
@@ -493,17 +520,15 @@ class Module(BaseModule):
 
     def save_optimizer_states(self, fname):
         """(parity: module.save_optimizer_states) the updater's pickled
-        states (the store's under ``update_on_kvstore``), written to a
-        temporary name and renamed into place."""
+        states (the store's under ``update_on_kvstore``), written
+        atomically (temp file, fsync, rename)."""
         if not self.optimizer_initialized:
             raise MXNetError("save_optimizer_states: init_optimizer first")
+        from ..checkpoint import atomic_write
         if self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname)
             return
-        tmp = "%s.tmp.%d" % (fname, os.getpid())
-        with open(tmp, "wb") as f:
-            f.write(self._updater.get_states())
-        os.replace(tmp, fname)
+        atomic_write(fname, self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         """Load states written by ``save_optimizer_states`` of either

@@ -15,6 +15,7 @@ from . import register as _register
 
 _register.populate(globals())
 from . import random  # noqa: E402,F401
+from . import linalg  # noqa: E402,F401
 
 
 def _binary(name, arr_fn, np_fn):

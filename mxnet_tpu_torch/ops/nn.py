@@ -478,3 +478,353 @@ def log_softmax(data, axis=-1, temperature=None):
     if temperature is not None and temperature != 1.0:
         data = data / temperature
     return torch.log_softmax(data, dim=int(axis))
+
+
+# ---------------------------------------------------------------------------
+# Deconvolution (parity: mxnet_tpu/ops/nn.py:120-147, 173-193)
+# ---------------------------------------------------------------------------
+
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _deconv_nd(data, weight, bias, kernel, stride, dilate, pad, adj,
+               num_group, no_bias):
+    """Transposed convolution on channels-first data with the reference's
+    (C_in, F/g, *kernel) weight, which is already ``conv_transpose``'s
+    layout. The JAX package computes it as an lhs-dilated convolution
+    padded ``(k_eff-1-p, k_eff-1-p+adj)``: the same output, of size
+    ``(in-1)*s - 2p + k_eff + adj``; PyTorch takes ``adj`` as
+    ``output_padding``, which must stay below ``max(stride, dilate)``."""
+    ndim = len(kernel)
+    stride = stride or (1,) * ndim
+    dilate = dilate or (1,) * ndim
+    pad = pad or (0,) * ndim
+    adj = adj or (0,) * ndim
+    for a, s, d in zip(adj, stride, dilate):
+        if a >= max(s, d):
+            raise MXNetError(
+                "Deconvolution: adj %r must be smaller than max(stride, "
+                "dilate) in each dim (stride %r, dilate %r)"
+                % (tuple(adj), tuple(stride), tuple(dilate)))
+    out = _DECONV[ndim](data, weight, stride=stride, padding=pad,
+                        output_padding=adj, groups=int(num_group),
+                        dilation=dilate)
+    if not no_bias and bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * ndim)
+    return out
+
+
+@register("Deconvolution", nin=3, arg_names=["data", "weight", "bias"],
+          defaults={"kernel": (), "stride": (), "dilate": (), "pad": (),
+                    "adj": (), "target_shape": (), "num_filter": 0,
+                    "num_group": 1, "no_bias": True, "workspace": 512,
+                    "cudnn_tune": None, "cudnn_off": False, "layout": None})
+def deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), target_shape=(), num_filter=0, num_group=1,
+                  no_bias=True, workspace=512, cudnn_tune=None,
+                  cudnn_off=False, layout=None):
+    """Transposed convolution (parity: reference deconvolution-inl.h);
+    weight (in_channels, num_filter/g, *kernel); channels-first only, as
+    in the JAX package. ``target_shape`` raises: the JAX package accepts
+    and ignores it (upstream derives pad/adj from it)."""
+    kernel = as_tuple(kernel)
+    ndim = len(kernel)
+    if channels_last(layout, ndim):
+        raise MXNetError("Deconvolution supports channels-first layouts "
+                         "only")
+    target = as_tuple(target_shape)
+    if target and any(target):
+        raise MXNetError("Deconvolution: target_shape=%r is not supported; "
+                         "give pad and adj instead" % (target,))
+    return _deconv_nd(data, weight, bias, kernel, as_tuple(stride, ndim),
+                      as_tuple(dilate, ndim), as_tuple(pad, ndim),
+                      as_tuple(adj, ndim), num_group, no_bias)
+
+
+# ---------------------------------------------------------------------------
+# LeakyReLU, the other normalisations (parity: mxnet_tpu/ops/nn.py:277-500)
+# ---------------------------------------------------------------------------
+
+@register("LeakyReLU", nin=2, arg_names=["data", "gamma"],
+          defaults={"act_type": "leaky", "slope": 0.25, "lower_bound": 0.125,
+                    "upper_bound": 0.334})
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, _train=False,
+               _rng=None):
+    """leaky/prelu/elu/rrelu (parity: reference leaky_relu-inl.h). rrelu
+    draws each slope from U(lower, upper) in training, from the device's
+    generator, and takes their mean otherwise."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2)) \
+            if gamma.ndim == 1 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "rrelu":
+        if _train and _rng is not None:
+            s = torch.empty(data.shape, dtype=data.dtype,
+                            device=data.device).uniform_(
+                lower_bound, upper_bound, generator=_rng)
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data >= 0, data, s * data)
+    raise MXNetError("unknown act_type %r" % act_type)
+
+
+@register("L2Normalization", defaults={"eps": 1e-10, "mode": "instance"})
+def l2_normalization(data, eps=1e-10, mode="instance"):
+    """(parity: reference l2_normalization-inl.h; instance, channel,
+    spatial)"""
+    if mode == "instance":
+        axes = tuple(range(1, data.ndim))
+    elif mode == "channel":
+        axes = (1,)
+    elif mode == "spatial":
+        axes = tuple(range(2, data.ndim))
+    else:
+        raise MXNetError("unknown mode %r" % mode)
+    norm = torch.sqrt(torch.sum(torch.square(data), dim=axes, keepdim=True)
+                      + eps)
+    return data / norm
+
+
+def _mean_var(data, axes):
+    """``jnp.mean`` and ``jnp.var`` (biased, about the mean) over axes."""
+    mean = torch.mean(data, dim=axes, keepdim=True)
+    var = torch.mean(torch.square(data - mean), dim=axes, keepdim=True)
+    return mean, var
+
+
+@register("InstanceNorm", nin=3, arg_names=["data", "gamma", "beta"],
+          defaults={"eps": 1e-3})
+def instance_norm(data, gamma, beta, eps=1e-3):
+    """(parity: reference instance_norm-inl.h) per sample and channel
+    over the spatial axes."""
+    mean, var = _mean_var(data, tuple(range(2, data.ndim)))
+    shape = (1, -1) + (1,) * (data.ndim - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
+
+
+@register("LayerNorm", nin=3, arg_names=["data", "gamma", "beta"],
+          defaults={"axis": -1, "eps": 1e-5, "output_mean_var": False})
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """Normalisation over one axis (the JAX package's addition)."""
+    axis = int(axis) % data.ndim
+    mean, var = _mean_var(data, (axis,))
+    shape = [1] * data.ndim
+    shape[axis] = data.shape[axis]
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
+
+
+@register("SoftmaxActivation", defaults={"mode": "instance"})
+def softmax_activation(data, mode="instance"):
+    """Softmax over the channel axis (``mode="channel"``) or over each
+    instance flattened."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1) \
+        .reshape(data.shape)
+
+
+@register("softmax_cross_entropy", nin=2, arg_names=["data", "label"])
+def softmax_cross_entropy(data, label):
+    """(parity: reference loss_binary_op.cc) the summed cross entropy,
+    shape (1,)."""
+    logp = torch.log_softmax(data, dim=-1)
+    picked = torch.gather(logp, -1, label.long()[:, None])
+    return -torch.sum(picked).reshape((1,))
+
+
+# ---------------------------------------------------------------------------
+# Loss layers: forward transform, backward a fixed rule that ignores the
+# head gradient (parity: mxnet_tpu/ops/nn.py:631-717)
+# ---------------------------------------------------------------------------
+
+class _LossLayerFn(torch.autograd.Function):
+    """``forward(data, label)`` = ``fwd(data)``; backward
+    ``bwd(out, label)`` whatever the head gradient, and zeros for the
+    label (the JAX package's ``custom_vjp`` loss layers)."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, bwd):
+        out = fwd(data)
+        ctx.save_for_backward(out, label if label is not None
+                              else out.new_zeros(()))
+        ctx.bwd = bwd
+        ctx.has_label = label is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        out, label = ctx.saved_tensors
+        grad = ctx.bwd(out, label if ctx.has_label else None)
+        dlabel = torch.zeros_like(label) \
+            if ctx.has_label and ctx.needs_input_grad[1] else None
+        return grad.to(out.dtype), dlabel, None, None
+
+
+def _loss_layer(data, label, fwd, bwd):
+    if data.device.type == "meta":
+        return fwd(data)
+    return _LossLayerFn.apply(data, label, fwd, bwd)
+
+
+def _regression_output(transform, grad_fn):
+    def op(data, label, grad_scale=1.0):
+        """Regression loss layer: forward the transform; backward
+        ``grad_fn(out, label) * grad_scale``, not divided by the output
+        count (the JAX package's rule)."""
+        return _loss_layer(
+            data, label, transform,
+            lambda out, lab: grad_fn(out, lab.reshape(out.shape))
+            * grad_scale)
+    return op
+
+
+register("LinearRegressionOutput", nin=2, arg_names=["data", "label"],
+         defaults={"grad_scale": 1.0})(
+    _regression_output(lambda d: d, lambda o, l: o - l))
+register("MAERegressionOutput", nin=2, arg_names=["data", "label"],
+         defaults={"grad_scale": 1.0})(
+    _regression_output(lambda d: d, lambda o, l: torch.sign(o - l)))
+register("LogisticRegressionOutput", nin=2, arg_names=["data", "label"],
+         defaults={"grad_scale": 1.0})(
+    _regression_output(torch.sigmoid, lambda o, l: o - l))
+
+
+@register("MakeLoss", defaults={"grad_scale": 1.0, "valid_thresh": 0.0,
+                                "normalization": "null"})
+def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """(parity: reference make_loss-inl.h) forward identity; backward
+    ``grad_scale`` per element, over the batch size with ``batch``, over
+    the count of elements above ``valid_thresh`` (at least 1) with
+    ``valid``."""
+    def bwd(d, _):
+        if normalization == "valid":
+            valid = torch.clamp_min(
+                torch.sum((d > valid_thresh).to(d.dtype)), 1.0)
+            return torch.ones_like(d) * grad_scale / valid
+        scale = grad_scale / d.shape[0] if normalization == "batch" \
+            else grad_scale
+        return torch.full_like(d, scale)
+    return _loss_layer(data, None, lambda d: d.clone(), bwd)
+
+
+@register("SVMOutput", nin=2, arg_names=["data", "label"],
+          defaults={"margin": 1.0, "regularization_coefficient": 1.0,
+                    "use_linear": False})
+def svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+               use_linear=False):
+    """(parity: reference svm_output-inl.h) forward identity; backward
+    the hinge loss's gradient (squared hinge unless ``use_linear``) times
+    ``regularization_coefficient``."""
+    def bwd(d, lab):
+        oh = (lab.long()[..., None] == torch.arange(
+            d.shape[-1], device=d.device)).to(d.dtype)
+        score_y = torch.sum(d * oh, dim=-1, keepdim=True)
+        if use_linear:
+            viol = ((d - score_y + margin) > 0).to(d.dtype) * (1 - oh)
+            grad = viol - oh * torch.sum(viol, dim=-1, keepdim=True)
+        else:
+            dist = torch.clamp_min(d - score_y + margin, 0) * (1 - oh)
+            grad = 2 * dist - oh * torch.sum(2 * dist, dim=-1, keepdim=True)
+        return grad * regularization_coefficient
+    return _loss_layer(data, label, lambda d: d.clone(), bwd)
+
+
+# ---------------------------------------------------------------------------
+# UpSampling (parity: mxnet_tpu/ops/nn.py:719-747)
+# ---------------------------------------------------------------------------
+
+def _repeat2(x, sy, sx):
+    return torch.repeat_interleave(torch.repeat_interleave(x, sy, dim=2),
+                                   sx, dim=3)
+
+
+@register("UpSampling", nin=-1,
+          defaults={"scale": 1, "sample_type": "nearest", "num_filter": 0,
+                    "multi_input_mode": "concat", "num_args": 1,
+                    "workspace": 512})
+def upsampling(*args, scale=1, sample_type="nearest", num_filter=0,
+               multi_input_mode="concat", num_args=1, workspace=512):
+    """(parity: reference upsampling-inl.h) nearest: each input repeated
+    ``scale`` times per spatial axis, then brought to the largest height
+    and concatenated (or summed); bilinear: the grouped transposed
+    convolution with the given (C, 1, k, k) weight, ``k = 2s - s % 2``,
+    stride s, pad ``ceil((s-1)/2)``."""
+    scale = int(scale)
+    if sample_type == "nearest":
+        outs = [_repeat2(d, scale, scale) for d in args]
+        if len(outs) == 1:
+            return outs[0]
+        h = max(o.shape[2] for o in outs)
+        # the JAX package scales the width by h // W too
+        outs = [o if o.shape[2] == h else
+                _repeat2(o, h // o.shape[2], h // o.shape[3]) for o in outs]
+        if multi_input_mode == "sum":
+            return sum(outs[1:], outs[0])
+        return torch.cat(outs, dim=1)
+    if sample_type == "bilinear":
+        data, weight = args
+        kernel = 2 * scale - scale % 2
+        pad = int(np.ceil((scale - 1) / 2.0))
+        return _deconv_nd(data, weight, None, (kernel, kernel),
+                          (scale, scale), None, (pad, pad), None,
+                          data.shape[1], True)
+    raise MXNetError("unknown sample_type %r" % sample_type)
+
+
+# ---------------------------------------------------------------------------
+# Sequence ops (parity: mxnet_tpu/ops/nn.py:755-794)
+# ---------------------------------------------------------------------------
+
+@register("SequenceLast", nin=2, arg_names=["data", "sequence_length"],
+          defaults={"use_sequence_length": False, "axis": 0})
+def sequence_last(data, sequence_length=None, use_sequence_length=False,
+                  axis=0):
+    """The last step of each sequence (the last of all without
+    lengths)."""
+    axis = int(axis)
+    if not use_sequence_length or sequence_length is None:
+        return torch.select(data, axis, data.shape[axis] - 1)
+    idx = sequence_length.long() - 1
+    batch = torch.arange(data.shape[1 - axis], device=data.device)
+    return data[idx, batch] if axis == 0 else data[batch, idx]
+
+
+@register("SequenceMask", nin=2, arg_names=["data", "sequence_length"],
+          defaults={"use_sequence_length": False, "value": 0.0, "axis": 0})
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0):
+    """Steps at or past each sequence's length set to ``value``."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    axis = int(axis)
+    steps = torch.arange(data.shape[axis], device=data.device)
+    mask = steps[:, None] < sequence_length.long()[None, :]     # (T, B)
+    if axis == 1:
+        mask = mask.t()
+    mask = mask.reshape(mask.shape + (1,) * (data.ndim - 2))
+    return torch.where(mask, data, torch.full((), float(value),
+                                              dtype=data.dtype,
+                                              device=data.device))
+
+
+@register("SequenceReverse", nin=2, arg_names=["data", "sequence_length"],
+          defaults={"use_sequence_length": False, "axis": 0})
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                     axis=0):
+    """Each sequence's first ``length`` steps reversed along axis 0, the
+    padding left in place."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, dims=(0,))
+    steps = torch.arange(data.shape[0], device=data.device)[:, None]
+    lens = sequence_length.long()[None, :]
+    src = torch.where(steps < lens, lens - 1 - steps, steps)     # (T, B)
+    src = src.reshape(src.shape + (1,) * (data.ndim - 2)).expand(data.shape)
+    return torch.gather(data, 0, src)

@@ -1,8 +1,9 @@
 """Fused optimizer update rules as tensor functions.
 
-Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (so far ``sgd_update``,
+Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (``sgd_update``,
 ``sgd_mom_update``, their multi-precision forms ``mp_sgd_update`` and
-``mp_sgd_mom_update``, and ``adam_update``; parity: reference
+``mp_sgd_mom_update``, ``adam_update``, ``rmsprop_update``,
+``rmspropalex_update`` and ``ftrl_update``; parity: reference
 ``optimizer_op.cc``). Each function is pure: it returns the new weight
 (and new state) and leaves its inputs as they are, like the JAX ops.
 Each is also the registered op of its name (``mx.nd.sgd_update``...),
@@ -17,7 +18,8 @@ import torch
 from .registry import register
 
 __all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_update",
-           "mp_sgd_mom_update", "adam_update"]
+           "mp_sgd_mom_update", "adam_update", "rmsprop_update",
+           "rmspropalex_update", "ftrl_update"]
 
 
 def _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient):
@@ -95,3 +97,67 @@ def adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
     mean = beta1 * mean + (1 - beta1) * g
     var = beta2 * var + (1 - beta2) * torch.square(g)
     return weight - lr * mean / (torch.sqrt(var) + epsilon), mean, var
+
+
+def _clip_weights(w, clip_weights):
+    if clip_weights is not None and clip_weights > 0:
+        return torch.clamp(w, -clip_weights, clip_weights)
+    return w
+
+
+@register("rmsprop_update", nin=3, nout=2, arg_names=["weight", "grad", "n"],
+          defaults={"lr": 0.001, "gamma1": 0.95, "epsilon": 1e-8, "wd": 0.0,
+                    "rescale_grad": 1.0, "clip_gradient": -1.0,
+                    "clip_weights": -1.0},
+          no_grad=True, mutate=(0, 2))
+def rmsprop_update(weight, grad, n, lr=0.001, gamma1=0.95, epsilon=1e-8,
+                   wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                   clip_weights=-1.0):
+    """(parity: mxnet_tpu/ops/optimizer_ops.py:88-103) Returns
+    ``(new_weight, new_n)``."""
+    g = _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient)
+    n = gamma1 * n + (1 - gamma1) * torch.square(g)
+    w = weight - lr * g / torch.sqrt(n + epsilon)
+    return _clip_weights(w, clip_weights), n
+
+
+@register("rmspropalex_update", nin=5, nout=4,
+          arg_names=["weight", "grad", "n", "g", "delta"],
+          defaults={"lr": 0.001, "gamma1": 0.95, "gamma2": 0.9,
+                    "epsilon": 1e-8, "wd": 0.0, "rescale_grad": 1.0,
+                    "clip_gradient": -1.0, "clip_weights": -1.0},
+          no_grad=True, mutate=(0, 2, 3, 4))
+def rmspropalex_update(weight, grad, n, g, delta, lr=0.001, gamma1=0.95,
+                       gamma2=0.9, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                       clip_gradient=-1.0, clip_weights=-1.0):
+    """Centered RMSProp, Graves 2013 (parity:
+    mxnet_tpu/ops/optimizer_ops.py:106-123). Returns ``(new_weight,
+    new_n, new_g, new_delta)``."""
+    gr = _apply_wd_clip(weight, grad, wd, rescale_grad, clip_gradient)
+    n = gamma1 * n + (1 - gamma1) * torch.square(gr)
+    g = gamma1 * g + (1 - gamma1) * gr
+    delta = gamma2 * delta - lr * gr / torch.sqrt(n - torch.square(g)
+                                                  + epsilon)
+    return _clip_weights(weight + delta, clip_weights), n, g, delta
+
+
+@register("ftrl_update", nin=4, nout=3, arg_names=["weight", "grad", "z", "n"],
+          defaults={"lr": 0.1, "lamda1": 0.01, "beta": 1.0, "wd": 0.0,
+                    "rescale_grad": 1.0, "clip_gradient": -1.0},
+          no_grad=True, mutate=(0, 2, 3))
+def ftrl_update(weight, grad, z, n, lr=0.1, lamda1=0.01, beta=1.0, wd=0.0,
+                rescale_grad=1.0, clip_gradient=-1.0):
+    """FTRL-proximal (parity: mxnet_tpu/ops/optimizer_ops.py:126-140); wd
+    enters the denominator, not the gradient. Returns ``(new_weight,
+    new_z, new_n)``."""
+    g = grad * rescale_grad
+    if clip_gradient is not None and clip_gradient >= 0:
+        g = torch.clamp(g, -clip_gradient, clip_gradient)
+    new_n = n + torch.square(g)
+    sigma = (torch.sqrt(new_n) - torch.sqrt(n)) / lr
+    z = z + g - sigma * weight
+    w = torch.where(
+        torch.abs(z) <= lamda1, torch.zeros_like(weight),
+        -(z - torch.sign(z) * lamda1) / ((beta + torch.sqrt(new_n)) / lr
+                                         + wd))
+    return w, z, new_n

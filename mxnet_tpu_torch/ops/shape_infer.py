@@ -38,6 +38,46 @@ def _conv(shapes, params):
     return out
 
 
+def _deconv(shapes, params):
+    """(parity: mxnet_tpu/ops/shape_infer.py:47) weight (C_in, F/g, *k)"""
+    data = shapes[0]
+    kernel = as_tuple(params.get("kernel")) or ()
+    num_filter = int(params.get("num_filter", 0))
+    out = {1: (data[1], num_filter // int(params.get("num_group", 1)))
+           + kernel}
+    if not params.get("no_bias", True):
+        out[2] = (num_filter,)
+    return out
+
+
+def _instance_norm(shapes, params):
+    c = shapes[0][1]
+    return {1: (c,), 2: (c,)}
+
+
+def _layer_norm(shapes, params):
+    c = shapes[0][int(params.get("axis", -1)) % len(shapes[0])]
+    return {1: (c,), 2: (c,)}
+
+
+def _leaky_relu(shapes, params):
+    if params.get("act_type", "leaky") == "prelu":
+        return {1: (shapes[0][1],)}
+    return {}
+
+
+def _upsampling(shapes, params):
+    if params.get("sample_type") == "bilinear":
+        scale = int(params.get("scale", 1))
+        kernel = 2 * scale - scale % 2
+        return {1: (shapes[0][1], 1, kernel, kernel)}
+    return {}
+
+
+def _regression_output(shapes, params):
+    return {1: tuple(shapes[0])}
+
+
 def _bn(shapes, params):
     c = shapes[0][int(params.get("axis", 1)) % len(shapes[0])]
     return {1: (c,), 2: (c,), 3: (c,), 4: (c,)}
@@ -68,3 +108,11 @@ def install():
     get_op("BatchNorm").param_shape_infer = _bn
     get_op("_contrib_BatchNormAddReLU").param_shape_infer = _bn_add_relu
     get_op("Embedding").param_shape_infer = _embedding
+    get_op("Deconvolution").param_shape_infer = _deconv
+    get_op("InstanceNorm").param_shape_infer = _instance_norm
+    get_op("LayerNorm").param_shape_infer = _layer_norm
+    get_op("LeakyReLU").param_shape_infer = _leaky_relu
+    get_op("UpSampling").param_shape_infer = _upsampling
+    for name in ("LinearRegressionOutput", "MAERegressionOutput",
+                 "LogisticRegressionOutput"):
+        get_op(name).param_shape_infer = _regression_output

@@ -7,7 +7,9 @@ learning-rate / weight-decay bookkeeping (``lr_mult``/``wd_mult``,
 Symbol's ``__lr_mult__``/``__wd_mult__`` attributes), multi-precision
 master weights (``multi_precision=True``: a bf16/fp16 weight keeps an
 fp32 master in its state), the registry and ``create``, ``SGD``,
-``NAG`` and ``Adam``, and the updaters: ``Updater`` (per parameter, with
+``NAG``, ``Adam``, ``SGLD``, ``DCASGD``, ``AdaGrad``, ``RMSProp`` (plain
+and centered), ``AdaDelta``, ``Ftrl``, ``Test``, ``ccSGD``, ``Adamax``
+and ``Nadam``, and the updaters: ``Updater`` (per parameter, with
 ``get_states``/``set_states`` in the JAX package's pickled format) and
 ``FusedUpdater`` (``update_batch`` over a whole parameter set through the
 pure kernels of ``parallel/opt_kernels.py``, the loop Module's fused step
@@ -15,8 +17,8 @@ runs). ``update`` writes the new weight and state into the given NDArrays
 in place, as the reference's fused ops do; the math is
 ``ops/optimizer_ops.py``.
 
-Not ported yet (ROADMAP): the other optimizers, row-sparse (lazy)
-updates, one fused kernel (or CUDA graph) for a whole parameter set.
+Not ported yet (ROADMAP): row-sparse (lazy) updates, one fused kernel
+(or CUDA graph) for a whole parameter set.
 """
 from __future__ import annotations
 
@@ -29,9 +31,13 @@ import torch
 
 from .base import MXNetError
 from .ops import optimizer_ops as _O
+from .ndarray import (sgd_update, sgd_mom_update, mp_sgd_update,  # noqa: F401
+                      mp_sgd_mom_update, adam_update, rmsprop_update,
+                      rmspropalex_update, ftrl_update, zeros)
 
-__all__ = ["Optimizer", "SGD", "NAG", "Adam", "Updater", "FusedUpdater",
-           "get_updater", "create", "register"]
+__all__ = ["Optimizer", "SGD", "NAG", "SGLD", "DCASGD", "Adam", "AdaGrad",
+           "RMSProp", "AdaDelta", "Ftrl", "Test", "ccSGD", "Adamax", "Nadam",
+           "Updater", "FusedUpdater", "get_updater", "create", "register"]
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
 
@@ -300,6 +306,314 @@ class Adam(Optimizer):
         self.update(index, w32, _wrap_like(grad, _raw(grad).float()), moments)
         with torch.no_grad():
             _raw(weight).copy_(_raw(w32))
+
+
+def _zeros32(weight):
+    """An fp32 state of the weight's shape on its device (the JAX
+    package's ``_state_zeros(weight, dtype=np.float32)``)."""
+    return _wrap_like(weight, torch.zeros(_raw(weight).shape,
+                                          dtype=torch.float32,
+                                          device=_raw(weight).device))
+
+
+def _rescaled(opt, grad):
+    """``grad * rescale_grad``, clipped to ``clip_gradient``."""
+    g = _raw(grad) * opt.rescale_grad
+    if opt.clip_gradient is not None:
+        g = torch.clamp(g, -opt.clip_gradient, opt.clip_gradient)
+    return g
+
+
+class _MasterWeight:
+    """``update_multi_precision`` on the fp32 master for a state
+    ``(inner, w32)`` that ``create_state_multi_precision`` made, then the
+    weight cast back (SGD's scheme, for the optimizers whose JAX class
+    takes the base ``update_multi_precision``: there a half weight
+    updates in its own dtype)."""
+
+    def update_multi_precision(self, index, weight, grad, state):
+        if not (self.multi_precision
+                and _raw(weight).dtype in _LOW_PRECISION):
+            return self.update(index, weight, grad, state)
+        inner, w32 = state
+        self.update(index, w32, _wrap_like(grad, _raw(grad).float()), inner)
+        with torch.no_grad():
+            _raw(weight).copy_(_raw(w32))
+
+
+@register
+class SGLD(_MasterWeight, Optimizer):
+    """Stochastic Gradient Langevin Dynamics (parity:
+    mxnet_tpu/optimizer.py:291-305): half a gradient step plus
+    N(0, lr) noise, drawn from the weight device's generator."""
+
+    def update(self, index, weight, grad, state):
+        from .ops.common import take_rng
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = _raw(weight)
+        with torch.no_grad():
+            g = _rescaled(self, grad)
+            noise = torch.empty(w.shape, dtype=w.dtype, device=w.device) \
+                .normal_(0.0, math.sqrt(lr), generator=take_rng(w.device))
+            w.sub_(lr / 2 * (g + wd * w))
+            w.add_(noise)
+
+
+@register
+class DCASGD(_MasterWeight, Optimizer):
+    """Delay-compensated asynchronous SGD (parity:
+    mxnet_tpu/optimizer.py:308-341): state ``(momentum or None, previous
+    weight)``."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        prev = _wrap_like(weight, _raw(weight).detach().clone())
+        if self.momentum == 0.0:
+            return (None, prev)
+        return (_wrap_like(weight, torch.zeros_like(_raw(weight))), prev)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = _raw(weight)
+        mom, previous = state
+        with torch.no_grad():
+            g = _rescaled(self, grad)
+            prev = _raw(previous)
+            step = -lr * (g + wd * w + self.lamda * g * g * (w - prev))
+            if mom is not None:
+                m = _raw(mom)
+                m.mul_(self.momentum)
+                m.add_(step)
+                step = m
+            prev.copy_(w)
+            w.add_(step)
+
+
+@register
+class AdaGrad(_MasterWeight, Optimizer):
+    """(parity: mxnet_tpu/optimizer.py:381-413, dense branch) the history
+    accumulates the squared rescaled gradient; wd stays out of it."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros32(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w, h = _raw(weight), _raw(state)
+        with torch.no_grad():
+            g = _rescaled(self, grad)
+            h.add_(g * g)
+            w.sub_(lr * (g / torch.sqrt(h + self.float_stable_eps)
+                         + wd * w))
+
+
+@register
+class RMSProp(_MasterWeight, Optimizer):
+    """(parity: mxnet_tpu/optimizer.py:416-451) the fused
+    ``rmsprop_update``; ``centered=True`` is Graves' variant
+    (``rmspropalex_update``, three states)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros32(weight), _zeros32(weight), _zeros32(weight))
+        return (_zeros32(weight),)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        kw = self._common_kwargs()
+        if self.clip_weights:
+            kw["clip_weights"] = self.clip_weights
+        w, g = _raw(weight), _raw(grad)
+        with torch.no_grad():
+            if not self.centered:
+                (n,) = state
+                new_w, new_n = _O.rmsprop_update(
+                    w, g, _raw(n), lr=lr, wd=wd, gamma1=self.gamma1,
+                    epsilon=self.epsilon, **kw)
+                _raw(n).copy_(new_n)
+            else:
+                n, gm, delta = state
+                new_w, new_n, new_g, new_d = _O.rmspropalex_update(
+                    w, g, _raw(n), _raw(gm), _raw(delta), lr=lr, wd=wd,
+                    gamma1=self.gamma1, gamma2=self.gamma2,
+                    epsilon=self.epsilon, **kw)
+                _raw(n).copy_(new_n)
+                _raw(gm).copy_(new_g)
+                _raw(delta).copy_(new_d)
+            w.copy_(new_w)
+
+
+@register
+class AdaDelta(_MasterWeight, Optimizer):
+    """(parity: mxnet_tpu/optimizer.py:454-479) wd applies to the weight
+    directly, not through the accumulators."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros32(weight), _zeros32(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        w = _raw(weight)
+        acc_g, acc_delta = _raw(state[0]), _raw(state[1])
+        with torch.no_grad():
+            g = _rescaled(self, grad)
+            acc_g.mul_(self.rho)
+            acc_g.add_((1.0 - self.rho) * g * g)
+            delta = (torch.sqrt(acc_delta + self.epsilon)
+                     / torch.sqrt(acc_g + self.epsilon)) * g
+            acc_delta.mul_(self.rho)
+            acc_delta.add_((1.0 - self.rho) * delta * delta)
+            w.sub_(delta + wd * w)
+
+
+@register
+class Ftrl(_MasterWeight, Optimizer):
+    """(parity: mxnet_tpu/optimizer.py:482-498) the fused
+    ``ftrl_update``; states ``(z, n)``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros32(weight), _zeros32(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        z, n = state
+        with torch.no_grad():
+            new_w, new_z, new_n = _O.ftrl_update(
+                _raw(weight), _raw(grad), _raw(z), _raw(n), lr=lr, wd=wd,
+                lamda1=self.lamda1, beta=self.beta, **self._common_kwargs())
+            _raw(z).copy_(new_z)
+            _raw(n).copy_(new_n)
+            _raw(weight).copy_(new_w)
+
+
+@register
+class Test(Optimizer):
+    """(parity: mxnet_tpu/optimizer.py:501-510) ``weight += grad *
+    rescale_grad``; the state holds the new weight."""
+
+    def create_state(self, index, weight):
+        return _zeros32(weight)
+
+    def update(self, index, weight, grad, state):
+        with torch.no_grad():
+            _raw(weight).add_(_raw(grad) * self.rescale_grad)
+            _raw(state).copy_(_raw(weight))
+
+
+@register
+class ccSGD(SGD):
+    """The deprecated alias of SGD (parity: optimizer.ccSGD)."""
+
+
+@register
+class Adamax(_MasterWeight, Optimizer):
+    """AdaMax, Adam under the infinity norm (parity:
+    mxnet_tpu/optimizer.py:518-545): wd folds into the gradient before
+    the clip."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros32(weight), _zeros32(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr /= (1.0 - self.beta1 ** t)
+        w = _raw(weight)
+        m, u = _raw(state[0]), _raw(state[1])
+        with torch.no_grad():
+            g = _raw(grad) * self.rescale_grad + wd * w
+            if self.clip_gradient is not None:
+                g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+            m.mul_(self.beta1)
+            m.add_((1.0 - self.beta1) * g)
+            u.copy_(torch.maximum(self.beta2 * u, torch.abs(g)))
+            w.sub_(lr * m / u)
+
+
+@register
+class Nadam(_MasterWeight, Optimizer):
+    """Nesterov-accelerated Adam with Dozat's momentum schedule (parity:
+    mxnet_tpu/optimizer.py:548-589). ``m_schedule`` is one product over
+    every parameter's updates, as in the JAX package."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros32(weight), _zeros32(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        w = _raw(weight)
+        m, v = _raw(state[0]), _raw(state[1])
+        momentum_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            (t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        with torch.no_grad():
+            g = _raw(grad) * self.rescale_grad + wd * w
+            if self.clip_gradient is not None:
+                g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+            m.mul_(self.beta1)
+            m.add_((1.0 - self.beta1) * g)
+            v.mul_(self.beta2)
+            v.add_((1.0 - self.beta2) * g * g)
+            grad_prime = g / (1.0 - self.m_schedule)
+            m_prime = m / (1.0 - m_schedule_next)
+            v_prime = v / (1.0 - self.beta2 ** t)
+            m_bar = (1.0 - momentum_t) * grad_prime + momentum_t_1 * m_prime
+            w.sub_(lr * m_bar / (torch.sqrt(v_prime) + self.epsilon))
 
 
 # ---------------------------------------------------------------------------

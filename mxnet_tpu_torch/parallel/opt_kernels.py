@@ -1,14 +1,18 @@
 """Pure optimizer kernels for the SPMD train step.
 
-Counterpart of ``mxnet_tpu/parallel/opt_kernels.py`` (so far ``sgd``,
-``nag`` and ``adam``). Each kernel is ``(init_fn, update_fn)``:
+Counterpart of ``mxnet_tpu/parallel/opt_kernels.py`` (``sgd``, ``nag``,
+``adam``, ``rmsprop``, ``adagrad``, ``adadelta`` and ``ftrl``, the
+JAX package's whole set; ``mxnet_tpu/parallel/opt_kernels.py:69-115``). Each kernel is ``(init_fn, update_fn)``:
 
   init_fn(param) -> tuple of state tensors (possibly empty)
   update_fn(param, grad, state, t, hyper) -> (new_param, new_state)
 
 with ``t`` the 1-based update count and ``hyper`` a dict of scalars. The
-SGD and Adam rules are the fused updates of ``ops/optimizer_ops.py``,
-shared with ``mx.optimizer.SGD`` and ``mx.optimizer.Adam``.
+SGD, Adam, RMSProp and Ftrl rules are the fused updates of
+``ops/optimizer_ops.py``, shared with the optimizer classes; the
+AdaGrad and AdaDelta rules are written out here as in the JAX package.
+An optimizer without a kernel (SGLD, DCASGD, Adamax, Nadam, Test,
+centered RMSProp) takes the per-parameter path of ``FusedUpdater``.
 """
 from __future__ import annotations
 
@@ -66,10 +70,47 @@ def _adam_update(p, g, s, t, h):
     return w, (mean, var)
 
 
+def _rmsprop_update(p, g, s, t, h):
+    w, n = _O.rmsprop_update(p, g, s[0], lr=h["lr"], gamma1=h["gamma1"],
+                             epsilon=h["epsilon"], wd=h["wd"],
+                             rescale_grad=h["rescale_grad"],
+                             clip_gradient=h["clip_gradient"])
+    return w, (n,)
+
+
+def _adagrad_update(p, g, s, t, h):
+    # AdaGrad's dense rule: wd stays out of the history, eps inside sqrt
+    grad = _clip(g * h["rescale_grad"], h["clip_gradient"])
+    hist = s[0] + torch.square(grad)
+    w = p - h["lr"] * (grad / torch.sqrt(hist + h["epsilon"]) + h["wd"] * p)
+    return w, (hist,)
+
+
+def _adadelta_update(p, g, s, t, h):
+    # wd applies to the weight directly, not through the accumulators
+    grad = _clip(g * h["rescale_grad"], h["clip_gradient"])
+    acc_g = h["rho"] * s[0] + (1.0 - h["rho"]) * torch.square(grad)
+    delta = torch.sqrt((s[1] + h["epsilon"]) / (acc_g + h["epsilon"])) * grad
+    acc_d = h["rho"] * s[1] + (1.0 - h["rho"]) * torch.square(delta)
+    return p - delta - h["wd"] * p, (acc_g, acc_d)
+
+
+def _ftrl_update(p, g, s, t, h):
+    w, z, n = _O.ftrl_update(p, g, s[0], s[1], lr=h["lr"],
+                             lamda1=h["lamda1"], beta=h["beta"], wd=h["wd"],
+                             rescale_grad=h["rescale_grad"],
+                             clip_gradient=h["clip_gradient"])
+    return w, (z, n)
+
+
 _KERNELS = {
     "sgd": (_sgd_init, _sgd_update),
     "nag": (_sgd_init, _nag_update),
     "adam": (_adam_init, _adam_update),
+    "rmsprop": (_sgd_init, _rmsprop_update),
+    "adagrad": (_sgd_init, _adagrad_update),
+    "adadelta": (_adam_init, _adadelta_update),
+    "ftrl": (_adam_init, _ftrl_update),
 }
 
 
@@ -77,8 +118,8 @@ def get_kernel(name):
     name = name.lower()
     if name not in _KERNELS:
         raise MXNetError(
-            "no SPMD kernel for optimizer %r in the port (ported: %s; the "
-            "others are not ported yet)" % (name, ", ".join(sorted(_KERNELS))))
+            "no SPMD kernel for optimizer %r (have: %s)"
+            % (name, ", ".join(sorted(_KERNELS))))
     return _KERNELS[name]
 
 
@@ -104,7 +145,23 @@ def hyper_from_optimizer(optimizer):
         h.update(beta1=float(optimizer.beta1), beta2=float(optimizer.beta2),
                  epsilon=float(optimizer.epsilon))
         return "adam", h
-    raise MXNetError("no SPMD kernel mapping for optimizer %s in the port "
-                     "(ported: SGD, NAG, Adam; the others are not ported "
-                     "yet)"
-                     % type(optimizer).__name__)
+    if isinstance(optimizer, opt.RMSProp) and not optimizer.centered \
+            and not optimizer.clip_weights:
+        # (the JAX package's kernel drops clip_weights; the port keeps
+        # such an optimizer on the per-parameter path, which clips)
+        h.update(gamma1=float(optimizer.gamma1),
+                 epsilon=float(optimizer.epsilon))
+        return "rmsprop", h
+    if isinstance(optimizer, opt.AdaGrad):
+        h.update(epsilon=float(optimizer.float_stable_eps))
+        return "adagrad", h
+    if isinstance(optimizer, opt.AdaDelta):
+        h.update(rho=float(optimizer.rho), epsilon=float(optimizer.epsilon))
+        return "adadelta", h
+    if isinstance(optimizer, opt.Ftrl):
+        h.update(lamda1=float(optimizer.lamda1), beta=float(optimizer.beta))
+        return "ftrl", h
+    raise MXNetError("no kernel for optimizer %s (kernels: %s); it takes "
+                     "the per-parameter path"
+                     % (type(optimizer).__name__,
+                        ", ".join(sorted(_KERNELS))))

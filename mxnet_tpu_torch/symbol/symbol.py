@@ -437,6 +437,9 @@ def _create(op_name, input_syms, kwargs, name=None):
     inputs = []
     for s in input_syms:
         if len(s._outputs) != 1:
+            if op.nin == -1:
+                inputs.extend(s._outputs)
+                continue
             raise MXNetError("op %s expects single-output inputs" % op_name)
         inputs.append(s._outputs[0])
     name = NameManager.current.get(name, op.name.lower().lstrip("_"))
@@ -451,6 +454,13 @@ def _create(op_name, input_syms, kwargs, name=None):
             if op.name == "RNN" and arg_name == "state_cell" and \
                     kwargs.get("mode", "lstm") != "lstm":
                 continue        # upstream lists state_cell for LSTM only
+            if op.name == "LeakyReLU" and kwargs.get(
+                    "act_type", op.defaults.get("act_type")) != "prelu":
+                continue        # only prelu learns its slopes
+            if op.name in ("SequenceLast", "SequenceMask",
+                           "SequenceReverse") \
+                    and not kwargs.get("use_sequence_length", False):
+                continue
             inputs.append(Variable("%s_%s" % (name, arg_name))._outputs[0])
     node = _SymNode(op, name, kwargs, inputs)
     if attr:

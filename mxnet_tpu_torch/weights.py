@@ -10,7 +10,9 @@ checked copy:
   ``arg:``/``aux:`` dict of NDArrays, ready for ``Predictor`` and
   ``InferenceEngine``;
 * :func:`load_into_block` sets the same blob, or a JAX Gluon net's
-  ``collect_params()``, on a port Gluon block by parameter name;
+  ``collect_params()``, on a port Gluon block by parameter name (a
+  ``SymbolBlock``'s parameters take the symbol's argument names, so a
+  Module's ``arg_params``/``aux_params`` fill it);
 * :func:`tree_from_numpy` copies a plain ``{name: array}`` dict (the
   parameters of a pure ``apply_fn``, as ``parallel.SPMDTrainer`` takes
   them) onto a device as tensors;
@@ -19,7 +21,11 @@ checked copy:
   ``Updater.get_states()``) on a bound port ``Module``, and
   :func:`module_to_numpy` reads the port's back out in the same form;
   both take a ``BucketingModule`` too (its current bucket's module and
-  the updater every bucket shares). (A ``gluon.Trainer``'s
+  the updater every bucket shares) and a ``SequentialModule`` (stage by
+  stage, optimizer states as one entry per stage). Optimizer states of
+  every optimizer load as the JAX package pickles them (RMSProp centered
+  has three per parameter, Ftrl and AdaDelta a pair, DCASGD its momentum
+  or None beside the previous weight). (A ``gluon.Trainer``'s
   ``save_states`` file loads in either package's ``load_states`` as it
   is.) A Gluon RNN layer's per-layer parameters carry by name like any
   block's;
@@ -170,6 +176,19 @@ def load_into_module(mod, arg_params, aux_params, opt_states=None,
     """
     if not mod.binded:
         raise MXNetError("load_into_module: bind the module first")
+    stages = _stages(mod)
+    if stages is not None:
+        # a SequentialModule: each stage takes its own names; its
+        # optimizer states and counts come as one entry per stage
+        for i, stage in enumerate(stages):
+            names = set(stage._param_names)
+            auxn = set(stage._aux_names)
+            load_into_module(
+                stage, {k: v for k, v in arg_params.items() if k in names},
+                {k: v for k, v in aux_params.items() if k in auxn},
+                None if opt_states is None else opt_states[i],
+                None if update_counts is None else update_counts[i])
+        return
     bucketing = getattr(mod, "_curr_module", None)
     if bucketing is not None:
         mod = bucketing
@@ -203,11 +222,29 @@ def load_into_module(mod, arg_params, aux_params, opt_states=None,
                              + list(opt._index_update_count.values()))
 
 
+def _stages(mod):
+    """The parameter-bearing stages of a ``SequentialModule`` (its
+    ``Module``s, in order), or None for any other module."""
+    from .module.sequential_module import SequentialModule
+    if not isinstance(mod, SequentialModule):
+        return None
+    return [m for m in mod._modules if hasattr(m, "_param_names")]
+
+
 def module_to_numpy(mod):
     """``(arg_params, aux_params, opt_states)`` of a port ``Module`` as
     numpy, in :func:`load_into_module`'s form (``opt_states`` None before
-    ``init_optimizer``)."""
+    ``init_optimizer``; for a ``SequentialModule`` a list, one entry per
+    stage with parameters)."""
     import pickle
+    stages = _stages(mod)
+    if stages is not None:
+        parts = [module_to_numpy(m) for m in stages]
+        arg_p, aux_p = {}, {}
+        for a, x, _ in parts:
+            arg_p.update(a)
+            aux_p.update(x)
+        return arg_p, aux_p, [st for _, _, st in parts]
     arg_p, aux_p = mod.get_params()
     mod = getattr(mod, "_curr_module", None) or mod
     states = None

@@ -6,8 +6,9 @@ Every public name of ``mx.nd``, ``mx.sym``, ``mx.autograd``,
 ``mx.gluon.data``, ``mx.gluon.data.vision``, ``mx.gluon.model_zoo.vision``,
 ``mx.kvstore``, ``mx.rnn``, ``mx.mod``, ``mx.telemetry``, ``mx.faults``,
 ``mx.flight``, ``mx.profiler``, ``mx.log``, ``mx.tuner``,
-``mx.compile_cache``, ``mx.checkpoint``, ``mx.callback`` and
-``mx.serving`` in ``mxnet_tpu``, and every public method of ``Symbol``,
+``mx.compile_cache``, ``mx.checkpoint``, ``mx.callback``,
+``mx.serving``, ``mx.metric``, ``mx.initializer``, ``mx.optimizer``,
+``mx.io`` and ``mx.mon`` in ``mxnet_tpu``, and every public method of ``Symbol``,
 ``Module``, ``KVStore``, ``InferenceEngine`` and ``DecodeEngine``,
 either exists in ``mxnet_tpu_torch`` or sits on the skip list below,
 under the ROADMAP.md item that will port it. A name ported since must
@@ -24,28 +25,18 @@ import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
 
-_NN_OPS = ["Convolution_v1", "CuDNNBatchNorm", "Deconvolution", "InstanceNorm", "L2Normalization", "LayerNorm",
-           "LeakyReLU", "LinearRegressionOutput", "LogisticRegressionOutput",
-           "MAERegressionOutput", "MakeLoss", "Pooling_v1", "SVMOutput",
-           "SequenceLast", "SequenceMask", "SequenceReverse",
-           "SoftmaxActivation", "UpSampling", "softmax_cross_entropy"]
-_LINALG = ["linalg_gemm", "linalg_gemm2", "linalg_potrf", "linalg_potri",
-           "linalg_sumlogdiag", "linalg_syrk", "linalg_trmm", "linalg_trsm"]
-_UPDATE_OPS = ["ftrl_update", "rmsprop_update", "rmspropalex_update"]
 _LONG_TAIL_OPS = ["BatchNorm_v1", "Correlation", "DeformableConvolution",
                   "IdentityAttachKLSparseReg", "Proposal", "dequantize",
                   "fft", "ifft", "quantize", "BilinearSampler",
-                  "GridGenerator", "SpatialTransformer", "Crop",
+                  "GridGenerator", "SpatialTransformer",
                   "MultiProposal", "linalg_gelqf", "linalg_syevd", "Custom",
                   "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
                   "ROIPooling", "ctc_loss"]
+_REGISTRY = "Queue 1 item 6: registry.py (the registry helpers)"
 
 # {namespace: {ROADMAP item: [names]}}
 SKIP = {
     "nd": {
-        "Queue 1 item 3.1: the rest of ops/nn.py": _NN_OPS,
-        "Queue 1 item 3.1: linalg": _LINALG + ["linalg"],
-        "Queue 1 item 3.4: the optimizers' update ops": _UPDATE_OPS,
         "Queue 1 item 6: bf16 nd.save and load_frombuffer":
             ["load_frombuffer"],
         "Queue 1 item 6: long tail (contrib, spatial, ctc, rnn ops, "
@@ -54,28 +45,17 @@ SKIP = {
             "sparse", "imdecode"],
     },
     "sym": {
-        "Queue 1 item 3.1: the rest of ops/nn.py": _NN_OPS,
-        "Queue 1 item 3.1: linalg": _LINALG,
-        "Queue 1 item 3.4: the optimizers' update ops": _UPDATE_OPS,
         "Queue 1 item 6: long tail (contrib, spatial, ctc, rnn ops, "
         "sparse)": _LONG_TAIL_OPS + ["contrib", "sparse"],
     },
-    "autograd": {
-        "Queue 1 item 3.2: autograd.get_symbol": ["get_symbol"],
-    },
+    "autograd": {},
     "gluon": {
-        "Queue 1 item 3.3: SymbolBlock": ["SymbolBlock"],
         "Queue 1 item 6: gluon.contrib": ["contrib"],
     },
     "gluon.loss": {
         "Queue 1 item 6: CTCLoss (needs the ctc op)": ["CTCLoss"],
     },
-    "gluon.nn": {
-        "Queue 1 item 3.3: the rest of gluon.nn": [
-            "Conv1DTranspose", "Conv2DTranspose", "Conv3DTranspose",
-            "HybridLambda", "InstanceNorm", "Lambda", "LayerNorm",
-            "LeakyReLU"],
-    },
+    "gluon.nn": {},
     "gluon.data": {},
     "gluon.data.vision": {
         "Queue 1 item 6: recordio and image/": ["RecordFileDataset"],
@@ -88,8 +68,6 @@ SKIP = {
     },
     "sym.Symbol": {},
     "mod.Module": {
-        "Queue 1 item 3.4: monitor.py and fit's divergence sentinel": [
-            "finite_check", "install_monitor"],
         "Queue 1 item 4: partition rules": ["partition_summary"],
     },
     "gluon.rnn": {},
@@ -98,11 +76,7 @@ SKIP = {
             "BaseConvRNNCell", "ConvGRUCell", "ConvLSTMCell",
             "ConvRNNCell"],
     },
-    "mod": {
-        "Queue 1 item 3.4: SequentialModule, PythonModule": [
-            "PythonLossModule", "PythonModule", "SequentialModule",
-            "python_module", "sequential_module"],
-    },
+    "mod": {},
     "telemetry": {},
     "faults": {},
     "flight": {},
@@ -124,17 +98,24 @@ SKIP = {
             "programs_record", "quick_key", "source_fingerprint",
             "store"],
     },
-    "checkpoint": {
-        "Queue 1 item 3.4: CheckpointManager": [
-            "CheckpointManager", "DivergenceError", "MXNetError",
-            "TrainingPreempted", "telemetry"],
-    },
+    "checkpoint": {},
     "serving": {
         "Queue 1 item 6: DeviceMemoryError (OOM errors enriched with "
         "the ledger)": ["DeviceMemoryError"],
     },
     "serving.InferenceEngine": {},
     "decode.DecodeEngine": {},
+    "metric": {_REGISTRY: ["registry_create"]},
+    "initializer": {_REGISTRY: ["init_registry", "registry_create"]},
+    "optimizer": {_REGISTRY: ["registry_create", "jnp_abs",
+                              "jnp_maximum"]},
+    "io": {
+        "Queue 1 item 6: sparse (CSR batches)": ["LibSVMIter"],
+        "Queue 1 item 6: recordio and image/": ["ImageRecordIter",
+                                                "MXDataIter"],
+        _REGISTRY: ["create_iterator", "register", "registry_create"],
+    },
+    "mon": {},
 }
 
 

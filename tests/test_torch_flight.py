@@ -5,16 +5,13 @@ sampler and its series, the OpenMetrics endpoint (its text equal to the
 JAX package's for the same counters, ledger and engine states), crash
 postmortems (the JAX dump's keys at every level, read by
 ``tools/flight_view.py``), the excepthooks installed and removed
-cleanly, and ``Module.fit``'s step ids.
+cleanly, ``Module.fit``'s step ids, and the divergence sentinel's
+postmortem.
 
 The hooks are process-global in both packages: every test that arms
 the port's leaves through ``flight.uninstall()`` in the fixture; the
 JAX package's recorder is only written through ``postmortem(path=)``,
 which arms nothing.
-
-Not ported, with the ROADMAP item that brings it:
-``test_divergence_halt_triggers_postmortem`` (the divergence sentinel
-and ``DivergenceError``, Queue 1 item 3.4).
 """
 import json
 import logging
@@ -474,6 +471,20 @@ def test_env_autostart_is_guarded():
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             timeout=300, env=env, cwd=ROOT)
         assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
+
+
+def test_divergence_halt_triggers_postmortem(tmp_path):
+    from mxnet_tpu_torch.checkpoint import DivergenceError
+    from mxnet_tpu_torch.module.base_module import BaseModule
+    flight.configure(str(tmp_path))
+    with pytest.raises(DivergenceError):
+        BaseModule()._handle_divergence("halt", None, 3, 14)
+    dumps = [f for f in os.listdir(str(tmp_path)) if "divergence" in f]
+    assert dumps
+    rec = flight_view.load_dump(os.path.join(str(tmp_path), dumps[0]))
+    assert rec["extra"] == {"epoch": 3, "nbatch": 14, "policy": "halt"}
+    # the sentinel event landed in the ring too
+    assert any(e["kind"] == "divergence.detected" for e in rec["events"])
 
 
 def test_flight_view_cli_renders_and_rejects_garbage(tmp_path):

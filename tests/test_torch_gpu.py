@@ -1070,3 +1070,154 @@ def test_profiler_merges_cuda_kernels_and_host_spans(tmp_path, monkeypatch):
     assert len(k1) >= 12 and len(spans) == 3
     for s in spans:
         assert any(s["ts"] <= e["ts"] <= s["ts"] + s["dur"] for e in k1)
+
+
+# ---------------------------------------------------------------------------
+# dense prediction and the Module toolbox: the new ops, optimizers, the
+# narrow FCN through fit with preemption and resume
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_card", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_CARD_OPS = [
+    ("Deconvolution", [(2, 8, 6, 6), (8, 4, 4, 4)],
+     dict(kernel=(4, 4), stride=(2, 2), pad=(1, 1), num_filter=8,
+          num_group=2)),
+    ("Deconvolution", [(1, 5, 3, 3), (5, 5, 32, 32)],
+     dict(kernel=(32, 32), stride=(16, 16), num_filter=5)),
+    ("Crop", [(2, 3, 26, 26), (2, 3, 24, 24)], dict(offset=(1, 1),
+                                                    num_args=2)),
+    ("UpSampling", [(2, 3, 5, 5), (3, 1, 4, 4)],
+     dict(scale=2, sample_type="bilinear", num_filter=3, num_args=2)),
+    ("InstanceNorm", [(2, 4, 6, 6), (4,), (4,)], {}),
+    ("LayerNorm", [(4, 6, 8), (8,), (8,)], {}),
+    ("LeakyReLU", [(4, 6), (6,)], dict(act_type="prelu")),
+    ("L2Normalization", [(3, 4, 5)], dict(mode="channel")),
+    ("linalg_potrf", None, {}),
+    ("linalg_trsm", None, dict(rightside=True, alpha=0.5)),
+]
+
+
+@pytest.mark.parametrize("op,shapes,kw", _CARD_OPS,
+                         ids=["%s%d" % (c[0], i)
+                              for i, c in enumerate(_CARD_OPS)])
+def test_new_op_on_card_matches_cpu(op, shapes, kw, monkeypatch):
+    _need_card()
+    _no_tf32(monkeypatch)
+    rs = np.random.RandomState(4)
+    if shapes is None:          # a lower triangle with a positive diagonal
+        m = rs.uniform(-1, 1, (5, 5)).astype(np.float32)
+        spd = m @ m.T + 5 * np.eye(5, dtype=np.float32)
+        arrays = [spd] if op == "linalg_potrf" else \
+            [np.linalg.cholesky(spd).astype(np.float32),
+             rs.uniform(-1, 1, (3, 5)).astype(np.float32)]
+    else:
+        arrays = [rs.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+    outs = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        nds = [mt.nd.array(a, ctx=ctx) for a in arrays]
+        nds[0].attach_grad()
+        with mt.autograd.record():
+            y = getattr(mt.nd, op)(*nds, **kw)
+        head = np.random.RandomState(6).uniform(-1, 1, y.shape)
+        y.backward(mt.nd.array(head.astype(np.float32), ctx=ctx))
+        outs[ctx.device_type] = (y.asnumpy(), nds[0].grad.asnumpy())
+    for g, c in zip(outs["gpu"], outs["cpu"]):
+        assert np.abs(g - c).max() <= 1e-5 * np.abs(c).max()
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("rmsprop", dict(learning_rate=0.01)),
+    ("rmsprop", dict(learning_rate=0.01, centered=True)),
+    ("adagrad", dict(learning_rate=0.1)), ("adadelta", dict(rho=0.8)),
+    ("ftrl", dict(learning_rate=0.2)), ("adamax", dict()),
+    ("nadam", dict()), ("dcasgd", dict(momentum=0.9)),
+])
+def test_optimizer_on_card_matches_cpu(name, kw):
+    """Three updates through ``FusedUpdater.update_batch`` (the kernel
+    where the optimizer has one) on the card and on the CPU."""
+    _need_card()
+    rs = np.random.RandomState(5)
+    w0 = [rs.uniform(-1, 1, s).astype(np.float32) for s in ((33, 7), (7,))]
+    gs = [[rs.uniform(-1, 1, w.shape).astype(np.float32) for w in w0]
+          for _ in range(3)]
+    got = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        opt = mt.optimizer.create(name, wd=1e-3, param_idx2name={
+            0: "a_weight", 1: "a_bias"}, **kw)
+        upd = mt.optimizer.get_updater(opt)
+        ws = [mt.nd.array(w, ctx=ctx) for w in w0]
+        for g in gs:
+            upd.update_batch([0, 1], [mt.nd.array(x, ctx=ctx) for x in g],
+                             ws)
+        got[ctx.device_type] = [w.asnumpy() for w in ws]
+    for g, c in zip(got["gpu"], got["cpu"]):
+        np.testing.assert_allclose(g, c, rtol=1e-5, atol=1e-6)
+
+
+def test_fcn_fit_preempt_resume_on_card(tmp_path, monkeypatch):
+    """The narrow FCN-16s through ``fit`` on the card: within 1e-4 of
+    the CPU's parameters after 3 batches; preempted at epoch 1 batch 2
+    and resumed (Dropout 0.5 on the card's generator), bit-equal to the
+    uninterrupted run."""
+    _need_card()
+    _no_tf32(monkeypatch)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cs = _chip_smoke()
+    cfg = cs._FCN[True]
+    x, y = cs.fcn_data(cs._FCN_SEED, 6, cfg["hw"], cfg["classes"])
+
+    def sym(p):
+        return cs.fcn16s_symbol(mt, cfg["classes"], cfg["widths"],
+                                cfg["fc"], p=p)
+    init = mt.mod.Module(sym(0.0), context=mt.cpu())
+    init.bind([("data", (2, 3, 64, 64))], [("softmax_label", (2, 64, 64))])
+    init.init_params(cs.fcn_init(mt))
+    arg0 = cs._host_params(init)[0]
+
+    def fit(ctx, p, epochs, **kw):
+        it = mt.io.NDArrayIter(x, y, batch_size=2, shuffle=False)
+        return cs._fcn_fit(mt, sym(p), ctx, arg0, it, epochs, **kw)
+    card = cs._host_params(fit(mt.gpu(0), 0.0, 1))[0]
+    cpu = cs._host_params(fit(mt.cpu(), 0.0, 1))[0]
+    assert cs._max_scaled(card, cpu) <= 1e-4
+    mt.random.seed(3)
+    ref = fit(mt.gpu(0), 0.5, 2)
+    mgr = mt.CheckpointManager(str(tmp_path / "p"), keep_last=2)
+
+    def preempt(param):
+        if (param.epoch, param.nbatch) == (1, 1):
+            mgr.request_preempt("SIGTERM")
+    mt.random.seed(3)
+    with pytest.raises(mt.checkpoint.TrainingPreempted):
+        fit(mt.gpu(0), 0.5, 2, checkpoint=mgr, batch_end_callback=preempt)
+    mt.random.seed(4)
+    res = fit(mt.gpu(0), 0.5, 2, resume=True,
+              checkpoint=mt.CheckpointManager(mgr.prefix, keep_last=2))
+    assert cs._bit_equal(cs._host_params(res)[0], cs._host_params(ref)[0])
+
+
+def test_monitor_and_finite_check_on_card():
+    _need_card()
+    data = mt.sym.Variable("data")
+    out = mt.sym.Deconvolution(data, kernel=(4, 4), stride=(2, 2),
+                               num_filter=3, name="up")
+    exe = out.simple_bind(ctx=mt.gpu(0), data=(1, 2, 4, 4))
+    mon = mt.mon.Monitor(1, pattern="up.*")
+    mon.install(exe)
+    exe.arg_dict["data"][:] = 1.0
+    exe.arg_dict["up_weight"][:] = 0.5
+    mon.tic()
+    exe.forward()
+    rows = mon.toc()
+    assert [r[1] for r in rows] == ["up_output", "up_weight"]
+    assert float(rows[1][2]) == 0.5

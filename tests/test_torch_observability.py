@@ -23,12 +23,12 @@ paths, against the JAX package on the same inputs.
 (e) ``mx.profiler``: ``dump()`` after a CPU forward writes one JSON that
     loads, with the aten events and the host spans merged on one
     timebase (a host span encloses the operators it launched).
+(f) ``mx.monitor``: an executor's op outputs reach the monitor.
 
 Not ported, with the ROADMAP item that brings it: the mesh cases of the
 serving and decode tests (partition rules, ``contexts=``; Queue 1 item
 4), ``test_profiler_autostart_env`` (``config.py``'s
-``MXNET_PROFILER_AUTOSTART``, item 6), ``test_monitor_taps_outputs``
-(``monitor.py``, item 3.4), ``test_print_summary`` and
+``MXNET_PROFILER_AUTOSTART``, item 6), ``test_print_summary`` and
 ``test_plot_network_graphviz_or_skip`` (``visualization.py``, item 6).
 """
 import json
@@ -972,3 +972,19 @@ def test_fit_profiler_merged_chrome_trace(tmp_path):
     assert {"feed", "step", "fit_batch", "io_next", "metric_fetch"} <= names
     assert any(e.get("ph") == "X" and e.get("cat") != "host"
                for e in events)
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_monitor_taps_outputs(pkg):
+    m, ctx = (mx, mx.cpu()) if pkg == "jax" else (mt, mt.cpu())
+    mon = m.monitor.Monitor(interval=1, sort=True)
+    data = m.sym.Variable("data")
+    out = m.sym.exp(data, name="expout")
+    exe = out.simple_bind(ctx=ctx, data=(2, 2))
+    mon.install(exe)
+    exe.arg_dict["data"][:] = 1.0
+    mon.tic()
+    exe.forward()
+    rows = mon.toc()
+    assert [name for _, name, _ in rows] == ["data", "expout_output"]
+    assert float(rows[1][2]) == pytest.approx(np.e, rel=1e-6)

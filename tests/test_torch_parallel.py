@@ -208,10 +208,10 @@ def test_spmd_kernels_and_eager_update_match_jax(name, kwargs):
 
 
 def test_unported_optimizers_and_bad_inputs_raise():
-    with pytest.raises(mt.MXNetError, match="not ported yet"):
-        tpar.opt_kernels.get_kernel("rmsprop")
+    with pytest.raises(mt.MXNetError, match="no SPMD kernel"):
+        tpar.opt_kernels.get_kernel("sgld")
     with pytest.raises(mt.MXNetError, match="not registered"):
-        mt.optimizer.create("rmsprop")
+        mt.optimizer.create("no_such_optimizer")
     with pytest.raises(mt.MXNetError, match="not a numeric array"):
         mt.weights.tree_from_numpy({"w": [1.0, 2.0]}, ctx=mt.cpu())
     with pytest.raises(mt.MXNetError, match="expected a dict"):
