@@ -182,7 +182,21 @@ Phases (any failure exits non-zero; no error is swallowed):
    sampled elements; (h) ``examples/module/seq_module.py``,
    ``vae.py``, ``autoencoder.py`` and each new ``gluon.nn`` block on
    the card against the CPU. K1-K3 launch 0 times on this path.
-15. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+15. data_parallel — two workers of ``python -m mxnet_tpu_torch.launch -n
+   2`` on the one card over gloo (``--dp-worker``), each leg under a
+   hard limit: (a)-(c) ResNet-50 v1 ``Module.fit`` at batch 32 a worker
+   on ``dist_sync`` (the fused step: BatchNorm over both workers' rows,
+   step 1 through ``_step1_gate`` against one process at batch 64),
+   2-bit and fp16 stores (the wire bytes, rank 0's first update against
+   a CPU recompute), ``dist_sync`` phase-split and ``dist_async``
+   (BatchNorm over each worker's rows; bit-equal to each other);
+   replicas bit-equal in every leg; (d) the LM's dp ``SPMDTrainer`` at
+   global batch 8 against one process; (e) the Gluon loop over a
+   ``dist_sync`` Trainer against one process running each worker's rows
+   on their own (fp32 step 1 through ``_step1_gate``, fp64 steps 1-3
+   within 1e-6 of the update), the resume bit-equal. The launches of K1
+   (16 a forward), K2 and K3 in every worker are counted.
+16. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
@@ -190,8 +204,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    CUDA events; each
    ``launches`` is the count on that kernel's main paths (K1: serving,
    training and the Gluon loop), ``rnn_training_launches``,
-   ``image_classification_launches``, ``gluon_zoo_launches`` and
-   ``dense_prediction_launches`` its counts on those paths (0) — and,
+   ``image_classification_launches``, ``gluon_zoo_launches``,
+   ``dense_prediction_launches`` (0) and ``data_parallel_launches`` its
+   counts on those paths — and,
    last, the ``{"ok": true,
    "device": {...}}`` line.
 
@@ -199,7 +214,7 @@ The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-14 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-15 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -1029,12 +1044,15 @@ def training_phase(mx, ctx, rehearsal, steps=5):
 _BENCH_LR, _BENCH_MOMENTUM = 0.05, 0.9      # bench.py:52-60
 
 
-def _resnet_net(mx, ctx, rehearsal, seed=0):
+def _resnet_net(mx, ctx, rehearsal, seed=0, fused=True):
     """The model-zoo ``resnet50_v1``, NHWC with fused block tails, Xavier
     weights from a seeded ``torch.Generator`` (rehearsal: a narrow ResNet
-    v1 at 32x32, 10 classes); deferred shapes completed on ``ctx``."""
+    v1 at 32x32, 10 classes); deferred shapes completed on ``ctx``.
+    ``fused=False`` builds the block tails as BatchNorm, add and ReLU
+    (the same parameters in the same order, other names), which runs in
+    fp64 where K1 takes fp32 and bf16 only."""
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
-    os.environ["MXNET_FUSED_BN_ADD_RELU"] = "1"
+    os.environ["MXNET_FUSED_BN_ADD_RELU"] = "1" if fused else "0"
     mx.layout.set_default_layout("NHWC")
     hw, classes = (32, 10) if rehearsal else (224, 1000)
     with mx.name.NameManager():
@@ -5267,10 +5285,915 @@ def dense_prediction_phase(mx, ctx, rehearsal, card):
     return counts
 
 
+# -- data parallelism across worker processes ----------------------------------
+
+_DP_WORLD = 2
+_DP_LEG_S = {False: 150, True: 120}     # one leg's hard limit in a worker
+_DP_LAUNCH_S = {False: 420, True: 300}  # one launch's, the launcher's own
+_DP_LR, _DP_MOMENTUM, _DP_WD = 0.05, 0.9, 1e-4
+_DP_MODULE_LEGS = ("dist_sync", "2bit", "fp16", "dist_sync_split",
+                   "dist_async")
+
+
+def _dp_cfg(rehearsal):
+    """Sizes of the phase: ResNet-50 v1 at batch 32 per worker (2 epochs
+    of 4 batches), the LM at bench.py:991-992's width with 4 rows per
+    worker (3 steps), the Gluon loop at 32 per worker (3 steps); the
+    rehearsal takes the small nets of the other phases."""
+    if rehearsal:
+        return {"batch": 4, "epochs": 2, "batches": 4, "lm": (64, 32, 4, 16),
+                "lm_batch": 4, "lm_steps": 3, "gluon_steps": 3}
+    return {"batch": 32, "epochs": 2, "batches": 4, "lm": (8192, 512, 8, 512),
+            "lm_batch": 8, "lm_steps": 3, "gluon_steps": 3}
+
+
+def _digest(tensors):
+    """sha256 of the tensors' bytes in name order: equal digests are equal
+    bits."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().to("cpu").contiguous().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _dp_module_digest(mod):
+    """(digest of the weights, digest of the moving stats)."""
+    arg, aux = mod.get_params()
+    return (_digest({k: v._data for k, v in arg.items()}),
+            _digest({k: v._data for k, v in aux.items()}))
+
+
+def _dp_moving(k):
+    """A BatchNorm moving statistic (Gluon's name for it)."""
+    return "running_" in k
+
+
+def _dp_local(a, rank, batch):
+    """This worker's rows of every global batch of ``batch * world``."""
+    g = batch * _DP_WORLD
+    idx = np.concatenate([np.arange(i + rank * batch, i + (rank + 1) * batch)
+                          for i in range(0, len(a), g)])
+    return a[idx]
+
+
+def _dp_opt(global_batch):
+    return {"learning_rate": _DP_LR, "momentum": _DP_MOMENTUM, "wd": _DP_WD,
+            "rescale_grad": 1.0 / global_batch}
+
+
+def _dp_collective_steps(step, rank, gpu, reps=1):
+    """``step`` run 1 + ``reps`` times on every worker (each call is a
+    collective); rank 0 profiles its calls (``profile_forward``)."""
+    if rank == 0 and gpu:
+        return profile_forward(step, reps=reps)
+    for _ in range(1 + reps):
+        step()
+    return None
+
+
+def _dp_module_leg(mx, ctx, cfg, sym, arg, aux, hw, classes, rank, kv_type,
+                   compression, out, tag, epochs, profile=False, fused=True):
+    """``Module.fit`` in a worker: ``kv_type`` (with ``compression``),
+    batch ``cfg['batch']`` of the global batch, ``epochs`` epochs of
+    ``cfg['batches']`` batches from ``arg``/``aux``, phase-split with
+    ``MXNET_MODULE_FUSED_STEP=0`` unless ``fused``. Writes rank 0's
+    step-1 parameters, each rank's step-1 gradients (with compression)
+    under ``out``; returns the leg's record."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    gpu = ctx.device_type == "gpu"
+    batch, nb = cfg["batch"], cfg["batches"]
+    x, y = _module_data(nb, batch * _DP_WORLD, hw, classes)
+    x, y = _dp_local(x, rank, batch), _dp_local(y, rank, batch)
+    mod = mx.mod.Module(sym, context=ctx, compression_params=compression)
+    mod.bind(data_shapes=[("data", (batch, hw, hw, 3))],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    kv = mx.kv.create(kv_type)
+    mod.init_optimizer(kvstore=kv, optimizer="sgd",
+                       optimizer_params=_dp_opt(batch * _DP_WORLD))
+    metric = mx.metric.create(["acc", "ce"])
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    snap, digests, aux_digests, events = {}, [], [], []
+
+    def batch_end(param):
+        if gpu:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        if param.epoch == 0 and param.nbatch == 0:
+            snap["ce"] = param.eval_metric.get_metric(1).get()[1]
+            if rank == 0:
+                torch.save({k: v._data.cpu() for k, v in
+                            mod.get_params()[0].items()},
+                           os.path.join(out, "%s-step1.pt" % tag))
+            if compression:
+                torch.save({n: mod._exec.grad_dict[n]._data.cpu()
+                            for n in mod._param_names},
+                           os.path.join(out, "%s-grad1-r%d.pt"
+                                        % (tag, rank)))
+
+    def epoch_end(*_):
+        d_arg, d_aux = _dp_module_digest(mod)
+        digests.append(d_arg)
+        aux_digests.append(d_aux)
+
+    mx.telemetry.reset()
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after --------
+    pin = os.environ.get("MXNET_MODULE_FUSED_STEP")
+    if not fused:
+        os.environ["MXNET_MODULE_FUSED_STEP"] = "0"
+    K.launches = 0
+    t0 = time.perf_counter()
+    mod.fit(it, eval_metric=metric, num_epoch=epochs,
+            batch_end_callback=batch_end, epoch_end_callback=epoch_end)
+    if gpu:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launches
+    # ---------------------------------------------------------------------
+    if pin is None:
+        os.environ.pop("MXNET_MODULE_FUSED_STEP", None)
+    else:
+        os.environ["MXNET_MODULE_FUSED_STEP"] = pin
+    spans = mx.telemetry.span_stats()
+    reason = mod._fused_fallback_reason
+    n = epochs * nb
+    rec = {"leg": tag, "kvstore": kv_type, "compression": compression,
+           "rank": rank, "batch": batch, "global_batch": batch * _DP_WORLD,
+           "batches": n, "epoch_digests": digests,
+           "aux_digests": aux_digests, "step1_ce": snap["ce"],
+           "metric": metric.get_name_value(), "k1_launches": launches,
+           "k1_expected": 16 * n if gpu else 0,
+           "fallback": getattr(reason, "code", None),
+           "wire_bytes_per_batch": kv.wire_bytes_last_push,
+           "wire_bytes_raw_per_batch": kv.wire_bytes_last_push_raw,
+           "kv_push_span": spans.get("kv_push"),
+           "fit_batch_span": spans.get("fit_batch"),
+           "parameters": sum(int(np.prod(v.shape)) for v in arg.values()),
+           "fit_wall_s": wall}
+    if gpu:
+        # the first batch of each epoch binds and warms up: CUDA events
+        # from the end of batch 1 to the end of the last, per batch
+        rec["ms_per_batch"] = events[0].elapsed_time(events[-1]) \
+            / (len(events) - 1)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if profile:
+        data = mx.io.DataBatch([mx.nd.array(x[:batch], ctx=ctx)],
+                               [mx.nd.array(y[:batch], ctx=ctx)])
+        rec["profiled_batch"] = _dp_collective_steps(
+            lambda: mod.fused_step(data), rank, gpu)
+    del mod
+    _free(gpu)
+    return rec
+
+
+def _dp_module_group(mx, ctx, cfg, rank, out, rehearsal):
+    """Legs (a)-(c) in one worker: ResNet-50 v1 through ``Module.fit``
+    on ``dist_sync`` (the fused step), 2-bit, fp16, ``dist_sync``
+    phase-split and ``dist_async`` stores."""
+    net, sym, hw, classes = _resnet_net(mx, ctx, rehearsal)
+    aux_names = set(sym.list_auxiliary_states())
+    params = {k: p.data()._data.clone() for k, p in
+              net.collect_params().items()}
+    del net
+    arg = {k: v for k, v in params.items() if k not in aux_names}
+    aux = {k: v for k, v in params.items() if k in aux_names}
+    recs = {"init_digest": _digest(params)}
+    for tag, kv_type, comp, epochs, prof in (
+            ("dist_sync", "dist_sync", None, cfg["epochs"], True),
+            ("2bit", "dist_sync", {"type": "2bit", "threshold": 0.5}, 1,
+             False),
+            ("fp16", "dist_sync", {"type": "fp16"}, 1, False),
+            ("dist_sync_split", "dist_sync", None, cfg["epochs"], False),
+            ("dist_async", "dist_async", None, cfg["epochs"], False)):
+        with _dp_deadline(rehearsal, tag):
+            recs[tag] = _dp_module_leg(mx, ctx, cfg, sym, arg, aux, hw,
+                                       classes, rank, kv_type, comp, out,
+                                       tag, epochs, profile=prof,
+                                       fused=tag != "dist_sync_split")
+    with _dp_deadline(rehearsal, "fp64_step1"):
+        w64 = _dp_module_fp64_step(mx, ctx, cfg, rehearsal, rank)
+        if rank == 0:
+            torch.save(w64, os.path.join(out, "module-fp64-step1.pt"))
+        del w64
+        _free(ctx.device_type == "gpu")
+    mx.layout.set_default_layout(None)
+    return recs
+
+
+def _dp_lm_leg(mx, ctx, cfg, rank, out):
+    """(d) The LM through ``SPMDTrainer`` on a ``dp`` mesh of the
+    workers: ``cfg['lm_batch']`` rows in all, Ulysses at sp 1."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    gpu = ctx.device_type == "gpu"
+    vocab, embed, heads, seq = cfg["lm"]
+    gb, steps = cfg["lm_batch"], cfg["lm_steps"]
+    mesh = parallel.make_mesh({"dp": -1, "sp": 1, "tp": 1}, devices=[ctx])
+    assert mesh.shape["dp"] == _DP_WORLD and mesh.is_process_spanning
+
+    def attn(q, k, v):
+        return parallel.ulysses_attention(q, k, v, mesh, axis_name="sp",
+                                          batch_axis_name="dp", causal=True)
+    spec = parallel.P("dp", "sp")
+    tr = parallel.SPMDTrainer(
+        _lm_apply(attn, gb // _DP_WORLD, seq, heads, embed),
+        _lm_params(vocab, embed), mesh, data_axis="dp", tp_axis="tp",
+        learning_rate=0.1, momentum=0.9, batch_specs=[spec, spec])
+    batches = _dp_lm_batches(vocab, gb, seq, steps)
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after --------
+    FA.fwd_launches = FA.bwd_launches = 0
+    losses, ms, wall = _timed_steps(lambda: float(tr.step(*batches.pop(0))),
+                                    steps, gpu)
+    launches = {"fwd": FA.fwd_launches, "bwd": FA.bwd_launches}
+    # ---------------------------------------------------------------------
+    params = tr.get_params()
+    if rank == 0:
+        np.savez(os.path.join(out, "lm-params.npz"), **params)
+    rec = {"leg": "lm_spmd", "rank": rank, "global_batch": gb,
+           "local_batch": gb // _DP_WORLD, "steps": steps, "losses": losses,
+           "digest": _digest({k: torch.from_numpy(v)
+                              for k, v in params.items()}),
+           "kernel_launches": launches,
+           "expected": {"fwd": steps, "bwd": steps} if gpu
+           else {"fwd": 0, "bwd": 0}}
+    if gpu:
+        rec.update({"step_ms": ms, "step_wall_ms": wall,
+                    "peak_bytes": torch.cuda.max_memory_allocated()})
+    del tr
+    _free(gpu)
+    return rec
+
+
+def _dp_lm_batches(vocab, gb, seq, steps):
+    return [(np.random.RandomState(1 + i).randint(0, vocab, (gb, seq))
+             .astype(np.int32),
+             np.random.RandomState(101 + i).randint(0, vocab, (gb, seq))
+             .astype(np.int32)) for i in range(steps)]
+
+
+def _dp_gluon_data(batch, hw, classes):
+    rs = np.random.RandomState(0)
+    g = batch * _DP_WORLD
+    return (rs.uniform(-1, 1, (g, hw, hw, 3)).astype(np.float32),
+            rs.randint(0, classes, g).astype(np.float32))
+
+
+def _dp_gluon_step(mx, net, tr, X, Y, global_batch):
+    L = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = L(net(X), Y)
+    loss.backward()
+    tr.step(global_batch)
+    return float(loss.mean().asscalar())
+
+
+def _dp_gluon_split_step(mx, net, tr, Xs, Ys, global_batch):
+    """The two workers' Gluon step in one process: each worker's rows
+    through the net on their own (BatchNorm over those rows, as a
+    worker's Trainer on a dist store takes them in the JAX package and
+    here), the gradients summed by one backward, one update at the
+    global batch. Returns the mean of the workers' losses."""
+    L = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        losses = [L(net(X), Y) for X, Y in zip(Xs, Ys)]
+    mx.autograd.backward(losses)
+    tr.step(global_batch)
+    return float(np.mean([float(l.mean().asscalar()) for l in losses]))
+
+
+def _dp_halves(x, batch, ctx, mx, dtype="float32"):
+    """The global batch's rows of each worker, as NDArrays on ``ctx``."""
+    return [mx.nd.array(x[r * batch:(r + 1) * batch], ctx=ctx, dtype=dtype)
+            for r in range(_DP_WORLD)]
+
+
+def _dp_gluon_leg(mx, ctx, cfg, rank, out, rehearsal):
+    """(e) The Gluon loop on ``resnet50_v1`` with
+    ``gluon.Trainer(kvstore="dist_sync")``: rank 1's weights seeded apart
+    on purpose (rank 0's must win), ``cfg['gluon_steps']`` steps of
+    ``cfg['batch']`` rows per worker (BatchNorm over those rows, the
+    moving stats each worker's own), then a resume from step 2 through
+    ``save_states``/``load_states``."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    gpu = ctx.device_type == "gpu"
+    batch, steps = cfg["batch"], cfg["gluon_steps"]
+    net, _, hw, classes = _resnet_net(mx, ctx, rehearsal, seed=rank)
+    x, y = _dp_gluon_data(batch, hw, classes)
+    rows = slice(rank * batch, (rank + 1) * batch)
+    X, Y = mx.nd.array(x[rows], ctx=ctx), mx.nd.array(y[rows], ctx=ctx)
+    params = net.collect_params()
+    own = _digest({k: p.data()._data for k, p in params.items()})
+
+    def weights(d):
+        return {k: v for k, v in d.items() if not _dp_moving(k)}
+    opt = {"learning_rate": _GLUON_LR, "momentum": _GLUON_MOMENTUM}
+    K.launches = 0
+    tr = mx.gluon.Trainer(params, "sgd", dict(opt), kvstore="dist_sync")
+    start = _digest({k: p.data()._data for k, p in params.items()})
+    if rank == 0:
+        torch.save({k: p.data()._data.cpu() for k, p in params.items()},
+                   os.path.join(out, "gluon-start.pt"))
+    g = batch * _DP_WORLD
+    losses, mid, fname = [], None, os.path.join(out, "gluon-r%d.states"
+                                                 % rank)
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after --------
+    K.launches = 0
+    for i in range(steps):
+        if i == steps - 1:
+            tr.save_states(fname)
+            mid = {k: p.data()._data.clone() for k, p in params.items()}
+        loss, ms, wall = _timed_steps(
+            lambda: _dp_gluon_step(mx, net, tr, X, Y, g), 1, gpu)
+        losses += loss
+        if i == 0 and rank == 0:
+            torch.save({k: p.data()._data.cpu() for k, p in params.items()},
+                       os.path.join(out, "gluon-step1.pt"))
+    launches = K.launches
+    # ---------------------------------------------------------------------
+    end = {k: p.data()._data.clone() for k, p in params.items()}
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in end.items()},
+                   os.path.join(out, "gluon-end.pt"))
+    # the resume: the step-2 weights into the net, a new Trainer loads
+    # the states saved there, the last step again
+    with torch.no_grad():
+        for k, p in params.items():
+            p.data()._data.copy_(mid[k])
+    tr2 = mx.gluon.Trainer(params, "sgd", dict(opt), kvstore="dist_sync")
+    tr2.load_states(fname)
+    _dp_gluon_step(mx, net, tr2, X, Y, g)
+    resumed = {k: p.data()._data for k, p in params.items()}
+    rec = {"leg": "gluon", "rank": rank, "batch": batch, "global_batch": g,
+           "steps": steps, "losses": losses,
+           "own_init_digest": own, "start_digest": start,
+           "end_digest": _digest(weights(end)),
+           "moving_digest": _digest({k: v for k, v in end.items()
+                                     if _dp_moving(k)}),
+           "resumed_bit_equal": _digest(resumed) == _digest(end),
+           "resumed_num_update": tr2._optimizer.num_update,
+           "k1_launches": launches,
+           "k1_expected": 16 * steps if gpu else 0}
+    if gpu:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del net, tr, tr2, mid, end
+    mx.layout.set_default_layout(None)
+    _free(gpu)
+    return rec
+
+
+@contextlib.contextmanager
+def _dp_deadline(rehearsal, leg):
+    """A hard limit on one leg in a worker: past it every thread's stack
+    is printed and the worker exits nonzero (so the launcher stops the
+    other)."""
+    import faulthandler
+    print("dp worker: leg %s" % leg, file=sys.stderr, flush=True)
+    faulthandler.dump_traceback_later(_DP_LEG_S[rehearsal], exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def dp_worker(group, out, rehearsal):
+    """One worker of the data_parallel phase (``chip_smoke.py
+    --dp-worker GROUP DIR``, started by ``python -m mxnet_tpu_torch.launch
+    -n 2``): the legs of ``group`` (``module``: (a)-(c); ``lm_gluon``: (d)
+    and (e)); writes ``GROUP-r<rank>.json`` under ``out``."""
+    import mxnet_tpu_torch as mx
+    rank = mx.dist.rank()
+    assert mx.dist.process_count() == _DP_WORLD, mx.dist.process_count()
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = _dp_cfg(rehearsal)
+    res = {"rank": rank, "backend": mx.dist.backend(),
+           "backend_reason": mx.dist.backend_reason(),
+           "world": mx.dist.process_count(), "pid": os.getpid()}
+    if group == "module":
+        res["legs"] = _dp_module_group(mx, ctx, cfg, rank, out, rehearsal)
+    else:
+        with _dp_deadline(rehearsal, "lm"):
+            lm = _dp_lm_leg(mx, ctx, cfg, rank, out)
+        with _dp_deadline(rehearsal, "gluon"):
+            res["legs"] = {"lm": lm, "gluon": _dp_gluon_leg(
+                mx, ctx, cfg, rank, out, rehearsal)}
+        with _dp_deadline(rehearsal, "gluon_fp64_steps"):
+            w64 = _dp_gluon_fp64_steps(mx, ctx, cfg, rehearsal, rank)
+            if rank == 0:
+                torch.save(w64, os.path.join(out, "gluon-fp64-steps.pt"))
+            del w64
+    if ctx.device_type == "gpu":
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out, "%s-r%d.json" % (group, rank)), "w") as f:
+        json.dump(res, f)
+    mx.dist.finalize()
+
+
+def _dp_launch(group, out, rehearsal):
+    """Run ``group`` in 2 workers through the port's launcher under its
+    hard timeout; raises when a worker fails, hangs or the launcher
+    does. Returns the workers' records, rank order, and the seconds."""
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+           str(_DP_WORLD), "--timeout", str(_DP_LAUNCH_S[rehearsal])]
+    if rehearsal:
+        cmd.append("--force-cpu")
+    cmd += ["--", sys.executable, os.path.abspath(__file__), "--dp-worker",
+            group, out] + (["--cpu-rehearsal"] if rehearsal else [])
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=here, capture_output=True,
+                         text=True, timeout=_DP_LAUNCH_S[rehearsal] + 60)
+    secs = time.perf_counter() - t0
+    sys.stderr.write(res.stderr[-20000:])
+    assert res.returncode == 0, ("data_parallel %s workers failed" % group,
+                                 res.returncode)
+    recs = []
+    for r in range(_DP_WORLD):
+        with open(os.path.join(out, "%s-r%d.json" % (group, r))) as f:
+            recs.append(json.load(f))
+    return recs, secs
+
+
+def _dp_noise(k):
+    """A conv bias ahead of a BatchNorm: its gradient is zero in exact
+    arithmetic, so after a step its value is rounding noise on both
+    sides (``_module_leg`` holds it to the largest weight)."""
+    return "conv" in k and k.endswith("_bias")
+
+
+def _dp_scaled(got, ref):
+    """(largest |got - ref| of a tensor over that tensor's largest |ref|,
+    conv biases ahead of BatchNorm left out; their largest error over the
+    largest |ref| of all tensors)."""
+    largest = max(float(v.float().abs().max()) for v in ref.values())
+    per = _max_scaled({k: v for k, v in got.items() if not _dp_noise(k)},
+                      {k: v for k, v in ref.items() if not _dp_noise(k)})
+    noise = max([float((got[k].float() - v.float()).abs().max()) / largest
+                 for k, v in ref.items() if _dp_noise(k)] or [0.0])
+    return per, noise
+
+
+def _dp_fp64_net(mx, ctx, rehearsal, seed=0):
+    """The unfused ``resnet50_v1`` from the same seed, for the fp64
+    arbiter steps, with a map from its parameter names to the fused
+    net's (by position: same shapes, same Xavier draws)."""
+    fused, _, _, _ = _resnet_net(mx, ctx, rehearsal, seed=seed)
+    fp = [(k, tuple(p.shape)) for k, p in fused.collect_params().items()]
+    del fused
+    net, sym, hw, classes = _resnet_net(mx, ctx, rehearsal, seed=seed,
+                                        fused=False)
+    up = [(k, tuple(p.shape)) for k, p in net.collect_params().items()]
+    assert [s for _, s in fp] == [s for _, s in up], "layouts differ"
+    return net, sym, hw, classes, {u: f for (u, _), (f, _) in zip(up, fp)}
+
+
+def _dp_module_fp64_step(mx, ctx, cfg, rehearsal, rank=None):
+    """``_dp_module_reference``'s step 1 in fp64 on the unfused net: one
+    process at the global batch (``rank`` None, a ``device`` store) or
+    this worker's rows on ``dist_sync``. Returns the parameters after it
+    under the fused net's names."""
+    net, sym, hw, classes, rename = _dp_fp64_net(mx, ctx, rehearsal)
+    aux_names = set(sym.list_auxiliary_states())
+    params = {k: p.data()._data.double() for k, p in
+              net.collect_params().items()}
+    del net
+    g = cfg["batch"] * _DP_WORLD
+    x, y = _module_data(cfg["batches"], g, hw, classes)
+    x, y = x[:g], y[:g]
+    if rank is not None:
+        rows = slice(rank * cfg["batch"], (rank + 1) * cfg["batch"])
+        x, y = x[rows], y[rows]
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([mx.io.DataDesc("data", x.shape, "float64")],
+             [mx.io.DataDesc("softmax_label", y.shape, "float64")])
+    mod.init_params(arg_params={k: v for k, v in params.items()
+                                if k not in aux_names},
+                    aux_params={k: v for k, v in params.items()
+                                if k in aux_names})
+    mod.init_optimizer(kvstore=mx.kv.create(
+        "device" if rank is None else "dist_sync"), optimizer="sgd",
+        optimizer_params=_dp_opt(g))
+    assert mod.fused_step(mx.io.DataBatch(
+        [mx.nd.array(x, ctx=ctx, dtype="float64")],
+        [mx.nd.array(y, ctx=ctx, dtype="float64")]))
+    out = {rename[k]: v._data.to("cpu", copy=True)
+           for k, v in mod.get_params()[0].items()}
+    del mod
+    mx.layout.set_default_layout(None)
+    return out
+
+
+def _dp_gluon_fp64_steps(mx, ctx, cfg, rehearsal, rank=None):
+    """The Gluon loop's ``cfg['gluon_steps']`` steps in fp64 on the
+    unfused net (``rank`` None: one process, ``_dp_gluon_split_step``;
+    else this worker's rows over a ``dist_sync`` Trainer, rank 1 seeded
+    apart). Returns the weights after each step under the fused net's
+    names (the moving stats left out)."""
+    net, _, hw, classes, rename = _dp_fp64_net(mx, ctx, rehearsal,
+                                               seed=rank or 0)
+    net.cast("float64")
+    batch = cfg["batch"]
+    x, y = _dp_gluon_data(batch, hw, classes)
+    Xs = _dp_halves(x, batch, ctx, mx, "float64")
+    Ys = _dp_halves(y, batch, ctx, mx, "float64")
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": _GLUON_LR,
+                           "momentum": _GLUON_MOMENTUM},
+                          kvstore=None if rank is None else "dist_sync")
+    steps = []
+    for _ in range(cfg["gluon_steps"]):
+        if rank is None:
+            _dp_gluon_split_step(mx, net, tr, Xs, Ys, batch * _DP_WORLD)
+        else:
+            _dp_gluon_step(mx, net, tr, Xs[rank], Ys[rank],
+                           batch * _DP_WORLD)
+        steps.append({rename[k]: p.data()._data.to("cpu", copy=True)
+                      for k, p in net.collect_params().items()
+                      if not _dp_moving(rename[k])})
+    del net, tr, Xs, Ys
+    mx.layout.set_default_layout(None)
+    return steps
+
+
+def _dp_fp64_steps_gate(card64, one64, w0):
+    """The workers' fp64 steps (``card64``, one dict per step) against
+    one process's (``one64``) from ``w0``: every tensor within 1e-6 of
+    its largest update in that step plus 4 fp64 ulps of its largest
+    value; a conv bias ahead of BatchNorm (``_dp_noise``, zero in exact
+    arithmetic) within 1e-9 of the largest weight. Returns (ok, the worst
+    error over its bound in each step)."""
+    worst, prev = [], w0
+    for got, ref in zip(card64, one64):
+        largest = max(float(v.double().abs().max()) for v in ref.values())
+        w = 0.0
+        for k, r in ref.items():
+            r = r.double()
+            e = float((got[k].double() - r).abs().max())
+            if _dp_noise(k):
+                bound = 1e-9 * largest
+            else:
+                upd = float((r - prev[k].double()).abs().max())
+                bound = 1e-6 * upd + 4 * _EPS64 * float(r.abs().max())
+            w = max(w, e / max(bound, 1e-300))
+        worst.append(w)
+        prev = ref
+    return all(w <= 1.0 for w in worst) and len(worst) == len(one64), worst
+
+
+def _dp_gate(card, card64, one, one64, w0):
+    """``_step1_gate`` of the two workers' step 1 (``card`` fp32,
+    ``card64`` fp64) against one process's at the global batch (``one``,
+    ``one64``: the arbiter), from ``w0``. The conv biases ahead of
+    BatchNorm, zero in exact arithmetic (``_dp_noise``), are left to a
+    check of their own: within 1e-3 of the largest weight in fp32 (as in
+    ``_module_leg``) and 1e-9 in fp64. One step of this net is
+    ill-conditioned in fp32 (a stage-4 convolution's update is a
+    cancelling sum: one process's fp32 step is itself 0.21 of the update
+    from its fp64 step on resnet50_v1 at batch 8 on the CPU), which is
+    why the fp64 steps arbitrate. Returns (ok, report)."""
+    keep = [k for k in one64 if not _dp_noise(k)]
+    ok, rep = _step1_gate({k: card[k] for k in keep},
+                          {k: card64[k] for k in keep},
+                          {k: one[k] for k in keep},
+                          {k: one64[k] for k in keep},
+                          {k: w0[k] for k in keep})
+    _, noise = _dp_scaled(card, one)
+    _, noise64 = _dp_scaled(card64, one64)
+    rep["conv_bias_err_over_largest_weight"] = [noise, noise64]
+    return ok and noise <= 1e-3 and noise64 <= 1e-9, rep
+
+
+def _dp_module_reference(mx, ctx, cfg, sym, arg, aux, hw, classes):
+    """Step 1 of one process at the global batch on the card: the
+    cross-entropy and the parameters after it."""
+    batch = cfg["batch"] * _DP_WORLD
+    x, y = _module_data(cfg["batches"], batch, hw, classes)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (batch, hw, hw, 3))],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(kvstore=mx.kv.create("device"), optimizer="sgd",
+                       optimizer_params=_dp_opt(batch))
+    metric = mx.metric.create(["acc", "ce"])
+    assert mod.fused_step(mx.io.DataBatch(
+        [mx.nd.array(x[:batch], ctx=ctx)], [mx.nd.array(y[:batch], ctx=ctx)]),
+        eval_metric=metric)
+    out = (metric.get_metric(1).get()[1], _host_params(mod)[0])
+    del mod
+    return out
+
+
+def _dp_compressed_recompute(mx, sym, arg, cfg, kind, out):
+    """Rank 0's first update of the compressed leg ``kind`` recomputed by
+    the port on the CPU from both workers' step-1 gradients: each
+    quantised from a zero residual and dequantised, summed in rank
+    order, then the store's SGD update (built as ``Module`` builds it:
+    the symbol's wd multipliers). Returns (worst error over its bound,
+    the tensor, the largest error over the tensor's largest update): the
+    bound is 1e-6 of the update plus 2 fp32 ulps of the largest value
+    (the card's elementwise update may fuse a multiply-add the CPU
+    rounds twice)."""
+    from mxnet_tpu_torch.gradient_compression import GradientCompression
+    names = [n for n in sym.list_arguments()
+             if n not in ("data", "softmax_label")]
+    comp = GradientCompression(**({"type": "2bit", "threshold": 0.5}
+                                  if kind == "2bit" else {"type": "fp16"}))
+    grads = [torch.load(os.path.join(out, "%s-grad1-r%d.pt" % (kind, r)))
+             for r in range(_DP_WORLD)]
+    got = torch.load(os.path.join(out, "%s-step1.pt" % kind))
+    summed, weights = [], []
+    for n in names:
+        total = torch.zeros(grads[0][n].shape)
+        for r, g in enumerate(grads):
+            total += comp.decompress(comp.compress((n, r), g[n]), g[n].shape)
+        summed.append(mx.nd.array(total, ctx=mx.cpu()))
+        weights.append(mx.nd.array(arg[n].cpu(), ctx=mx.cpu()))
+    opt = mx.optimizer.create("sgd", sym=sym,
+                              param_idx2name=dict(enumerate(names)),
+                              **_dp_opt(cfg["batch"] * _DP_WORLD))
+    mx.optimizer.get_updater(opt).update_batch(list(range(len(names))),
+                                               summed, weights)
+    worst, worst_k, over_upd = 0.0, None, 0.0
+    for n, w in zip(names, weights):
+        ref = w._data.double()
+        upd = float((ref - arg[n].cpu().double()).abs().max())
+        top = float(ref.abs().max())
+        e = float((got[n].double() - ref).abs().max())
+        r = e / (1e-6 * upd + 2 * _EPS32 * top + 1e-300)
+        if r >= worst:
+            worst, worst_k = r, n
+        over_upd = max(over_upd, e / max(upd, 1e-30))
+    return worst, worst_k, over_upd
+
+
+def data_parallel_phase(mx, ctx, rehearsal, card):
+    """Data parallelism across two worker processes on one card: every
+    leg through ``python -m mxnet_tpu_torch.launch -n 2`` (both ranks on
+    ``cuda:0``, gloo), against one process at the global batch on the
+    card and the CPU. Returns the K1, K2 and K3 launches of the workers
+    (both ranks)."""
+    gpu = ctx.device_type == "gpu"
+    cfg = _dp_cfg(rehearsal)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _free(gpu)
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        return _data_parallel(mx, ctx, rehearsal, card, cfg, gpu, out,
+                              t_phase)
+    finally:
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+        torch.backends.cudnn.deterministic = det
+        mx.layout.set_default_layout(None)
+        _free(gpu)
+
+
+def _dp_references(mx, ctx, cfg, rehearsal):
+    """One process at the global batch, on the card, before the workers
+    start: ResNet-50's step 1 through ``Module`` (from the workers'
+    seeded weights), the LM's steps, the Gluon loop's steps (each
+    worker's rows on their own, as the workers' BatchNorm takes them)."""
+    from mxnet_tpu_torch import parallel
+    gpu = ctx.device_type == "gpu"
+    ref = {}
+    net, sym, hw, classes = _resnet_net(mx, ctx, rehearsal)
+    aux_names = set(sym.list_auxiliary_states())
+    params = {k: p.data()._data.to("cpu", copy=True)
+              for k, p in net.collect_params().items()}
+    ref["init_digest"] = _digest(params)
+    ref["sym"], ref["hw"], ref["classes"] = sym, hw, classes
+    ref["arg"] = {k: v for k, v in params.items() if k not in aux_names}
+    aux = {k: v for k, v in params.items() if k in aux_names}
+    ref["module_ce"], ref["module_step1"] = _dp_module_reference(
+        mx, ctx, cfg, sym, ref["arg"], aux, hw, classes)
+    _free(gpu)
+    ref["gluon_w0"] = {k: v for k, v in params.items() if not _dp_moving(k)}
+    # the Gluon loop from rank 0's weights: both workers' rows in one
+    # process, each worker's on its own (``_dp_gluon_split_step``)
+    batch, g = cfg["batch"], cfg["batch"] * _DP_WORLD
+    x, y = _dp_gluon_data(batch, hw, classes)
+    Xs, Ys = _dp_halves(x, batch, ctx, mx), _dp_halves(y, batch, ctx, mx)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": _GLUON_LR,
+                           "momentum": _GLUON_MOMENTUM}, kvstore=None)
+    ref["gluon_losses"] = []
+    for i in range(cfg["gluon_steps"]):
+        ref["gluon_losses"].append(_dp_gluon_split_step(mx, net, tr, Xs, Ys,
+                                                        g))
+        if i == 0:
+            ref["gluon_step1"] = _host_copy(net.collect_params())
+    ref["gluon_end"] = _host_copy(net.collect_params())
+    del net, tr, Xs, Ys
+    mx.layout.set_default_layout(None)
+    _free(gpu)
+    # the LM at the global batch
+    vocab, embed, heads, seq = cfg["lm"]
+    gb = cfg["lm_batch"]
+    mesh = parallel.make_mesh({"dp": 1, "sp": 1, "tp": 1}, devices=[ctx])
+
+    def attn(q, k, v):
+        return parallel.ulysses_attention(q, k, v, mesh, axis_name="sp",
+                                          batch_axis_name="dp", causal=True)
+    spec = parallel.P("dp", "sp")
+    lm = parallel.SPMDTrainer(_lm_apply(attn, gb, seq, heads, embed),
+                              _lm_params(vocab, embed), mesh, data_axis="dp",
+                              tp_axis="tp", learning_rate=0.1, momentum=0.9,
+                              batch_specs=[spec, spec])
+    ref["lm_losses"] = [float(lm.step(x, y)) for x, y in
+                        _dp_lm_batches(vocab, gb, seq, cfg["lm_steps"])]
+    ref["lm_params"] = lm.get_params()
+    del lm
+    _free(gpu)
+    # the fp64 arbiters of the two step-1 gates, on the unfused net
+    ref["module64"] = _dp_module_fp64_step(mx, ctx, cfg, rehearsal)
+    _free(gpu)
+    ref["gluon64"] = _dp_gluon_fp64_steps(mx, ctx, cfg, rehearsal)
+    _free(gpu)
+    return ref
+
+
+def _data_parallel(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase):
+    ref = _dp_references(mx, ctx, cfg, rehearsal)
+    ref_s = time.perf_counter() - t_phase
+    mod_recs, mod_s = _dp_launch("module", out, rehearsal)
+    lg_recs, lg_s = _dp_launch("lm_gluon", out, rehearsal)
+    sym, arg = ref["sym"], ref["arg"]
+    sizes = [int(np.prod(v.shape)) for v in arg.values()]
+    n_params = sum(sizes)
+    checks, legs = {}, {}
+    for r, rec in enumerate(mod_recs + lg_recs):
+        assert rec["backend"] == "gloo" and rec["world"] == _DP_WORLD, rec
+    checks["workers_start_from_the_parent_weights"] = all(
+        m["legs"]["init_digest"] == ref["init_digest"] for m in mod_recs)
+    # (a)-(c): replicas bit-equal after every epoch, each leg's K1 count;
+    # the moving stats equal on the fused step (BatchNorm over both
+    # workers' rows) and each worker's own on the phase-split legs
+    for tag in _DP_MODULE_LEGS:
+        r0, r1 = (m["legs"][tag] for m in mod_recs)
+        legs[tag] = {"rank0": r0, "rank1": {k: r1[k] for k in (
+            "epoch_digests", "aux_digests", "k1_launches", "ms_per_batch",
+            "peak_bytes", "kv_push_span", "wire_bytes_per_batch")
+            if k in r1}}
+        checks["%s_replicas_bit_equal" % tag] = \
+            r0["epoch_digests"] == r1["epoch_digests"]
+        if tag == "dist_sync":
+            checks["dist_sync_moving_stats_bit_equal"] = \
+                r0["aux_digests"] == r1["aux_digests"]
+        else:
+            checks["%s_moving_stats_per_worker" % tag] = all(
+                a != b for a, b in zip(r0["aux_digests"], r1["aux_digests"]))
+        checks["%s_k1_launches" % tag] = all(
+            r["k1_launches"] == r["k1_expected"] for r in (r0, r1))
+    a0, a1 = (m["legs"]["dist_sync"] for m in mod_recs)
+    checks["dist_sync_fused"] = a0["fallback"] is None
+    checks["dist_sync_wire_bytes"] = \
+        a0["wire_bytes_per_batch"] == a0["wire_bytes_raw_per_batch"] \
+        == 4 * n_params
+    # dist_async is dist_sync on the same (phase-split) path
+    checks["dist_async_bit_equal_to_dist_sync_phase_split"] = all(
+        m["legs"]["dist_async"][d] == m["legs"]["dist_sync_split"][d]
+        for m in mod_recs for d in ("epoch_digests", "aux_digests"))
+    checks["dist_sync_split_phase_split_env_pin"] = \
+        mod_recs[0]["legs"]["dist_sync_split"]["fallback"] == "env_pin"
+    ce = (a0["step1_ce"] + a1["step1_ce"]) / 2
+    ce_rel = abs(ce - ref["module_ce"]) / abs(ref["module_ce"])
+    got = torch.load(os.path.join(out, "dist_sync-step1.pt"))
+    gate_ok, gate = _dp_gate(
+        got, torch.load(os.path.join(out, "module-fp64-step1.pt")),
+        ref["module_step1"], ref["module64"], arg)
+    checks["dist_sync_step1_loss"] = ce_rel <= 1e-4
+    checks["dist_sync_step1_gate"] = gate_ok
+    comp = {}
+    for kind, words in (("2bit", 4 * sum(-(-n // 16) for n in sizes)),
+                        ("fp16", 2 * n_params)):
+        c0 = mod_recs[0]["legs"][kind]
+        worst, worst_k, over = _dp_compressed_recompute(mx, sym, arg, cfg,
+                                                        kind, out)
+        comp[kind] = {"wire_bytes": c0["wire_bytes_per_batch"],
+                      "raw_bytes": c0["wire_bytes_raw_per_batch"],
+                      "expected_wire_bytes": words,
+                      "ratio": c0["wire_bytes_per_batch"]
+                      / c0["wire_bytes_raw_per_batch"],
+                      "fallback": c0["fallback"],
+                      "recompute_err_over_bound": worst,
+                      "recompute_worst_tensor": worst_k,
+                      "recompute_err_over_update": over}
+        checks["%s_wire" % kind] = (c0["wire_bytes_per_batch"] == words
+                                    and c0["wire_bytes_raw_per_batch"]
+                                    == 4 * n_params)
+        checks["%s_phase_split_kvstore_dist" % kind] = \
+            c0["fallback"] == "kvstore_dist"
+        checks["%s_first_update_vs_cpu" % kind] = worst <= 1.0
+    checks["dist_async_phase_split_kvstore_dist"] = \
+        mod_recs[0]["legs"]["dist_async"]["fallback"] == "kvstore_dist"
+    # (d) the LM
+    l0, l1 = (m["legs"]["lm"] for m in lg_recs)
+    lm_params = dict(np.load(os.path.join(out, "lm-params.npz")))
+    lm_loss_rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(l0["losses"], ref["lm_losses"]))
+    lm_param = _max_scaled({k: torch.from_numpy(v)
+                            for k, v in lm_params.items()},
+                           {k: torch.from_numpy(v)
+                            for k, v in ref["lm_params"].items()})
+    checks["lm_replicas_bit_equal"] = l0["digest"] == l1["digest"] \
+        and l0["losses"] == l1["losses"]
+    checks["lm_launches"] = all(r["kernel_launches"] == r["expected"]
+                                for r in (l0, l1))
+    checks["lm_vs_one_process"] = lm_loss_rel <= 1e-4 and lm_param <= 1e-4
+    # (e) the Gluon loop
+    e0, e1 = (m["legs"]["gluon"] for m in lg_recs)
+    g_losses = [(a + b) / 2 for a, b in zip(e0["losses"], e1["losses"])]
+    g_loss_rel = [abs(a - b) / abs(b)
+                  for a, b in zip(g_losses, ref["gluon_losses"])]
+    g_w0 = ref["gluon_w0"]
+    g_card1 = {k: v for k, v in torch.load(
+        os.path.join(out, "gluon-step1.pt")).items() if k in g_w0}
+    g_ref1 = {k: v for k, v in ref["gluon_step1"].items() if k in g_w0}
+    g_step1, g_noise1 = _dp_scaled(g_card1, g_ref1)
+    g_card64 = torch.load(os.path.join(out, "gluon-fp64-steps.pt"))
+    g_ok, g_gate = _dp_gate(g_card1, g_card64[0], g_ref1,
+                            ref["gluon64"][0], g_w0)
+    g64_ok, g64_worst = _dp_fp64_steps_gate(g_card64, ref["gluon64"], g_w0)
+    g_end, g_noise = _dp_scaled(
+        {k: v for k, v in torch.load(os.path.join(out, "gluon-end.pt"))
+         .items() if k in g_w0},
+        {k: v for k, v in ref["gluon_end"].items() if k in g_w0})
+    checks["gluon_rank0_seeds_rank1"] = (
+        e0["own_init_digest"] != e1["own_init_digest"]
+        and e0["start_digest"] == e1["start_digest"]
+        == e0["own_init_digest"])
+    checks["gluon_replicas_bit_equal"] = e0["end_digest"] == e1["end_digest"]
+    checks["gluon_moving_stats_per_worker"] = \
+        e0["moving_digest"] != e1["moving_digest"]
+    checks["gluon_resume_bit_equal"] = e0["resumed_bit_equal"] \
+        and e1["resumed_bit_equal"]
+    checks["gluon_k1_launches"] = all(r["k1_launches"] == r["k1_expected"]
+                                      for r in (e0, e1))
+    checks["gluon_step1_loss"] = g_loss_rel[0] <= 1e-5
+    checks["gluon_step1_gate"] = g_ok
+    checks["gluon_fp64_steps_gate"] = g64_ok
+    k1 = sum(m["legs"][t]["k1_launches"] for m in mod_recs
+             for t in _DP_MODULE_LEGS) \
+        + e0["k1_launches"] + e1["k1_launches"]
+    k2 = l0["kernel_launches"]["fwd"] + l1["kernel_launches"]["fwd"]
+    k3 = l0["kernel_launches"]["bwd"] + l1["kernel_launches"]["bwd"]
+    emit({"data_parallel": {
+        "card": card, "world": _DP_WORLD, "backend": mod_recs[0]["backend"],
+        "backend_reason": mod_recs[0]["backend_reason"],
+        "peak_bytes_per_rank": [[m.get("peak_bytes") for m in recs]
+                                for recs in (mod_recs, lg_recs)],
+        "seconds": {"references": ref_s, "module_launch": mod_s,
+                    "lm_gluon_launch": lg_s},
+        "parameters": n_params,
+        "module_legs": legs,
+        "dist_sync_step1": {"ce_workers": ce, "ce_one_process":
+                            ref["module_ce"], "ce_rel": ce_rel,
+                            "gate": gate},
+        "compressed": comp,
+        "lm": {"rank0": l0, "rank1_losses": l1["losses"],
+               "one_process_losses": ref["lm_losses"],
+               "loss_rel": lm_loss_rel, "param_scaled": lm_param},
+        "gluon": {"rank0": e0, "rank1": e1,
+                  "one_process_losses": ref["gluon_losses"],
+                  "loss_rel": g_loss_rel, "step1_gate": g_gate,
+                  "fp64_steps_err_over_bound": g64_worst,
+                  "step1_param_scaled": g_step1, "end_param_scaled": g_end,
+                  "conv_bias_err_over_largest_weight": [g_noise1, g_noise],
+                  "note": "the reference runs each worker's rows on their "
+                          "own in one process; fp64 steps 1-3 and fp32 "
+                          "step 1 are gated, fp32 steps 2-3 reported"},
+        "launches": {"k1": k1, "k2": k2, "k3": k3},
+        "checks": checks}})
+    failed = sorted(k for k, v in checks.items() if not v)
+    assert not failed, failed
+    return k1, k2, k3
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
           "resnet_training", "gluon_training", "decode", "rnn_training",
           "image_classification", "gluon_zoo", "observability",
-          "dense_prediction")
+          "dense_prediction", "data_parallel")
 
 
 def main(argv=None):
@@ -5282,8 +6205,13 @@ def main(argv=None):
                     help="comma-separated subset of %s to run after device "
                          "and build; a subset prints no result line"
                          % ",".join(PHASES))
+    ap.add_argument("--dp-worker", nargs=2, metavar=("GROUP", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
+    if args.dp_worker:
+        dp_worker(args.dp_worker[0], args.dp_worker[1], rehearsal)
+        return 0
     todo = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(todo) - set(PHASES))
     if unknown:
@@ -5342,6 +6270,10 @@ def main(argv=None):
         with phase("dense_prediction"):
             res["dense_launches"] = dense_prediction_phase(
                 mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
+    if "data_parallel" in todo:
+        with phase("data_parallel"):
+            res["dp_launches"] = data_parallel_phase(
+                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -5353,7 +6285,8 @@ def main(argv=None):
         "source": "mxnet_tpu_torch/kernels/csrc/fused_bn.cu",
         "replaces": "mxnet_tpu/pallas/fused_bn.py:44",
         "launches": res["k1_launches"] + res["k1_train_launches"]
-        + res["k1_gluon_launches"] + res["obs_launches"],
+        + res["k1_gluon_launches"] + res["obs_launches"]
+        + res["dp_launches"][0],
         "serving_launches": res["k1_launches"],
         "observability_launches": res["obs_launches"],
         "training_launches": res["k1_train_launches"],
@@ -5362,6 +6295,7 @@ def main(argv=None):
         "image_classification_launches": res["ic_launches"][0],
         "gluon_zoo_launches": res["zoo_launches"][0],
         "dense_prediction_launches": res["dense_launches"][0],
+        "data_parallel_launches": res["dp_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -5373,11 +6307,13 @@ def main(argv=None):
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:83",
-        "launches": launches["fwd"],
+        "launches": launches["fwd"] + res["dp_launches"][1],
+        "training_launches": launches["fwd"],
         "rnn_training_launches": res["rnn_launches"][1],
         "image_classification_launches": res["ic_launches"][1],
         "gluon_zoo_launches": res["zoo_launches"][1],
         "dense_prediction_launches": res["dense_launches"][1],
+        "data_parallel_launches": res["dp_launches"][1],
         "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
@@ -5390,11 +6326,13 @@ def main(argv=None):
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:261",
-        "launches": launches["bwd"],
+        "launches": launches["bwd"] + res["dp_launches"][2],
+        "training_launches": launches["bwd"],
         "rnn_training_launches": res["rnn_launches"][2],
         "image_classification_launches": res["ic_launches"][2],
         "gluon_zoo_launches": res["zoo_launches"][2],
         "dense_prediction_launches": res["dense_launches"][2],
+        "data_parallel_launches": res["dp_launches"][2],
         "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,

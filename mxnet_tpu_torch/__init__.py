@@ -18,10 +18,18 @@ cells of ``mx.rnn`` through ``mx.mod.BucketingModule``), and image
 classification beyond ResNet (``mx.kvstore``, the ``fit.py`` recipe,
 ``gluon.data`` and the Gluon model zoo), each on one device, and the
 instruments and controls around them (``mx.telemetry``, ``mx.faults``,
-``mx.flight``, ``mx.profiler``, the autotuned serving plan); see
+``mx.flight``, ``mx.profiler``, the autotuned serving plan), and
+data-parallel training across contexts and worker processes (the
+``dist*`` stores with 2-bit and fp16 compression, ``launch.py``,
+``Module`` over several contexts, the dp ``SPMDTrainer``); see
 ROADMAP.md.
+
+A worker started by ``python -m mxnet_tpu_torch.launch`` joins its job
+here, at import (``dist.init_from_env``), before anything else runs.
 """
-from . import log  # noqa: F401
+from . import dist  # noqa: F401
+dist.init_from_env()
+from . import log  # noqa: F401,E402
 from . import telemetry  # noqa: F401
 from . import faults  # noqa: F401
 from . import checkpoint  # noqa: F401
@@ -51,6 +59,7 @@ from . import autograd  # noqa: F401
 from . import metric  # noqa: F401
 from . import io  # noqa: F401
 from . import model  # noqa: F401
+from . import gradient_compression  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from .kvstore import KVStore  # noqa: F401
@@ -68,6 +77,8 @@ from . import monitor  # noqa: F401
 from . import monitor as mon  # noqa: F401
 from .monitor import Monitor  # noqa: F401
 from .checkpoint import CheckpointManager  # noqa: F401
+from . import executor_manager  # noqa: F401
+from . import kvstore_server  # noqa: F401
 
 # mx.random's samplers (parity: mx.random.uniform is nd.random.uniform)
 for _name in nd.random.__all__:

@@ -44,7 +44,7 @@ and flight-recorder postmortems (a rebuilt pool, a breaker trip, a
 dying scheduler).
 
 Not ported yet: partition rules over more than one device (a one-device
-mesh shards nothing; ROADMAP Queue 1 item 4); one captured CUDA graph
+mesh shards nothing; ROADMAP Queue 1 item 4, second half); one captured CUDA graph
 per slot bucket (item 1).
 """
 from __future__ import annotations
@@ -298,7 +298,8 @@ class DecodeEngine:
     ctx : Context — the device (default ``gpu(0)``; ``MXNetError`` when
         no CUDA device is present and no ``ctx=cpu()`` was given)
     partition_rules / mesh_axes / contexts : a mesh as in the JAX
-        package; a mesh of more than one device raises (ROADMAP queue 6),
+        package; a mesh of more than one device raises (ROADMAP Queue 1
+        item 4, second half),
         and on one device the rules shard nothing
     max_queue : sequences allowed to WAIT for a slot (None: unbounded)
     deadline_ms : default deadline for one sequence's whole life,
@@ -354,10 +355,15 @@ class DecodeEngine:
             ctx = current_context()
         if partition_rules is not None or mesh_axes or contexts:
             from .parallel.mesh import make_mesh
-            ctx = make_mesh(dict(mesh_axes) if mesh_axes
-                            else {"dp": 1, "mp": -1},
-                            devices=list(contexts) if contexts
-                            else [ctx]).device
+            mesh = make_mesh(dict(mesh_axes) if mesh_axes
+                             else {"dp": 1, "mp": -1},
+                             devices=list(contexts) if contexts else [ctx])
+            if mesh.size != 1:
+                raise MXNetError(
+                    "DecodeEngine: a mesh of %d devices; the engines' "
+                    "meshes are not ported yet (ROADMAP Queue 1 item 4, "
+                    "second half)" % mesh.size)
+            ctx = mesh.device
         self._ctx = ctx
         self._device = ctx.torch_device()
         self._params = tree_from_numpy(params, ctx=ctx)
@@ -415,7 +421,7 @@ class DecodeEngine:
 
     def partition_summary(self):
         """The decode mesh's layout; None on the port's one device (the
-        distributed slice, ROADMAP Queue 1 item 4, brings meshes)."""
+        engines' meshes, ROADMAP Queue 1 item 4, second half)."""
         return None
 
     def _prefill_compiled(self, card):

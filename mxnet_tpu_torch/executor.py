@@ -43,8 +43,8 @@ from .ops.tensor import creation_device
 from . import telemetry
 from . import faults
 
-__all__ = ["Executor", "infer_graph_attrs", "infer_graph_shapes",
-           "record_dispatch", "make_card"]
+__all__ = ["Executor", "ReplicaSet", "infer_graph_attrs",
+           "infer_graph_shapes", "record_dispatch", "make_card"]
 
 
 # ---------------------------------------------------------------------------
@@ -243,8 +243,10 @@ class _GraphProgram:
     def __init__(self, symbol):
         self.symbol = symbol
         # callable(output name, raw tensor) fed every op output of an
-        # evaluation while set (the executor's monitor callback)
+        # evaluation while set (the executor's monitor callback); one per
+        # replica (or None) for the replicas' entry points (``ReplicaSet``)
         self.tap = None
+        self.replica_taps = None
         self._entries = {}      # (kind, statics) -> (entry id, cards)
         self.nodes = symbol._topo_nodes()
         self.arg_names = symbol.list_arguments()
@@ -293,37 +295,64 @@ class _GraphProgram:
         makes its tensor on the device of the arguments, and a random op
         draws from that device's generator (``ops/common.take_rng``), in
         the graph's topological order."""
-        env = {}
-        aux_updates = {}
-        device = next((t.device for t in arg_dict.values()), None)
+        outs, aux_up = self.eval_replicas([arg_dict], [aux_dict], train,
+                                          taps=[self.tap])
+        return outs[0], aux_up[0]
+
+    def eval_replicas(self, arg_dicts, aux_dicts, train=False,
+                      over_workers=False, taps=None):
+        """``eval_graph`` of several replicas (one argument and aux dict
+        each, on their own devices) node by node together. In training
+        mode a stateful op of several replicas, or with
+        ``over_workers``, takes its batch statistics over every
+        replica's rows and every worker's (``ops/nn.batch_stats_over``):
+        what the JAX package's one program over a mesh computes. Returns
+        (outputs, aux_updates), one of each per replica; ``taps`` holds
+        one tap (or None) per replica."""
+        from .ops.nn import batch_stats_over
+        n = len(arg_dicts)
+        taps = taps or [None] * n
+        envs = [{} for _ in range(n)]
+        aux_ups = [{} for _ in range(n)]
+        devices = [next((t.device for t in a.values()), None)
+                   for a in arg_dicts]
+        shared = train and (n > 1 or over_workers)
         for pos, node in enumerate(self.nodes):
             if node.op is None:
-                if node.name in arg_dict:
-                    env[id(node)] = (arg_dict[node.name],)
-                elif node.name in aux_dict:
-                    env[id(node)] = (aux_dict[node.name],)
-                else:
-                    raise MXNetError("unbound variable %r" % node.name)
+                for env, args, aux in zip(envs, arg_dicts, aux_dicts):
+                    if node.name in args:
+                        env[id(node)] = (args[node.name],)
+                    elif node.name in aux:
+                        env[id(node)] = (aux[node.name],)
+                    else:
+                        raise MXNetError("unbound variable %r" % node.name)
                 continue
-            raw_in = [env[id(c)][idx] for c, idx in node.inputs]
-            env[id(node)] = self._apply_node(node, raw_in, train,
-                                             aux_updates, device)
-            del raw_in
-            if self.tap is not None:
-                self._tap_outputs(node, env[id(node)])
-            for key in self._drop_after[pos]:
-                env.pop(key, None)
-        return [env[id(n)][idx] for n, idx in self.output_entries], \
-            aux_updates
+            raws = [[env[id(c)][idx] for c, idx in node.inputs]
+                    for env in envs]
+            with (batch_stats_over([r[0] for r in raws], over_workers)
+                  if shared and node.op.stateful_update is not None
+                  else contextlib.nullcontext()):
+                for i, env in enumerate(envs):
+                    env[id(node)] = self._apply_node(node, raws[i], train,
+                                                     aux_ups[i], devices[i])
+            del raws
+            for env, tap in zip(envs, taps):
+                if tap is not None:
+                    self._tap_outputs(node, env[id(node)], tap)
+                for key in self._drop_after[pos]:
+                    env.pop(key, None)
+        return [[env[id(nd)][idx] for nd, idx in self.output_entries]
+                for env in envs], aux_ups
 
-    def _tap_outputs(self, node, outs):
+    @staticmethod
+    def _tap_outputs(node, outs, tap):
         """Each visible output of ``node`` to ``tap`` under the name
         ``get_internals().list_outputs()`` gives it, detached."""
         n = node.num_outputs()
         for i in range(n):
             name = node.name + "_output" if n == 1 \
                 else "%s_output%d" % (node.name, i)
-            self.tap(name, outs[i].detach())
+            tap(name, outs[i].detach())
 
     def graph_fingerprint(self):
         """JSON-safe fingerprint of this program's graph, computed as the
@@ -375,10 +404,20 @@ class _GraphProgram:
         ``train_step_fn`` run: the graph evaluated with ``grad_names``'s
         tensors as fresh autograd leaves. Returns (outputs, leaves,
         aux_updates)."""
-        leaves = {k: args[k].detach().requires_grad_(True)
-                  for k in grad_names}
+        outs, leaves, aux_up = self._vjp_over_replicas(
+            grad_names, [args], [aux], train, taps=[self.tap])
+        return outs[0], leaves[0], aux_up[0]
+
+    def _vjp_over_replicas(self, grad_names, args_list, aux_list, train,
+                           over_workers=False, taps=None):
+        """``_vjp_over_graph`` of several replicas together
+        (``eval_replicas``): one list entry per replica."""
+        leaves = [{k: args[k].detach().requires_grad_(True)
+                   for k in grad_names} for args in args_list]
         with torch.enable_grad():
-            outs, aux_up = self.eval_graph({**args, **leaves}, aux, train)
+            outs, aux_up = self.eval_replicas(
+                [{**args, **lv} for args, lv in zip(args_list, leaves)],
+                aux_list, train, over_workers, taps)
         return outs, leaves, aux_up
 
     @staticmethod
@@ -386,17 +425,56 @@ class _GraphProgram:
         """``{name: gradient}`` of the outputs (head gradients ones where
         not given) with respect to the leaves; a leaf the outputs do not
         reach gets zeros."""
-        pairs = [(o, head_grads[i] if head_grads is not None
-                  and head_grads[i] is not None else torch.ones_like(o))
-                 for i, o in enumerate(outs) if o.requires_grad]
-        names = list(leaves)
+        return _GraphProgram._replica_grads(
+            [outs], [leaves], None if head_grads is None else [head_grads])[0]
+
+    @staticmethod
+    def _replica_grads(outs, leaves, head_grads=None):
+        """``_grads`` of several replicas in one backward over their joint
+        graph (their batch statistics tie them together): one dict per
+        replica."""
+        pairs = []
+        for r, outs_r in enumerate(outs):
+            hg = head_grads[r] if head_grads is not None else None
+            pairs += [(o, hg[i] if hg is not None and hg[i] is not None
+                       else torch.ones_like(o))
+                      for i, o in enumerate(outs_r) if o.requires_grad]
+        keys = [(r, n) for r, lv in enumerate(leaves) for n in lv]
         got = torch.autograd.grad([o for o, _ in pairs],
-                                  [leaves[n] for n in names],
+                                  [leaves[r][n] for r, n in keys],
                                   [g for _, g in pairs],
-                                  allow_unused=True) if pairs else \
-            [None] * len(names)
-        return {n: (g if g is not None else torch.zeros_like(leaves[n]))
-                for n, g in zip(names, got)}
+                                  allow_unused=True) if pairs and keys \
+            else [None] * len(keys)
+        res = [{} for _ in leaves]
+        for (r, n), g in zip(keys, got):
+            res[r][n] = g if g is not None else torch.zeros_like(leaves[r][n])
+        return res
+
+    def replicas_fn(self, kind, grad_names, n, over_workers):
+        """Training-mode entry points of ``n`` replicas run together
+        (``ReplicaSet``), instrumented like the others. ``kind``
+        ``"forward"``: ``fn(args_list, aux_list) -> (outputs, leaves,
+        aux_updates)`` keeping the joint graph; ``"fwd_bwd"`` (and
+        ``"train_step"``, the fused step's card): ``fn(args_list,
+        aux_list, head_grads) -> (outputs, grads, aux_updates)``, outputs
+        detached. One list entry per replica."""
+        grad_names = tuple(grad_names)
+
+        def forward(args_list, aux_list):
+            return self._vjp_over_replicas(grad_names, args_list, aux_list,
+                                           True, over_workers,
+                                           self.replica_taps)
+
+        def fwd_bwd(args_list, aux_list, head_grads=None):
+            outs, leaves, aux_up = self._vjp_over_replicas(
+                grad_names, args_list, aux_list, True, over_workers,
+                self.replica_taps)
+            grads = self._replica_grads(outs, leaves, head_grads)
+            return [[o.detach() for o in o_r] for o_r in outs], grads, aux_up
+        fn, names = (forward, ("args", "aux")) if kind == "forward" \
+            else (fwd_bwd, ("args", "aux", "head_grads"))     # or train_step
+        return self._instrumented(
+            kind, ("replicas", n, bool(over_workers), grad_names), fn, names)
 
     def fwd_bwd_fn(self, train, grad_names):
         """``fn(args, aux, head_grads) -> (outputs, grads, aux_updates)``:
@@ -836,3 +914,128 @@ class Executor:
                     dst[name][:] = arr
                 elif not allow_extra_params:
                     raise MXNetError("unknown %s %r" % (what, name))
+
+
+class ReplicaSet:
+    """Executors of one symbol, one per Context, each bound to its slice
+    of the batch, run as one data-parallel program: the counterpart of
+    the JAX package's one program sharded over a ``dp`` mesh. A training
+    forward evaluates every replica node by node together
+    (``_GraphProgram.eval_replicas``), so BatchNorm takes its statistics
+    over all their rows (and, with ``over_workers``, over every worker's:
+    the fused step over a synchronous ``dist*`` store), and one backward
+    runs over the joint graph. One executor alone, and every inference
+    forward, runs as an executor does by itself."""
+
+    def __init__(self, execs):
+        self.execs = list(execs)
+        self._pending = None    # (outputs, leaves) of a joint forward
+
+    @contextlib.contextmanager
+    def _tapping(self):
+        """Each executor's monitor taps, one per replica."""
+        prog = self.execs[0]._prog
+        with contextlib.ExitStack() as stack:
+            for ex in self.execs:
+                stack.enter_context(ex._monitored())
+            prog.replica_taps = [ex._prog.tap for ex in self.execs]
+            try:
+                yield
+            finally:
+                prog.replica_taps = None
+
+    def _run(self, kind, grad_names, over_workers=False, *head_grads):
+        """One call of the replicas' ``kind`` entry point on the bound
+        arrays."""
+        execs = self.execs
+        record_dispatch(kind)
+        with self._tapping(), telemetry.span("step"):
+            return execs[0]._prog.replicas_fn(
+                kind, grad_names, len(execs), over_workers)(
+                [ex._raw_args() for ex in execs],
+                [ex._raw_aux() for ex in execs], *head_grads)
+
+    def _fresh(self, outs, aux_up):
+        """A new step's outputs and moving stats into the executors."""
+        for ex, o, a in zip(self.execs, outs, aux_up):
+            ex._pending = None
+            ex._write_aux(a)
+            ex._set_outputs(o)
+
+    def forward(self, is_train=False):
+        """Forward of every executor on the inputs installed in it."""
+        self._pending = None
+        if len(self.execs) == 1 or not is_train:
+            for ex in self.execs:
+                ex.forward(is_train=is_train)
+            return
+        self._drop_outputs()
+        outs, leaves, aux_up = self._run("forward",
+                                         self.execs[0]._grad_names())
+        self._fresh(outs, aux_up)
+        if leaves[0]:
+            self._pending = (outs, leaves)
+
+    def backward(self, out_grads=None):
+        """Gradients into every executor's arrays; ``out_grads`` holds one
+        list of head gradients per replica (or is None)."""
+        if len(self.execs) == 1:
+            self.execs[0].backward(
+                out_grads=None if out_grads is None else out_grads[0])
+            return
+        hg = None if out_grads is None else \
+            [ex._head_grads(g) for ex, g in zip(self.execs, out_grads)]
+        if self._pending is not None:
+            outs, leaves = self._pending
+            self._pending = None
+            for ex, g in zip(self.execs,
+                             _GraphProgram._replica_grads(outs, leaves, hg)):
+                ex._write_grads(g)
+            return
+        # no joint forward to differentiate: recompute one, outputs kept
+        _, grads, aux_up = self._run("fwd_bwd", self.execs[0]._grad_names(),
+                                     False, hg)
+        for ex, g, a in zip(self.execs, grads, aux_up):
+            ex._write_aux(a)
+            ex._write_grads(g)
+
+    def _drop_outputs(self):
+        for ex in self.execs:
+            ex.outputs = []     # the last outputs die before new ones live
+
+    def forward_backward(self):
+        """Forward and backward in one pass (the Module path)."""
+        self._pending = None
+        if len(self.execs) == 1:
+            self.execs[0].forward_backward()
+            return
+        self._drop_outputs()
+        outs, grads, aux_up = self._run("fwd_bwd",
+                                        self.execs[0]._grad_names())
+        self._fresh(outs, aux_up)
+        for ex, g in zip(self.execs, grads):
+            ex._write_grads(g)
+
+    def step_grads(self, names, add_names, over_workers=False):
+        """The fused step's forward and backward: per replica, the
+        gradients of ``names`` in the parameters' dtypes (a ``grad_req=
+        'add'`` parameter's accumulator added and written back), with
+        the outputs and moving stats written."""
+        self._pending = None
+        self._drop_outputs()
+        outs, grads, aux_up = self._run("train_step", tuple(names),
+                                        over_workers)
+        self._fresh(outs, aux_up)
+        per = []
+        with torch.no_grad():
+            for ex, g in zip(self.execs, grads):
+                gs = []
+                for k in names:
+                    t = g.pop(k).to(ex.arg_dict[k]._data.dtype)
+                    if k in add_names:
+                        acc = ex.grad_dict[k]._data
+                        t = acc + t
+                        acc.copy_(t)
+                    gs.append(t)
+                per.append(gs)
+        return per

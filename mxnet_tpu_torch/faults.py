@@ -24,8 +24,8 @@ site                      where it fires in the port
 ``compile_cache.load``,   parse but never fire until their modules are
 ``kv_collective``,        ported: the executable store has no counterpart
 ``heartbeat``             (the port compiles nothing but its kernels), and
-                          the heartbeat and collective gate come with the
-                          distributed slice (ROADMAP Queue 1 item 4)
+                          the heartbeat and collective gate come with
+                          ROADMAP Queue 1 item 4, second half
 ========================  ===================================================
 
 Spec grammar (``MXNET_FAULTS`` env var, or ``configure()``)::

@@ -35,8 +35,10 @@ on top of ``telemetry.py``:
   Everything is inert until a flight dir is configured — the hot paths
   pay nothing.
 
-The fleet view (the heartbeat's gate statistics in each sample) comes
-with the distributed slice (ROADMAP Queue 1 item 4).
+Postmortem and series file names carry the rank (``dist.py``) as in
+the JAX package; the fleet view (the heartbeat's gate statistics in
+each sample, peers' postmortems gathered at a member loss) comes with
+ROADMAP Queue 1 item 4, second half.
 """
 from __future__ import annotations
 

@@ -1,18 +1,25 @@
-"""Gluon Trainer on one device.
+"""Gluon Trainer.
 
 Counterpart of ``mxnet_tpu/gluon/trainer.py``: ``step`` rescales the
-gradients by ``1/batch_size`` and applies the optimizer to every
-parameter whose ``grad_req`` is not ``'null'`` in one
-``FusedUpdater.update_batch`` (the loop ``Module``'s fused step runs),
-writing the weights and states in place. The kvstore follows
-``model._create_kvstore``: ``None`` and the in-process type names mean
-no store on one device; a store object gets every parameter at the
-first step, and under ``update_on_kvstore`` the optimizer. The live
-parameters then go through the store as one key list (the JAX Trainer
-pushes key by key), so the store's updater runs ``update_batch`` as
-``Module.update`` does: push the gradients and pull the weights. A
-``dist*`` store waits for the distributed slice (ROADMAP Queue 1 item 4)
-and raises.
+gradients by ``1/batch_size`` (the JAX package's ``rescale_grad``) and
+applies the optimizer to every parameter whose ``grad_req`` is not
+``'null'`` in one ``FusedUpdater.update_batch`` (the loop ``Module``'s
+fused step runs), writing the weights and states in place. The kvstore
+follows ``model._create_kvstore``: ``None`` and the in-process type
+names mean no store on one device; a store object or a ``dist*`` name
+gets every parameter and, under ``update_on_kvstore``, the optimizer.
+The live parameters then go through the store as one key list (the JAX
+Trainer pushes key by key), so the store's updater runs ``update_batch``
+as ``Module.update`` does: push the gradients and pull the weights. A
+``dist*`` store sums the pushed gradients over the worker processes in
+one collective per step; it takes the parameters at construction when
+they have their shapes (at the first step otherwise) and every worker
+starts from rank 0's values. ``batch_size`` is the batch whose gradient
+the workers' summed push holds: the global batch, for the result of one
+process at that batch. ``compression_params`` goes to the store.
+``save_states`` writes the optimizer beside its states
+(``dump_optimizer=True``), and ``load_states`` resumes its update counts
+and scheduler.
 """
 from __future__ import annotations
 
@@ -43,13 +50,16 @@ class Trainer:
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
-        # a dist* type raises here; the keys go in at the first step,
-        # when deferred parameters have their shapes
         self._kvstore, self._update_on_kvstore = _create_kvstore(
             kvstore, 1, {p.name: p for p in self._params})
         if self._kvstore is not None and compression_params:
             self._kvstore.set_gradient_compression(compression_params)
         self._kv_initialized = False
+        if self._kvstore is not None and self._kvstore.type.startswith(
+                "dist") and all(p._data is not None for p in self._params):
+            # seed every worker from rank 0 before the first forward; a
+            # deferred parameter waits for the first step
+            self._init_kvstore()
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: param for i, param in enumerate(self._params)}
@@ -71,6 +81,13 @@ class Trainer:
         if kv is not None:
             for i, param in enumerate(self._params):
                 kv.init(i, param.data())
+            if kv.type.startswith("dist"):
+                # rank 0's values seeded the store: every worker trains
+                # from them (a BatchNorm's running stats, never pushed,
+                # stay each worker's own, as in the JAX package)
+                keys, _, weights = self._live()
+                if keys:
+                    kv.pull(keys, out=weights)
             if self._update_on_kvstore:
                 kv.set_optimizer(self._optimizer)
         self._kv_initialized = True
@@ -130,18 +147,22 @@ class Trainer:
             self._updaters.update_batch(keys, grads, weights)
 
     def save_states(self, fname):
-        """The optimizer states (the store's under ``update_on_kvstore``),
-        pickled in the JAX package's format."""
+        """The optimizer states with the optimizer beside them (the
+        store's under ``update_on_kvstore``), pickled as the JAX package
+        writes them (``dump_optimizer=True``), so a reload resumes the
+        update counts and the scheduler."""
         if not self._kv_initialized:
             self._init_kvstore()
         if self._update_on_kvstore:
-            self._kvstore.save_optimizer_states(fname)
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
             return
-        with open(fname, "wb") as f:
-            f.write(self._updaters.get_states())
+        from ..checkpoint import atomic_write
+        atomic_write(fname, self._updaters.get_states(dump_optimizer=True))
 
     def load_states(self, fname):
-        """States written by ``save_states`` of either package."""
+        """States written by ``save_states`` of either package; the
+        dumped optimizer's update counts and scheduler position are
+        adopted by this Trainer's optimizer."""
         if not self._kv_initialized:
             self._init_kvstore()
         if self._update_on_kvstore:

@@ -13,8 +13,7 @@ JAX package's (``mxnet_tpu/module/base_module.py:236-560``): a
 ``CheckpointManager`` that saves at each epoch end and on SIGTERM/SIGINT
 mid-epoch, ``resume``, a monitor, and the divergence sentinel with its
 ``halt``/``skip``/``rollback`` policies. Elastic recovery (a peer lost
-across processes) waits for the distributed slice (ROADMAP Queue 1
-item 4).
+across processes) waits for ROADMAP Queue 1 item 4, second half.
 """
 from __future__ import annotations
 
@@ -29,13 +28,24 @@ from .. import telemetry
 from ..model import BatchEndParam
 from ..initializer import Uniform
 
-# stable fallback reason codes -> what they mean (the JAX package's
-# codes that can arise on one device)
+# stable fallback reason codes -> what they mean: the JAX package's set
+# (the port raises ``kvstore_dist``, ``kvstore_compression``,
+# ``env_pin``, ``monitor``, ``inputs_need_grad``, ``no_trainable_params``
+# and ``not_initialised``; the rest name JAX-side program conditions)
 FUSED_FALLBACK_CODES = {
     "env_pin": "MXNET_MODULE_FUSED_STEP=0 pins the phase-split A/B leg",
     "monitor": "per-op monitor taps need the phase-split programs",
+    "kvstore_dist": "dist_* kvstore push/pull crosses worker processes",
+    "kvstore_compression": "gradient compression changes pushed values",
+    "group2ctx": "grouped (group2ctx) programs run eagerly per segment",
+    "no_fused_updater": "updater has no fused batch path",
     "inputs_need_grad": "data gradients are phase-split only",
+    "optimizer_kernel": "optimizer has no pure SPMD batch kernel",
+    "centered_rmsprop": "centered RMSProp state layout",
     "no_trainable_params": "nothing to update",
+    "state_layout": "optimizer state layout not expressible as a kernel",
+    "missing_input": "bound input missing from the executor arg dict",
+    "unfed_graph_arg": "graph argument not fed by the fused step",
     "not_initialised": "module not fully initialised",
 }
 

@@ -1,9 +1,9 @@
-"""Module — symbolic training on one bound executor.
+"""Module — symbolic training on bound executors.
 
 Counterpart of ``mxnet_tpu/module/module.py`` (parity: reference
-``module/module.py``) on one device: ``bind`` (``simple_bind`` with
-gradient arrays), ``reshape``, ``init_params``, ``init_optimizer`` with
-or without a kvstore, forward/backward/update, the fused batch step,
+``module/module.py``): ``bind`` (``simple_bind`` with gradient arrays),
+``reshape``, ``init_params``, ``init_optimizer`` with or without a
+kvstore, forward/backward/update, the fused batch step,
 ``get_params`` / ``set_params``, ``borrow_optimizer`` and checkpoints.
 The JAX package compiles the fused step into one jitted program with
 donated buffers; here it is one eager function
@@ -16,9 +16,31 @@ arithmetic, so the two give the same result. With a store object
 pushes the gradients and pulls the weights, and the fused step runs the
 store's updater and then copies the new weights into the store's copies.
 
-Not ported yet (ROADMAP Queue 1 item 4): several contexts (data
-parallelism, meshes, partition rules), the ``dist*`` stores,
-``group2ctxs``, gradient compression and the elastic tiers.
+Several contexts (data parallelism in one process): where the JAX
+package shards one program's batch over a mesh, the port binds one
+executor per Context (``cpu(0)`` and ``cpu(1)`` are two, as the JAX
+package's virtual CPU devices are), each on its equal slice of the batch
+(a batch that does not divide raises). The gradients are summed over
+the contexts (through the store's push of shard lists on the
+phase-split path, on the first context in the fused step), the update
+runs once on the first context's weights, and the other replicas take
+a copy. The executors run as one program (``executor.ReplicaSet``):
+a training forward evaluates them node by node together, so
+BatchNorm's statistics are the whole batch's, as in the JAX package's
+one sharded program, and one backward runs over their joint graph. A
+``dist*`` store adds the worker processes of a launched job: the
+phase-split update pushes through the store's one batched collective
+and BatchNorm takes each worker's own rows (the JAX package drops the
+process-spanning placement there); the fused step over a synchronous
+store takes BatchNorm's statistics over every worker's rows too (the
+JAX package's process-spanning program), all-reduces the gradients in
+one bucketed collective and runs the store's update, with no push/pull
+per key; ``dist_async`` and compressed stores take the phase-split path
+(``FUSED_FALLBACK_CODES["kvstore_dist"]``, as in the JAX package).
+``compression_params`` goes to the store at ``init_optimizer``.
+
+Not ported yet (ROADMAP Queue 1 item 4, second half): ``group2ctxs``,
+``partition_rules``/``mesh_axes`` and the elastic tiers.
 """
 from __future__ import annotations
 
@@ -28,14 +50,15 @@ import torch
 
 from ..base import MXNetError, get_env
 from ..context import Context, current_context
-from ..executor import record_dispatch
+from ..executor import ReplicaSet, record_dispatch
 from .. import telemetry
 from ..initializer import InitDesc, Uniform
 from ..model import _create_kvstore, save_checkpoint, load_checkpoint
 from .. import optimizer as opt
 from .base_module import BaseModule, FusedFallback
+from .executor_group import slice_descs, split_batch, merge_outputs
 
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 4)"
+_SECOND_HALF = "not ported yet (ROADMAP Queue 1 item 4, second half)"
 
 
 class Module(BaseModule):
@@ -52,17 +75,20 @@ class Module(BaseModule):
             context = current_context()
         if isinstance(context, Context):
             context = [context]
-        if len(context) != 1:
-            raise MXNetError("Module: %d contexts; training on more than "
-                             "one device is %s" % (len(context), _NOT_PORTED))
         for what, val in (("group2ctxs", group2ctxs),
-                          ("compression_params", compression_params),
                           ("partition_rules", partition_rules),
                           ("mesh_axes", mesh_axes)):
             if val:
-                raise MXNetError("Module(%s=...) is %s" % (what, _NOT_PORTED))
+                raise MXNetError("Module(%s=...) is %s" % (what, _SECOND_HALF))
         self._context = list(context)
-        self._context[0].torch_device()     # no such device: raise now
+        if not self._context:
+            raise MXNetError("Module: empty context list")
+        if len(set(self._context)) != len(self._context):
+            raise MXNetError("duplicate devices in context list %s"
+                             % (self._context,))
+        for c in self._context:
+            c.torch_device()                # no such device: raise now
+        self._compression_params = compression_params
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
@@ -80,6 +106,8 @@ class Module(BaseModule):
         self._kvstore = None
         self._update_on_kvstore = False
         self._exec = None
+        self._execs = []
+        self._replicas = None
         self._data_shapes = None
         self._label_shapes = None
         self._grad_req = None
@@ -146,9 +174,14 @@ class Module(BaseModule):
             else:
                 reqs[name] = grad_req if for_training else "null"
         self._grad_req = reqs
-        self._exec = self._symbol.simple_bind(
-            ctx=self._context[0], grad_req=reqs, type_dict=type_dict,
-            **shape_kwargs)
+        descs = slice_descs(self._data_shapes + self._label_shapes,
+                            len(self._context))
+        shape_kwargs = {d.name: d.shape for d in descs}
+        self._execs = [self._symbol.simple_bind(
+            ctx=c, grad_req=reqs, type_dict=type_dict, **shape_kwargs)
+            for c in self._context]
+        self._exec = self._execs[0]
+        self._replicas = ReplicaSet(self._execs)
         self.binded = True
         if shared_module is not None and shared_module.params_initialized:
             self.set_params(*shared_module.get_params())
@@ -162,19 +195,24 @@ class Module(BaseModule):
         re-initialised, and the optimizer and store stay as they are."""
         if not self.binded:
             raise MXNetError("reshape: bind first")
-        from ..executor import Executor, infer_graph_attrs
-        from ..ndarray import zeros
         self._data_shapes = [_as_desc(d) for d in data_shapes]
         self._label_shapes = [_as_desc(l) for l in label_shapes] \
             if label_shapes else []
-        descs = self._data_shapes + self._label_shapes
+        descs = slice_descs(self._data_shapes + self._label_shapes,
+                            len(self._context))
+        self._execs = [self._reshaped(old, ctx, descs)
+                       for old, ctx in zip(self._execs, self._context)]
+        self._exec = self._execs[0]
+        self._replicas = ReplicaSet(self._execs)
+
+    def _reshaped(self, old, ctx, descs):
+        from ..executor import Executor, infer_graph_attrs
+        from ..ndarray import zeros
         arg_shapes, _, _, arg_types, _, _ = infer_graph_attrs(
             self._symbol, {d.name: d.shape for d in descs},
             known_types={d.name: d.dtype for d in descs
                          if getattr(d, "dtype", None) is not None})
-        old = self._exec
         old_args, old_grads = old.arg_dict, old.grad_dict
-        ctx = self._context[0]
         args, grads = [], []
         for name, shape, dtype in zip(self._symbol.list_arguments(),
                                       arg_shapes, arg_types):
@@ -190,9 +228,9 @@ class Module(BaseModule):
             args.append(zeros(shape, ctx=ctx, dtype=dtype))
             grads.append(zeros(shape, ctx=ctx, dtype=dtype)
                          if self._grad_req[name] != "null" else None)
-        self._exec = Executor(self._symbol, ctx, args, old.aux_arrays,
-                              program=old._prog, grad_arrays=grads,
-                              grad_req=self._grad_req)
+        return Executor(self._symbol, ctx, args, old.aux_arrays,
+                        program=old._prog, grad_arrays=grads,
+                        grad_req=self._grad_req)
 
     # -- params ------------------------------------------------------------
     def init_params(self, initializer=Uniform(0.01), arg_params=None,
@@ -232,7 +270,22 @@ class Module(BaseModule):
                 initializer(InitDesc(name, attrs.get(name)), arr)
             elif not allow_missing:
                 raise MXNetError("no initializer and no value for %r" % name)
+        self._sync_replicas()
         self.params_initialized = True
+
+    def _sync_replicas(self, names=None):
+        """Copy the first context's parameters (``names``; default every
+        parameter and aux state) into the other contexts' executors."""
+        if len(self._execs) < 2:
+            return
+        src = self._exec
+        with torch.no_grad():
+            for ex in self._execs[1:]:
+                for n in (self._param_names if names is None else names):
+                    ex.arg_dict[n]._data.copy_(src.arg_dict[n]._data)
+                if names is None:
+                    for n, a in ex.aux_dict.items():
+                        a._data.copy_(src.aux_dict[n]._data)
 
     def init_params_from_preloaded(self):
         """Install the parameters ``Module.load`` read, once bound
@@ -275,8 +328,19 @@ class Module(BaseModule):
                                    **optimizer_params)
         self._optimizer = optimizer
         if kv is not None:
+            if kv.type.startswith("dist"):
+                # every dist type runs the optimizer in the store, as the
+                # JAX package and the reference's servers do
+                update_on_kvstore = True
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
             for i, name in enumerate(self._param_names):
                 kv.init(i, arg_dict[name])
+            if kv.type.startswith("dist"):
+                # rank 0's values seeded the store: train from them
+                kv.pull(list(range(len(self._param_names))),
+                        out=[arg_dict[n] for n in self._param_names])
+                self._sync_replicas(self._param_names)
             if update_on_kvstore:
                 kv.set_optimizer(optimizer)
         self._kvstore = kv
@@ -314,43 +378,52 @@ class Module(BaseModule):
         if is_train is None:
             is_train = self.for_training
         self._set_batch(data_batch)
-        self._exec.forward(is_train=is_train)
+        self._replicas.forward(is_train=is_train)
 
     def backward(self, out_grads=None):
-        self._exec.backward(out_grads=out_grads)
+        if out_grads is None:
+            self._replicas.backward()
+        elif len(self._execs) > 1:
+            self._replicas.backward(split_batch(
+                out_grads if isinstance(out_grads, (list, tuple))
+                else [out_grads], len(self._execs)))
+        else:
+            self._replicas.backward([out_grads])
 
     def forward_backward(self, data_batch):
-        """Forward and backward in one pass of the executor."""
+        """Forward and backward in one pass of the executors."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("forward_backward: bind and init_params first")
         self._set_batch(data_batch)
-        self._exec.forward_backward()
+        self._replicas.forward_backward()
 
     def _set_batch(self, data_batch):
         """Copy the batch's data (and labels) into the bound storage, on
-        the module's device in the bound dtype (a ``feed`` span)."""
+        each context's device in the bound dtype, each context its slice
+        (a ``feed`` span)."""
         with telemetry.span("feed"):
             self._set_batch_impl(data_batch)
 
     def _set_batch_impl(self, data_batch):
-        arg_dict = self._exec.arg_dict
         data = data_batch.data
         if not isinstance(data, (list, tuple)):
             data = [data]
-        for desc, arr in zip(self._data_shapes, data):
-            if tuple(arr.shape) != arg_dict[desc.name].shape:
-                raise MXNetError(
-                    "batch %r has shape %s, the module is bound to %s; "
-                    "call reshape first"
-                    % (desc.name, tuple(arr.shape),
-                       arg_dict[desc.name].shape))
-            arg_dict[desc.name][:] = arr
+        feeds = list(zip(self._data_shapes, data))
         label = data_batch.label
         if label is not None and self._label_shapes:
             if not isinstance(label, (list, tuple)):
                 label = [label]
-            for desc, arr in zip(self._label_shapes, label):
-                arg_dict[desc.name][:] = arr
+            feeds += list(zip(self._label_shapes, label))
+        n = len(self._execs)
+        for desc, arr in feeds:
+            if tuple(arr.shape) != tuple(desc.shape):
+                raise MXNetError(
+                    "batch %r has shape %s, the module is bound to %s; "
+                    "call reshape first"
+                    % (desc.name, tuple(arr.shape), tuple(desc.shape)))
+            parts = split_batch([arr], n)
+            for ex, (part,) in zip(self._execs, parts):
+                ex.arg_dict[desc.name][:] = part
 
     def _live_params(self):
         return [(i, n) for i, n in enumerate(self._param_names)
@@ -359,9 +432,12 @@ class Module(BaseModule):
     def update(self):
         """One optimizer step over every parameter with a gradient, the
         whole key list in one call (parity: module.update): push the
-        gradients and pull the weights under ``update_on_kvstore``, else
-        push/pull the gradients through the store (when there is one)
-        and run the module's ``update_batch``."""
+        gradients (each key's list over the contexts) and pull the
+        weights under ``update_on_kvstore``, else push/pull the
+        gradients through the store (when there is one; without one the
+        contexts' gradients are summed on the first) and run the
+        module's ``update_batch``; the other contexts then copy the
+        first one's weights."""
         if not (self.binded and self.params_initialized
                 and self.optimizer_initialized):
             raise MXNetError("update: bind, init_params and "
@@ -369,10 +445,13 @@ class Module(BaseModule):
         live = self._live_params()
         if not live:
             return
-        arg_dict, grad_dict = self._exec.arg_dict, self._exec.grad_dict
         keys = [i for i, _ in live]
-        grads = [grad_dict[n] for _, n in live]
-        weights = [arg_dict[n] for _, n in live]
+        names = [n for _, n in live]
+        multi = len(self._execs) > 1
+        grads = [[ex.grad_dict[n] for ex in self._execs] if multi
+                 else self._exec.grad_dict[n] for n in names]
+        weights = [[ex.arg_dict[n] for ex in self._execs] if multi
+                   else self._exec.arg_dict[n] for n in names]
         kv = self._kvstore
         record_dispatch("opt_update")
         with telemetry.span("opt_update"):
@@ -383,20 +462,36 @@ class Module(BaseModule):
             if kv is not None:
                 kv.push(keys, grads)
                 kv.pull(keys, out=grads)
-            self._updater.update_batch(keys, grads, weights)
+            elif multi:
+                with torch.no_grad():
+                    for glist in grads:
+                        for g in glist[1:]:
+                            glist[0]._data.add_(g._data.to(
+                                glist[0]._data.device))
+            first = [g[0] for g in grads] if multi else grads
+            w0 = [w[0] for w in weights] if multi else weights
+            self._updater.update_batch(keys, first, w0)
+            self._sync_replicas(names)
 
     # -- the fused batch step ----------------------------------------------
-    def _fallback(self, code, message):
-        self._fused_fallback_reason = FusedFallback(code, message)
+    def _fallback(self, code, message, detail=None):
+        self._fused_fallback_reason = FusedFallback(code, message, detail)
         return False
 
     def _fused_batch_step(self, data_batch, eval_metric=None):
         """Forward, backward, optimizer update and metric update as one
         step (``executor.train_step_fn``), for any optimizer the updater
-        takes. Returns False, with the reason in
-        ``_fused_fallback_reason``, when the caller must run the
-        phase-split path: ``MXNET_MODULE_FUSED_STEP=0`` (the A/B pin),
-        ``inputs_need_grad``, nothing to train."""
+        takes. Over several contexts the executors run forward and
+        backward together (``ReplicaSet``) and the gradients are summed
+        on the first context; over a synchronous ``dist*`` store
+        BatchNorm's statistics span the workers and the gradients are
+        then summed over them in one bucketed all-reduce; the update
+        runs once and the other contexts copy its weights. Returns False, with
+        the reason in ``_fused_fallback_reason``, when the caller must
+        run the phase-split path: ``MXNET_MODULE_FUSED_STEP=0`` (the A/B
+        pin), a monitor, ``inputs_need_grad``, nothing to train,
+        ``dist_async`` or a compressed store (``kvstore_dist`` for a dist
+        store, ``kvstore_compression`` for an in-process one)."""
         if not get_env("MXNET_MODULE_FUSED_STEP", 1, int):
             return self._fallback("env_pin", "MXNET_MODULE_FUSED_STEP=0")
         if not (self.binded and self.params_initialized
@@ -405,38 +500,51 @@ class Module(BaseModule):
                                   "module not fully initialised")
         if self.inputs_need_grad:
             return self._fallback("inputs_need_grad", "inputs_need_grad")
-        if self._exec._monitor_callback is not None:
+        if any(ex._monitor_callback is not None for ex in self._execs):
             return self._fallback("monitor", "monitor installed")
+        kv = self._kvstore
+        if kv is not None and not kv.fused_step_subsumable \
+                and not kv.fused_dist_step:
+            if kv.type.startswith("dist"):
+                return self._fallback(
+                    "kvstore_dist", "kvstore-mediated update",
+                    "kvstore type %r keeps the explicit push (dist_async "
+                    "or gradient compression)" % kv.type)
+            return self._fallback(
+                "kvstore_compression", "kvstore-mediated update",
+                "gradient compression changes the pushed values")
         live = self._live_params()
         if not live:
             return self._fallback("no_trainable_params",
                                   "no trainable parameters")
         updater = self._active_updater()
-        ex = self._exec
-        arg_dict, grad_dict = ex.arg_dict, ex.grad_dict
         indices = [i for i, _ in live]
         names = [n for _, n in live]
-        weights = [arg_dict[n] for n in names]
+        weights = [self._exec.arg_dict[n] for n in names]
         add_names = [n for n in names if self._grad_req[n] == "add"]
+        spanning = kv is not None and kv.fused_dist_step \
+            and kv._spans_workers()
         self._set_batch(data_batch)
-        ex.outputs = []         # the last outputs die before new ones live
-        step = ex._prog.train_step_fn(
-            names, add_names,
-            lambda gs: updater.update_batch(indices, gs, weights))
-        record_dispatch("train_step")
-        with telemetry.span("step"):
-            outs, aux_up, grads_out = step(
-                ex._raw_args(), ex._raw_aux(),
-                {n: grad_dict[n]._data for n in add_names})
-        ex._write_aux(aux_up)
-        ex._set_outputs(outs)
-        with torch.no_grad():       # the accumulators, already summed
-            for n, g in grads_out.items():
-                grad_dict[n]._data.copy_(g)
-            if self._update_on_kvstore:
-                # the store serves pulls and checkpoints from its copies:
-                # keep them equal to the weights the step just wrote
-                store = self._kvstore._store
+        if len(self._execs) == 1 and not spanning:
+            self._run_step(self._exec, names, add_names,
+                           lambda gs: updater.update_batch(indices, gs,
+                                                           weights))
+        else:
+            per = self._replicas.step_grads(names, add_names,
+                                            over_workers=spanning)
+            summed = per[0]
+            for got in per[1:]:
+                summed = [a + b.to(a.device) for a, b in zip(summed, got)]
+            if spanning:
+                summed = self._fused_all_reduce(summed)
+            with torch.no_grad():
+                updater.update_batch(indices, summed, weights)
+            self._sync_replicas(names)
+        if self._update_on_kvstore:
+            # the store serves pulls and checkpoints from its copies:
+            # keep them equal to the weights the step just wrote
+            with torch.no_grad():
+                store = kv._store
                 for i, w in zip(indices, weights):
                     store[i]._data.copy_(w._data)
         if eval_metric is not None:
@@ -449,15 +557,56 @@ class Module(BaseModule):
         self._fused_fallback_reason = None
         return True
 
+    def _run_step(self, ex, names, add_names, update_fn):
+        """One executor's train step: forward and backward on its bound
+        batch, ``update_fn`` on the gradients, aux, outputs and ``'add'``
+        accumulators written back."""
+        grad_dict = ex.grad_dict
+        ex.outputs = []         # the last outputs die before new ones live
+        step = ex._prog.train_step_fn(names, add_names, update_fn)
+        record_dispatch("train_step")
+        with telemetry.span("step"):
+            outs, aux_up, grads_out = step(
+                ex._raw_args(), ex._raw_aux(),
+                {n: grad_dict[n]._data for n in add_names})
+        ex._write_aux(aux_up)
+        ex._set_outputs(outs)
+        with torch.no_grad():       # the accumulators, already summed
+            for n, g in grads_out.items():
+                grad_dict[n]._data.copy_(g)
+
+    def _fused_all_reduce(self, grads):
+        """The fused step's wire: every gradient summed over the workers
+        in one bucketed collective (``kv_push`` span, the
+        ``kvstore.dist.*`` counters). Returns the sums."""
+        from ..kvstore import bucketed_all_reduce
+        with telemetry.span("kv_push"), torch.no_grad():
+            reduced = bucketed_all_reduce(grads)
+        nbytes = sum(g.numel() * g.element_size() for g in grads)
+        telemetry.counter_inc("kvstore.dist.fused_steps")
+        telemetry.counter_inc("kvstore.dist.collectives")
+        telemetry.counter_inc("kvstore.dist.wire_bytes", nbytes)
+        telemetry.counter_inc("kvstore.dist.wire_bytes_raw", nbytes)
+        self._kvstore.wire_bytes_last_push = nbytes
+        self._kvstore.wire_bytes_last_push_raw = nbytes
+        return reduced
+
     def get_outputs(self, merge_multi_context=True):
-        return list(self._exec.outputs)
+        """The outputs of the last forward: over several contexts
+        concatenated along the batch on the first context (or, without
+        ``merge_multi_context``, one list per output of each context's
+        part)."""
+        return merge_outputs([ex.outputs for ex in self._execs],
+                             merge_multi_context)
 
     def get_input_grads(self, merge_multi_context=True):
         if not self.inputs_need_grad:
             raise MXNetError("get_input_grads: bind with "
                              "inputs_need_grad=True")
-        grads = self._exec.grad_dict
-        return [grads[n] for n in self._data_names if n in grads]
+        return merge_outputs(
+            [[ex.grad_dict[n] for n in self._data_names
+              if n in ex.grad_dict] for ex in self._execs],
+            merge_multi_context)
 
     def update_metric(self, eval_metric, labels):
         # the non-blocking per-batch accumulate; the blocking host fetch
@@ -471,7 +620,8 @@ class Module(BaseModule):
         module.install_monitor); the fused step then phase-splits."""
         if not self.binded:
             raise MXNetError("install_monitor: bind first")
-        mon.install(self._exec)
+        for ex in self._execs:
+            mon.install(ex)
 
     def finite_check(self):
         """The divergence sentinel's verdict (parity: module.finite_check):
@@ -479,10 +629,12 @@ class Module(BaseModule):
         every gradient array and every parameter, then one host read."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("finite_check: bind and init_params first")
-        ex = self._exec
-        leaves = [o._data for o in ex.outputs]
-        leaves += [g._data for g in ex.grad_dict.values() if g is not None]
-        leaves += [ex.arg_dict[n]._data for n in self._param_names]
+        leaves = []
+        for ex in self._execs:
+            leaves += [o._data for o in ex.outputs]
+            leaves += [g._data for g in ex.grad_dict.values()
+                       if g is not None]
+        leaves += [self._exec.arg_dict[n]._data for n in self._param_names]
         leaves = [t for t in leaves if t.is_floating_point()]
         if not leaves:
             return True

@@ -18,6 +18,9 @@ the stem directly.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -203,17 +206,102 @@ def activation(data, act_type="relu"):
 # Normalisation
 # ---------------------------------------------------------------------------
 
+def _stat_input(x):
+    """What batch statistics accumulate in: fp32 for half data."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
 def _bn_stats(data, moving_mean, moving_var, red, _train, use_global_stats):
     """BN statistics, one source for BatchNorm and the fused tail: in
     training mode the batch mean and the biased variance (``jnp.var``'s,
     not ``torch.var``'s default) over ``red``, accumulated in fp32 for
-    half inputs; otherwise the moving stats, detached."""
+    half inputs, over every replica's rows inside
+    :func:`batch_stats_over` (the graph evaluator's scope for replicas
+    run together); otherwise the moving stats, detached."""
     if _train and not use_global_stats:
-        stat_in = data.float() if data.dtype in (torch.bfloat16,
-                                                 torch.float16) else data
-        var, mean = torch.var_mean(stat_in, dim=red, correction=0)
+        group = getattr(_STATS, "group", None)
+        if group is not None:
+            var, mean = group.var_mean(data, red)
+        else:
+            var, mean = torch.var_mean(_stat_input(data), dim=red,
+                                       correction=0)
         return mean.to(moving_mean.dtype), var.to(moving_var.dtype)
     return moving_mean.detach(), moving_var.detach()
+
+
+_STATS = threading.local()
+
+
+class _StatsGroup:
+    """One node's batch statistics shared by its replicas: computed once,
+    at the first replica's call, over ``inputs`` (the node's data on
+    every local replica) and, with ``over_workers``, every worker's rows;
+    each replica takes a copy on its own device."""
+
+    def __init__(self, inputs, over_workers):
+        self.inputs = inputs
+        self.over_workers = over_workers
+        self._got = None
+
+    def var_mean(self, data, red):
+        if self._got is None:
+            self._got = _replicas_var_mean(
+                [_stat_input(x) for x in self.inputs], red,
+                self.over_workers)
+        var, mean = self._got
+        return var.to(data.device), mean.to(data.device)
+
+
+@contextlib.contextmanager
+def batch_stats_over(inputs, over_workers=False):
+    """Within this scope (this thread), training-mode batch statistics
+    are taken over the rows of every tensor in ``inputs`` and, with
+    ``over_workers``, of every worker process of the job: what the JAX
+    package's one program over a mesh computes."""
+    prev = getattr(_STATS, "group", None)
+    _STATS.group = _StatsGroup(inputs, over_workers)
+    try:
+        yield
+    finally:
+        _STATS.group = prev
+
+
+def _replicas_var_mean(xs, red, over_workers):
+    """``(var, mean)`` over ``red`` and the rows of every tensor in
+    ``xs`` (and every worker's, with ``over_workers``), on ``xs[0]``'s
+    device: each tensor gives its count, mean and sum of squared
+    deviations; over workers each puts its tensors' triples in its own
+    slot of a ``(workers, len(xs), 3, C)`` tensor and one differentiable
+    all-reduce sum fills every slot on every worker. The triples combine
+    in rank-major order (Chan et al.'s pairwise update), the same
+    arithmetic on every worker and replica. The backward is one
+    all-reduce of the slots' gradients."""
+    dev = xs[0].device
+    mine = []
+    for x in xs:
+        n_local = 1
+        for d in red:
+            n_local *= x.shape[d]
+        var_l, mean_l = torch.var_mean(x, dim=red, correction=0)
+        mine.append(torch.stack([torch.full_like(mean_l, float(n_local)),
+                                 mean_l, var_l * n_local]).to(dev))
+    every = torch.stack(mine)
+    if over_workers:
+        import torch.distributed as tdist
+        from ..parallel.collectives import DifferentiableSum
+        world, me = tdist.get_world_size(), tdist.get_rank()
+        slots = [every if r == me else torch.zeros_like(every)
+                 for r in range(world)]
+        every = DifferentiableSum.apply(torch.stack(slots)).flatten(0, 1)
+    n, mean, m2 = every[0, 0], every[0, 1], every[0, 2]
+    for r in range(1, every.shape[0]):
+        n_r, mean_r, m2_r = every[r, 0], every[r, 1], every[r, 2]
+        delta = mean_r - mean
+        tot = n + n_r
+        mean = mean + delta * (n_r / tot)
+        m2 = m2 + m2_r + delta * delta * (n * n_r / tot)
+        n = tot
+    return m2 / n, mean
 
 
 def _reduce_axes(ndim, axis):

@@ -22,6 +22,7 @@ Not ported yet (ROADMAP): row-sparse (lazy) updates, one fused kernel
 """
 from __future__ import annotations
 
+import copyreg
 import io
 import math
 import pickle
@@ -100,6 +101,30 @@ class Optimizer:
 
     create_optimizer = staticmethod(create)
     register = staticmethod(register)
+
+    def __getstate__(self):
+        """Pickled without ``param_dict`` (live Parameters and their
+        tensors); the hyperparameters, update counts and scheduler go
+        along, as in the JAX package's dump."""
+        state = dict(self.__dict__)
+        state["param_dict"] = {}
+        return state
+
+    def _adopt_counts(self, dumped):
+        """Take a dumped optimizer's ``num_update``, per-index update
+        counts and scheduler position (``dumped`` is this package's
+        optimizer or the JAX package's, unpickled as a stub)."""
+        d = getattr(dumped, "__dict__", {})
+        if "num_update" in d:
+            self.num_update = int(d["num_update"])
+        if "_index_update_count" in d:
+            self._index_update_count = {
+                k: int(v) for k, v in d["_index_update_count"].items()}
+        sched = d.get("lr_scheduler")
+        if self.lr_scheduler is not None and sched is not None:
+            self.lr_scheduler.__dict__.update(
+                {k: v for k, v in getattr(sched, "__dict__", {}).items()
+                 if k in self.lr_scheduler.__dict__})
 
     def create_state(self, index, weight):
         return None
@@ -641,7 +666,12 @@ class _ForeignStub:
         pass
 
     def __setstate__(self, state):
-        pass
+        """Keep the pickled attributes: a dumped optimizer's update
+        counts and its scheduler's position are read from them."""
+        if isinstance(state, tuple) and len(state) == 2:   # (dict, slots)
+            state = {**(state[0] or {}), **(state[1] or {})}
+        if isinstance(state, dict):
+            self.__dict__.update(state)
 
 
 class _StatesUnpickler(pickle.Unpickler):
@@ -655,6 +685,43 @@ class _StatesUnpickler(pickle.Unpickler):
         if module.split(".")[0] in self._KEEP:
             return super().find_class(module, name)
         return _ForeignStub
+
+
+class _Counterpart:
+    """A class of the JAX package, named and never imported."""
+
+    def __init__(self, module, name):
+        self.ref = ("%s\n%s\n" % (module, name)).encode()
+
+
+class _CounterpartPickler(pickle._Pickler):
+    """Pickles an optimizer or scheduler of this package as an instance
+    of the JAX package's class of the same name, with its attributes
+    (the attribute sets are the same): the JAX package loads a dumped
+    optimizer from this package as its own, and this package reads it
+    back through ``_StatesUnpickler``'s stubs. The class is written as a
+    ``GLOBAL`` reference by name; nothing of the JAX package is
+    imported."""
+
+    dispatch = dict(pickle._Pickler.dispatch)
+
+    def _save_counterpart(self, obj):
+        self.write(pickle.GLOBAL + obj.ref)
+        self.memoize(obj)
+
+    dispatch[_Counterpart] = _save_counterpart
+
+    def reducer_override(self, obj):
+        from . import lr_scheduler
+        for base, module in ((Optimizer, "mxnet_tpu.optimizer"),
+                             (lr_scheduler.LRScheduler,
+                              "mxnet_tpu.lr_scheduler")):
+            if isinstance(obj, base):
+                cls = _Counterpart(module, type(obj).__name__)
+                return (copyreg._reconstructor, (cls, object, None),
+                        obj.__getstate__() if base is Optimizer
+                        else dict(obj.__dict__))
+        return NotImplemented
 
 
 class Updater:
@@ -706,22 +773,28 @@ class Updater:
     def get_states(self, dump_optimizer=False):
         """The states pickled as ``{index: numpy array, tuple of them or
         None}``, the JAX package's format (a multi-precision entry is
-        ``(momentum, fp32 master)``)."""
-        if dump_optimizer:
-            raise MXNetError("get_states(dump_optimizer=True) is not "
-                             "ported: the pickled optimizer would not load "
-                             "in the JAX package")
-        return pickle.dumps({k: _state_to_numpy(v)
-                             for k, v in self.states.items()})
+        ``(momentum, fp32 master)``); with ``dump_optimizer`` the pair
+        ``(states, optimizer)``, as the JAX package writes it, so a
+        reload resumes the update counts and the scheduler."""
+        states = {k: _state_to_numpy(v) for k, v in self.states.items()}
+        if not dump_optimizer:
+            return pickle.dumps(states)
+        buf = io.BytesIO()
+        _CounterpartPickler(buf, protocol=2).dump((states, self.optimizer))
+        return buf.getvalue()
 
     def set_states(self, states):
-        """Load states written by ``get_states`` of either package, or by
-        the JAX package's ``gluon.Trainer.save_states``, which pickles its
-        optimizer beside them: that optimizer is not read (this updater
-        keeps its own). Unpickles: pass only bytes one of them wrote."""
+        """Load states written by ``get_states`` of either package. A
+        dumped optimizer (``dump_optimizer=True``: the JAX package's
+        ``gluon.Trainer.save_states`` writes one) is read through stubs,
+        never imported: this updater keeps its own optimizer and adopts
+        the dumped one's ``num_update``, per-index update counts and
+        learning-rate scheduler position. Unpickles: pass only bytes one
+        of the two packages wrote."""
         states = _StatesUnpickler(io.BytesIO(states)).load()
         if isinstance(states, tuple) and len(states) == 2:
-            states = states[0]
+            states, dumped = states
+            self.optimizer._adopt_counts(dumped)
         self.states = states
         self.states_synced = {k: False for k in self.states}
 

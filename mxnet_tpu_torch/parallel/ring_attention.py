@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/parallel/ring_attention.py``. There Q stays
 put while K/V blocks rotate around the ``sp`` mesh axis and each device
 keeps an online-softmax accumulator ``(o, m, l)``. This slice runs meshes
 of one device, where the ring has one step and no rotation: the local
-block is the whole sequence, at offset 0. Rotating blocks between cards
-comes with the distributed slice (ROADMAP queue 6).
+block is the whole sequence, at offset 0 (a ``dp`` axis may span
+processes: each runs its own batch rows). Rotating blocks between cards
+comes with ROADMAP Queue 1 item 4, second half.
 
 ``attention`` and ``decode_attention`` are the plain versions, used for
 correctness tests and by the decode path.
@@ -74,8 +75,9 @@ def _check_axes(fn, mesh, axis_name, batch_axis_name):
                              % (fn, ax, tuple(mesh.shape)))
     n = mesh.shape[axis_name]
     if n != 1:
-        raise MXNetError("%s over %d devices on %r needs the distributed "
-                         "slice (ROADMAP queue 6)" % (fn, n, axis_name))
+        raise MXNetError("%s over %d devices on %r: sequence parallelism "
+                         "across devices is not ported yet (ROADMAP Queue 1 "
+                         "item 4, second half)" % (fn, n, axis_name))
 
 
 def _prepare(q, k, v, mesh):

@@ -38,7 +38,8 @@ Counterpart of ``mxnet_tpu/serving.py`` (``InferenceEngine``):
   here from every request's submit-to-terminal time.
 
 Not ported yet: partition rules and serving meshes (``partition_rules=``,
-``mesh_axes=`` and ``contexts=`` raise, ROADMAP Queue 1 item 4), and one
+``mesh_axes=`` and ``contexts=`` raise, ROADMAP Queue 1 item 4, second
+half), and one
 captured CUDA graph per bucket (item 1).
 
 Every graph output must be batch-major (dim 0 = batch); padded rows are
@@ -69,7 +70,7 @@ __all__ = ["InferenceEngine", "bucket_sizes", "validate_buckets",
            "DeadlineExceeded", "QueueOverflow", "CircuitOpen",
            "EngineClosed"]
 
-_MESH = "not ported yet (ROADMAP Queue 1 item 4, the distributed slice)"
+_MESH = "not ported yet (ROADMAP Queue 1 item 4, second half: the engines' meshes)"
 
 
 class DeadlineExceeded(MXNetError):
@@ -178,7 +179,8 @@ class InferenceEngine:
         no serving record for this graph. The plan is stamped onto every
         bucket card (``autotune_plan``) and reported by ``stats()``
     partition_rules, mesh_axes, contexts : serving meshes, not ported
-        yet: each raises ``MXNetError`` (ROADMAP Queue 1 item 4)
+        yet: each raises ``MXNetError`` (ROADMAP Queue 1 item 4, second
+        half)
     """
 
     def __init__(self, symbol=None, params=None, input_shapes=None,
@@ -281,7 +283,7 @@ class InferenceEngine:
 
     def partition_summary(self):
         """The serving mesh's layout; None, since the port serves from
-        one device until the distributed slice (ROADMAP Queue 1 item 4)."""
+        one device until ROADMAP Queue 1 item 4, second half."""
         return None
 
     def _load_plan(self):

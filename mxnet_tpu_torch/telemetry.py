@@ -908,14 +908,21 @@ except OSError:
 
 def process_identity():
     """The uniform WHO-wrote-this block every banked JSON carries: rank /
-    process count / recorded-dead peers, plus host and pid so artifacts
-    from a shared ``MXNET_FLIGHT_DIR`` are attributable. The port runs
-    one process until the distributed slice (ROADMAP Queue 1 item 4)
-    ports ``dist.py``, so rank 0 of 1. Embedded in :func:`snapshot`,
-    flight postmortems, the flight sampler's series window and the
-    serving stats surface."""
-    return {"rank": 0, "num_processes": 1, "dead_ranks": [],
-            "host": _HOSTNAME, "pid": os.getpid()}
+    process count / recorded-dead peers from ``dist.py`` (the launch
+    environment's values before the group is up; never raises), plus
+    host and pid so artifacts from a shared ``MXNET_FLIGHT_DIR`` are
+    attributable. Embedded in :func:`snapshot`, flight postmortems, the
+    flight sampler's series window and the serving stats surface."""
+    try:
+        from . import dist as _dist
+        ident = {"rank": _dist.rank(),
+                 "num_processes": _dist.process_count(),
+                 "dead_ranks": list(_dist.dead_ranks())}
+    except Exception:
+        ident = {"rank": 0, "num_processes": 1, "dead_ranks": []}
+    ident["host"] = _HOSTNAME
+    ident["pid"] = os.getpid()
+    return ident
 
 
 def snapshot():

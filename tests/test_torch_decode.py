@@ -481,11 +481,14 @@ def test_no_cuda_and_no_ctx_raises(monkeypatch):
 
 
 def test_mesh_of_more_than_one_device_raises():
+    """The engines' meshes come with the second half of the distributed
+    slice: an ``mp`` axis and a ``dp`` axis over two Contexts both
+    raise naming it."""
     cell = _cells("attn")[1]
-    with pytest.raises(MXNetError, match="queue 6"):
-        DecodeEngine(cell, cell.init_params(1), slots=2,
-                     contexts=[mt.cpu(0), mt.cpu(1)],
-                     mesh_axes={"dp": 1, "mp": -1})
+    for axes in ({"dp": 1, "mp": -1}, {"dp": 2}):
+        with pytest.raises(MXNetError, match="item 4, second half"):
+            DecodeEngine(cell, cell.init_params(1), slots=2,
+                         contexts=[mt.cpu(0), mt.cpu(1)], mesh_axes=axes)
     with _engine(cell, partition_rules=[], contexts=[CPU]) as eng:
         assert eng.generate(_prompts()[3], max_new_tokens=2).tokens
 

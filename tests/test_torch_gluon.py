@@ -272,6 +272,58 @@ def test_trainer_states_both_ways(writer, tmp_path):
                rtol=1e-5, atol=1e-6)
 
 
+def _dense_adam(pkg, kw, w, b):
+    net = pkg.gluon.nn.Dense(2, in_units=3)
+    net.initialize(**kw)
+    net.weight.set_data(pkg.nd.array(w, **kw))
+    net.bias.set_data(pkg.nd.array(b, **kw))
+    return net, pkg.gluon.Trainer(net.collect_params(), "adam",
+                                  {"learning_rate": 0.1})
+
+
+def _dense_step(pkg, kw, net, tr, x, y):
+    with pkg.autograd.record():
+        loss = pkg.gluon.loss.L2Loss()(net(pkg.nd.array(x, **kw)),
+                                       pkg.nd.array(y, **kw))
+    loss.backward()
+    tr.step(x.shape[0])
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_load_states_resumes_the_update_counts(writer, tmp_path):
+    """Adam's bias correction reads the update count: 3 steps, the
+    states saved, a new Trainer loads them, 1 more step must equal the
+    uninterrupted 4 steps (bit-equal within the port; within 1e-5
+    relative, 1e-6 absolute, of the JAX package's run when the JAX
+    package wrote the file: Adam's sqrt and division round apart). Before
+    the repair the reloaded optimizer restarted at count 1."""
+    rs = np.random.RandomState(7)
+    w, b = rs.randn(2, 3).astype(np.float32), rs.randn(2).astype(np.float32)
+    xs = [rs.randn(4, 3).astype(np.float32) for _ in range(4)]
+    ys = [rs.randn(4, 2).astype(np.float32) for _ in range(4)]
+    wpkg, wkw = (mt, {"ctx": CPU}) if writer == "port" else (mx, {})
+    ref, rtr = _dense_adam(wpkg, wkw, w, b)
+    for x, y in zip(xs, ys):
+        _dense_step(wpkg, wkw, ref, rtr, x, y)
+    net, tr = _dense_adam(wpkg, wkw, w, b)
+    for x, y in zip(xs[:3], ys[:3]):
+        _dense_step(wpkg, wkw, net, tr, x, y)
+    fname = str(tmp_path / "adam.states")
+    tr.save_states(fname)
+    mid = [p.data().asnumpy() for p in (net.weight, net.bias)]
+    net2, tr2 = _dense_adam(mt, {"ctx": CPU}, *mid)
+    tr2.load_states(fname)
+    assert tr2._optimizer.num_update == 3
+    _dense_step(mt, {"ctx": CPU}, net2, tr2, xs[3], ys[3])
+    for got, want in ((net2.weight, ref.weight), (net2.bias, ref.bias)):
+        if writer == "port":
+            np.testing.assert_array_equal(got.data().asnumpy(),
+                                          want.data().asnumpy())
+        else:
+            _close(got.data().asnumpy(), want.data().asnumpy(), rtol=1e-5,
+                   atol=1e-6)
+
+
 def test_trainer_kvstore_and_learning_rate():
     _, tnet = _mlp_pair()
     for kv in (None, "local", "device"):
@@ -280,8 +332,13 @@ def test_trainer_kvstore_and_learning_rate():
         assert tr._kvstore is None
     tr.set_learning_rate(0.5)
     assert tr.learning_rate == 0.5
-    with pytest.raises(mt.MXNetError, match="Queue 1 item 4"):
-        mt.gluon.Trainer(tnet.collect_params(), "sgd", {}, kvstore="dist_sync")
+    # a dist store outside a launched job: one worker, the store made at
+    # construction and the optimizer in it (the multi-process runs are
+    # test_torch_dist.py's)
+    tr = mt.gluon.Trainer(tnet.collect_params(), "sgd", {},
+                          kvstore="dist_sync")
+    assert tr._kvstore.type == "dist_sync" and tr._update_on_kvstore
+    assert tr._kvstore.num_workers == 1 and tr._kv_initialized
 
 
 def test_update_between_recorded_steps_keeps_backward_right():

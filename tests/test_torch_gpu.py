@@ -1221,3 +1221,97 @@ def test_monitor_and_finite_check_on_card():
     rows = mon.toc()
     assert [r[1] for r in rows] == ["up_output", "up_weight"]
     assert float(rows[1][2]) == 0.5
+
+
+# -- data parallelism across worker processes (slice 11) ----------------------
+
+_DP_WORKER = r'''
+import hashlib, json, os, sys
+import numpy as np
+import torch
+import mxnet_tpu_torch as mt
+
+out = sys.argv[1]
+rank = mt.dist.rank()
+ctx = mt.gpu(0)
+g = mt.parallel.collectives.all_gather(torch.full((3,), float(rank),
+                                                  device="cuda"))
+res = {"backend": mt.dist.backend(), "gathered": g.tolist(),
+       "gathered_on": str(g.device)}
+data = mt.sym.Variable("data")
+net = mt.sym.FullyConnected(data, num_hidden=16, name="fc1")
+net = mt.sym.Activation(net, act_type="relu")
+net = mt.sym.FullyConnected(net, num_hidden=4, name="fc2")
+sym = mt.sym.SoftmaxOutput(net, mt.sym.Variable("softmax_label"),
+                           name="softmax")
+rs = np.random.RandomState(rank)
+x = rs.randn(16, 8).astype(np.float32)
+y = rs.randint(0, 4, 16).astype(np.float32)
+for name, comp in (("sync", None), ("2bit", {"type": "2bit",
+                                             "threshold": 0.5})):
+    mod = mt.mod.Module(sym, context=ctx, compression_params=comp)
+    mod.bind(data_shapes=[("data", (8, 8))],
+             label_shapes=[("softmax_label", (8,))])
+    mod.init_params(mt.init.Xavier(rnd_type="gaussian"))
+    mod.init_optimizer(kvstore="dist_sync", optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.1,
+                                         "momentum": 0.9})
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=8), num_epoch=1)
+    arg = mod.get_params()[0]
+    h = hashlib.sha256()
+    for k in sorted(arg):
+        h.update(arg[k].asnumpy().tobytes())
+    res[name] = {"digest": h.hexdigest(),
+                 "wire": mod._kvstore.wire_bytes_last_push,
+                 "raw": mod._kvstore.wire_bytes_last_push_raw,
+                 "on": str(arg["fc1_weight"]._data.device)}
+with open(os.path.join(out, "r%d.json" % rank), "w") as f:
+    json.dump(res, f)
+mt.dist.finalize()
+'''
+
+
+def test_two_workers_on_one_card_bit_equal_and_compressed_wire(tmp_path):
+    """Two workers on ``cuda:0`` (the launcher's own rule: fewer cards
+    than workers, so they share it over gloo): a CUDA all-gather staged
+    through the host, ``dist_sync`` fits with bit-equal replicas, and the
+    2-bit wire at ``ceil(n/16)`` words per key."""
+    _need_card()
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "worker.py"
+    script.write_text(_DP_WORKER)
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-m", "mxnet_tpu_torch.launch",
+                          "-n", "2", "--timeout", "150", "--",
+                          sys.executable, str(script), str(tmp_path)],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert res.returncode == 0, res.stderr[-4000:]
+    r0, r1 = (json.loads((tmp_path / ("r%d.json" % r)).read_text())
+              for r in range(2))
+    assert r0["backend"] == r1["backend"] == "gloo"
+    assert r0["gathered"] == [0.0] * 3 + [1.0] * 3
+    assert r0["gathered_on"].startswith("cuda")
+    sizes = [16 * 8, 16, 4 * 16, 4]
+    for name in ("sync", "2bit"):
+        assert r0[name]["digest"] == r1[name]["digest"], name
+        assert r0[name]["on"].startswith("cuda")
+    assert r0["sync"]["wire"] == r0["sync"]["raw"] == 4 * sum(sizes)
+    assert r0["2bit"]["raw"] == 4 * sum(sizes)
+    assert r0["2bit"]["wire"] == 4 * sum(-(-n // 16) for n in sizes)
+
+
+def test_module_on_one_card_twice_raises():
+    """``[gpu(0), gpu(0)]`` names one device twice: the JAX package
+    refuses such a context list (``parallel/mesh.py:59-62``) and so does
+    the port."""
+    _need_card()
+    data = mt.sym.Variable("data")
+    sym = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(data, num_hidden=2),
+                               name="softmax")
+    with pytest.raises(mt.MXNetError, match="duplicate devices"):
+        mt.mod.Module(sym, context=[mt.gpu(0), mt.gpu(0)])

@@ -125,13 +125,21 @@ def test_sequence_parallel_attention_takes_ndarrays():
 
 
 def test_make_mesh_one_device_only(monkeypatch):
+    """One-device meshes as before; a ``dp`` axis may now span several
+    Contexts (``cpu(0)`` and ``cpu(1)`` are two), any other axis wider
+    than one device raises naming the second half of the distributed
+    slice, and duplicate Contexts raise as in the JAX package."""
     mesh = tpar.make_mesh({"dp": -1, "sp": 1}, devices=[mt.cpu()])
     assert mesh.shape == {"dp": 1, "sp": 1} and mesh.device == mt.cpu()
     assert tpar.default_mesh is not None
-    with pytest.raises(mt.MXNetError, match="ROADMAP queue 6"):
-        tpar.make_mesh({"dp": 2}, devices=[mt.cpu(0), mt.cpu(1)])
-    with pytest.raises(mt.MXNetError, match="ROADMAP queue 6"):
-        tpar.make_mesh({"dp": -1}, devices=[mt.cpu(0), mt.cpu(1)])
+    two = tpar.make_mesh({"dp": 2}, devices=[mt.cpu(0), mt.cpu(1)])
+    assert two.shape == {"dp": 2} and two.devices == [mt.cpu(0), mt.cpu(1)]
+    assert tpar.make_mesh({"dp": -1}, devices=[mt.cpu(0), mt.cpu(1)]).size \
+        == 2 and not two.is_process_spanning
+    with pytest.raises(mt.MXNetError, match="item 4, second half"):
+        tpar.make_mesh({"sp": 2}, devices=[mt.cpu(0), mt.cpu(1)])
+    with pytest.raises(mt.MXNetError, match="duplicate devices"):
+        tpar.make_mesh({"dp": 2}, devices=[mt.cpu(0), mt.cpu(0)])
     with pytest.raises(mt.MXNetError, match="at most one"):
         tpar.make_mesh({"dp": -1, "sp": -1}, devices=[mt.cpu()])
     # the default device list is [gpu(0)]: without a card it raises
@@ -144,16 +152,17 @@ def test_make_mesh_one_device_only(monkeypatch):
 
 def test_ulysses_head_check_and_wide_axes_raise():
     """The head-divisibility check comes first (a stand-in mesh with an
-    'sp' axis of 2), then any axis wider than one device raises until the
-    distributed slice; axes the mesh lacks raise too."""
+    'sp' axis of 2), then an 'sp' axis wider than one device raises until
+    the second half of the distributed slice; axes the mesh lacks raise
+    too."""
     q = torch.zeros(1, 3, 4, 8)
     wide = types.SimpleNamespace(shape={"dp": 1, "sp": 2})
     with pytest.raises(mt.MXNetError, match="divisible"):
         tpar.ulysses_attention(q, q, q, wide)
     q4 = torch.zeros(1, 4, 4, 8)
-    with pytest.raises(mt.MXNetError, match="ROADMAP queue 6"):
+    with pytest.raises(mt.MXNetError, match="item 4, second half"):
         tpar.ulysses_attention(q4, q4, q4, wide)
-    with pytest.raises(mt.MXNetError, match="ROADMAP queue 6"):
+    with pytest.raises(mt.MXNetError, match="item 4, second half"):
         tpar.ring_attention(q4, q4, q4, wide)
     with pytest.raises(mt.MXNetError, match="no axis 'dp'"):
         tpar.ring_attention(q4, q4, q4,
