@@ -196,7 +196,25 @@ Phases (any failure exits non-zero; no error is swallowed):
    on their own (fp32 step 1 through ``_step1_gate``, fp64 steps 1-3
    within 1e-6 of the update), the resume bit-equal. The launches of K1
    (16 a forward), K2 and K3 in every worker are counted.
-16. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+16. model_parallel — four workers of ``python -m mxnet_tpu_torch.launch
+   -n 4`` on the one card over gloo (``--mp-worker``), each leg under a
+   hard limit: (a) the LM at full width through ``SPMDTrainer`` over
+   ``{"dp": 1, "sp": 2, "tp": 2}`` with ring attention (K2 twice a rank
+   a forward) and (b) over ``{"dp": 2, "sp": 2}`` with Ulysses (K2 and
+   K3 once a rank a step), step 1 within 1e-4 in loss, 1e-3 of each
+   parameter's largest value and 1e-4 of each gradient's (the momentum)
+   of the one-device trainer on the card, the ranks' whole parameters
+   bit-equal, and each rank's attention on its step-1 q/k/v through the
+   kernels against the plain ring or plain Ulysses attention (output
+   and dq/dk/dv, ``_MP_ATTN_TOL``); (c) ``moe_ffn`` over ``{"ep": 4}``
+   at the LM's width against a float64 dense oracle, nothing dropped and
+   at capacity 1.25 exactly the tokens that a CPU recompute of the
+   routing, written apart from the port's, drops; (d) ``pipeline_apply``
+   over ``{"pp": 4}`` against the float64 sequential oracle. Each leg
+   prints rank 0's ms a step (CUDA events), host seconds and payload
+   bytes in collectives a step, a profiled step's device busy time and
+   idle share, the peak of every rank, and the launches of K1-K3.
+17. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
@@ -205,8 +223,8 @@ Phases (any failure exits non-zero; no error is swallowed):
    ``launches`` is the count on that kernel's main paths (K1: serving,
    training and the Gluon loop), ``rnn_training_launches``,
    ``image_classification_launches``, ``gluon_zoo_launches``,
-   ``dense_prediction_launches`` (0) and ``data_parallel_launches`` its
-   counts on those paths — and,
+   ``dense_prediction_launches`` (0), ``data_parallel_launches`` and
+   ``model_parallel_launches`` its counts on those paths — and,
    last, the ``{"ok": true,
    "device": {...}}`` line.
 
@@ -214,7 +232,7 @@ The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-15 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-16 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -6190,10 +6208,597 @@ def _data_parallel(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase):
     return k1, k2, k3
 
 
+# -- model parallelism across worker processes (slice 12) ---------------------
+
+_MP_WORLD = 4
+_MP_STEPS = 3
+_MP_LEG_S = {False: 240, True: 150}     # one leg's hard limit in a worker
+_MP_LAUNCH_S = {False: 600, True: 400}  # the launch's, the launcher's own
+# (tag, mesh axes, attention, K2 and K3 launches a rank a step)
+_MP_LM_LEGS = (("ring", {"dp": 1, "sp": 2, "tp": 2}, "ring_attention",
+                {"fwd": 2, "bwd": 0}),
+               ("ulysses", {"dp": 2, "sp": 2}, "ulysses_attention",
+                {"fwd": 1, "bwd": 1}))
+_MP_MOE_CAPS = (("no_drop", float(_MP_WORLD)), ("drop", 1.25))
+
+
+def _mp_cfg(rehearsal):
+    """Sizes of the phase: the LM at the training phase's width (V 8192,
+    E 512, 8 heads of 64, S 512, global batch 8); MoE at the LM's width
+    (E 512, F 2048, 4 experts, tokens (8, 512, 512)); the pipeline at
+    E 512, 8 microbatches of (2, 512, 512); the rehearsal at the tests'
+    width."""
+    if rehearsal:
+        return {"lm": (64, 32, 4, 16), "lm_batch": 4,
+                "moe": (16, 32, (8, 8)), "pipe": (16, 8, (2, 4))}
+    return {"lm": (8192, 512, 8, 512), "lm_batch": 8,
+            "moe": (512, 2048, (8, 512)), "pipe": (512, 8, (2, 512))}
+
+
+def _mp_moe_inputs(cfg):
+    """Tokens, a router that favours expert 3 (its row twice as large, so
+    that capacity 1.25 drops tokens), the expert stacks, the output's
+    cotangent."""
+    e, f, (b, t) = cfg["moe"]
+    rs = np.random.RandomState(3)
+    favour = np.array([0.05] * (_MP_WORLD - 1) + [0.1], np.float32)
+    return {"x": rs.randn(b, t, e).astype(np.float32) * 0.5,
+            "wr": rs.randn(_MP_WORLD, e).astype(np.float32)
+            * favour[:, None],
+            "w1": rs.randn(_MP_WORLD, f, e).astype(np.float32) / e ** 0.5,
+            "w2": rs.randn(_MP_WORLD, e, f).astype(np.float32) / f ** 0.5,
+            "g": rs.randn(b, t, e).astype(np.float32)}
+
+
+def _mp_pipe_inputs(cfg):
+    e, n_micro, (b, t) = cfg["pipe"]
+    rs = np.random.RandomState(4)
+    return {"x": rs.randn(n_micro, b, t, e).astype(np.float32),
+            "w": rs.randn(_MP_WORLD, e, e).astype(np.float32) / e ** 0.5,
+            "b": rs.randn(_MP_WORLD, e).astype(np.float32) * 0.1,
+            "g": rs.randn(n_micro, b, t, e).astype(np.float32)}
+
+
+def _mp_stage(p, mb):
+    return torch.tanh(mb @ p["w"] + p["b"])
+
+
+def _mp_steps(step, rank, gpu, n):
+    """``n`` timed calls of ``step`` (a collective) on every rank, then
+    one more that rank 0 profiles; (results, CUDA-event ms, host ms,
+    host seconds and payload bytes of the collectives a call, the
+    profile)."""
+    from mxnet_tpu_torch.parallel import collectives as C
+    C.reset_wire()
+    got, ms, wall = _timed_steps(step, n, gpu)
+    wire = {"calls": C.wire["calls"] / n, "bytes": C.wire["bytes"] / n,
+            "host_s": C.wire["seconds"] / n}
+    prof = _dp_collective_steps(step, rank, gpu, reps=1)
+    return got, ms, wall, wire, prof
+
+
+# the leg's attention, kernels against the plain version on the ranks'
+# step-1 q/k/v: the largest error over the largest value, of the output
+# and of dq/dk/dv (Ulysses' gradients come from K3, the ring's from the
+# plain backward over K2's output and log-sum-exp)
+_MP_ATTN_TOL = {"ring_attention": {"out": 1e-5, "grads": 1e-5},
+                "ulysses_attention": {"out": 1e-5,
+                                      "grads": _ATTN_TOL[torch.float32][1]}}
+
+
+def _mp_counts():
+    """The launch counts of K1 and of K2/K3, the wrappers' own."""
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    return {"k1": K.launches, "fwd": FA.fwd_launches, "bwd": FA.bwd_launches}
+
+
+def _mp_zero_counts():
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    K.launches = FA.fwd_launches = FA.bwd_launches = 0
+
+
+def _mp_attn_vs_plain(fn, mesh, qkv, rank):
+    """``fn`` (ring or Ulysses attention, causal) on this rank's q/k/v
+    through the kernels and through the plain version, with one
+    cotangent: errors of the output and dq/dk/dv over their largest
+    value. Every rank calls it (the attention is a collective)."""
+    gen = torch.Generator().manual_seed(100 + rank)
+    w = torch.randn(qkv[0].shape, generator=gen).to(qkv[0].device)
+    got = {}
+    for kernels in (True, False):
+        q, k, v = (t.detach().clone().requires_grad_() for t in qkv)
+        o = fn(q, k, v, mesh, axis_name="sp", batch_axis_name="dp",
+               causal=True, use_pallas=kernels)
+        got[kernels] = [o.detach()] + list(torch.autograd.grad(
+            (o * w).sum(), [q, k, v]))
+    return {name: _mp_rel(a, b) for name, a, b in
+            zip(("out", "dq", "dk", "dv"), got[True], got[False])}
+
+
+def _mp_lm_leg(mx, ctx, cfg, rank, out, tag, axes, attn_name, per_step):
+    """(a)/(b) The LM through ``SPMDTrainer`` over ``axes`` of the four
+    workers: 1 step, the whole parameters and momentum read, then the
+    rest of the steps timed; the counts cover every step. Then the
+    attention alone on step 1's q/k/v, kernels against plain."""
+    from mxnet_tpu_torch import parallel
+    gpu = ctx.device_type == "gpu"
+    vocab, embed, heads, seq = cfg["lm"]
+    gb = cfg["lm_batch"]
+    mesh = parallel.make_mesh(axes, devices=[ctx])
+    assert mesh.is_process_spanning and mesh.size == _MP_WORLD, mesh
+    fn = getattr(parallel, attn_name)
+    step1_qkv = []
+
+    def attn(q, k, v):
+        if not step1_qkv:
+            step1_qkv.extend(t.detach().clone() for t in (q, k, v))
+        return fn(q, k, v, mesh, axis_name="sp", batch_axis_name="dp",
+                  causal=True)
+    spec = parallel.P("dp", "sp")
+    tr = parallel.SPMDTrainer(
+        _lm_apply(attn, gb // axes["dp"], seq // axes["sp"], heads, embed),
+        _lm_params(vocab, embed), mesh, data_axis="dp",
+        tp_axis="tp" if "tp" in axes else None, learning_rate=0.1,
+        momentum=0.9, batch_specs=[spec, spec])
+    batches = _dp_lm_batches(vocab, gb, seq, _MP_STEPS)
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after --------
+    _mp_zero_counts()
+    loss1 = float(tr.step(*batches[0]))
+    counts1 = _mp_counts()
+    p1 = tr.get_params()
+    mom1 = {k: v.cpu().numpy() for k, v in tr.mom.items()}
+    calls = [1]
+
+    def step():                      # batches 2..n, then round again
+        calls[0] += 1
+        return float(tr.step(*batches[1 + (calls[0] - 2) % (_MP_STEPS - 1)]))
+    losses, ms, wall, wire, prof = _mp_steps(step, rank, gpu, _MP_STEPS - 1)
+    counts = _mp_counts()
+    # ---------------------------------------------------------------------
+    launches = {"fwd": counts["fwd"], "bwd": counts["bwd"]}
+    steps = calls[0]                 # the profiled steps ran on every rank
+    end = tr.get_params()
+    attn_err = _mp_attn_vs_plain(fn, mesh, step1_qkv, rank)
+    if rank == 0:
+        np.savez(os.path.join(out, "lm-%s-step1.npz" % tag), **p1)
+        np.savez(os.path.join(out, "lm-%s-mom1.npz" % tag), **mom1)
+    shard = {k: tuple(v.shape) for k, v in tr.params.items()}
+    rec = {"leg": tag, "axes": axes, "rank": rank, "coords": mesh.coords(),
+           "losses": [loss1] + losses[:_MP_STEPS - 1], "steps": steps,
+           "step1_digest": _digest({k: torch.from_numpy(v)
+                                    for k, v in p1.items()}),
+           "end_digest": _digest({k: torch.from_numpy(v)
+                                  for k, v in end.items()}),
+           "shard_shapes": shard, "kernel_launches": launches,
+           "k1_launches": counts["k1"], "step1_launches": counts1,
+           "expected": ({k: v * steps for k, v in per_step.items()} if gpu
+                        else {"fwd": 0, "bwd": 0}),
+           "attention_vs_plain": {"shape": list(step1_qkv[0].shape),
+                                  "err_over_largest": attn_err,
+                                  "gate": _MP_ATTN_TOL[attn_name]},
+           "collectives_per_step": wire}
+    if gpu:
+        rec.update({"step_ms": ms, "step_wall_ms": wall,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "step_profile": prof})
+    del tr
+    _free(gpu)
+    return rec
+
+
+def _mp_moe_leg(mx, ctx, cfg, rank, out):
+    """(c) ``moe_ffn`` over ``{"ep": 4}``: forward and backward at a
+    capacity that drops nothing and at 1.25; saves this rank's output,
+    gradients and routing keep mask."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import collectives as C
+    from mxnet_tpu_torch.parallel.moe import route
+    gpu = ctx.device_type == "gpu"
+    mesh = parallel.make_mesh({"ep": _MP_WORLD}, devices=[ctx])
+    inp = _mp_moe_inputs(cfg)
+    blk = parallel.Placement(mesh, parallel.P("ep"))
+    x = parallel.shard_put(inp["x"], blk)
+    g = parallel.shard_put(inp["g"], blk)
+    w1 = parallel.shard_put(inp["w1"], blk)
+    w2 = parallel.shard_put(inp["w2"], blk)
+    wr = torch.from_numpy(inp["wr"]).to(x.device)
+    recs = {}
+    for tag, cf in _MP_MOE_CAPS:
+        if gpu:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+        def step():
+            xs, wrs, a, b = (t.detach().requires_grad_()
+                             for t in (x, wr, w1, w2))
+            y = parallel.moe_ffn(xs, wrs, a, b, mesh, capacity_factor=cf)
+            grads = torch.autograd.grad((y * g).sum(), [xs, wrs, a, b])
+            return (y.detach(),) + grads
+        # -- the main path: counts zeroed just before, read just after ----
+        _mp_zero_counts()
+        got, ms, wall, wire, prof = _mp_steps(step, rank, gpu, _MP_STEPS)
+        counts = _mp_counts()
+        # -----------------------------------------------------------------
+        y, dx, dwr, dw1, dw2 = got[0]
+        dwr = C.all_reduce(dwr, mesh.group("ep"))
+        b_, t_, e_ = x.shape
+        cap = max(1, int(cf * b_ * t_ / _MP_WORLD))
+        keep = route(x.reshape(-1, e_), wr, _MP_WORLD, cap)[3]
+        torch.save({k: v.cpu() for k, v in (
+            ("out", y), ("dx", dx), ("dwr", dwr), ("dw1", dw1), ("dw2", dw2),
+            ("keep", keep))}, os.path.join(out, "moe-%s-r%d.pt" % (tag, rank)))
+        rec = {"capacity_factor": cf, "capacity": cap,
+               "tokens": b_ * t_, "dropped": int((~keep).sum()),
+               "launches": counts, "collectives_per_step": wire}
+        if gpu:
+            rec.update({"step_ms": ms, "step_wall_ms": wall,
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "step_profile": prof})
+        recs[tag] = rec
+    _free(gpu)
+    return recs
+
+
+def _mp_pipe_leg(mx, ctx, cfg, rank, out):
+    """(d) ``pipeline_apply`` over ``{"pp": 4}``: forward and backward;
+    saves the output and this rank's stage gradients."""
+    from mxnet_tpu_torch import parallel
+    gpu = ctx.device_type == "gpu"
+    mesh = parallel.make_mesh({"pp": _MP_WORLD}, devices=[ctx])
+    inp = _mp_pipe_inputs(cfg)
+    blk = parallel.Placement(mesh, parallel.P("pp"))
+    w = parallel.shard_put(inp["w"], blk)
+    b = parallel.shard_put(inp["b"], blk)
+    x = torch.from_numpy(inp["x"]).to(w.device)
+    g = torch.from_numpy(inp["g"]).to(w.device)
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        ws, bs = w.detach().requires_grad_(), b.detach().requires_grad_()
+        y = parallel.pipeline_apply(_mp_stage, {"w": ws, "b": bs}, x, mesh)
+        dw, db = torch.autograd.grad((y * g).sum(), [ws, bs])
+        return y.detach(), dw, db
+    # -- the main path: counts zeroed just before, read just after --------
+    _mp_zero_counts()
+    got, ms, wall, wire, prof = _mp_steps(step, rank, gpu, _MP_STEPS)
+    counts = _mp_counts()
+    # ---------------------------------------------------------------------
+    y, dw, db = got[0]
+    torch.save({"out": y.cpu() if rank == 0 else None, "dw": dw.cpu(),
+                "db": db.cpu()}, os.path.join(out, "pipe-r%d.pt" % rank))
+    rec = {"out_digest": _digest({"out": y}), "launches": counts,
+           "collectives_per_step": wire}
+    if gpu:
+        rec.update({"step_ms": ms, "step_wall_ms": wall,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "step_profile": prof})
+    _free(gpu)
+    return rec
+
+
+@contextlib.contextmanager
+def _mp_deadline(rehearsal, leg):
+    """A hard limit on one leg in a worker (as ``_dp_deadline``)."""
+    import faulthandler
+    print("mp worker: leg %s" % leg, file=sys.stderr, flush=True)
+    faulthandler.dump_traceback_later(_MP_LEG_S[rehearsal], exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def mp_worker(out, rehearsal):
+    """One worker of the model_parallel phase (``chip_smoke.py --mp-worker
+    DIR``, started by ``python -m mxnet_tpu_torch.launch -n 4``): legs
+    (a)-(d); writes ``mp-r<rank>.json`` under ``out``."""
+    import mxnet_tpu_torch as mx
+    rank = mx.dist.rank()
+    assert mx.dist.process_count() == _MP_WORLD, mx.dist.process_count()
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _mp_cfg(rehearsal)
+    res = {"rank": rank, "backend": mx.dist.backend(),
+           "backend_reason": mx.dist.backend_reason(),
+           "world": mx.dist.process_count(), "legs": {}}
+    for tag, axes, attn, per_step in _MP_LM_LEGS:
+        with _mp_deadline(rehearsal, tag):
+            res["legs"][tag] = _mp_lm_leg(mx, ctx, cfg, rank, out, tag, axes,
+                                          attn, per_step)
+    with _mp_deadline(rehearsal, "moe"):
+        res["legs"]["moe"] = _mp_moe_leg(mx, ctx, cfg, rank, out)
+    with _mp_deadline(rehearsal, "pipeline"):
+        res["legs"]["pipeline"] = _mp_pipe_leg(mx, ctx, cfg, rank, out)
+    with open(os.path.join(out, "mp-r%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    mx.dist.finalize()
+
+
+def _mp_launch(out, rehearsal):
+    """The four workers through the port's launcher under its hard
+    timeout; raises when a worker fails, hangs or the launcher does.
+    Returns the workers' records, rank order, and the seconds."""
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+           str(_MP_WORLD), "--timeout", str(_MP_LAUNCH_S[rehearsal])]
+    if rehearsal:
+        cmd.append("--force-cpu")
+    cmd += ["--", sys.executable, os.path.abspath(__file__), "--mp-worker",
+            out] + (["--cpu-rehearsal"] if rehearsal else [])
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    if rehearsal:
+        env["OMP_NUM_THREADS"] = "1"
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=here, capture_output=True,
+                         text=True, timeout=_MP_LAUNCH_S[rehearsal] + 60)
+    secs = time.perf_counter() - t0
+    sys.stderr.write(res.stderr[-20000:])
+    assert res.returncode == 0, ("model_parallel workers failed",
+                                 res.returncode)
+    recs = []
+    for r in range(_MP_WORLD):
+        with open(os.path.join(out, "mp-r%d.json" % r)) as f:
+            recs.append(json.load(f))
+    return recs, secs
+
+
+def _mp_lm_references(mx, ctx, cfg):
+    """The LM in one process with the one-device trainer, per attention:
+    step 1's loss, parameters and momentum, and every step's loss."""
+    from mxnet_tpu_torch import parallel
+    vocab, embed, heads, seq = cfg["lm"]
+    gb = cfg["lm_batch"]
+    spec = parallel.P("dp", "sp")
+    refs = {}
+    for tag, _, attn_name, _ in _MP_LM_LEGS:
+        mesh = parallel.make_mesh({"dp": 1, "sp": 1, "tp": 1}, devices=[ctx])
+        fn = getattr(parallel, attn_name)
+        tr = parallel.SPMDTrainer(
+            _lm_apply(lambda q, k, v, fn=fn, mesh=mesh: fn(
+                q, k, v, mesh, axis_name="sp", batch_axis_name="dp",
+                causal=True), gb, seq, heads, embed),
+            _lm_params(vocab, embed), mesh, data_axis="dp", tp_axis="tp",
+            learning_rate=0.1, momentum=0.9, batch_specs=[spec, spec])
+        batches = _dp_lm_batches(vocab, gb, seq, _MP_STEPS)
+        losses = [float(tr.step(*batches[0]))]
+        p1 = tr.get_params()
+        mom1 = {k: v.cpu().numpy() for k, v in tr.mom.items()}
+        losses += [float(tr.step(*b)) for b in batches[1:]]
+        refs[tag] = {"losses": losses, "p1": p1, "mom1": mom1}
+        del tr
+        _free(ctx.device_type == "gpu")
+    return refs
+
+
+def _mp_moe_routing(cfg, capacity_factor):
+    """Top-1 routing recomputed from scratch on the CPU, apart from the
+    port's ``moe.route``: per rank's block of tokens, the first maximum
+    of softmax(x wr^T) in float32, each token's position among the
+    earlier tokens of its expert (a running count), kept when that
+    position is below the capacity ``max(1, int(cf * local / n))``.
+    Returns the experts, the keep mask and the capacity, every rank's
+    tokens in rank order."""
+    inp = _mp_moe_inputs(cfg)
+    e = inp["x"].shape[-1]
+    wr = torch.from_numpy(inp["wr"])
+    experts, keeps = [], []
+    for blk in np.split(inp["x"], _MP_WORLD):
+        flat = torch.from_numpy(blk.reshape(-1, e))
+        cap = max(1, int(capacity_factor * flat.shape[0] / _MP_WORLD))
+        expert = torch.softmax(flat @ wr.T, -1).argmax(-1).numpy()
+        seen = np.zeros(_MP_WORLD, np.int64)
+        keep = np.zeros(len(expert), bool)
+        for i, x in enumerate(expert):
+            keep[i] = seen[x] < cap
+            seen[x] += 1
+        experts.append(torch.from_numpy(expert))
+        keeps.append(torch.from_numpy(keep))
+    return torch.cat(experts), torch.cat(keeps), cap
+
+
+def _mp_moe_oracle(cfg, dev, expert, keep=None):
+    """The dense one-process oracle (``__graft_entry__.py:181-202``) in
+    float64: every token through its top-1 ``expert`` (the routing of
+    :func:`_mp_moe_routing`, taken in float32, so a near tie cannot pick
+    another), scaled by its gate; with ``keep``, dropped tokens give
+    zeros. Returns the output and the gradients of ``sum(out * g)`` by
+    x, wr, w1, w2."""
+    inp = _mp_moe_inputs(cfg)
+    t = {k: torch.from_numpy(v).to(dev, torch.float64).requires_grad_()
+         for k, v in inp.items()}
+    e = t["x"].shape[-1]
+    flat = t["x"].reshape(-1, e)
+    probs = torch.softmax(flat @ t["wr"].T, -1)
+    expert = expert.to(dev)
+    gate = probs.gather(-1, expert[:, None])
+    out = torch.zeros_like(flat)
+    for i in range(_MP_WORLD):
+        sel = expert == i
+        h = torch.relu(flat[sel] @ t["w1"][i].T) @ t["w2"][i].T
+        out = out.index_put((sel.nonzero()[:, 0],), h * gate[sel])
+    if keep is not None:
+        out = out * keep.to(dev, torch.float64)[:, None]
+    out = out.reshape(t["x"].shape)
+    grads = torch.autograd.grad((out * t["g"]).sum(),
+                                [t["x"], t["wr"], t["w1"], t["w2"]])
+    return out.detach(), grads
+
+
+def _mp_pipe_oracle(cfg, dev):
+    """The sequential oracle (``__graft_entry__.py:163-179``) in float64:
+    output and the gradients of ``sum(out * g)`` by w and b."""
+    inp = _mp_pipe_inputs(cfg)
+    t = {k: torch.from_numpy(v).to(dev, torch.float64).requires_grad_()
+         for k, v in inp.items()}
+    h = t["x"]
+    for s in range(_MP_WORLD):
+        h = torch.tanh(h @ t["w"][s] + t["b"][s])
+    dw, db = torch.autograd.grad((h * t["g"]).sum(), [t["w"], t["b"]])
+    return h.detach(), dw, db
+
+
+def _mp_rel(got, want):
+    """Largest |got - want| over the largest |want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()
+                 / max(float(want.abs().max()), 1e-30))
+
+
+def model_parallel_phase(mx, ctx, rehearsal, card):
+    """Sequence, tensor, expert and pipeline parallelism across four
+    worker processes on one card: every leg through ``python -m
+    mxnet_tpu_torch.launch -n 4`` (the ranks share ``cuda:0`` over gloo),
+    against one process on the card. Returns the K1, K2 and K3 launches
+    of the workers' main paths (every rank)."""
+    gpu = ctx.device_type == "gpu"
+    cfg = _mp_cfg(rehearsal)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _free(gpu)
+    out = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        return _model_parallel(mx, ctx, rehearsal, card, cfg, gpu, out)
+    finally:
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+        _free(gpu)
+
+
+def _model_parallel(mx, ctx, rehearsal, card, cfg, gpu, out):
+    t0 = time.perf_counter()
+    ref = _mp_lm_references(mx, ctx, cfg)
+    ref_s = time.perf_counter() - t0
+    recs, launch_s = _mp_launch(out, rehearsal)
+    dev = ctx.torch_device()
+    checks, report = {}, {}
+    for r in recs:
+        assert r["backend"] == "gloo" and r["world"] == _MP_WORLD, r
+    # (a), (b): the LM against one process, replicas bit-equal, counts
+    k1 = k2 = k3 = 0
+    for tag, axes, attn_name, _ in _MP_LM_LEGS:
+        legs = [r["legs"][tag] for r in recs]
+        want = ref[tag]
+        p1 = dict(np.load(os.path.join(out, "lm-%s-step1.npz" % tag)))
+        mom1 = dict(np.load(os.path.join(out, "lm-%s-mom1.npz" % tag)))
+        loss_rel = abs(legs[0]["losses"][0] - want["losses"][0]) \
+            / abs(want["losses"][0])
+        param_err = {k: float(np.abs(p1[k] - want["p1"][k]).max()
+                              / np.abs(want["p1"][k]).max()) for k in p1}
+        grad_err = {k: float(np.abs(mom1[k] - want["mom1"][k]).max()
+                             / np.abs(want["mom1"][k]).max()) for k in mom1}
+        attn_err = [g["attention_vs_plain"]["err_over_largest"]
+                    for g in legs]
+        tol = _MP_ATTN_TOL[attn_name]
+        checks["%s_step1_loss" % tag] = loss_rel <= 1e-4
+        checks["%s_step1_params" % tag] = max(param_err.values()) <= 1e-3
+        checks["%s_step1_grads" % tag] = max(grad_err.values()) <= 1e-4
+        checks["%s_attention_vs_plain" % tag] = all(
+            a["out"] <= tol["out"]
+            and max(a["dq"], a["dk"], a["dv"]) <= tol["grads"]
+            for a in attn_err)
+        checks["%s_ranks_bit_equal" % tag] = len(
+            {(g["step1_digest"], g["end_digest"]) for g in legs}) == 1 \
+            and len({tuple(g["losses"]) for g in legs}) == 1
+        checks["%s_launches" % tag] = all(
+            g["kernel_launches"] == g["expected"] for g in legs)
+        if "tp" in axes:
+            checks["%s_tp_shards" % tag] = all(
+                tuple(shape)[0] * axes["tp"] == want["p1"][k].shape[0]
+                for g in legs for k, shape in g["shard_shapes"].items())
+        k1 += sum(g["k1_launches"] for g in legs)
+        k2 += sum(g["kernel_launches"]["fwd"] for g in legs)
+        k3 += sum(g["kernel_launches"]["bwd"] for g in legs)
+        report[tag] = {"rank0": legs[0],
+                       "attention_vs_plain_per_rank": attn_err,
+                       "peak_bytes_per_rank": [g.get("peak_bytes")
+                                               for g in legs],
+                       "one_process_losses": want["losses"],
+                       "step1_loss_rel": loss_rel,
+                       "step1_param_err_over_largest": param_err,
+                       "step1_grad_err_over_largest": grad_err,
+                       "gate": {"loss": 1e-4, "param": 1e-3,
+                                "grad": 1e-4, "attention_vs_plain": tol}}
+    # (c) MoE against the dense oracle; dropped tokens against a CPU
+    # recompute of the routing, apart from the port's
+    inp = _mp_moe_inputs(cfg)
+    e = inp["x"].shape[-1]
+    report["moe"] = {}
+    for tag, cf in _MP_MOE_CAPS:
+        got = [torch.load(os.path.join(out, "moe-%s-r%d.pt" % (tag, r)))
+               for r in range(_MP_WORLD)]
+        leg = recs[0]["legs"]["moe"][tag]
+        expert, keep, cap = _mp_moe_routing(cfg, cf)
+        port_keep = torch.cat([g["keep"] for g in got])
+        zero_rows = torch.cat([(g["out"].reshape(-1, e) == 0).all(-1)
+                               for g in got])
+        same_drops = cap == leg["capacity"] and torch.equal(
+            port_keep, keep) and torch.equal(zero_rows, ~keep)
+        o, grads = _mp_moe_oracle(cfg, dev, expert,
+                                  None if tag == "no_drop" else keep)
+        want = (o,) + tuple(grads)
+        errs = {
+            "out": _mp_rel(torch.cat([g["out"] for g in got]), want[0]),
+            "dx": _mp_rel(torch.cat([g["dx"] for g in got]), want[1]),
+            "dwr": max(_mp_rel(g["dwr"], want[2]) for g in got),
+            "dw1": _mp_rel(torch.cat([g["dw1"] for g in got]), want[3]),
+            "dw2": _mp_rel(torch.cat([g["dw2"] for g in got]), want[4])}
+        dropped = sum(r["legs"]["moe"][tag]["dropped"] for r in recs)
+        checks["moe_%s_vs_dense_oracle" % tag] = max(errs.values()) <= 1e-4
+        checks["moe_%s_drops_as_cpu_routing" % tag] = same_drops
+        checks["moe_%s_dropped_count" % tag] = \
+            dropped == int((~keep).sum()) and (dropped == 0) == (tag ==
+                                                                "no_drop")
+        report["moe"][tag] = {"rank0": leg, "dropped_tokens": dropped,
+                              "cpu_routing_dropped": int((~keep).sum()),
+                              "err_over_largest": errs, "gate": 1e-4,
+                              "peak_bytes_per_rank": [
+                                  r["legs"]["moe"][tag].get("peak_bytes")
+                                  for r in recs]}
+    for r in recs:
+        for c in ([r["legs"]["moe"][t]["launches"] for t, _ in _MP_MOE_CAPS]
+                  + [r["legs"]["pipeline"]["launches"]]):
+            k1, k2, k3 = k1 + c["k1"], k2 + c["fwd"], k3 + c["bwd"]
+    # (d) the pipeline against the sequential oracle
+    pouts, pdw, pdb = _mp_pipe_oracle(cfg, dev)
+    got = [torch.load(os.path.join(out, "pipe-r%d.pt" % r))
+           for r in range(_MP_WORLD)]
+    perr = {"out": _mp_rel(got[0]["out"], pouts),
+            "dw": _mp_rel(torch.stack([g["dw"][0] for g in got]), pdw),
+            "db": _mp_rel(torch.stack([g["db"][0] for g in got]), pdb)}
+    checks["pipeline_vs_sequential_oracle"] = max(perr.values()) <= 1e-4
+    checks["pipeline_output_on_every_rank"] = len(
+        {r["legs"]["pipeline"]["out_digest"] for r in recs}) == 1
+    report["pipeline"] = {"rank0": recs[0]["legs"]["pipeline"],
+                          "err_over_largest": perr, "gate": 1e-4,
+                          "peak_bytes_per_rank": [
+                              r["legs"]["pipeline"].get("peak_bytes")
+                              for r in recs]}
+    emit({"model_parallel": {
+        "card": card, "world": _MP_WORLD, "backend": recs[0]["backend"],
+        "backend_reason": recs[0]["backend_reason"],
+        "config": {k: list(v) if isinstance(v, tuple) else v
+                   for k, v in cfg.items()},
+        "seconds": {"references": ref_s, "launch": launch_s},
+        "legs": report, "launches": {"k1": k1, "k2": k2, "k3": k3},
+        "checks": checks}})
+    failed = sorted(k for k, v in checks.items() if not v)
+    assert not failed, failed
+    return k1, k2, k3
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
           "resnet_training", "gluon_training", "decode", "rnn_training",
           "image_classification", "gluon_zoo", "observability",
-          "dense_prediction", "data_parallel")
+          "dense_prediction", "data_parallel", "model_parallel")
 
 
 def main(argv=None):
@@ -6207,10 +6812,14 @@ def main(argv=None):
                          % ",".join(PHASES))
     ap.add_argument("--dp-worker", nargs=2, metavar=("GROUP", "DIR"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--mp-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     if args.dp_worker:
         dp_worker(args.dp_worker[0], args.dp_worker[1], rehearsal)
+        return 0
+    if args.mp_worker:
+        mp_worker(args.mp_worker, rehearsal)
         return 0
     todo = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(todo) - set(PHASES))
@@ -6274,6 +6883,10 @@ def main(argv=None):
         with phase("data_parallel"):
             res["dp_launches"] = data_parallel_phase(
                 mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
+    if "model_parallel" in todo:
+        with phase("model_parallel"):
+            res["mp_launches"] = model_parallel_phase(
+                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -6286,7 +6899,7 @@ def main(argv=None):
         "replaces": "mxnet_tpu/pallas/fused_bn.py:44",
         "launches": res["k1_launches"] + res["k1_train_launches"]
         + res["k1_gluon_launches"] + res["obs_launches"]
-        + res["dp_launches"][0],
+        + res["dp_launches"][0] + res["mp_launches"][0],
         "serving_launches": res["k1_launches"],
         "observability_launches": res["obs_launches"],
         "training_launches": res["k1_train_launches"],
@@ -6296,6 +6909,7 @@ def main(argv=None):
         "gluon_zoo_launches": res["zoo_launches"][0],
         "dense_prediction_launches": res["dense_launches"][0],
         "data_parallel_launches": res["dp_launches"][0],
+        "model_parallel_launches": res["mp_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -6307,13 +6921,15 @@ def main(argv=None):
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:83",
-        "launches": launches["fwd"] + res["dp_launches"][1],
+        "launches": launches["fwd"] + res["dp_launches"][1]
+        + res["mp_launches"][1],
         "training_launches": launches["fwd"],
         "rnn_training_launches": res["rnn_launches"][1],
         "image_classification_launches": res["ic_launches"][1],
         "gluon_zoo_launches": res["zoo_launches"][1],
         "dense_prediction_launches": res["dense_launches"][1],
         "data_parallel_launches": res["dp_launches"][1],
+        "model_parallel_launches": res["mp_launches"][1],
         "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
@@ -6326,13 +6942,15 @@ def main(argv=None):
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:261",
-        "launches": launches["bwd"] + res["dp_launches"][2],
+        "launches": launches["bwd"] + res["dp_launches"][2]
+        + res["mp_launches"][2],
         "training_launches": launches["bwd"],
         "rnn_training_launches": res["rnn_launches"][2],
         "image_classification_launches": res["ic_launches"][2],
         "gluon_zoo_launches": res["zoo_launches"][2],
         "dense_prediction_launches": res["dense_launches"][2],
         "data_parallel_launches": res["dp_launches"][2],
+        "model_parallel_launches": res["mp_launches"][2],
         "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,

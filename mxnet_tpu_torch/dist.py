@@ -8,7 +8,8 @@ the environment this module reads when ``mxnet_tpu_torch`` is imported:
 ``MXNET_TPU_PROCESS_ID`` and the reference's role names
 (``DMLC_ROLE``, ``DMLC_NUM_WORKER``, ``DMLC_WORKER_ID``).
 :func:`init_from_env` then calls ``torch.distributed.init_process_group``
-for the default group; the port creates no other group.
+for the default group; a mesh over the job's processes adds one subgroup
+for each line of its axes (``parallel/mesh.py``).
 
 Backend rule. Each rank publishes the identity of the device it trains
 on (the UUID of its first visible CUDA device, or ``cpu``) through the
@@ -16,8 +17,9 @@ rendezvous store, and every rank derives the same choice from the whole
 list:
 
 - ``nccl`` when every rank has a CUDA device of its own;
-- ``gloo`` when two ranks share a device (NCCL refuses two ranks on one
-  device) or any rank has no CUDA device.
+- ``gloo`` when two or more ranks share a device (NCCL refuses two
+  ranks on one device; four ranks on one card take gloo too) or any rank
+  has no CUDA device.
 
 ``MXNET_TPU_DIST_BACKEND`` forces one. The choice and its reason are
 printed on each rank's standard error. Collectives of CUDA tensors over

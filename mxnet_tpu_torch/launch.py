@@ -1,4 +1,5 @@
-"""Launch N worker processes of one data-parallel job.
+"""Launch N worker processes of one job (data, sequence, tensor, expert or
+pipeline parallel: the mesh the workers build decides).
 
 Counterpart of the JAX package's ``tools/launch.py`` (parity: the
 reference's ``tools/launch.py`` over the dmlc tracker)::
@@ -19,7 +20,7 @@ backend rule). ``--force-cpu`` hides every card from the workers.
 ``--launcher local`` (the default) starts the workers on this host and
 waits. A worker that exits nonzero takes the others down (SIGTERM, then
 SIGKILL after 5 s), and ``--timeout`` kills every worker when it
-expires; either way the launcher exits nonzero (124 for the timeout).
+expires (a rank stuck in a collective whose peer died or never came); either way the launcher exits nonzero (124 for the timeout).
 ``--launcher ssh`` prints one command per worker over the hosts of
 ``-H``, to run there. ``-s`` is accepted for the reference's command
 line and ignored: gradients are all-reduced, no server process exists.

@@ -236,14 +236,20 @@ class _StatsGroup:
     """One node's batch statistics shared by its replicas: computed once,
     at the first replica's call, over ``inputs`` (the node's data on
     every local replica) and, with ``over_workers``, every worker's rows;
-    each replica takes a copy on its own device."""
+    each replica takes a copy on its own device. With a mesh ``group``
+    every call takes its own statistics over the rows of ``data`` on
+    every member of the group."""
 
-    def __init__(self, inputs, over_workers):
+    def __init__(self, inputs, over_workers, group=None):
         self.inputs = inputs
         self.over_workers = over_workers
+        self.group = group
         self._got = None
 
     def var_mean(self, data, red):
+        if self.group is not None:
+            return _replicas_var_mean([_stat_input(data)], red, False,
+                                      self.group)
         if self._got is None:
             self._got = _replicas_var_mean(
                 [_stat_input(x) for x in self.inputs], red,
@@ -253,20 +259,24 @@ class _StatsGroup:
 
 
 @contextlib.contextmanager
-def batch_stats_over(inputs, over_workers=False):
+def batch_stats_over(inputs=None, over_workers=False, group=None):
     """Within this scope (this thread), training-mode batch statistics
     are taken over the rows of every tensor in ``inputs`` and, with
     ``over_workers``, of every worker process of the job: what the JAX
-    package's one program over a mesh computes."""
+    package's one program over a mesh computes. With ``group`` (a mesh
+    ``AxisGroup``, ``mesh.group("dp")``, or a ``torch.distributed``
+    group) they are taken over the rows of every member of the group:
+    the mesh-aware op of an ``SPMDTrainer`` ``apply_fn``, whose members
+    see their own rows only."""
     prev = getattr(_STATS, "group", None)
-    _STATS.group = _StatsGroup(inputs, over_workers)
+    _STATS.group = _StatsGroup(inputs, over_workers, group)
     try:
         yield
     finally:
         _STATS.group = prev
 
 
-def _replicas_var_mean(xs, red, over_workers):
+def _replicas_var_mean(xs, red, over_workers, group=None):
     """``(var, mean)`` over ``red`` and the rows of every tensor in
     ``xs`` (and every worker's, with ``over_workers``), on ``xs[0]``'s
     device: each tensor gives its count, mean and sum of squared
@@ -286,13 +296,13 @@ def _replicas_var_mean(xs, red, over_workers):
         mine.append(torch.stack([torch.full_like(mean_l, float(n_local)),
                                  mean_l, var_l * n_local]).to(dev))
     every = torch.stack(mine)
-    if over_workers:
-        import torch.distributed as tdist
-        from ..parallel.collectives import DifferentiableSum
-        world, me = tdist.get_world_size(), tdist.get_rank()
+    if over_workers or group is not None:
+        from ..parallel import collectives as C
+        world, me = C.world_size(group), C._member_index(group)
         slots = [every if r == me else torch.zeros_like(every)
                  for r in range(world)]
-        every = DifferentiableSum.apply(torch.stack(slots)).flatten(0, 1)
+        every = C.DifferentiableSum.apply(torch.stack(slots),
+                                          group).flatten(0, 1)
     n, mean, m2 = every[0, 0], every[0, 1], every[0, 2]
     for r in range(1, every.shape[0]):
         n_r, mean_r, m2_r = every[r, 0], every[r, 1], every[r, 2]

@@ -1,12 +1,12 @@
-"""Ring attention: sequence-parallel exact attention, on one device so far.
+"""Ring attention: sequence-parallel exact attention over a ring of members.
 
-Counterpart of ``mxnet_tpu/parallel/ring_attention.py``. There Q stays
-put while K/V blocks rotate around the ``sp`` mesh axis and each device
-keeps an online-softmax accumulator ``(o, m, l)``. This slice runs meshes
-of one device, where the ring has one step and no rotation: the local
-block is the whole sequence, at offset 0 (a ``dp`` axis may span
-processes: each runs its own batch rows). Rotating blocks between cards
-comes with ROADMAP Queue 1 item 4, second half.
+Counterpart of ``mxnet_tpu/parallel/ring_attention.py``. Q stays put
+while K/V blocks rotate around the ``sp`` axis (``ppermute`` to the next
+member) and each member keeps an online-softmax accumulator
+``(o, m, l)``. With ``n`` members, ring step ``t`` merges the block of
+member ``src = (my - t) mod n`` at global offsets ``q_offset = my * S``,
+``kv_offset = src * S``: its own block first, so the running max is
+finite before a block that the causal mask hides completely arrives.
 
 ``attention`` and ``decode_attention`` are the plain versions, used for
 correctness tests and by the decode path.
@@ -19,8 +19,11 @@ import torch
 
 from ..base import MXNetError
 from ..kernels import flash_attention as _fa
+from . import collectives as C
+from .mesh import PartitionSpec as P
 
-__all__ = ["attention", "decode_attention", "ring_attention"]
+__all__ = ["attention", "decode_attention", "ring_attention",
+           "PARTITION_RULES", "DECODE_PARTITION_RULES"]
 
 NEG_INF = -1e30
 
@@ -66,6 +69,21 @@ def decode_attention(q, k_cache, v_cache, length, scale=None):
     return torch.einsum("...ht,...htd->...hd", probs, v_cache)
 
 
+# The ring layout as a partition-rule set (``mxnet_tpu`` ``:33-44``):
+# sequence parallelism shards activations; the projections feeding it
+# stay replicated.
+PARTITION_RULES = [(r".*", P())]
+
+# The decode layout (``:46-59``): the KV cache and head-major
+# projections shard their heads over ``mp``.
+DECODE_PARTITION_RULES = [
+    (r"cache/(k|v)$", P(None, "mp", None, None)),
+    (r"w(q|k|v)$", P(None, "mp", None)),
+    (r"wo$", P("mp", None, None)),
+    (r".*", P()),
+]
+
+
 # -- shared with ulysses -------------------------------------------------------
 
 def _check_axes(fn, mesh, axis_name, batch_axis_name):
@@ -73,16 +91,11 @@ def _check_axes(fn, mesh, axis_name, batch_axis_name):
         if ax is not None and ax not in mesh.shape:
             raise MXNetError("%s: mesh has no axis %r (axes %s)"
                              % (fn, ax, tuple(mesh.shape)))
-    n = mesh.shape[axis_name]
-    if n != 1:
-        raise MXNetError("%s over %d devices on %r: sequence parallelism "
-                         "across devices is not ported yet (ROADMAP Queue 1 "
-                         "item 4, second half)" % (fn, n, axis_name))
 
 
 def _prepare(q, k, v, mesh):
-    """Port NDArrays or tensors -> (tensors on the mesh's device, whether
-    to wrap the result as an NDArray)."""
+    """Port NDArrays or tensors -> (tensors on the calling member's
+    device, whether to wrap the result as an NDArray)."""
     from ..ndarray.ndarray import NDArray
     wrap = isinstance(q, NDArray)
     dev = mesh.torch_device()
@@ -98,86 +111,133 @@ def _finish(out, wrap):
     return NDArray(out)
 
 
-# -- the one-step ring -----------------------------------------------------------
+def _ring(n):
+    return [(i, (i + 1) % n) for i in range(n)]
 
-def _ring_plain(q, k, v, causal, scale):
-    """The plain online-softmax ring (``:112-137``) for one step."""
+
+# -- the plain ring --------------------------------------------------------------
+
+def _ring_plain(q, k, v, group, causal, scale):
+    """The plain online-softmax ring (``:97-137``): differentiable
+    through ``ppermute``; K and V travel stacked, one hop a step."""
+    n, my = group.size, group.index
     s = q.shape[2]
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     o = torch.zeros_like(q)
     m = torch.full_like(q[..., 0], NEG_INF)
     l = torch.zeros_like(q[..., 0])
-    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-    if causal:
-        pos = torch.arange(s, device=q.device)
-        scores = torch.where(pos[:, None] >= pos[None, :], scores, NEG_INF)
-    new_m = torch.maximum(m, scores.amax(-1))
-    correction = torch.exp(m - new_m)
-    p = torch.exp(scores - new_m[..., None])
-    l = l * correction + p.sum(-1)
-    o = o * correction[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, v)
+    q_pos = my * s + torch.arange(s, device=q.device)
+    kv = torch.stack([k, v])
+    for t in range(n):
+        src = (my - t) % n
+        k_blk, v_blk = kv[0], kv[1]
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k_blk) * scale
+        if causal:
+            k_pos = src * s + torch.arange(s, device=q.device)
+            scores = torch.where(q_pos[:, None] >= k_pos[None, :], scores,
+                                 NEG_INF)
+        new_m = torch.maximum(m, scores.amax(-1))
+        correction = torch.exp(m - new_m)
+        p = torch.exp(scores - new_m[..., None])
+        l = l * correction + p.sum(-1)
+        o = o * correction[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
+                                                     v_blk)
+        m = new_m
+        if t < n - 1:
+            kv = C.ppermute(kv, group, _ring(n))
     return o / torch.clamp_min(l, 1e-30)[..., None]
 
 
+# -- the kernel ring ----------------------------------------------------------------
+
 class _RingFlash(torch.autograd.Function):
-    """Forward: one K2 carry call from the empty accumulator, then the
-    normalisation (``_ring_flash_fwd_impl`` :140-169). Backward: the ring
-    backward (``_ring_flash_bwd`` :183-229) in plain PyTorch — the
-    reference wrote no kernel for it."""
+    """Forward (``_ring_flash_fwd_impl`` :140-169): one K2 carry launch
+    per ring step, K/V rotating by ``ppermute`` between launches, then
+    the normalisation. Backward (``_ring_flash_bwd`` :183-229): plain
+    PyTorch, as in the reference, with dK/dV travelling with their blocks
+    and home after ``n`` hops."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, group, causal, scale):
+        n, my = group.size, group.index
         b, h, s, d = q.shape
         bh = b * h
         flat = lambda x: x.reshape(bh, s, d).contiguous()  # noqa: E731
-        o0 = torch.zeros((bh, s, d), dtype=torch.float32, device=q.device)
-        m0 = torch.full((bh, s), NEG_INF, dtype=torch.float32,
-                        device=q.device)
-        l0 = torch.zeros((bh, s), dtype=torch.float32, device=q.device)
-        o, m, l = _fa.flash_attention_carry(flat(q), flat(k), flat(v), o0, m0,
-                                            l0, q_offset=0, kv_offset=0,
-                                            causal=causal, scale=scale)
+        qf = flat(q)
+        o = torch.zeros((bh, s, d), dtype=torch.float32, device=q.device)
+        m = torch.full((bh, s), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((bh, s), dtype=torch.float32, device=q.device)
+        kv = torch.stack([flat(k), flat(v)])
+        for t in range(n):
+            src = (my - t) % n
+            o, m, l = _fa.flash_attention_carry(
+                qf, kv[0], kv[1], o, m, l, q_offset=my * s,
+                kv_offset=src * s, causal=causal, scale=scale)
+            if t < n - 1:
+                kv = C._ppermute(kv, group, _ring(n))
         l = torch.clamp_min(l, 1e-30)
         out = (o / l[..., None]).to(q.dtype).reshape(b, h, s, d)
         lse = m + torch.log(l)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.group, ctx.causal, ctx.scale = group, causal, scale
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
+        group, scale = ctx.group, ctx.scale
+        n, my = group.size, group.index
         b, h, s, d = q.shape
         bh = b * h
         f32 = torch.float32
         flat = lambda x: x.reshape(bh, s, d).to(f32)  # noqa: E731
-        qf, gf, of, kf, vf = flat(q), flat(g), flat(out), flat(k), flat(v)
+        qf, gf, of = flat(q), flat(g), flat(out)
         delta = (gf * of).sum(-1)
-        sc = torch.einsum("bqd,bkd->bqk", qf, kf) * ctx.scale
-        if ctx.causal:
-            pos = torch.arange(s, device=q.device)
-            sc = torch.where(pos[:, None] >= pos[None, :], sc, NEG_INF)
-        p = torch.exp(sc - lse[..., None])
-        dp = torch.einsum("bqd,bkd->bqk", gf, vf)
-        ds = p * (dp - delta[..., None]) * ctx.scale
-        dq = torch.einsum("bqk,bkd->bqd", ds, kf)
-        dk = torch.einsum("bqk,bqd->bkd", ds, qf)
-        dv = torch.einsum("bqk,bqd->bkd", p, gf)
+        q_pos = my * s + torch.arange(s, device=q.device)
+        dq = torch.zeros((bh, s, d), dtype=f32, device=q.device)
+        # k, v, dk, dv of the block in hand, travelling together
+        blk = torch.stack([flat(k), flat(v), torch.zeros_like(qf),
+                           torch.zeros_like(qf)])
+        for t in range(n):
+            src = (my - t) % n
+            kf, vf = blk[0], blk[1]
+            sc = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+            if ctx.causal:
+                k_pos = src * s + torch.arange(s, device=q.device)
+                sc = torch.where(q_pos[:, None] >= k_pos[None, :], sc,
+                                 NEG_INF)
+            p = torch.exp(sc - lse[..., None])
+            dp = torch.einsum("bqd,bkd->bqk", gf, vf)
+            ds = p * (dp - delta[..., None]) * scale
+            dq = dq + torch.einsum("bqk,bkd->bqd", ds, kf)
+            dk = blk[2] + torch.einsum("bqk,bqd->bkd", ds, qf)
+            dv = blk[3] + torch.einsum("bqk,bqd->bkd", p, gf)
+            if t < n - 1:
+                blk = C._ppermute(torch.stack([kf, vf, dk, dv]), group,
+                                  _ring(n))
+            elif n > 1:
+                blk = torch.cat([blk[:2], C._ppermute(
+                    torch.stack([dk, dv]), group, _ring(n))])
+            else:
+                blk = torch.stack([kf, vf, dk, dv])
         return (dq.reshape(b, h, s, d).to(q.dtype),
-                dk.reshape(b, h, s, d).to(k.dtype),
-                dv.reshape(b, h, s, d).to(v.dtype), None, None)
+                blk[2].reshape(b, h, s, d).to(k.dtype),
+                blk[3].reshape(b, h, s, d).to(v.dtype), None, None, None)
 
 
 def ring_attention(q, k, v, mesh, axis_name="sp", batch_axis_name=None,
                    causal=False, scale=None, use_pallas=None):
-    """Sequence-parallel attention: q/k/v (B, H, S, D) laid out along S
-    over ``axis_name`` (and along B over ``batch_axis_name``) of a
-    one-device mesh. Accepts port NDArrays or tensors (moved to the
-    mesh's device) and returns the same kind.
+    """Sequence-parallel attention. q/k/v (B, H, S, D) are the calling
+    member's blocks: its sequence positions ``[my*S, (my+1)*S)`` along
+    ``axis_name`` (and its rows, when ``batch_axis_name`` splits them);
+    returns its block of the output. The JAX function takes the global
+    arrays and returns the global output; block for block the results
+    are the same. Accepts port NDArrays or tensors (moved to the
+    member's device) and returns the same kind.
 
-    ``use_pallas`` picks the flash kernel K2 for the local block (with
-    the plain ring backward); False picks the plain online-softmax loop;
-    None (default) means the kernel for CUDA tensors and the plain loop
+    ``use_pallas`` picks the flash kernel K2 for every ring step (with
+    the plain ring backward); False picks the plain online-softmax ring;
+    None (default) means the kernel for CUDA tensors and the plain ring
     for CPU tensors — the counterpart of "Pallas on a real TPU". The
     reference's operator tuner, which measures both on the TPU, is not
     ported.
@@ -192,8 +252,9 @@ def ring_attention(q, k, v, mesh, axis_name="sp", batch_axis_name=None,
         scale = 1.0 / math.sqrt(q.shape[-1])
     if use_pallas is None:
         use_pallas = q.device.type == "cuda"
+    group = mesh.group(axis_name)
     if use_pallas:
-        out = _RingFlash.apply(q, k, v, causal, scale)
+        out = _RingFlash.apply(q, k, v, group, causal, scale)
     else:
-        out = _ring_plain(q, k, v, causal, scale)
+        out = _ring_plain(q, k, v, group, causal, scale)
     return _finish(out, wrap)

@@ -1,50 +1,72 @@
-"""The SPMD train step and the data-parallel layout.
+"""The SPMD train step and the mesh layouts.
 
 Counterpart of ``mxnet_tpu/parallel/spmd.py`` (``SPMDTrainer``,
-``shard_params_rule``, ``dp_spec``, ``dist_dp_spec``,
-``broadcast_from_zero``, ``check_batch_divisible``). The JAX trainer
-compiles loss, gradient and optimizer update into one jitted program
-and lets GSPMD place every array and insert the gradient all-reduce.
-Here the step runs eagerly: on a mesh of one device, ``loss =
-apply_fn(params, *batch)``, ``torch.autograd.grad`` and the optimizer
-kernel per parameter. On a ``dp`` axis wider than one device (several
-Contexts in this process, or one per worker process of a launched job,
-or both) every device keeps a replica of the parameters and runs
-``apply_fn`` on its rows of the global batch; the replicas' gradients
-are summed on this process's first device, summed over the processes
-with the losses in ONE bucketed all-reduce and divided by the ``dp``
-size (``apply_fn`` averages over its rows: the mean of equal shards'
-means is the JAX trainer's mean over the global batch), and the update
-runs once per process and is copied to the other local replicas.
-``apply_fn`` sees only its replica's rows: a function that mixes rows
-(batch statistics) computes them per replica here, over the global
-batch in the JAX trainer (ROADMAP Queue 3, open fault 1). Every
-process starts from rank 0's parameters (``broadcast_from_zero``), so
-the replicas stay equal bit for bit. One captured CUDA graph per step
-(the counterpart of jit plus donation) is later work.
+``shard_params_rule``, ``DataParallelSpec``, ``dp_spec``, ``rule_spec``,
+``dist_dp_spec``, ``shard_put``, ``broadcast_from_zero``,
+``check_batch_divisible``). The JAX trainer compiles loss, gradient and
+optimizer update into one jitted program over global arrays and lets
+GSPMD place every array and insert the collectives. Here every device of
+the mesh is a member (``mesh.py``: one per worker process, one thread
+per Context inside a process) that runs the step eagerly on its own
+shard:
+
+- it stores only its shards of each sharded parameter, and their
+  optimizer state;
+- it takes its block of every batch argument: ``P("dp", "sp")`` splits
+  rows over ``dp`` and sequence positions over ``sp``;
+- it gathers each sharded parameter for the forward (an ``all_gather``
+  whose backward keeps this member's slice: along an axis that does not
+  split the batch every member computes the same loss; along one that
+  does, the slices' gradients are summed over it first);
+- it runs ``apply_fn`` on its block, and ``torch.autograd.grad``;
+- it averages loss and gradients over the axes that split the batch
+  (one bucketed all-reduce per group of parameters placed alike),
+  then runs the optimizer kernel on its shards.
+
+The contract of ``apply_fn``. The JAX ``apply_fn`` is written over
+global shapes and GSPMD partitions it. The port's ``apply_fn`` sees this
+member's block (``batch`` rows of ``seq`` positions), so its shapes are
+the local ones, and every operation that mixes rows or positions across
+members goes through a mesh-aware op: ``ops.nn.batch_stats_over`` (batch
+statistics), ``ring_attention``, ``ulysses_attention``, ``moe_ffn`` or
+``pipeline_apply``. The results are the JAX trainer's. Members whose
+coordinates differ only along axes that do not split the batch hold the
+same loss; their gradients of a replicated parameter are averaged too,
+which keeps every copy of a parameter equal bit for bit.
+
+Every process of a launched job starts from rank 0's parameters
+(``broadcast_from_zero``). ``step`` and ``get_params`` are collectives:
+every process calls them.
 """
 from __future__ import annotations
 
 import collections
+import math
 
 import numpy as np
 import torch
 
 from ..base import MXNetError
 from ..weights import tree_from_numpy
+from . import collectives as C
 from .mesh import PartitionSpec as P, DP_AXIS, mesh_from_contexts
+from .partition import Placement, PartitionRules, sharding_for
 
 __all__ = ["SPMDTrainer", "shard_params_rule", "DataParallelSpec",
-           "dp_spec", "dist_dp_spec", "check_batch_divisible", "broadcast_from_zero", "local_rows",
-           "DP_AXIS", "MP_AXIS"]
+           "dp_spec", "rule_spec", "dist_dp_spec", "check_batch_divisible",
+           "shard_put", "broadcast_from_zero", "DP_AXIS", "MP_AXIS"]
 
+# the model-parallel axis name the partition-rule engine shards over on a
+# 2-D (dp, mp) mesh
 MP_AXIS = "mp"
 
 
-class DataParallelSpec(collections.namedtuple("DataParallelSpec",
-                                              ["mesh", "data_axis"])):
-    """A data-parallel layout: the mesh and the axis the batch splits
-    over (parameters are replicated)."""
+class DataParallelSpec(collections.namedtuple(
+        "DataParallelSpec", ["mesh", "data_axis", "rules"],
+        defaults=(DP_AXIS, None))):
+    """One mesh layout: the mesh, the axis the batch splits over and,
+    for a rule-sharded mesh, the ``PartitionRules`` that place each
+    parameter (None: every parameter replicated)."""
     __slots__ = ()
 
     @property
@@ -53,16 +75,47 @@ class DataParallelSpec(collections.namedtuple("DataParallelSpec",
 
     @property
     def dp_size(self):
-        """What the global batch must divide by."""
+        """What the batch dimension must divide by (the data axis, not
+        the device count)."""
         return int(self.mesh.shape.get(self.data_axis, 1))
+
+    @property
+    def mp_size(self):
+        """Product of the non-data axes (1 on a pure dp mesh)."""
+        return self.num_devices // max(self.dp_size, 1)
+
+    @property
+    def data_sharding(self):
+        return Placement(self.mesh, P(self.data_axis))
+
+    @property
+    def repl_sharding(self):
+        return Placement(self.mesh, P())
+
+    def param_sharding(self, name, shape):
+        """The rule-resolved :class:`Placement` of one parameter (the
+        replicated one when no rules are bound)."""
+        if self.rules is None:
+            return self.repl_sharding
+        return sharding_for(self.mesh, name, shape,
+                            self.rules.spec_for(name, shape))
 
 
 def dp_spec(mesh, data_axis=DP_AXIS):
-    """DataParallelSpec for a one-axis data-parallel mesh."""
+    """DataParallelSpec for a data-parallel mesh."""
     if data_axis not in mesh.shape:
         raise MXNetError("dp_spec: mesh %s has no %r axis"
                          % (tuple(mesh.shape), data_axis))
     return DataParallelSpec(mesh, data_axis)
+
+
+def rule_spec(mesh, rules, data_axis=DP_AXIS):
+    """Spec for a rule-sharded mesh: batch over ``data_axis``,
+    parameters by the ``PartitionRules`` (None: replicate everything)."""
+    if data_axis not in mesh.shape:
+        raise MXNetError("rule_spec: mesh %s has no %r data axis"
+                         % (tuple(mesh.shape), data_axis))
+    return DataParallelSpec(mesh, data_axis, rules)
 
 
 def dist_dp_spec(contexts, data_axis=DP_AXIS):
@@ -77,7 +130,7 @@ def dist_dp_spec(contexts, data_axis=DP_AXIS):
 
 def check_batch_divisible(batch_dim, n_devices, what="batch size",
                           axis=None):
-    """The one owner of the dp divisibility rule: bind-time checks and
+    """The one owner of the divisibility rule: bind-time checks and
     per-step feeds raise the same error instead of padding."""
     if batch_dim % n_devices != 0:
         if axis is not None:
@@ -89,35 +142,39 @@ def check_batch_divisible(batch_dim, n_devices, what="batch size",
                          % (what, batch_dim, n_devices))
 
 
+def shard_put(raw, sharding):
+    """The calling member's shard of a whole array (numpy, tensor or
+    NDArray) placed by ``sharding`` (a :class:`Placement`), on the
+    member's device: the counterpart of the JAX package's sharded
+    ``device_put`` (each device receives only its shard)."""
+    from .. import telemetry
+    from ..ndarray.ndarray import NDArray
+    with telemetry.span("shard_put"):
+        if isinstance(raw, NDArray):
+            raw = raw._data
+        elif not isinstance(raw, torch.Tensor):
+            raw = np.asarray(raw)
+            telemetry.record_transfer(raw.nbytes)
+            raw = torch.from_numpy(np.ascontiguousarray(raw))
+        mesh = sharding.mesh
+        _check_spec("shard_put", sharding.spec, mesh, raw.ndim)
+        return sharding.shard(raw, mesh.coords()).to(mesh.torch_device())
+
+
 def broadcast_from_zero(tree):
     """Rank 0's values of a dict/list/tuple of tensors or numpy arrays on
     every process (one broadcast per leaf; the input unchanged outside a
     multi-process run)."""
-    from . import collectives
-    if collectives.world_size() == 1:
+    if C.world_size() == 1:
         return tree
     if isinstance(tree, dict):
         return {k: broadcast_from_zero(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(broadcast_from_zero(v) for v in tree)
     if isinstance(tree, np.ndarray):
-        return collectives.broadcast(torch.from_numpy(
+        return C.broadcast(torch.from_numpy(
             np.ascontiguousarray(tree))).numpy()
-    return collectives.broadcast(tree)
-
-
-def local_rows(batch_dim, spec):
-    """The row slices of a global batch of ``batch_dim`` rows that this
-    process's devices take, in mesh order (each device its contiguous
-    shard)."""
-    from .. import dist
-    dp = spec.dp_size
-    check_batch_divisible(batch_dim, dp, "batch size", axis=spec.data_axis)
-    per = batch_dim // dp
-    n_local = len(spec.mesh.devices)
-    first = (dist.rank() if spec.mesh.processes > 1 else 0) * n_local
-    return [slice((first + i) * per, (first + i + 1) * per)
-            for i in range(n_local)]
+    return C.broadcast(tree)
 
 
 def shard_params_rule(params, mesh, tp_axis=None):
@@ -152,19 +209,44 @@ def _check_spec(what, spec, mesh, ndim=None):
     return spec
 
 
+class _GatherShard(torch.autograd.Function):
+    """A parameter's shards gathered along ``dim`` over ``group`` for the
+    forward. The backward keeps this member's slice of the gradient,
+    first summed over ``sum_group`` (the entry's axes that split the
+    batch, whose members' losses differ)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, sum_group):
+        ctx.group, ctx.dim, ctx.sum_group = group, dim, sum_group
+        return C._all_gather(x, group, dim, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_group is not None:
+            g = C._all_reduce(g.contiguous(), ctx.sum_group, "sum")
+        mine = g.chunk(ctx.group.size, dim=ctx.dim)[ctx.group.index]
+        return mine.contiguous(), None, None, None
+
+
 class SPMDTrainer:
-    """Run a train step on a mesh: one device, or a ``dp`` axis over
-    several Contexts and/or worker processes.
+    """Run a train step on a mesh: one device, or any axes over several
+    Contexts and/or worker processes.
 
     Parameters
     ----------
-    apply_fn : fn(params_dict, *batch_tensors) -> scalar loss tensor
-    params : dict name -> numpy array or tensor (initial values); copied
-        onto every device of the mesh in this process (rank 0's values
+    apply_fn : fn(params_dict, *batch_tensors) -> scalar loss tensor, on
+        this member's block of the batch (see the module docstring); the
+        parameters it gets are whole (sharded ones gathered)
+    params : dict name -> numpy array or tensor (initial values; rank 0's
         on every process)
     mesh : ``parallel.Mesh``
-    data_axis : mesh axis the batch is laid out over
-    tp_axis : optional mesh axis for tensor-parallel parameter specs
+    data_axis : mesh axis the default batch specs split rows over
+    tp_axis : mesh axis of the default parameter specs
+        (``shard_params_rule``)
+    param_specs : {name: PartitionSpec} or a ``PartitionRules`` (whose
+        specs downgrade to replicate where the mesh cannot place them)
+    batch_specs : one PartitionSpec per batch argument (default
+        ``P(data_axis)``); the axes they name split the batch
     optimizer : name or ``mx.optimizer`` instance (``sgd``, ``nag``, ...)
     """
 
@@ -194,6 +276,10 @@ class SPMDTrainer:
 
         if param_specs is None:
             param_specs = shard_params_rule(params, mesh, tp_axis)
+        elif isinstance(param_specs, PartitionRules):
+            param_specs = {k: sharding_for(mesh, k, v.shape,
+                                           param_specs.spec_for(k, v.shape))
+                           .spec for k, v in params.items()}
         missing = sorted(set(params) - set(param_specs))
         if missing:
             raise MXNetError("SPMDTrainer: no param_specs for %s" % missing)
@@ -204,32 +290,89 @@ class SPMDTrainer:
             batch_specs = [P(data_axis)] * n_batch_args
         self.batch_specs = [_check_spec("batch arg %d" % i, s, mesh)
                             for i, s in enumerate(batch_specs)]
-
-        self._spec = dp_spec(mesh, data_axis) if data_axis in mesh.shape \
-            else None
-        self._devices = [d.torch_device() for d in mesh.devices]
-        self.device = self._devices[0]
+        named = {a for s in self.batch_specs for e in s
+                 for a in (e if isinstance(e, tuple) else (e,))
+                 if a is not None}
+        self.batch_axes = tuple(a for a in mesh.shape if a in named)
+        self._n_batch = math.prod(mesh.shape[a] for a in self.batch_axes)
+        self._placements = {k: Placement(mesh, s)
+                            for k, s in self.param_specs.items()}
+        for k, pl in self._placements.items():
+            shape = tuple(params[k].shape)
+            for dim in range(len(pl.spec)):
+                n = mesh.axis_size(pl.split(dim)) if pl.split(dim) else 1
+                if shape[dim] % n:
+                    raise MXNetError(
+                        "param %r: dim %d of size %d does not split over "
+                        "%r (%d devices)" % (k, dim, shape[dim],
+                                             pl.split(dim), n))
         if mesh.processes > 1:
             params = broadcast_from_zero(
                 {k: (v if isinstance(v, (np.ndarray, torch.Tensor))
                      else np.asarray(v)) for k, v in params.items()})
-        self.params = tree_from_numpy(params, ctx=mesh.devices[0])
-        self._replicas = [self.params] + [
-            {k: v.to(dev, copy=True) for k, v in self.params.items()}
-            for dev in self._devices[1:]]
-        self.opt_state = {k: tuple(init_fn(v))
-                          for k, v in self.params.items()}
+        whole = tree_from_numpy(params, ctx=_cpu())
+        self._members = mesh.run_local(
+            lambda j: self._member_init(j, whole, init_fn))
+
+    # -- members ------------------------------------------------------------
+    def _member_init(self, j, whole, init_fn):
+        mesh = self.mesh
+        coords = mesh.coords(j)
+        dev = mesh.devices[j].torch_device()
+        params = {k: pl.shard(whole[k], coords).to(dev, copy=True)
+                  .contiguous() for k, pl in self._placements.items()}
+        # the groups every step uses, created now on every member in one
+        # order (creating a process subgroup is a collective)
+        gathers = {k: self._gather_plan(pl) for k, pl in
+                   self._placements.items()}
+        reduce_axes = {k: pl.replica_axes() for k, pl in
+                       self._placements.items()}
+        groups = {axes: mesh.group(axes) for axes in
+                  sorted(set(reduce_axes.values()) | {self.batch_axes})
+                  if axes and mesh.axis_size(axes) > 1}
+        return {"params": params, "device": dev, "gathers": gathers,
+                "reduce_axes": reduce_axes, "groups": groups,
+                "state": {k: tuple(init_fn(v)) for k, v in params.items()}}
+
+    def _gather_plan(self, pl):
+        plan = []
+        for dim in range(len(pl.spec)):
+            axes = pl.split(dim)
+            if not axes or self.mesh.axis_size(axes) == 1:
+                continue
+            summed = tuple(a for a in axes if a in self.batch_axes)
+            plan.append((dim, self.mesh.group(axes),
+                         self.mesh.group(summed) if summed else None))
+        return plan
+
+    def _whole(self, m, k, x, grad):
+        for dim, group, sum_group in m["gathers"][k]:
+            x = _GatherShard.apply(x, group, dim, sum_group) if grad \
+                else C._all_gather(x, group, dim, True)
+        return x
+
+    @property
+    def params(self):
+        """The first local member's parameters (its shards)."""
+        return self._members[0]["params"]
+
+    @property
+    def opt_state(self):
+        return self._members[0]["state"]
 
     @property
     def dp_size(self):
-        return self._spec.dp_size if self._spec is not None else 1
+        return int(self.mesh.shape.get(self.data_axis, 1))
 
     @property
     def mom(self):
-        """SGD momentum state by parameter name (None without momentum)."""
+        """SGD momentum state by parameter name, whole (None without
+        momentum); a collective like :meth:`get_params`."""
         if not self.momentum:
             return None
-        return {k: s[0] for k, s in self.opt_state.items()}
+        return self.mesh.run_local(lambda j: {
+            k: self._whole(self._members[j], k, s[0], False)
+            for k, s in self._members[j]["state"].items()})[0]
 
     def _put(self, i, b):
         from ..ndarray.ndarray import NDArray
@@ -237,74 +380,96 @@ class SPMDTrainer:
             b = b._data
         elif not isinstance(b, torch.Tensor):
             b = torch.from_numpy(np.ascontiguousarray(b))
-        _check_spec("batch arg %d" % i, self.batch_specs[i], self.mesh,
-                    b.ndim)
-        return b
-
-    def _shards(self, batch):
-        """Per local device, its rows of every batch argument laid out
-        over the data axis (the whole argument where its spec is
-        replicated)."""
-        if self.dp_size == 1:
-            return [[b.to(self.device) for b in batch]]
-        out = [[] for _ in self._devices]
-        for b, spec in zip(batch, self.batch_specs):
-            split = len(spec) > 0 and spec[0] == self.data_axis
-            rows = local_rows(b.shape[0], self._spec) if split else None
-            for j, dev in enumerate(self._devices):
-                out[j].append((b[rows[j]] if split else b).to(dev))
-        return out
-
-    def _grads(self, params, batch):
-        names = list(params)
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
-        loss = self._apply(leaves, *batch)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names],
-                                    allow_unused=True)
-        return loss.detach(), [g if g is not None else torch.zeros_like(p)
-                               for g, p in zip(grads, params.values())]
+        spec = self.batch_specs[i]
+        _check_spec("batch arg %d" % i, spec, self.mesh, b.ndim)
+        pl = Placement(self.mesh, spec)
+        for dim in range(len(spec)):
+            if pl.split(dim):
+                check_batch_divisible(
+                    b.shape[dim], self.mesh.axis_size(pl.split(dim)),
+                    "batch arg %d dim %d" % (i, dim),
+                    axis="x".join(pl.split(dim)))
+        return b, pl
 
     def step(self, *batch):
-        """Run one train step on the global batch (each device takes its
-        rows); returns the scalar loss (a detached tensor: the global
-        batch's mean)."""
+        """Run one train step on the global batch (each member takes its
+        block); returns the scalar loss (a detached tensor: the mean over
+        the members that split the batch, the JAX trainer's mean over the
+        global batch)."""
         if len(batch) != len(self.batch_specs):
             raise MXNetError("SPMDTrainer.step: %d batch args, %d batch "
                              "specs" % (len(batch), len(self.batch_specs)))
         batch = [self._put(i, b) for i, b in enumerate(batch)]
         self._num_update += 1
-        names = list(self.params)
-        losses, grads = [], None
-        for replica, shard in zip(self._replicas, self._shards(batch)):
-            loss, g = self._grads(replica, shard)
-            losses.append(loss.to(self.device))
-            grads = [x.to(self.device) for x in g] if grads is None else \
-                [a + b.to(self.device) for a, b in zip(grads, g)]
-        loss = torch.stack(losses).sum()
-        if self.mesh.processes > 1:
-            from ..kvstore import bucketed_all_reduce
-            with torch.no_grad():
-                reduced = bucketed_all_reduce(grads + [loss.reshape(1)])
-            grads, loss = reduced[:-1], reduced[-1][0]
-        if self.dp_size > 1:
-            grads = [g / self.dp_size for g in grads]
-            loss = loss / self.dp_size
+        return self.mesh.run_local(
+            lambda j: self._member_step(j, batch))[0]
+
+    def _member_step(self, j, batch):
+        m = self._members[j]
+        coords = self.mesh.coords(j)
+        block = [pl.shard(b, coords).to(m["device"]) for b, pl in batch]
+        names = list(m["params"])
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in m["params"].items()}
+        whole = {k: self._whole(m, k, leaves[k], True) for k in names}
+        loss = self._apply(whole, *block)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in names],
+                                    allow_unused=True)
+        grads = {k: g if g is not None else torch.zeros_like(leaves[k])
+                 for k, g in zip(names, grads)}
+        grads, loss = self._reduce(m, grads, loss.detach())
         h = dict(self._hyper)
         h["lr"] = self.lr
-        new_params, new_state = {}, {}
         with torch.no_grad():
-            for k, g in zip(names, grads):
-                new_params[k], new_state[k] = self._update_fn(
-                    self.params[k], g, self.opt_state[k], self._num_update,
-                    h)
-            self.params, self.opt_state = new_params, new_state
-            self._replicas = [self.params] + [
-                {k: v.to(dev, copy=True) for k, v in self.params.items()}
-                for dev in self._devices[1:]]
-        return loss.detach()
+            for k in names:
+                m["params"][k], m["state"][k] = self._update_fn(
+                    m["params"][k], grads[k], m["state"][k],
+                    self._num_update, h)
+        return loss
+
+    def _reduce(self, m, grads, loss):
+        """Loss and gradients averaged over the batch-splitting members
+        (and the copies of each parameter along the other axes): one
+        all-reduce per (axes, dtype) bucket, the loss riding with the
+        gradients reduced over exactly the batch axes."""
+        buckets = collections.OrderedDict()
+        for k, g in grads.items():
+            buckets.setdefault((m["reduce_axes"][k], g.dtype), []).append(k)
+        loss_key = (self.batch_axes, loss.dtype)
+        buckets.setdefault(loss_key, []).append(None)      # None: the loss
+        vals = dict(grads)
+        vals[None] = loss.reshape(1)
+        with torch.no_grad():
+            for (axes, _), names in buckets.items():
+                group = m["groups"].get(axes)
+                if group is not None:
+                    flat = C._all_reduce(torch.cat(
+                        [vals[k].reshape(-1) for k in names]), group, "sum")
+                    at = 0
+                    for k in names:
+                        n = vals[k].numel()
+                        vals[k] = flat[at:at + n].reshape(vals[k].shape)
+                        at += n
+                n = self._n_batch * math.prod(
+                    self.mesh.shape[a] for a in axes
+                    if a not in self.batch_axes)
+                if n > 1:
+                    for k in names:
+                        vals[k] = vals[k] / n
+        return vals, vals.pop(None).reshape(())
 
     def get_params(self):
-        """The parameters as numpy arrays (bfloat16 widens to float32)."""
+        """The parameters as whole numpy arrays (bfloat16 widens to
+        float32); a collective on a mesh that spans processes."""
+        def whole(j):
+            m = self._members[j]
+            return {k: self._whole(m, k, v, False)
+                    for k, v in m["params"].items()}
+        got = self.mesh.run_local(whole)[0]
         return {k: (v.float() if v.dtype == torch.bfloat16 else v)
-                .cpu().numpy() for k, v in self.params.items()}
+                .cpu().numpy() for k, v in got.items()}
+
+
+def _cpu():
+    from ..context import cpu
+    return cpu()

@@ -8,7 +8,7 @@ Every public name of ``mx.nd``, ``mx.sym``, ``mx.autograd``,
 ``mx.flight``, ``mx.profiler``, ``mx.log``, ``mx.tuner``,
 ``mx.compile_cache``, ``mx.checkpoint``, ``mx.callback``,
 ``mx.serving``, ``mx.metric``, ``mx.initializer``, ``mx.optimizer``,
-``mx.io`` and ``mx.mon`` in ``mxnet_tpu``, and every public method of ``Symbol``,
+``mx.io``, ``mx.mon`` and ``mx.parallel`` in ``mxnet_tpu``, and every public method of ``Symbol``,
 ``Module``, ``KVStore``, ``InferenceEngine`` and ``DecodeEngine``,
 either exists in ``mxnet_tpu_torch`` or sits on the skip list below,
 under the ROADMAP.md item that will port it. A name ported since must
@@ -117,6 +117,11 @@ SKIP = {
         _REGISTRY: ["create_iterator", "register", "registry_create"],
     },
     "mon": {},
+    "parallel": {
+        "Queue 1 item 6: not to be ported (JAX's own shard_map and its "
+        "compat module: every member runs its per-device code itself)":
+            ["shard_map", "compat"],
+    },
 }
 
 

@@ -371,6 +371,23 @@ def test_lm_spmd_trainer_dp_matches_jax(run):
                                    err_msg=n)
 
 
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_spmd_trainer_batch_statistics_over_processes(run, n_dev):
+    """ROADMAP Queue 3, fault 1, across processes: the dp mesh of the two
+    workers (one Context each) and of their two Contexts each (dp 4, a
+    thread per Context) gives the JAX trainer's loss and weights; the
+    replicas are bit-equal."""
+    from test_torch_parallel import fault1_jax_loss_and_w
+    results, arrays, _ = run
+    jl, jw = fault1_jax_loss_and_w(n_dev)
+    name = "fault1_dp%d" % n_dev
+    for res, a in zip(results, arrays(name)):
+        assert abs(res[name]["loss"] - jl) <= 1e-5, (res[name], jl)
+        np.testing.assert_allclose(a["w"], jw, rtol=1e-5, atol=1e-6)
+    w0, w1 = (a["w"] for a in arrays(name))
+    np.testing.assert_array_equal(w0, w1)
+
+
 def test_launcher_timeout_kills_a_hung_worker():
     t0 = time.monotonic()
     res = _launch(["-n", "2", "--force-cpu", "--timeout", "3", "--",

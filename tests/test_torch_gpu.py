@@ -1315,3 +1315,112 @@ def test_module_on_one_card_twice_raises():
                                name="softmax")
     with pytest.raises(mt.MXNetError, match="duplicate devices"):
         mt.mod.Module(sym, context=[mt.gpu(0), mt.gpu(0)])
+
+
+# -- sequence parallelism across worker processes (slice 12) ------------------
+
+def test_k2_leaves_the_carry_alone_on_a_fully_masked_block():
+    """Ring attention's causal steps bring blocks whose keys all lie
+    after the queries (``kv_offset`` >= ``q_offset`` + S): K2 must hand
+    the running ``(o, m, l)`` back unchanged, whether ``m`` is already
+    finite (the own block came first) or still the empty carry."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bh, s, d = 6, 128, 64
+    q, k, v = (torch.randn(bh, s, d, generator=g, device="cuda")
+               for _ in range(3))
+    o0 = torch.zeros(bh, s, d, device="cuda")
+    m0 = torch.full((bh, s), FA.NEG_INF, device="cuda")
+    l0 = torch.zeros(bh, s, device="cuda")
+    # the own block first: a finite carry
+    o, m, l = FA.flash_attention_carry(q, k, v, o0, m0, l0, q_offset=s,
+                                       kv_offset=s, causal=True)
+    for carry in ((o, m, l), (o0, m0, l0)):
+        before = FA.fwd_launches
+        got = FA.flash_attention_carry(q, k, v, *carry, q_offset=s,
+                                       kv_offset=2 * s, causal=True)
+        torch.cuda.synchronize()
+        assert FA.fwd_launches == before + 1
+        want = FA.flash_attention_carry_reference(
+            q.cpu(), k.cpu(), v.cpu(), *(t.cpu() for t in carry),
+            q_offset=s, kv_offset=2 * s, causal=True)
+        for a, b, c in zip(got, carry, want):
+            assert torch.equal(a, b)
+            assert torch.equal(a.cpu(), c)
+
+
+_RING_WORKER = r'''
+import json, os, sys
+import numpy as np
+import torch
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch.kernels import flash_attention as FA
+
+out = sys.argv[1]
+rank = mt.dist.rank()
+torch.backends.cuda.matmul.allow_tf32 = False
+mesh = mt.parallel.make_mesh({"sp": 2}, devices=[mt.gpu(0)])
+rs = np.random.RandomState(0)
+whole = [rs.randn(2, 4, 256, 64).astype(np.float32) for _ in range(4)]
+pl = mt.parallel.Placement(mesh, mt.parallel.P(None, None, "sp", None))
+res = {}
+for causal in (True, False):
+    got = {}
+    for route in (True, False):
+        q, k, v = (mt.parallel.shard_put(a, pl).requires_grad_()
+                   for a in whole[:3])
+        w = mt.parallel.shard_put(whole[3], pl)
+        FA.fwd_launches = 0
+        o = mt.parallel.ring_attention(q, k, v, mesh, causal=causal,
+                                       use_pallas=route)
+        launches = FA.fwd_launches
+        grads = torch.autograd.grad((o * w).sum(), [q, k, v])
+        got[route] = [o.detach()] + list(grads)
+        res["launches_%d_%d" % (causal, route)] = launches
+    res["err_%d" % causal] = max(
+        float((a - b).abs().max() / b.abs().max())
+        for a, b in zip(got[True], got[False]))
+    np.save(os.path.join(out, "ring_%d_r%d.npy" % (causal, rank)),
+            got[True][0].cpu().numpy())
+with open(os.path.join(out, "r%d.json" % rank), "w") as f:
+    json.dump(res, f)
+mt.dist.finalize()
+'''
+
+
+def test_ring_across_two_workers_kernel_against_plain_ring(tmp_path):
+    """Two workers on ``cuda:0`` each hold half of the sequence: ring
+    attention through K2 (one launch per ring step, two here) against the
+    plain ring on the same blocks, forward and q/k/v gradients, causal
+    (the second step's block is fully masked on rank 0) and not; the
+    joined outputs against plain attention over the whole sequence."""
+    _need_card()
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "worker.py"
+    script.write_text(_RING_WORKER)
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-m", "mxnet_tpu_torch.launch",
+                          "-n", "2", "--timeout", "150", "--",
+                          sys.executable, str(script), str(tmp_path)],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert res.returncode == 0, res.stderr[-4000:]
+    rs = np.random.RandomState(0)
+    whole = [torch.from_numpy(rs.randn(2, 4, 256, 64).astype(np.float32))
+             for _ in range(3)]
+    for r in range(2):
+        got = json.loads((tmp_path / ("r%d.json" % r)).read_text())
+        for causal in (1, 0):
+            assert got["launches_%d_1" % causal] == 2
+            assert got["launches_%d_0" % causal] == 0
+            assert got["err_%d" % causal] <= 1e-5, got
+    for causal in (True, False):
+        joined = np.concatenate([np.load(tmp_path / ("ring_%d_r%d.npy"
+                                                     % (causal, r)))
+                                 for r in range(2)], axis=2)
+        want = mt.parallel.attention(*whole, causal=causal).numpy()
+        np.testing.assert_allclose(joined, want, rtol=1e-5, atol=1e-5)

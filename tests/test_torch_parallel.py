@@ -25,6 +25,8 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import parallel as tpar
 from mxnet_tpu_torch.kernels import flash_attention as K
 
+from torch_dist_worker import fault1_data, fault1_apply
+
 
 def _qkv(seed, shape=(2, 4, 16, 8)):
     rs = np.random.RandomState(seed)
@@ -125,10 +127,10 @@ def test_sequence_parallel_attention_takes_ndarrays():
 
 
 def test_make_mesh_one_device_only(monkeypatch):
-    """One-device meshes as before; a ``dp`` axis may now span several
-    Contexts (``cpu(0)`` and ``cpu(1)`` are two), any other axis wider
-    than one device raises naming the second half of the distributed
-    slice, and duplicate Contexts raise as in the JAX package."""
+    """One-device meshes as before; any axis may span several Contexts
+    (``cpu(0)`` and ``cpu(1)`` are two), each device taking the
+    coordinate ``np.array(devices).reshape(sizes)`` gives it; duplicate
+    Contexts raise as in the JAX package."""
     mesh = tpar.make_mesh({"dp": -1, "sp": 1}, devices=[mt.cpu()])
     assert mesh.shape == {"dp": 1, "sp": 1} and mesh.device == mt.cpu()
     assert tpar.default_mesh is not None
@@ -136,8 +138,18 @@ def test_make_mesh_one_device_only(monkeypatch):
     assert two.shape == {"dp": 2} and two.devices == [mt.cpu(0), mt.cpu(1)]
     assert tpar.make_mesh({"dp": -1}, devices=[mt.cpu(0), mt.cpu(1)]).size \
         == 2 and not two.is_process_spanning
-    with pytest.raises(mt.MXNetError, match="item 4, second half"):
-        tpar.make_mesh({"sp": 2}, devices=[mt.cpu(0), mt.cpu(1)])
+    grid = tpar.make_mesh({"dp": 1, "sp": 2, "tp": 2},
+                          devices=[mt.cpu(i) for i in range(4)])
+    want = np.arange(4).reshape(1, 2, 2)
+    got = grid.run_local(lambda j: (grid.coords(), grid.axis_index("tp"),
+                                    grid.axis_index(("sp", "tp")),
+                                    grid.group("sp").index, grid.device))
+    for j, (coords, tpi, spt, spi, dev) in enumerate(got):
+        assert want[coords["dp"], coords["sp"], coords["tp"]] == j
+        assert (tpi, spt, spi, dev) == (coords["tp"], j, coords["sp"],
+                                        mt.cpu(j))
+    with pytest.raises(mt.MXNetError, match="run_local"):
+        grid.device
     with pytest.raises(mt.MXNetError, match="duplicate devices"):
         tpar.make_mesh({"dp": 2}, devices=[mt.cpu(0), mt.cpu(0)])
     with pytest.raises(mt.MXNetError, match="at most one"):
@@ -152,22 +164,140 @@ def test_make_mesh_one_device_only(monkeypatch):
 
 def test_ulysses_head_check_and_wide_axes_raise():
     """The head-divisibility check comes first (a stand-in mesh with an
-    'sp' axis of 2), then an 'sp' axis wider than one device raises until
-    the second half of the distributed slice; axes the mesh lacks raise
-    too."""
+    'sp' axis of 2, ``mxnet_tpu`` ``ulysses.py:84-89``); axes the mesh
+    lacks raise; a member that fails inside ``run_local`` takes the
+    others out of their collectives, and its error is the one raised."""
     q = torch.zeros(1, 3, 4, 8)
     wide = types.SimpleNamespace(shape={"dp": 1, "sp": 2})
     with pytest.raises(mt.MXNetError, match="divisible"):
         tpar.ulysses_attention(q, q, q, wide)
     q4 = torch.zeros(1, 4, 4, 8)
-    with pytest.raises(mt.MXNetError, match="item 4, second half"):
-        tpar.ulysses_attention(q4, q4, q4, wide)
-    with pytest.raises(mt.MXNetError, match="item 4, second half"):
-        tpar.ring_attention(q4, q4, q4, wide)
     with pytest.raises(mt.MXNetError, match="no axis 'dp'"):
         tpar.ring_attention(q4, q4, q4,
                             tpar.make_mesh({"sp": 1}, devices=[mt.cpu()]),
                             batch_axis_name="dp")
+    mesh = tpar.make_mesh({"sp": 2}, devices=[mt.cpu(0), mt.cpu(1)])
+
+    def member(j):
+        if j == 1:
+            raise ValueError("member 1 fails")
+        return tpar.ring_attention(q4, q4, q4, mesh)
+    with pytest.raises(ValueError, match="member 1 fails"):
+        mesh.run_local(member)
+    # the mesh works again afterwards
+    out = mesh.run_local(lambda j: tpar.ring_attention(q4, q4, q4, mesh))
+    assert all(o.shape == q4.shape for o in out)
+
+
+def _in_process(axes):
+    n = int(np.prod(list(axes.values())))
+    return tpar.make_mesh(axes, devices=[mt.cpu(i) for i in range(n)])
+
+
+def _member_block(a, mesh, spec):
+    return tpar.shard_put(a, tpar.Placement(mesh, spec))
+
+
+@pytest.mark.parametrize("name", ["ring_attention", "ulysses_attention"])
+def test_sequence_parallel_attention_in_process_matches_jax(name):
+    """sp 2 over two Contexts of this process (a thread each): the
+    members' output blocks and gradients against the JAX function on a
+    2-device mesh (plain routes on both sides)."""
+    q, k, v = _qkv(6)
+    w = np.random.RandomState(7).normal(size=q.shape).astype(np.float32)
+    jmesh = jpar.make_mesh({"sp": 2}, devices=jax.devices()[:2])
+    jfn = getattr(jpar, name)
+
+    @jax.jit
+    def jout_and_grads(q, k, v):
+        out, vjp = jax.vjp(lambda *a: jfn(*a, jmesh, causal=True,
+                                          use_pallas=False), q, k, v)
+        return out, vjp(jnp.asarray(w))
+    want, wgrads = jout_and_grads(*(jnp.asarray(a) for a in (q, k, v)))
+    want = np.asarray(want)
+    mesh = _in_process({"sp": 2})
+    spec = tpar.P(None, None, "sp", None)
+
+    def member(j):
+        tq, tk, tv = (_member_block(a, mesh, spec).requires_grad_()
+                      for a in (q, k, v))
+        out = getattr(tpar, name)(tq, tk, tv, mesh, causal=True)
+        (out * _member_block(w, mesh, spec)).sum().backward()
+        return out.detach(), tq.grad, tk.grad, tv.grad
+    got = mesh.run_local(member)
+    np.testing.assert_allclose(torch.cat([g[0] for g in got], 2).numpy(),
+                               want, rtol=2e-5, atol=2e-5)
+    for i, wg in enumerate(wgrads):
+        np.testing.assert_allclose(
+            torch.cat([g[1 + i] for g in got], 2).numpy(), np.asarray(wg),
+            rtol=1e-4, atol=1e-4)
+
+
+# -- ROADMAP Queue 3, fault 1: batch statistics over the dp mesh ------------------
+
+def fault1_jax_loss_and_w(n_dev=2):
+    """The JAX trainer: ``x @ w.T`` normalised over the global batch's
+    rows, one SGD step at lr 0.1 on an ``n_dev``-device dp mesh."""
+    x, y, params = fault1_data()
+    mesh = jpar.make_mesh({"dp": n_dev}, devices=jax.devices()[:n_dev])
+
+    def apply_fn(p, x, y):
+        h = x @ p["w"].T
+        hn = (h - h.mean(0)) * jax.lax.rsqrt(h.var(0) + 1e-5)
+        return jnp.mean((hn - y) ** 2)
+    tr = jpar.SPMDTrainer(apply_fn, params, mesh, learning_rate=0.1)
+    loss = float(np.asarray(tr.step(x, y)))
+    return loss, tr.get_params()["w"]
+
+
+def test_spmd_trainer_batch_statistics_over_the_mesh():
+    """ROADMAP Queue 3, fault 1: an ``apply_fn`` whose statistics mix
+    rows gives the JAX trainer's loss and weights on a 2-device dp mesh
+    of two Contexts (each member sees its 4 rows; ``batch_stats_over``
+    takes the statistics over both)."""
+    jl, jw = fault1_jax_loss_and_w()
+    x, y, params = fault1_data()
+    mesh = _in_process({"dp": 2})
+    tr = tpar.SPMDTrainer(fault1_apply(mesh), params, mesh,
+                          learning_rate=0.1)
+    assert abs(float(tr.step(x, y)) - jl) <= 1e-5
+    np.testing.assert_allclose(tr.get_params()["w"], jw, rtol=1e-5,
+                               atol=1e-6)
+    reps = tr._members
+    assert torch.equal(reps[0]["params"]["w"], reps[1]["params"]["w"])
+
+
+def test_lm_dp_sp_tp_in_process_matches_jax():
+    """The graft LM over ``{"dp": 1, "sp": 2, "tp": 2}`` on four Contexts
+    of this process (``__graft_entry__.py:63-115`` at the tests' width):
+    3 steps, losses and parameters against the JAX trainer on 4 devices;
+    each member stores half of every matrix."""
+    axes = {"dp": 1, "sp": 2, "tp": 2}
+    jmesh = jpar.make_mesh(axes, devices=jax.devices()[:4])
+    tmesh = _in_process(axes)
+    jattn = _jax_fn("ring_attention", jmesh, True, False)
+    jtr = jpar.SPMDTrainer(_jax_lm(jattn), _lm_params(), jmesh,
+                           data_axis="dp", tp_axis="tp", learning_rate=0.1,
+                           momentum=0.9,
+                           batch_specs=[JP("dp", "sp"), JP("dp", "sp")])
+
+    def tattn(q, k, v):
+        return tpar.ring_attention(q, k, v, tmesh, axis_name="sp",
+                                   batch_axis_name="dp", causal=True)
+    ttr = tpar.SPMDTrainer(_port_lm(tattn, seq=S // 2), _lm_params(), tmesh,
+                           data_axis="dp", tp_axis="tp", learning_rate=0.1,
+                           momentum=0.9,
+                           batch_specs=[tpar.P("dp", "sp"),
+                                        tpar.P("dp", "sp")])
+    for x, y in _batches():
+        np.testing.assert_allclose(float(ttr.step(x, y)),
+                                   float(np.asarray(jtr.step(x, y))),
+                                   rtol=1e-5, atol=1e-6)
+    jp, tp = jtr.get_params(), ttr.get_params()
+    for n in jp:
+        np.testing.assert_allclose(tp[n], jp[n], rtol=1e-5, atol=1e-6,
+                                   err_msg=n)
+        assert ttr.params[n].shape[0] == jp[n].shape[0] // 2
 
 
 @pytest.mark.parametrize("name,kwargs", [
@@ -288,9 +418,10 @@ def _jax_lm(attn):
     return apply_fn
 
 
-def _port_lm(attn):
-    """The same LM in PyTorch, as ``chip_smoke.py`` drives it."""
-    def apply_fn(p, x, y):
+def _port_lm(attn, seq=S):
+    """The same LM in PyTorch, as ``chip_smoke.py`` drives it, on a
+    member's ``seq`` positions."""
+    def apply_fn(p, x, y, S=seq):
         e = p["embed"][x.long()]
         q = (e @ p["wq"].T).reshape(B, S, H, D).permute(0, 2, 1, 3)
         k = (e @ p["wk"].T).reshape(B, S, H, D).permute(0, 2, 1, 3)

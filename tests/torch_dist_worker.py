@@ -28,7 +28,12 @@ Cases (every worker runs each, in this order):
   resume from step 2 through ``save_states``/``load_states``;
 - ``lm``: the causal-attention LM of ``tests/test_torch_parallel.py``
   (V 64, E 32, 4 heads, S 16) through ``SPMDTrainer`` on a ``dp`` mesh
-  of the two workers, global batch 4, 3 steps.
+  of the two workers, global batch 4, 3 steps;
+- ``fault1_dp2``/``fault1_dp4``: ROADMAP Queue 3 fault 1's ``apply_fn``
+  (``x @ w.T`` normalised over the global batch's rows through
+  ``batch_stats_over``) through ``SPMDTrainer``, one SGD step, on a
+  ``dp`` mesh of the two workers (one Context each) and of both workers'
+  two Contexts each (``dp`` 4: lines of threads and processes).
 """
 import json
 import os
@@ -311,6 +316,41 @@ def lm_case(out, rank, world):
     return {"losses": losses}
 
 
+def fault1_data():
+    """Global batch 8 of a 5-wide input, a 3-wide target, one weight."""
+    rs = np.random.RandomState(0)
+    return (rs.randn(8, 5).astype(np.float32),
+            rs.randn(8, 3).astype(np.float32),
+            {"w": rs.randn(3, 5).astype(np.float32)})
+
+
+def fault1_apply(mesh):
+    """The port's ``apply_fn``: this member's rows, the statistics taken
+    over the ``dp`` axis through ``batch_stats_over``."""
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    def apply_fn(p, x, y):
+        h = x @ p["w"].T
+        one, zero = torch.ones(3), torch.zeros(3)
+        with tnn.batch_stats_over(group=mesh.group("dp")):
+            hn = tnn.batch_norm(h, one, zero, zero, one, eps=1e-5,
+                                fix_gamma=False, _train=True)[0]
+        return ((hn - y) ** 2).mean()
+    return apply_fn
+
+
+def fault1_case(out, rank, devices):
+    mesh = mt.parallel.make_mesh({"dp": -1}, devices=devices)
+    x, y, params = fault1_data()
+    tr = mt.parallel.SPMDTrainer(fault1_apply(mesh), params, mesh,
+                                 learning_rate=0.1)
+    loss = float(tr.step(x, y))
+    name = "fault1_dp%d" % mesh.shape["dp"]
+    np.savez(os.path.join(out, "%s-r%d.npz" % (name, rank)),
+             **tr.get_params())
+    return {"loss": loss, "dp": mesh.shape["dp"]}
+
+
 def main(out):
     rank, world = mt.dist.rank(), mt.dist.process_count()
     res = {}
@@ -332,6 +372,9 @@ def main(out):
     res["discipline"] = discipline_case(rank)
     res["gluon"] = gluon_case(out, rank, world, out)
     res["lm"] = lm_case(out, rank, world)
+    for devices in ([CPU], [mt.cpu(0), mt.cpu(1)]):
+        got = fault1_case(out, rank, devices)
+        res["fault1_dp%d" % got["dp"]] = got
     with open(os.path.join(out, "results-r%d.json" % rank), "w") as f:
         json.dump(res, f)
     mt.dist.finalize()
