@@ -214,7 +214,31 @@ Phases (any failure exits non-zero; no error is swallowed):
    prints rank 0's ms a step (CUDA events), host seconds and payload
    bytes in collectives a step, a profiled step's device busy time and
    idle share, the peak of every rank, and the launches of K1-K3.
-17. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+17. engine_meshes — four workers of ``python -m mxnet_tpu_torch.launch
+   -n 4`` on the one card over gloo (``--em-worker``), each leg under a
+   hard limit: (a) ``InferenceEngine`` serving ResNet-50 v1 (NHWC,
+   fused tails, fp32, ``max_batch`` 32) over ``{"dp": 1, "mp": 4}`` with
+   ``bench.py``'s layout rules, rank 0 the front end and the other ranks
+   its followers: 16 requests of 1-4 rows, then 4 of 32; every bucket's
+   logits bit-equal to a one-device engine's on the card, one bucket
+   within 1e-3 of the largest logit of a CPU forward, K1 16 times a
+   forward on every rank; (b) ``DecodeEngine`` at the decode phase's
+   width and 16 slots over ``{"dp": 1, "mp": 4}`` under
+   ``DECODE_PARTITION_RULES`` (2 heads a rank): tokens equal to the
+   one-device engine's up to the first top-2 margin under 1e-4 of the
+   largest logit, each rank's ``kv_cache_bytes`` exactly a quarter of
+   the whole pool's, token latency p50/p95; (c) ``Module.fit`` on
+   ResNet-50 v1 (fp32, global batch 64, SGD lr 0.05, momentum 0.9, wd
+   1e-4, 3 fused batches) over ``{"dp": 2, "mp": 2}``: step 1 through
+   ``_step1_gate`` against one process at batch 64 (fp32 and the fp64
+   arbiter, run before the workers), the ranks' gathered parameters
+   bit-equal, a checkpoint saved on the mesh restored into a one-device
+   ``Module`` bit for bit and back. Each leg prints rank 0's time (CUDA
+   events), host seconds and payload bytes in collectives a forward,
+   token or step, each rank's peak and committed bytes against the
+   replicated layout's, a profiled call's device busy time and idle
+   share, and the launches of K1-K3 in every worker.
+18. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
@@ -223,8 +247,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    ``launches`` is the count on that kernel's main paths (K1: serving,
    training and the Gluon loop), ``rnn_training_launches``,
    ``image_classification_launches``, ``gluon_zoo_launches``,
-   ``dense_prediction_launches`` (0), ``data_parallel_launches`` and
-   ``model_parallel_launches`` its counts on those paths — and,
+   ``dense_prediction_launches`` (0), ``data_parallel_launches``,
+   ``model_parallel_launches`` and ``engine_meshes_launches`` its
+   counts on those paths — and,
    last, the ``{"ok": true,
    "device": {...}}`` line.
 
@@ -232,7 +257,7 @@ The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-16 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-17 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -5782,11 +5807,12 @@ def _dp_fp64_net(mx, ctx, rehearsal, seed=0):
     return net, sym, hw, classes, {u: f for (u, _), (f, _) in zip(up, fp)}
 
 
-def _dp_module_fp64_step(mx, ctx, cfg, rehearsal, rank=None):
+def _dp_module_fp64_step(mx, ctx, cfg, rehearsal, rank=None, mesh=None):
     """``_dp_module_reference``'s step 1 in fp64 on the unfused net: one
-    process at the global batch (``rank`` None, a ``device`` store) or
-    this worker's rows on ``dist_sync``. Returns the parameters after it
-    under the fused net's names."""
+    process at the global batch (``rank`` None, a ``device`` store), a
+    ``Module`` over the mesh ``mesh`` (its keyword arguments) of the
+    workers at the global batch, or this worker's rows on ``dist_sync``.
+    Returns the parameters after it under the fused net's names."""
     net, sym, hw, classes, rename = _dp_fp64_net(mx, ctx, rehearsal)
     aux_names = set(sym.list_auxiliary_states())
     params = {k: p.data()._data.double() for k, p in
@@ -5798,14 +5824,14 @@ def _dp_module_fp64_step(mx, ctx, cfg, rehearsal, rank=None):
     if rank is not None:
         rows = slice(rank * cfg["batch"], (rank + 1) * cfg["batch"])
         x, y = x[rows], y[rows]
-    mod = mx.mod.Module(sym, context=ctx)
+    mod = mx.mod.Module(sym, context=ctx, **(mesh or {}))
     mod.bind([mx.io.DataDesc("data", x.shape, "float64")],
              [mx.io.DataDesc("softmax_label", y.shape, "float64")])
     mod.init_params(arg_params={k: v for k, v in params.items()
                                 if k not in aux_names},
                     aux_params={k: v for k, v in params.items()
                                 if k in aux_names})
-    mod.init_optimizer(kvstore=mx.kv.create(
+    mod.init_optimizer(kvstore="device" if mesh else mx.kv.create(
         "device" if rank is None else "dist_sync"), optimizer="sgd",
         optimizer_params=_dp_opt(g))
     assert mod.fused_step(mx.io.DataBatch(
@@ -6795,10 +6821,554 @@ def _model_parallel(mx, ctx, rehearsal, card, cfg, gpu, out):
     return k1, k2, k3
 
 
+# -- engine_meshes: the engines and Module on partitioned meshes ------------
+_EM_WORLD = 4
+_EM_LEG_S = {False: 150, True: 120}     # one leg's hard limit in a worker
+_EM_LAUNCH_S = {False: 420, True: 300}  # the launch's, the launcher's own
+_EM_SERVE_AXES = {"dp": 1, "mp": 4}
+_EM_FIT_AXES = {"dp": 2, "mp": 2}
+
+
+def _em_cfg(rehearsal):
+    """Sizes: serving at the serving phase's configuration (16 requests of
+    1-4 rows, then 4 of ``max_batch``); decode at the decode phase's
+    width, 16 prompts of its prompt length, 32 new tokens; ``Module.fit``
+    at the data_parallel phase's global batch (64) for 3 batches. The
+    rehearsal takes the small nets."""
+    if rehearsal:
+        return {"requests": 8, "full": 2, "prompts": 8, "new_tokens": 8,
+                "fit_batches": 3}
+    return {"requests": 16, "full": 4, "prompts": 16, "new_tokens": 32,
+            "fit_batches": 3}
+
+
+def _em_rules(mx):
+    """``bench.py``'s ResNet layout rules (``_mp_bench_rules``,
+    ``bench.py:678-690``): conv and FC weights' output channels, and the
+    BatchNorm scales and shifts, over ``mp``."""
+    P = mx.parallel.P
+    return mx.parallel.PartitionRules([
+        (r"(conv\d*|fc\d*)_weight$", P("mp")),
+        (r"weight$", P("mp")),
+        (r"(gamma|beta|bias)$", P("mp"))])
+
+
+def _em_bytes(tensors):
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def _em_wire_per(n):
+    from mxnet_tpu_torch.parallel import collectives as C
+    return {"calls": C.wire["calls"] / n, "bytes": C.wire["bytes"] / n,
+            "host_s": C.wire["seconds"] / n}
+
+
+def _em_serve_leg(mx, ctx, cfg, rank, rehearsal):
+    """(a) Serving ResNet-50 v1 over ``{"dp": 1, "mp": 4}``. Rank 0 first
+    runs every bucket through a one-device engine on the card; then the
+    counts are zeroed and every rank builds the mesh engine: rank 0
+    serves the traffic and drives every bucket once more, the followers
+    compute their members' part of each dispatch; the counts are read
+    after ``close``."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    from mxnet_tpu_torch.parallel import collectives as C
+    from mxnet_tpu_torch.serving import InferenceEngine
+    gpu = ctx.device_type == "gpu"
+    sym, params, hw, classes, max_batch, _, _ = _served_resnet(
+        mx, mx.cpu(), rehearsal)
+    n_fused = sum(1 for n in sym._topo_nodes() if n.op is not None
+                  and n.op.name == "_contrib_BatchNormAddReLU")
+    rs = np.random.RandomState(7)
+    reqs = [rs.uniform(-1, 1, (int(rs.randint(1, 5)), hw, hw, 3))
+            .astype(np.float32) for _ in range(cfg["requests"])]
+    full = [rs.uniform(-1, 1, (max_batch, hw, hw, 3)).astype(np.float32)
+            for _ in range(cfg["full"])]
+    probe = rs.uniform(-1, 1, (max_batch, hw, hw, 3)).astype(np.float32)
+
+    def bucket_out(eng, b):
+        args = dict(eng._param_raw)
+        args["data"] = eng._put_batch(probe[:b], "data")
+        args.update(eng._bucket_extras(b))
+        return eng._forward(args, eng._aux_raw)[0][0].cpu().numpy()
+    one = {}
+    if rank == 0:
+        with InferenceEngine(sym, {k: v.as_in_context(ctx) for k, v in
+                                   params.items()},
+                             {"data": (1, hw, hw, 3)}, max_batch=max_batch,
+                             ctx=ctx) as plain:
+            one = {b: bucket_out(plain, b) for b in plain.buckets}
+    _free(gpu)
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after --------
+    K.launches = 0
+    t0 = time.perf_counter()
+    eng = InferenceEngine(sym, params, {"data": (1, hw, hw, 3)},
+                          max_batch=max_batch, max_wait_ms=2.0,
+                          partition_rules=_em_rules(mx),
+                          mesh_axes=_EM_SERVE_AXES, contexts=[ctx])
+    rec = {"engine_build_and_warmup_s": time.perf_counter() - t0,
+           "buckets": list(eng.buckets)}
+    held = [t for m in eng._members for part in ("params", "aux")
+            for t in m[part].values()]
+    rec["committed_param_bytes"] = _em_bytes(held)
+    rec["replicated_param_bytes"] = _em_bytes(
+        [v._data for v in params.values()])
+    forwards = len(eng.buckets)
+    if rank == 0:
+        t1 = time.perf_counter()
+        futs = [eng.submit(data=x) for x in reqs]
+        outs = [f.result(timeout=600)[0] for f in futs]
+        outs += [eng.predict(data=x)[0] for x in full]
+        rec["traffic_s"] = time.perf_counter() - t1
+        st = eng.stats()
+        forwards += st["batches"]
+        for x, o in zip(reqs + full, outs):
+            assert o.shape == (x.shape[0], classes) and np.isfinite(o).all()
+        mesh_out = {b: bucket_out(eng, b) for b in eng.buckets}
+        forwards += len(eng.buckets)
+        rec["buckets_bit_equal"] = {str(b): bool(np.array_equal(
+            mesh_out[b], one[b])) for b in eng.buckets}
+        rec["stats"] = {"batches": st["batches"], "buckets": st["buckets"],
+                        "latency_ms": st["latency_ms"],
+                        "device_bytes": st["device_bytes"]}
+        rec["layout"] = eng.partition_summary()["mesh_axes"]
+        fwd = lambda: bucket_out(eng, max_batch)       # noqa: E731
+        C.reset_wire()
+        _, ms, wall = _timed_steps(fwd, 2, gpu)
+        rec["forward_wire"] = _em_wire_per(2)
+        forwards += 2
+        if gpu:
+            rec.update({"forward_ms": ms, "forward_wall_ms": wall,
+                        "forward_profile": profile_forward(fwd, reps=1)})
+            forwards += 2
+        rec["forwards"] = forwards
+    else:
+        try:
+            eng.submit(data=reqs[0])
+            rec["follower_refused"] = False
+        except mx.MXNetError as e:
+            rec["follower_refused"] = "rank 0" in str(e)
+    eng.close()
+    rec["k1_launches"] = K.launches
+    # ---------------------------------------------------------------------
+    rec["tails_per_forward"] = n_fused
+    if gpu:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if rank == 0:
+        # the smallest bucket against a CPU forward (TF32 is off)
+        pred = mx.predictor.Predictor(sym, params, {"data": (1, hw, hw, 3)},
+                                      ctx=mx.cpu())
+        pred.forward(data=probe[:1])
+        c = pred.get_output(0).asnumpy()
+        rec["cpu_recompute_max_abs_err_over_max_logit"] = float(
+            np.abs(mesh_out[1] - c).max() / np.abs(c).max())
+    del eng
+    mx.layout.set_default_layout(None)
+    _free(gpu)
+    return rec
+
+
+def _em_decode_leg(mx, ctx, cfg, rank, rehearsal):
+    """(b) Decode over ``{"dp": 1, "mp": 4}`` under
+    ``DECODE_PARTITION_RULES``. Rank 0 first decodes the prompts with a
+    one-device engine on the card; then every rank builds the mesh
+    engine, rank 0 submits the prompts, and a full-bucket step is timed
+    and profiled (the followers follow)."""
+    from mxnet_tpu_torch.decode import AttentionDecodeCell, DecodeEngine
+    from mxnet_tpu_torch.parallel import collectives as C
+    from mxnet_tpu_torch.parallel.ring_attention import \
+        DECODE_PARTITION_RULES
+    gpu = ctx.device_type == "gpu"
+    dims, slots, _, _, _, prompt_len = _DECODE[rehearsal]
+    cell = AttentionDecodeCell(**dims)
+    params = cell.init_params(1)
+    kw = dict(slots=slots, max_prompt_len=prompt_len * 2, keep_logits=True,
+              max_new_tokens=cfg["new_tokens"])
+    prompts = [np.random.RandomState(1 + i).randint(
+        1, cell.vocab - 1, prompt_len).astype(np.int32)
+        for i in range(cfg["prompts"])]
+    whole = sum(int(np.prod(shape)) * torch.tensor([], dtype=dt)
+                .element_size() for shape, dt in
+                cell.cache_spec(slots).values())
+    rec = {"cell": dims, "slots": slots, "whole_pool_bytes": whole}
+    if rank == 0:
+        with DecodeEngine(cell, params, ctx=ctx, **kw) as plain:
+            want = [f.result(timeout=600)
+                    for f in [plain.submit(p) for p in prompts]]
+            rec["one_device_kv_cache_bytes"] = plain.kv_cache_bytes()
+    _free(gpu)
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    eng = DecodeEngine(cell, params, partition_rules=DECODE_PARTITION_RULES,
+                       mesh_axes=_EM_SERVE_AXES, contexts=[ctx], **kw)
+    rec["kv_cache_bytes"] = eng.kv_cache_bytes()
+    rec["committed_param_bytes"] = _em_bytes(
+        t for m in eng._members for t in m["params"].values())
+    rec["replicated_param_bytes"] = _em_bytes(
+        torch.as_tensor(np.asarray(v, np.float32)) if not
+        isinstance(v, torch.Tensor) else v for v in params.values())
+    rec["shard_shapes"] = {k: list(v.shape) for k, v in eng._params.items()}
+    if rank == 0:
+        C.reset_wire()
+        t0 = time.perf_counter()
+        got = [f.result(timeout=600) for f in [eng.submit(p)
+                                               for p in prompts]]
+        rec["traffic_s"] = time.perf_counter() - t0
+        st = eng.stats()
+        rec["token_wire"] = _em_wire_per(max(st["tokens"], 1))
+        rec["step_wire"] = _em_wire_per(max(st["steps"], 1))
+        rec["token_latency_ms"] = st["token_latency_ms"]
+        rec["tokens"], rec["steps"] = st["tokens"], st["steps"]
+        worst, compared, cut_total = 0.0, 0, 0
+        equal = True
+        for g, w in zip(got, want):
+            scale = float(np.abs(w.logits).max())
+            cut = _margin_cut(w.logits, _DECODE_TOL * scale)
+            equal = equal and g.tokens[:cut] == w.tokens[:cut]
+            rows = min(cut + 1, len(w.logits))
+            worst = max(worst, float(np.abs(g.logits[:rows]
+                                            - w.logits[:rows]).max())
+                        / scale)
+            compared += cut
+            cut_total += len(w.tokens) - cut
+        rec["vs_one_device"] = {
+            "tokens_equal_to_margin_cut": bool(equal),
+            "max_abs_err_over_max_logit": worst, "tol": _DECODE_TOL,
+            "positions_compared": compared, "positions_cut": cut_total}
+        ids = np.arange(slots, dtype=np.int32)
+        ones = np.ones(slots, np.int32)
+        pos = np.full(slots, prompt_len, np.int32)
+        step = lambda: eng._decode_prog(eng._params, eng._cache, ids, ones,
+                                        pos)[1].cpu()   # noqa: E731
+        C.reset_wire()
+        _, ms, wall = _timed_steps(step, 3, gpu)
+        rec["full_bucket_step_wire"] = _em_wire_per(3)
+        if gpu:
+            rec.update({"full_bucket_step_ms": ms,
+                        "full_bucket_step_wall_ms": wall,
+                        "step_profile": profile_forward(step, reps=1)})
+    else:
+        try:
+            eng.generate(prompts[0])
+            rec["follower_refused"] = False
+        except mx.MXNetError as e:
+            rec["follower_refused"] = "rank 0" in str(e)
+    eng.close()
+    if gpu:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del eng
+    _free(gpu)
+    return rec
+
+
+def _em_fit_leg(mx, ctx, rank, out, rehearsal):
+    """(c) ``Module.fit`` on ResNet-50 v1 over ``{"dp": 2, "mp": 2}``:
+    the data_parallel phase's model, data and optimizer at the global
+    batch, 3 fused batches (step 1's parameters kept), the fp64 step 1 on
+    the unfused net, timed steps, then the checkpoints both ways with a
+    one-device ``Module`` on rank 0."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    from mxnet_tpu_torch.parallel import collectives as C
+    gpu = ctx.device_type == "gpu"
+    cfg = _dp_cfg(rehearsal)
+    g = cfg["batch"] * _DP_WORLD
+    mesh = {"partition_rules": _em_rules(mx), "mesh_axes": _EM_FIT_AXES}
+    net, sym, hw, classes = _resnet_net(mx, mx.cpu(), rehearsal)
+    aux_names = set(sym.list_auxiliary_states())
+    params = {k: p.data()._data.to("cpu", copy=True)
+              for k, p in net.collect_params().items()}
+    del net
+    arg = {k: v for k, v in params.items() if k not in aux_names}
+    aux = {k: v for k, v in params.items() if k in aux_names}
+    x, y = _module_data(cfg["batches"], g, hw, classes)
+    n = _em_cfg(rehearsal)["fit_batches"]
+    x, y = x[:n * g], y[:n * g]
+    it = mx.io.NDArrayIter(x, y, batch_size=g, shuffle=False)
+    mod = mx.mod.Module(sym, context=[ctx], **mesh)
+    snap, marks = {}, []
+
+    def batch_end(param):
+        marks.append(time.perf_counter())
+        if param.nbatch == 0:       # a collective: every rank gathers
+            snap["step1"] = _host_params(mod)[0]
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after --------
+    K.launches = 0
+    C.reset_wire()
+    t0 = time.perf_counter()
+    mod.fit(it, eval_metric=mx.metric.create(["acc", "ce"]),
+            kvstore="device", optimizer="sgd", optimizer_params=_dp_opt(g),
+            arg_params=arg, aux_params=aux, num_epoch=1,
+            batch_end_callback=batch_end)
+    if gpu:
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = K.launches
+    # ---------------------------------------------------------------------
+    assert mod._fused_fallback_reason is None, mod._fused_fallback_reason
+    end_arg, end_aux = _host_params(mod)
+    ex = mod._exec
+    upd = mod._updater.members[0]
+    rec = {"layout": mod.partition_summary()["mesh_axes"],
+           "fit_s": fit_s, "batches": len(marks),
+           "batch_s_after_first": (marks[-1] - marks[0]) / (len(marks) - 1),
+           "k1_launches": launches, "tails_per_step": 16 if not rehearsal
+           else 4,
+           "end_digest": _digest(end_arg), "end_aux_digest": _digest(end_aux),
+           "committed_param_bytes": _em_bytes(
+               ex.arg_dict[k]._data for k in mod._param_names),
+           "committed_grad_bytes": _em_bytes(
+               a._data for a in ex.grad_arrays if a is not None),
+           "committed_state_bytes": _em_bytes(
+               t._data for st in upd.states.values()
+               for t in (st if isinstance(st, tuple) else (st,))
+               if t is not None),
+           "replicated_param_bytes": _em_bytes(arg.values()),
+           "shard_shapes": {k: list(ex.arg_dict[k].shape)
+                            for k in list(mod._param_names)[:4]}}
+    if rank == 0:
+        torch.save(snap["step1"], os.path.join(out, "fit-step1.pt"))
+
+    def step():
+        assert mod.fused_step(mx.io.DataBatch(
+            [mx.nd.array(x[:g], ctx=mx.cpu())],
+            [mx.nd.array(y[:g], ctx=mx.cpu())]))
+    _, ms, wall, wire, prof = _mp_steps(step, rank, gpu, 2)
+    rec["step_wire"] = wire
+    if gpu:
+        rec.update({"step_ms": ms, "step_wall_ms": wall,
+                    "step_profile": prof,
+                    "peak_bytes": torch.cuda.max_memory_allocated()})
+    # the checkpoints: mesh -> one device, then one device -> mesh
+    after, _ = _host_params(mod)
+    mgr = mx.CheckpointManager(os.path.join(out, "fit-mesh"))
+    meta = mgr.save(mod, 1)
+    rec["checkpoint_layout"] = meta.get("layout", {}).get("mesh_axes")
+    mx.parallel.barrier()
+    if rank == 0:
+        one = mx.mod.Module(sym, context=ctx)
+        one.bind(data_shapes=[("data", (g, hw, hw, 3))],
+                 label_shapes=[("softmax_label", (g,))])
+        one.init_params(arg_params=arg, aux_params=aux)
+        one.init_optimizer(kvstore="device", optimizer="sgd",
+                           optimizer_params=_dp_opt(g))
+        mgr.restore(one)
+        rec["mesh_to_one_device_bit_equal"] = _bit_equal(
+            _host_params(one)[0], after)
+        step_one = mx.io.DataBatch([mx.nd.array(x[g:2 * g], ctx=ctx)],
+                                   [mx.nd.array(y[g:2 * g], ctx=ctx)])
+        assert one.fused_step(step_one)
+        back, _ = _host_params(one)
+        torch.save(back, os.path.join(out, "fit-one-device.pt"))
+        mx.CheckpointManager(os.path.join(out, "fit-one")).save(one, 2)
+        del one
+        _free(gpu)
+    mx.parallel.barrier()
+    mx.CheckpointManager(os.path.join(out, "fit-one")).restore(mod)
+    rec["restored_digest"] = _digest(_host_params(mod)[0])
+    if rank == 0:
+        rec["one_device_to_mesh_bit_equal"] = _bit_equal(
+            _host_params(mod)[0], torch.load(
+                os.path.join(out, "fit-one-device.pt")))
+    else:
+        _host_params(mod)            # the gather is a collective
+    del mod
+    _free(gpu)
+    # fp64 step 1 on the mesh, the arbiter's counterpart
+    w64 = _dp_module_fp64_step(mx, ctx, cfg, rehearsal, mesh=mesh)
+    if rank == 0:
+        torch.save(w64, os.path.join(out, "fit-step1-fp64.pt"))
+    del w64
+    _free(gpu)
+    return rec
+
+
+def em_worker(out, rehearsal):
+    """One worker of the engine_meshes phase (``chip_smoke.py --em-worker
+    DIR``, started by ``python -m mxnet_tpu_torch.launch -n 4``): legs
+    (a)-(c); writes ``em-r<rank>.json`` under ``out``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    rank = mx.dist.rank()
+    assert mx.dist.process_count() == _EM_WORLD, mx.dist.process_count()
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = _em_cfg(rehearsal)
+    res = {"rank": rank, "backend": mx.dist.backend(),
+           "world": mx.dist.process_count(), "legs": {}}
+    FA.fwd_launches = FA.bwd_launches = 0
+    for leg, run in (
+            ("serving", lambda: _em_serve_leg(mx, ctx, cfg, rank, rehearsal)),
+            ("decode", lambda: _em_decode_leg(mx, ctx, cfg, rank,
+                                              rehearsal)),
+            ("fit", lambda: _em_fit_leg(mx, ctx, rank, out, rehearsal))):
+        t0 = time.perf_counter()
+        with _mp_deadline(rehearsal, "em_" + leg):
+            res["legs"][leg] = run()
+        res["legs"][leg]["leg_s"] = time.perf_counter() - t0
+    res["k2_launches"], res["k3_launches"] = FA.fwd_launches, \
+        FA.bwd_launches
+    with open(os.path.join(out, "em-r%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    mx.dist.finalize()
+
+
+def _em_launch(out, rehearsal):
+    """The four workers through the port's launcher under its hard
+    timeout; raises when a worker fails, hangs or the launcher does.
+    Returns the workers' records, rank order, and the seconds."""
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+           str(_EM_WORLD), "--timeout", str(_EM_LAUNCH_S[rehearsal])]
+    if rehearsal:
+        cmd.append("--force-cpu")
+    cmd += ["--", sys.executable, os.path.abspath(__file__), "--em-worker",
+            out] + (["--cpu-rehearsal"] if rehearsal else [])
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    if rehearsal:
+        env["OMP_NUM_THREADS"] = "1"
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=here, capture_output=True,
+                         text=True, timeout=_EM_LAUNCH_S[rehearsal] + 60)
+    secs = time.perf_counter() - t0
+    sys.stderr.write(res.stderr[-20000:])
+    assert res.returncode == 0, ("engine_meshes workers failed",
+                                 res.returncode)
+    recs = []
+    for r in range(_EM_WORLD):
+        with open(os.path.join(out, "em-r%d.json" % r)) as f:
+            recs.append(json.load(f))
+    return recs, secs
+
+
+def engine_meshes_phase(mx, ctx, rehearsal, card):
+    """Serving, decode and ``Module.fit`` over partitioned meshes across
+    four worker processes on one card (``python -m mxnet_tpu_torch.launch
+    -n 4``, the ranks share ``cuda:0`` over gloo), after one process's
+    step-1 references. Returns the K1, K2 and K3 launches of the workers'
+    main paths (every rank)."""
+    gpu = ctx.device_type == "gpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _free(gpu)
+    out = tempfile.mkdtemp(prefix="chip_smoke_em_")
+    try:
+        return _engine_meshes(mx, ctx, rehearsal, card, gpu, out)
+    finally:
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+        _free(gpu)
+
+
+def _engine_meshes(mx, ctx, rehearsal, card, gpu, out):
+    t0 = time.perf_counter()
+    cfg = _dp_cfg(rehearsal)
+    net, sym, hw, classes = _resnet_net(mx, ctx, rehearsal)
+    aux_names = set(sym.list_auxiliary_states())
+    w = {k: p.data()._data.to("cpu", copy=True)
+         for k, p in net.collect_params().items()}
+    del net
+    arg = {k: v for k, v in w.items() if k not in aux_names}
+    aux = {k: v for k, v in w.items() if k in aux_names}
+    _, one = _dp_module_reference(mx, ctx, cfg, sym, arg, aux, hw, classes)
+    _free(gpu)
+    one64 = _dp_module_fp64_step(mx, ctx, cfg, rehearsal)
+    mx.layout.set_default_layout(None)
+    _free(gpu)
+    ref_s = time.perf_counter() - t0
+    recs, launch_s = _em_launch(out, rehearsal)
+    checks, report = {}, {}
+    for r in recs:
+        assert r["backend"] == "gloo" and r["world"] == _EM_WORLD, r
+    k1 = sum(r["legs"]["serving"]["k1_launches"]
+             + r["legs"]["fit"]["k1_launches"] for r in recs)
+    k2 = sum(r["k2_launches"] for r in recs)
+    k3 = sum(r["k3_launches"] for r in recs)
+    # (a) serving
+    sv = [r["legs"]["serving"] for r in recs]
+    per_fwd = sv[0]["tails_per_forward"] if gpu else 0
+    checks["serving_buckets_bit_equal_to_one_device"] = all(
+        sv[0]["buckets_bit_equal"].values())
+    checks["serving_cpu_recompute"] = \
+        sv[0]["cpu_recompute_max_abs_err_over_max_logit"] <= 1e-3
+    checks["serving_k1_per_forward_every_rank"] = all(
+        s["k1_launches"] == per_fwd * sv[0]["forwards"] for s in sv)
+    checks["serving_followers_refuse_requests"] = all(
+        s["follower_refused"] for s in sv[1:])
+    checks["serving_params_sharded"] = all(
+        s["committed_param_bytes"] < s["replicated_param_bytes"] / 2
+        for s in sv)
+    report["serving"] = {"rank0": sv[0], "per_rank": [
+        {k: s.get(k) for k in ("committed_param_bytes",
+                               "replicated_param_bytes", "peak_bytes",
+                               "k1_launches")} for s in sv],
+        "gate": {"buckets": "bit-equal", "cpu_recompute": 1e-3}}
+    # (b) decode
+    dc = [r["legs"]["decode"] for r in recs]
+    checks["decode_tokens_to_margin_cut"] = \
+        dc[0]["vs_one_device"]["tokens_equal_to_margin_cut"]
+    checks["decode_logits_to_margin_cut"] = \
+        dc[0]["vs_one_device"]["max_abs_err_over_max_logit"] <= _DECODE_TOL
+    checks["decode_kv_quarter_every_rank"] = all(
+        d["kv_cache_bytes"] * _EM_WORLD == d["whole_pool_bytes"] for d in dc) \
+        and dc[0]["one_device_kv_cache_bytes"] == dc[0]["whole_pool_bytes"]
+    checks["decode_followers_refuse_requests"] = all(
+        d["follower_refused"] for d in dc[1:])
+    report["decode"] = {"rank0": dc[0], "per_rank": [
+        {k: d.get(k) for k in ("kv_cache_bytes", "whole_pool_bytes",
+                               "committed_param_bytes",
+                               "replicated_param_bytes", "peak_bytes")}
+        for d in dc]}
+    # (c) Module.fit
+    ft = [r["legs"]["fit"] for r in recs]
+    card_step1 = torch.load(os.path.join(out, "fit-step1.pt"))
+    card64 = torch.load(os.path.join(out, "fit-step1-fp64.pt"))
+    ok, gate = _dp_gate(card_step1, card64, one, one64, arg)
+    checks["fit_step1_gate"] = ok
+    checks["fit_ranks_bit_equal"] = len(
+        {(f["end_digest"], f["end_aux_digest"]) for f in ft}) == 1
+    checks["fit_k1_per_step_every_rank"] = all(
+        f["k1_launches"] == (f["tails_per_step"] if gpu else 0)
+        * f["batches"] for f in ft)
+    checks["fit_checkpoint_mesh_to_one_device"] = \
+        ft[0]["mesh_to_one_device_bit_equal"]
+    checks["fit_checkpoint_one_device_to_mesh"] = \
+        ft[0]["one_device_to_mesh_bit_equal"] \
+        and len({f["restored_digest"] for f in ft}) == 1
+    checks["fit_checkpoint_layout"] = all(
+        f["checkpoint_layout"] == _EM_FIT_AXES for f in ft)
+    report["fit"] = {"rank0": ft[0], "step1_gate": gate, "per_rank": [
+        {k: f.get(k) for k in ("committed_param_bytes",
+                               "committed_grad_bytes",
+                               "committed_state_bytes",
+                               "replicated_param_bytes", "peak_bytes",
+                               "k1_launches")} for f in ft]}
+    emit({"engine_meshes": {
+        "card": card, "world": _EM_WORLD, "backend": recs[0]["backend"],
+        "serving_axes": _EM_SERVE_AXES, "fit_axes": _EM_FIT_AXES,
+        "seconds": {"references": ref_s, "launch": launch_s,
+                    "rank0_legs": {k: v["leg_s"]
+                                   for k, v in recs[0]["legs"].items()}},
+        "legs": report, "launches": {"k1": k1, "k2": k2, "k3": k3},
+        "checks": checks}})
+    failed = sorted(k for k, v in checks.items() if not v)
+    assert not failed, failed
+    return k1, k2, k3
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
           "resnet_training", "gluon_training", "decode", "rnn_training",
           "image_classification", "gluon_zoo", "observability",
-          "dense_prediction", "data_parallel", "model_parallel")
+          "dense_prediction", "data_parallel", "model_parallel",
+          "engine_meshes")
 
 
 def main(argv=None):
@@ -6813,6 +7383,7 @@ def main(argv=None):
     ap.add_argument("--dp-worker", nargs=2, metavar=("GROUP", "DIR"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--mp-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--em-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     if args.dp_worker:
@@ -6820,6 +7391,9 @@ def main(argv=None):
         return 0
     if args.mp_worker:
         mp_worker(args.mp_worker, rehearsal)
+        return 0
+    if args.em_worker:
+        em_worker(args.em_worker, rehearsal)
         return 0
     todo = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(todo) - set(PHASES))
@@ -6887,6 +7461,10 @@ def main(argv=None):
         with phase("model_parallel"):
             res["mp_launches"] = model_parallel_phase(
                 mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
+    if "engine_meshes" in todo:
+        with phase("engine_meshes"):
+            res["em_launches"] = engine_meshes_phase(
+                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -6899,7 +7477,8 @@ def main(argv=None):
         "replaces": "mxnet_tpu/pallas/fused_bn.py:44",
         "launches": res["k1_launches"] + res["k1_train_launches"]
         + res["k1_gluon_launches"] + res["obs_launches"]
-        + res["dp_launches"][0] + res["mp_launches"][0],
+        + res["dp_launches"][0] + res["mp_launches"][0]
+        + res["em_launches"][0],
         "serving_launches": res["k1_launches"],
         "observability_launches": res["obs_launches"],
         "training_launches": res["k1_train_launches"],
@@ -6910,6 +7489,7 @@ def main(argv=None):
         "dense_prediction_launches": res["dense_launches"][0],
         "data_parallel_launches": res["dp_launches"][0],
         "model_parallel_launches": res["mp_launches"][0],
+        "engine_meshes_launches": res["em_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -6922,7 +7502,7 @@ def main(argv=None):
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:83",
         "launches": launches["fwd"] + res["dp_launches"][1]
-        + res["mp_launches"][1],
+        + res["mp_launches"][1] + res["em_launches"][1],
         "training_launches": launches["fwd"],
         "rnn_training_launches": res["rnn_launches"][1],
         "image_classification_launches": res["ic_launches"][1],
@@ -6930,6 +7510,7 @@ def main(argv=None):
         "dense_prediction_launches": res["dense_launches"][1],
         "data_parallel_launches": res["dp_launches"][1],
         "model_parallel_launches": res["mp_launches"][1],
+        "engine_meshes_launches": res["em_launches"][1],
         "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
@@ -6943,7 +7524,7 @@ def main(argv=None):
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:261",
         "launches": launches["bwd"] + res["dp_launches"][2]
-        + res["mp_launches"][2],
+        + res["mp_launches"][2] + res["em_launches"][2],
         "training_launches": launches["bwd"],
         "rnn_training_launches": res["rnn_launches"][2],
         "image_classification_launches": res["ic_launches"][2],
@@ -6951,6 +7532,7 @@ def main(argv=None):
         "dense_prediction_launches": res["dense_launches"][2],
         "data_parallel_launches": res["dp_launches"][2],
         "model_parallel_launches": res["mp_launches"][2],
+        "engine_meshes_launches": res["em_launches"][2],
         "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,

@@ -23,6 +23,10 @@ package keeps its global key under ``rng_state``, the port each device
 generator's state (``random.get_state``) under ``torch_rng_state``. Each
 package restores its own key and ignores the other's, so a checkpoint of
 either resumes in the other (random draws never match across packages).
+A module on a mesh saves its whole parameters and states (gathered from
+the members) with ``meta["layout"]``, its ``partition_summary()``; a
+restore cuts the resuming module's shards, whatever mesh (or single
+device) it is bound to.
 """
 from __future__ import annotations
 
@@ -160,6 +164,13 @@ class CheckpointManager:
                 "prefix": os.path.abspath(self.prefix),
                 "torch_rng_state": _random.get_state(),
                 "optimizer_states": has_states, "ts": time.time()}
+        # the params file holds the whole values (gathered from a mesh's
+        # members); the layout they were trained under is provenance: a
+        # restore cuts the resuming module's own shards
+        layout = getattr(module, "partition_summary", None)
+        layout = layout() if callable(layout) else None
+        if layout:
+            meta["layout"] = layout
         optimizer = getattr(module, "_optimizer", None)
         if optimizer is not None:
             meta["update_counts"] = {

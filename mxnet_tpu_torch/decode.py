@@ -43,9 +43,21 @@ spans (``telemetry.DECODE_SPANS``) under the causal request ids, the
 and flight-recorder postmortems (a rebuilt pool, a breaker trip, a
 dying scheduler).
 
-Not ported yet: partition rules over more than one device (a one-device
-mesh shards nothing; ROADMAP Queue 1 item 4, second half); one captured CUDA graph
-per slot bucket (item 1).
+A mesh (``partition_rules=``, ``mesh_axes=``, ``contexts=``, as
+serving's) commits the parameters and the pool by the rules, one shard
+a member (``parallel.spmd.MeshParams``). Under
+``ring_attention.DECODE_PARTITION_RULES`` the heads of ``wq``/``wk``/
+``wv``/``wo`` and of the cache split over ``mp``: each member attends
+its own heads of its own cache, and only the output projection's
+partial sum crosses the ``mp`` line (an all-reduce); ``embed`` and
+``head`` stay whole. A cache held whole (``partition_rules=[]``, the
+LSTM cell) leaves every member computing what one device computes.
+Members of one process run each dispatch together; across processes the
+scheduler runs on rank 0, which broadcasts every prefill (slot, length,
+tokens) and every step (lanes, tokens, positions) to the followers and
+samples the tokens.
+
+Not ported yet: one captured CUDA graph per slot bucket (item 1).
 """
 from __future__ import annotations
 
@@ -76,6 +88,9 @@ __all__ = ["DecodeEngine", "DecodeResult", "AttentionDecodeCell",
            "LSTMDecodeCell", "DeadlineExceeded", "QueueOverflow",
            "CircuitOpen", "EngineClosed"]
 
+
+# what a mesh engine's rank 0 broadcasts ahead of each dispatch
+_MSG_STOP, _MSG_PREFILL, _MSG_STEP = 0, 1, 2
 
 DecodeResult = collections.namedtuple("DecodeResult", ["tokens", "logits"])
 DecodeResult.__doc__ = """One finished sequence: ``tokens`` is the
@@ -140,13 +155,16 @@ class AttentionDecodeCell:
             "head": u(E, E, V),
         }
 
-    def prefill(self, params, state, tokens, length):
+    def prefill(self, params, state, tokens, length, head_sum=None):
         """Teacher-forced prompt pass over ONE slot: ``tokens`` (L,) the
         padded prompt, ``length`` an int. Writes k/v for positions
         ``[0, L)`` into the ``(H, T, D)`` leaves of ``state``, attends
         causally, and returns the state and the logits at ``length - 1``
         (pad positions past ``length`` are never attended: the causal
-        mask covers them here, the running-length mask afterwards)."""
+        mask covers them here, the running-length mask afterwards).
+        ``head_sum`` sums the output projection over the members that
+        hold the other heads (a mesh member's own heads only: ``params``
+        and ``state`` hold them)."""
         L = tokens.shape[0]
         x = params["embed"][tokens]                        # (L, E)
         q = torch.einsum("le,ehd->lhd", x, params["wq"])
@@ -158,15 +176,15 @@ class AttentionDecodeCell:
         vc[:, :L] = vh
         out = attention(q.transpose(0, 1)[None], kh[None], vh[None],
                         causal=True)[0]                    # (H, L, D)
-        h = x[length - 1] + torch.einsum("hd,hde->e", out[:, length - 1],
-                                         params["wo"])
+        proj = torch.einsum("hd,hde->e", out[:, length - 1], params["wo"])
+        h = x[length - 1] + (proj if head_sum is None else head_sum(proj))
         return {"cache/k": kc, "cache/v": vc}, h @ params["head"]
 
-    def step(self, params, state, tokens, pos):
+    def step(self, params, state, tokens, pos, head_sum=None):
         """One decode step for a batch of slots: ``tokens``/``pos`` (B,)
         integer tensors, ``state`` leaves (B, H, T, D). Row b writes its
         k/v at ``pos[b]`` and attends over ``[0, pos[b]]``. Returns the
-        state and the logits (B, V)."""
+        state and the logits (B, V); ``head_sum`` as in ``prefill``."""
         x = params["embed"][tokens]                        # (B, E)
         q = torch.einsum("be,ehd->bhd", x, params["wq"])
         k = torch.einsum("be,ehd->bhd", x, params["wk"])
@@ -178,7 +196,8 @@ class AttentionDecodeCell:
         kc[rows, :, pos] = k.to(kc.dtype)
         vc[rows, :, pos] = v.to(vc.dtype)
         att = decode_attention(q, kc, vc, pos + 1)         # (B, H, D)
-        h = x + torch.einsum("bhd,hde->be", att, params["wo"])
+        proj = torch.einsum("bhd,hde->be", att, params["wo"])
+        h = x + (proj if head_sum is None else head_sum(proj))
         return {"cache/k": kc, "cache/v": vc}, h @ params["head"]
 
 
@@ -297,10 +316,11 @@ class DecodeEngine:
     eos_id : default early-stop token id, or None
     ctx : Context — the device (default ``gpu(0)``; ``MXNetError`` when
         no CUDA device is present and no ``ctx=cpu()`` was given)
-    partition_rules / mesh_axes / contexts : a mesh as in the JAX
-        package; a mesh of more than one device raises (ROADMAP Queue 1
-        item 4, second half),
-        and on one device the rules shard nothing
+    partition_rules / mesh_axes / contexts : a mesh as serving's
+        (``mesh_axes`` default ``{"dp": 1, "mp": -1}``; a mesh needs
+        rules or axes): ``DECODE_PARTITION_RULES`` shards the heads over
+        ``mp``, ``[]`` replicates everything. Across the processes of a
+        launched job rank 0 schedules and the others follow it
     max_queue : sequences allowed to WAIT for a slot (None: unbounded)
     deadline_ms : default deadline for one sequence's whole life,
         enforced while queued and at every decode step
@@ -351,23 +371,27 @@ class DecodeEngine:
         self._keep_logits = bool(keep_logits)
         self._logger = telemetry_logger
 
+        self._mesh_spec = None
+        self._follower = False
+        if partition_rules is not None or mesh_axes:
+            from .parallel import spmd as _spmd
+            self._mesh_spec = _spmd.engine_spec(
+                "decode", partition_rules, mesh_axes, contexts, ctx)
+            ctx = self._mesh_spec.mesh.devices[0]
         if ctx is None:
             ctx = current_context()
-        if partition_rules is not None or mesh_axes or contexts:
-            from .parallel.mesh import make_mesh
-            mesh = make_mesh(dict(mesh_axes) if mesh_axes
-                             else {"dp": 1, "mp": -1},
-                             devices=list(contexts) if contexts else [ctx])
-            if mesh.size != 1:
-                raise MXNetError(
-                    "DecodeEngine: a mesh of %d devices; the engines' "
-                    "meshes are not ported yet (ROADMAP Queue 1 item 4, "
-                    "second half)" % mesh.size)
-            ctx = mesh.device
         self._ctx = ctx
         self._device = ctx.torch_device()
-        self._params = tree_from_numpy(params, ctx=ctx)
-        self._cache = self._make_cache()
+        self._prefill_impl = self._make_prefill_impl()
+        self._decode_impl = self._make_decode_impl()
+        prefill, decode = self._prefill_impl, self._decode_impl
+        if self._mesh_spec is None:
+            self._params = tree_from_numpy(params, ctx=ctx)
+            self._cache = self._make_cache()
+        else:
+            self._init_members(params)
+            prefill = self._on_mesh(_MSG_PREFILL, prefill)
+            decode = self._on_mesh(_MSG_STEP, decode)
         # the scheduler thread launches on the stream the parameters
         # were uploaded on
         self._stream = torch.cuda.current_stream(self._device) \
@@ -376,11 +400,11 @@ class DecodeEngine:
         # one program card per (family, bucket) signature; the bodies
         # return (cache, tokens, logits) and ``nan`` poisons the logits
         self._prefill_prog = _InstrumentedProgram(
-            "decode_prefill", self._make_prefill_impl(),
+            "decode_prefill", prefill,
             argnames=("params", "cache", "slot", "tokens", "length"),
             out_index=2, on_card=self._prefill_compiled)
         self._decode_prog = _InstrumentedProgram(
-            "decode", self._make_decode_impl(),
+            "decode", decode,
             argnames=("params", "cache", "ids", "toks", "pos"),
             out_index=2)
 
@@ -398,8 +422,10 @@ class DecodeEngine:
         self._tok_lat = collections.deque(maxlen=100000)   # guarded by: self._lock
         self._req_lat = collections.deque(maxlen=100000)   # guarded by: self._lock
         self._q = queue.Queue()
-        self._thread = threading.Thread(target=self._decode_loop,
-                                        name="mx-decode-sched", daemon=True)
+        self._thread = threading.Thread(
+            target=self._follow if self._follower else self._decode_loop,
+            name="mx-decode-follow" if self._follower else "mx-decode-sched",
+            daemon=True)
         self._thread.start()
         flight.register_engine(self)
         if warmup:
@@ -409,10 +435,24 @@ class DecodeEngine:
     def _make_cache(self):
         """A fresh zeroed slot pool on the device, charged to the buffer
         ledger as ``kv_cache`` (a rebuilt pool's old tensors release
-        their charge when collected)."""
+        their charge when collected). On a mesh every member's pool of
+        its shards, under the mesh's ledger key; member 0's is returned."""
+        spec = self.cell.cache_spec(self.slots)
+        if self._mesh_spec is not None:
+            from .parallel import spmd as _spmd
+            layout = self._layout
+
+            def fresh(j):
+                m = self._members[j]
+                m["cache"] = {n: torch.zeros(layout.shard_shape(n),
+                                             dtype=dt, device=m["device"])
+                              for n, (_, dt) in spec.items()}
+                for t in m["cache"].values():
+                    layout.track(t, kind="kv_cache")
+                return m["cache"]
+            return _spmd.run_members(self._mesh_spec.mesh, fresh)[0]
         cache = {name: torch.zeros(shape, dtype=dtype, device=self._device)
-                 for name, (shape, dtype)
-                 in self.cell.cache_spec(self.slots).items()}
+                 for name, (shape, dtype) in spec.items()}
         for t in cache.values():
             telemetry.ledger_track(t, str(self._ctx), t.nbytes,
                                    shape=tuple(t.shape), dtype=str(t.dtype),
@@ -420,9 +460,150 @@ class DecodeEngine:
         return cache
 
     def partition_summary(self):
-        """The decode mesh's layout; None on the port's one device (the
-        engines' meshes, ROADMAP Queue 1 item 4, second half)."""
-        return None
+        """JSON-safe layout of the decode mesh (None without one): the
+        parameters' and the cache leaves' resolved specs."""
+        if self._mesh_spec is None:
+            return None
+        from .parallel.partition import partition_summary as _summary
+        return _summary(self._mesh_spec, self._layout.shapes)
+
+    # -- the mesh ------------------------------------------------------------
+    def _init_members(self, params):
+        """Every member's shards of the parameters and of a zeroed pool
+        (charged under the mesh key), the heads' axes when the pool is
+        head-sharded, and the follower's role on ranks after the first."""
+        from .parallel import spmd as _spmd
+        from .context import cpu
+        spec = self._mesh_spec
+        mesh = spec.mesh
+        whole = tree_from_numpy(params, ctx=cpu())
+        shapes = {n: tuple(t.shape) for n, t in whole.items()}
+        shapes.update({n: tuple(s) for n, (s, _)
+                       in self.cell.cache_spec(self.slots).items()})
+        layout = self._layout = _spmd.MeshParams(spec, shapes)
+        self._heads = self._head_axes(layout, list(whole))
+
+        def commit(j):
+            layout.groups()
+            dev = mesh.devices[j].torch_device()
+            held = {n: layout.shard(n, t, dev) for n, t in whole.items()}
+            for t in held.values():
+                layout.track(t)
+            return {"params": held, "device": dev}
+        self._members = _spmd.run_members(mesh, commit)
+        self._params = self._members[0]["params"]
+        self._cache = self._make_cache()
+        self._spanning = mesh.processes > 1
+        self._follower = self._spanning and mesh.rank != 0
+        self._follow_error = None
+
+    def _head_axes(self, layout, param_names):
+        """The axes the heads split over when the pool is sharded (the
+        layout of ``DECODE_PARTITION_RULES``: dim 1 of the cache leaves
+        and of ``wq``/``wk``/``wv``, dim 0 of ``wo``, nothing else), or
+        None for a pool held whole on every member."""
+        cache = list(self.cell.cache_spec(self.slots))
+        if not any(layout.is_sharded(n) for n in cache):
+            return None
+        pl = layout.placements
+
+        def splits(n):
+            return [(d, pl[n].split(d)) for d in range(len(pl[n].spec))
+                    if pl[n].split(d)] if layout.is_sharded(n) else []
+        if not all(n in pl for n in ("wq", "wk", "wv", "wo")):
+            splits = None
+        axes = splits(cache[0]) if splits else []
+        heads = [(0, axes[0][1])] if len(axes) == 1 else None
+        ok = len(axes) == 1 and axes[0][0] == 1 \
+            and all(splits(n) == axes for n in cache) \
+            and all(splits(w) == axes for w in ("wq", "wk", "wv")) \
+            and splits("wo") == heads \
+            and not any(layout.is_sharded(n) for n in param_names
+                        if n not in ("wq", "wk", "wv", "wo"))
+        if not ok:
+            raise MXNetError(
+                "decode: the cache is sharded as %s; a sharded pool needs "
+                "the heads layout of DECODE_PARTITION_RULES (heads of the "
+                "cache and of wq/wk/wv/wo over one axis, every other "
+                "parameter whole)" % {n: tuple(pl[n].spec) for n in cache})
+        return axes[0][1]
+
+    def _on_mesh(self, kind, impl):
+        """A program body over the mesh: rank 0 of a launched job first
+        broadcasts the dispatch, then every local member runs ``impl`` on
+        its shards; member 0's (tokens, logits) come back."""
+        def body(params, cache, *rest):
+            if self._spanning:
+                self._announce(kind, rest)
+            tok, logits = self._run_members(impl, rest)
+            return cache, tok, logits
+        return body
+
+    def _run_members(self, impl, rest):
+        from .parallel import collectives as C
+        from .parallel import spmd as _spmd
+        layout, mesh = self._layout, self._mesh_spec.mesh
+
+        def member(j):
+            m = self._members[j]
+            if self._heads is not None:
+                group = mesh.group(self._heads)
+                _, tok, logits = impl(
+                    m["params"], m["cache"], *rest,
+                    head_sum=lambda t: C._all_reduce(t, group, "sum"))
+            else:
+                params = {n: layout.whole(n, t)
+                          for n, t in m["params"].items()}
+                _, tok, logits = impl(params, m["cache"], *rest)
+            return tok, logits
+        return _spmd.run_members(mesh, member)[0]
+
+    def _announce(self, kind, rest):
+        """Rank 0: one dispatch's header and integer payload to every
+        follower (a prefill's slot, length and tokens; a step's lanes)."""
+        from .parallel import collectives as C
+        if kind == _MSG_PREFILL:
+            slot, tokens, length = rest
+            C.broadcast(torch.tensor([kind, int(slot), int(length),
+                                      len(tokens)]))
+            C.broadcast(torch.from_numpy(np.asarray(tokens, np.int64)))
+        else:
+            ids, toks, pos = rest
+            C.broadcast(torch.tensor([kind, len(ids), 0, 0]))
+            C.broadcast(torch.from_numpy(np.stack([ids, toks, pos])
+                                         .astype(np.int64)))
+
+    def _follow(self):
+        """A follower's loop: run every dispatch rank 0 broadcasts on this
+        process's members, until its stop (a failure is raised by
+        ``close()``)."""
+        from .parallel import collectives as C
+        try:
+            with self._device_scope():
+                while True:
+                    head = C.broadcast(torch.zeros(4, dtype=torch.int64))
+                    kind, a, b, c = (int(v) for v in head)
+                    if kind == _MSG_STOP:
+                        return
+                    if kind == _MSG_PREFILL:
+                        toks = C.broadcast(torch.zeros(c, dtype=torch.int64))
+                        self._run_members(self._prefill_impl, (
+                            np.int32(a), toks.numpy().astype(np.int32),
+                            np.int32(b)))
+                    else:
+                        lanes = C.broadcast(torch.zeros(
+                            (3, a), dtype=torch.int64)).numpy()
+                        self._run_members(self._decode_impl, tuple(
+                            lanes.astype(np.int32)))
+        except BaseException as e:          # noqa: BLE001 -- close() raises
+            self._follow_error = e
+
+    def _not_follower(self, what):
+        if self._follower:
+            raise MXNetError(
+                "decode: %s on rank %d, which follows the engine of rank 0 "
+                "(a mesh across processes takes requests on rank 0 only)"
+                % (what, self._mesh_spec.mesh.rank))
 
     def _prefill_compiled(self, card):
         telemetry.counter_inc("decode.prefill_compiles")
@@ -451,17 +632,19 @@ class DecodeEngine:
 
     # -- program bodies ------------------------------------------------------
     def _make_prefill_impl(self):
-        cell, S, dev = self.cell, self.slots, self._device
+        cell, S = self.cell, self.slots
 
-        def prefill_impl(params, cache, slot, tokens, length):
+        def prefill_impl(params, cache, slot, tokens, length, **cell_kw):
             # slot S (warmup) targets no slot: a zero scratch state whose
             # result is dropped
             slot, length = int(slot), int(length)
             live = slot < S
             state = {n: l[slot] if live else torch.zeros_like(l[0])
                      for n, l in cache.items()}
+            dev = next(iter(cache.values())).device
             toks = torch.from_numpy(np.asarray(tokens, np.int64)).to(dev)
-            state, logits = cell.prefill(params, state, toks, length)
+            state, logits = cell.prefill(params, state, toks, length,
+                                         **cell_kw)
             if live:
                 for n, l in cache.items():
                     l[slot].copy_(state[n])
@@ -470,20 +653,21 @@ class DecodeEngine:
         return prefill_impl
 
     def _make_decode_impl(self):
-        cell, S, dev = self.cell, self.slots, self._device
+        cell, S = self.cell, self.slots
 
-        def decode_impl(params, cache, ids, toks, pos):
+        def decode_impl(params, cache, ids, toks, pos, **cell_kw):
             # live lanes lead; padding lanes carry id S. They gather slot
             # S-1 (read only) and only the n live rows are written back:
             # one program per BUCKET width, not per active set
             ids = np.asarray(ids)
             n = int(np.count_nonzero(ids < S))
+            dev = next(iter(cache.values())).device
             lanes = torch.from_numpy(np.stack(
                 [np.minimum(ids, S - 1), toks, pos]).astype(np.int64)).to(dev)
             idx, tok, p = lanes
             state = {name: l.index_select(0, idx)
                      for name, l in cache.items()}
-            state, logits = cell.step(params, state, tok, p)
+            state, logits = cell.step(params, state, tok, p, **cell_kw)
             live = idx[:n]
             for name, l in cache.items():
                 l.index_copy_(0, live, state[name][:n].to(l.dtype))
@@ -516,7 +700,10 @@ class DecodeEngine:
         workspace the traffic uses), and fetch their results as traffic
         does. Nothing is written: the prefills target slot S and every
         decode lane is padding, so the pool keeps its contents. After it,
-        steady traffic allocates no new allocator segment."""
+        steady traffic allocates no new allocator segment. A follower's
+        members warm up with rank 0's."""
+        if self._follower:
+            return None
         call = _Call(self._warmup_now)
         with self._lock:
             if self._closed:
@@ -561,6 +748,7 @@ class DecodeEngine:
         (``DeadlineExceeded``). A full bounded queue sheds
         (``QueueOverflow``) or blocks per the ``overload`` policy; an open
         breaker fast-fails (``CircuitOpen``)."""
+        self._not_follower("submit")
         if self._closed:
             raise EngineClosed("decode: engine is closed")
         if self._breaker_tripped():
@@ -730,7 +918,11 @@ class DecodeEngine:
         }
 
     def kv_cache_bytes(self):
-        """Device bytes of this engine's cache pool."""
+        """Device bytes of this engine's cache pool (on a mesh, of this
+        process's members' shards of it)."""
+        if self._mesh_spec is not None:
+            return int(sum(t.nbytes for m in self._members
+                           for t in m["cache"].values()))
         cache = self._cache        # one atomic read: the scheduler may
         # rebind the whole dict (pool rebuild)
         return int(sum(t.nbytes for t in cache.values()))
@@ -753,7 +945,21 @@ class DecodeEngine:
     def close(self):
         """Drain and stop: every already-submitted sequence resolves
         (finishes generating, or sheds on its own deadline) before
-        close() returns; later submits raise ``EngineClosed``."""
+        close() returns; later submits raise ``EngineClosed``. Rank 0 of
+        a mesh across processes then releases the followers, whose
+        ``close()`` returns once that stop arrives."""
+        if self._follower:
+            with self._space:
+                already, self._close_done = self._close_done, True
+                self._closed = True
+            if not already:
+                self._thread.join()
+                if self._follow_error is not None:
+                    raise MXNetError("decode: this follower's loop failed "
+                                     "(%s: %s)" % (
+                                         type(self._follow_error).__name__,
+                                         self._follow_error))
+            return
         with self._space:
             already = self._close_done
             self._close_done = True
@@ -764,6 +970,9 @@ class DecodeEngine:
         if already:
             return
         self._thread.join()
+        if self._mesh_spec is not None and self._spanning:
+            from .parallel import collectives as C
+            C.broadcast(torch.tensor([_MSG_STOP, 0, 0, 0]))
         try:
             from . import compile_cache
             if compile_cache.corpus_path() is not None:

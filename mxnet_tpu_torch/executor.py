@@ -32,6 +32,7 @@ import ast
 import contextlib
 import hashlib
 import itertools
+import threading
 
 import numpy as np
 import torch
@@ -72,6 +73,21 @@ def record_dispatch(kind):
 # ---------------------------------------------------------------------------
 
 _PROG_SEQ = itertools.count(1)
+_QUIET = threading.local()
+
+
+@contextlib.contextmanager
+def quiet(on=True):
+    """Within this scope (this thread) an instrumented entry point runs
+    its function bare: no card, no dispatch count, no fault site. The
+    members of a mesh run so where one member, or the engine around
+    them, carries the instrumentation."""
+    prev = getattr(_QUIET, "on", False)
+    _QUIET.on = bool(on)
+    try:
+        yield
+    finally:
+        _QUIET.on = prev
 
 
 def make_card(kind, entry, signature, flops=None, argument_bytes=None,
@@ -215,12 +231,16 @@ class _InstrumentedProgram:
     def build(self, *args):
         """Run one call and build its signature's card (when telemetry
         is on and the card is new) without counting a dispatch."""
+        if getattr(_QUIET, "on", False):
+            return self._fn(*args)
         key = _dispatch_key(args)
         if key not in self._cards and telemetry.enabled():
             return self._run_carded(key, args)
         return self._fn(*args)
 
     def __call__(self, *args):
+        if getattr(_QUIET, "on", False):
+            return self._fn(*args)
         key = _dispatch_key(args)
         card = self._cards.get(key)
         telemetry.program_dispatch(card)
@@ -247,6 +267,10 @@ class _GraphProgram:
         # replica (or None) for the replicas' entry points (``ReplicaSet``)
         self.tap = None
         self.replica_taps = None
+        # a mesh member's parameters (``parallel.spmd.MeshParams``): the
+        # member holds shards, an op reads a sharded one gathered whole,
+        # and gradients are summed over the data axis; None off a mesh
+        self.layout = None
         self._entries = {}      # (kind, statics) -> (entry id, cards)
         self.nodes = symbol._topo_nodes()
         self.arg_names = symbol.list_arguments()
@@ -285,7 +309,10 @@ class _GraphProgram:
                     raw_in, outs, params).items():
                 child, _ = node.inputs[in_idx]
                 if child.op is None and child.name in self.aux_names:
-                    aux_updates[child.name] = val.detach()
+                    val = val.detach()
+                    if self.layout is not None:
+                        val = self.layout.own(child.name, val)
+                    aux_updates[child.name] = val
         return outs
 
     def eval_graph(self, arg_dict, aux_dict, train=False):
@@ -308,8 +335,19 @@ class _GraphProgram:
         replica's rows and every worker's (``ops/nn.batch_stats_over``):
         what the JAX package's one program over a mesh computes. Returns
         (outputs, aux_updates), one of each per replica; ``taps`` holds
-        one tap (or None) per replica."""
+        one tap (or None) per replica. On a mesh member (``layout``) an
+        op reads each sharded parameter gathered whole, and training-mode
+        batch statistics span the data axis."""
+        layout = self.layout
+        with (layout.batch_stats() if layout is not None and train
+              else contextlib.nullcontext()):
+            return self._eval_replicas(arg_dicts, aux_dicts, train,
+                                       over_workers, taps)
+
+    def _eval_replicas(self, arg_dicts, aux_dicts, train, over_workers,
+                       taps):
         from .ops.nn import batch_stats_over
+        layout = self.layout
         n = len(arg_dicts)
         taps = taps or [None] * n
         envs = [{} for _ in range(n)]
@@ -329,6 +367,10 @@ class _GraphProgram:
                 continue
             raws = [[env[id(c)][idx] for c, idx in node.inputs]
                     for env in envs]
+            if layout is not None:
+                raws = [[layout.whole(c.name, r) if c.op is None else r
+                         for (c, _), r in zip(node.inputs, rw)]
+                        for rw in raws]
             with (batch_stats_over([r[0] for r in raws], over_workers)
                   if shared and node.op.stateful_update is not None
                   else contextlib.nullcontext()):
@@ -420,6 +462,12 @@ class _GraphProgram:
                 aux_list, train, over_workers, taps)
         return outs, leaves, aux_up
 
+    def _reduced(self, grads):
+        """A mesh member's gradients summed over the data axis (as they
+        are off a mesh)."""
+        return grads if self.layout is None \
+            else self.layout.reduce_grads(grads)
+
     @staticmethod
     def _grads(outs, leaves, head_grads=None):
         """``{name: gradient}`` of the outputs (head gradients ones where
@@ -485,7 +533,7 @@ class _GraphProgram:
         def fn(args, aux, head_grads=None):
             outs, leaves, aux_up = self._vjp_over_graph(grad_names, args,
                                                         aux, train)
-            grads = self._grads(outs, leaves, head_grads)
+            grads = self._reduced(self._grads(outs, leaves, head_grads))
             return [o.detach() for o in outs], grads, aux_up
         return self._instrumented("fwd_bwd", (bool(train), grad_names), fn,
                                   ("args", "aux", "head_grads"))
@@ -506,7 +554,7 @@ class _GraphProgram:
         def step(args, aux, add_grads):
             outs, leaves, aux_up = self._vjp_over_graph(update_names, args,
                                                         aux, True)
-            grads = self._grads(outs, leaves)
+            grads = self._reduced(self._grads(outs, leaves))
             outs = [o.detach() for o in outs]
             del leaves
             gs, grads_out = [], {}
@@ -845,7 +893,8 @@ class Executor:
         if self._pending is not None:
             outs, leaves = self._pending
             self._pending = None
-            self._write_grads(_GraphProgram._grads(outs, leaves, hg))
+            self._write_grads(self._prog._reduced(
+                _GraphProgram._grads(outs, leaves, hg)))
             return
         self._run_fwd_bwd(hg, is_train, update_outputs=False)
 

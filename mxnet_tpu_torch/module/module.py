@@ -39,17 +39,34 @@ per key; ``dist_async`` and compressed stores take the phase-split path
 (``FUSED_FALLBACK_CODES["kvstore_dist"]``, as in the JAX package).
 ``compression_params`` goes to the store at ``init_optimizer``.
 
-Not ported yet (ROADMAP Queue 1 item 4, second half): ``group2ctxs``,
-``partition_rules``/``mesh_axes`` and the elastic tiers.
+A mesh (``partition_rules=``, ``mesh_axes=``; the JAX package's
+rule-sharded ``dp x mp`` layout): the context list (and, in a launched
+job whose processes the axes cover, the same list on every process) is
+laid out by ``mesh_axes`` (default ``{"dp": -1}``), one member a device
+(``parallel.spmd.MeshParams``). Each member binds an executor on its
+rows of the batch (the batch splits over ``dp`` only) and holds its
+shards of the parameters, gradients, aux states and optimizer states;
+an op reads a sharded parameter gathered whole, BatchNorm takes its
+statistics over the ``dp`` line, gradients are summed over ``dp``, and
+the update runs on the shards, in the fused step and on the phase-split
+path alike. The members of one process run together
+(``Mesh.run_local``); ``get_params``, ``get_outputs`` and the optimizer
+states gather the whole tensors (collectives: every process calls them).
+A mesh of one device is the plain path. A ``dist*`` store with a mesh
+raises, as in the JAX package.
+
+Not ported yet (ROADMAP Queue 1 item 4, second half): ``group2ctxs`` and
+the elastic tiers.
 """
 from __future__ import annotations
 
 import logging
 
+import numpy as np
 import torch
 
 from ..base import MXNetError, get_env
-from ..context import Context, current_context
+from ..context import Context, cpu, current_context
 from ..executor import ReplicaSet, record_dispatch
 from .. import telemetry
 from ..initializer import InitDesc, Uniform
@@ -75,11 +92,13 @@ class Module(BaseModule):
             context = current_context()
         if isinstance(context, Context):
             context = [context]
-        for what, val in (("group2ctxs", group2ctxs),
-                          ("partition_rules", partition_rules),
-                          ("mesh_axes", mesh_axes)):
-            if val:
-                raise MXNetError("Module(%s=...) is %s" % (what, _SECOND_HALF))
+        if group2ctxs:
+            raise MXNetError("Module(group2ctxs=...) is %s" % _SECOND_HALF)
+        from ..parallel.spmd import as_rules
+        self._partition_rules = as_rules("Module", partition_rules)
+        self._mesh_axes = dict(mesh_axes) if mesh_axes else None
+        self._mesh_spec = None
+        self._layout = None
         self._context = list(context)
         if not self._context:
             raise MXNetError("Module: empty context list")
@@ -174,20 +193,107 @@ class Module(BaseModule):
             else:
                 reqs[name] = grad_req if for_training else "null"
         self._grad_req = reqs
-        descs = slice_descs(self._data_shapes + self._label_shapes,
-                            len(self._context))
-        shape_kwargs = {d.name: d.shape for d in descs}
-        self._execs = [self._symbol.simple_bind(
-            ctx=c, grad_req=reqs, type_dict=type_dict, **shape_kwargs)
-            for c in self._context]
+        if self._mesh_wanted():
+            self._bind_mesh(shape_kwargs, type_dict)
+        else:
+            descs = slice_descs(self._data_shapes + self._label_shapes,
+                                len(self._context))
+            shape_kwargs = {d.name: d.shape for d in descs}
+            self._execs = [self._symbol.simple_bind(
+                ctx=c, grad_req=reqs, type_dict=type_dict, **shape_kwargs)
+                for c in self._context]
+            self._replicas = ReplicaSet(self._execs)
         self._exec = self._execs[0]
-        self._replicas = ReplicaSet(self._execs)
         self.binded = True
         if shared_module is not None and shared_module.params_initialized:
             self.set_params(*shared_module.get_params())
         elif self.params_initialized and self._arg_params is not None:
             # Module.load: the checkpoint's params install at bind time
             self.set_params(self._arg_params, self._aux_params or {})
+
+    # -- the mesh ----------------------------------------------------------
+    def _mesh_wanted(self):
+        """Rules or axes over more than one device (a mesh of one device
+        is the plain path, as the JAX package ignores them there)."""
+        if self._partition_rules is None and not self._mesh_axes:
+            return False
+        from ..parallel.mesh import job_processes
+        axes = self._mesh_axes or {"dp": -1}
+        return len(self._context) * job_processes(axes,
+                                                  len(self._context)) > 1
+
+    def _bind_mesh(self, shape_kwargs, type_dict):
+        """One executor a local member, on its rows of the batch, holding
+        its shards of every parameter, gradient and aux state (zeros,
+        charged to the ledger under the mesh key)."""
+        from ..executor import Executor, _GraphProgram, infer_graph_attrs
+        from ..ndarray import zeros
+        from ..parallel import mesh as _pmesh, spmd as _spmd
+        axes = self._mesh_axes or {_spmd.DP_AXIS: -1}
+        mesh = _pmesh.mesh_from_contexts(
+            self._context, axes=axes,
+            processes=_pmesh.job_processes(axes, len(self._context)))
+        spec = self._mesh_spec = _spmd.rule_spec(mesh, self._partition_rules)
+        local = {d.name: d.shape for d in slice_descs(
+            self._data_shapes + self._label_shapes, spec.dp_size)}
+        arg_shapes, _, aux_shapes, arg_types, _, aux_types = \
+            infer_graph_attrs(self._symbol, shape_kwargs,
+                              known_types=type_dict)
+        arg_names = self._symbol.list_arguments()
+        shapes = {n: s for n, s in zip(arg_names, arg_shapes)
+                  if n in self._param_names}
+        shapes.update(zip(self._aux_names, aux_shapes))
+        layout = self._layout = _spmd.MeshParams(spec, shapes)
+        reqs = self._grad_req
+
+        def bind(j):
+            layout.groups()
+            ctx = mesh.devices[j]
+            prog = _GraphProgram(self._symbol)
+            prog.layout = layout
+            args, grads = [], []
+            for name, shape, dt in zip(arg_names, arg_shapes, arg_types):
+                shape = layout.shard_shape(name) if name in shapes \
+                    else local.get(name, shape)
+                args.append(zeros(shape, ctx=ctx, dtype=dt))
+                grads.append(zeros(shape, ctx=ctx, dtype=dt)
+                             if reqs.get(name, "null") != "null" else None)
+            aux = [zeros(layout.shard_shape(n), ctx=ctx, dtype=dt)
+                   for n, dt in zip(self._aux_names, aux_types)]
+            for a in [a for n, a in zip(arg_names, args) if n in shapes] \
+                    + aux:
+                layout.track(a._data)
+            return Executor(self._symbol, ctx, args, aux, program=prog,
+                            grad_arrays=grads, grad_req=reqs)
+        self._execs = _spmd.run_members(mesh, bind)
+        self._replicas = None
+
+    def _members(self, fn):
+        """``fn(j, executor)`` on every local member (member 0 carries
+        the program cards and the dispatch fault site)."""
+        from ..parallel.spmd import run_members
+        return run_members(self._mesh_spec.mesh,
+                           lambda j: fn(j, self._execs[j]), quiet_first=False)
+
+    def partition_summary(self):
+        """JSON-safe layout of this module's mesh (None off a mesh): the
+        mesh axes, the data axis, the rule tree and the sharded
+        parameters' resolved specs (checkpoint meta records it)."""
+        if self._mesh_spec is None:
+            return None
+        from ..parallel.partition import partition_summary as _summary
+        return _summary(self._mesh_spec, {n: self._layout.shapes[n]
+                                          for n in self._param_names})
+
+    def _whole_shapes(self):
+        """``{name: bound shape}`` of every parameter and aux state (the
+        whole shape on a mesh, whose members hold shards)."""
+        if self._layout is not None:
+            return dict(self._layout.shapes)
+        shapes = {n: a.shape for n, a in self._exec.arg_dict.items()
+                  if n in self._param_names}
+        shapes.update({n: a.shape for n, a in self._exec.aux_dict.items()})
+        return shapes
 
     def reshape(self, data_shapes, label_shapes=None):
         """(parity: module.reshape) rebind at new input shapes over the
@@ -198,12 +304,18 @@ class Module(BaseModule):
         self._data_shapes = [_as_desc(d) for d in data_shapes]
         self._label_shapes = [_as_desc(l) for l in label_shapes] \
             if label_shapes else []
-        descs = slice_descs(self._data_shapes + self._label_shapes,
-                            len(self._context))
-        self._execs = [self._reshaped(old, ctx, descs)
-                       for old, ctx in zip(self._execs, self._context)]
+        if self._layout is not None:
+            descs = slice_descs(self._data_shapes + self._label_shapes,
+                                self._mesh_spec.dp_size)
+            self._execs = self._members(
+                lambda j, old: self._reshaped(old, old._ctx, descs))
+        else:
+            descs = slice_descs(self._data_shapes + self._label_shapes,
+                                len(self._context))
+            self._execs = [self._reshaped(old, ctx, descs)
+                           for old, ctx in zip(self._execs, self._context)]
+            self._replicas = ReplicaSet(self._execs)
         self._exec = self._execs[0]
-        self._replicas = ReplicaSet(self._execs)
 
     def _reshaped(self, old, ctx, descs):
         from ..executor import Executor, infer_graph_attrs
@@ -217,6 +329,8 @@ class Module(BaseModule):
         for name, shape, dtype in zip(self._symbol.list_arguments(),
                                       arg_shapes, arg_types):
             if name in self._param_names:
+                if self._layout is not None:
+                    shape = self._layout.shard_shape(name)
                 if old_args[name].shape != tuple(shape):
                     raise MXNetError("reshape: parameter %r would change "
                                      "shape %s -> %s"
@@ -251,32 +365,57 @@ class Module(BaseModule):
             arg_params = self._arg_params
         if aux_params is None and self._aux_params is not None:
             aux_params = self._aux_params
-        attrs = self._symbol.attr_dict()
-        for name, arr in self._exec.arg_dict.items():
-            if name not in self._param_names:
-                continue
-            given = (arg_params or {}).get(name)
-            if given is not None:
-                arr[:] = given
-            elif initializer is not None:
-                initializer(InitDesc(name, attrs.get(name)), arr)
-            elif not allow_missing:
-                raise MXNetError("no initializer and no value for %r" % name)
-        for name, arr in self._exec.aux_dict.items():
-            given = (aux_params or {}).get(name)
-            if given is not None:
-                arr[:] = given
-            elif initializer is not None:
-                initializer(InitDesc(name, attrs.get(name)), arr)
-            elif not allow_missing:
-                raise MXNetError("no initializer and no value for %r" % name)
+        if self._layout is not None:
+            self._init_mesh_params(initializer, arg_params, aux_params,
+                                   allow_missing)
+            self.params_initialized = True
+            return
+        args = {n: a for n, a in self._exec.arg_dict.items()
+                if n in self._param_names}
+        self._fill(args, self._exec.aux_dict, initializer, arg_params,
+                   aux_params, allow_missing)
         self._sync_replicas()
         self.params_initialized = True
+
+    def _fill(self, args, auxs, initializer, arg_params, aux_params,
+              allow_missing):
+        """Each array a given value (NDArray or numpy) or else the
+        initializer's."""
+        attrs = self._symbol.attr_dict()
+        for arrays, given in ((args, arg_params), (auxs, aux_params)):
+            for name, arr in arrays.items():
+                value = (given or {}).get(name)
+                if value is not None:
+                    arr[:] = value
+                elif initializer is not None:
+                    initializer(InitDesc(name, attrs.get(name)), arr)
+                elif not allow_missing:
+                    raise MXNetError("no initializer and no value for %r"
+                                     % name)
+
+    def _init_mesh_params(self, initializer, arg_params, aux_params,
+                          allow_missing):
+        """The whole values made on the host (rank 0's on every process
+        of a mesh across processes), then each member's shards."""
+        from ..ndarray import zeros
+        from ..parallel.spmd import broadcast_from_zero, commit_dp_placements
+        shapes = self._layout.shapes
+        ex = self._exec
+        host = [{n: zeros(shapes[n], ctx=cpu(), dtype=a.dtype)
+                 for n, a in table.items() if n in shapes}
+                for table in (ex.arg_dict, ex.aux_dict)]
+        self._fill(host[0], host[1], initializer, arg_params, aux_params,
+                   allow_missing)
+        whole = {n: a._data for part in host for n, a in part.items()}
+        if self._mesh_spec.mesh.processes > 1:
+            whole = broadcast_from_zero(whole)
+        self._members(lambda j, ex: commit_dp_placements(ex, whole,
+                                                         self._layout))
 
     def _sync_replicas(self, names=None):
         """Copy the first context's parameters (``names``; default every
         parameter and aux state) into the other contexts' executors."""
-        if len(self._execs) < 2:
+        if len(self._execs) < 2 or self._layout is not None:
             return
         src = self._exec
         with torch.no_grad():
@@ -298,10 +437,27 @@ class Module(BaseModule):
         states, on the module's device."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("get_params: bind and init_params first")
+        if self._layout is not None:
+            return self._gathered_params()
         arg_params = {n: arr.copy() for n, arr in self._exec.arg_dict.items()
                       if n in self._param_names}
         aux_params = {n: arr.copy() for n, arr in self._exec.aux_dict.items()}
         return arg_params, aux_params
+
+    def _gathered_params(self):
+        """The members' shards gathered whole, as NDArrays on the first
+        context (a collective)."""
+        from ..ndarray.ndarray import NDArray
+        layout, ctx = self._layout, self._context[0]
+
+        def whole(j, ex):
+            with torch.no_grad():
+                return [{n: layout.whole(n, a._data).clone()
+                         for n, a in table.items() if n in layout.shapes}
+                        for table in (ex.arg_dict, ex.aux_dict)]
+        arg, aux = self._members(whole)[0]
+        return ({n: NDArray(t, ctx) for n, t in arg.items()},
+                {n: NDArray(t, ctx) for n, t in aux.items()})
 
     # -- optimizer ---------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -314,6 +470,9 @@ class Module(BaseModule):
         if not (self.binded and self.params_initialized):
             raise MXNetError("init_optimizer: bind and init_params first")
         if self.optimizer_initialized and not force_init:
+            return
+        if self._layout is not None:
+            self._init_mesh_optimizer(kvstore, optimizer, optimizer_params)
             return
         arg_dict = self._exec.arg_dict
         kv, update_on_kvstore = _create_kvstore(
@@ -352,6 +511,33 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
+    def _init_mesh_optimizer(self, kvstore, optimizer, optimizer_params):
+        """On a mesh the gradients sum over the ``dp`` line and the
+        members update their shards: no store takes part (a ``dist*``
+        one raises, as in the JAX package)."""
+        kv_type = kvstore if isinstance(kvstore, str) \
+            else getattr(kvstore, "type", "")
+        if kv_type and kv_type.startswith("dist"):
+            raise MXNetError(
+                "partition_rules/mesh_axes cannot be combined with a "
+                "multi-process dist_* kvstore (%r); a mesh spans the job's "
+                "processes itself" % kv_type)
+        if isinstance(optimizer, str):
+            optimizer_params = dict(optimizer_params)
+            optimizer_params.setdefault("rescale_grad", 1.0)
+            optimizer = opt.create(
+                optimizer, sym=self._symbol,
+                param_idx2name=dict(enumerate(self._param_names)),
+                **optimizer_params)
+        self._optimizer = optimizer
+        self._kvstore = None
+        self._update_on_kvstore = False
+        self._updater = _MeshUpdater(optimizer, self)
+        self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
     def _active_updater(self):
         """The updater that owns the optimizer states: the store's under
         ``update_on_kvstore``, else the module's."""
@@ -378,9 +564,19 @@ class Module(BaseModule):
         if is_train is None:
             is_train = self.for_training
         self._set_batch(data_batch)
+        if self._layout is not None:
+            self._members(lambda j, ex: ex.forward(is_train=is_train))
+            return
         self._replicas.forward(is_train=is_train)
 
     def backward(self, out_grads=None):
+        if self._layout is not None:
+            parts = None if out_grads is None else split_batch(
+                out_grads if isinstance(out_grads, (list, tuple))
+                else [out_grads], self._mesh_spec.dp_size)
+            self._members(lambda j, ex: ex.backward(
+                None if parts is None else parts[self._dp_index(j)]))
+            return
         if out_grads is None:
             self._replicas.backward()
         elif len(self._execs) > 1:
@@ -395,7 +591,15 @@ class Module(BaseModule):
         if not (self.binded and self.params_initialized):
             raise MXNetError("forward_backward: bind and init_params first")
         self._set_batch(data_batch)
+        if self._layout is not None:
+            self._members(lambda j, ex: ex.forward_backward())
+            return
         self._replicas.forward_backward()
+
+    def _dp_index(self, j):
+        """Local member ``j``'s coordinate on the data axis."""
+        spec = self._mesh_spec
+        return spec.mesh.coords(j)[spec.data_axis]
 
     def _set_batch(self, data_batch):
         """Copy the batch's data (and labels) into the bound storage, on
@@ -414,7 +618,8 @@ class Module(BaseModule):
             if not isinstance(label, (list, tuple)):
                 label = [label]
             feeds += list(zip(self._label_shapes, label))
-        n = len(self._execs)
+        n = len(self._execs) if self._layout is None \
+            else self._mesh_spec.dp_size
         for desc, arr in feeds:
             if tuple(arr.shape) != tuple(desc.shape):
                 raise MXNetError(
@@ -422,6 +627,10 @@ class Module(BaseModule):
                     "call reshape first"
                     % (desc.name, tuple(arr.shape), tuple(desc.shape)))
             parts = split_batch([arr], n)
+            if self._layout is not None:       # a member takes its dp rows
+                for j, ex in enumerate(self._execs):
+                    ex.arg_dict[desc.name][:] = parts[self._dp_index(j)][0]
+                continue
             for ex, (part,) in zip(self._execs, parts):
                 ex.arg_dict[desc.name][:] = part
 
@@ -447,6 +656,14 @@ class Module(BaseModule):
             return
         keys = [i for i, _ in live]
         names = [n for _, n in live]
+        if self._layout is not None:       # gradients already summed
+            record_dispatch("opt_update")
+            with telemetry.span("opt_update"):
+                self._updater.update_members(
+                    keys, [[ex.grad_dict[n] for n in names]
+                           for ex in self._execs],
+                    [[ex.arg_dict[n] for n in names] for ex in self._execs])
+            return
         multi = len(self._execs) > 1
         grads = [[ex.grad_dict[n] for ex in self._execs] if multi
                  else self._exec.grad_dict[n] for n in names]
@@ -525,7 +742,18 @@ class Module(BaseModule):
         spanning = kv is not None and kv.fused_dist_step \
             and kv._spans_workers()
         self._set_batch(data_batch)
-        if len(self._execs) == 1 and not spanning:
+        if self._layout is not None:
+            # each member's step over its rows; gradients summed over dp
+            # inside it, then every member updates its shards
+            def member(j, ex):
+                got = []
+                self._run_step(ex, names, add_names, got.extend)
+                return got
+            per = self._members(member)
+            self._updater.update_members(
+                indices, per, [[ex.arg_dict[n] for n in names]
+                               for ex in self._execs])
+        elif len(self._execs) == 1 and not spanning:
             self._run_step(self._exec, names, add_names,
                            lambda gs: updater.update_batch(indices, gs,
                                                            weights))
@@ -595,14 +823,31 @@ class Module(BaseModule):
         """The outputs of the last forward: over several contexts
         concatenated along the batch on the first context (or, without
         ``merge_multi_context``, one list per output of each context's
-        part)."""
+        part). On a mesh the members' rows gathered over ``dp`` (a
+        collective)."""
+        if self._layout is not None:
+            return self._gathered_rows(lambda ex: [o._data
+                                                   for o in ex.outputs],
+                                       merge_multi_context)
         return merge_outputs([ex.outputs for ex in self._execs],
                              merge_multi_context)
+
+    def _gathered_rows(self, pick, merge):
+        from ..ndarray.ndarray import NDArray
+        layout, ctx = self._layout, self._context[0]
+        got = self._members(lambda j, ex: [layout.gather_rows(t)
+                                           for t in pick(ex)])[0]
+        outs = [NDArray(t, ctx) for t in got]
+        return outs if merge else [[o] for o in outs]
 
     def get_input_grads(self, merge_multi_context=True):
         if not self.inputs_need_grad:
             raise MXNetError("get_input_grads: bind with "
                              "inputs_need_grad=True")
+        if self._layout is not None:
+            return self._gathered_rows(
+                lambda ex: [ex.grad_dict[n]._data for n in self._data_names
+                            if n in ex.grad_dict], merge_multi_context)
         return merge_outputs(
             [[ex.grad_dict[n] for n in self._data_names
               if n in ex.grad_dict] for ex in self._execs],
@@ -620,7 +865,9 @@ class Module(BaseModule):
         module.install_monitor); the fused step then phase-splits."""
         if not self.binded:
             raise MXNetError("install_monitor: bind first")
-        for ex in self._execs:
+        # on a mesh the monitor taps the first member (its rows)
+        for ex in self._execs[:1] if self._layout is not None \
+                else self._execs:
             mon.install(ex)
 
     def finite_check(self):
@@ -635,12 +882,21 @@ class Module(BaseModule):
             leaves += [g._data for g in ex.grad_dict.values()
                        if g is not None]
         leaves += [self._exec.arg_dict[n]._data for n in self._param_names]
+        if self._layout is not None:        # every member's shards
+            leaves += [ex.arg_dict[n]._data for ex in self._execs[1:]
+                       for n in self._param_names]
         leaves = [t for t in leaves if t.is_floating_point()]
         if not leaves:
             return True
         record_dispatch("finite_check")
         with telemetry.span("divergence_check"), torch.no_grad():
-            ok = torch.stack([torch.isfinite(t).all() for t in leaves]).all()
+            dev = leaves[0].device
+            ok = torch.stack([torch.isfinite(t).all().to(dev)
+                              for t in leaves]).all()
+            if self._layout is not None \
+                    and self._mesh_spec.mesh.processes > 1:
+                from ..parallel import collectives as C
+                ok = C._all_reduce(ok.reshape(1).int(), None, "min")
             telemetry.record_host_sync("divergence_check")
             return bool(ok)
 
@@ -660,6 +916,9 @@ class Module(BaseModule):
         ctx = kwargs.get("context")
         if isinstance(ctx, (list, tuple)):
             ctx = ctx[0]
+        if kwargs.get("partition_rules") is not None \
+                or kwargs.get("mesh_axes"):
+            ctx = cpu()          # the members take their shards from here
         symbol, arg_params, aux_params = load_checkpoint(prefix, epoch,
                                                          ctx=ctx)
         mod = Module(symbol, **kwargs)
@@ -692,6 +951,74 @@ class Module(BaseModule):
             return
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
+
+
+class _MeshUpdater:
+    """The optimizer of a mesh ``Module``: one ``FusedUpdater`` a local
+    member over that member's shards of the weights, gradients and
+    states, sharing the module's optimizer. A step's host bookkeeping
+    (update counts, the scheduler's rate) runs once: every member starts
+    from the same counts. ``get_states`` gathers the whole states (a
+    collective) in the pickled form of both packages; ``set_states`` cuts
+    each member's shards of them by the weight's placement."""
+
+    def __init__(self, optimizer, module):
+        self.optimizer = optimizer
+        self._mod = module
+        self.members = [opt.get_updater(optimizer) for _ in module._execs]
+
+    @property
+    def states(self):
+        """The first local member's states (its shards)."""
+        return self.members[0].states
+
+    def update_members(self, indices, grads, weights):
+        """One step: member ``j`` updates ``weights[j]`` by ``grads[j]``
+        (the same parameter indices on every member)."""
+        o = self.optimizer
+        counts, num = dict(o._index_update_count), o.num_update
+        for upd, gs, ws in zip(self.members, grads, weights):
+            o._index_update_count, o.num_update = dict(counts), num
+            upd.update_batch(indices, gs, ws)
+
+    def get_states(self, dump_optimizer=False):
+        from ..ndarray.ndarray import NDArray
+        mod = self._mod
+        layout, names = mod._layout, mod._param_names
+
+        def whole(j, ex):
+            upd, out = self.members[j], {}
+            with torch.no_grad():
+                for i in sorted(upd.states):
+                    name = names[i]
+                    upd._ensure_state(i, ex.arg_dict[name])   # loaded ones
+                    out[i] = _map_state(upd.states[i], lambda a: NDArray(
+                        layout.whole(name, a._data), a.context))
+            return out
+        host = opt.Updater(self.optimizer)
+        host.states = mod._members(whole)[0]
+        return host.get_states(dump_optimizer)
+
+    def set_states(self, states):
+        mod = self._mod
+        layout, names, mesh = mod._layout, mod._param_names, \
+            mod._mesh_spec.mesh
+        for j, upd in enumerate(self.members):
+            upd.set_states(states)
+            coords = mesh.coords(j)
+            upd.states = {i: _map_state(s, lambda a, n=names[i]: np.array(
+                layout.own_at(n, torch.from_numpy(np.asarray(a)), coords)))
+                for i, s in upd.states.items()}
+
+
+def _map_state(state, fn):
+    """``fn`` over the arrays of one optimizer state (None, an array, or a
+    tuple of them)."""
+    if state is None:
+        return None
+    if isinstance(state, (tuple, list)):
+        return type(state)(_map_state(x, fn) for x in state)
+    return fn(state)
 
 
 def _as_desc(d):

@@ -39,7 +39,8 @@ from ..base import MXNetError
 from ..context import Context, gpu
 
 __all__ = ["Mesh", "AxisGroup", "PartitionSpec", "P", "make_mesh",
-           "default_mesh", "mesh_from_contexts", "barrier", "DP_AXIS"]
+           "default_mesh", "mesh_from_contexts", "job_processes", "barrier",
+           "DP_AXIS"]
 
 DP_AXIS = "dp"
 # seconds a member waits at an in-process rendezvous before it gives up
@@ -65,13 +66,16 @@ class _Rendezvous:
     in its slot, and every member reads every slot between two barriers
     (the second keeps a slot from being overwritten before all read)."""
 
-    def __init__(self, n):
+    def __init__(self, n, aborted=None):
         self.slots = [None] * n
         self.barrier = threading.Barrier(n)
         self.shared = None
+        self.aborted = aborted          # the mesh's: a member has failed
 
     def _wait(self):
         try:
+            if self.aborted is not None and self.aborted.is_set():
+                raise threading.BrokenBarrierError
             self.barrier.wait(RENDEZVOUS_TIMEOUT_S)
         except threading.BrokenBarrierError:
             raise MXNetError("mesh: a member of this process left a "
@@ -111,8 +115,8 @@ class _Line:
             raise MXNetError("mesh %s: line %s has an uneven number of "
                              "devices on each process" % (mesh.shape,
                                                           self.members))
-        self.rv = _Rendezvous(len(self.local)) if len(self.local) > 1 \
-            else None
+        self.rv = _Rendezvous(len(self.local), mesh._aborted) \
+            if len(self.local) > 1 else None
         self.pg = None                  # set by Mesh._make_groups
         self.spans = len(self.procs) > 1
 
@@ -195,6 +199,9 @@ class Mesh:
         self._lock = threading.Lock()
         self._lines = {}          # axes tuple -> {global index: _Line}
         self._pgs = {}            # members tuple -> torch group (or None)
+        # set while a failed member's run is ending: a rendezvous made or
+        # entered after the failure breaks at once instead of waiting
+        self._aborted = threading.Event()
 
     @property
     def axis_names(self):
@@ -253,14 +260,14 @@ class Mesh:
         return self.device.torch_device()
 
     def run_local(self, fn):
-        """``fn(j)`` once for each local device ``j``, each in a thread of
-        its own that the mesh knows as member ``j`` (the calling thread
-        when there is one device); returns the results in device order.
-        A member that raises breaks the other members' collectives, and
-        its exception is raised here."""
+        """``fn(j)`` once for each local device ``j``: member 0 on the
+        calling thread, every other member in a thread of its own that
+        the mesh knows as member ``j``; returns the results in device
+        order. A member that raises breaks the other members'
+        collectives, and its exception is raised here."""
         n = len(self.devices)
+        prev = getattr(self._local, "j", None)
         if n == 1:
-            prev = getattr(self._local, "j", None)
             self._local.j = 0
             try:
                 return [fn(0)]
@@ -279,9 +286,13 @@ class Mesh:
                 self._local.j = None
         threads = [threading.Thread(target=body, args=(j,), daemon=True,
                                     name="mesh-member-%d" % j)
-                   for j in range(n)]
+                   for j in range(1, n)]
         for t in threads:
             t.start()
+        try:
+            body(0)
+        finally:
+            self._local.j = prev
         for t in threads:
             t.join()
         failed = [e for e in errs if e is not None]
@@ -299,10 +310,12 @@ class Mesh:
                     for ln in lines.values() if ln.rv is not None]
 
     def _abort(self):
+        self._aborted.set()
         for rv in self._rendezvous():
             rv.barrier.abort()
 
     def _reset(self):
+        self._aborted.clear()
         for rv in self._rendezvous():
             rv.barrier.reset()
 
@@ -405,6 +418,19 @@ def _job():
     return 1, 0
 
 
+def job_processes(axes, n_local):
+    """How many processes a mesh of ``axes`` over ``n_local`` Contexts a
+    process spans: every process of a launched job when the axes cover
+    its Contexts on each of them (or one axis is -1), else 1."""
+    nproc = _job()[0]
+    sizes = [int(s) for s in axes.values()]
+    known = math.prod(s for s in sizes if s != -1)
+    if nproc > 1 and (known == n_local * nproc
+                      or (-1 in sizes and known <= n_local * nproc)):
+        return nproc
+    return 1
+
+
 def make_mesh(axes, devices=None):
     """A Mesh from ``{axis_name: size}`` over ``devices`` (this process's
     Contexts, default ``[gpu(0)]``). One size may be -1 to absorb the
@@ -415,14 +441,9 @@ def make_mesh(axes, devices=None):
     devices = list(devices) if devices is not None else [gpu(0)]
     _check_contexts(devices)
     names, sizes = list(axes), [int(s) for s in axes.values()]
-    nproc, rank = _job()
-    known = math.prod(s for s in sizes if s != -1)
-    if nproc > 1 and (known == len(devices) * nproc
-                      or (-1 in sizes and known <= len(devices) * nproc)):
-        shape = _resolve(names, sizes, len(devices) * nproc)
-    else:
-        nproc = 1
-        shape = _resolve(names, sizes, len(devices))
+    nproc = job_processes(axes, len(devices))
+    rank = _job()[1] if nproc > 1 else 0
+    shape = _resolve(names, sizes, len(devices) * nproc)
     total = math.prod(shape.values())
     if total < 1 or not devices:
         raise MXNetError("make_mesh: axes %s over %d device(s) hold no "

@@ -3,7 +3,10 @@
 Counterpart of ``mxnet_tpu/parallel/spmd.py`` (``SPMDTrainer``,
 ``shard_params_rule``, ``DataParallelSpec``, ``dp_spec``, ``rule_spec``,
 ``dist_dp_spec``, ``shard_put``, ``broadcast_from_zero``,
-``check_batch_divisible``). The JAX trainer compiles loss, gradient and
+``check_batch_divisible``, ``commit_dp_placements``). The engines and
+``Module`` run a bound graph on a mesh through :class:`MeshParams` (a
+member's shards, per-op gathers, the ``dp`` gradient sum) and
+:func:`run_members`. The JAX trainer compiles loss, gradient and
 optimizer update into one jitted program over global arrays and lets
 GSPMD place every array and insert the collectives. Here every device of
 the mesh is a member (``mesh.py``: one per worker process, one thread
@@ -54,7 +57,8 @@ from .partition import Placement, PartitionRules, sharding_for
 
 __all__ = ["SPMDTrainer", "shard_params_rule", "DataParallelSpec",
            "dp_spec", "rule_spec", "dist_dp_spec", "check_batch_divisible",
-           "shard_put", "broadcast_from_zero", "DP_AXIS", "MP_AXIS"]
+           "shard_put", "broadcast_from_zero", "MeshParams", "as_rules",
+           "commit_dp_placements", "run_members", "DP_AXIS", "MP_AXIS"]
 
 # the model-parallel axis name the partition-rule engine shards over on a
 # 2-D (dp, mp) mesh
@@ -116,6 +120,38 @@ def rule_spec(mesh, rules, data_axis=DP_AXIS):
         raise MXNetError("rule_spec: mesh %s has no %r data axis"
                          % (tuple(mesh.shape), data_axis))
     return DataParallelSpec(mesh, data_axis, rules)
+
+
+def as_rules(what, rules):
+    """``rules`` as a ``PartitionRules`` (None stays None): one already,
+    or its list of ``(pattern, spec)`` pairs."""
+    if rules is None or isinstance(rules, PartitionRules):
+        return rules
+    try:
+        return PartitionRules(rules)
+    except TypeError:
+        raise MXNetError("%s: partition_rules must be a PartitionRules or a "
+                         "list of (pattern, spec) pairs, got %r"
+                         % (what, rules)) from None
+
+
+def engine_spec(what, partition_rules, mesh_axes, contexts, ctx):
+    """The rule spec of a serving or decode engine's mesh: ``contexts``
+    (default ``[ctx]``) laid out by ``mesh_axes`` (default ``{"dp": 1,
+    "mp": -1}``), over every process of a launched job when the axes
+    cover them; ``partition_rules`` a ``PartitionRules`` or its list of
+    pairs (None: every parameter replicated)."""
+    from ..context import current_context
+    from .mesh import job_processes
+    rules = as_rules(what, partition_rules)
+    ctxs = list(contexts) if contexts else \
+        [ctx if ctx is not None else current_context()]
+    for c in ctxs:
+        c.torch_device()            # a gpu without a CUDA device raises
+    axes = dict(mesh_axes) if mesh_axes else {DP_AXIS: 1, MP_AXIS: -1}
+    mesh = mesh_from_contexts(ctxs, axes=axes,
+                              processes=job_processes(axes, len(ctxs)))
+    return rule_spec(mesh, rules)
 
 
 def dist_dp_spec(contexts, data_axis=DP_AXIS):
@@ -228,6 +264,197 @@ class _GatherShard(torch.autograd.Function):
         return mine.contiguous(), None, None, None
 
 
+class MeshParams:
+    """The members' side of one rule-sharded layout: what the JAX
+    package's committed placements and GSPMD do for a bound graph, done
+    by each member of ``spec.mesh`` on its own shard.
+
+    - A member holds its shard of every parameter and aux state
+      (``shard``, ``shard_shape``); inputs are its rows of the data axis,
+      the same on every member of one ``dp`` slice.
+    - An op that reads a sharded tensor reads it gathered whole over the
+      placement's axes (``whole``), and the whole tensor is dropped after
+      the op unless an autograd graph holds it. Under autograd the gather
+      is :class:`_GatherShard`: its backward keeps the member's slice,
+      summed over the data axis first when the placement splits that
+      axis (the slices' rows differ there).
+    - ``reduce_grads`` sums a gradient over the data axis wherever the
+      placement holds copies along it: the members of one ``dp`` slice
+      compute the same rows, so only the ``dp`` line is summed.
+    - ``batch_stats`` takes training-mode batch statistics over the data
+      axis (``ops.nn.batch_stats_over(group=)``): the global batch's.
+
+    ``shapes`` maps every parameter and aux state to its whole shape;
+    ``placements`` (default: the spec's rules) places each, and
+    ``batch_axes`` (default: the data axis) are the axes whose members
+    see different rows.
+    """
+
+    def __init__(self, spec, shapes, placements=None, batch_axes=None):
+        mesh = self.mesh = spec.mesh
+        self.spec = spec
+        self.shapes = {n: tuple(int(d) for d in s) for n, s in shapes.items()}
+        self.placements = placements or {
+            n: spec.param_sharding(n, s) for n, s in self.shapes.items()}
+        data = spec.data_axis
+        batch = (data,) if batch_axes is None else tuple(batch_axes)
+        self.dp = int(mesh.shape.get(data, 1))
+        self._steps, self._reduce = {}, {}
+        for n, pl in self.placements.items():
+            steps = [(dim, pl.split(dim),
+                      tuple(a for a in pl.split(dim) if a in batch))
+                     for dim in range(len(pl.spec))
+                     if pl.split(dim) and mesh.axis_size(pl.split(dim)) > 1]
+            if steps:
+                self._steps[n] = steps
+            if self.dp > 1 and data in pl.replica_axes():
+                self._reduce[n] = (data,)
+
+    @property
+    def ledger_key(self):
+        return "mesh(%ddev)" % self.mesh.size
+
+    def is_sharded(self, name):
+        return name in self._steps
+
+    def groups(self):
+        """Create every line the layout meets on, in one order: call it on
+        every member before the first step (a line across processes is a
+        ``torch.distributed`` subgroup, and creating one is a
+        collective)."""
+        lines = set(self._reduce.values())
+        for steps in self._steps.values():
+            for _, axes, summed in steps:
+                lines |= {axes, summed}
+        if self.dp > 1:
+            lines.add((self.spec.data_axis,))
+        for axes in sorted(a for a in lines if a):
+            self.mesh.group(axes)
+
+    def shard_shape(self, name):
+        pl = self.placements.get(name)
+        shape = self.shapes.get(name)
+        return shape if pl is None else pl.shard_shape(shape)
+
+    def own(self, name, whole):
+        """The calling member's block of a whole tensor ``name`` (a view;
+        the tensor itself when the layout does not shard it)."""
+        if name not in self._steps:
+            return whole
+        return self.placements[name].shard(whole, self.mesh.coords())
+
+    def own_at(self, name, whole, coords):
+        """``own`` for the member at mesh ``coords``."""
+        if name not in self._steps:
+            return whole
+        return self.placements[name].shard(whole, coords)
+
+    def shard(self, name, whole, device):
+        """The calling member's block of ``whole`` as a contiguous copy on
+        ``device``."""
+        return self.own(name, whole).to(device, copy=True).contiguous()
+
+    def whole(self, name, x):
+        """``x``, the calling member's shard of ``name``, gathered whole
+        (``x`` itself for a tensor the layout does not shard)."""
+        for dim, axes, summed in self._steps.get(name, ()):
+            group = self.mesh.group(axes)
+            if x.requires_grad and torch.is_grad_enabled():
+                x = _GatherShard.apply(
+                    x, group, dim, self.mesh.group(summed) if summed
+                    else None)
+            else:
+                x = C._all_gather(x, group, dim, True)
+        return x
+
+    def reduce_grads(self, grads):
+        """``{name: gradient}`` of the calling member, each summed over
+        the data axis where its placement holds copies along it: one
+        all-reduce per dtype, the gradients laid end to end."""
+        buckets = collections.OrderedDict()
+        for n, g in grads.items():
+            axes = self._reduce.get(n)
+            if axes:
+                buckets.setdefault((axes, g.dtype), []).append(n)
+        if not buckets:
+            return grads
+        out = dict(grads)
+        with torch.no_grad():
+            for (axes, _), names in buckets.items():
+                flat = C._all_reduce(torch.cat(
+                    [out[n].reshape(-1) for n in names]),
+                    self.mesh.group(axes), "sum")
+                at = 0
+                for n in names:
+                    k = out[n].numel()
+                    out[n] = flat[at:at + k].view(out[n].shape)
+                    at += k
+        return out
+
+    def batch_stats(self):
+        """The scope in which training-mode batch statistics span the
+        data axis (nothing to span at ``dp`` 1)."""
+        import contextlib
+        if self.dp == 1:
+            return contextlib.nullcontext()
+        from ..ops.nn import batch_stats_over
+        return batch_stats_over(group=self.mesh.group(self.spec.data_axis))
+
+    def rows(self, x, dim=0):
+        """The calling member's rows of a whole batch ``x`` (a view)."""
+        if self.dp == 1:
+            return x
+        return x.chunk(self.dp, dim=dim)[
+            self.mesh.coords()[self.spec.data_axis]]
+
+    def gather_rows(self, x, dim=0):
+        """A member's rows gathered back into the whole batch, in ``dp``
+        order, on every member (a collective over the data axis)."""
+        if self.dp == 1:
+            return x
+        return C._all_gather(x, self.mesh.group(self.spec.data_axis), dim,
+                             True)
+
+    def track(self, tensor, kind="param"):
+        """Charge a member's tensor to the buffer ledger under the mesh
+        key: summed over the members, the committed bytes of the JAX
+        package's placed array (per-shard bytes times devices)."""
+        from .. import telemetry
+        telemetry.ledger_track(tensor, self.ledger_key,
+                               tensor.numel() * tensor.element_size(),
+                               shape=tuple(tensor.shape),
+                               dtype=str(tensor.dtype), kind=kind)
+
+
+def commit_dp_placements(executor, values, layout):
+    """Copy the calling member's shard of each whole value in ``values``
+    (``{name: tensor}``, parameters and aux states) into the member's
+    bound ``executor`` (its arrays hold the shard shapes): the
+    counterpart of the JAX package's commit onto the mesh placements.
+    Names the executor does not hold are passed over."""
+    args, aux = executor.arg_dict, executor.aux_dict
+    with torch.no_grad():
+        for name, whole in values.items():
+            arr = args.get(name) if name in args else aux.get(name)
+            if arr is None:
+                continue
+            raw = arr._data
+            raw.copy_(layout.own(name, whole).to(raw.device, raw.dtype))
+
+
+def run_members(mesh, fn, quiet_first=True):
+    """``mesh.run_local(fn)`` with the instrumented entry points of every
+    member run bare (``executor.quiet``), or of every member but the
+    first with ``quiet_first=False``: an engine around the members
+    carries the card and the fault site, or member 0 carries them."""
+    from ..executor import quiet
+
+    def body(j):
+        with quiet(j > 0 or quiet_first):
+            return fn(j)
+    return mesh.run_local(body)
+
+
 class SPMDTrainer:
     """Run a train step on a mesh: one device, or any axes over several
     Contexts and/or worker processes.
@@ -297,6 +524,10 @@ class SPMDTrainer:
         self._n_batch = math.prod(mesh.shape[a] for a in self.batch_axes)
         self._placements = {k: Placement(mesh, s)
                             for k, s in self.param_specs.items()}
+        self._layout = MeshParams(
+            DataParallelSpec(mesh, data_axis),
+            {k: tuple(v.shape) for k, v in params.items()},
+            placements=self._placements, batch_axes=self.batch_axes)
         for k, pl in self._placements.items():
             shape = tuple(params[k].shape)
             for dim in range(len(pl.spec)):
@@ -323,33 +554,15 @@ class SPMDTrainer:
                   .contiguous() for k, pl in self._placements.items()}
         # the groups every step uses, created now on every member in one
         # order (creating a process subgroup is a collective)
-        gathers = {k: self._gather_plan(pl) for k, pl in
-                   self._placements.items()}
+        self._layout.groups()
         reduce_axes = {k: pl.replica_axes() for k, pl in
                        self._placements.items()}
         groups = {axes: mesh.group(axes) for axes in
                   sorted(set(reduce_axes.values()) | {self.batch_axes})
                   if axes and mesh.axis_size(axes) > 1}
-        return {"params": params, "device": dev, "gathers": gathers,
+        return {"params": params, "device": dev,
                 "reduce_axes": reduce_axes, "groups": groups,
                 "state": {k: tuple(init_fn(v)) for k, v in params.items()}}
-
-    def _gather_plan(self, pl):
-        plan = []
-        for dim in range(len(pl.spec)):
-            axes = pl.split(dim)
-            if not axes or self.mesh.axis_size(axes) == 1:
-                continue
-            summed = tuple(a for a in axes if a in self.batch_axes)
-            plan.append((dim, self.mesh.group(axes),
-                         self.mesh.group(summed) if summed else None))
-        return plan
-
-    def _whole(self, m, k, x, grad):
-        for dim, group, sum_group in m["gathers"][k]:
-            x = _GatherShard.apply(x, group, dim, sum_group) if grad \
-                else C._all_gather(x, group, dim, True)
-        return x
 
     @property
     def params(self):
@@ -371,7 +584,7 @@ class SPMDTrainer:
         if not self.momentum:
             return None
         return self.mesh.run_local(lambda j: {
-            k: self._whole(self._members[j], k, s[0], False)
+            k: self._layout.whole(k, s[0])
             for k, s in self._members[j]["state"].items()})[0]
 
     def _put(self, i, b):
@@ -411,7 +624,7 @@ class SPMDTrainer:
         names = list(m["params"])
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in m["params"].items()}
-        whole = {k: self._whole(m, k, leaves[k], True) for k in names}
+        whole = {k: self._layout.whole(k, leaves[k]) for k in names}
         loss = self._apply(whole, *block)
         grads = torch.autograd.grad(loss, [leaves[k] for k in names],
                                     allow_unused=True)
@@ -463,7 +676,7 @@ class SPMDTrainer:
         float32); a collective on a mesh that spans processes."""
         def whole(j):
             m = self._members[j]
-            return {k: self._whole(m, k, v, False)
+            return {k: self._layout.whole(k, v)
                     for k, v in m["params"].items()}
         got = self.mesh.run_local(whole)[0]
         return {k: (v.float() if v.dtype == torch.bfloat16 else v)

@@ -37,10 +37,20 @@ Counterpart of ``mxnet_tpu/serving.py`` (``InferenceEngine``):
 * ``stats()`` — counters and the request-latency percentiles, computed
   here from every request's submit-to-terminal time.
 
-Not ported yet: partition rules and serving meshes (``partition_rules=``,
-``mesh_axes=`` and ``contexts=`` raise, ROADMAP Queue 1 item 4, second
-half), and one
-captured CUDA graph per bucket (item 1).
+* **serving meshes** — ``partition_rules=`` (the rule tree training
+  uses) and ``mesh_axes=`` lay ``contexts`` (and, in a launched job, the
+  same list on every process) out as a ``dp x mp`` mesh
+  (``parallel.spmd.MeshParams``). Each member holds its shard of every
+  parameter; an op reads a sharded one gathered whole, so a bucket's
+  forward on a member sees the one-device forward's tensors, and a
+  ``dp`` axis splits each bucket's rows. In one process the members run
+  each dispatch together (``Mesh.run_local``). Across processes rank 0
+  is the engine's front end: its coalescer broadcasts each dispatch
+  (kind and bucket, then the batch) and every other rank, built with the
+  same arguments, runs as a follower that computes its member's part of
+  each dispatch until rank 0's ``close()`` broadcasts the stop.
+
+Not ported yet: one captured CUDA graph per bucket (item 1).
 
 Every graph output must be batch-major (dim 0 = batch); padded rows are
 sliced off before a future resolves. bfloat16 outputs reach the caller
@@ -70,7 +80,8 @@ __all__ = ["InferenceEngine", "bucket_sizes", "validate_buckets",
            "DeadlineExceeded", "QueueOverflow", "CircuitOpen",
            "EngineClosed"]
 
-_MESH = "not ported yet (ROADMAP Queue 1 item 4, second half: the engines' meshes)"
+# what a mesh engine's rank 0 broadcasts ahead of each dispatch
+_MSG_STOP, _MSG_FORWARD = 0, 1
 
 
 class DeadlineExceeded(MXNetError):
@@ -178,9 +189,17 @@ class InferenceEngine:
         (``tuner.plan_serving``); the pow-2 defaults when the corpus holds
         no serving record for this graph. The plan is stamped onto every
         bucket card (``autotune_plan``) and reported by ``stats()``
-    partition_rules, mesh_axes, contexts : serving meshes, not ported
-        yet: each raises ``MXNetError`` (ROADMAP Queue 1 item 4, second
-        half)
+    partition_rules : ``parallel.PartitionRules`` (or its list of
+        ``(pattern, spec)`` pairs): the parameters commit sharded over
+        the serving mesh, one shard a member
+    mesh_axes : ordered ``{axis: size}`` laying ``contexts`` out as the
+        serving mesh (default ``{"dp": 1, "mp": -1}``); a ``dp`` axis
+        above 1 splits each bucket's rows, so every bucket must divide
+        by it
+    contexts : the mesh's Contexts on this process (default ``[ctx]``);
+        a mesh needs ``partition_rules`` or ``mesh_axes``. In a launched
+        job whose processes the axes cover, rank 0 serves and every
+        other rank's engine follows it (``submit`` raises there)
     """
 
     def __init__(self, symbol=None, params=None, input_shapes=None,
@@ -191,23 +210,28 @@ class InferenceEngine:
                  retry_budget=2, retry_backoff_ms=5.0,
                  breaker_threshold=5, breaker_reset_s=30.0,
                  partition_rules=None, mesh_axes=None, contexts=None):
-        for name, val in (("partition_rules", partition_rules),
-                          ("mesh_axes", mesh_axes), ("contexts", contexts)):
-            if val is not None:
-                raise MXNetError("serving: %s= (serving meshes) is %s"
-                                 % (name, _MESH))
+        self._mesh_spec = None
+        if partition_rules is not None or mesh_axes:
+            from .parallel import spmd as _spmd
+            self._mesh_spec = _spmd.engine_spec(
+                "serving", partition_rules, mesh_axes, contexts, ctx)
+            ctx = self._mesh_spec.mesh.devices[0]
         if predictor is None:
             if symbol is None or input_shapes is None:
                 raise MXNetError("InferenceEngine needs (symbol, params, "
                                  "input_shapes) or predictor=")
+            # a mesh engine's whole parameters stay on the host: each
+            # member takes its shard from there
+            from .context import cpu
             predictor = Predictor(symbol, params or {}, input_shapes,
-                                  ctx=ctx, dtype=dtype)
+                                  ctx=cpu() if self._mesh_spec is not None
+                                  else ctx, dtype=dtype)
         self._predictor = predictor
         ex = predictor._executor
         self._prog = ex._prog
         self._symbol = predictor._symbol
-        self._ctx = ex._ctx
-        self._device = ex._device
+        self._ctx = ex._ctx if self._mesh_spec is None else ctx
+        self._device = self._ctx.torch_device()
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
         self._autotune_plan = None
@@ -233,10 +257,16 @@ class InferenceEngine:
         self._param_raw = {n: a._data for n, a in ex.arg_dict.items()
                            if n not in self._input_names and n not in auto}
         self._aux_raw = {n: a._data for n, a in ex.aux_dict.items()}
+        self._param_shapes = {n: tuple(r.shape) for n, r in
+                              self._param_raw.items()}
         self._auto_names = sorted(auto)
         self._extras_lock = threading.Lock()
         self._extras = {}                # guarded by: self._extras_lock
-        self._forward = self._prog.forward_fn()
+        self._follower = False
+        if self._mesh_spec is None:
+            self._forward = self._prog.forward_fn()
+        else:
+            self._init_members()
 
         if overload not in ("shed", "block"):
             raise MXNetError("serving: overload must be 'shed' or "
@@ -272,8 +302,10 @@ class InferenceEngine:
         self._close_done = False         # guarded by: self._lock
         self._pool = ThreadPoolExecutor(max_workers=self._max_inflight,
                                         thread_name_prefix="mx-serve-resolve")
-        self._thread = threading.Thread(target=self._coalesce_loop,
-                                        name="mx-serve-coalesce", daemon=True)
+        self._thread = threading.Thread(
+            target=self._follow if self._follower else self._coalesce_loop,
+            name="mx-serve-follow" if self._follower else "mx-serve-coalesce",
+            daemon=True)
         self._thread.start()
         # the flight recorder's sampler/postmortems read this engine's
         # queue/breaker state (weakly held — close() is not required)
@@ -282,9 +314,119 @@ class InferenceEngine:
             self.warmup()
 
     def partition_summary(self):
-        """The serving mesh's layout; None, since the port serves from
-        one device until ROADMAP Queue 1 item 4, second half."""
-        return None
+        """JSON-safe layout of the serving mesh (None without one): what
+        the autotuner plan, the corpus record and the bucket program
+        cards record."""
+        if self._mesh_spec is None:
+            return None
+        from .parallel.partition import partition_summary as _summary
+        return _summary(self._mesh_spec, self._param_shapes)
+
+    # -- the serving mesh ---------------------------------------------------
+    def _init_members(self):
+        """Commit every member's shards of the parameters and aux states
+        (charged to the ledger under the mesh key), check the buckets
+        against the ``dp`` axis, and wire the mesh forward: a follower's
+        loop on the ranks after the first of a launched job."""
+        from .executor import _GraphProgram
+        from .parallel import spmd as _spmd
+        spec = self._mesh_spec
+        mesh = spec.mesh
+        bad = [b for b in self.buckets if b % spec.dp_size]
+        if bad:
+            raise MXNetError("serving: bucket size(s) %s not divisible by "
+                             "the %r mesh axis (size %d)"
+                             % (bad, spec.data_axis, spec.dp_size))
+        shapes = dict(self._param_shapes)
+        shapes.update({n: tuple(r.shape) for n, r in self._aux_raw.items()})
+        layout = self._layout = _spmd.MeshParams(spec, shapes)
+        prog = _GraphProgram(self._symbol)
+        prog.layout = layout
+        whole = (self._param_raw, self._aux_raw)
+
+        def commit(j):
+            layout.groups()
+            dev = mesh.devices[j].torch_device()
+            held = [{n: layout.shard(n, r, dev) for n, r in part.items()}
+                    for part in whole]
+            for part in held:
+                for t in part.values():
+                    layout.track(t)
+            return {"params": held[0], "aux": held[1], "device": dev}
+        self._members = _spmd.run_members(mesh, commit)
+        # this process's first member stands for the mesh where the
+        # one-device engine keeps its whole tensors
+        self._param_raw = self._members[0]["params"]
+        self._aux_raw = self._members[0]["aux"]
+        self._member_forward = prog.forward_fn()
+        self._spanning = mesh.processes > 1
+        self._follower = self._spanning and mesh.rank != 0
+        self._follow_error = None
+        self._mesh_lock = threading.Lock()
+        self._forward = prog._instrumented(
+            "forward", ("mesh",), self._mesh_forward, ("args", "aux"))
+
+    def _mesh_forward(self, args, aux):
+        """One dispatch on the mesh (rank 0, or the only process): every
+        member's forward of its rows; returns member 0's outputs, every
+        row of the bucket, and no aux updates."""
+        from .parallel import collectives as C
+        batch = {n: args[n] for n in self._input_names}
+        bucket = int(batch[self._input_names[0]].shape[0])
+        with self._mesh_lock:
+            if self._spanning:
+                C.broadcast(torch.tensor([_MSG_FORWARD, bucket]))
+                batch = {n: C.broadcast(b.contiguous())
+                         for n, b in batch.items()}
+            return self._run_members(batch, bucket), {}
+
+    def _run_members(self, batch, bucket):
+        """Each local member's forward of its rows of the host ``batch``
+        (its shards gathered op by op), the outputs gathered over the
+        ``dp`` axis; member 0's outputs."""
+        from .parallel import spmd as _spmd
+        layout = self._layout
+        rows = bucket // self._mesh_spec.dp_size
+
+        def member(j):
+            m = self._members[j]
+            args = dict(m["params"])
+            for n in self._input_names:
+                args[n] = layout.rows(batch[n]).to(m["device"])
+            args.update(self._extras_for(rows, m["device"]))
+            outs, _ = self._member_forward(args, m["aux"])
+            return [layout.gather_rows(o) for o in outs]
+        return _spmd.run_members(self._mesh_spec.mesh, member)[0]
+
+    def _follow(self):
+        """A follower's loop: every dispatch rank 0 broadcasts, until its
+        stop (a failure is raised by ``close()``)."""
+        from .parallel import collectives as C
+        try:
+            while True:
+                kind, bucket = C.broadcast(torch.zeros(2, dtype=torch.int64))
+                if int(kind) == _MSG_STOP:
+                    return
+                bucket = int(bucket)
+                batch = {n: C.broadcast(torch.zeros(
+                    (bucket,) + self._row_shapes[n],
+                    dtype=self._in_dtypes[n])) for n in self._input_names}
+                self._run_members(batch, bucket)
+        except BaseException as e:          # noqa: BLE001 -- close() raises
+            self._follow_error = e
+
+    def _mesh_stop(self):
+        """Rank 0: release the followers (their ``close()`` returns)."""
+        from .parallel import collectives as C
+        with self._mesh_lock:
+            C.broadcast(torch.tensor([_MSG_STOP, 0]))
+
+    def _not_follower(self, what):
+        if self._follower:
+            raise MXNetError(
+                "serving: %s on rank %d, which follows the engine of rank 0 "
+                "(a mesh across processes takes requests on rank 0 only)"
+                % (what, self._mesh_spec.mesh.rank))
 
     def _load_plan(self):
         """The autotuner plan for this engine's ``max_batch`` from the
@@ -307,13 +449,18 @@ class InferenceEngine:
 
     # -- device staging -----------------------------------------------------
     def _put_batch(self, buf, name):
-        return torch.from_numpy(buf).to(self._device, self._in_dtypes[name])
+        """One input of a bucket on the device; on a mesh, on the host
+        (each member moves its rows to its device)."""
+        dev = self._device if self._mesh_spec is None else "cpu"
+        return torch.from_numpy(buf).to(dev, self._in_dtypes[name])
 
     def warmup(self):
         """One forward per bucket, synchronised: cuDNN settles its
         algorithm choice for every bucket shape before traffic, and each
         bucket's program card is built (``_forward.build``: no dispatch
         counted). An autotuned engine stamps its plan on every card."""
+        if self._follower:
+            return              # rank 0's warmup reaches this rank's members
         for b in self.buckets:
             args = dict(self._param_raw)
             for n in self._input_names:
@@ -328,31 +475,42 @@ class InferenceEngine:
             for cid in self.program_cards():
                 telemetry.card_annotate(cid,
                                         autotune_plan=self._autotune_plan)
+        layout = self.partition_summary()
+        if layout is not None:
+            for cid in self.program_cards():
+                telemetry.card_annotate(cid, partition=layout)
 
     def _bucket_extras(self, bucket):
         """Device-resident zero dummies (softmax labels etc.) at this
-        bucket's batch size, cached per bucket."""
+        bucket's batch size, cached per bucket; none on a mesh, whose
+        members make their own at their rows."""
+        if self._mesh_spec is not None:
+            return {}
+        return self._extras_for(bucket, self._device)
+
+    def _extras_for(self, rows, device):
+        """The zero dummies at ``rows`` rows on ``device``, cached."""
+        key = (rows, str(device))
         with self._extras_lock:
-            cached = self._extras.get(bucket)
+            cached = self._extras.get(key)
             if cached is not None:
                 return cached
             extras = {}
             if self._auto_names:
-                known = {n: (bucket,) + self._row_shapes[n]
+                known = {n: (rows,) + self._row_shapes[n]
                          for n in self._input_names}
-                known.update({n: tuple(v.shape)
-                              for n, v in self._param_raw.items()})
+                known.update(self._param_shapes)
                 shapes, _, _ = self._symbol.infer_shape_partial(**known)
                 inferred = dict(zip(self._symbol.list_arguments(), shapes))
                 ex = self._predictor._executor
                 for n in self._auto_names:
                     if inferred.get(n) is None:
                         raise MXNetError("serving: cannot infer dummy shape "
-                                         "for %r at bucket %d" % (n, bucket))
+                                         "for %r at bucket %d" % (n, rows))
                     extras[n] = torch.zeros(inferred[n],
                                             dtype=ex.arg_dict[n]._data.dtype,
-                                            device=self._device)
-            self._extras[bucket] = extras
+                                            device=device)
+            self._extras[key] = extras
             return extras
 
     def bucket_for(self, rows):
@@ -402,6 +560,7 @@ class InferenceEngine:
         (``submit(data=x)``); a single-input graph also takes one
         positional array. Each input is ``(rows,) + row_shape`` with
         1 <= rows <= max_batch (a bare row means rows=1)."""
+        self._not_follower("submit")
         if self._closed:
             raise EngineClosed("serving: engine is closed")
         if self._breaker_tripped():
@@ -505,6 +664,7 @@ class InferenceEngine:
     def flush(self):
         """Dispatch whatever is pending now instead of waiting out the
         deadline."""
+        self._not_follower("flush")
         with self._lock:
             if self._closed:
                 raise EngineClosed("serving: engine is closed")
@@ -573,8 +733,10 @@ class InferenceEngine:
         """Live device bytes the buffer ledger charges to this engine's
         context, split by ledger kind (``{"context", "total",
         "by_kind"}``): the figure capacity planning and OOM postmortems
-        read. Reads host-side counters only."""
-        key = str(self._ctx)
+        read. Reads host-side counters only. A mesh engine reads the
+        mesh's key, where its members charge their shards."""
+        key = str(self._ctx) if self._mesh_spec is None \
+            else self._layout.ledger_key
         led = telemetry.ledger().get(key, {})
         return {"context": key,
                 "total": int(led.get("alive_bytes", 0)),
@@ -635,7 +797,22 @@ class InferenceEngine:
     def close(self):
         """Drain and stop: already-submitted requests all resolve before
         close() returns; later ``submit``/``flush`` calls raise
-        ``EngineClosed``."""
+        ``EngineClosed``. Rank 0 of a mesh across processes then releases
+        the followers; a follower's ``close()`` returns once that stop
+        arrives (raising what failed its loop)."""
+        if self._follower:
+            with self._space:
+                already, self._close_done = self._close_done, True
+                self._closed = True
+            if not already:
+                self._thread.join()
+                self._pool.shutdown(wait=True)
+                if self._follow_error is not None:
+                    raise MXNetError("serving: this follower's loop failed "
+                                     "(%s: %s)" % (
+                                         type(self._follow_error).__name__,
+                                         self._follow_error))
+            return
         with self._space:
             already = self._close_done
             self._close_done = True
@@ -647,6 +824,8 @@ class InferenceEngine:
             return
         self._thread.join()
         self._pool.shutdown(wait=True)
+        if self._mesh_spec is not None and self._spanning:
+            self._mesh_stop()
         # bank this engine's measured serving data into the card corpus
         # (when one is configured) for the next engine's autotuner —
         # telemetry, never state: a failure must not fail the shutdown

@@ -173,6 +173,9 @@ def load_into_module(mod, arg_params, aux_params, opt_states=None,
     update_counts : ``{param index: updates so far}`` — the JAX
         optimizer's ``_index_update_count``, which the pickled states do
         not hold and Adam's bias correction reads.
+
+    Every array is whole (a JAX mesh ``Module``'s ``get_params`` and
+    states are); a port module on a mesh cuts its members' shards.
     """
     if not mod.binded:
         raise MXNetError("load_into_module: bind the module first")
@@ -196,13 +199,13 @@ def load_into_module(mod, arg_params, aux_params, opt_states=None,
     auxs = {k: _np(v) for k, v in aux_params.items()}
     _check_names(list(args), mod._param_names, "module parameters")
     _check_names(list(auxs), mod._aux_names, "module aux states")
-    ex = mod._exec
-    for table, bound in ((args, ex.arg_dict), (auxs, ex.aux_dict)):
+    bound = mod._whole_shapes()       # whole shapes, on a mesh too
+    for table in (args, auxs):
         for name, a in table.items():
-            if tuple(a.shape) != bound[name].shape:
+            if tuple(a.shape) != tuple(bound[name]):
                 raise MXNetError("weights: %r has shape %s, the module "
                                  "needs %s" % (name, a.shape,
-                                               bound[name].shape))
+                                               tuple(bound[name])))
     mod.set_params(args, auxs)
     if opt_states is not None:
         if not mod.optimizer_initialized:

@@ -67,10 +67,7 @@ SKIP = {
         "membership": ["live_ranks"],
     },
     "sym.Symbol": {},
-    "mod.Module": {
-        "Queue 1 item 4, second half: partition rules":
-            ["partition_summary"],
-    },
+    "mod.Module": {},
     "gluon.rnn": {},
     "rnn": {
         "Queue 1 item 6: the convolutional RNN cells": [

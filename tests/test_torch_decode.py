@@ -481,14 +481,20 @@ def test_no_cuda_and_no_ctx_raises(monkeypatch):
 
 
 def test_mesh_of_more_than_one_device_raises():
-    """The engines' meshes come with the second half of the distributed
-    slice: an ``mp`` axis and a ``dp`` axis over two Contexts both
-    raise naming it."""
+    """Meshes of several Contexts run (``tests/test_torch_engine_mesh.py``).
+    What still raises: axes that do not cover the Contexts, and a pool
+    sharded other than by its heads (DECODE_PARTITION_RULES' layout)."""
+    from mxnet_tpu_torch.parallel import P
     cell = _cells("attn")[1]
-    for axes in ({"dp": 1, "mp": -1}, {"dp": 2}):
-        with pytest.raises(MXNetError, match="item 4, second half"):
-            DecodeEngine(cell, cell.init_params(1), slots=2,
-                         contexts=[mt.cpu(0), mt.cpu(1)], mesh_axes=axes)
+    two = [mt.cpu(0), mt.cpu(1)]
+    with pytest.raises(MXNetError, match="need 4 devices"):
+        DecodeEngine(cell, cell.init_params(1), slots=2, contexts=two,
+                     mesh_axes={"dp": 2, "mp": 2})
+    with pytest.raises(MXNetError, match="heads layout"):
+        DecodeEngine(cell, cell.init_params(1), slots=2, contexts=two,
+                     partition_rules=[(r"cache/(k|v)$",
+                                       P(None, None, "mp", None))],
+                     mesh_axes={"dp": 1, "mp": 2})
     with _engine(cell, partition_rules=[], contexts=[CPU]) as eng:
         assert eng.generate(_prompts()[3], max_new_tokens=2).tokens
 

@@ -1424,3 +1424,168 @@ def test_ring_across_two_workers_kernel_against_plain_ring(tmp_path):
                                  for r in range(2)], axis=2)
         want = mt.parallel.attention(*whole, causal=causal).numpy()
         np.testing.assert_allclose(joined, want, rtol=1e-5, atol=1e-5)
+
+
+# -- the engines and Module on meshes (slice 13) ------------------------------
+
+def _mesh_tail_resnet(monkeypatch, tmp_path):
+    """A narrow NHWC ResNet v1 with fused block tails (K1) on gpu(0): its
+    symbol and parameters."""
+    monkeypatch.setenv("MXNET_FUSED_BN_ADD_RELU", "1")
+    mt.layout.set_default_layout("NHWC")
+    try:
+        with mt.name.NameManager():
+            net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                                  [16, 32, 64, 128, 256], classes=10)
+        net.initialize(mt.init.Xavier(), ctx=mt.gpu(0))
+        net(mt.nd.zeros((1, 32, 32, 3), ctx=mt.gpu(0)))
+        with mt.name.NameManager():
+            net.export(str(tmp_path / "net"))
+    finally:
+        mt.layout.set_default_layout(None)
+    return (mt.sym.load(str(tmp_path / "net-symbol.json")),
+            mt.nd.load(str(tmp_path / "net-0000.params"), ctx=mt.gpu(0)))
+
+
+def test_one_member_serving_mesh_on_card_bit_equal(monkeypatch, tmp_path):
+    """``{"dp": 1, "mp": 1}`` on ``[gpu(0)]`` runs the mesh path (shards,
+    per-op gathers, the mesh forward) and serves the plain engine's bits,
+    through K1."""
+    _need_card()
+    from mxnet_tpu_torch.parallel import PartitionRules, P
+    from mxnet_tpu_torch.serving import InferenceEngine
+    sym, params = _mesh_tail_resnet(monkeypatch, tmp_path)
+    rules = PartitionRules([(r"weight$", P("mp")),
+                            (r"(gamma|beta|bias)$", P("mp"))])
+    x = np.random.RandomState(0).uniform(-1, 1, (3, 32, 32, 3)) \
+        .astype(np.float32)
+    with InferenceEngine(sym, params, {"data": (1, 32, 32, 3)}, max_batch=4,
+                         ctx=mt.gpu(0)) as eng:
+        want = eng.predict(data=x)[0]
+    before = K.launches
+    with InferenceEngine(sym, params, {"data": (1, 32, 32, 3)}, max_batch=4,
+                         partition_rules=rules, mesh_axes={"dp": 1, "mp": 1},
+                         contexts=[mt.gpu(0)]) as eng:
+        got = eng.predict(data=x)[0]
+        assert eng.partition_summary()["mesh_axes"] == {"dp": 1, "mp": 1}
+    assert K.launches > before
+    assert np.array_equal(got, want)
+
+
+def test_one_member_decode_mesh_on_card_bit_equal():
+    _need_card()
+    from mxnet_tpu_torch.decode import AttentionDecodeCell, DecodeEngine
+    from mxnet_tpu_torch.parallel.ring_attention import \
+        DECODE_PARTITION_RULES
+    cell = AttentionDecodeCell(64, 32, 8, 8, 48)
+    prompts = [np.array([3, 1, 4, 1, 5], np.int32), np.array([9], np.int32)]
+    got = {}
+    for tag, kw in (("plain", {"ctx": mt.gpu(0)}),
+                    ("mesh", {"partition_rules": DECODE_PARTITION_RULES,
+                              "mesh_axes": {"dp": 1, "mp": 1},
+                              "contexts": [mt.gpu(0)]})):
+        with DecodeEngine(cell, cell.init_params(1), slots=2,
+                          max_new_tokens=6, keep_logits=True, **kw) as eng:
+            got[tag] = [eng.generate(p) for p in prompts]
+    for a, b in zip(got["plain"], got["mesh"]):
+        assert a.tokens == b.tokens and np.array_equal(a.logits, b.logits)
+
+
+def test_one_member_module_mesh_on_card_equals_plain():
+    """A mesh of one device is the plain path (the JAX package ignores
+    the rules there): bit for bit the module without a mesh."""
+    _need_card()
+    from mxnet_tpu_torch.parallel import P
+    data = mt.sym.Variable("data")
+    sym = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+        data, num_hidden=4, name="fc1"), name="softmax")
+    rs = np.random.RandomState(0)
+    w = {"fc1_weight": rs.randn(4, 8).astype(np.float32),
+         "fc1_bias": np.zeros(4, np.float32)}
+    x, y = rs.randn(16, 8).astype(np.float32), rs.randint(0, 4, 16)
+    got = []
+    for kw in ({}, {"partition_rules": [(r"weight$", P("mp", None))],
+                    "mesh_axes": {"dp": 1, "mp": -1}}):
+        mod = mt.mod.Module(sym, context=[mt.gpu(0)], **kw)
+        mod.bind(data_shapes=[("data", (16, 8))],
+                 label_shapes=[("softmax_label", (16,))])
+        mod.init_params(arg_params={k: mt.nd.array(v, ctx=mt.gpu(0))
+                                    for k, v in w.items()})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.1})
+        b = mt.io.DataBatch([mt.nd.array(x, ctx=mt.gpu(0))],
+                            [mt.nd.array(y.astype(np.float32),
+                                         ctx=mt.gpu(0))])
+        assert mod._fused_batch_step(b)
+        assert mod.partition_summary() is None
+        got.append({k: v.asnumpy() for k, v in mod.get_params()[0].items()})
+    for k in w:
+        assert np.array_equal(got[0][k], got[1][k]), k
+
+
+_MESH_WORKER = r'''
+import json, os, sys
+import numpy as np
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch.parallel import P
+from mxnet_tpu_torch.serving import InferenceEngine
+
+out = sys.argv[1]
+rank = mt.dist.rank()
+sym = mt.sym.FullyConnected(mt.sym.Activation(mt.sym.FullyConnected(
+    mt.sym.Variable("data"), num_hidden=64, name="fc1"), act_type="relu"),
+    num_hidden=8, name="fc2")
+rs = np.random.RandomState(3)
+params = {"arg:fc1_weight": rs.randn(64, 16), "arg:fc1_bias": rs.randn(64),
+          "arg:fc2_weight": rs.randn(8, 64), "arg:fc2_bias": rs.randn(8)}
+params = {k: mt.nd.array(v.astype(np.float32), ctx=mt.gpu(0))
+          for k, v in params.items()}
+eng = InferenceEngine(sym, params, {"data": (1, 16)}, max_batch=4,
+                      partition_rules=[(r"weight$", P("mp", None)),
+                                       (r"bias$", P("mp"))],
+                      mesh_axes={"dp": 1, "mp": 2}, contexts=[mt.gpu(0)])
+res = {"rank": rank, "on": str(eng._param_raw["fc1_weight"].device)}
+x = np.random.RandomState(4).randn(3, 16).astype(np.float32)
+if rank == 0:
+    res["out"] = eng.predict(data=x)[0].tolist()
+else:
+    try:
+        eng.submit(data=x)
+        res["refused"] = False
+    except mt.MXNetError as e:
+        res["refused"] = "rank 0" in str(e)
+eng.close()
+if rank == 0:
+    with InferenceEngine(sym, params, {"data": (1, 16)}, max_batch=4,
+                         ctx=mt.gpu(0)) as plain:
+        res["plain"] = plain.predict(data=x)[0].tolist()
+with open(os.path.join(out, "r%d.json" % rank), "w") as f:
+    json.dump(res, f)
+mt.dist.finalize()
+'''
+
+
+def test_serving_mesh_across_two_workers_on_card(tmp_path):
+    """Two workers on ``cuda:0``, the FC net's weights split over ``mp``:
+    rank 0 serves the one-device engine's bits, rank 1 follows and its
+    ``submit`` raises naming rank 0."""
+    _need_card()
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "worker.py"
+    script.write_text(_MESH_WORKER)
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-m", "mxnet_tpu_torch.launch",
+                          "-n", "2", "--timeout", "150", "--",
+                          sys.executable, str(script), str(tmp_path)],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert res.returncode == 0, res.stderr[-4000:]
+    r0, r1 = (json.loads((tmp_path / ("r%d.json" % r)).read_text())
+              for r in range(2))
+    assert r0["on"].startswith("cuda") and r1["on"].startswith("cuda")
+    assert r1["refused"] is True
+    assert r0["out"] == r0["plain"]

@@ -154,10 +154,19 @@ def test_duplicate_contexts_and_unported_options_raise():
                  label_shapes=[("softmax_label", (B,))])
     with pytest.raises(mt.MXNetError, match="duplicate devices"):
         mt.mod.Module(W.mlp(mt), context=[mt.cpu(0), mt.cpu(0)])
-    for kw in ({"group2ctxs": [{"a": mt.cpu(1)}]},
-               {"partition_rules": object()}, {"mesh_axes": {"dp": 2}}):
-        with pytest.raises(mt.MXNetError, match="item 4, second half"):
-            mt.mod.Module(W.mlp(mt), context=[mt.cpu(0), mt.cpu(1)], **kw)
+    with pytest.raises(mt.MXNetError, match="item 4, second half"):
+        mt.mod.Module(W.mlp(mt), context=[mt.cpu(0), mt.cpu(1)],
+                      group2ctxs=[{"a": mt.cpu(1)}])
+    # the meshes are ported (tests/test_torch_module_mesh.py): a rule
+    # tree that is not one raises, a dp mesh over the two binds
+    with pytest.raises(mt.MXNetError, match="partition_rules must be"):
+        mt.mod.Module(W.mlp(mt), context=[mt.cpu(0), mt.cpu(1)],
+                      partition_rules=object())
+    mod = mt.mod.Module(W.mlp(mt), context=[mt.cpu(0), mt.cpu(1)],
+                        mesh_axes={"dp": 2})
+    mod.bind(data_shapes=[("data", (B, W.D_IN))],
+             label_shapes=[("softmax_label", (B,))])
+    assert mod.partition_summary()["mesh_axes"] == {"dp": 2}
 
 
 def test_fused_fallback_codes_equal_jax():

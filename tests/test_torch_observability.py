@@ -7,8 +7,8 @@ paths, against the JAX package on the same inputs.
     ``stats()`` counts and the bucket cards with their dispatch counts
     equal the JAX engine's; the outputs agree at the serving tolerance
     of ``tests/test_torch_serving.py`` (rtol 1e-4, atol 1e-5); the
-    engine accepts every constructor argument of the JAX engine, and
-    ``partition_rules=``/``mesh_axes=``/``contexts=`` raise.
+    engine accepts every constructor argument of the JAX engine (the
+    meshes' own tests are ``tests/test_torch_engine_mesh.py``).
 (b) The overload and failure behaviour of ``tests/test_serving_faults.py``
     on the port's engine, with the ``dispatch`` and ``d2h`` fault sites,
     the flight recorder's dumps and ``TelemetryLogger.log_serving``.
@@ -25,9 +25,8 @@ paths, against the JAX package on the same inputs.
     timebase (a host span encloses the operators it launched).
 (f) ``mx.monitor``: an executor's op outputs reach the monitor.
 
-Not ported, with the ROADMAP item that brings it: the mesh cases of the
-serving and decode tests (partition rules, ``contexts=``; Queue 1 item
-4), ``test_profiler_autostart_env`` (``config.py``'s
+Not ported, with the ROADMAP item that brings it:
+``test_profiler_autostart_env`` (``config.py``'s
 ``MXNET_PROFILER_AUTOSTART``, item 6), ``test_print_summary`` and
 ``test_plot_network_graphviz_or_skip`` (``visualization.py``, item 6).
 """
@@ -222,8 +221,19 @@ def test_engine_takes_every_jax_constructor_argument():
                                 {"mesh_axes": {"dp": 1, "mp": -1}},
                                 {"contexts": [CPU]}])
 def test_mesh_arguments_raise_naming_the_roadmap_item(kw):
-    with pytest.raises(MXNetError, match="Queue 1 item 4"):
-        _engine(**kw)
+    """The serving meshes are ported (``tests/test_torch_engine_mesh.py``).
+    Of these arguments only a rule tree that is not one raises; a mesh of
+    one device, and ``contexts=`` alone (which the JAX package ignores
+    without rules or axes), serve what the plain engine serves."""
+    if "partition_rules" in kw:
+        with pytest.raises(MXNetError, match="partition_rules must be"):
+            _engine(**kw)
+        return
+    with _engine(**kw) as eng, _engine() as plain:
+        x = _req(3)
+        assert np.array_equal(eng.predict(data=x)[0],
+                              plain.predict(data=x)[0])
+        assert (eng.partition_summary() is None) == ("contexts" in kw)
 
 
 def test_stats_surface_and_device_bytes():
