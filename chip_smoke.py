@@ -135,7 +135,7 @@ Phases (any failure exits non-zero; no error is swallowed):
    ``kvstore=mx.kvstore.create("device")`` (the optimizer in the store),
    SGD 0.05 with momentum 0.9 and wd 1e-4, ``MultiFactorScheduler`` from
    ``--lr-step-epochs 1``, ``Speedometer``, ``do_checkpoint``; 2 epochs of
-   6 unshuffled batches: the rate at each update, ms per batch (CUDA
+   4 unshuffled batches: the rate at each update, ms per batch (CUDA
    events, host), a profiled batch, the peak per epoch (epoch 2 at most
    epoch 1's); no store and phase-split bit-equal over 2 batches; a
    fresh Module resumed from epoch 1 with the parameters only (rates
@@ -148,13 +148,13 @@ Phases (any failure exits non-zero; no error is swallowed):
    1e-3 of the CPU's largest. (c) ``fine_tune.py``'s stage 2 from (a)'s
    checkpoint: cut at the flatten output, a 10-class head, the backbone
    fixed and bit-identical after 3 batches.
-12. gluon_zoo — ``get_model`` for alexnet, vgg16, squeezenet1_0,
-   densenet121, inception_v3 (299), mobilenet1_0 and resnet50_v1 at
-   batch 32 in inference (img/s, 2 rows within 1e-3 of the CPU's largest
-   logit); densenet121 (224x224x3, batch 32, fp32) trained through the
-   Gluon loop from ``DataLoader(ArrayDataset, shuffle=True,
-   last_batch="discard", num_workers=2)`` with a store: 5 steps eager,
-   5 hybridized (bit-equal), 2 thread and 2 process workers against 0
+12. gluon_zoo — ``get_model`` for alexnet, densenet121, inception_v3
+   (299), mobilenet1_0 and resnet50_v1 at batch 32 in inference (img/s,
+   2 rows within 1e-3 of the CPU's largest logit); densenet121
+   (224x224x3, batch 32, fp32) trained through the Gluon loop from
+   ``DataLoader(ArrayDataset, shuffle=True, last_batch="discard",
+   num_workers=2)`` over 96 images with a store: 3 steps eager, 3
+   hybridized (bit-equal), 2 thread and 2 process workers against 0
    (the same batches, no shared memory left), a store against none
    (bit-equal), step 1 as in (a), ms per step,
    a profiled step, peaks flat from step 2. K1-K3 launch 0 times on both
@@ -183,10 +183,11 @@ Phases (any failure exits non-zero; no error is swallowed):
    ``vae.py``, ``autoencoder.py`` and each new ``gluon.nn`` block on
    the card against the CPU. K1-K3 launch 0 times on this path.
 15. data_parallel — two workers of ``python -m mxnet_tpu_torch.launch -n
-   2`` on the one card over gloo (``--dp-worker``), each leg under a
-   hard limit: (a)-(c) ResNet-50 v1 ``Module.fit`` at batch 32 a worker
-   on ``dist_sync`` (the fused step: BatchNorm over both workers' rows,
-   step 1 through ``_step1_gate`` against one process at batch 64),
+   2`` on the one card over gloo (``--dp-worker``, one launch), each leg
+   under a hard limit: (a)-(c) ResNet-50 v1 ``Module.fit`` at batch 32 a
+   worker, one epoch of 3 batches, on ``dist_sync`` (the fused step:
+   BatchNorm over both workers' rows, step 1 through ``_step1_gate``
+   against one process at batch 64),
    2-bit and fp16 stores (the wire bytes, rank 0's first update against
    a CPU recompute), ``dist_sync`` phase-split and ``dist_async``
    (BatchNorm over each worker's rows; bit-equal to each other);
@@ -219,7 +220,7 @@ Phases (any failure exits non-zero; no error is swallowed):
    hard limit: (a) ``InferenceEngine`` serving ResNet-50 v1 (NHWC,
    fused tails, fp32, ``max_batch`` 32) over ``{"dp": 1, "mp": 4}`` with
    ``bench.py``'s layout rules, rank 0 the front end and the other ranks
-   its followers: 16 requests of 1-4 rows, then 4 of 32; every bucket's
+   its followers: 8 requests of 1-4 rows, then 2 of 32; every bucket's
    logits bit-equal to a one-device engine's on the card, one bucket
    within 1e-3 of the largest logit of a CPU forward, K1 16 times a
    forward on every rank; (b) ``DecodeEngine`` at the decode phase's
@@ -229,7 +230,7 @@ Phases (any failure exits non-zero; no error is swallowed):
    largest logit, each rank's ``kv_cache_bytes`` exactly a quarter of
    the whole pool's, token latency p50/p95; (c) ``Module.fit`` on
    ResNet-50 v1 (fp32, global batch 64, SGD lr 0.05, momentum 0.9, wd
-   1e-4, 3 fused batches) over ``{"dp": 2, "mp": 2}``: step 1 through
+   1e-4, 2 fused batches) over ``{"dp": 2, "mp": 2}``: step 1 through
    ``_step1_gate`` against one process at batch 64 (fp32 and the fp64
    arbiter, run before the workers), the ranks' gathered parameters
    bit-equal, a checkpoint saved on the mesh restored into a one-device
@@ -238,7 +239,35 @@ Phases (any failure exits non-zero; no error is swallowed):
    token or step, each rank's peak and committed bytes against the
    replicated layout's, a profiled call's device busy time and idle
    share, and the launches of K1-K3 in every worker.
-18. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+18. elastic — three workers of ``python -m mxnet_tpu_torch.launch -n 3
+   --heartbeat-dir DIR --heartbeat-interval 0.25 --heartbeat-timeout 3``
+   on the one card over gloo (``--el-worker``, under a hard limit):
+   ResNet-50 v1 (NHWC, fused tails, fp32) through ``Module.fit`` on
+   ``dist_sync``, batch 32 a worker, SGD 0.05, momentum 0.9, wd 1e-4, 3
+   epochs of 3 batches, a ``CheckpointManager`` a rank, one shared
+   flight directory. Rank 1 is a straggler (``dispatch:delay=250`` at
+   its first 4 steps), then dies at its ``kv_collective`` crossing of
+   epoch 1, batch 1 (the number is printed). Gates: the victim exits
+   with its fault code and the survivors with 0; on each survivor
+   ``elastic.dead_workers``, ``elastic.remesh`` and ``elastic.resumed``
+   are 1; their ``dead_worker`` postmortems (through
+   ``tools/flight_view.py``) name ``[1]`` at epoch 1, batch 1 and hold
+   rank 1's ``worker_abort``; ``tools/fleet_view.py`` names rank 1 dead
+   and the first straggler and solves the clocks within 0.25 s; the
+   survivors {0, 2} end bit-equal; the first step after the resume
+   passes ``_step1_gate`` (fp32, and the survivors' fp64 step as the
+   arbiter) against one process restoring the same checkpoint on the
+   survivors' 64 rows; K1 launches 16 times a forward on every worker.
+   Printed: rank 0's ms a step before and after the loss, the seconds
+   from the death to ``DeadWorkerError``, the re-mesh and the first
+   resumed step, the gate's wait per crossing, host seconds in
+   collectives a step, a profiled step, each worker's peak. Then
+   ``group2ctxs`` on the card: ResNet-50 v1 with stages 3-4 and the head
+   in group ``g2`` (``{"g1": gpu(0), "g2": gpu(0)}``), one ``fit``
+   batch bit-equal to the ungrouped module, and the MLP with ``g1`` on
+   ``cpu(0)`` and ``g2`` on ``gpu(0)`` within 1e-6 of an ungrouped card
+   run.
+19. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
@@ -248,8 +277,8 @@ Phases (any failure exits non-zero; no error is swallowed):
    training and the Gluon loop), ``rnn_training_launches``,
    ``image_classification_launches``, ``gluon_zoo_launches``,
    ``dense_prediction_launches`` (0), ``data_parallel_launches``,
-   ``model_parallel_launches`` and ``engine_meshes_launches`` its
-   counts on those paths — and,
+   ``model_parallel_launches``, ``engine_meshes_launches`` and
+   ``elastic_launches`` its counts on those paths — and,
    last, the ``{"ok": true,
    "device": {...}}`` line.
 
@@ -257,7 +286,7 @@ The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-17 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-18 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -1087,13 +1116,14 @@ def training_phase(mx, ctx, rehearsal, steps=5):
 _BENCH_LR, _BENCH_MOMENTUM = 0.05, 0.9      # bench.py:52-60
 
 
-def _resnet_net(mx, ctx, rehearsal, seed=0, fused=True):
+def _resnet_net(mx, ctx, rehearsal, seed=0, fused=True, init=True):
     """The model-zoo ``resnet50_v1``, NHWC with fused block tails, Xavier
     weights from a seeded ``torch.Generator`` (rehearsal: a narrow ResNet
     v1 at 32x32, 10 classes); deferred shapes completed on ``ctx``.
     ``fused=False`` builds the block tails as BatchNorm, add and ReLU
     (the same parameters in the same order, other names), which runs in
-    fp64 where K1 takes fp32 and bf16 only."""
+    fp64 where K1 takes fp32 and bf16 only. ``init=False`` leaves the
+    weights uninitialised (the symbol and the parameter names only)."""
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
     os.environ["MXNET_FUSED_BN_ADD_RELU"] = "1" if fused else "0"
     mx.layout.set_default_layout("NHWC")
@@ -1105,9 +1135,10 @@ def _resnet_net(mx, ctx, rehearsal, seed=0, fused=True):
         sym = mx.sym.SoftmaxOutput(net(mx.sym.Variable("data")),
                                    mx.sym.Variable("softmax_label"),
                                    name="softmax")
-    net.initialize(mx.init.Xavier(generator=torch.Generator()
-                                  .manual_seed(seed)), ctx=ctx)
-    net(mx.nd.zeros((1, hw, hw, 3), ctx=ctx))
+    if init:
+        net.initialize(mx.init.Xavier(generator=torch.Generator()
+                                      .manual_seed(seed)), ctx=ctx)
+        net(mx.nd.zeros((1, hw, hw, 3), ctx=ctx))
     return net, sym, hw, classes
 
 
@@ -3248,7 +3279,7 @@ def _fit_leg(mx, ctx, rehearsal, card, tmp):
     """(a) fit.py on Inception-v3, resumed both ways; score and predict;
     step 1 against the CPU."""
     gpu = ctx.device_type == "gpu"
-    batch, per_epoch, hw = (2, 2, 75) if rehearsal else (32, 6, 299)
+    batch, per_epoch, hw = (2, 2, 75) if rehearsal else (32, 4, 299)
     with mx.name.NameManager():
         sym = ic_symbol(mx, "inception-v3", 1000)
     shapes = sym.infer_shape(data=(batch, 3, hw, hw))[0]
@@ -3574,8 +3605,7 @@ def image_classification_phase(mx, ctx, rehearsal):
 # gluon_zoo: the Gluon model zoo, and densenet121 trained from gluon.data
 # ---------------------------------------------------------------------------
 
-_ZOO_NETS = (("alexnet", 224), ("vgg16", 224), ("squeezenet1_0", 224),
-             ("densenet121", 224), ("inception_v3", 299),
+_ZOO_NETS = (("alexnet", 224), ("densenet121", 224), ("inception_v3", 299),
              ("mobilenet1_0", 224), ("resnet50_v1", 224))
 
 
@@ -3725,7 +3755,7 @@ def _process_workers(loader, want, steps):
 def _zoo_training_leg(mx, ctx, rehearsal, card):
     """(d) densenet121 through the Gluon loop fed by gluon.data."""
     gpu = ctx.device_type == "gpu"
-    batch, n, hw, steps = (4, 12, 32, 2) if rehearsal else (32, 160, 224, 5)
+    batch, n, hw, steps = (4, 12, 32, 2) if rehearsal else (32, 96, 224, 3)
     rs = np.random.RandomState(6)
     X = rs.uniform(-1, 1, (n, 3, hw, hw)).astype(np.float32)
     Y = rs.randint(0, 1000, n).astype(np.float32)
@@ -5339,14 +5369,14 @@ _DP_MODULE_LEGS = ("dist_sync", "2bit", "fp16", "dist_sync_split",
 
 
 def _dp_cfg(rehearsal):
-    """Sizes of the phase: ResNet-50 v1 at batch 32 per worker (2 epochs
-    of 4 batches), the LM at bench.py:991-992's width with 4 rows per
+    """Sizes of the phase: ResNet-50 v1 at batch 32 per worker (1 epoch
+    of 3 batches), the LM at bench.py:991-992's width with 4 rows per
     worker (3 steps), the Gluon loop at 32 per worker (3 steps); the
     rehearsal takes the small nets of the other phases."""
     if rehearsal:
-        return {"batch": 4, "epochs": 2, "batches": 4, "lm": (64, 32, 4, 16),
+        return {"batch": 4, "epochs": 1, "batches": 3, "lm": (64, 32, 4, 16),
                 "lm_batch": 4, "lm_steps": 3, "gluon_steps": 3}
-    return {"batch": 32, "epochs": 2, "batches": 4, "lm": (8192, 512, 8, 512),
+    return {"batch": 32, "epochs": 1, "batches": 3, "lm": (8192, 512, 8, 512),
             "lm_batch": 8, "lm_steps": 3, "gluon_steps": 3}
 
 
@@ -5715,7 +5745,8 @@ def dp_worker(group, out, rehearsal):
     """One worker of the data_parallel phase (``chip_smoke.py
     --dp-worker GROUP DIR``, started by ``python -m mxnet_tpu_torch.launch
     -n 2``): the legs of ``group`` (``module``: (a)-(c); ``lm_gluon``: (d)
-    and (e)); writes ``GROUP-r<rank>.json`` under ``out``."""
+    and (e); ``all``: both, in that order); writes ``G-r<rank>.json``
+    under ``out`` for each group G."""
     import mxnet_tpu_torch as mx
     rank = mx.dist.rank()
     assert mx.dist.process_count() == _DP_WORLD, mx.dist.process_count()
@@ -5724,33 +5755,39 @@ def dp_worker(group, out, rehearsal):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     cfg = _dp_cfg(rehearsal)
-    res = {"rank": rank, "backend": mx.dist.backend(),
-           "backend_reason": mx.dist.backend_reason(),
-           "world": mx.dist.process_count(), "pid": os.getpid()}
-    if group == "module":
-        res["legs"] = _dp_module_group(mx, ctx, cfg, rank, out, rehearsal)
-    else:
-        with _dp_deadline(rehearsal, "lm"):
-            lm = _dp_lm_leg(mx, ctx, cfg, rank, out)
-        with _dp_deadline(rehearsal, "gluon"):
-            res["legs"] = {"lm": lm, "gluon": _dp_gluon_leg(
-                mx, ctx, cfg, rank, out, rehearsal)}
-        with _dp_deadline(rehearsal, "gluon_fp64_steps"):
-            w64 = _dp_gluon_fp64_steps(mx, ctx, cfg, rehearsal, rank)
-            if rank == 0:
-                torch.save(w64, os.path.join(out, "gluon-fp64-steps.pt"))
-            del w64
-    if ctx.device_type == "gpu":
-        res["peak_bytes"] = torch.cuda.max_memory_allocated()
-    with open(os.path.join(out, "%s-r%d.json" % (group, rank)), "w") as f:
-        json.dump(res, f)
+    for g in (("module", "lm_gluon") if group == "all" else (group,)):
+        if ctx.device_type == "gpu":
+            torch.cuda.reset_peak_memory_stats()
+        res = {"rank": rank, "backend": mx.dist.backend(),
+               "backend_reason": mx.dist.backend_reason(),
+               "world": mx.dist.process_count(), "pid": os.getpid()}
+        if g == "module":
+            res["legs"] = _dp_module_group(mx, ctx, cfg, rank, out,
+                                           rehearsal)
+        else:
+            with _dp_deadline(rehearsal, "lm"):
+                lm = _dp_lm_leg(mx, ctx, cfg, rank, out)
+            with _dp_deadline(rehearsal, "gluon"):
+                res["legs"] = {"lm": lm, "gluon": _dp_gluon_leg(
+                    mx, ctx, cfg, rank, out, rehearsal)}
+            with _dp_deadline(rehearsal, "gluon_fp64_steps"):
+                w64 = _dp_gluon_fp64_steps(mx, ctx, cfg, rehearsal, rank)
+                if rank == 0:
+                    torch.save(w64, os.path.join(out,
+                                                 "gluon-fp64-steps.pt"))
+                del w64
+        if ctx.device_type == "gpu":
+            res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        with open(os.path.join(out, "%s-r%d.json" % (g, rank)), "w") as f:
+            json.dump(res, f)
     mx.dist.finalize()
 
 
 def _dp_launch(group, out, rehearsal):
     """Run ``group`` in 2 workers through the port's launcher under its
     hard timeout; raises when a worker fails, hangs or the launcher
-    does. Returns the workers' records, rank order, and the seconds."""
+    does. Returns the workers' records of each group run (``all``: the
+    module group's, then lm_gluon's), rank order, and the seconds."""
     cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
            str(_DP_WORLD), "--timeout", str(_DP_LAUNCH_S[rehearsal])]
     if rehearsal:
@@ -5768,9 +5805,11 @@ def _dp_launch(group, out, rehearsal):
     assert res.returncode == 0, ("data_parallel %s workers failed" % group,
                                  res.returncode)
     recs = []
-    for r in range(_DP_WORLD):
-        with open(os.path.join(out, "%s-r%d.json" % (group, r))) as f:
-            recs.append(json.load(f))
+    for g in (("module", "lm_gluon") if group == "all" else (group,)):
+        recs.append([])
+        for r in range(_DP_WORLD):
+            with open(os.path.join(out, "%s-r%d.json" % (g, r))) as f:
+                recs[-1].append(json.load(f))
     return recs, secs
 
 
@@ -6080,8 +6119,7 @@ def _dp_references(mx, ctx, cfg, rehearsal):
 def _data_parallel(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase):
     ref = _dp_references(mx, ctx, cfg, rehearsal)
     ref_s = time.perf_counter() - t_phase
-    mod_recs, mod_s = _dp_launch("module", out, rehearsal)
-    lg_recs, lg_s = _dp_launch("lm_gluon", out, rehearsal)
+    (mod_recs, lg_recs), launch_s = _dp_launch("all", out, rehearsal)
     sym, arg = ref["sym"], ref["arg"]
     sizes = [int(np.prod(v.shape)) for v in arg.values()]
     n_params = sum(sizes)
@@ -6207,8 +6245,7 @@ def _data_parallel(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase):
         "backend_reason": mod_recs[0]["backend_reason"],
         "peak_bytes_per_rank": [[m.get("peak_bytes") for m in recs]
                                 for recs in (mod_recs, lg_recs)],
-        "seconds": {"references": ref_s, "module_launch": mod_s,
-                    "lm_gluon_launch": lg_s},
+        "seconds": {"references": ref_s, "launch": launch_s},
         "parameters": n_params,
         "module_legs": legs,
         "dist_sync_step1": {"ce_workers": ce, "ce_one_process":
@@ -6830,16 +6867,16 @@ _EM_FIT_AXES = {"dp": 2, "mp": 2}
 
 
 def _em_cfg(rehearsal):
-    """Sizes: serving at the serving phase's configuration (16 requests of
-    1-4 rows, then 4 of ``max_batch``); decode at the decode phase's
+    """Sizes: serving at the serving phase's configuration (8 requests of
+    1-4 rows, then 2 of ``max_batch``); decode at the decode phase's
     width, 16 prompts of its prompt length, 32 new tokens; ``Module.fit``
-    at the data_parallel phase's global batch (64) for 3 batches. The
+    at the data_parallel phase's global batch (64) for 2 batches. The
     rehearsal takes the small nets."""
     if rehearsal:
         return {"requests": 8, "full": 2, "prompts": 8, "new_tokens": 8,
                 "fit_batches": 3}
-    return {"requests": 16, "full": 4, "prompts": 16, "new_tokens": 32,
-            "fit_batches": 3}
+    return {"requests": 8, "full": 2, "prompts": 16, "new_tokens": 32,
+            "fit_batches": 2}
 
 
 def _em_rules(mx):
@@ -7364,11 +7401,608 @@ def _engine_meshes(mx, ctx, rehearsal, card, gpu, out):
     return k1, k2, k3
 
 
+# -- elastic data parallelism across worker processes (slice 14) -------------
+
+_EL_WORLD = 3
+_EL_VICTIM = 1
+_EL_FAULT_RC = 17
+_EL_HB = ("0.25", "3")                  # heartbeat interval, timeout (s)
+_EL_LEG_S = {False: 300, True: 200}     # one leg's hard limit in a worker
+_EL_LAUNCH_S = {False: 420, True: 300}  # the launch's, the launcher's own
+_EL_G2C = ("stage3", "stage4", "pool1", "flatten", "dense", "softmax")
+
+
+def _el_cfg(rehearsal):
+    """Sizes: ResNet-50 v1 at the data_parallel phase's width, batch 32 a
+    worker (global 96 while three live, 64 after the loss), 3 epochs of 3
+    batches; rank 1 delayed 250 ms at its first 4 dispatches, then killed
+    at epoch 1, batch 1. The rehearsal takes the small net."""
+    return {"batch": 4 if rehearsal else 32, "epochs": 3, "batches": 3,
+            "delay_ms": 250, "delayed": 4, "kill_at": (1, 1)}
+
+
+def _el_kill_crossing(cfg):
+    """The victim's gate crossing (1-based: the ``kv_collective`` fault
+    site's call number) at the step of ``cfg['kill_at']``: ``Module``
+    calls ``kv.init`` once with every parameter's key, which crosses the
+    store's gate once before its broadcasts, then every fused step
+    crosses the step gate once."""
+    epoch, nbatch = cfg["kill_at"]
+    return 1 + epoch * cfg["batches"] + nbatch + 1
+
+
+def _el_local(a, rank, batch):
+    """Worker ``rank``'s rows of every global batch of ``batch * 3``."""
+    g = batch * _EL_WORLD
+    idx = np.concatenate([np.arange(i + rank * batch, i + (rank + 1) * batch)
+                          for i in range(0, len(a), g)])
+    return a[idx]
+
+
+def _el_survivor_rows(a, batch, nbatch=0):
+    """The survivors' rows (ranks 0 and 2) of global batch ``nbatch``."""
+    g = a[nbatch * batch * _EL_WORLD:(nbatch + 1) * batch * _EL_WORLD]
+    return np.concatenate([g[r * batch:(r + 1) * batch]
+                           for r in range(_EL_WORLD) if r != _EL_VICTIM])
+
+
+def _el_ckpt_prefix(out, rank):
+    return os.path.join(out, "ckpt", "r%d" % rank, "model")
+
+
+def _el_step_from_ckpt(mx, ctx, cfg, rehearsal, prefix, dtype, rank=None):
+    """One fused step from the checkpoint that resumes epoch 1 (weights,
+    moving stats and momentum), in ``dtype``: ``rank`` None, one process
+    on the survivors' 64 rows of global batch 0 (a ``device`` store);
+    else this survivor's rows over ``dist_sync`` (the survivors' group).
+    fp64 runs the unfused net (K1 takes fp32 and bf16 only), its names
+    mapped from the fused net's. Returns the weights after the step under
+    the fused net's names, on the host."""
+    net, sym, hw, classes = _resnet_net(mx, ctx, rehearsal, init=False)
+    names = list(net.collect_params())
+    rename = {k: k for k in names}
+    if dtype == "float64":
+        net, sym, _, _ = _resnet_net(mx, ctx, rehearsal, fused=False,
+                                     init=False)
+        rename = dict(zip(net.collect_params(), names))
+    del net
+    back = {f: u for u, f in rename.items()}
+    mgr = mx.CheckpointManager(prefix, keep_last=4)
+    with open("%s-%04d.meta.json" % (prefix, 1)) as f:
+        meta = json.load(f)
+    _, arg, aux, _ = mgr.load(meta)
+    tdt = getattr(torch, dtype)
+    arg = {back[k]: v._data.to(tdt) for k, v in arg.items()}
+    aux = {back[k]: v._data.to(tdt) for k, v in aux.items()}
+    batch = cfg["batch"]
+    x, y = _module_data(cfg["batches"], batch * _EL_WORLD, hw, classes)
+    if rank is None:
+        x, y = _el_survivor_rows(x, batch), _el_survivor_rows(y, batch)
+    else:
+        x, y = _el_local(x, rank, batch)[:batch], \
+            _el_local(y, rank, batch)[:batch]
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([mx.io.DataDesc("data", x.shape, dtype)],
+             [mx.io.DataDesc("softmax_label", y.shape, dtype)])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(kvstore=mx.kv.create("device" if rank is None
+                                            else "dist_sync"),
+                       optimizer="sgd",
+                       optimizer_params=_dp_opt(batch * _EL_WORLD))
+    # the momentum by name (the fused and unfused symbols order their
+    # parameters alike, but a name is the contract), cast to ``dtype``
+    from mxnet_tpu_torch.optimizer import _StatesUnpickler
+    with open("%s-%04d.states" % (prefix, int(meta["param_epoch"])),
+              "rb") as f:
+        states = _StatesUnpickler(f).load()
+    if isinstance(states, tuple):           # (states, dumped optimizer)
+        states = states[0]
+    fused = [rename[n] for n in mod._param_names]
+    ckpt_names = [n for n in mx.sym.load("%s-symbol.json" % prefix)
+                  .list_arguments() if n not in ("data", "softmax_label")]
+    upd = mod._active_updater()
+    upd.states = {fused.index(ckpt_names[i]): None if s is None else
+                  np.asarray(s).astype(dtype) for i, s in states.items()}
+    upd.states_synced = {k: False for k in upd.states}
+    assert mod.fused_step(mx.io.DataBatch(
+        [mx.nd.array(x, ctx=ctx, dtype=dtype)],
+        [mx.nd.array(y, ctx=ctx, dtype=dtype)]))
+    out = {rename[k]: v._data.to("cpu", copy=True)
+           for k, v in mod.get_params()[0].items()}
+    del mod
+    mx.layout.set_default_layout(None)
+    return out
+
+
+def _el_timeline(events):
+    """ms a step by CUDA events between batch ends of one epoch of one
+    membership (the first batch of an epoch, which follows a checkpoint,
+    and the step the loss aborted, are not steps of their own), and host
+    seconds in collectives a step, before and after the loss."""
+    out = {"before": [], "after": [], "wire_before": [], "wire_after": []}
+    for a, b in zip(events, events[1:]):
+        if a["epoch"] != b["epoch"] or a["resumed"] != b["resumed"]:
+            continue
+        key = "after" if b["resumed"] else "before"
+        if a.get("ev") is not None:
+            out[key].append(a["ev"].elapsed_time(b["ev"]))
+        out["wire_" + key].append(b["wire_s"] - a["wire_s"])
+    return out
+
+
+def _el_pcts(vals):
+    if not vals:
+        return None
+    v = sorted(vals)
+    return {"p50": v[len(v) // 2], "p95": v[min(len(v) - 1,
+                                                int(0.95 * len(v)))],
+            "n": len(v)}
+
+
+def _el_fit_leg(mx, ctx, cfg, rank, out, rehearsal):
+    """The main path in a worker: ResNet-50 v1 through ``Module.fit`` on
+    ``dist_sync`` with a checkpoint manager of its own; rank 1 a
+    straggler first, then killed at its ``kv_collective`` crossing.
+    Returns the worker's record (the victim writes it and dies)."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    from mxnet_tpu_torch.parallel import collectives as C
+    gpu = ctx.device_type == "gpu"
+    net, sym, hw, classes = _resnet_net(mx, ctx, rehearsal)
+    aux_names = set(sym.list_auxiliary_states())
+    params = {k: p.data()._data.clone() for k, p in
+              net.collect_params().items()}
+    del net
+    arg = {k: v for k, v in params.items() if k not in aux_names}
+    aux = {k: v for k, v in params.items() if k in aux_names}
+    kill = _el_kill_crossing(cfg)
+    batch = cfg["batch"]
+    x, y = _module_data(cfg["batches"], batch * _EL_WORLD, hw, classes)
+    x, y = _el_local(x, rank, batch), _el_local(y, rank, batch)
+    if rank == _EL_VICTIM:
+        mx.faults.configure("dispatch:delay=%d:first=%d;"
+                            "kv_collective:raise:n=%d"
+                            % (cfg["delay_ms"], cfg["delayed"], kill))
+    mgr = mx.CheckpointManager(_el_ckpt_prefix(out, rank), keep_last=4)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (batch, hw, hw, 3))],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    metric = mx.metric.create(["acc", "ce"])
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    events, rec = [], {"rank": rank, "kill_crossing": kill,
+                       "parameters": len(arg)}
+
+    def batch_end(param):
+        resumed = bool(mx.telemetry.counters().get("elastic.resumed"))
+        ev = None
+        if gpu:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        events.append({"epoch": param.epoch, "nbatch": param.nbatch,
+                       "resumed": resumed, "wall": time.time(), "ev": ev,
+                       "wire_s": C.wire["seconds"]})
+        if resumed and "step1" not in rec and rank == 0:
+            rec["step1"] = True
+            torch.save({k: v._data.to("cpu", copy=True) for k, v in
+                        mod.get_params()[0].items()},
+                       os.path.join(out, "resumed-step1.pt"))
+
+    mx.telemetry.enable()
+    mx.telemetry.reset()
+    C.reset_wire()
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after --------
+    K.launches = 0
+    t0 = time.perf_counter()
+    try:
+        mod.fit(it, eval_metric=metric, num_epoch=cfg["epochs"],
+                kvstore=mx.kv.create("dist_sync"), optimizer="sgd",
+                optimizer_params=_dp_opt(batch * _EL_WORLD),
+                batch_end_callback=batch_end, checkpoint=mgr)
+    except mx.faults.InjectedFault:
+        died = time.time()
+        if gpu:
+            torch.cuda.synchronize()
+        cnt = mx.telemetry.counters()
+        rec.update({"died": died, "k1_launches": K.launches,
+                    "fused_steps": cnt.get("kvstore.dist.fused_steps", 0),
+                    "kv_crossings": cnt.get("heartbeat.gate_crossings.kv"),
+                    "step_crossings": cnt.get(
+                        "heartbeat.gate_crossings.step"),
+                    "fault_counts": mx.faults.counts()})
+        with open(os.path.join(out, "r%d.json" % rank), "w") as f:
+            json.dump(rec, f)
+        mx.dist.abort(_EL_FAULT_RC)
+    if gpu:
+        torch.cuda.synchronize()
+    rec["fit_wall_s"] = time.perf_counter() - t0
+    rec["k1_launches"] = K.launches
+    # ---------------------------------------------------------------------
+    cnt = mx.telemetry.counters()
+    rec["counters"] = {k: v for k, v in cnt.items() if k.startswith(
+        ("elastic.", "heartbeat.", "kvstore.dist", "dist.straggler"))}
+    rec["fused_steps"] = cnt.get("kvstore.dist.fused_steps", 0)
+    rec["elastic_events"] = [{"kind": e["kind"], "ts": e["ts"],
+                              "data": e["data"]}
+                             for e in mx.telemetry.events()
+                             if e["kind"].startswith("elastic.")]
+    rec["first_resumed_step_end"] = next(
+        (e["wall"] for e in events if e["resumed"]), None)
+    tl = _el_timeline(events)
+    rec["ms_per_step"] = {"before_loss": tl["before"],
+                          "after_loss": tl["after"]}
+    rec["collective_host_s_per_step"] = {
+        "before_loss": tl["wire_before"], "after_loss": tl["wire_after"]}
+    waits = collections.defaultdict(list)
+    for s in mx.telemetry.recent_spans():
+        if s["name"] == "gate_wait":
+            waits[s["ctx"].get("channel")].append(s["dur_ms"])
+    rec["gate_wait_ms"] = {ch: _el_pcts(v) for ch, v in waits.items()}
+    rec["live_ranks"] = list(mx.dist.live_ranks())
+    rec["dead_ranks"] = list(mx.dist.dead_ranks())
+    rec["metric"] = metric.get_name_value()
+    d_arg, d_aux = _dp_module_digest(mod)
+    rec["digest"], rec["aux_digest"] = d_arg, d_aux
+    if gpu:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        data = mx.io.DataBatch([mx.nd.array(x[:batch], ctx=ctx)],
+                               [mx.nd.array(y[:batch], ctx=ctx)])
+        rec["profiled_step"] = _dp_collective_steps(
+            lambda: mod.fused_step(data), rank, gpu)
+    del mod
+    _free(gpu)
+    return rec
+
+
+def el_worker(out, rehearsal):
+    """One worker of the elastic phase (``chip_smoke.py --el-worker DIR``,
+    started by ``python -m mxnet_tpu_torch.launch -n 3 --heartbeat-dir``):
+    the fit leg, then on the survivors the fp64 step from the checkpoint
+    over the survivors' group; writes ``r<rank>.json`` under ``out``."""
+    import mxnet_tpu_torch as mx
+    rank = mx.dist.rank()
+    assert mx.dist.process_count() == _EL_WORLD, mx.dist.process_count()
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = _el_cfg(rehearsal)
+    with _dp_deadline(rehearsal, "elastic_fit"):
+        rec = _el_fit_leg(mx, ctx, cfg, rank, out, rehearsal)
+    with _dp_deadline(rehearsal, "elastic_fp64_step"):
+        w64 = _el_step_from_ckpt(mx, ctx, cfg, rehearsal,
+                                 _el_ckpt_prefix(out, rank), "float64",
+                                 rank=rank)
+        if rank == 0:
+            torch.save(w64, os.path.join(out, "resumed-fp64-step1.pt"))
+        del w64
+    rec.update({"backend": mx.dist.backend(), "world": _EL_WORLD,
+                "pid": os.getpid()})
+    with open(os.path.join(out, "r%d.json" % rank), "w") as f:
+        json.dump(rec, f)
+    mx.dist.finalize()
+
+
+def _el_launch(out, rehearsal):
+    """The three workers through the port's launcher with a heartbeat
+    directory, under its hard timeout. Returns the launcher's exit code,
+    its standard error, each rank's record and the seconds."""
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+           str(_EL_WORLD), "--timeout", str(_EL_LAUNCH_S[rehearsal]),
+           "--heartbeat-dir", os.path.join(out, "hb"),
+           "--heartbeat-interval", _EL_HB[0], "--heartbeat-timeout",
+           _EL_HB[1]]
+    if rehearsal:
+        cmd.append("--force-cpu")
+    cmd += ["--", sys.executable, os.path.abspath(__file__), "--el-worker",
+            out] + (["--cpu-rehearsal"] if rehearsal else [])
+    env = dict(os.environ, MXNET_FLIGHT_DIR=os.path.join(out, "flight"),
+               MXNET_METRICS_INTERVAL_MS="200")
+    env.pop("MXNET_FAULTS", None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=here, capture_output=True,
+                         text=True, timeout=_EL_LAUNCH_S[rehearsal] + 60)
+    secs = time.perf_counter() - t0
+    sys.stderr.write(res.stderr[-20000:])
+    recs = []
+    for r in range(_EL_WORLD):
+        with open(os.path.join(out, "r%d.json" % r)) as f:
+            recs.append(json.load(f))
+    return res.returncode, res.stderr, recs, secs
+
+
+def _el_group2ctx_leg(mx, ctx, rehearsal):
+    """``Module(group2ctxs=)`` on the card: (1) ResNet-50 v1 with stages 3,
+    4 and the head in group ``g2`` and the rest in ``g1``, both on
+    ``gpu(0)``, one ``fit`` batch against the ungrouped module's (the
+    grouped step phase-splits, code ``group2ctx``; bit-equal to the
+    ungrouped phase-split step, and the ungrouped fused step reported);
+    (2) the MLP with ``g1`` on ``cpu(0)`` and ``g2`` on ``gpu(0)``: a real
+    copy between host and card, forward and gradients against an
+    ungrouped card run within 1e-6 of the largest value. Returns the
+    leg's record and its K1 launches."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    gpu = ctx.device_type == "gpu"
+    net, sym, hw, classes = _resnet_net(mx, ctx, rehearsal)
+    aux_names = set(sym.list_auxiliary_states())
+    params = {k: p.data()._data.clone() for k, p in
+              net.collect_params().items()}
+    del net
+    arg = {k: v for k, v in params.items() if k not in aux_names}
+    aux = {k: v for k, v in params.items() if k in aux_names}
+    grouped = mx.sym.load_json(sym.tojson())
+    for node in grouped._topo_nodes():
+        node._extra_attrs["ctx_group"] = \
+            "g2" if any(s in node.name for s in _EL_G2C) else "g1"
+    n_fused = sum(1 for n in sym._topo_nodes() if n.op is not None
+                  and n.op.name == "_contrib_BatchNormAddReLU")
+    batch = 32 if not rehearsal else 4
+    x, y = _module_data(1, batch, hw, classes, seed=5)
+
+    def one_batch(s, g2c, fused):
+        pin = os.environ.get("MXNET_MODULE_FUSED_STEP")
+        os.environ["MXNET_MODULE_FUSED_STEP"] = "1" if fused else "0"
+        try:
+            mod = mx.mod.Module(s, context=ctx, group2ctxs=g2c)
+            K.launches = 0
+            mod.fit(mx.io.NDArrayIter(x, y, batch_size=batch), num_epoch=1,
+                    arg_params=arg, aux_params=aux, kvstore=None,
+                    optimizer="sgd", optimizer_params=_dp_opt(batch))
+            launches = K.launches
+            code = getattr(mod._fused_fallback_reason, "code", None)
+            got = _host_params(mod)
+            ctxs = sorted({str(a.context) for a in
+                           mod._exec.arg_dict.values()})
+        finally:
+            if pin is None:
+                os.environ.pop("MXNET_MODULE_FUSED_STEP", None)
+            else:
+                os.environ["MXNET_MODULE_FUSED_STEP"] = pin
+        del mod
+        _free(gpu)
+        return got, launches, code, ctxs
+    # -- the main path (the grouped batch): counts zeroed inside ---------
+    g_par, g_k1, g_code, g_ctxs = one_batch(
+        grouped, {"g1": ctx, "g2": ctx}, True)
+    # ---------------------------------------------------------------------
+    u_par, u_k1, _, _ = one_batch(sym, None, False)
+    f_par, _, _, _ = one_batch(sym, None, True)
+    rec = {"resnet": {
+        "groups": {"g1": str(ctx), "g2": str(ctx)},
+        "g2_nodes": sum(1 for n in grouped._topo_nodes()
+                        if n._extra_attrs.get("ctx_group") == "g2"),
+        "fallback": g_code, "contexts": g_ctxs, "k1_launches": g_k1,
+        "k1_expected": n_fused if gpu else 0, "ungrouped_k1_launches": u_k1,
+        "bit_equal_ungrouped_phase_split": all(
+            _bit_equal(a, b) for a, b in zip(g_par, u_par)),
+        "bit_equal_ungrouped_fused": all(
+            _bit_equal(a, b) for a, b in zip(g_par, f_par))}}
+    mx.layout.set_default_layout(None)
+    # (2) the MLP across host and card
+    rs = np.random.RandomState(0)
+    xm = rs.uniform(-1, 1, (4, 6)).astype(np.float32)
+    w1 = rs.uniform(-0.5, 0.5, (5, 6)).astype(np.float32)
+    w2 = rs.uniform(-0.5, 0.5, (3, 5)).astype(np.float32)
+
+    def mlp(g2c):
+        with mx.AttrScope(ctx_group="g1"):
+            h = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=5,
+                                      no_bias=True, name="fc1")
+            h = mx.sym.Activation(h, act_type="tanh")
+        with mx.AttrScope(ctx_group="g2"):
+            h = mx.sym.FullyConnected(h, num_hidden=3, no_bias=True,
+                                      name="fc2")
+        ex = h.simple_bind(ctx=ctx, grad_req="write", group2ctx=g2c,
+                           data=(4, 6))
+        ex.arg_dict["data"][:] = xm
+        ex.arg_dict["fc1_weight"][:] = w1
+        ex.arg_dict["fc2_weight"][:] = w2
+        o = ex.forward_backward(out_grads=mx.nd.ones((4, 3), ctx=ctx),
+                                is_train=True)[0]
+        return ex, o
+    ex, o = mlp({"g1": mx.cpu(0), "g2": ctx})
+    rex, ro = mlp(None)
+    top = float(np.abs(ro.asnumpy()).max())
+    gerr = {k: float(np.abs(ex.grad_dict[k].asnumpy()
+                            - rex.grad_dict[k].asnumpy()).max()
+                     / np.abs(rex.grad_dict[k].asnumpy()).max())
+            for k in ("fc1_weight", "fc2_weight")}
+    rec["mlp"] = {
+        "groups": {"g1": "cpu(0)", "g2": str(ctx)},
+        "fc1_on": str(ex.arg_dict["fc1_weight"]._data.device),
+        "fc1_grad_on": str(ex.grad_dict["fc1_weight"]._data.device),
+        "fc2_on": str(ex.arg_dict["fc2_weight"]._data.device),
+        "out_context": str(o.context),
+        "out_err_over_max": float(np.abs(o.asnumpy() - ro.asnumpy()).max())
+        / top, "grad_err_over_max": gerr, "tol": 1e-6}
+    return rec, g_k1
+
+
+def elastic_phase(mx, ctx, rehearsal, card):
+    """Elastic data parallelism on one card (the JAX package's
+    ``tools/module_fit_probe.py`` leg C at the data_parallel phase's
+    width): three workers of ``python -m mxnet_tpu_torch.launch -n 3
+    --heartbeat-dir`` share ``cuda:0`` over gloo; rank 1 straggles, then
+    dies at its ``kv_collective`` crossing of epoch 1, batch 1; the
+    survivors name it, re-mesh over {0, 2} and resume from their
+    checkpoints. Then the ``group2ctxs`` leg. Returns the K1, K2 and K3
+    launches of the path."""
+    gpu = ctx.device_type == "gpu"
+    cfg = _el_cfg(rehearsal)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _free(gpu)
+    out = tempfile.mkdtemp(prefix="chip_smoke_el_")
+    try:
+        return _elastic(mx, ctx, rehearsal, card, cfg, gpu, out)
+    finally:
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+        torch.backends.cudnn.deterministic = det
+        mx.layout.set_default_layout(None)
+        _free(gpu)
+
+
+def _elastic(mx, ctx, rehearsal, card, cfg, gpu, out):
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    rc, stderr, recs, launch_s = _el_launch(out, rehearsal)
+    r0, rv, r2 = recs
+    kill = r0["kill_crossing"]
+    print("elastic: rank %d is killed at its gate crossing %d (1 for "
+          "kv.init of %d parameters, then one a step up to epoch %d batch "
+          "%d of %d-batch epochs)"
+          % (_EL_VICTIM, kill, r0["parameters"], cfg["kill_at"][0],
+             cfg["kill_at"][1], cfg["batches"]), flush=True)
+    checks = {}
+    codes = [line for line in stderr.splitlines()
+             if line.startswith("launch: worker exit codes")]
+    checks["victim_fault_code_survivors_0"] = (
+        rc == _EL_FAULT_RC and bool(codes)
+        and codes[-1].endswith("[0, %d, 0]" % _EL_FAULT_RC))
+    for r, rec in ((0, r0), (2, r2)):
+        for k in ("elastic.dead_workers", "elastic.remesh",
+                  "elastic.resumed"):
+            checks["rank%d_%s_is_1" % (r, k)] = \
+                rec["counters"].get(k) == 1
+        checks["rank%d_live_0_2" % r] = rec["live_ranks"] == [0, 2]
+    checks["survivors_bit_equal"] = r0["digest"] == r2["digest"] \
+        and r0["aux_digest"] == r2["aux_digest"]
+    checks["victim_crossings_counted"] = (
+        rv["kv_crossings"] == 1 and rv["step_crossings"] == kill - 2
+        and rv["fault_counts"]["kv_collective"]["calls"] == kill)
+    # K1: 16 a forward on every worker (the victim's 4 steps, the
+    # survivors' 4 before and 6 after the loss)
+    steps = {"victim": cfg["batches"] + cfg["kill_at"][1],
+             "survivor": cfg["batches"] + cfg["kill_at"][1]
+             + (cfg["epochs"] - cfg["kill_at"][0]) * cfg["batches"]}
+    tails = 16 if not rehearsal else 0
+    checks["k1_16_a_forward_every_worker"] = (
+        rv["fused_steps"] == steps["victim"]
+        and rv["k1_launches"] == tails * steps["victim"]
+        and all(r["fused_steps"] == steps["survivor"]
+                and r["k1_launches"] == tails * steps["survivor"]
+                for r in (r0, r2)))
+    # the postmortems through tools/flight_view.py
+    flight = os.path.join(out, "flight")
+    pms = sorted(f for f in os.listdir(flight)
+                 if f.endswith("dead_worker.json"))
+    views = []
+    for f in pms:
+        v = subprocess.run([sys.executable,
+                            os.path.join(here, "tools", "flight_view.py"),
+                            os.path.join(flight, f), "--json"],
+                           capture_output=True, text=True, timeout=60)
+        views.append(json.loads(v.stdout)["extra"] if v.returncode == 0
+                     else None)
+    checks["dead_worker_postmortems"] = len(views) == 2 and all(
+        e is not None and e["dead_ranks"] == [_EL_VICTIM]
+        and (e["epoch"], e["nbatch"]) == tuple(cfg["kill_at"])
+        and any(p["rank"] == _EL_VICTIM and p["reason"] == "worker_abort"
+                for p in e["peer_postmortems"]) for e in views)
+    # the fleet view
+    trace = os.path.join(out, "fleet-trace.json")
+    fv = subprocess.run([sys.executable,
+                         os.path.join(here, "tools", "fleet_view.py"),
+                         flight, "--json", "--trace", trace],
+                        capture_output=True, text=True, timeout=60)
+    fleet = json.loads(fv.stdout) if fv.returncode == 0 else None
+    checks["fleet_view_parses"] = fleet is not None
+    if fleet is not None:
+        top = fleet["stragglers"][0] if fleet["stragglers"] else {}
+        offs = fleet["clock"]["offsets_s"]
+        checks["fleet_names_rank1_dead"] = fleet["dead_ranks"] == [1]
+        checks["fleet_rank1_first_straggler"] = (
+            top.get("rank") == 1 and top.get("straggler_events", 0) > 0)
+        checks["fleet_clocks_within_0.25s"] = bool(offs) and all(
+            abs(o) <= 0.25 for o in offs.values())
+    # the first step after the resume against one process from the same
+    # checkpoint on the survivors' 64 rows (fp32 gate, fp64 arbiter)
+    t_ref = time.perf_counter()
+    prefix = _el_ckpt_prefix(out, 0)
+    one = _el_step_from_ckpt(mx, ctx, cfg, rehearsal, prefix, "float32")
+    _free(gpu)
+    one64 = _el_step_from_ckpt(mx, ctx, cfg, rehearsal, prefix, "float64")
+    _free(gpu)
+    mgr = mx.CheckpointManager(prefix, keep_last=4)
+    with open("%s-%04d.meta.json" % (prefix, 1)) as f:
+        _, w0, _, _ = mgr.load(json.load(f))
+    w0 = {k: v._data for k, v in w0.items()}
+    got = torch.load(os.path.join(out, "resumed-step1.pt"))
+    got64 = torch.load(os.path.join(out, "resumed-fp64-step1.pt"))
+    gate_ok, gate = _dp_gate(got, got64, one, one64, w0)
+    checks["resumed_step1_gate"] = gate_ok
+    ref_s = time.perf_counter() - t_ref
+    # group2ctxs on the card
+    t_g = time.perf_counter()
+    g2c, g_k1 = _el_group2ctx_leg(mx, ctx, rehearsal)
+    g_s = time.perf_counter() - t_g
+    checks["group2ctx_resnet_bit_equal"] = \
+        g2c["resnet"]["bit_equal_ungrouped_phase_split"]
+    checks["group2ctx_phase_split"] = g2c["resnet"]["fallback"] == "group2ctx"
+    checks["group2ctx_k1_16_a_forward"] = \
+        g2c["resnet"]["k1_launches"] == g2c["resnet"]["k1_expected"]
+    m = g2c["mlp"]
+    checks["group2ctx_mlp_host_and_card"] = (
+        m["out_err_over_max"] <= 1e-6
+        and max(m["grad_err_over_max"].values()) <= 1e-6
+        and m["fc1_on"] == "cpu" and m["fc1_grad_on"] == "cpu")
+    # timings of the recovery, on rank 0's clock and the victim's
+    ev = {e["kind"]: e["ts"] for e in r0["elastic_events"]}
+    died = rv["died"]
+    recovery = {
+        "to_dead_worker_error_s": ev.get("elastic.dead_worker", 0) - died,
+        "to_remesh_s": ev.get("elastic.remesh", 0) - died,
+        "to_first_resumed_step_s": (r0["first_resumed_step_end"] or 0)
+        - died}
+    k1 = rv["k1_launches"] + r0["k1_launches"] + r2["k1_launches"] + g_k1
+    emit({"elastic": {
+        "card": card, "world": _EL_WORLD, "backend": r0["backend"],
+        "heartbeat": {"interval_s": float(_EL_HB[0]),
+                      "timeout_s": float(_EL_HB[1])},
+        "kill_crossing": kill, "parameters": r0["parameters"],
+        "launcher_rc": rc, "exit_codes": codes[-1:] if codes else None,
+        "seconds": {"launch": launch_s, "references": ref_s,
+                    "group2ctx": g_s,
+                    "phase": time.perf_counter() - t_phase},
+        "rank0_ms_per_step": r0["ms_per_step"],
+        "rank0_collective_host_s_per_step":
+            r0["collective_host_s_per_step"],
+        "recovery": recovery,
+        "gate_wait_ms_per_crossing": {"rank0": r0["gate_wait_ms"],
+                                      "rank2": r2["gate_wait_ms"]},
+        "profiled_step_rank0": r0.get("profiled_step"),
+        "peak_bytes": [r0.get("peak_bytes"), rv.get("peak_bytes"),
+                       r2.get("peak_bytes")],
+        "fused_steps": [r0["fused_steps"], rv["fused_steps"],
+                        r2["fused_steps"]],
+        "k1_launches": [r0["k1_launches"], rv["k1_launches"],
+                        r2["k1_launches"]],
+        "counters_rank0": r0["counters"],
+        "postmortem_extras": [{k: e.get(k) for k in (
+            "dead_ranks", "channel", "generation", "epoch", "nbatch",
+            "survivor_rank", "live_ranks")} if e else None for e in views],
+        "fleet": fleet and {k: fleet.get(k) for k in (
+            "n_ranks", "dead_ranks", "stragglers", "clock", "warnings")},
+        "resumed_step1_gate": gate, "group2ctx": g2c,
+        "launches": {"k1": k1, "k2": 0, "k3": 0},
+        "checks": checks}})
+    failed = sorted(k for k, v in checks.items() if not v)
+    assert not failed, failed
+    return k1, 0, 0
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
           "resnet_training", "gluon_training", "decode", "rnn_training",
           "image_classification", "gluon_zoo", "observability",
           "dense_prediction", "data_parallel", "model_parallel",
-          "engine_meshes")
+          "engine_meshes", "elastic")
 
 
 def main(argv=None):
@@ -7384,6 +8018,7 @@ def main(argv=None):
                     help=argparse.SUPPRESS)
     ap.add_argument("--mp-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--em-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--el-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     if args.dp_worker:
@@ -7394,6 +8029,9 @@ def main(argv=None):
         return 0
     if args.em_worker:
         em_worker(args.em_worker, rehearsal)
+        return 0
+    if args.el_worker:
+        el_worker(args.el_worker, rehearsal)
         return 0
     todo = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(todo) - set(PHASES))
@@ -7465,6 +8103,10 @@ def main(argv=None):
         with phase("engine_meshes"):
             res["em_launches"] = engine_meshes_phase(
                 mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
+    if "elastic" in todo:
+        with phase("elastic"):
+            res["el_launches"] = elastic_phase(
+                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -7478,7 +8120,7 @@ def main(argv=None):
         "launches": res["k1_launches"] + res["k1_train_launches"]
         + res["k1_gluon_launches"] + res["obs_launches"]
         + res["dp_launches"][0] + res["mp_launches"][0]
-        + res["em_launches"][0],
+        + res["em_launches"][0] + res["el_launches"][0],
         "serving_launches": res["k1_launches"],
         "observability_launches": res["obs_launches"],
         "training_launches": res["k1_train_launches"],
@@ -7490,6 +8132,7 @@ def main(argv=None):
         "data_parallel_launches": res["dp_launches"][0],
         "model_parallel_launches": res["mp_launches"][0],
         "engine_meshes_launches": res["em_launches"][0],
+        "elastic_launches": res["el_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -7502,7 +8145,8 @@ def main(argv=None):
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:83",
         "launches": launches["fwd"] + res["dp_launches"][1]
-        + res["mp_launches"][1] + res["em_launches"][1],
+        + res["mp_launches"][1] + res["em_launches"][1]
+        + res["el_launches"][1],
         "training_launches": launches["fwd"],
         "rnn_training_launches": res["rnn_launches"][1],
         "image_classification_launches": res["ic_launches"][1],
@@ -7511,6 +8155,7 @@ def main(argv=None):
         "data_parallel_launches": res["dp_launches"][1],
         "model_parallel_launches": res["mp_launches"][1],
         "engine_meshes_launches": res["em_launches"][1],
+        "elastic_launches": res["el_launches"][1],
         "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
@@ -7524,7 +8169,8 @@ def main(argv=None):
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/pallas/flash_attention.py:261",
         "launches": launches["bwd"] + res["dp_launches"][2]
-        + res["mp_launches"][2] + res["em_launches"][2],
+        + res["mp_launches"][2] + res["em_launches"][2]
+        + res["el_launches"][2],
         "training_launches": launches["bwd"],
         "rnn_training_launches": res["rnn_launches"][2],
         "image_classification_launches": res["ic_launches"][2],
@@ -7533,6 +8179,7 @@ def main(argv=None):
         "data_parallel_launches": res["dp_launches"][2],
         "model_parallel_launches": res["mp_launches"][2],
         "engine_meshes_launches": res["em_launches"][2],
+        "elastic_launches": res["el_launches"][2],
         "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,

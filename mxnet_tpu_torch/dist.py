@@ -32,10 +32,20 @@ global batch only in the fused step of a ``Module`` over a synchronous
 process-spanning dp program does; the phase-split dist path and the Gluon
 ``Trainer`` take each worker's own rows, as the JAX package's do.
 
-The elastic half of the JAX module (``mark_member_lost``, re-meshing
-over survivors) waits for ROADMAP Queue 1 item 4, second half:
-:func:`live_ranks` returns every launched rank, :func:`dead_ranks` none,
-and :func:`mark_member_lost` raises.
+Elastic membership (the JAX module's survivable client). Liveness is
+the heartbeat directory's (``heartbeat.py``); a survivor that names a
+dead peer calls :func:`mark_member_lost`. From then on
+:func:`live_ranks` excludes it, and every collective the port issues
+over the default group takes :func:`live_group` instead: a
+``torch.distributed`` group over the survivors, built on the existing
+rendezvous store with ``use_local_synchronization`` (a group over the
+world would need the dead rank's call too), or no group at all for the
+last one standing. A process keeps its global rank as its identity
+(file names, postmortems); the group rank is taken only at the call.
+:func:`finalize` then leaves the world group alone (its teardown would
+touch the dead peer). Rank 0 hosts the rendezvous store, so the loss of
+rank 0 is fatal: :func:`mark_member_lost` raises for it, as the JAX
+package's coordinator is its single point of failure.
 """
 from __future__ import annotations
 
@@ -47,8 +57,8 @@ import threading
 from .base import MXNetError
 
 __all__ = ["init_from_env", "initialized", "rank", "process_count",
-           "live_ranks", "mark_member_lost", "dead_ranks", "finalize",
-           "abort", "backend", "backend_reason", "ENV_COORDINATOR",
+           "live_ranks", "mark_member_lost", "dead_ranks", "live_group",
+           "finalize", "abort", "backend", "backend_reason", "ENV_COORDINATOR",
            "ENV_BACKEND"]
 
 ENV_COORDINATOR = "MXNET_TPU_COORDINATOR"
@@ -57,12 +67,15 @@ ENV_PROCESS_ID = "MXNET_TPU_PROCESS_ID"
 ENV_BACKEND = "MXNET_TPU_DIST_BACKEND"
 ENV_INIT_TIMEOUT = "MXNET_TPU_DIST_INIT_TIMEOUT"
 
-_SECOND_HALF = "ROADMAP Queue 1 item 4, second half"
-
 _lock = threading.Lock()
 _state = {"initialized": False,     # guarded by: _lock
           "backend": None,          # guarded by: _lock
-          "reason": None}           # guarded by: _lock
+          "reason": None,           # guarded by: _lock
+          "dead": frozenset(),      # guarded by: _lock
+          "live_group": None}       # guarded by: _lock
+
+# what :func:`live_group` answers for the last process standing
+ALONE = "alone"
 
 
 def _device_identity():
@@ -170,28 +183,70 @@ def process_count():
 
 
 def live_ranks():
-    """Every launched rank: member loss is not tracked until ROADMAP
-    Queue 1 item 4, second half."""
-    return tuple(range(process_count()))
+    """Sorted surviving ranks: every launched rank minus those
+    :func:`mark_member_lost` recorded."""
+    with _lock:
+        dead = _state["dead"]
+    return tuple(r for r in range(process_count()) if r not in dead)
 
 
 def dead_ranks():
-    """No rank is recorded dead until ROADMAP Queue 1 item 4, second
-    half."""
-    return ()
+    """Sorted ranks recorded dead so far."""
+    with _lock:
+        return tuple(sorted(_state["dead"]))
 
 
 def mark_member_lost(ranks):
-    raise MXNetError("mark_member_lost: elastic membership is not ported "
-                     "yet (%s)" % _SECOND_HALF)
+    """Record dead peers: :func:`live_ranks` excludes them, collectives
+    over the default group move to the survivors' group
+    (:func:`live_group`) and :func:`finalize` skips the world group's
+    teardown. The loss of rank 0, which hosts the rendezvous store, is
+    fatal and raises."""
+    ranks = frozenset(int(r) for r in ranks)
+    if 0 in ranks and initialized() and process_count() > 1:
+        raise MXNetError(
+            "rank 0 is lost: it hosts the rendezvous store every group is "
+            "built on, so the job cannot re-mesh without it (its loss is "
+            "fatal, as the JAX package's coordinator's is)")
+    with _lock:
+        if ranks <= _state["dead"]:
+            return
+        _state["dead"] = _state["dead"] | ranks
+        _state["live_group"] = None
+
+
+def live_group():
+    """The group collectives over the default group take: None while no
+    member is lost (the world group), else the survivors' group (built
+    on first use; every survivor reaches it in the same order), or
+    :data:`ALONE` for the last process standing."""
+    with _lock:
+        dead, pg = _state["dead"], _state["live_group"]
+    if not dead or not initialized():
+        return None
+    if pg is not None:
+        return pg
+    live = live_ranks()
+    if len(live) <= 1:
+        pg = ALONE
+    else:
+        import torch.distributed as tdist
+        pg = tdist.new_group(ranks=list(live), use_local_synchronization=True)
+    with _lock:
+        if _state["dead"] == dead:
+            _state["live_group"] = pg
+    return pg
 
 
 def finalize():
     """Tear the default group down (all workers call it at job end);
-    idempotent, a no-op in one-process runs."""
+    idempotent, a no-op in one-process runs. After a member loss the
+    groups are left to the process's exit: their teardown would wait on
+    the dead peer."""
     with _lock:
         _state["initialized"] = False
-    if initialized():
+        lost = bool(_state["dead"])
+    if initialized() and not lost:
         import torch.distributed as tdist
         tdist.destroy_process_group()
 

@@ -258,9 +258,19 @@ class _InstrumentedProgram:
 
 
 class _GraphProgram:
-    """The evaluation order and entry points of one Symbol."""
+    """The evaluation order and entry points of one Symbol.
 
-    def __init__(self, symbol):
+    With ``group2ctx`` (the reference's model parallelism by op group,
+    AssignContext and the cross-device copy, graph_executor.cc:318-440):
+    a node whose ``ctx_group`` (or ``__ctx_group__``) attribute names a
+    group of the map runs on that group's Context, a variable without a
+    group of its own lives on its first consumer's, and everything else
+    on ``default_ctx``. An input crossing a group boundary is copied to
+    the consumer's device with ``Tensor.to`` (differentiable: the
+    gradient flows back to the producer's device). ``node_ctx`` maps
+    node ids to Contexts (None without groups)."""
+
+    def __init__(self, symbol, group2ctx=None, default_ctx=None):
         self.symbol = symbol
         # callable(output name, raw tensor) fed every op output of an
         # evaluation while set (the executor's monitor callback); one per
@@ -290,6 +300,38 @@ class _GraphProgram:
             pos = last.get(id(node))
             if pos is not None and pos < len(self.nodes):
                 self._drop_after[pos].append(id(node))
+        self.node_ctx = None
+        self.default_ctx = default_ctx
+        if group2ctx:
+            self.node_ctx = {}
+            for node in self.nodes:
+                g = (node._extra_attrs.get("ctx_group")
+                     or node._extra_attrs.get("__ctx_group__"))
+                if g is not None and g in group2ctx:
+                    self.node_ctx[id(node)] = group2ctx[g]
+            for node in self.nodes:
+                ctx = self.node_ctx.get(id(node)) if node.op is not None \
+                    else None
+                if ctx is None:
+                    continue
+                for child, _ in node.inputs:
+                    if child.op is None and id(child) not in self.node_ctx:
+                        self.node_ctx[id(child)] = ctx
+
+    def var_contexts(self):
+        """``{variable name: Context}`` of the grouped variables."""
+        if not self.node_ctx:
+            return {}
+        return {n.name: self.node_ctx[id(n)] for n in self.nodes
+                if n.op is None and id(n) in self.node_ctx}
+
+    def output_context(self, i, default):
+        """The Context output ``i`` lives on: its node's group's, else
+        ``default``."""
+        if not self.node_ctx:
+            return default
+        node, _ = self.output_entries[i]
+        return self.node_ctx.get(id(node), default)
 
     def _apply_node(self, node, raw_in, train, aux_updates, device):
         params = dict(node.op.defaults)
@@ -355,6 +397,7 @@ class _GraphProgram:
         devices = [next((t.device for t in a.values()), None)
                    for a in arg_dicts]
         shared = train and (n > 1 or over_workers)
+        grouped = self.node_ctx
         for pos, node in enumerate(self.nodes):
             if node.op is None:
                 for env, args, aux in zip(envs, arg_dicts, aux_dicts):
@@ -367,6 +410,14 @@ class _GraphProgram:
                 continue
             raws = [[env[id(c)][idx] for c, idx in node.inputs]
                     for env in envs]
+            node_devices = devices
+            if grouped:
+                ctx = grouped.get(id(node), self.default_ctx)
+                dev = ctx.torch_device() if ctx is not None else devices[0]
+                # the cross-device copy at a group boundary
+                raws = [[r.to(dev) if r.device != dev else r for r in rw]
+                        for rw in raws]
+                node_devices = [dev] * n
             if layout is not None:
                 raws = [[layout.whole(c.name, r) if c.op is None else r
                          for (c, _), r in zip(node.inputs, rw)]
@@ -376,7 +427,8 @@ class _GraphProgram:
                   else contextlib.nullcontext()):
                 for i, env in enumerate(envs):
                     env[id(node)] = self._apply_node(node, raws[i], train,
-                                                     aux_ups[i], devices[i])
+                                                     aux_ups[i],
+                                                     node_devices[i])
             del raws
             for env, tap in zip(envs, taps):
                 if tap is not None:
@@ -484,7 +536,8 @@ class _GraphProgram:
         pairs = []
         for r, outs_r in enumerate(outs):
             hg = head_grads[r] if head_grads is not None else None
-            pairs += [(o, hg[i] if hg is not None and hg[i] is not None
+            pairs += [(o, hg[i].to(o.device)
+                       if hg is not None and hg[i] is not None
                        else torch.ones_like(o))
                       for i, o in enumerate(outs_r) if o.requires_grad]
         keys = [(r, n) for r, lv in enumerate(leaves) for n in lv]
@@ -692,19 +745,35 @@ class Executor:
     writeback of training-mode forwards."""
 
     def __init__(self, symbol, ctx, arg_arrays, aux_arrays, program=None,
-                 grad_arrays=None, grad_req="null"):
+                 grad_arrays=None, grad_req="null", group2ctx=None):
         self._symbol = symbol
         self._ctx = ctx or current_context()
         self._device = self._ctx.torch_device()
-        self._prog = program or _GraphProgram(symbol)
+        self._prog = program or _GraphProgram(
+            symbol, group2ctx=group2ctx,
+            default_ctx=self._ctx if group2ctx else None)
         self._arg_names = self._prog.arg_names
         self._aux_names = self._prog.aux_names
         if grad_arrays is None:
             grad_arrays = [None] * len(self._arg_names)
+        # a grouped variable lives on its group's Context (checked as a
+        # Context: cpu(0) and cpu(1) are two groups on one host), every
+        # other array on the executor's device
+        placed = self._prog.var_contexts()
         for name, arr in list(zip(self._arg_names, arg_arrays)) + \
                 list(zip(self._aux_names, aux_arrays)) + \
                 list(zip(self._arg_names, grad_arrays)):
-            if arr is not None and arr._data.device != self._device:
+            if arr is None:
+                continue
+            want = placed.get(name)
+            if want is not None:
+                if arr.context != want \
+                        or arr._data.device != want.torch_device():
+                    raise MXNetError(
+                        "bind: array %r lives on %s but its ctx_group maps "
+                        "to %s; allocate it on the group's context"
+                        % (name, arr.context, want))
+            elif arr._data.device != self._device:
                 raise MXNetError("bind: array %r lives on %s, the executor "
                                  "on %s" % (name, arr.context, self._ctx))
         self.arg_arrays = list(arg_arrays)
@@ -743,12 +812,17 @@ class Executor:
         return dict(zip(self._symbol.list_outputs(), self.outputs))
 
     @staticmethod
-    def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs):
+    def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs,
+                     group2ctx=None):
         """Allocate zero arrays for every argument, gradient and aux state
         from the inferred shapes and dtypes (parity: ``simple_bind``);
-        a gradient takes its argument's dtype."""
+        a gradient takes its argument's dtype. With ``group2ctx`` each
+        grouped variable's arrays are allocated on its group's Context."""
         from .ndarray import zeros
         ctx = ctx or current_context()
+        prog = _GraphProgram(symbol, group2ctx=group2ctx,
+                             default_ctx=ctx if group2ctx else None)
+        placed = prog.var_contexts()
         (arg_shapes, _, aux_shapes, arg_types, _, aux_types) = \
             infer_graph_attrs(symbol, shape_kwargs, known_types=type_dict)
         arg_names = symbol.list_arguments()
@@ -758,23 +832,25 @@ class Executor:
             reqs = dict(zip(arg_names, grad_req))
         else:
             reqs = {n: grad_req.get(n, "null") for n in arg_names}
-        arg_arrays = [zeros(s, ctx=ctx, dtype=t)
-                      for s, t in zip(arg_shapes, arg_types)]
-        grad_arrays = [zeros(s, ctx=ctx, dtype=t)
+        arg_arrays = [zeros(s, ctx=placed.get(n, ctx), dtype=t)
+                      for n, s, t in zip(arg_names, arg_shapes, arg_types)]
+        grad_arrays = [zeros(s, ctx=placed.get(n, ctx), dtype=t)
                        if reqs.get(n, "null") != "null" else None
                        for n, s, t in zip(arg_names, arg_shapes, arg_types)]
-        aux_arrays = [zeros(s, ctx=ctx, dtype=t)
-                      for s, t in zip(aux_shapes, aux_types)]
-        return Executor(symbol, ctx, arg_arrays, aux_arrays,
+        aux_arrays = [zeros(s, ctx=placed.get(n, ctx), dtype=t)
+                      for n, s, t in zip(symbol.list_auxiliary_states(),
+                                         aux_shapes, aux_types)]
+        return Executor(symbol, ctx, arg_arrays, aux_arrays, program=prog,
                         grad_arrays=grad_arrays, grad_req=reqs)
 
     @staticmethod
     def _bind(symbol, ctx, args, args_grad, grad_req, aux_states,
-              shared_exec=None):
+              shared_exec=None, group2ctx=None):
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
         program = None
-        if shared_exec is not None and shared_exec._symbol is symbol:
+        if shared_exec is not None and shared_exec._symbol is symbol \
+                and not group2ctx:
             program = shared_exec._prog
 
         def _as_list(spec, names, what):
@@ -802,7 +878,8 @@ class Executor:
             grad_req = {n: (grad_req if g is not None else "null")
                         for n, g in zip(arg_names, grad_arrays)}
         return Executor(symbol, ctx, arg_arrays, aux_arrays, program=program,
-                        grad_arrays=grad_arrays, grad_req=grad_req)
+                        grad_arrays=grad_arrays, grad_req=grad_req,
+                        group2ctx=group2ctx)
 
     def _raw_args(self):
         return {n: a._data for n, a in zip(self._arg_names, self.arg_arrays)}
@@ -829,7 +906,9 @@ class Executor:
 
     def _set_outputs(self, outs):
         from .ndarray.ndarray import NDArray
-        self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
+        self.outputs = [NDArray(o.detach(),
+                                self._prog.output_context(i, self._ctx))
+                        for i, o in enumerate(outs)]
 
     def forward(self, is_train=False, **kwargs):
         """Run forward (parity: executor.py forward); kwargs feed inputs.

@@ -21,11 +21,17 @@ site                      where it fires in the port
 ``io_next``               ``io.DataIter.__next__`` — one batch produced by
                           the input pipeline
 ``kv_push``               ``kvstore.KVStore.push`` — one gradient push
-``compile_cache.load``,   parse but never fire until their modules are
-``kv_collective``,        ported: the executable store has no counterpart
-``heartbeat``             (the port compiles nothing but its kernels), and
-                          the heartbeat and collective gate come with
-                          ROADMAP Queue 1 item 4, second half
+``kv_collective``         ``heartbeat.CollectiveGate.arrive_and_wait`` —
+                          every gate crossing, before the arrival is
+                          published (a raise is a worker dying at a
+                          deterministic collective index)
+``heartbeat``             ``heartbeat.start_heartbeat``'s thread — every
+                          beat (a raise kills the beat thread: the worker
+                          computes on but reads as dead; ``delay``
+                          stretches the gap between beats)
+``compile_cache.load``    parses but never fires: the executable store
+                          has no counterpart (the port compiles nothing
+                          but its kernels)
 ========================  ===================================================
 
 Spec grammar (``MXNET_FAULTS`` env var, or ``configure()``)::

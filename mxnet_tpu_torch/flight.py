@@ -36,9 +36,13 @@ on top of ``telemetry.py``:
   pay nothing.
 
 Postmortem and series file names carry the rank (``dist.py``) as in
-the JAX package; the fleet view (the heartbeat's gate statistics in
-each sample, peers' postmortems gathered at a member loss) comes with
-ROADMAP Queue 1 item 4, second half.
+the JAX package, and the fleet view's inputs are the JAX package's: the
+heartbeat's per-channel gate statistics in each sample (``gate``), the
+``gate_wait`` spans and ``dist.straggler`` events in each dump, the
+recorded dead ranks in its ``process`` block, and, in a survivor's
+``dead_worker`` dump, every peer's newest postmortem
+(:func:`gather_peer_postmortems`). ``tools/fleet_view.py`` joins a
+shared flight directory's dumps into one view.
 """
 from __future__ import annotations
 
@@ -204,6 +208,22 @@ def _build_sample(last, dt_s):
                                 for e in engines),
         },
     }
+    try:
+        from . import heartbeat as _hb
+        gate = _hb.gate_stats()
+    except Exception:
+        gate = {}
+    if gate:
+        # per-channel gate-wait series: a straggler shows as one rank's
+        # step time flat while every peer's gate wait climbs, visible
+        # only on the same timeline as the other gauges
+        sample["gate"] = {
+            ch: {"crossings": st["crossings"],
+                 "wait_ms_total": round(st["wait_ms_total"], 3),
+                 "last_wait_ms": round(st["last_wait_ms"], 3),
+                 "last_rank": st["last_rank"],
+                 "last_excess_ms": round(st["last_excess_ms"], 3)}
+            for ch, st in gate.items()}
     if reset:
         sample["registry_reset"] = True
     return sample, cum

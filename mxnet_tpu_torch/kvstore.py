@@ -26,9 +26,18 @@ synchronously, as the JAX package defines it (exact asynchronous SGD has
 no counterpart in one program over all workers). ``wire_bytes_last_push``
 and ``_raw`` count this worker's payload and its uncompressed size.
 
+Elastic membership (``heartbeat.py``, ``dist.py``): a dist store starts
+this worker's heartbeat when ``MXTPU_HEARTBEAT_DIR`` is set, and crosses
+its pre-collective gate (channel ``kv``) before each collective it
+issues: ``init``'s broadcast (once per call with new keys), a push's
+exchange and ``barrier``. A dead peer then raises
+``heartbeat.DeadWorkerError`` instead of hanging. ``live_ranks`` is the
+membership (every launched rank until ``_remesh`` drops the dead),
+``num_workers`` its size, and ``num_dead_node`` counts its members whose
+heartbeat is stale.
+
 Not ported yet: ``row_sparse_pull`` (sparse storage, ROADMAP Queue 1
-item 6) and the elastic membership of the dist stores (``live_ranks``,
-re-meshing: Queue 1 item 4, second half).
+item 6).
 """
 from __future__ import annotations
 
@@ -59,6 +68,16 @@ class KVStore:
         # uncompressed size: wire/raw is the live compression ratio
         self.wire_bytes_last_push = 0
         self.wire_bytes_last_push_raw = 0
+        # elastic membership: None = every live rank of the job; a tuple
+        # once _remesh() adopted the survivors
+        self._live_ranks = None
+        self._gate = None
+        if self._is_dist:
+            # liveness (parity: ps-lite scheduler heartbeats behind
+            # get_num_dead_node, kvstore.h:338); a no-op without a
+            # heartbeat directory
+            from . import heartbeat
+            heartbeat.start_heartbeat(self.rank)
 
     @property
     def _is_dist(self):
@@ -74,15 +93,41 @@ class KVStore:
 
     @property
     def num_workers(self):
+        """Workers of the store's membership (the survivors after a
+        re-mesh)."""
+        return len(self.live_ranks)
+
+    @property
+    def live_ranks(self):
+        """The store's membership: every live rank of the job until
+        :meth:`_remesh` adopts the survivors ((0,) off the dist types)."""
+        if self._live_ranks is not None:
+            return self._live_ranks
         if self._is_dist:
             from . import dist
-            return dist.process_count()
-        return 1
+            return dist.live_ranks()
+        return (0,)
+
+    def _remesh(self, live_ranks):
+        """Adopt the surviving membership after a member loss: the worker
+        count and the pre-collective gate rebuild over it (the
+        collectives already take ``dist.live_group``)."""
+        self._live_ranks = tuple(sorted(int(r) for r in live_ranks))
+        self._gate = None
+
+    def _collective_gate(self):
+        """The pre-collective liveness gate of the store's collectives
+        (channel ``kv``; lazy, rebuilt on re-mesh)."""
+        if self._gate is None:
+            from . import heartbeat
+            self._gate = heartbeat.CollectiveGate(
+                self.rank, self.live_ranks, channel="kv")
+        return self._gate
 
     def _spans_workers(self):
         from . import dist
         return self._is_dist and dist.initialized() \
-            and dist.process_count() > 1
+            and len(self.live_ranks) > 1
 
     @property
     def fused_step_subsumable(self):
@@ -109,9 +154,16 @@ class KVStore:
         is already stored keeps its value. In a dist store of several
         workers rank 0's value seeds every worker (one broadcast per new
         key; all workers must call init alike)."""
+        from . import dist
         keys, values = _key_value(key, value)
-        broadcast = self._spans_workers() and os.environ.get(
-            "MXNET_KVSTORE_DIST_BROADCAST_INIT", "1") != "0"
+        # never after a member loss: the survivors' values came from the
+        # same checkpoint restore and are equal already
+        broadcast = self._spans_workers() and not dist.dead_ranks() \
+            and os.environ.get("MXNET_KVSTORE_DIST_BROADCAST_INIT",
+                               "1") != "0"
+        if broadcast and any(k not in self._store for k in keys):
+            # a peer that died before this call's broadcast raises here
+            self._collective_gate().arrive_and_wait()
         for k, v in zip(keys, values):
             if k in self._store:
                 continue
@@ -197,6 +249,11 @@ class KVStore:
                 merged_list = [self._compress_shard(k, "dist", m)
                                for k, m in zip(keys, merged_list)]
             return merged_list
+        from .parallel import collectives
+        gate = self._collective_gate()
+        # the discipline check's all-gather is the first collective
+        gate.arrive_and_wait()
+        t_wire = collectives.wire["seconds"]
         self._assert_push_discipline(keys, merged_list)
         raw = [m._data for m in merged_list]
         comp = self._compression
@@ -207,6 +264,9 @@ class KVStore:
             self.wire_bytes_last_push_raw = self.wire_bytes_last_push
         else:
             outs = self._compressed_exchange(keys, raw)
+        # time in the collectives is waiting on peers, not this rank's
+        # own work (the gate's straggler self-time)
+        gate.note_wait((collectives.wire["seconds"] - t_wire) * 1e3)
         return [NDArray(o, m.context) for o, m in zip(outs, merged_list)]
 
     def _compressed_exchange(self, keys, raw):
@@ -278,19 +338,27 @@ class KVStore:
                          "yet (ROADMAP Queue 1 item 6)")
 
     def barrier(self):
-        """Block until every worker of a dist store gets here (parity:
-        KVStore::Barrier); nothing to wait for otherwise."""
+        """Block until every live worker of a dist store gets here
+        (parity: KVStore::Barrier), gated like every collective; nothing
+        to wait for otherwise."""
         if self._spans_workers():
-            import torch.distributed as tdist
-            tdist.barrier()
+            from .parallel import collectives
+            self._collective_gate().arrive_and_wait()
+            collectives.barrier()
 
     def send_command_to_servers(self, head, body):
         pass
 
     def num_dead_node(self, node_id=0, timeout=None):
-        """0: worker liveness is not tracked until ROADMAP Queue 1 item
-        4, second half."""
-        return 0
+        """Members of a dist store whose heartbeat is missing or stale
+        (parity: KVStore::get_num_dead_node, kvstore.h:338; ``node_id``
+        is accepted for the reference's signature, the directory covers
+        every worker). Members a re-mesh dropped no longer count; 0 off
+        the dist types or without a heartbeat directory."""
+        if not self._is_dist:
+            return 0
+        from . import heartbeat
+        return len(heartbeat.stale_ranks(self.live_ranks, timeout=timeout))
 
     # -- optimizer plumbing ------------------------------------------------
     def set_optimizer(self, optimizer):

@@ -20,18 +20,28 @@ backend rule). ``--force-cpu`` hides every card from the workers.
 ``--launcher local`` (the default) starts the workers on this host and
 waits. A worker that exits nonzero takes the others down (SIGTERM, then
 SIGKILL after 5 s), and ``--timeout`` kills every worker when it
-expires (a rank stuck in a collective whose peer died or never came); either way the launcher exits nonzero (124 for the timeout).
+expires (a rank stuck in a collective whose peer died or never came);
+either way the launcher exits nonzero (124 for the timeout).
 ``--launcher ssh`` prints one command per worker over the hosts of
 ``-H``, to run there. ``-s`` is accepted for the reference's command
 line and ignored: gradients are all-reduced, no server process exists.
-The liveness flags of the JAX launcher (``--heartbeat-*``) wait for
-ROADMAP Queue 1 item 4, second half.
+
+Elastic jobs (``heartbeat.py``): ``--heartbeat-dir DIR`` (wiped and made
+afresh; on several hosts a shared mount), ``--heartbeat-interval`` and
+``--heartbeat-timeout`` are exported to every worker as
+``MXTPU_HEARTBEAT_DIR``/``_INTERVAL``/``_TIMEOUT``. Each worker's dist
+store beats there, and a worker's nonzero exit is then a member death:
+the others keep running (the survivors name the dead rank at their next
+collective, re-mesh and resume from ``fit(checkpoint=...)``), and the
+launcher exits with the OR of the workers' codes, as the JAX launcher
+does. ``--timeout`` stays the backstop.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import shlex
+import shutil
 import signal
 import socket
 import subprocess
@@ -70,6 +80,12 @@ def build_env(rank, args, base=None):
         "MXNET_TPU_NUM_PROCESSES": str(args.num_workers),
         "MXNET_TPU_PROCESS_ID": str(rank),
     })
+    if getattr(args, "heartbeat_dir", None):
+        env.update({
+            "MXTPU_HEARTBEAT_DIR": args.heartbeat_dir,
+            "MXTPU_HEARTBEAT_INTERVAL": str(args.heartbeat_interval),
+            "MXTPU_HEARTBEAT_TIMEOUT": str(args.heartbeat_timeout),
+        })
     if args.force_cpu:
         env["CUDA_VISIBLE_DEVICES"] = ""
     elif args.own_cards:
@@ -103,8 +119,10 @@ def _signal_group(p, sig):
 
 def launch_local(args, command):
     """Run ``command`` as ``args.num_workers`` local workers; returns the
-    exit code: 0 when all succeed, the first failure's code, or 124 at
-    the timeout."""
+    exit code: 0 when all succeed, the first failure's code (with
+    ``--heartbeat-dir``: the OR of every worker's code, the others left
+    running), or 124 at the timeout."""
+    elastic = bool(getattr(args, "heartbeat_dir", None))
     procs = [subprocess.Popen(command, env=build_env(r, args),
                               start_new_session=True)
              for r in range(args.num_workers)]
@@ -116,19 +134,32 @@ def launch_local(args, command):
     old = {s: signal.signal(s, _terminate)
            for s in (signal.SIGINT, signal.SIGTERM)}
     deadline = time.monotonic() + args.timeout if args.timeout else None
+    reported = set()
     try:
         while True:
             codes = [p.poll() for p in procs]
             failed = [(r, c) for r, c in enumerate(codes)
                       if c is not None and c != 0]
-            if failed:
+            if failed and not elastic:
                 r, c = failed[0]
                 print("launch: worker %d exited with %d; stopping the "
                       "others" % (r, c), file=sys.stderr, flush=True)
                 _stop(procs)
                 return c if c > 0 else 1
-            if all(c == 0 for c in codes):
-                return 0
+            for r, c in failed:
+                if r not in reported:
+                    reported.add(r)
+                    print("launch: worker %d exited with %d; a member "
+                          "death, the others go on" % (r, c),
+                          file=sys.stderr, flush=True)
+            if all(c is not None for c in codes):
+                rc = 0
+                for c in codes:
+                    rc |= c if c >= 0 else 1
+                if elastic:
+                    print("launch: worker exit codes %s" % codes,
+                          file=sys.stderr, flush=True)
+                return rc
             if deadline is not None and time.monotonic() > deadline:
                 print("launch: --timeout %gs expired; killing %d worker(s)"
                       % (args.timeout, sum(c is None for c in codes)),
@@ -180,9 +211,15 @@ def main(argv=None):
     ap.add_argument("--force-cpu", action="store_true",
                     help="hide every CUDA device from the workers")
     ap.add_argument("--sync-dst-dir", default=None)
-    for flag in ("--heartbeat-dir", "--heartbeat-interval",
-                 "--heartbeat-timeout"):
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--heartbeat-dir", default=None,
+                    help="shared directory for worker liveness heartbeats; "
+                         "wiped at launch. With it a worker's death leaves "
+                         "the others running (elastic training)")
+    ap.add_argument("--heartbeat-interval", type=float, default=1.0,
+                    help="seconds between liveness beats")
+    ap.add_argument("--heartbeat-timeout", type=float, default=10.0,
+                    help="beat staleness after which a worker is declared "
+                         "dead (how fast the survivors re-mesh)")
     ap.add_argument("command", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     command = args.command[1:] if args.command[:1] == ["--"] \
@@ -191,10 +228,11 @@ def main(argv=None):
         ap.error("no command given")
     if args.num_workers < 1:
         ap.error("-n must be at least 1")
-    if any(getattr(args, f) is not None for f in
-           ("heartbeat_dir", "heartbeat_interval", "heartbeat_timeout")):
-        ap.error("worker liveness (--heartbeat-*) is not ported yet "
-                 "(ROADMAP Queue 1 item 4, second half)")
+    if args.heartbeat_dir:
+        # stale worker-* files of an earlier job would read as dead
+        # workers: every job starts from a clean directory
+        shutil.rmtree(args.heartbeat_dir, ignore_errors=True)
+        os.makedirs(args.heartbeat_dir, exist_ok=True)
     if args.num_servers:
         print("launch: -s/--num-servers ignored: gradients are "
               "all-reduced, no server process exists", file=sys.stderr)

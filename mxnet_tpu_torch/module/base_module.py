@@ -12,8 +12,12 @@ ids ``(epoch, nbatch)``. ``fit``'s fault-tolerance extensions are the
 JAX package's (``mxnet_tpu/module/base_module.py:236-560``): a
 ``CheckpointManager`` that saves at each epoch end and on SIGTERM/SIGINT
 mid-epoch, ``resume``, a monitor, and the divergence sentinel with its
-``halt``/``skip``/``rollback`` policies. Elastic recovery (a peer lost
-across processes) waits for ROADMAP Queue 1 item 4, second half.
+``halt``/``skip``/``rollback`` policies, and elastic recovery: when a
+pre-collective gate (``heartbeat.py``) raises ``DeadWorkerError`` for a
+peer lost across processes, ``fit`` banks a ``dead_worker`` postmortem,
+re-meshes over the survivors, restores the last checkpoint and goes on
+from its ``(epoch, nbatch)`` in the same call (without a checkpoint the
+error is re-raised). Work since that checkpoint is lost.
 """
 from __future__ import annotations
 
@@ -316,16 +320,28 @@ class BaseModule:
             validation_metric = eval_metric
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
+        from ..heartbeat import DeadWorkerError
         if ckpt is not None:
             ckpt.clear_preempt()
             ckpt.arm_signals()
         try:
-            self._fit_loop(train_data, eval_data, eval_metric,
-                           validation_metric, epoch_end_callback,
-                           batch_end_callback, eval_end_callback,
-                           eval_batch_end_callback, monitor, begin_epoch,
-                           num_epoch, skip_batches, ckpt,
-                           divergence_check_every, divergence_policy)
+            while True:
+                try:
+                    self._fit_loop(train_data, eval_data, eval_metric,
+                                   validation_metric, epoch_end_callback,
+                                   batch_end_callback, eval_end_callback,
+                                   eval_batch_end_callback, monitor,
+                                   begin_epoch, num_epoch, skip_batches,
+                                   ckpt, divergence_check_every,
+                                   divergence_policy)
+                    break
+                except DeadWorkerError as e:
+                    # a peer died before (or inside) a collective:
+                    # re-mesh over the survivors, restore the checkpoint
+                    # and go on from its (epoch, nbatch)
+                    meta = self._elastic_recover(e, ckpt)
+                    begin_epoch = int(meta["epoch"])
+                    skip_batches = int(meta.get("nbatch", 0))
         finally:
             if ckpt is not None:
                 ckpt.disarm_signals()
@@ -336,6 +352,7 @@ class BaseModule:
                   begin_epoch, num_epoch, skip_batches, ckpt,
                   divergence_check_every, divergence_policy):
         """The epochs of ``fit`` (parity: base_module._fit_loop)."""
+        from ..heartbeat import DeadWorkerError
         train_data.reset()
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
@@ -365,19 +382,27 @@ class BaseModule:
                 # this batch records (fit_batch, feed, step, opt_update,
                 # ...); the next batch is fetched inside it, as in the
                 # JAX package, while this one runs on the device
-                with telemetry.causal(epoch=epoch, nbatch=nbatch), \
-                        telemetry.span("fit_batch"):
-                    fused = self._fused_batch_step(data_batch, eval_metric)
-                    if not fused:
-                        self._note_fused_fallback()
-                        self.forward_backward(data_batch)
-                        self.update()
-                    try:
-                        next_data_batch = next(data_iter)
-                    except StopIteration:
-                        end_of_batch = True
-                    if not fused:
-                        self.update_metric(eval_metric, data_batch.label)
+                try:
+                    with telemetry.causal(epoch=epoch, nbatch=nbatch), \
+                            telemetry.span("fit_batch"):
+                        fused = self._fused_batch_step(data_batch,
+                                                       eval_metric)
+                        if not fused:
+                            self._note_fused_fallback()
+                            self.forward_backward(data_batch)
+                            self.update()
+                        try:
+                            next_data_batch = next(data_iter)
+                        except StopIteration:
+                            end_of_batch = True
+                        if not fused:
+                            self.update_metric(eval_metric,
+                                               data_batch.label)
+                except DeadWorkerError as e:
+                    # the step the death aborted: the postmortem names it
+                    if e.epoch is None:
+                        e.epoch, e.nbatch = epoch, nbatch
+                    raise
                 if monitor is not None:
                     monitor.toc_print()
                 if divergence_check_every > 0 \
@@ -440,6 +465,56 @@ class BaseModule:
             "saved under %r — fit(resume=...) continues from here"
             % (source, epoch, nbatch, ckpt.prefix),
             epoch=epoch, nbatch=nbatch, prefix=ckpt.prefix)
+
+    def _elastic_remesh(self, dead_ranks):
+        """Adopt the surviving membership (``Module`` also re-meshes its
+        store and step gate)."""
+        from .. import dist
+        dist.mark_member_lost(dead_ranks)
+
+    def _elastic_recover(self, e, ckpt):
+        """Handle a ``heartbeat.DeadWorkerError``: count it, bank a
+        ``dead_worker`` postmortem naming the dead ranks, the step they
+        died on and every peer's newest postmortem in the shared flight
+        directory, then re-mesh over the survivors, restore the last
+        checkpoint and return its meta (the resume point). Without a
+        checkpoint the error is re-raised: there is no consistent state
+        to resume from."""
+        from .. import dist
+        from .. import flight as _flight
+        from .. import log as _log
+        telemetry.counter_inc("elastic.dead_workers", len(e.ranks))
+        telemetry.record_event("elastic.dead_worker", dead=list(e.ranks),
+                               channel=e.channel, generation=e.generation,
+                               epoch=e.epoch, nbatch=e.nbatch,
+                               timed_out=bool(e.timed_out))
+        _flight.postmortem(
+            "dead_worker", exc=e,
+            extra={"dead_ranks": list(e.ranks), "channel": e.channel,
+                   "generation": e.generation, "epoch": e.epoch,
+                   "nbatch": e.nbatch, "timed_out": bool(e.timed_out),
+                   "survivor_rank": dist.rank(),
+                   "live_ranks": [r for r in dist.live_ranks()
+                                  if r not in e.ranks],
+                   "peer_postmortems": _flight.gather_peer_postmortems()})
+        logger = _log.get_logger("mxnet_tpu_torch.module")
+        if ckpt is None or ckpt.latest() is None:
+            logger.error(
+                "worker(s) %s died at epoch %s batch %s and no checkpoint "
+                "(fit(checkpoint=...)) exists: cannot re-mesh without a "
+                "consistent state to resume from", list(e.ranks), e.epoch,
+                e.nbatch)
+            raise e
+        logger.warning(
+            "worker(s) %s died at epoch %s batch %s: re-meshing over the "
+            "survivors and resuming from the last checkpoint",
+            list(e.ranks), e.epoch, e.nbatch)
+        self._elastic_remesh(e.ranks)
+        meta = ckpt.restore(self)
+        telemetry.counter_inc("elastic.resumed")
+        telemetry.record_event("elastic.resumed", epoch=int(meta["epoch"]),
+                               nbatch=int(meta.get("nbatch", 0)))
+        return meta
 
     def finite_check(self):
         """True when the last step's outputs are all finite (the base

@@ -55,8 +55,20 @@ states gather the whole tensors (collectives: every process calls them).
 A mesh of one device is the plain path. A ``dist*`` store with a mesh
 raises, as in the JAX package.
 
-Not ported yet (ROADMAP Queue 1 item 4, second half): ``group2ctxs`` and
-the elastic tiers.
+Elastic training (``heartbeat.py``): the fused step over a synchronous
+``dist*`` store crosses a pre-collective gate (channel ``step``) once a
+step, so a peer that died before it raises ``DeadWorkerError``; a peer
+that dies inside the step's collectives is named by the collectives'
+liveness-aware wait (channel ``step-execution``). ``fit`` then calls
+:meth:`Module._elastic_remesh` (the survivors' membership, their
+process group, a fresh gate) and resumes from its checkpoint
+(``base_module.py``).
+
+``group2ctxs`` (the reference's model parallelism by op group): a
+``{group: Context}`` map binds each node whose ``ctx_group`` attribute
+names a group on that group's device (``executor._GraphProgram``); the
+module's one context is the default. It cannot be combined with a
+context list, and ``fit`` phase-splits (fallback code ``group2ctx``).
 """
 from __future__ import annotations
 
@@ -75,9 +87,6 @@ from .. import optimizer as opt
 from .base_module import BaseModule, FusedFallback
 from .executor_group import slice_descs, split_batch, merge_outputs
 
-_SECOND_HALF = "not ported yet (ROADMAP Queue 1 item 4, second half)"
-
-
 class Module(BaseModule):
     """(parity: module.Module)"""
 
@@ -92,8 +101,6 @@ class Module(BaseModule):
             context = current_context()
         if isinstance(context, Context):
             context = [context]
-        if group2ctxs:
-            raise MXNetError("Module(group2ctxs=...) is %s" % _SECOND_HALF)
         from ..parallel.spmd import as_rules
         self._partition_rules = as_rules("Module", partition_rules)
         self._mesh_axes = dict(mesh_axes) if mesh_axes else None
@@ -132,6 +139,8 @@ class Module(BaseModule):
         self._grad_req = None
         self._fused_fallback_reason = None
         self._preload_opt_states = None
+        self._group2ctxs = group2ctxs
+        self._step_gate = None
 
     # -- introspection -----------------------------------------------------
     @property
@@ -193,7 +202,22 @@ class Module(BaseModule):
             else:
                 reqs[name] = grad_req if for_training else "null"
         self._grad_req = reqs
-        if self._mesh_wanted():
+        g2c = self._group2ctxs
+        if isinstance(g2c, (list, tuple)):
+            # the reference's per-context list; one executor takes the
+            # first entry
+            g2c = g2c[0] if g2c else None
+        if g2c and len(self._context) > 1:
+            raise MXNetError(
+                "group2ctxs cannot be combined with a multi-device context "
+                "list; use a single context for model parallelism or drop "
+                "group2ctxs for data parallelism")
+        if g2c:
+            self._execs = [self._symbol.simple_bind(
+                ctx=self._context[0], grad_req=reqs, type_dict=type_dict,
+                group2ctx=g2c, **shape_kwargs)]
+            self._replicas = ReplicaSet(self._execs)
+        elif self._mesh_wanted():
             self._bind_mesh(shape_kwargs, type_dict)
         else:
             descs = slice_descs(self._data_shapes + self._label_shapes,
@@ -375,6 +399,14 @@ class Module(BaseModule):
         self._fill(args, self._exec.aux_dict, initializer, arg_params,
                    aux_params, allow_missing)
         self._sync_replicas()
+        if self._update_on_kvstore and self._kvstore is not None:
+            # the store serves pulls from its copies (a restore after
+            # init_optimizer must reach them too)
+            store = self._kvstore._store
+            with torch.no_grad():
+                for i, n in enumerate(self._param_names):
+                    if i in store:
+                        store[i]._data.copy_(args[n]._data)
         self.params_initialized = True
 
     def _fill(self, args, auxs, initializer, arg_params, aux_params,
@@ -493,8 +525,10 @@ class Module(BaseModule):
                 update_on_kvstore = True
             if self._compression_params:
                 kv.set_gradient_compression(self._compression_params)
-            for i, name in enumerate(self._param_names):
-                kv.init(i, arg_dict[name])
+            # one call for every key: a dist store crosses its gate once
+            # for the call, then broadcasts each key
+            kv.init(list(range(len(self._param_names))),
+                    [arg_dict[n] for n in self._param_names])
             if kv.type.startswith("dist"):
                 # rank 0's values seeded the store: train from them
                 kv.pull(list(range(len(self._param_names))),
@@ -719,6 +753,9 @@ class Module(BaseModule):
             return self._fallback("inputs_need_grad", "inputs_need_grad")
         if any(ex._monitor_callback is not None for ex in self._execs):
             return self._fallback("monitor", "monitor installed")
+        if self._exec._prog.node_ctx:
+            return self._fallback("group2ctx", "group2ctx placement",
+                                  "grouped programs run phase-split")
         kv = self._kvstore
         if kv is not None and not kv.fused_step_subsumable \
                 and not kv.fused_dist_step:
@@ -741,6 +778,9 @@ class Module(BaseModule):
         add_names = [n for n in names if self._grad_req[n] == "add"]
         spanning = kv is not None and kv.fused_dist_step \
             and kv._spans_workers()
+        if spanning:
+            # a peer dead before the step's collectives raises here
+            self._dist_gate().arrive_and_wait()
         self._set_batch(data_batch)
         if self._layout is not None:
             # each member's step over its rows; gradients summed over dp
@@ -757,14 +797,13 @@ class Module(BaseModule):
             self._run_step(self._exec, names, add_names,
                            lambda gs: updater.update_batch(indices, gs,
                                                            weights))
+        elif spanning:
+            self._spanning_step(names, add_names, indices, weights, updater)
         else:
-            per = self._replicas.step_grads(names, add_names,
-                                            over_workers=spanning)
+            per = self._replicas.step_grads(names, add_names)
             summed = per[0]
             for got in per[1:]:
                 summed = [a + b.to(a.device) for a, b in zip(summed, got)]
-            if spanning:
-                summed = self._fused_all_reduce(summed)
             with torch.no_grad():
                 updater.update_batch(indices, summed, weights)
             self._sync_replicas(names)
@@ -784,6 +823,66 @@ class Module(BaseModule):
                 self.update_metric(eval_metric, data_batch.label)
         self._fused_fallback_reason = None
         return True
+
+    def _spanning_step(self, names, add_names, indices, weights, updater):
+        """The fused step over the workers: BatchNorm over every worker's
+        rows, the gradients summed over them in one bucketed collective,
+        then the update. Time in the collectives is reported to the step
+        gate as waiting (a rank blocked on a slow peer must not read as
+        slow itself), and a death inside them is stamped with the gate's
+        generation."""
+        from ..heartbeat import DeadWorkerError
+        from ..parallel import collectives
+        t_wire = collectives.wire["seconds"]
+        try:
+            per = self._replicas.step_grads(names, add_names,
+                                            over_workers=True)
+            summed = per[0]
+            for got in per[1:]:
+                summed = [a + b.to(a.device) for a, b in zip(summed, got)]
+            summed = self._fused_all_reduce(summed)
+        except DeadWorkerError as e:
+            if e.generation is None:
+                e.generation = self._dist_gate().generation
+            raise
+        finally:
+            self._dist_gate().note_wait(
+                (collectives.wire["seconds"] - t_wire) * 1e3)
+        with torch.no_grad():
+            updater.update_batch(indices, summed, weights)
+        self._sync_replicas(names)
+
+    def _dist_gate(self):
+        """The fused dist step's pre-collective gate (channel ``step``;
+        the store's own collectives gate on ``kv``). Lazy; rebuilt after
+        a re-mesh."""
+        if self._step_gate is None:
+            from .. import heartbeat
+            kv = self._kvstore
+            self._step_gate = heartbeat.CollectiveGate(
+                kv.rank, kv.live_ranks, channel="step")
+        return self._step_gate
+
+    def _elastic_remesh(self, dead_ranks):
+        """Adopt the surviving membership after a member loss: record the
+        dead ranks, re-mesh the store, build the survivors' process group
+        now (every survivor recovers in the same order) and drop the step
+        gate. The last one standing trains on the local program. The
+        caller (``fit``'s elastic path) then restores the checkpoint."""
+        from .. import dist
+        dist.mark_member_lost(dead_ranks)
+        live = dist.live_ranks()
+        kv = self._kvstore
+        if kv is not None:
+            kv._remesh(live)
+        self._step_gate = None
+        dist.live_group()
+        telemetry.counter_inc("elastic.remesh")
+        telemetry.record_event("elastic.remesh", dead=list(dead_ranks),
+                               live=list(live))
+        self.logger.warning(
+            "elastic re-mesh: worker(s) %s dead, continuing on %s "
+            "(%d live)", sorted(dead_ranks), list(live), len(live))
 
     def _run_step(self, ex, names, add_names, update_fn):
         """One executor's train step: forward and backward on its bound

@@ -11,7 +11,9 @@ eagerly in each member of a mesh (``mesh.py``) over ``group``:
 - a ``torch.distributed`` group, or None for the default group that
   ``dist.py`` initialised (the processes of a launched job). Outside a
   multi-process run that group is this process alone and every function
-  returns its input's value.
+  returns its input's value. After a member loss None means the
+  survivors (``dist.live_group``): member ``i`` is the ``i``-th live
+  rank, and the last survivor is a group of one.
 
 Transport. Between processes NCCL takes CUDA tensors directly. On
 ``gloo`` a CUDA tensor goes through a pinned host buffer: one
@@ -38,6 +40,16 @@ Autograd. A tensor that requires grad goes through an
 
 Every member must call a collective of a group in the same order.
 
+Liveness. With a heartbeat directory (``MXTPU_HEARTBEAT_DIR``, see
+``heartbeat.py``) and live peers, a collective between processes is
+issued asynchronously and awaited in slices of 0.25 s: between slices,
+and when the transport fails (gloo reports "connection closed by peer"
+as soon as a peer process dies), the peers' heartbeats are read, and a
+peer gone stale turns the wait into ``heartbeat.DeadWorkerError``
+(channel ``step-execution``) within the heartbeat timeout plus 5 s, in
+place of an error or a block until the group's timeout. Without a
+directory each collective blocks in the transport as before.
+
 :data:`wire` counts, since the last :func:`reset_wire`, the calls that
 reached a transport, the payload bytes this process handed to it (the
 tensor each member contributes) and the host seconds spent in it (on
@@ -47,6 +59,8 @@ work queued before them).
 from __future__ import annotations
 
 import contextlib
+import datetime
+import os
 import threading
 import time
 
@@ -56,8 +70,8 @@ from ..base import MXNetError
 from .mesh import AxisGroup
 
 __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
-           "ppermute", "all_to_all", "world_size", "DifferentiableSum",
-           "wire", "reset_wire"]
+           "ppermute", "all_to_all", "barrier", "world_size",
+           "DifferentiableSum", "wire", "reset_wire"]
 
 _OPS = ("sum", "mean", "max", "min")
 
@@ -89,12 +103,84 @@ def _dist():
         else None
 
 
+def _live(group):
+    """``group``, with None (the default group) read as the survivors'
+    group after a member loss (``dist.live_group``)."""
+    if group is not None:
+        return group
+    from .. import dist
+    return dist.live_group()
+
+
 def world_size(group=None):
     """Members of ``group`` (1 outside a multi-process run)."""
     if isinstance(group, AxisGroup):
         return group.size
+    group = _live(group)
+    from ..dist import ALONE
+    if group is ALONE:
+        return 1
     tdist = _dist()
     return tdist.get_world_size(group) if tdist is not None else 1
+
+
+_SLICE = datetime.timedelta(seconds=0.25)
+_ERROR_SLACK_S = 5.0
+
+
+def _watched_peers():
+    """The live peers to watch while a collective is in flight: every
+    live rank but this one when a heartbeat directory is set, else
+    None (the transport's own blocking wait)."""
+    from .. import dist, heartbeat
+    if not os.environ.get(heartbeat.ENV_DIR) or not dist.initialized():
+        return None
+    me = dist.rank()
+    return [r for r in dist.live_ranks() if r != me] or None
+
+
+def _transport(fn, *args, **kwargs):
+    """Run one ``torch.distributed`` call: blocking, or, with liveness
+    watched, asynchronously and awaited by :func:`_await`."""
+    peers = _watched_peers()
+    if peers is None:
+        return fn(*args, **kwargs)
+    _await([fn(*args, async_op=True, **kwargs)], peers)
+
+
+def _await(works, peers):
+    """Wait for ``works`` while watching ``peers``' heartbeats: a peer
+    gone stale raises ``DeadWorkerError`` (channel ``step-execution``).
+    A transport error is held until the heartbeat timeout plus
+    :data:`_ERROR_SLACK_S` has shown whether a peer died; if none did,
+    it is raised as it came."""
+    from .. import heartbeat
+    timeout = heartbeat._timeout(None)
+    for work in works:
+        while True:
+            try:
+                work.wait(_SLICE)
+                break
+            except RuntimeError as e:
+                if not work.is_completed():     # the slice ran out
+                    dead = heartbeat.stale_ranks(peers)
+                    if dead:
+                        raise _in_flight(dead, "stale heartbeat") from e
+                    continue
+                deadline = time.monotonic() + timeout + _ERROR_SLACK_S
+                while time.monotonic() < deadline:
+                    dead = heartbeat.stale_ranks(peers)
+                    if dead:
+                        raise _in_flight(dead, str(e).splitlines()[0][-160:]) \
+                            from e
+                    time.sleep(0.1)
+                raise
+
+
+def _in_flight(dead, what):
+    from ..heartbeat import DeadWorkerError
+    return DeadWorkerError(dead, channel="step-execution", evidence={
+        r: "died with a collective in flight (%s)" % what for r in dead})
 
 
 def _staged(x, pg):
@@ -135,7 +221,7 @@ def _pg_all_gather(x, pg):
     staged = _staged(x, pg)
     src = _host(x) if staged else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(_dist().get_world_size(pg))]
-    _dist().all_gather(parts, src, group=pg)
+    _transport(_dist().all_gather, parts, src, group=pg)
     return [p.to(x.device) for p in parts] if staged else parts
 
 
@@ -146,8 +232,9 @@ def _resolve(group):
         if group.size == 1:
             return None
         if group.uses_process_group():
-            return _Proc(group.line.pg, group.order, group.index)
+            return _Proc(_live(group.line.pg), group.order, group.index)
         return group
+    group = _live(group)
     n = world_size(group)
     if n == 1:
         return None
@@ -174,11 +261,12 @@ def _all_reduce_on(x, g, op):
     if isinstance(g, _Proc):
         if _staged(x, g.pg):
             h = _host(x)
-            _dist().all_reduce(h, op=_reduce_op(op), group=g.pg)
+            _transport(_dist().all_reduce, h, op=_reduce_op(op), group=g.pg)
             out = h.to(x.device)
         else:
             out = x.clone()
-            _dist().all_reduce(out, op=_reduce_op(op), group=g.pg)
+            _transport(_dist().all_reduce, out, op=_reduce_op(op),
+                       group=g.pg)
     else:
         parts = g.exchange(x)
         out = parts[0]
@@ -230,12 +318,24 @@ def _broadcast_on(x, src, g):
         root = g.global_rank(src)
         if _staged(x, g.pg):
             h = _host(x)
-            _dist().broadcast(h, src=root, group=g.pg)
+            _transport(_dist().broadcast, h, src=root, group=g.pg)
             return h.to(x.device)
         out = x.clone()
-        _dist().broadcast(out, src=root, group=g.pg)
+        _transport(_dist().broadcast, out, src=root, group=g.pg)
         return out
     return g.exchange(x)[src]
+
+
+def barrier(group=None):
+    """Block until every member of ``group`` (default: the job's live
+    processes) gets here."""
+    g = _resolve(group)
+    if g is None:
+        return
+    if isinstance(g, _Proc):
+        _transport(_dist().barrier, group=g.pg)
+        return
+    g.exchange(torch.zeros(1))
 
 
 # -- all_gather --------------------------------------------------------------------
@@ -279,6 +379,7 @@ class _AllGather(torch.autograd.Function):
 def _member_index(group):
     if isinstance(group, AxisGroup):
         return group.index
+    group = _live(group)
     return _dist().get_rank(group) if world_size(group) > 1 else 0
 
 
@@ -345,8 +446,13 @@ def _ppermute_on(x, g, perm):
         ops.append(tdist.P2POp(tdist.irecv, recv, g.global_rank(src[0]),
                                g.pg))
     if ops:
-        for w in tdist.batch_isend_irecv(ops):
-            w.wait()
+        works = tdist.batch_isend_irecv(ops)
+        peers = _watched_peers()
+        if peers is None:
+            for w in works:
+                w.wait()
+        else:
+            _await(works, peers)
     if src:
         out = x.clone() if src[0] == me else recv.to(x.device)
     return out
@@ -409,7 +515,7 @@ def _all_to_all_on(x, g, n, split_axis):
         if staged:
             send = _host(send)
         out = torch.empty_like(send)
-        _dist().all_to_all_single(out, send, group=g.pg)
+        _transport(_dist().all_to_all_single, out, send, group=g.pg)
         if staged:
             out = out.to(x.device)
         return [out[g.order[m]] for m in range(n)]

@@ -155,7 +155,7 @@ class AxisGroup:
             got = line.rv.exchange(line.local_pos(self.me), x) \
                 if line.rv is not None else [x]
         elif line.rv is None:
-            got = C._pg_all_gather(x, line.pg)
+            got = C._pg_all_gather(x, C._live(line.pg))
         else:
             pos = line.local_pos(self.me)
             mine = line.rv.exchange(pos, x)
@@ -163,8 +163,8 @@ class AxisGroup:
             def gather():
                 import torch
                 stacked = torch.stack([t.to(x.device) for t in mine])
-                return [t for part in C._pg_all_gather(stacked, line.pg)
-                        for t in part.unbind(0)]
+                parts = C._pg_all_gather(stacked, C._live(line.pg))
+                return [t for part in parts for t in part.unbind(0)]
             got = line.rv.share(pos, gather)
         return [got[c].to(self.device, copy=True) for c in self.order]
 
@@ -347,6 +347,12 @@ class Mesh:
         if self.processes == 1:
             return
         import torch.distributed as tdist
+        from .. import dist
+        # process p of the mesh is the p-th live rank (every rank until a
+        # member is lost; then a group over the world would need the
+        # dead rank's call, so the lines synchronise among themselves)
+        live = list(dist.live_ranks())
+        lost = bool(dist.dead_ranks())
         seen = []
         for line in lines.values():
             if line in seen:
@@ -357,10 +363,12 @@ class Mesh:
             key = line.members
             if key not in self._pgs:
                 if line.procs == list(range(self.processes)) \
-                        and tdist.get_world_size() == self.processes:
+                        and len(live) == self.processes:
                     self._pgs[key] = None
                 else:
-                    self._pgs[key] = tdist.new_group(ranks=line.procs)
+                    self._pgs[key] = tdist.new_group(
+                        ranks=[live[p] for p in line.procs],
+                        use_local_synchronization=lost)
             line.pg = self._pgs[key]
 
     def group(self, axis):
@@ -411,10 +419,12 @@ def _resolve(names, sizes, n):
 
 
 def _job():
-    """(processes, this process's rank) of the launched job."""
+    """(processes, this process's place among them) of the launched job:
+    its live processes, after a member loss the survivors."""
     from .. import dist
     if dist.initialized():
-        return dist.process_count(), dist.rank()
+        live = dist.live_ranks()
+        return len(live), live.index(dist.rank())
     return 1, 0
 
 
@@ -483,9 +493,9 @@ def mesh_from_contexts(contexts, axis=DP_AXIS, axes=None, processes=1):
 
 
 def barrier():
-    """Block until every process of the job gets here (a no-op in a
+    """Block until every live process of the job gets here (a no-op in a
     one-process run)."""
     from .. import dist
     if dist.initialized() and dist.process_count() > 1:
-        import torch.distributed as tdist
-        tdist.barrier()
+        from . import collectives
+        collectives.barrier()

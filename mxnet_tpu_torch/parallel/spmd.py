@@ -154,14 +154,15 @@ def engine_spec(what, partition_rules, mesh_axes, contexts, ctx):
     return rule_spec(mesh, rules)
 
 
-def dist_dp_spec(contexts, data_axis=DP_AXIS):
+def dist_dp_spec(contexts, data_axis=DP_AXIS, live_ranks=None):
     """The process-spanning spec: this process's ``contexts`` on each
-    worker of the job, one ``dp`` axis over all of them (workers bind
-    the same number of contexts)."""
+    live worker of the job (``live_ranks``, default ``dist.live_ranks()``:
+    the survivors after a member loss), one ``dp`` axis over all of them
+    (workers bind the same number of contexts)."""
     from .. import dist
+    live = dist.live_ranks() if live_ranks is None else live_ranks
     return dp_spec(mesh_from_contexts(contexts, axis=data_axis,
-                                      processes=dist.process_count()),
-                   data_axis)
+                                      processes=len(live)), data_axis)
 
 
 def check_batch_divisible(batch_dim, n_devices, what="batch size",

@@ -255,21 +255,27 @@ class Symbol:
 
     # -- binding -----------------------------------------------------------
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="null",
-             aux_states=None, shared_exec=None):
+             aux_states=None, group2ctx=None, shared_exec=None):
         """Bind given arrays (and gradient arrays, where ``grad_req`` is
-        not null) to an Executor."""
+        not null) to an Executor. With ``group2ctx`` (``{group:
+        Context}``) each grouped array must already live on its group's
+        Context."""
         from ..executor import Executor
         return Executor._bind(self, ctx, args, args_grad, grad_req,
-                              aux_states, shared_exec=shared_exec)
+                              aux_states, shared_exec=shared_exec,
+                              group2ctx=group2ctx)
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    **shapes):
+                    group2ctx=None, **shapes):
         """Bind freshly allocated zero arrays of the inferred shapes and
         dtypes (parity: ``Symbol.simple_bind``); ``grad_req`` is one
-        string or a per-argument dict/list."""
+        string or a per-argument dict/list. ``group2ctx`` (``{group:
+        Context}``) places the nodes of each ``ctx_group`` on its
+        Context."""
         from ..executor import Executor
         return Executor._simple_bind(self, ctx, grad_req, type_dict or {},
-                                     {k: tuple(v) for k, v in shapes.items()})
+                                     {k: tuple(v) for k, v in shapes.items()},
+                                     group2ctx=group2ctx)
 
     def attr_dict(self):
         """{node name: its user attributes} for every node that has some

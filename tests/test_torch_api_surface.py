@@ -62,10 +62,7 @@ SKIP = {
     },
     "gluon.model_zoo.vision": {},
     "kvstore": {},
-    "kvstore.KVStore": {
-        "Queue 1 item 4, second half: the dist stores' elastic "
-        "membership": ["live_ranks"],
-    },
+    "kvstore.KVStore": {},
     "sym.Symbol": {},
     "mod.Module": {},
     "gluon.rnn": {},

@@ -93,11 +93,43 @@ def test_bad_specs_raise_the_same_message(bad):
 @pytest.mark.parametrize("spec", [
     "compile_cache.load:raise", "kv_collective:delay=5:n=2",
     "heartbeat:raise:every=3"])
-def test_unported_sites_parse(spec):
-    """The sites whose modules are not ported parse all the same, so a
-    spec that parses in one package parses in the other."""
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_unported_sites_parse(spec, tmp_path):
+    """Every site parses alike in both packages, so a spec that parses in
+    one parses in the other. ``kv_collective`` (each gate crossing) and
+    ``heartbeat`` (each beat) are wired now: they fire in the port at the
+    same calls as in the JAX package; ``compile_cache.load`` has no
+    counterpart and only parses."""
     assert [r.site for r in faults.parse_spec(spec)] == \
         [r.site for r in jfaults.parse_spec(spec)]
+    site = spec.split(":")[0]
+    if site == "compile_cache.load":
+        return
+    from mxnet_tpu import heartbeat as jheartbeat
+    from mxnet_tpu_torch import heartbeat
+    got = {}
+    for name, pkg, hb in (("jax", jfaults, jheartbeat),
+                          ("torch", faults, heartbeat)):
+        pkg.configure(spec)
+        try:
+            if site == "kv_collective":
+                gate = hb.CollectiveGate(0, (0,), root=str(tmp_path))
+                for _ in range(3):
+                    gate.arrive_and_wait()
+            else:       # the third beat raises and kills the beat thread
+                hb.start_heartbeat(0, root=str(tmp_path / name),
+                                   interval=0.01)
+                deadline = time.monotonic() + 10
+                while time.monotonic() < deadline and not pkg.counts().get(
+                        "heartbeat", {}).get("fired"):
+                    time.sleep(0.01)
+                time.sleep(0.1)
+            got[name] = pkg.counts()[site]
+        finally:
+            pkg.clear()
+            hb.stop_heartbeat()
+    assert got["torch"] == got["jax"] == {"calls": 3, "fired": 1}
 
 
 def test_invalid_env_spec_is_ignored_not_fatal(monkeypatch):

@@ -1589,3 +1589,90 @@ def test_serving_mesh_across_two_workers_on_card(tmp_path):
     assert r0["on"].startswith("cuda") and r1["on"].startswith("cuda")
     assert r1["refused"] is True
     assert r0["out"] == r0["plain"]
+
+
+def test_group2ctx_copy_between_host_and_card():
+    """A grouped executor with one group on ``cpu(0)`` and one on
+    ``gpu(0)``: the activation crosses to the card and its gradient back
+    to the host, each parameter and gradient on its group's device, and
+    the forward and gradients equal an ungrouped run on the card within
+    1e-6 of the largest value."""
+    _need_card()
+    rs = np.random.RandomState(0)
+    x = rs.uniform(-1, 1, (4, 6)).astype(np.float32)
+    w1 = rs.uniform(-0.5, 0.5, (5, 6)).astype(np.float32)
+    w2 = rs.uniform(-0.5, 0.5, (3, 5)).astype(np.float32)
+
+    def run(g2c):
+        with mt.AttrScope(ctx_group="g1"):
+            net = mt.sym.FullyConnected(mt.sym.Variable("data"),
+                                        num_hidden=5, no_bias=True,
+                                        name="fc1")
+            net = mt.sym.Activation(net, act_type="tanh")
+        with mt.AttrScope(ctx_group="g2"):
+            net = mt.sym.FullyConnected(net, num_hidden=3, no_bias=True,
+                                        name="fc2")
+        ex = net.simple_bind(ctx=mt.gpu(0), grad_req="write",
+                             group2ctx=g2c, data=(4, 6))
+        ex.arg_dict["data"][:] = x
+        ex.arg_dict["fc1_weight"][:] = w1
+        ex.arg_dict["fc2_weight"][:] = w2
+        out = ex.forward_backward(out_grads=mt.nd.ones((4, 3),
+                                                       ctx=mt.gpu(0)),
+                                  is_train=True)[0]
+        return ex, out
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ex, out = run({"g1": mt.cpu(0), "g2": mt.gpu(0)})
+    assert ex.arg_dict["fc1_weight"]._data.device.type == "cpu"
+    assert ex.grad_dict["fc1_weight"]._data.device.type == "cpu"
+    assert ex.arg_dict["fc2_weight"]._data.is_cuda
+    assert out._data.is_cuda and out.context == mt.gpu(0)
+    ref_ex, ref = run(None)
+    top = float(np.abs(ref.asnumpy()).max())
+    assert np.abs(out.asnumpy() - ref.asnumpy()).max() <= 1e-6 * top
+    for k in ("fc1_weight", "fc2_weight"):
+        g, r = ex.grad_dict[k].asnumpy(), ref_ex.grad_dict[k].asnumpy()
+        assert np.abs(g - r).max() <= 1e-6 * float(np.abs(r).max()), k
+
+
+def test_gate_and_heartbeat_around_a_card_step(tmp_path):
+    """A step on the card between two crossings of a gate whose peer is
+    a thread of this process: both cross every generation, the wait the
+    step reports (``note_wait``) is taken out of the published
+    self-time, and the peer's stale heartbeat raises ``DeadWorkerError``
+    while the card's work is still queued."""
+    _need_card()
+    import os
+    import threading
+    from mxnet_tpu_torch import heartbeat
+    root = str(tmp_path)
+    for r in (0, 1):
+        with open(tmp_path / ("worker-%d" % r), "w") as f:
+            f.write("0")
+    g0 = heartbeat.CollectiveGate(0, (0, 1), root=root, poll=0.005)
+    g1 = heartbeat.CollectiveGate(1, (0, 1), root=root, poll=0.005)
+    a = torch.randn(2048, 2048, device="cuda")
+
+    def peer():
+        for _ in range(3):
+            g1.arrive_and_wait()
+    t = threading.Thread(target=peer)
+    t.start()
+    gens = []
+    for _ in range(3):
+        gens.append(g0.arrive_and_wait())
+        b = a @ a
+        torch.cuda.synchronize()
+        g0.note_wait(1e6)           # all of it reported as waiting
+    t.join(30)
+    assert gens == [1, 2, 3]
+    with open(g0._member_path(0)) as f:
+        assert f.read().split()[2] == "0.000"   # self-time net of the wait
+    os.utime(tmp_path / "worker-1", (1, 1))
+    for _ in range(20):
+        b = b @ a                    # queued on the card
+    with pytest.raises(heartbeat.DeadWorkerError) as e:
+        heartbeat.CollectiveGate(0, (0, 1), root=root, timeout=5,
+                                 poll=0.005, channel="x").arrive_and_wait()
+    assert e.value.ranks == (1,)
+    torch.cuda.synchronize()

@@ -154,9 +154,14 @@ def test_duplicate_contexts_and_unported_options_raise():
                  label_shapes=[("softmax_label", (B,))])
     with pytest.raises(mt.MXNetError, match="duplicate devices"):
         mt.mod.Module(W.mlp(mt), context=[mt.cpu(0), mt.cpu(0)])
-    with pytest.raises(mt.MXNetError, match="item 4, second half"):
-        mt.mod.Module(W.mlp(mt), context=[mt.cpu(0), mt.cpu(1)],
-                      group2ctxs=[{"a": mt.cpu(1)}])
+    # group2ctxs with a context list raises at bind, naming group2ctxs,
+    # in both packages
+    for pkg in (mx, mt):
+        mod = pkg.mod.Module(W.mlp(pkg), context=[pkg.cpu(0), pkg.cpu(1)],
+                             group2ctxs=[{"a": pkg.cpu(1)}])
+        with pytest.raises(pkg.base.MXNetError, match="group2ctxs"):
+            mod.bind(data_shapes=[("data", (B, W.D_IN))],
+                     label_shapes=[("softmax_label", (B,))])
     # the meshes are ported (tests/test_torch_module_mesh.py): a rule
     # tree that is not one raises, a dp mesh over the two binds
     with pytest.raises(mt.MXNetError, match="partition_rules must be"):
