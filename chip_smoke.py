@@ -267,7 +267,34 @@ Phases (any failure exits non-zero; no error is swallowed):
    batch bit-equal to the ungrouped module, and the MLP with ``g1`` on
    ``cpu(0)`` and ``g2`` on ``gpu(0)`` within 1e-6 of an ungrouped card
    run.
-19. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+19. sparse — ``examples/sparse/linear_classification.py`` at Avazu's
+   width (1,000,001 features, batch 8192, ~15 non-zeros a row, 2
+   classes; a LibSVM file of 32,768 rows written from the seed with the
+   example's labelling rule): ``LibSVMIter`` csr batches on the card,
+   ``row_sparse_pull`` of each batch's rows from a ``device`` store,
+   ``sparse.dot`` under ``record``, ``cast_storage(grad, "row_sparse")``
+   and a push that runs the store's lazy SGD (lr 0.5, ``rescale_grad``
+   1/8192), 2 epochs of 4 batches. Gates: (a) batch 1 against float64 on
+   the host (the ``dot`` at a seeded weight, the gradient's rows and
+   values, the updated weight, within 1e-5; untouched rows still zero);
+   (b) one lazy step each of SGD with momentum, Adam and AdaGrad on the
+   trained weight against float64 on the touched rows, untouched weight
+   and state rows bit-unchanged; (c) ``row_sparse_pull`` gives exactly
+   the requested rows; (e) epoch 2's mean loss finite and below epoch
+   1's; (f) peak device memory above the phase's start under 4 GB and no
+   batch's dense view built; no K1-K3 launch. Then two workers of
+   ``python -m mxnet_tpu_torch.launch -n 2`` on the card over gloo
+   (``--sp-worker``, 4096 rows each, weight and bias pushed as one key
+   list on ``dist_sync``): ranks bit-equal after every batch, the wire
+   of every push by the JAX package's formula (padded power-of-two
+   buckets of int32 ids and rows) and below the dense weight's, batch
+   1's weight within 1e-6 of one process pushing both gradients as a
+   list to a ``device`` store, and a zero row only rank 1 pushes seen by
+   the store's optimizer. Printed: ms a batch (CUDA events), host ms and
+   the share inside host reads, rows touched and their bucket, wire
+   bytes, a profiled batch (device busy, idle share, classes), the top
+   host functions of two batches, peak memory, the seconds.
+20. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
@@ -277,8 +304,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    training and the Gluon loop), ``rnn_training_launches``,
    ``image_classification_launches``, ``gluon_zoo_launches``,
    ``dense_prediction_launches`` (0), ``data_parallel_launches``,
-   ``model_parallel_launches``, ``engine_meshes_launches`` and
-   ``elastic_launches`` its counts on those paths — and,
+   ``model_parallel_launches``, ``engine_meshes_launches``,
+   ``elastic_launches`` and ``sparse_launches`` (0) its counts on those
+   paths — and,
    last, the ``{"ok": true,
    "device": {...}}`` line.
 
@@ -286,7 +314,7 @@ The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-18 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-19 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -5741,12 +5769,13 @@ def _dp_deadline(rehearsal, leg):
         faulthandler.cancel_dump_traceback_later()
 
 
-def dp_worker(group, out, rehearsal):
+def dp_worker(group, out, rehearsal, sp_dir=None):
     """One worker of the data_parallel phase (``chip_smoke.py
     --dp-worker GROUP DIR``, started by ``python -m mxnet_tpu_torch.launch
     -n 2``): the legs of ``group`` (``module``: (a)-(c); ``lm_gluon``: (d)
     and (e); ``all``: both, in that order); writes ``G-r<rank>.json``
-    under ``out`` for each group G."""
+    under ``out`` for each group G. With ``sp_dir`` (``--sp-dir``) the
+    same workers then run the sparse phase's two-worker leg there."""
     import mxnet_tpu_torch as mx
     rank = mx.dist.rank()
     assert mx.dist.process_count() == _DP_WORLD, mx.dist.process_count()
@@ -5780,26 +5809,31 @@ def dp_worker(group, out, rehearsal):
             res["peak_bytes"] = torch.cuda.max_memory_allocated()
         with open(os.path.join(out, "%s-r%d.json" % (g, rank)), "w") as f:
             json.dump(res, f)
+    if sp_dir:
+        with _dp_deadline(rehearsal, "sparse"):
+            _sp_worker_leg(mx, sp_dir, rehearsal)
     mx.dist.finalize()
 
 
-def _dp_launch(group, out, rehearsal):
+def _dp_launch(group, out, rehearsal, sp_dir=None):
     """Run ``group`` in 2 workers through the port's launcher under its
     hard timeout; raises when a worker fails, hangs or the launcher
     does. Returns the workers' records of each group run (``all``: the
     module group's, then lm_gluon's), rank order, and the seconds."""
+    limit = _DP_LAUNCH_S[rehearsal] + (_SP_CARRY_S if sp_dir else 0)
     cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
-           str(_DP_WORLD), "--timeout", str(_DP_LAUNCH_S[rehearsal])]
+           str(_DP_WORLD), "--timeout", str(limit)]
     if rehearsal:
         cmd.append("--force-cpu")
     cmd += ["--", sys.executable, os.path.abspath(__file__), "--dp-worker",
-            group, out] + (["--cpu-rehearsal"] if rehearsal else [])
+            group, out] + (["--cpu-rehearsal"] if rehearsal else []) \
+        + (["--sp-dir", sp_dir] if sp_dir else [])
     env = dict(os.environ)
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
     res = subprocess.run(cmd, env=env, cwd=here, capture_output=True,
-                         text=True, timeout=_DP_LAUNCH_S[rehearsal] + 60)
+                         text=True, timeout=limit + 60)
     secs = time.perf_counter() - t0
     sys.stderr.write(res.stderr[-20000:])
     assert res.returncode == 0, ("data_parallel %s workers failed" % group,
@@ -6026,12 +6060,13 @@ def _dp_compressed_recompute(mx, sym, arg, cfg, kind, out):
     return worst, worst_k, over_upd
 
 
-def data_parallel_phase(mx, ctx, rehearsal, card):
+def data_parallel_phase(mx, ctx, rehearsal, card, sp_dir=None):
     """Data parallelism across two worker processes on one card: every
     leg through ``python -m mxnet_tpu_torch.launch -n 2`` (both ranks on
     ``cuda:0``, gloo), against one process at the global batch on the
-    card and the CPU. Returns the K1, K2 and K3 launches of the workers
-    (both ranks)."""
+    card and the CPU. With ``sp_dir`` the workers then carry the sparse
+    phase's two-worker leg (its gates are the sparse phase's). Returns
+    the K1, K2 and K3 launches of the workers (both ranks)."""
     gpu = ctx.device_type == "gpu"
     cfg = _dp_cfg(rehearsal)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6043,7 +6078,7 @@ def data_parallel_phase(mx, ctx, rehearsal, card):
     out = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
         return _data_parallel(mx, ctx, rehearsal, card, cfg, gpu, out,
-                              t_phase)
+                              t_phase, sp_dir)
     finally:
         import shutil
         shutil.rmtree(out, ignore_errors=True)
@@ -6116,10 +6151,12 @@ def _dp_references(mx, ctx, cfg, rehearsal):
     return ref
 
 
-def _data_parallel(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase):
+def _data_parallel(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase,
+                   sp_dir=None):
     ref = _dp_references(mx, ctx, cfg, rehearsal)
     ref_s = time.perf_counter() - t_phase
-    (mod_recs, lg_recs), launch_s = _dp_launch("all", out, rehearsal)
+    (mod_recs, lg_recs), launch_s = _dp_launch("all", out, rehearsal,
+                                                sp_dir)
     sym, arg = ref["sym"], ref["arg"]
     sizes = [int(np.prod(v.shape)) for v in arg.values()]
     n_params = sum(sizes)
@@ -7998,11 +8035,568 @@ def _elastic(mx, ctx, rehearsal, card, cfg, gpu, out):
     return k1, 0, 0
 
 
+_SP_WORLD = 2
+_SP_LAUNCH_S = {False: 300, True: 180}  # the two workers' hard limit
+_SP_CARRY_S = 90                        # what the leg adds to dp's launch
+_SP_DENSE_BATCH_GB = 4.0                # gate (f): far below a dense batch
+
+
+def _sp_cfg(rehearsal):
+    """``examples/sparse/linear_classification.py`` at Avazu's width:
+    1,000,001 features, batch 8192, ~15 non-zeros a row (one-hot
+    categorical fields), 2 classes, SGD lr 0.5 with ``rescale_grad``
+    1/batch in a ``device`` store; 2 epochs of 4 batches (32,768 rows).
+    The rehearsal takes the example's own defaults (1000 features, batch
+    64)."""
+    if rehearsal:
+        return {"features": 1000, "batch": 64, "nnz": 15, "batches": 4,
+                "epochs": 2, "lr": 0.5}
+    return {"features": 1_000_001, "batch": 8192, "nnz": 15, "batches": 4,
+            "epochs": 2, "lr": 0.5}
+
+
+def sp_write_libsvm(path, features, rows, nnz, seed=0):
+    """The example's data (``write_synthetic_libsvm``: the label is the
+    sign of a sparse linear functional, values ``%.4f``), drawn fast: the
+    ids of a row by ``integers`` and then de-duplicated (the example's
+    ``choice(..., replace=False)`` permutes every id for every row)."""
+    rng = np.random.default_rng(seed)
+    true_w = rng.standard_normal(features)
+    ids = np.sort(rng.integers(0, features, (rows, nnz)), axis=1)
+    keep = np.ones(ids.shape, bool)
+    keep[:, 1:] = ids[:, 1:] != ids[:, :-1]
+    vals = rng.standard_normal((rows, nnz))
+    labels = ((true_w[ids] * vals * keep).sum(1) > 0).astype(int)
+    with open(path, "w") as f:
+        for i in range(rows):
+            k = keep[i]
+            f.write("%d %s\n" % (labels[i], " ".join(
+                "%d:%.4f" % kv for kv in zip(ids[i][k], vals[i][k]))))
+
+
+def _sp_host_csr(x):
+    from scipy import sparse as sps
+    return sps.csr_matrix((x.data.asnumpy().astype(np.float64),
+                           x.indices.asnumpy(), x.indptr.asnumpy()),
+                          shape=x.shape)
+
+
+def _sp_rel(got, ref):
+    """Largest |got - ref| over the largest |ref| (1 where ref is 0)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    scale = float(np.abs(ref).max()) if ref.size else 0.0
+    err = float(np.abs(got - ref).max()) if ref.size else 0.0
+    return err / (scale or 1.0)
+
+
+def _sp_rows_unchanged(before, after, touched):
+    """Every row outside ``touched`` bit-unchanged, on the device."""
+    keep = torch.ones(before.shape[0], dtype=torch.bool,
+                      device=before.device)
+    keep[torch.as_tensor(touched, dtype=torch.long, device=before.device)] \
+        = False
+    return bool(torch.equal(before[keep], after[keep]))
+
+
+class _SpStep:
+    """One batch of the example's loop: pull the batch's rows, the
+    forward and backward under ``record``, the gradient row-sparse, a
+    push that runs the store's lazy SGD, the bias's own update. With
+    ``dist`` the bias lives in the store too and one key list carries
+    both (the row-sparse and dense wire in one push)."""
+
+    def __init__(self, mx, ctx, cfg, kv, dist=False):
+        self.mx, self.ctx, self.kv, self.dist = mx, ctx, kv, dist
+        f = cfg["features"]
+        self.weight = mx.nd.zeros((f, 2), ctx=ctx)
+        self.bias = mx.nd.zeros((2,), ctx=ctx)
+        self.opt = mx.optimizer.create("sgd", learning_rate=cfg["lr"],
+                                       rescale_grad=1.0 / cfg["batch"])
+        if dist:
+            kv.init(["weight", "bias"], [self.weight, self.bias])
+        else:
+            kv.init("weight", self.weight)
+        kv.set_optimizer(self.opt)
+        self.b_state = self.opt.create_state(1, self.bias)
+        self.sync_s = 0.0
+
+    def __call__(self, b):
+        mx, sp, ctx = self.mx, self.mx.nd.sparse, self.ctx
+        x, y = b.data[0], b.label[0]
+        t0 = time.perf_counter()
+        row_ids = mx.nd.array(np.unique(x.indices.asnumpy()), dtype="int64",
+                              ctx=ctx)
+        self.sync_s += time.perf_counter() - t0
+        w_rsp = sp.zeros("row_sparse", self.weight.shape, ctx=ctx)
+        self.kv.row_sparse_pull("weight", out=w_rsp, row_ids=row_ids)
+        if self.dist:
+            self.kv.pull("bias", out=self.bias)
+        w_dense = w_rsp.tostype("default")
+        w_dense.attach_grad()
+        self.bias.attach_grad()
+        with mx.autograd.record():
+            pred = sp.dot(x, w_dense) + self.bias
+            loss = mx.nd.softmax_cross_entropy(pred, y)
+        loss.backward()
+        t0 = time.perf_counter()
+        grad = sp.cast_storage(w_dense.grad, "row_sparse")
+        self.sync_s += time.perf_counter() - t0
+        if self.dist:
+            self.kv.push(["weight", "bias"], [grad, self.bias.grad])
+        else:
+            self.kv.push("weight", grad)
+            self.opt.update(1, self.bias, self.bias.grad, self.b_state)
+        return {"x": x, "y": y, "pred": pred, "loss": loss, "grad": grad,
+                "row_ids": row_ids}
+
+
+def _sp_host_top(fn, n=12):
+    """``fn()`` under ``cProfile``: its result and the ``n`` functions with
+    the most host time of their own (ms), where a call that waits for the
+    card counts its wait."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    out = prof.runcall(fn)
+    st = pstats.Stats(prof).stats
+    top = sorted(st.items(), key=lambda kv: -kv[1][2])[:n]
+    return out, [["%s:%d %s" % (os.path.basename(k[0]), k[1], k[2]),
+                  v[2] * 1e3, v[1]] for k, v in top]
+
+
+def _sp_timed(step, b, gpu, host_top=None):
+    """(out, ms by CUDA events, host ms, host-sync ms) of one batch; with
+    ``host_top`` a list, the batch runs under ``cProfile`` and its top
+    host functions are appended."""
+    step.sync_s = 0.0
+    if gpu:
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    if host_top is None:
+        out = step(b)
+    else:
+        out, top = _sp_host_top(lambda: step(b))
+        host_top.append(top)
+    if gpu:
+        end.record()
+    host = (time.perf_counter() - t0) * 1e3
+    if gpu:
+        torch.cuda.synchronize()
+    ms = start.elapsed_time(end) if gpu else host
+    return out, ms, host, step.sync_s * 1e3
+
+
+def _sp_first_batch_gates(mx, step, b, out, cfg):
+    """Gate (a): the first batch against float64 on the host: the sparse
+    ``dot`` at a seeded random weight, the row-sparse gradient (row set
+    and values) and the store's weight after the lazy SGD step; rows the
+    batch did not touch bit-unchanged (still zero)."""
+    X = _sp_host_csr(out["x"])
+    y = out["y"].asnumpy().astype(int)
+    f = cfg["features"]
+    gen = torch.Generator(device=step.weight._data.device).manual_seed(3)
+    w_r = torch.randn((f, 2), generator=gen, device=step.weight._data.device)
+    got = mx.nd.sparse.dot(out["x"], mx.nd.NDArray(w_r, step.ctx)).asnumpy()
+    fwd = _sp_rel(got, X @ w_r.cpu().double().numpy())
+    z = np.zeros((X.shape[0], 2))              # zero weight and bias
+    p = np.exp(z - z.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    p[np.arange(len(y)), y] -= 1.0
+    g64 = np.asarray(X.T @ p)                  # (features, 2)
+    rows64 = np.flatnonzero(np.any(g64 != 0, axis=1))
+    gidx = out["grad"].indices.asnumpy()
+    w = step.kv._store["weight"]._data
+    touched = torch.as_tensor(gidx, dtype=torch.long, device=w.device)
+    w_rows = w.index_select(0, touched).cpu().double().numpy()
+    w64 = -cfg["lr"] * g64[gidx] / cfg["batch"]
+    keep = torch.ones(f, dtype=torch.bool, device=w.device)
+    keep[touched] = False
+    checks = {
+        "forward_rel": fwd,
+        "pred_is_bias_at_zero_weight": bool(
+            np.all(out["pred"].asnumpy() == 0.0)),
+        "grad_rows_equal": bool(np.array_equal(gidx, rows64)),
+        "grad_rows_are_the_batch_columns": bool(np.array_equal(
+            gidx, np.unique(X.indices))),
+        "grad_rel": _sp_rel(out["grad"].data.asnumpy(), g64[gidx]),
+        "weight_rel": _sp_rel(w_rows, w64),
+        "untouched_bit_unchanged": bool((w[keep] == 0).all()),
+        "rows_touched": int(len(gidx))}
+    checks["ok"] = bool(checks["forward_rel"] < 1e-5
+                        and checks["pred_is_bias_at_zero_weight"]
+                        and checks["grad_rows_equal"]
+                        and checks["grad_rows_are_the_batch_columns"]
+                        and checks["grad_rel"] < 1e-5
+                        and checks["weight_rel"] < 1e-5
+                        and checks["untouched_bit_unchanged"])
+    return checks
+
+
+def _sp_optimizer_gates(mx, step, grad, cfg):
+    """Gate (b): one lazy step each of SGD with momentum, Adam and
+    AdaGrad on a copy of the store's trained weight, with the first
+    batch's row-sparse gradient, against a float64 recompute on the
+    touched rows; untouched weight and state rows bit-unchanged."""
+    rows = grad.indices.asnumpy().astype(np.int64)
+    g64 = grad.data.asnumpy().astype(np.float64) / cfg["batch"]
+    base = step.kv._store["weight"]._data
+    w0 = base.index_select(0, torch.as_tensor(rows, device=base.device)) \
+        .cpu().double().numpy()
+    out = {}
+    for name, kw in (("sgd", {"momentum": 0.9, "wd": 1e-4}),
+                     ("adam", {"wd": 1e-4}), ("adagrad", {"wd": 1e-4})):
+        opt = mx.optimizer.create(name, learning_rate=0.1,
+                                  rescale_grad=1.0 / cfg["batch"], **kw)
+        w = mx.nd.NDArray(base.clone(), step.ctx)
+        st = opt.create_state(0, w)
+        states = [s for s in (st if isinstance(st, tuple) else (st,))
+                  if s is not None]
+        opt.update(0, w, grad, st)
+        g = g64 + 1e-4 * w0
+        if name == "sgd":
+            ref = w0 + (-0.1 * g)
+        elif name == "adam":
+            lr = 0.1 * np.sqrt(1 - 0.999) / (1 - 0.9)
+            m, v = 0.1 * g, 0.001 * g * g
+            ref = w0 - lr * m / (np.sqrt(v) + 1e-8)
+        else:
+            h = g64 * g64
+            ref = w0 - 0.1 * (g64 / np.sqrt(h + 1e-7) + 1e-4 * w0)
+        got = w._data.index_select(
+            0, torch.as_tensor(rows, device=base.device)).cpu().double()
+        out[name] = {
+            "rel": _sp_rel(got.numpy() - w0, ref - w0),
+            "untouched_weight": _sp_rows_unchanged(base, w._data, rows),
+            "untouched_state": all(_sp_rows_unchanged(
+                torch.zeros_like(s._data), s._data, rows) for s in states)}
+        out[name]["ok"] = bool(out[name]["rel"] < 1e-5
+                               and out[name]["untouched_weight"]
+                               and out[name]["untouched_state"])
+    return out
+
+
+def _sp_pull_gate(mx, step, last_ids, cfg):
+    """Gate (c): ``row_sparse_pull`` gives exactly the requested rows of
+    the store's weight (its all-zero rows left out), bit for bit."""
+    w = step.kv._store["weight"]._data
+    f = cfg["features"]
+    rng = np.random.default_rng(7)
+    ask = np.concatenate([last_ids[::3], rng.integers(0, f, 64)])
+    got = mx.nd.sparse.zeros("row_sparse", (f, 2), ctx=step.ctx)
+    step.kv.row_sparse_pull("weight", out=got,
+                            row_ids=mx.nd.array(ask, dtype="int64",
+                                                ctx=step.ctx))
+    uniq = torch.as_tensor(np.unique(ask), dtype=torch.long,
+                           device=w.device)
+    want_ids = uniq[(w.index_select(0, uniq) != 0).any(1)]
+    ids = got._rsp_indices.long()
+    ok = bool(torch.equal(ids, want_ids)
+              and torch.equal(got._rsp_data, w.index_select(0, ids))
+              and got._dense_cache is None)
+    return {"ok": ok, "asked": int(len(ask)), "rows": int(ids.numel())}
+
+
+def _sp_bucket(n):
+    return max(8, 1 << (max(int(n), 1) - 1).bit_length())
+
+
+def _sp_wire(counts, width=2, itemsize=4):
+    """``mxnet_tpu/kvstore.py:392-437``: per row_sparse value the padded
+    bucket of int32 ids and rows."""
+    b = _sp_bucket(max(counts))
+    return b * 4 + b * width * itemsize
+
+
+def sp_worker(out, rehearsal):
+    """One worker of the sparse phase's own two-worker launch
+    (``chip_smoke.py --sp-worker DIR``, started by ``python -m
+    mxnet_tpu_torch.launch -n 2`` when the data_parallel phase's workers
+    do not carry the leg): :func:`_sp_worker_leg` under a hard limit."""
+    import faulthandler
+    import mxnet_tpu_torch as mx
+    faulthandler.dump_traceback_later(_SP_LAUNCH_S[rehearsal] - 20,
+                                      exit=True)
+    _sp_worker_leg(mx, out, rehearsal)
+    faulthandler.cancel_dump_traceback_later()
+    mx.dist.finalize()
+
+
+def _sp_worker_leg(mx, out, rehearsal):
+    """The two-worker leg in one worker: the example's loop over a
+    ``dist_sync`` store, this worker's share of the rows
+    (``LibSVMIter(num_parts=2, part_index=rank)``, half the batch each),
+    weight and bias pushed as one key list; then a probe push whose row
+    only rank 1 touches, with a zero sum. Writes ``sp-r<rank>.json`` and,
+    rank by rank, batch 1's gradient (``sp-grad-r<rank>.npz``)."""
+    import hashlib
+    rank = mx.dist.rank()
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    gpu = ctx.device_type == "gpu"
+    cfg = _sp_cfg(rehearsal)
+    if gpu:
+        torch.cuda.reset_peak_memory_stats()
+    kv = mx.kv.create("dist_sync")
+    train = mx.io.LibSVMIter(data_libsvm=os.path.join(out, "train.libsvm"),
+                             data_shape=(cfg["features"],),
+                             batch_size=cfg["batch"] // _SP_WORLD,
+                             num_parts=_SP_WORLD, part_index=rank, ctx=ctx)
+    step = _SpStep(mx, ctx, cfg, kv, dist=True)
+    k0 = _kernel_counts()
+    rec = {"rank": rank, "backend": mx.dist.backend(), "batches": [],
+           "world": mx.dist.process_count()}
+    for i, b in enumerate(train):
+        o, ms, host, sync = _sp_timed(step, b, gpu)
+        w = kv._store["weight"]._data
+        ids = o["grad"].indices.asnumpy()
+        rec["batches"].append({
+            "ms": ms, "host_ms": host, "sync_ms": sync, "rows": len(ids),
+            "wire": kv.wire_bytes_last_push,
+            "loss": float(o["loss"].asnumpy().sum()),
+            "digest": hashlib.sha256(
+                w.cpu().numpy().tobytes()
+                + kv._store["bias"]._data.cpu().numpy().tobytes())
+            .hexdigest()})
+        if i == 0:
+            np.savez(os.path.join(out, "sp-grad-r%d.npz" % rank),
+                     indices=ids, data=o["grad"].data.asnumpy())
+            if rank == 0:
+                np.save(os.path.join(out, "sp-w1.npy"), w.cpu().numpy())
+    # probe: rank 0 pushes a row it touched, rank 1 the last row no batch
+    # touched (zero in the bit-equal weights), both as zeros; the store's
+    # optimizer must see rank 1's row
+    w = kv._store["weight"]._data
+    probe = int(torch.nonzero((w == 0).all(1))[-1])
+    mine = int(ids[0])
+    seen = []
+    orig = kv._updater.update_batch
+
+    def record(indices, grads, weights):
+        seen.append(grads[0].indices.asnumpy().tolist())
+        return orig(indices, grads, weights)
+    kv._updater.update_batch = record
+    row = [mine] if rank == 0 else [probe]
+    g = mx.nd.sparse.row_sparse_array(
+        (np.zeros((1, 2), np.float32), row), shape=(cfg["features"], 2),
+        ctx=ctx)
+    kv.push(["weight", "bias"], [g, mx.nd.zeros((2,), ctx=ctx)])
+    rec["probe"] = {"row": probe, "seen": seen[0],
+                    "wire": kv.wire_bytes_last_push}
+    rec["launches"] = [a - b for a, b in zip(_kernel_counts(), k0)]
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated() if gpu else None
+    with open(os.path.join(out, "sp-r%d.json" % rank), "w") as f:
+        json.dump(rec, f)
+
+
+def _sp_launch(out, rehearsal):
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+           str(_SP_WORLD), "--timeout", str(_SP_LAUNCH_S[rehearsal])]
+    if rehearsal:
+        cmd.append("--force-cpu")
+    cmd += ["--", sys.executable, os.path.abspath(__file__), "--sp-worker",
+            out] + (["--cpu-rehearsal"] if rehearsal else [])
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=here, capture_output=True,
+                         text=True, timeout=_SP_LAUNCH_S[rehearsal] + 60)
+    secs = time.perf_counter() - t0
+    sys.stderr.write(res.stderr[-20000:])
+    assert res.returncode == 0, ("sparse workers failed", res.returncode)
+    recs = []
+    for r in range(_SP_WORLD):
+        with open(os.path.join(out, "sp-r%d.json" % r)) as f:
+            recs.append(json.load(f))
+    return recs, secs
+
+
+def _sp_two_workers(mx, ctx, cfg, out, rehearsal, card):
+    """The two-worker leg's gates: ranks bit-equal after every batch; the
+    wire of every push by the formula and below the dense weight's bytes;
+    after batch 1 the weight within 1e-6 of one process pushing both
+    workers' gradients as a list to a ``device`` store; the probe's row
+    reaching the optimizer. The records come from the data_parallel
+    phase's workers where they carried the leg, else from a launch of
+    two workers here."""
+    if os.path.exists(os.path.join(out, "sp-r0.json")):
+        recs, secs = [], None
+        for r in range(_SP_WORLD):
+            with open(os.path.join(out, "sp-r%d.json" % r)) as f:
+                recs.append(json.load(f))
+    else:
+        recs, secs = _sp_launch(out, rehearsal)
+    f = cfg["features"]
+    dense_bytes = f * 2 * 4             # the weight pushed dense
+    bit_equal = all(a["digest"] == b["digest"] for a, b in
+                    zip(recs[0]["batches"], recs[1]["batches"]))
+    wires = []      # [each rank's wire bytes, the formula's], a push
+    for j in range(len(recs[0]["batches"])):
+        counts = [r["batches"][j]["rows"] for r in recs]
+        wires.append([[r["batches"][j]["wire"] for r in recs],
+                      _sp_wire(counts) + 2 * 4])     # + the dense bias
+    wire_ok = all(all(w == want for w in got) and want - 2 * 4 < dense_bytes
+                  for got, want in wires)
+    probe_wire = _sp_wire([1, 1]) + 2 * 4
+    # one process, both gradients of batch 1 as one list
+    kv = mx.kv.create("device")
+    kv.init("weight", mx.nd.zeros((f, 2), ctx=ctx))
+    kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=cfg["lr"],
+                                         rescale_grad=1.0 / cfg["batch"]))
+    gs = [np.load(os.path.join(out, "sp-grad-r%d.npz" % r))
+          for r in range(_SP_WORLD)]
+    kv.push("weight", [mx.nd.sparse.row_sparse_array(
+        (g["data"], g["indices"]), shape=(f, 2), ctx=ctx) for g in gs])
+    ref = kv._store["weight"].asnumpy()
+    w1 = np.load(os.path.join(out, "sp-w1.npy"))
+    rel = _sp_rel(w1, ref)
+    untouched = np.ones(f, bool)
+    for g in gs:
+        untouched[g["indices"]] = False
+    probes = [r["probe"] for r in recs]
+    checks = {
+        "ranks_bit_equal_every_batch": bit_equal, "wire_by_formula": wire_ok,
+        "batch1_vs_one_process_rel": rel,
+        "batch1_untouched_zero": bool((w1[untouched] == 0).all()),
+        "probe_row_reached_optimizer": all(
+            p["row"] == probes[1]["row"] and p["row"] in p["seen"]
+            for p in probes),
+        "probe_wire": all(p["wire"] == probe_wire for p in probes),
+        "backend": [r["backend"] for r in recs],
+        "no_kernel_launches": all(r["launches"] == [0, 0, 0] for r in recs)}
+    ok = (bit_equal and wire_ok and rel < 1e-6
+          and checks["batch1_untouched_zero"]
+          and checks["probe_row_reached_optimizer"] and checks["probe_wire"]
+          and checks["no_kernel_launches"])
+    emit({"sparse_two_workers": {
+        "card": card, "world": _SP_WORLD, "launch_s": secs,
+        "carried_by_data_parallel_launch": secs is None,
+        "per_worker_batch": cfg["batch"] // _SP_WORLD,
+        "ms_per_batch_rank0": [b["ms"] for b in recs[0]["batches"]],
+        "host_ms_per_batch_rank0": [b["host_ms"] for b in
+                                    recs[0]["batches"]],
+        "rows_per_batch": [[b["rows"] for b in r["batches"]] for r in recs],
+        "wire_bytes_per_push": wires, "dense_weight_bytes": dense_bytes,
+        "peak_bytes": [r["peak_bytes"] for r in recs], "checks": checks}})
+    assert ok, checks
+
+
+def sp_prepare(rehearsal):
+    """A directory holding the phase's LibSVM file (32,768 rows at
+    Avazu's width), made before the data_parallel phase when its workers
+    carry the two-worker leg."""
+    cfg = _sp_cfg(rehearsal)
+    out = tempfile.mkdtemp(prefix="chip_smoke_sparse_")
+    t0 = time.perf_counter()
+    sp_write_libsvm(os.path.join(out, "train.libsvm"), cfg["features"],
+                    cfg["batch"] * cfg["batches"], cfg["nnz"], seed=0)
+    with open(os.path.join(out, "write_s"), "w") as f:
+        f.write(repr(time.perf_counter() - t0))
+    return out
+
+
+def sparse_phase(mx, ctx, rehearsal, card, out=None):
+    """The sparse linear classifier (``examples/sparse/
+    linear_classification.py``) at Avazu's width on one card, then over
+    ``dist_sync`` in two workers (``out``: the directory of
+    :func:`sp_prepare`, where the data_parallel phase's workers may have
+    left the two-worker leg's records). Returns the K1, K2 and K3
+    launches of the phase (none: the sparse path has no hand-written
+    kernel)."""
+    gpu = ctx.device_type == "gpu"
+    cfg = _sp_cfg(rehearsal)
+    _free(gpu)
+    t_phase = time.perf_counter()
+    out = out or sp_prepare(rehearsal)
+    try:
+        return _sparse(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase)
+    finally:
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+        _free(gpu)
+
+
+def _sparse(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase):
+    path = os.path.join(out, "train.libsvm")
+    with open(os.path.join(out, "write_s")) as f:
+        write_s = float(f.read())
+    if gpu:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train = mx.io.LibSVMIter(data_libsvm=path, data_shape=(cfg["features"],),
+                             batch_size=cfg["batch"], ctx=ctx)
+    parse_s = time.perf_counter() - t0
+    kv = mx.kv.create("device")
+    step = _SpStep(mx, ctx, cfg, kv)
+    k0 = _kernel_counts()
+    batches, losses, first, host_top = [], [], None, []
+    for epoch in range(cfg["epochs"]):
+        train.reset()
+        for i, b in enumerate(train):
+            # the first batch and the last of epoch 1 under cProfile
+            o, ms, host, sync = _sp_timed(
+                step, b, gpu, host_top if (epoch, i) in (
+                    (0, 0), (0, cfg["batches"] - 1)) else None)
+            losses.append((epoch, float(o["loss"].asnumpy().sum())
+                           / cfg["batch"]))
+            batches.append({"epoch": epoch, "ms": ms, "host_ms": host,
+                            "sync_ms": sync,
+                            "rows": int(o["grad"].indices.shape[0]),
+                            "bucket": _sp_bucket(o["grad"].indices.shape[0]),
+                            "batch_dense_view_built":
+                                o["x"]._dense_cache is not None})
+            if first is None:
+                first = (b, o, _sp_first_batch_gates(mx, step, b, o, cfg))
+            last_ids = o["row_ids"].asnumpy()
+    launches = [a - b for a, b in zip(_kernel_counts(), k0)]
+    peak = (torch.cuda.max_memory_allocated() - base) if gpu else None
+    mean = [float(np.mean([l for e, l in losses if e == k]))
+            for k in range(cfg["epochs"])]
+    opt_gates = _sp_optimizer_gates(mx, step, first[1]["grad"], cfg)
+    pull_gate = _sp_pull_gate(mx, step, last_ids, cfg)
+    prof = profile_forward(lambda: step(first[0]), reps=1) if gpu else None
+    checks = {
+        "a_first_batch": first[2], "b_lazy_optimizers": opt_gates,
+        "c_row_sparse_pull": pull_gate,
+        "e_loss": {"epoch_mean": mean,
+                   "ok": bool(np.isfinite(mean).all()
+                              and mean[-1] < mean[0])},
+        "f_no_dense_batch": {
+            "peak_bytes_above_start": peak,
+            "batch_dense_views": sum(b["batch_dense_view_built"]
+                                     for b in batches),
+            "ok": (peak is None or peak < _SP_DENSE_BATCH_GB * 1e9)
+            and not any(b["batch_dense_view_built"] for b in batches)},
+        "no_kernel_launches": launches == [0, 0, 0]}
+    emit({"sparse": {
+        "card": card, "config": cfg, "libsvm_write_s": write_s,
+        "libsvm_parse_s": parse_s, "batches": batches,
+        "ms_per_batch": [b["ms"] for b in batches],
+        "host_sync_share": [b["sync_ms"] / b["host_ms"] for b in batches],
+        "profiled_batch": prof, "host_top_first_and_fourth_batch": host_top,
+        "launches": launches, "checks": checks}})
+    oks = {"a": first[2]["ok"],
+           "b": all(v["ok"] for v in opt_gates.values()),
+           "c": pull_gate["ok"], "e": checks["e_loss"]["ok"],
+           "f": checks["f_no_dense_batch"]["ok"],
+           "launches": checks["no_kernel_launches"]}
+    failed = sorted(k for k, v in oks.items() if not v)
+    assert not failed, (failed, checks)
+    del step, kv, train, first
+    _free(gpu)
+    _sp_two_workers(mx, ctx, cfg, out, rehearsal, card)
+    emit({"sparse_phase_s": time.perf_counter() - t_phase, "card": card})
+    return launches
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
           "resnet_training", "gluon_training", "decode", "rnn_training",
           "image_classification", "gluon_zoo", "observability",
           "dense_prediction", "data_parallel", "model_parallel",
-          "engine_meshes", "elastic")
+          "engine_meshes", "elastic", "sparse")
 
 
 def main(argv=None):
@@ -8019,10 +8613,13 @@ def main(argv=None):
     ap.add_argument("--mp-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--em-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--el-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--sp-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--sp-dir", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     if args.dp_worker:
-        dp_worker(args.dp_worker[0], args.dp_worker[1], rehearsal)
+        dp_worker(args.dp_worker[0], args.dp_worker[1], rehearsal,
+                  args.sp_dir)
         return 0
     if args.mp_worker:
         mp_worker(args.mp_worker, rehearsal)
@@ -8032,6 +8629,9 @@ def main(argv=None):
         return 0
     if args.el_worker:
         el_worker(args.el_worker, rehearsal)
+        return 0
+    if args.sp_worker:
+        sp_worker(args.sp_worker, rehearsal)
         return 0
     todo = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(todo) - set(PHASES))
@@ -8050,6 +8650,10 @@ def main(argv=None):
             build_phase()
         dev, ctx = torch.device("cuda", 0), mx.gpu(0)
     res = {}
+    # the data_parallel phase's workers carry the sparse phase's two-worker
+    # leg when both run (one launch fewer)
+    sp_dir = sp_prepare(rehearsal) if {"data_parallel", "sparse"} <= set(
+        todo) else None
     if "kernels" in todo:
         with phase("kernels"):
             res["k1"] = kernel_phase(dev, rate)
@@ -8094,7 +8698,8 @@ def main(argv=None):
     if "data_parallel" in todo:
         with phase("data_parallel"):
             res["dp_launches"] = data_parallel_phase(
-                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
+                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line(),
+                sp_dir)
     if "model_parallel" in todo:
         with phase("model_parallel"):
             res["mp_launches"] = model_parallel_phase(
@@ -8107,6 +8712,11 @@ def main(argv=None):
         with phase("elastic"):
             res["el_launches"] = elastic_phase(
                 mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
+    if "sparse" in todo:
+        with phase("sparse"):
+            res["sp_launches"] = sparse_phase(
+                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line(),
+                sp_dir)
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -8120,7 +8730,8 @@ def main(argv=None):
         "launches": res["k1_launches"] + res["k1_train_launches"]
         + res["k1_gluon_launches"] + res["obs_launches"]
         + res["dp_launches"][0] + res["mp_launches"][0]
-        + res["em_launches"][0] + res["el_launches"][0],
+        + res["em_launches"][0] + res["el_launches"][0]
+        + res["sp_launches"][0],
         "serving_launches": res["k1_launches"],
         "observability_launches": res["obs_launches"],
         "training_launches": res["k1_train_launches"],
@@ -8133,6 +8744,7 @@ def main(argv=None):
         "model_parallel_launches": res["mp_launches"][0],
         "engine_meshes_launches": res["em_launches"][0],
         "elastic_launches": res["el_launches"][0],
+        "sparse_launches": res["sp_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -8146,7 +8758,7 @@ def main(argv=None):
         "replaces": "mxnet_tpu/pallas/flash_attention.py:83",
         "launches": launches["fwd"] + res["dp_launches"][1]
         + res["mp_launches"][1] + res["em_launches"][1]
-        + res["el_launches"][1],
+        + res["el_launches"][1] + res["sp_launches"][1],
         "training_launches": launches["fwd"],
         "rnn_training_launches": res["rnn_launches"][1],
         "image_classification_launches": res["ic_launches"][1],
@@ -8156,6 +8768,7 @@ def main(argv=None):
         "model_parallel_launches": res["mp_launches"][1],
         "engine_meshes_launches": res["em_launches"][1],
         "elastic_launches": res["el_launches"][1],
+        "sparse_launches": res["sp_launches"][1],
         "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
@@ -8170,7 +8783,7 @@ def main(argv=None):
         "replaces": "mxnet_tpu/pallas/flash_attention.py:261",
         "launches": launches["bwd"] + res["dp_launches"][2]
         + res["mp_launches"][2] + res["em_launches"][2]
-        + res["el_launches"][2],
+        + res["el_launches"][2] + res["sp_launches"][2],
         "training_launches": launches["bwd"],
         "rnn_training_launches": res["rnn_launches"][2],
         "image_classification_launches": res["ic_launches"][2],
@@ -8180,6 +8793,7 @@ def main(argv=None):
         "model_parallel_launches": res["mp_launches"][2],
         "engine_meshes_launches": res["em_launches"][2],
         "elastic_launches": res["el_launches"][2],
+        "sparse_launches": res["sp_launches"][2],
         "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,

@@ -180,9 +180,21 @@ def invoke(op, inputs, kwargs, out=None):
         params["_train"] = is_training()
     nds = [x if isinstance(x, NDArray) else None for x in inputs]
     ctx = next((x.context for x in nds if x is not None), None)
+    record = should_record(nds, op.no_grad)
+    # storage-aware dispatch before any input's dense view is read: a
+    # sparse input asks the sparse table first, then takes the logged
+    # dense fallback below (a recorded op always runs dense)
+    if not record and out is None and any(
+            x is not None and x.stype != "default" for x in nds):
+        from .ndarray import sparse as _sparse
+        res = _sparse.dispatch_ex(op.name, inputs, params)
+        if res is not NotImplemented:
+            return res
+        from .config import storage_fallback_log
+        storage_fallback_log("%s(%s)" % (op.name, ", ".join(
+            x.stype if x is not None else "default" for x in nds)))
     if op.takes_rng:
         params["_rng"] = _common.take_rng(_rng_device(nds, params))
-    record = should_record(nds, op.no_grad)
     raw = read_inputs(inputs, record)
     if record:
         with torch.enable_grad():

@@ -8,9 +8,9 @@ semantics. Batches are host arrays (``cpu()`` NDArrays), as in the
 reference; a Module copies each into its bound storage on its device.
 ``ResizeIter`` (a fixed number of batches per epoch), ``PrefetchingIter``
 (one background thread ahead of its iterator), ``MNISTIter`` (MNIST
-idx files, plain or gzipped) and ``CSVIter`` are ported too;
-``LibSVMIter`` (CSR batches) and ``ImageRecordIter`` are not yet
-(ROADMAP Queue 1 item 6).
+idx files, plain or gzipped), ``CSVIter`` and ``LibSVMIter`` (csr
+batches on the iterator's context, default ``gpu(0)``) are ported too;
+``ImageRecordIter`` is not yet (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -23,15 +23,16 @@ import time
 from collections import namedtuple
 
 import numpy as np
+import torch
 
 from .base import MXNetError
-from .context import cpu
+from .context import cpu, current_context
 from .ndarray.ndarray import NDArray, array as _nd_array
 from . import telemetry
 from . import faults
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
-           "PrefetchingIter", "MNISTIter", "CSVIter"]
+           "PrefetchingIter", "MNISTIter", "CSVIter", "LibSVMIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -425,3 +426,109 @@ class CSVIter(NDArrayIter):
                          else "discard",
                          num_parts=int(kwargs.get("num_parts", 1)),
                          part_index=int(kwargs.get("part_index", 0)))
+
+
+def _parse_libsvm(path, feature_dim):
+    """``(labels, indptr, indices, values)`` of a LibSVM file as the JAX
+    package reads it through a dense float32 matrix: a repeated feature
+    keeps its last value, a value that is zero in float32 is not stored,
+    a row's features come sorted, a negative index counts from the end."""
+    labels, indptr, indices, values = [], [0], [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            labels.append(float(parts[0]))
+            row = {}
+            for kv in parts[1:]:
+                k, v = kv.split(":")
+                k = int(k)
+                if k < -feature_dim or k >= feature_dim:
+                    raise MXNetError("LibSVMIter: feature %d outside "
+                                     "data_shape (%d,)" % (k, feature_dim))
+                row[k % feature_dim] = np.float32(v)
+            cols = sorted(c for c, v in row.items() if v != 0)
+            indices.extend(cols)
+            values.extend(row[c] for c in cols)
+            indptr.append(len(indices))
+    return (np.asarray(labels, np.float32), np.asarray(indptr, np.int64),
+            np.asarray(indices, np.int32), np.asarray(values, np.float32))
+
+
+def _csr_rows(indptr, indices, values, rows):
+    """The csr triple of the listed rows, in order."""
+    lengths = indptr[rows + 1] - indptr[rows]
+    out_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    take = np.repeat(indptr[rows] - out_ptr[:-1], lengths) \
+        + np.arange(out_ptr[-1], dtype=np.int64)
+    return out_ptr, indices[take], values[take]
+
+
+class LibSVMIter(DataIter):
+    """LibSVM reader yielding csr data batches (parity:
+    mxnet_tpu/io.py:465-530, src/io/iter_libsvm.cc): ``num_parts`` and
+    ``part_index`` give each worker every ``num_parts``-th row from
+    ``part_index`` on; a short last batch pads with rows from the start
+    of this part (``getpad`` counts them). The JAX iterator builds a
+    dense (rows, feature_dim) array first; this one keeps the parsed
+    rows compressed and slices them per batch, with the same batches.
+    Batches live on ``ctx`` (default the current context, ``gpu(0)``)."""
+
+    def __init__(self, data_libsvm, data_shape, label_shape=(1,),
+                 batch_size=1, num_parts=1, part_index=0, ctx=None,
+                 **kwargs):
+        super().__init__(int(batch_size))
+        self._ctx = ctx or current_context()
+        self._dev = self._ctx.torch_device()
+        self.feature_dim = int(data_shape[0] if isinstance(
+            data_shape, (tuple, list)) else data_shape)
+        labels, indptr, indices, values = _parse_libsvm(data_libsvm,
+                                                        self.feature_dim)
+        rows = np.arange(int(part_index), len(labels), int(num_parts))
+        self._labels = labels[rows]
+        self._indptr, self._indices, self._values = _csr_rows(
+            indptr, indices, values, rows)
+        self.num_data = len(rows)
+        self.cursor = -self.batch_size
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self.feature_dim))]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("softmax_label", (self.batch_size,))]
+
+    def reset(self):
+        self.cursor = -self.batch_size
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        return self.cursor < self.num_data
+
+    def _batch_rows(self):
+        rows = np.arange(self.cursor, min(self.cursor + self.batch_size,
+                                          self.num_data))
+        pad = min(self.batch_size - len(rows), self.num_data)
+        return np.concatenate([rows, np.arange(pad)])
+
+    def getdata(self):
+        from .ndarray import sparse as _sp
+        rows = self._batch_rows()
+        indptr, indices, values = _csr_rows(
+            self._indptr, self._indices, self._values, rows)
+        dev = self._dev
+
+        def up(a):
+            return torch.from_numpy(a).to(dev)
+        return [_sp.CSRNDArray(up(values), up(indices),
+                               up(indptr.astype(np.int32)),
+                               (len(rows), self.feature_dim),
+                               self._ctx)]
+
+    def getlabel(self):
+        return [_nd_array(self._labels[self._batch_rows()], ctx=self._ctx)]
+
+    def getpad(self):
+        return max(self.cursor + self.batch_size - self.num_data, 0)

@@ -36,8 +36,15 @@ membership (every launched rank until ``_remesh`` drops the dead),
 ``num_workers`` its size, and ``num_dead_node`` counts its members whose
 heartbeat is stale.
 
-Not ported yet: ``row_sparse_pull`` (sparse storage, ROADMAP Queue 1
-item 6).
+Row-sparse values (``mx.nd.sparse``): a push of row_sparse shards sums
+them with ``sparse.add_n`` and never densifies; a shard list mixing
+storage types is summed dense (a logged storage fallback); compression
+refuses sparse values. Across workers each worker's rows travel padded
+to a power-of-two bucket (at least 8, the index -1 as padding) after one
+all-gather of the row counts, and the union of the rows any worker
+touched is summed in rank order, a row whose sum is zero included, so
+the store's optimizer still sees it. ``row_sparse_pull`` copies only the
+requested rows of a dense or row_sparse value.
 """
 from __future__ import annotations
 
@@ -167,7 +174,8 @@ class KVStore:
         for k, v in zip(keys, values):
             if k in self._store:
                 continue
-            if broadcast and isinstance(v, NDArray):
+            if broadcast and isinstance(v, NDArray) \
+                    and v.stype == "default":
                 from .parallel import collectives
                 self._store[k] = NDArray(collectives.broadcast(v._data),
                                          v.context)
@@ -211,12 +219,10 @@ class KVStore:
                 # the locally merged value toward the other workers
                 vlist = [self._compress_shard(k, i, v)
                          for i, v in enumerate(vlist)]
-            merged = vlist[0]
-            if len(vlist) > 1:
-                merged = vlist[0].copy()
-                for v in vlist[1:]:
-                    merged += v.as_in_context(merged.context)
-            merged_list.append(merged)
+            elif self._compression is not None:
+                for v in vlist:
+                    _reject_sparse_compression(v)
+            merged_list.append(_merge_shards(vlist))
         merged_list = self._global_reduce_batch(keys, merged_list)
         if self._updater is not None:
             for k in keys:
@@ -249,14 +255,19 @@ class KVStore:
                 merged_list = [self._compress_shard(k, "dist", m)
                                for k, m in zip(keys, merged_list)]
             return merged_list
+        from .ndarray import sparse as _sp
         from .parallel import collectives
         gate = self._collective_gate()
         # the discipline check's all-gather is the first collective
         gate.arrive_and_wait()
         t_wire = collectives.wire["seconds"]
         self._assert_push_discipline(keys, merged_list)
-        raw = [m._data for m in merged_list]
         comp = self._compression
+        if any(isinstance(m, _sp.BaseSparseNDArray) for m in merged_list):
+            result = self._sparse_exchange(merged_list)
+            gate.note_wait((collectives.wire["seconds"] - t_wire) * 1e3)
+            return result
+        raw = [m._data for m in merged_list]
         if comp is None:
             outs = bucketed_all_reduce(raw)
             self.wire_bytes_last_push = sum(t.numel() * t.element_size()
@@ -268,6 +279,66 @@ class KVStore:
         # own work (the gate's straggler self-time)
         gate.note_wait((collectives.wire["seconds"] - t_wire) * 1e3)
         return [NDArray(o, m.context) for o, m in zip(outs, merged_list)]
+
+    @staticmethod
+    def _row_bucket(n):
+        """A row count padded to a power of two, at least 8 (parity: the
+        JAX package's exchange, which compiles once per bucket)."""
+        return max(8, 1 << (max(int(n), 1) - 1).bit_length())
+
+    def _sparse_exchange(self, merged_list):
+        """A push holding sparse values: the dense values (and each csr
+        value's dense view, cast back to csr) summed in one bucketed
+        all-reduce a dtype; each row_sparse value's rows all-gathered,
+        padded to the bucket of the largest count, and their union summed
+        in rank order. ``wire_bytes_last_push`` counts what travels: a
+        dense value's bytes, and per row_sparse value the bucket's int32
+        ids and rows (the JAX package's formula)."""
+        from .parallel import collectives
+        from .ndarray import sparse as _sp
+        rsp = [i for i, m in enumerate(merged_list)
+               if isinstance(m, _sp.RowSparseNDArray)]
+        dense = [i for i in range(len(merged_list)) if i not in rsp]
+        out = [None] * len(merged_list)
+        wire = 0
+        if dense:
+            raw = [merged_list[i]._data for i in dense]
+            wire += sum(t.numel() * t.element_size() for t in raw)
+            for i, o in zip(dense, bucketed_all_reduce(raw)):
+                m = merged_list[i]
+                out[i] = NDArray(o, m.context)
+                if isinstance(m, _sp.CSRNDArray):
+                    out[i] = _sp.cast_storage(out[i], "csr")
+        if rsp:
+            first = merged_list[rsp[0]]._rsp_data
+            counts = torch.tensor([merged_list[i]._rsp_indices.numel()
+                                   for i in rsp], dtype=torch.int32,
+                                  device=first.device)
+            all_counts = collectives.all_gather(counts, tiled=False).cpu()
+            for j, i in enumerate(rsp):
+                m = merged_list[i]
+                n = int(m._rsp_indices.numel())
+                pad = self._row_bucket(int(all_counts[:, j].max()))
+                width = tuple(m.shape[1:])
+                ids = torch.full((pad,), -1, dtype=torch.int32,
+                                 device=m._rsp_data.device)
+                ids[:n] = m._rsp_indices
+                rows = torch.zeros((pad,) + width, dtype=m._rsp_data.dtype,
+                                   device=m._rsp_data.device)
+                rows[:n] = m._rsp_data
+                g_ids = collectives.all_gather(ids, tiled=False)
+                g_rows = collectives.all_gather(rows, tiled=False)
+                parts = [(g_ids[r, :int(c)], g_rows[r, :int(c)])
+                         for r, c in enumerate(all_counts[:, j].tolist())]
+                uniq, summed = _sp._union_sum(parts, width, rows.dtype,
+                                              rows.device)
+                out[i] = _sp.RowSparseNDArray(summed, uniq, m.shape,
+                                              m.context)
+                wire += ids.numel() * ids.element_size() \
+                    + rows.numel() * rows.element_size()
+        self.wire_bytes_last_push = wire
+        self.wire_bytes_last_push_raw = wire
+        return out
 
     def _compressed_exchange(self, keys, raw):
         """The compressed wire: every key's payload (2-bit words, or
@@ -305,7 +376,7 @@ class KVStore:
         if os.environ.get("MXNET_KVSTORE_CHECK_PUSH", "1") == "0":
             return
         from .parallel import collectives
-        desc = repr([(str(k), "default", tuple(m.shape), str(m.dtype))
+        desc = repr([(str(k), m.stype, tuple(m.shape), str(m.dtype))
                      for k, m in zip(keys, merged_list)])
         h = torch.frombuffer(bytearray(hashlib.sha256(desc.encode())
                                        .digest()[:16]), dtype=torch.int32)
@@ -334,8 +405,34 @@ class KVStore:
                     src.copyto(o)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError("row_sparse_pull: sparse storage is not ported "
-                         "yet (ROADMAP Queue 1 item 6)")
+        """(parity: kvstore.row_sparse_pull) only the rows ``row_ids``
+        names of each key's value (dense or row_sparse), as a row_sparse
+        ``out`` or into a dense ``out``'s dense view; a row of the value
+        that is all zero is not stored. ``row_ids`` not a list or tuple
+        serves every key."""
+        if out is None or row_ids is None:
+            raise MXNetError("row_sparse_pull requires out= and row_ids=")
+        from .ndarray import sparse as _sp
+        telemetry.counter_inc("kvstore.pull")
+        with telemetry.span("kv_pull"):
+            keys, outs = _key_value(key, out, allow_list_value=True)
+            if not isinstance(row_ids, (list, tuple)):
+                row_ids = [row_ids] * len(keys)
+            for k, olist, rids in zip(keys, outs, row_ids):
+                if k not in self._store:
+                    raise MXNetError("row_sparse_pull: key %r was not "
+                                     "init()ed" % (k,))
+                src = self._store[k]
+                picked = src.retain(rids) \
+                    if isinstance(src, _sp.RowSparseNDArray) \
+                    else _dense_rows(src, rids)
+                for o in (olist if isinstance(olist, (list, tuple))
+                          else [olist]):
+                    if isinstance(o, _sp.RowSparseNDArray):
+                        o._take(picked._moved(o.context))
+                    else:
+                        o._assign(NDArray(picked._data.to(o._data.device),
+                                          o.context))
 
     def barrier(self):
         """Block until every live worker of a dist store gets here
@@ -383,6 +480,7 @@ class KVStore:
 
     def _compress_shard(self, key, shard_idx, v):
         """Round-trip one shard through the wire format."""
+        _reject_sparse_compression(v)
         raw = v._data
         packed = self._compression.compress((key, shard_idx), raw)
         return NDArray(self._compression.decompress(packed, raw.shape,
@@ -428,6 +526,56 @@ def bucketed_all_reduce(tensors, group=None):
                 .to(tensors[i].device)
             start += n
     return out
+
+
+def _merge_shards(vlist):
+    """The sum of one key's shards: row_sparse shards through
+    ``sparse.add_n`` (never densified), a list mixing storage types dense
+    (the logged storage fallback), dense shards as they are."""
+    from .ndarray import sparse as _sp
+    if all(isinstance(v, _sp.RowSparseNDArray) for v in vlist):
+        return _sp.add_n(list(vlist)) if len(vlist) > 1 else vlist[0]
+    if any(isinstance(v, _sp.BaseSparseNDArray) for v in vlist):
+        from .config import storage_fallback_log
+        storage_fallback_log("kvstore push of [%s] shards"
+                             % ", ".join(v.stype for v in vlist))
+        vlist = [NDArray(v._data, v.context)
+                 if isinstance(v, _sp.BaseSparseNDArray) else v
+                 for v in vlist]
+    merged = vlist[0]
+    if len(vlist) > 1:
+        merged = vlist[0].copy()
+        for v in vlist[1:]:
+            merged += v.as_in_context(merged.context)
+    return merged
+
+
+def _reject_sparse_compression(v):
+    from .ndarray.sparse import BaseSparseNDArray
+    if isinstance(v, BaseSparseNDArray):
+        # the reference's dist store refuses compression for sparse
+        # storage rather than densifying it
+        raise MXNetError(
+            "gradient compression is not supported for sparse "
+            "gradients (reference parity); push dense or disable "
+            "set_gradient_compression")
+
+
+def _dense_rows(src, row_ids):
+    """The rows ``row_ids`` of a dense value as a row_sparse array: the
+    ids in range, sorted and unique, with an all-zero row left out (the
+    JAX package's ``cast_storage(src, "row_sparse").retain(row_ids)``,
+    without scanning the whole value)."""
+    from .ndarray import sparse as _sp
+    dense = src._data
+    r = _sp._index_tensor(row_ids, dense.device).long()
+    r = torch.unique(r[(r >= 0) & (r < dense.shape[0])])
+    rows = dense.index_select(0, r)
+    nz = rows != 0
+    if rows.ndim > 1:
+        nz = nz.flatten(1).any(1)
+    return _sp.RowSparseNDArray(rows[nz], r[nz], tuple(dense.shape),
+                                src.context)
 
 
 def _int_key(k):

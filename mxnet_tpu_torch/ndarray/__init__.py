@@ -16,6 +16,10 @@ from . import register as _register
 _register.populate(globals())
 from . import random  # noqa: E402,F401
 from . import linalg  # noqa: E402,F401
+from . import sparse  # noqa: E402,F401
+from .sparse import RowSparseNDArray, CSRNDArray  # noqa: E402,F401
+# the reference exposes cast_storage as an op of mx.nd
+from .sparse import cast_storage  # noqa: E402,F401
 
 
 def _binary(name, arr_fn, np_fn):

@@ -270,10 +270,12 @@ class NDArray:
         return _invoke("clip", [self], {"a_min": a_min, "a_max": a_max})
 
     def tostype(self, stype):
+        """This array in storage type ``stype`` (``row_sparse``, ``csr``
+        or ``default``; parity: NDArray.tostype)."""
         if stype == "default":
             return self
-        raise MXNetError("sparse storage is not ported (ROADMAP Queue 1 "
-                         "item 6)")
+        from . import sparse as _sp
+        return _sp.cast_storage(self, stype)
 
     # -- arithmetic --------------------------------------------------------
     def _binary(self, other, op, scalar_op):

@@ -69,7 +69,9 @@ register("min", defaults=_REDUCE_DEFAULTS, aliases=("min_axis",))(
 @register("_square_sum", defaults=_REDUCE_DEFAULTS)
 def _square_sum(data, axis=None, keepdims=False, exclude=False):
     """Sum of squares: row_sparse input only in the reference, which has
-    no dense kernel; a dense input is refused as there."""
+    no dense kernel. A row_sparse input is taken by the storage dispatch
+    (``ndarray/sparse.py`` ``square_sum``) before this body runs; a
+    dense input is refused as there."""
     raise MXNetError("_square_sum: only row_sparse input is supported "
                      "(reference square_sum-inl.h has no dense kernel)")
 

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from ..context import current_context
 from .common import as_axis, as_tuple, torch_dtype
-from .registry import register
+from .registry import register, alias
 
 
 def infer_reshape(src_shape, target, reverse=False):
@@ -292,6 +292,11 @@ def embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
     n = weight.shape[0]
     idx = torch.clamp(torch.where(idx < 0, idx + n, idx), 0, n - 1)
     return F.embedding(idx, weight)
+
+
+# the reference's sparse-gradient embedding; its gradient stays dense here,
+# as ``sparse_grad=True`` does, in both packages
+alias("Embedding", "_contrib_SparseEmbedding")
 
 
 @register("gather_nd", nin=2, arg_names=["data", "indices"])

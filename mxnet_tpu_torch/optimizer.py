@@ -15,10 +15,10 @@ and ``Nadam``, and the updaters: ``Updater`` (per parameter, with
 pure kernels of ``parallel/opt_kernels.py``, the loop Module's fused step
 runs). ``update`` writes the new weight and state into the given NDArrays
 in place, as the reference's fused ops do; the math is
-``ops/optimizer_ops.py``.
-
-Not ported yet (ROADMAP): row-sparse (lazy) updates, one fused kernel
-(or CUDA graph) for a whole parameter set.
+``ops/optimizer_ops.py``. A row_sparse gradient takes the lazy update of
+``SGD`` (with momentum, and the fp32 master under multi-precision),
+``Adam`` and ``AdaGrad``: only the rows it holds change, in the weight
+and in the state; the updaters then go parameter by parameter.
 """
 from __future__ import annotations
 
@@ -197,6 +197,20 @@ class Optimizer:
             kw["clip_gradient"] = self.clip_gradient
         return kw
 
+    # -- row-sparse (lazy) updates -----------------------------------------
+    def _sparse_rows(self, grad):
+        """``(row ids, rows)`` of a row_sparse gradient, rescaled and
+        clipped (reference optimizer_op.cc row_sparse kernels)."""
+        g = grad._rsp_data * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        return grad._rsp_indices.long(), g
+
+    @staticmethod
+    def _is_row_sparse(grad):
+        from .ndarray.sparse import RowSparseNDArray
+        return isinstance(grad, RowSparseNDArray)
+
 
 def _raw(x):
     return x if isinstance(x, torch.Tensor) else x._data
@@ -209,6 +223,16 @@ def _wrap_like(weight, tensor):
         return tensor
     from .ndarray.ndarray import NDArray
     return NDArray(tensor, weight.context)
+
+
+def _grad32(grad):
+    """The gradient in fp32 for an fp32 master, a row_sparse one kept
+    row_sparse."""
+    from .ndarray.sparse import RowSparseNDArray
+    if isinstance(grad, RowSparseNDArray):
+        return RowSparseNDArray(grad._rsp_data.float(), grad._rsp_indices,
+                                grad.shape, grad.context)
+    return _wrap_like(grad, _raw(grad).float())
 
 
 @register
@@ -228,6 +252,9 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        if self._is_row_sparse(grad):
+            self._update_sparse(weight, grad, state, lr, wd)
+            return
         w, g = _raw(weight), _raw(grad)
         kw = self._common_kwargs()
         with torch.no_grad():
@@ -254,6 +281,28 @@ class SGD(Optimizer):
             w.copy_(new_w)
 
     update_multi_precision = update
+
+    def _update_sparse(self, weight, grad, state, lr, wd):
+        """Lazy SGD (reference SGDUpdateRspRspImpl): only the gradient's
+        rows move, their momentum decays only then; a multi-precision
+        state ``(mom, w32)`` updates the fp32 master's rows and casts the
+        weight back."""
+        rows, g = self._sparse_rows(grad)
+        master = weight
+        if isinstance(state, tuple):            # multi-precision
+            state, master = state
+        w = _raw(master)
+        with torch.no_grad():
+            g = g.to(w.dtype) + wd * w.index_select(0, rows)
+            if state is not None:
+                mom = _raw(state)
+                m_new = self.momentum * mom.index_select(0, rows) - lr * g
+                mom.index_copy_(0, rows, m_new)
+                w.index_add_(0, rows, m_new)
+            else:
+                w.index_add_(0, rows, -lr * g)
+            if master is not weight:
+                _raw(weight).copy_(w)
 
 
 @register
@@ -285,7 +334,7 @@ class NAG(SGD):
         if not isinstance(state, tuple):
             return self.update(index, weight, grad, state)
         mom, w32 = state
-        self.update(index, w32, _wrap_like(grad, _raw(grad).float()), mom)
+        self.update(index, w32, _grad32(grad), mom)
         with torch.no_grad():
             _raw(weight).copy_(_raw(w32))
 
@@ -313,6 +362,9 @@ class Adam(Optimizer):
         lr, wd = self._get_lr(index), self._get_wd(index)
         lr = lr * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
         mean, var = state
+        if self._is_row_sparse(grad):
+            self._update_sparse(weight, grad, mean, var, lr, wd)
+            return
         with torch.no_grad():
             new_w, new_m, new_v = _O.adam_update(
                 _raw(weight), _raw(grad), _raw(mean), _raw(var), lr=lr,
@@ -328,9 +380,24 @@ class Adam(Optimizer):
         if not isinstance(state[0], tuple):     # (mean, var)
             return self.update(index, weight, grad, state)
         moments, w32 = state
-        self.update(index, w32, _wrap_like(grad, _raw(grad).float()), moments)
+        self.update(index, w32, _grad32(grad), moments)
         with torch.no_grad():
             _raw(weight).copy_(_raw(w32))
+
+    def _update_sparse(self, weight, grad, mean, var, lr, wd):
+        """Lazy Adam (reference AdamUpdateRspRspImpl): only the
+        gradient's rows advance their moments and move."""
+        rows, g = self._sparse_rows(grad)
+        w, m, v = _raw(weight), _raw(mean), _raw(var)
+        with torch.no_grad():
+            g = g + wd * w.index_select(0, rows)
+            m_new = self.beta1 * m.index_select(0, rows) + (1 - self.beta1) * g
+            v_new = self.beta2 * v.index_select(0, rows) \
+                + (1 - self.beta2) * g * g
+            step = lr * m_new / (torch.sqrt(v_new) + self.epsilon)
+            m.index_copy_(0, rows, m_new)
+            v.index_copy_(0, rows, v_new)
+            w.index_add_(0, rows, -step)
 
 
 def _zeros32(weight):
@@ -361,7 +428,7 @@ class _MasterWeight:
                 and _raw(weight).dtype in _LOW_PRECISION):
             return self.update(index, weight, grad, state)
         inner, w32 = state
-        self.update(index, w32, _wrap_like(grad, _raw(grad).float()), inner)
+        self.update(index, w32, _grad32(grad), inner)
         with torch.no_grad():
             _raw(weight).copy_(_raw(w32))
 
@@ -437,6 +504,16 @@ class AdaGrad(_MasterWeight, Optimizer):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         w, h = _raw(weight), _raw(state)
+        if self._is_row_sparse(grad):
+            # lazy AdaGrad (reference AdagradUpdateRspRspImpl)
+            rows, g = self._sparse_rows(grad)
+            with torch.no_grad():
+                wr = w.index_select(0, rows)
+                h_new = h.index_select(0, rows) + g * g
+                h.index_copy_(0, rows, h_new)
+                w.index_add_(0, rows, -(lr * (
+                    g / torch.sqrt(h_new + self.float_stable_eps) + wd * wr)))
+            return
         with torch.no_grad():
             g = _rescaled(self, grad)
             h.add_(g * g)
@@ -897,7 +974,11 @@ class FusedUpdater(Updater):
         """One optimizer step over parallel lists of (index, grad, weight)
         NDArrays (or raw gradient tensors)."""
         from .parallel import opt_kernels as _ok
+        from .ndarray.sparse import BaseSparseNDArray
         opt = self.optimizer
+        if any(isinstance(g, BaseSparseNDArray) for g in grads):
+            # a sparse gradient takes its optimizer's lazy update
+            return Updater.update_batch(self, indices, grads, weights)
         try:
             kname, hyper = _ok.hyper_from_optimizer(opt)
         except MXNetError:

@@ -9,6 +9,7 @@ from .symbol import Symbol, Variable, var, Group, load, load_json
 from . import register as _register
 
 _register.populate(globals())
+from . import sparse  # noqa: E402,F401
 
 
 def zeros(shape, dtype="float32", **kwargs):

@@ -33,6 +33,13 @@ checked copy:
   ``parameters`` vector from the JAX cell's packed vector or from its
   ``unpack_weights`` arrays, checked against the cell's layout.
 
+:func:`params_from_numpy` and :func:`tree_from_numpy` also take a sparse
+value: a JAX ``RowSparseNDArray``/``CSRNDArray`` (read through its
+``data``, ``indices``, ``indptr`` and ``shape``), or the pair
+``((data, indices), shape)`` / ``((data, indices, indptr), shape)`` of
+numpy arrays; it becomes the port's ``RowSparseNDArray``/``CSRNDArray``
+on the given Context (:func:`sparse_from_numpy`).
+
 They raise ``MXNetError`` on a missing or extra name, a shape mismatch,
 or a value that is not an array.
 """
@@ -47,7 +54,8 @@ from .ndarray.ndarray import NDArray, array
 from .ops.common import torch_dtype
 
 __all__ = ["params_from_numpy", "load_into_block", "tree_from_numpy",
-           "load_into_module", "module_to_numpy", "fused_rnn_from_numpy"]
+           "load_into_module", "module_to_numpy", "fused_rnn_from_numpy",
+           "sparse_from_numpy"]
 
 _AUX_SUFFIXES = ("running_mean", "running_var", "moving_mean", "moving_var")
 
@@ -63,8 +71,44 @@ def _split(blob):
             kind, name = ("aux" if k.endswith(_AUX_SUFFIXES) else "arg"), k
         if name in out:
             raise MXNetError("weights: %r appears twice in the blob" % name)
-        out[name] = (kind, np.asarray(v))
+        out[name] = (kind, v if _sparse_parts(v) else np.asarray(v))
     return out
+
+
+def _sparse_parts(v):
+    """``(arrays, shape)`` of a sparse value (see the module docstring),
+    else None."""
+    stype = getattr(v, "stype", None)
+    if stype in ("row_sparse", "csr"):
+        names = ("data", "indices") + (("indptr",) if stype == "csr"
+                                       else ())
+        return tuple(_np(getattr(v, n)) for n in names), tuple(v.shape)
+    if isinstance(v, tuple) and len(v) == 2 and isinstance(v[0], tuple) \
+            and len(v[0]) in (2, 3):
+        return tuple(np.asarray(a) for a in v[0]), tuple(v[1])
+    return None
+
+
+def sparse_from_numpy(value, ctx=None, dtype=None):
+    """The port's ``RowSparseNDArray`` (from ``(data, indices)``) or
+    ``CSRNDArray`` (from ``(data, indices, indptr)``) on ``ctx`` (default:
+    the current context, ``gpu(0)``) from a sparse value of the JAX
+    package or its numpy arrays (module docstring)."""
+    from .ndarray import sparse as _sp
+    parts = _sparse_parts(value)
+    if parts is None:
+        raise MXNetError("weights: %s is not a sparse value"
+                         % type(value).__name__)
+    arrays, shape = parts
+    if len(arrays) == 2:
+        return _sp.row_sparse_array(arrays, shape=shape, ctx=ctx,
+                                    dtype=dtype)
+    return _sp.csr_matrix(arrays, shape=shape, ctx=ctx, dtype=dtype)
+
+
+def _shape_of(a):
+    parts = _sparse_parts(a)
+    return parts[1] if parts else tuple(a.shape)
 
 
 def _check_names(have, want, what):
@@ -101,10 +145,12 @@ def params_from_numpy(blob, ctx=None, dtype=None, symbol=None,
             shapes = dict(zip(symbol.list_arguments(), arg_s))
             shapes.update(zip(want_aux, aux_s))
             for n, (_, a) in items.items():
-                if shapes.get(n) is not None and tuple(a.shape) != shapes[n]:
+                if shapes.get(n) is not None and _shape_of(a) != shapes[n]:
                     raise MXNetError("weights: %r has shape %s, the graph "
-                                     "needs %s" % (n, a.shape, shapes[n]))
-    return {"%s:%s" % (k, n): array(a, ctx=ctx, dtype=dtype)
+                                     "needs %s" % (n, _shape_of(a),
+                                                   shapes[n]))
+    return {"%s:%s" % (k, n): sparse_from_numpy(a, ctx=ctx, dtype=dtype)
+            if _sparse_parts(a) else array(a, ctx=ctx, dtype=dtype)
             for n, (k, a) in items.items()}
 
 
@@ -130,7 +176,8 @@ def tree_from_numpy(params, ctx=None, dtype=None):
     """``{name: tensor}`` on ``ctx`` (default: the current context,
     ``gpu(0)``) from a plain dict of numpy arrays, tensors or NDArrays;
     always a copy. float64 becomes float32 (MXNet convention) unless
-    ``dtype`` casts every array."""
+    ``dtype`` casts every array. A sparse value becomes the port's
+    sparse NDArray (:func:`sparse_from_numpy`)."""
     if not isinstance(params, dict):
         raise MXNetError("tree_from_numpy: expected a dict of arrays, got %s"
                          % type(params).__name__)
@@ -138,6 +185,9 @@ def tree_from_numpy(params, ctx=None, dtype=None):
     dt = torch_dtype(dtype)
     out = {}
     for name, a in params.items():
+        if _sparse_parts(a):
+            out[name] = sparse_from_numpy(a, ctx=ctx, dtype=dtype)
+            continue
         if isinstance(a, NDArray):
             t = a._data
         elif isinstance(a, torch.Tensor):

@@ -40,13 +40,11 @@ SKIP = {
         "Queue 1 item 6: bf16 nd.save and load_frombuffer":
             ["load_frombuffer"],
         "Queue 1 item 6: long tail (contrib, spatial, ctc, rnn ops, "
-        "sparse, image)": _LONG_TAIL_OPS + [
-            "CSRNDArray", "RowSparseNDArray", "cast_storage", "contrib",
-            "sparse", "imdecode"],
+        "image)": _LONG_TAIL_OPS + ["contrib", "imdecode"],
     },
     "sym": {
-        "Queue 1 item 6: long tail (contrib, spatial, ctc, rnn ops, "
-        "sparse)": _LONG_TAIL_OPS + ["contrib", "sparse"],
+        "Queue 1 item 6: long tail (contrib, spatial, ctc, rnn ops)":
+            _LONG_TAIL_OPS + ["contrib"],
     },
     "autograd": {},
     "gluon": {
@@ -105,7 +103,6 @@ SKIP = {
     "optimizer": {_REGISTRY: ["registry_create", "jnp_abs",
                               "jnp_maximum"]},
     "io": {
-        "Queue 1 item 6: sparse (CSR batches)": ["LibSVMIter"],
         "Queue 1 item 6: recordio and image/": ["ImageRecordIter",
                                                 "MXDataIter"],
         _REGISTRY: ["create_iterator", "register", "registry_create"],

@@ -1676,3 +1676,53 @@ def test_gate_and_heartbeat_around_a_card_step(tmp_path):
                                  poll=0.005, channel="x").arrive_and_wait()
     assert e.value.ranks == (1,)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("transpose_a", [False, True])
+def test_csr_dot_on_card_matches_cpu(transpose_a):
+    """The sparse ``dot`` (gather and scatter-add on the compressed form)
+    on the card against the same on the CPU, and its gradient for the
+    dense rhs under ``record``."""
+    _need_card()
+    rs = np.random.RandomState(0)
+    d = rs.randn(300, 500).astype(np.float32)
+    d[rs.rand(300, 500) < 0.97] = 0
+    w0 = rs.randn(300 if transpose_a else 500, 2).astype(np.float32)
+    out = {}
+    for ctx in (mt.cpu(), mt.gpu(0)):
+        x = mt.nd.sparse.csr_matrix(d, ctx=ctx)
+        w = mt.nd.array(w0, ctx=ctx)
+        w.attach_grad()
+        with mt.autograd.record():
+            y = mt.nd.sparse.dot(x, w, transpose_a=transpose_a)
+            loss = (y * y).sum()
+        loss.backward()
+        assert x._dense_cache is None
+        out[ctx.device_type] = (y.asnumpy(), w.grad.asnumpy())
+    for got, want in zip(out["gpu"], out["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_lazy_sgd_on_card_matches_cpu():
+    """One lazy SGD step with momentum on the card: equal to the CPU's
+    within 1e-6, the untouched rows of weight and momentum
+    bit-unchanged."""
+    _need_card()
+    rs = np.random.RandomState(1)
+    w0 = rs.randn(1000, 2).astype(np.float32)
+    rows = np.sort(rs.choice(1000, 64, replace=False))
+    g = rs.randn(64, 2).astype(np.float32)
+    out = {}
+    for ctx in (mt.cpu(), mt.gpu(0)):
+        opt = mt.optimizer.create("sgd", learning_rate=0.5, momentum=0.9,
+                                  wd=1e-4, rescale_grad=1 / 64)
+        w = mt.nd.array(w0, ctx=ctx)
+        st = opt.create_state(0, w)
+        opt.update(0, w, mt.nd.sparse.row_sparse_array(
+            (g, rows), shape=(1000, 2), ctx=ctx), st)
+        out[ctx.device_type] = (w.asnumpy(), st.asnumpy())
+    untouched = np.setdiff1d(np.arange(1000), rows)
+    np.testing.assert_allclose(out["gpu"][0], out["cpu"][0], rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_array_equal(out["gpu"][0][untouched], w0[untouched])
+    np.testing.assert_array_equal(out["gpu"][1][untouched], 0.0)

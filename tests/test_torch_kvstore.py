@@ -8,9 +8,10 @@ store: 0.0 in fp32 for the sums; with an optimizer within 2 fp32 ulps
 program whose multiply-adds XLA contracts into FMAs (eager JAX and the
 port agree bit for bit on ``sgd_mom_update``);
 optimizer states round-trip between the two packages' files;
-``row_sparse_pull`` raises (the ``dist*`` types and gradient compression
-have their own files, ``test_torch_dist.py`` and
-``test_torch_gradient_compression.py``).
+``row_sparse_pull`` gives the JAX package's rows (the ``dist*`` types,
+gradient compression and sparse storage have their own files,
+``test_torch_dist.py``, ``test_torch_gradient_compression.py`` and
+``test_torch_sparse*.py``).
 
 ``Module.fit``: LeNet (``examples/image-classification/symbols/
 lenet.py``, the copy in ``chip_smoke.py`` for the port) at batch 8 on
@@ -148,7 +149,9 @@ def test_store_optimizer_states_both_ways(tmp_path, writer):
 def test_store_refuses_what_is_not_ported():
     """The dist types and gradient compression are ported (one process
     here: rank 0 of 1, as the JAX package's stores report outside a
-    launched job); ``row_sparse_pull`` still raises naming item 6."""
+    launched job), and so is ``row_sparse_pull``: the rows it gives equal
+    the JAX package's (values bit-equal, ids exact). An unknown type and
+    a pull of a key never stored are still refused."""
     for name in ("dist_sync", "dist_async", "dist_device_sync"):
         kv, jkv = mt.kvstore.create(name), mx.kvstore.create(name)
         assert (kv.rank, kv.num_workers) == (jkv.rank, jkv.num_workers) \
@@ -161,9 +164,19 @@ def test_store_refuses_what_is_not_ported():
     assert isinstance(kv, mt.KVStore) and kv.fused_step_subsumable
     kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
     assert not kv.fused_step_subsumable
-    kv = mt.kv.create("local")
-    with pytest.raises(mt.MXNetError, match="Queue 1 item 6"):
-        kv.row_sparse_pull(0, out=_nd(mt, np.zeros(2)), row_ids=[0])
+    kv, jkv = mt.kv.create("local"), mx.kv.create("local")
+    w = np.arange(12, dtype=np.float32).reshape(6, 2) - 4.0
+    w[3] = 0.0
+    for pkg, store in ((mt, kv), (mx, jkv)):
+        store.init(0, _nd(pkg, w))
+    got = mt.nd.sparse.zeros("row_sparse", (6, 2), ctx=CPU)
+    want = mx.nd.sparse.zeros("row_sparse", (6, 2))
+    kv.row_sparse_pull(0, out=got, row_ids=_nd(mt, [5, 1, 3, 1]))
+    jkv.row_sparse_pull(0, out=want, row_ids=mx.nd.array([5, 1, 3, 1]))
+    np.testing.assert_array_equal(got.indices.asnumpy(),
+                                  want.indices.asnumpy())
+    np.testing.assert_array_equal(got.data.asnumpy(), want.data.asnumpy())
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
     with pytest.raises(mt.MXNetError, match="not init"):
         kv.pull(1, out=_nd(mt, np.zeros(2)))
     kv.barrier()
