@@ -294,7 +294,29 @@ Phases (any failure exits non-zero; no error is swallowed):
    the share inside host reads, rows touched and their bucket, wire
    bytes, a profiled batch (device busy, idle share, classes), the top
    host functions of two batches, peak memory, the seconds.
-20. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+20. detection — SSD-VGG16 at 300x300 (``ssd_symbol``: Liu et al.'s
+   SSD300, upstream example/ssd's VGG16-reduced; 26,285,486 parameters,
+   21 classes, six sources of 38, 19, 10, 5, 3 and 1 cells, 8,732
+   anchors) trained through ``Module`` (fp32, TF32 off, batch 32 of 3 x
+   300 x 300 images with 1-8 boxes each in ``(32, 50, 5)`` labels, all
+   from a seed; SGD 0.002, momentum 0.9, wd 5e-4; 5 steps of
+   ``forward_backward`` + ``update``). Gates: (a) step 1 at batch 2
+   against the CPU's (the losses within 1e-4, the weights through
+   ``_step1_gate`` with the fp64 arbiter); (b) ``MultiBoxPrior``,
+   ``MultiBoxTarget`` and ``MultiBoxDetection`` on the step's own card
+   inputs against the same ops on CPU copies (anchors within 1e-6,
+   targets' classes and masks equal, the detection's class ids equal
+   row for row, scores and boxes within 1e-5), with a flipped forced
+   match and a dropped suppression planted as controls; (c) the
+   detection output ``(32, 8732, 6)``, the kept rows printed; (d)
+   ``gluon.loss.CTCLoss`` at examples/warpctc's width, ``ROIPooling``
+   at examples/rcnn/fast_rcnn.py's and ``Proposal`` at an RPN's, the
+   Custom softmax of examples/numpy-ops under ``Module.fit``, and
+   ``SpatialTransformer`` forward and backward, each against the CPU.
+   Printed: ms a step (CUDA events), host ms, a profiled step (device
+   busy, idle share, classes), each multibox op's time and the NMS's
+   host ms, the peak, K1-K3 launches (none: VGG-16 has no BatchNorm).
+21. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
@@ -305,8 +327,8 @@ Phases (any failure exits non-zero; no error is swallowed):
    ``image_classification_launches``, ``gluon_zoo_launches``,
    ``dense_prediction_launches`` (0), ``data_parallel_launches``,
    ``model_parallel_launches``, ``engine_meshes_launches``,
-   ``elastic_launches`` and ``sparse_launches`` (0) its counts on those
-   paths — and,
+   ``elastic_launches``, ``sparse_launches`` (0) and
+   ``detection_launches`` (0) its counts on those paths — and,
    last, the ``{"ok": true,
    "device": {...}}`` line.
 
@@ -314,7 +336,7 @@ The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-19 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-20 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -5386,7 +5408,7 @@ def dense_prediction_phase(mx, ctx, rehearsal, card):
     return counts
 
 
-# -- data parallelism across worker processes ----------------------------------
+# -- data parallelism across worker processes ---------------------------------
 
 _DP_WORLD = 2
 _DP_LEG_S = {False: 150, True: 120}     # one leg's hard limit in a worker
@@ -8592,11 +8614,588 @@ def _sparse(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase):
     return launches
 
 
+# -- SSD-VGG16 detection through the multibox operators -----------------------
+
+# SSD300 (Liu et al., 2016; upstream MXNet example/ssd's VGG16-reduced at
+# data_shape 300): the sizes, ratios and steps of its six sources
+_SSD_SIZES = ((0.1, 0.141), (0.2, 0.272), (0.37, 0.447), (0.54, 0.619),
+              (0.71, 0.79), (0.88, 0.961))
+_SSD_RATIOS = ((1, 2, 0.5),) + ((1, 2, 0.5, 3, 1 / 3.),) * 3 \
+    + ((1, 2, 0.5),) * 2
+_SSD = {False: dict(classes=20, hw=300, batch=32, widths=(64, 128, 256, 512,
+                                                          512),
+                    fc=1024, extras=((256, 512), (128, 256), (128, 256),
+                                     (128, 256)),
+                    sizes=_SSD_SIZES, ratios=_SSD_RATIOS,
+                    steps=tuple(s / 300. for s in (8, 16, 32, 64, 100, 300)),
+                    anchors=8732, max_boxes=50, boxes=(1, 8), steps_n=5,
+                    step1_batch=2),
+        True: dict(classes=4, hw=64, batch=2, widths=(4, 8, 8, 16, 16),
+                   fc=16, extras=((8, 16), (8, 16)), sizes=_SSD_SIZES[:4],
+                   ratios=_SSD_RATIOS[:4],
+                   steps=tuple(s / 64. for s in (8, 16, 32, 64)),
+                   anchors=382, max_boxes=6, boxes=(1, 3), steps_n=2,
+                   step1_batch=2)}
+_SSD_SEED = 29
+_SSD_OPT = (("learning_rate", 0.002), ("momentum", 0.9), ("wd", 0.0005))
+_SSD_VARIANCES = (0.1, 0.1, 0.2, 0.2)
+
+
+def ssd_symbol(mx, cfg):
+    """SSD on VGG16-reduced (upstream example/ssd/symbol/vgg16_reduced.py
+    and symbol_builder.py, copied in outline): conv1_1-conv5_3 at the
+    VGG-16 widths of ``cfg``, pool3 rounding up, ``pool5`` 3x3/s1/p1,
+    ``fc6`` a 3x3 convolution dilated 6, ``fc7`` 1x1; extra layers 1x1 ->
+    3x3 (stride 2 and padded for the first two, unpadded after); sources
+    ``relu4_3`` (L2-normalised per channel times a learned scale),
+    ``relu7`` and the extras; per source 3x3 class and location heads and
+    ``MultiBoxPrior`` anchors. Training outputs: the class probabilities
+    (``SoftmaxOutput`` over ``MultiBoxTarget``'s targets, valid-normalised,
+    -1 ignored), the smooth-L1 location loss (``MakeLoss``,
+    valid-normalised), the class targets (no gradient) and
+    ``MultiBoxDetection``'s rows (NMS 0.45, top 400, no gradient)."""
+    sym = mx.sym
+    data, label = sym.Variable("data"), sym.Variable("label")
+    net, relu4_3 = data, None
+    for stage, (n, f) in enumerate(zip(_VGG16_LAYERS, cfg["widths"])):
+        for i in range(n):
+            name = "%d_%d" % (stage + 1, i + 1)
+            net = sym.Convolution(net, kernel=(3, 3), pad=(1, 1),
+                                  num_filter=f, name="conv" + name)
+            net = sym.Activation(net, act_type="relu", name="relu" + name)
+        if stage == 3:
+            relu4_3 = net
+        if stage < 4:
+            net = sym.Pooling(net, pool_type="max", kernel=(2, 2),
+                              stride=(2, 2), name="pool%d" % (stage + 1),
+                              pooling_convention="full" if stage == 2
+                              else "valid")
+    net = sym.Pooling(net, pool_type="max", kernel=(3, 3), stride=(1, 1),
+                      pad=(1, 1), name="pool5")
+    net = sym.Convolution(net, kernel=(3, 3), pad=(6, 6), dilate=(6, 6),
+                          num_filter=cfg["fc"], name="fc6")
+    net = sym.Activation(net, act_type="relu", name="relu6")
+    net = sym.Convolution(net, kernel=(1, 1), num_filter=cfg["fc"],
+                          name="fc7")
+    net = sym.Activation(net, act_type="relu", name="relu7")
+    scale = sym.Variable("relu4_3_scale",
+                         shape=(1, cfg["widths"][3], 1, 1))
+    sources = [sym.broadcast_mul(sym.L2Normalization(
+        relu4_3, mode="channel", name="relu4_3_norm"), scale), net]
+    for i, (mid, out) in enumerate(cfg["extras"]):
+        net = sym.Convolution(net, kernel=(1, 1), num_filter=mid,
+                              name="multi_feat_%d_conv_1x1" % i)
+        net = sym.Activation(net, act_type="relu",
+                             name="multi_feat_%d_relu_1x1" % i)
+        s, p = (2, 1) if i < 2 else (1, 0)
+        net = sym.Convolution(net, kernel=(3, 3), stride=(s, s), pad=(p, p),
+                              num_filter=out,
+                              name="multi_feat_%d_conv_3x3" % i)
+        net = sym.Activation(net, act_type="relu",
+                             name="multi_feat_%d_relu_3x3" % i)
+        sources.append(net)
+    k = cfg["classes"] + 1
+    cls, loc, anc = [], [], []
+    for i, (src, sizes, ratios, step) in enumerate(zip(
+            sources, cfg["sizes"], cfg["ratios"], cfg["steps"])):
+        na = len(sizes) + len(ratios) - 1
+        c = sym.Convolution(src, kernel=(3, 3), pad=(1, 1),
+                            num_filter=na * k, name="src%d_cls_pred" % i)
+        cls.append(sym.Flatten(sym.transpose(c, axes=(0, 2, 3, 1))))
+        b = sym.Convolution(src, kernel=(3, 3), pad=(1, 1),
+                            num_filter=na * 4, name="src%d_loc_pred" % i)
+        loc.append(sym.Flatten(sym.transpose(b, axes=(0, 2, 3, 1))))
+        anc.append(sym.Flatten(sym.contrib.MultiBoxPrior(
+            src, sizes=sizes, ratios=ratios, clip=False, steps=(step, step),
+            name="src%d_anchors" % i)))
+    cls_pred = sym.transpose(sym.Reshape(sym.Concat(*cls, dim=1),
+                                         shape=(0, -1, k)),
+                             axes=(0, 2, 1), name="multibox_cls_pred")
+    loc_pred = sym.Concat(*loc, dim=1, name="multibox_loc_pred")
+    anchors = sym.Reshape(sym.Concat(*anc, dim=1), shape=(0, -1, 4),
+                          name="multibox_anchors")
+    tgt = sym.contrib.MultiBoxTarget(
+        anchors, label, cls_pred, overlap_threshold=0.5, ignore_label=-1,
+        negative_mining_ratio=3, negative_mining_thresh=0.5,
+        minimum_negative_samples=0, variances=_SSD_VARIANCES,
+        name="multibox_target")
+    loc_target, loc_mask, cls_target = tgt[0], tgt[1], tgt[2]
+    cls_prob = sym.SoftmaxOutput(cls_pred, cls_target, ignore_label=-1,
+                                 use_ignore=True, multi_output=True,
+                                 normalization="valid", name="cls_prob")
+    loc_loss = sym.MakeLoss(sym.smooth_l1(loc_mask * (loc_pred - loc_target),
+                                          scalar=1.0, name="loc_loss_"),
+                            normalization="valid", name="loc_loss")
+    det = sym.contrib.MultiBoxDetection(
+        cls_prob, loc_pred, anchors, nms_threshold=0.45, force_suppress=False,
+        variances=_SSD_VARIANCES, nms_topk=400, name="detection")
+    return sym.Group([cls_prob, loc_loss,
+                      sym.BlockGrad(cls_target, name="cls_label"),
+                      sym.BlockGrad(det, name="det_out")])
+
+
+def ssd_data(cfg, n, seed):
+    """``n`` images and their ``(n, max_boxes, 5)`` labels from a seed:
+    ``boxes`` boxes an image over the ``classes`` classes, each painted
+    into its image (its class in the channel ``class % 3``), the rest of
+    the rows padded with class -1 (train_ssd.py's synthetic batch, at
+    VOC's label layout)."""
+    rs = np.random.RandomState(seed)
+    hw = cfg["hw"]
+    x = rs.uniform(0, 0.2, (n, 3, hw, hw)).astype(np.float32)
+    y = np.full((n, cfg["max_boxes"], 5), -1, np.float32)
+    for i in range(n):
+        for b in range(rs.randint(cfg["boxes"][0], cfg["boxes"][1] + 1)):
+            c = rs.randint(0, cfg["classes"])
+            w, h = rs.uniform(0.1, 0.5, 2)
+            x0, y0 = rs.uniform(0, 1 - w), rs.uniform(0, 1 - h)
+            y[i, b] = [c, x0, y0, x0 + w, y0 + h]
+            r0, r1 = int(y0 * hw), int((y0 + h) * hw)
+            c0, c1 = int(x0 * hw), int((x0 + w) * hw)
+            x[i, c % 3, r0:r1, c0:c1] += (c + 1.0) / cfg["classes"]
+    return x, y
+
+
+def ssd_init(mx, cfg, xshape, yshape, seed):
+    """The SSD's weights as numpy arrays from a seed: normal of standard
+    deviation sqrt(1 / fan-in), biases 0, the ``relu4_3`` scale 20."""
+    sym = ssd_symbol(mx, cfg)
+    shapes, _, _ = sym.infer_shape(data=xshape, label=yshape)
+    rs = np.random.RandomState(seed)
+    arg = {}
+    for name, shape in zip(sym.list_arguments(), shapes):
+        if name in ("data", "label"):
+            continue
+        if name.endswith("_scale"):
+            arg[name] = np.full(shape, 20.0, np.float32)
+        elif name.endswith("_bias"):
+            arg[name] = np.zeros(shape, np.float32)
+        else:
+            arg[name] = (rs.randn(*shape) / np.sqrt(np.prod(shape[1:]))) \
+                .astype(np.float32)
+    return arg
+
+
+def _ssd_module(mx, sym, ctx, arg, xshape, yshape, dtype="float32"):
+    tdt = getattr(torch, dtype)
+    mod = mx.mod.Module(sym, data_names=["data"], label_names=["label"],
+                        context=ctx)
+    mod.bind([mx.io.DataDesc("data", xshape, dtype)],
+             [mx.io.DataDesc("label", yshape, dtype)])
+    mod.init_params(arg_params={k: torch.from_numpy(v).to(tdt)
+                                for k, v in arg.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=_SSD_OPT)
+    return mod
+
+
+def _ssd_batch(mx, x, y, dtype="float32"):
+    return mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu(), dtype=dtype)],
+                           [mx.nd.array(y, ctx=mx.cpu(), dtype=dtype)])
+
+
+def _ssd_losses(outs):
+    """(the class loss: cross-entropy over the anchors whose target is
+    not ignored; the location loss: the smooth-L1 sum over the positive
+    anchors' count), from a step's outputs."""
+    prob, loc, tgt = (o._data.double() for o in outs[:3])
+    keep = tgt >= 0
+    p = torch.gather(prob, 1, tgt.clamp_min(0).long()[:, None])[:, 0]
+    ce = float(-torch.log(p[keep].clamp_min(1e-30)).mean())
+    return ce, float(loc.sum() / max(int((tgt > 0).sum()), 1))
+
+
+def _ssd_step1(mx, sym, ctx, arg, x, y, dtype):
+    """One step from ``arg`` in ``dtype``: (losses, weights after)."""
+    mod = _ssd_module(mx, sym, ctx, arg, x.shape, y.shape, dtype)
+    mod.forward_backward(_ssd_batch(mx, x, y, dtype))
+    losses = _ssd_losses(mod.get_outputs())
+    mod.update()
+    return losses, _host_params(mod)[0]
+
+
+class _Recording:
+    """Each call of the named registry ops, inputs and outputs, while
+    active (the op functions the executor runs)."""
+
+    def __init__(self, names):
+        from mxnet_tpu_torch.ops.registry import get_op
+        self.ops = {n: get_op(n) for n in names}
+        self.calls = {n: [] for n in names}
+
+    def __enter__(self):
+        self.fns = {n: op.fn for n, op in self.ops.items()}
+        for n, op in self.ops.items():
+            def rec(*a, _n=n, _fn=op.fn, **k):
+                out = _fn(*a, **k)
+                self.calls[_n].append((a, k, out))
+                return out
+            op.fn = rec
+        return self
+
+    def __exit__(self, *exc):
+        for n, op in self.ops.items():
+            op.fn = self.fns[n]
+
+
+_MULTIBOX = ("_contrib_MultiBoxPrior", "_contrib_MultiBoxTarget",
+             "_contrib_MultiBoxDetection")
+
+
+def _multibox_diffs(name, got, want):
+    """The gate (b) numbers of one op's outputs against another's: the
+    largest difference of each float output and whether each exact
+    output (class targets and masks; the detection's class ids) is equal."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    got = [g.detach().cpu().double() for g in got]
+    want = [w.detach().cpu().double() for w in want]
+    if name == "_contrib_MultiBoxPrior":
+        return {"max_abs_err": float((got[0] - want[0]).abs().max()),
+                "ok": float((got[0] - want[0]).abs().max()) <= 1e-6}
+    if name == "_contrib_MultiBoxTarget":
+        err = float((got[0] - want[0]).abs().max())
+        eq = bool(torch.equal(got[1], want[1]) and torch.equal(got[2],
+                                                                want[2]))
+        return {"loc_target_max_abs_err": err, "mask_and_cls_equal": eq,
+                "ok": eq and err <= 1e-5}
+    g, w = got[0], want[0]
+    eq = bool(torch.equal(g[..., 0], w[..., 0]))
+    err = float((g[..., 1:] - w[..., 1:]).abs().max())
+    return {"class_ids_equal": eq, "score_box_max_abs_err": err,
+            "ok": eq and err <= 1e-5}
+
+
+def _ssd_multibox_gate(mx, rec, gpu):
+    """(b) each multibox op on the step's own inputs against the same op
+    on CPU copies; its device time (CUDA events) and, for the detection,
+    the host time of its NMS resolution; then planted faults (one forced
+    match flipped, one NMS suppression dropped) that the gate must
+    catch."""
+    from mxnet_tpu_torch.ops import contrib as C
+    from mxnet_tpu_torch.ops.registry import get_op
+    res = {}
+    for name in _MULTIBOX:
+        calls = rec.calls[name]
+        a, k, out = calls[0]
+        want = get_op(name).fn(*[t.detach().cpu() for t in a], **k)
+        r = _multibox_diffs(name, out, want)
+        r["calls_per_step"] = len(calls)
+        if gpu:
+            C.nms_host_s.update(s=0.0, calls=0)
+            r["device_ms"] = time_cuda(lambda: get_op(name).fn(*a, **k),
+                                       iters=5, warmup=1)
+            r["nms_host_ms"] = C.nms_host_s["s"] * 1e3 / max(
+                C.nms_host_s["calls"], 1) if name.endswith("Detection") \
+                else None
+        res[name] = r
+    # the cost of nms_topk=-1 (every row may suppress), one image
+    a, k, _ = rec.calls["_contrib_MultiBoxDetection"][0]
+    one = [t[:1] for t in a[:2]] + [a[2]]
+    C.nms_host_s.update(s=0.0, calls=0)
+    t0 = time.perf_counter()
+    get_op("_contrib_MultiBoxDetection").fn(*one, **dict(k, nms_topk=-1))
+    if gpu:
+        torch.cuda.synchronize()
+    res["nms_topk_all_one_image"] = {
+        "ms": (time.perf_counter() - t0) * 1e3,
+        "host_ms": C.nms_host_s["s"] * 1e3}
+    # planted: the forced match of image 0's first box flipped to
+    # background; one suppressed row of image 0 restored
+    a, k, out = rec.calls["_contrib_MultiBoxTarget"][0]
+    anchors, label = a[0].reshape(-1, 4), a[1]
+    best = int(C.box_iou(anchors, label[0, :1, 1:5])[:, 0].argmax())
+    flipped = list(out)
+    flipped[2] = out[2].clone()
+    flipped[2][0, best] = 0.0
+    caught_target = not _multibox_diffs(
+        "_contrib_MultiBoxTarget", tuple(flipped), out)["ok"]
+    a, k, det = rec.calls["_contrib_MultiBoxDetection"][0]
+    # the rows' classes without the NMS (same order: the sort does not
+    # depend on it), to put one suppressed row back
+    free = get_op("_contrib_MultiBoxDetection").fn(
+        *[t.detach().cpu() for t in a], **dict(k, nms_threshold=2.0))
+    sup = ((det[0, :, 0].cpu() < 0) & (free[0, :, 0] >= 0)).nonzero()
+    planted = det.clone()
+    if len(sup):
+        planted[0, int(sup[0]), 0] = free[0, int(sup[0]), 0]
+    caught_det = bool(len(sup)) and not _multibox_diffs(
+        "_contrib_MultiBoxDetection", planted, det)["ok"]
+    res["planted_forced_match_flip_caught"] = caught_target
+    res["planted_suppression_drop_caught"] = caught_det
+    return res
+
+
+def _ctc_leg(mx, ctx):
+    """CTCLoss at examples/warpctc/ctc_seq_train.py's width (batch 32, 20
+    frames, 10 digits + blank, labels of 4 padded with 0 in a quarter of
+    the rows): the loss and the input gradient on ``ctx``."""
+    rs = np.random.RandomState(41)
+    logits = rs.randn(32, 20, 11).astype(np.float32)
+    label = rs.randint(1, 11, (32, 4)).astype(np.float32)
+    label[::4, 3] = 0
+    x = mx.nd.array(logits, ctx=ctx)
+    x.attach_grad()
+    with mx.autograd.record():
+        loss = mx.gluon.loss.CTCLoss()(x, mx.nd.array(label, ctx=ctx))
+    loss.backward()
+    return {"loss": loss._data.cpu(), "grad": x.grad._data.cpu()}
+
+
+def _roi_leg(mx, ctx):
+    """ROIPooling at examples/rcnn/fast_rcnn.py's width (32 images of
+    16 x 24 x 24 features, 8 rois an image, 4 x 4 bins) with its
+    gradient, and Proposal at an RPN's (12 anchors on a 38 x 50 map of a
+    600 x 800 image, 6000 before and 300 after the NMS)."""
+    rs = np.random.RandomState(43)
+    feat = rs.randn(32, 16, 24, 24).astype(np.float32)
+    rois = []
+    for i in range(32):
+        for _ in range(8):
+            x0, y0 = rs.randint(0, 17, 2)
+            rois.append([i, x0, y0, x0 + 7, y0 + 7])
+    d = mx.nd.array(feat, ctx=ctx)
+    d.attach_grad()
+    with mx.autograd.record():
+        out = mx.nd.ROIPooling(d, mx.nd.array(np.asarray(rois, np.float32),
+                                              ctx=ctx),
+                               pooled_size=(4, 4), spatial_scale=1.0)
+    out.backward(mx.nd.array(rs.randn(*out.shape).astype(np.float32),
+                             ctx=ctx))
+    cls = rs.rand(1, 24, 38, 50).astype(np.float32)
+    bbox = (rs.randn(1, 48, 38, 50) * 0.1).astype(np.float32)
+    info = np.array([[600, 800, 1.0]], np.float32)
+    from mxnet_tpu_torch.ops.registry import get_op
+    dev = ctx.torch_device()
+    rois_p, scores = get_op("_contrib_Proposal").fn(
+        torch.from_numpy(cls).to(dev), torch.from_numpy(bbox).to(dev),
+        torch.from_numpy(info).to(dev), rpn_pre_nms_top_n=6000,
+        rpn_post_nms_top_n=300, threshold=0.7)
+    return {"roi": out._data.cpu(), "roi_grad": d.grad._data.cpu(),
+            "proposal_rois": rois_p.cpu(), "proposal_scores": scores.cpu()}
+
+
+def _register_example_softmax(mx):
+    """examples/numpy-ops/custom_softmax.py's op (copied), its arrays
+    made on the host, registered as ``example_softmax``."""
+    class Softmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            y = np.exp(x - x.max(axis=1, keepdims=True))
+            y /= y.sum(axis=1, keepdims=True)
+            self.assign(out_data[0], req[0], mx.nd.array(y, ctx=mx.cpu()))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            lab = in_data[1].asnumpy().ravel().astype(np.int64)
+            y = out_data[0].asnumpy().copy()
+            y[np.arange(lab.shape[0]), lab] -= 1.0
+            self.assign(in_grad[0], req[0], mx.nd.array(y, ctx=mx.cpu()))
+
+    @mx.operator.register("example_softmax")
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+
+def _custom_leg(mx, ctx):
+    """custom_softmax.py's model (a 10 -> 3 FullyConnected under the
+    Custom softmax) through ``Module.fit``, one epoch of 8 batches of 64
+    (SGD 0.2, rescale 1/64) from fixed weights: the weights after."""
+    _register_example_softmax(mx)
+    rs = np.random.RandomState(0)
+    centers = rs.uniform(-2, 2, size=(3, 10)).astype(np.float32)
+    y = rs.randint(0, 3, 512)
+    x = centers[y] + 0.3 * rs.normal(size=(512, 10)).astype(np.float32)
+    it = mx.io.NDArrayIter(x.astype(np.float32), y.astype(np.float32),
+                           batch_size=64, label_name="softmax_label")
+    net = mx.sym.Custom(mx.sym.FullyConnected(mx.sym.Variable("data"),
+                                              num_hidden=3, name="fc"),
+                        mx.sym.Variable("softmax_label"),
+                        op_type="example_softmax", name="softmax")
+    mod = mx.mod.Module(net, context=ctx)
+    w0 = {"fc_weight": torch.from_numpy(
+        (rs.randn(3, 10) * 0.1).astype(np.float32)),
+        "fc_bias": torch.zeros(3)}
+    mod.fit(it, optimizer="sgd", arg_params=w0,
+            optimizer_params={"learning_rate": 0.2,
+                              "rescale_grad": 1.0 / 64},
+            num_epoch=1, eval_metric="acc")
+    return _host_params(mod)[0]
+
+
+def _spatial_leg(mx, ctx):
+    """SpatialTransformer on 8 x 3 x 64 x 64 to 32 x 32 from near-identity
+    affine parameters: the output and the gradients of the data and the
+    parameters."""
+    rs = np.random.RandomState(47)
+    x = mx.nd.array(rs.randn(8, 3, 64, 64).astype(np.float32), ctx=ctx)
+    theta = np.tile(np.array([0.9, 0.1, 0.05, -0.1, 0.8, -0.05],
+                             np.float32), (8, 1))
+    loc = mx.nd.array(theta + 0.05 * rs.randn(8, 6).astype(np.float32),
+                      ctx=ctx)
+    x.attach_grad()
+    loc.attach_grad()
+    with mx.autograd.record():
+        out = mx.nd.SpatialTransformer(x, loc, target_shape=(32, 32))
+    out.backward(mx.nd.array(rs.randn(8, 3, 32, 32).astype(np.float32),
+                             ctx=ctx))
+    return {"out": out._data.cpu(), "data_grad": x.grad._data.cpu(),
+            "loc_grad": loc.grad._data.cpu()}
+
+
+def _small_legs(mx, ctx):
+    """(d) each small leg on ``ctx`` against the CPU: the largest gap of
+    each tensor over its largest |value| (the proposal's scores, which
+    also give its order, equal)."""
+    out = {}
+    for name, leg in (("ctc", _ctc_leg), ("roi_and_proposal", _roi_leg),
+                      ("custom", _custom_leg),
+                      ("spatial_transformer", _spatial_leg)):
+        got, want = leg(mx, ctx), leg(mx, mx.cpu())
+        got = {k: v.detach().double() for k, v in got.items()}
+        want = {k: v.detach().double() for k, v in want.items()}
+        gaps = {k: float((got[k] - want[k]).abs().max()
+                         / max(float(want[k].abs().max()), 1e-30))
+                for k in want}
+        ok = all(v <= (1e-4 if "grad" in k else 1e-5)
+                 for k, v in gaps.items())
+        if name == "roi_and_proposal":
+            ok = ok and torch.equal(got["proposal_scores"],
+                                    want["proposal_scores"])
+        out[name] = {"rel_err": gaps, "ok": ok}
+    return out
+
+
+def detection_phase(mx, ctx, rehearsal, card):
+    """SSD-VGG16 at 300x300 through ``Module`` (a)-(c), then the small
+    legs (d). Returns the K1-K3 launches of the path (0: VGG-16 has no
+    BatchNorm and no attention)."""
+    gpu = ctx.device_type == "gpu"
+    cfg = _SSD[rehearsal]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _free(gpu)
+    from mxnet_tpu_torch.kernels import fused_bn as K1
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    from mxnet_tpu_torch.ops import contrib as C
+    t_phase = time.perf_counter()
+    sym = ssd_symbol(mx, cfg)
+    x, y = ssd_data(cfg, cfg["batch"], _SSD_SEED)
+    arg0 = ssd_init(mx, cfg, x.shape, y.shape, seed=0)
+    _, outs, _ = sym.infer_shape(data=x.shape, label=y.shape)
+    n_anchors = outs[3][1]
+    emit({"detection_model": {
+        "card": card, "parameters": sum(v.size for v in arg0.values()),
+        "anchors": n_anchors, "batch": cfg["batch"],
+        "input": [3, cfg["hw"], cfg["hw"]], "classes": cfg["classes"] + 1,
+        "boxes_per_image": list(cfg["boxes"]),
+        "label_shape": list(y.shape), "source":
+            "Liu et al. 2016 SSD300; upstream example/ssd VGG16-reduced"}})
+    assert n_anchors == cfg["anchors"], n_anchors
+    batch = _ssd_batch(mx, x, y)
+    # -- the main path: counts zeroed just before, read just after --------
+    K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+    mod = _ssd_module(mx, sym, ctx, arg0, x.shape, y.shape)
+    if gpu:
+        torch.cuda.reset_peak_memory_stats()
+    losses, ms, wall = [], [], []
+    C.nms_host_s.update(s=0.0, calls=0)
+    for step in range(cfg["steps_n"]):
+        t = time.perf_counter()
+        if gpu:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        if step == 0:
+            with _Recording(_MULTIBOX) as rec:
+                mod.forward_backward(batch)
+        else:
+            mod.forward_backward(batch)
+        mod.update()
+        if gpu:
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        wall.append((time.perf_counter() - t) * 1e3)
+        losses.append(_ssd_losses(mod.get_outputs()))
+    nms_host = dict(C.nms_host_s)
+    mod.forward(batch, is_train=False)
+    det = mod.get_outputs()[3]._data
+    kept = int((det[..., 0] >= 0).sum())
+    prof = profile_forward(lambda: (mod.forward_backward(batch),
+                                    mod.update()), reps=1) if gpu else None
+    peak = torch.cuda.max_memory_allocated() if gpu else None
+    counts = _kernel_counts()
+    # ----------------------------------------------------------------------
+    gates = {}
+    # (c) the detection rows of the whole batch
+    gates["c_detection_shape"] = list(det.shape)
+    assert tuple(det.shape) == (cfg["batch"], cfg["anchors"], 6), det.shape
+    assert all(np.isfinite(v) for l in losses for v in l), losses
+    assert bool(torch.isfinite(det).all())
+    # (b) the multibox ops on the step's own inputs
+    mb = _ssd_multibox_gate(mx, rec, gpu)
+    del rec
+    _free(gpu)
+    # (a) step 1 against the CPU, with the fp64 arbiter
+    b1 = cfg["step1_batch"]
+    x1, y1 = x[:b1], y[:b1]
+    l_card, w_card = _ssd_step1(mx, sym, ctx, arg0, x1, y1, "float32")
+    l_cpu, w_cpu = _ssd_step1(mx, sym, mx.cpu(), arg0, x1, y1, "float32")
+    _, w_card64 = _ssd_step1(mx, sym, ctx, arg0, x1, y1, "float64")
+    _, w_cpu64 = _ssd_step1(mx, sym, mx.cpu(), arg0, x1, y1, "float64")
+    w0 = {k: torch.from_numpy(v) for k, v in arg0.items()}
+    ok_a, rep_a = _step1_gate(w_card, w_card64, w_cpu, w_cpu64, w0)
+    loss_err = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(l_card,
+                                                                 l_cpu)]
+    gates["a_step1"] = {"batch": b1, "loss_card": l_card, "loss_cpu": l_cpu,
+                        "loss_rel_err": loss_err, "ok": ok_a, **rep_a}
+    gates["b_multibox"] = mb
+    small = _small_legs(mx, ctx)
+    gates["d_small_legs"] = small
+    emit({"detection": {
+        "card": card, "ms_per_step": ms, "host_ms_per_step": wall,
+        "losses": losses, "kept_boxes": kept,
+        "kept_per_image": kept / cfg["batch"],
+        "nms_host_ms_per_step": nms_host["s"] * 1e3 / cfg["steps_n"],
+        "profile_step": prof, "peak_bytes": peak,
+        "k1_launches": counts[0], "k2_launches": counts[1],
+        "k3_launches": counts[2], "gates": gates,
+        "seconds": time.perf_counter() - t_phase,
+        "note": "no hand-written kernel on this path: cuDNN, cuBLAS and "
+                "ATen do its work; the NMS's greedy order is resolved on "
+                "the host"}})
+    assert counts == (0, 0, 0), counts
+    assert ok_a and max(loss_err) <= 1e-4, gates["a_step1"]
+    for name in _MULTIBOX:
+        assert mb[name]["ok"], (name, mb[name])
+    assert mb["planted_forced_match_flip_caught"], mb
+    assert mb["planted_suppression_drop_caught"], mb
+    for name, r in small.items():
+        assert r["ok"], (name, r)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    _free(gpu)
+    return counts
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
           "resnet_training", "gluon_training", "decode", "rnn_training",
           "image_classification", "gluon_zoo", "observability",
           "dense_prediction", "data_parallel", "model_parallel",
-          "engine_meshes", "elastic", "sparse")
+          "engine_meshes", "elastic", "sparse", "detection")
 
 
 def main(argv=None):
@@ -8717,6 +9316,10 @@ def main(argv=None):
             res["sp_launches"] = sparse_phase(
                 mx, ctx, rehearsal, "cpu" if rehearsal else _card_line(),
                 sp_dir)
+    if "detection" in todo:
+        with phase("detection"):
+            res["det_launches"] = detection_phase(
+                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -8731,7 +9334,7 @@ def main(argv=None):
         + res["k1_gluon_launches"] + res["obs_launches"]
         + res["dp_launches"][0] + res["mp_launches"][0]
         + res["em_launches"][0] + res["el_launches"][0]
-        + res["sp_launches"][0],
+        + res["sp_launches"][0] + res["det_launches"][0],
         "serving_launches": res["k1_launches"],
         "observability_launches": res["obs_launches"],
         "training_launches": res["k1_train_launches"],
@@ -8745,6 +9348,7 @@ def main(argv=None):
         "engine_meshes_launches": res["em_launches"][0],
         "elastic_launches": res["el_launches"][0],
         "sparse_launches": res["sp_launches"][0],
+        "detection_launches": res["det_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -8758,7 +9362,8 @@ def main(argv=None):
         "replaces": "mxnet_tpu/pallas/flash_attention.py:83",
         "launches": launches["fwd"] + res["dp_launches"][1]
         + res["mp_launches"][1] + res["em_launches"][1]
-        + res["el_launches"][1] + res["sp_launches"][1],
+        + res["el_launches"][1] + res["sp_launches"][1]
+        + res["det_launches"][1],
         "training_launches": launches["fwd"],
         "rnn_training_launches": res["rnn_launches"][1],
         "image_classification_launches": res["ic_launches"][1],
@@ -8769,6 +9374,7 @@ def main(argv=None):
         "engine_meshes_launches": res["em_launches"][1],
         "elastic_launches": res["el_launches"][1],
         "sparse_launches": res["sp_launches"][1],
+        "detection_launches": res["det_launches"][1],
         "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
@@ -8783,7 +9389,8 @@ def main(argv=None):
         "replaces": "mxnet_tpu/pallas/flash_attention.py:261",
         "launches": launches["bwd"] + res["dp_launches"][2]
         + res["mp_launches"][2] + res["em_launches"][2]
-        + res["el_launches"][2] + res["sp_launches"][2],
+        + res["el_launches"][2] + res["sp_launches"][2]
+        + res["det_launches"][2],
         "training_launches": launches["bwd"],
         "rnn_training_launches": res["rnn_launches"][2],
         "image_classification_launches": res["ic_launches"][2],
@@ -8794,6 +9401,7 @@ def main(argv=None):
         "engine_meshes_launches": res["em_launches"][2],
         "elastic_launches": res["el_launches"][2],
         "sparse_launches": res["sp_launches"][2],
+        "detection_launches": res["det_launches"][2],
         "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,

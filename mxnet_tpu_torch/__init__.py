@@ -34,19 +34,25 @@ from . import telemetry  # noqa: F401
 from . import faults  # noqa: F401
 from . import checkpoint  # noqa: F401
 from .base import MXNetError, get_env  # noqa: F401
-from .context import Context, cpu, gpu, current_context  # noqa: F401
+from .context import (Context, cpu, gpu, tpu, cpu_pinned,  # noqa: F401
+                      current_context, num_gpus)
+from . import config  # noqa: F401
 from . import name, attribute, layout  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from . import ops  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
+from .ndarray import NDArray  # noqa: F401
 from . import random  # noqa: F401
+from . import random as rnd  # noqa: F401
 from .random import seed  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
+from .symbol import Symbol  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import executor  # noqa: F401
+from .executor import Executor  # noqa: F401
 from . import predictor  # noqa: F401
 from . import serving  # noqa: F401
 from . import gluon  # noqa: F401
@@ -79,6 +85,7 @@ from .monitor import Monitor  # noqa: F401
 from .checkpoint import CheckpointManager  # noqa: F401
 from . import executor_manager  # noqa: F401
 from . import kvstore_server  # noqa: F401
+from . import operator  # noqa: F401
 
 # mx.random's samplers (parity: mx.random.uniform is nd.random.uniform)
 for _name in nd.random.__all__:

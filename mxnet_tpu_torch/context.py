@@ -12,13 +12,14 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "cpu_pinned", "current_context",
+           "num_gpus"]
 
 
 class Context:
     """A device context (comparable, hashable)."""
 
-    devtype2str = {1: "cpu", 2: "gpu"}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
     devstr2type = {v: k for k, v in devtype2str.items()}
 
     def __init__(self, device_type, device_id=0):
@@ -38,7 +39,7 @@ class Context:
     def torch_device(self):
         """The ``torch.device`` of this context. A ``gpu`` context with no
         CUDA device present raises instead of falling back to the CPU."""
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
@@ -69,6 +70,24 @@ def cpu(device_id=0):
 
 def gpu(device_id=0):
     return Context("gpu", device_id)
+
+
+def cpu_pinned(device_id=0):
+    """Host memory for staging transfers: the host device (PyTorch pins
+    its own staging buffers)."""
+    return Context("cpu_pinned", device_id)
+
+
+def tpu(device_id=0):
+    """The port has no TPU: this raises, naming ``mx.gpu``. Standing in
+    for the GPU in silence would hide which device a program runs on."""
+    raise MXNetError("mx.tpu(%d): the PyTorch port runs on CUDA devices; "
+                     "use mx.gpu(%d)" % (device_id, device_id))
+
+
+def num_gpus():
+    """The number of CUDA devices (parity: mx.context.num_gpus)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 def current_context():

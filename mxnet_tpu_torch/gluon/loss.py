@@ -1,7 +1,6 @@
 """Gluon losses.
 
-Counterpart of ``mxnet_tpu/gluon/loss.py``: every loss there but
-``CTCLoss``, which needs the ``ctc`` op (ROADMAP Queue 1 item 6). Each
+Counterpart of ``mxnet_tpu/gluon/loss.py``. Each
 loss is a HybridBlock, so it runs eagerly on NDArrays (recorded under
 ``autograd.record``) or, hybridized, as a traced symbol. The result is
 the per-sample loss: the mean over every axis but ``batch_axis``.
@@ -14,7 +13,7 @@ from .block import HybridBlock
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
-           "LogisticLoss", "TripletLoss"]
+           "LogisticLoss", "TripletLoss", "CTCLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -227,4 +226,35 @@ class TripletLoss(Loss):
         loss = F.sum(F.square(pred - positive) - F.square(pred - negative),
                      axis=self._batch_axis, exclude=True)
         loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class CTCLoss(Loss):
+    """CTC loss over the ``ctc_loss`` op (parity: loss.CTCLoss): ``pred``
+    in ``layout`` ``NTC`` or ``TNC``, ``label`` in ``NT`` or ``TN``, blank
+    0. ``label_lengths`` alone counts each label from its row (the JAX
+    package passes it where the op reads ``data_lengths``)."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC"):
+            raise MXNetError("layout must be NTC or TNC")
+        if label_layout not in ("NT", "TN"):
+            raise MXNetError("label_layout must be NT or TN")
+        super().__init__(weight, 0, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "TNC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._label_layout == "TN":
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        if label_lengths is not None and pred_lengths is None:
+            # every sequence's whole length, T
+            pred_lengths = F.sum(F.slice_axis(F.ones_like(pred), axis=2,
+                                              begin=0, end=1), axis=(1, 2))
+        lengths = [x for x in (pred_lengths, label_lengths) if x is not None]
+        loss = F.ctc_loss(pred, label, *lengths)
         return _apply_weighting(F, loss, self._weight, sample_weight)

@@ -106,6 +106,7 @@ def install():
     get_op("FullyConnected").param_shape_infer = _fc
     get_op("Convolution").param_shape_infer = _conv
     get_op("BatchNorm").param_shape_infer = _bn
+    get_op("BatchNorm_v1").param_shape_infer = _bn
     get_op("_contrib_BatchNormAddReLU").param_shape_infer = _bn_add_relu
     get_op("Embedding").param_shape_infer = _embedding
     get_op("Deconvolution").param_shape_infer = _deconv

@@ -204,7 +204,10 @@ def repeat(data, repeats=1, axis=None):
 
 @register("reverse", defaults={"axis": ()}, aliases=("flip",))
 def reverse(data, axis=()):
-    return torch.flip(data, as_tuple(axis))
+    """Flip ``axis``; no axis (or ``()``) flips every axis, as
+    ``jnp.flip(data, None)`` does in the JAX package."""
+    axes = as_tuple(axis)
+    return torch.flip(data, axes if axes else tuple(range(data.ndim)))
 
 
 @register("SwapAxis", defaults={"dim1": 0, "dim2": 0}, aliases=("swapaxes",))

@@ -159,14 +159,9 @@ def _await(works, peers):
     for work in works:
         while True:
             try:
-                work.wait(_SLICE)
-                break
+                if _finished(work):
+                    break
             except RuntimeError as e:
-                if not work.is_completed():     # the slice ran out
-                    dead = heartbeat.stale_ranks(peers)
-                    if dead:
-                        raise _in_flight(dead, "stale heartbeat") from e
-                    continue
                 deadline = time.monotonic() + timeout + _ERROR_SLACK_S
                 while time.monotonic() < deadline:
                     dead = heartbeat.stale_ranks(peers)
@@ -175,6 +170,25 @@ def _await(works, peers):
                             from e
                     time.sleep(0.1)
                 raise
+            dead = heartbeat.stale_ranks(peers)
+            if dead:
+                raise _in_flight(dead, "stale heartbeat")
+
+
+def _finished(work):
+    """Whether ``work`` is done after one wait slice: False when the
+    slice ran out first. A work that completed with an error raises it.
+    One that completed just as its slice ran out (the wait raised, the
+    work was complete when asked next) is done: a second wait returns at
+    once, or raises the error it completed with."""
+    try:
+        work.wait(_SLICE)
+        return True
+    except RuntimeError:
+        if not work.is_completed():
+            return False
+    work.wait(_SLICE)
+    return True
 
 
 def _in_flight(dead, what):

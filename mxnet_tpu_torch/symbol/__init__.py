@@ -10,6 +10,7 @@ from . import register as _register
 
 _register.populate(globals())
 from . import sparse  # noqa: E402,F401
+from . import contrib  # noqa: E402,F401
 
 
 def zeros(shape, dtype="float32", **kwargs):

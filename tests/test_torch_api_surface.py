@@ -1,8 +1,8 @@
 """The port's user surface against the JAX package's (the counterpart of
 ``tests/test_api_surface.py``).
 
-Every public name of ``mx.nd``, ``mx.sym``, ``mx.autograd``,
-``mx.gluon``, ``mx.gluon.loss``, ``mx.gluon.nn``, ``mx.gluon.rnn``,
+Every public name of the top level ``mx``, ``mx.nd``, ``mx.sym``,
+``mx.autograd``, ``mx.gluon``, ``mx.gluon.loss``, ``mx.gluon.nn``, ``mx.gluon.rnn``,
 ``mx.gluon.data``, ``mx.gluon.data.vision``, ``mx.gluon.model_zoo.vision``,
 ``mx.kvstore``, ``mx.rnn``, ``mx.mod``, ``mx.telemetry``, ``mx.faults``,
 ``mx.flight``, ``mx.profiler``, ``mx.log``, ``mx.tuner``,
@@ -16,6 +16,7 @@ leave the list (the test fails on a stale entry), so the list shrinks
 PR by PR. Modules a namespace merely imports (``jax``, ``numpy``, the
 standard library) are not names of the surface.
 """
+import os
 import sys
 import types
 
@@ -25,34 +26,33 @@ import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
 
-_LONG_TAIL_OPS = ["BatchNorm_v1", "Correlation", "DeformableConvolution",
-                  "IdentityAttachKLSparseReg", "Proposal", "dequantize",
-                  "fft", "ifft", "quantize", "BilinearSampler",
-                  "GridGenerator", "SpatialTransformer",
-                  "MultiProposal", "linalg_gelqf", "linalg_syevd", "Custom",
-                  "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
-                  "ROIPooling", "ctc_loss"]
 _REGISTRY = "Queue 1 item 6: registry.py (the registry helpers)"
 
-# {namespace: {ROADMAP item: [names]}}
+# {namespace: {ROADMAP item: [names]}}; "mx" is the top level
 SKIP = {
+    "mx": {
+        "Queue 1 item 6.3: records and images": ["recordio", "image",
+                                                 "img"],
+        "Queue 1 item 6.5: the runtime's leftovers (contrib carries "
+        "contrib/autograd.py and contrib/tensorboard.py)": [
+            "engine", "resource", "registry", "filesystem", "libinfo",
+            "storage", "test_utils", "visualization", "viz", "contrib"],
+        "Queue 1 item 6.6: the C boundary, then rtc.py (K4)": ["rtc"],
+        _REGISTRY: ["init_registry"],
+        "Queue 1 item 6: not to be ported (mxnet_tpu/torch.py, mx.th)":
+            ["th", "torch"],
+    },
     "nd": {
         "Queue 1 item 6: bf16 nd.save and load_frombuffer":
             ["load_frombuffer"],
-        "Queue 1 item 6: long tail (contrib, spatial, ctc, rnn ops, "
-        "image)": _LONG_TAIL_OPS + ["contrib", "imdecode"],
+        "Queue 1 item 6.3: records and images": ["imdecode"],
     },
-    "sym": {
-        "Queue 1 item 6: long tail (contrib, spatial, ctc, rnn ops)":
-            _LONG_TAIL_OPS + ["contrib"],
-    },
+    "sym": {},
     "autograd": {},
     "gluon": {
         "Queue 1 item 6: gluon.contrib": ["contrib"],
     },
-    "gluon.loss": {
-        "Queue 1 item 6: CTCLoss (needs the ctc op)": ["CTCLoss"],
-    },
+    "gluon.loss": {},
     "gluon.nn": {},
     "gluon.data": {},
     "gluon.data.vision": {
@@ -117,7 +117,7 @@ SKIP = {
 
 
 def _module(pkg, path):
-    for part in path.split("."):
+    for part in ([] if path == "mx" else path.split(".")):
         pkg = getattr(pkg, part)
     return pkg
 
@@ -136,9 +136,29 @@ def _public(mod):
     return out
 
 
+def _top_level_of_a_fresh_import():
+    """The JAX package's top-level public names right after ``import
+    mxnet_tpu``, in a fresh interpreter: in this one, any subpackage a
+    test imported earlier (``mxnet_tpu.pallas``, ``mxnet_tpu.analysis``)
+    is an attribute of the package too."""
+    import json
+    import subprocess
+    code = ("import json, sys, types, mxnet_tpu as m; print(json.dumps("
+            "[n for n in dir(m) if not n.startswith('_') and not ("
+            "isinstance(getattr(m, n), types.ModuleType) and ("
+            "getattr(m, n).__name__.split('.')[0] in ('jax', 'jaxlib', "
+            "'numpy') or getattr(m, n).__name__ in "
+            "sys.stdlib_module_names))]))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    return set(json.loads(out.stdout.strip().splitlines()[-1]))
+
+
 @pytest.mark.parametrize("ns", sorted(SKIP))
 def test_surface_is_ported_or_listed(ns):
-    want = _public(_module(mx, ns))
+    want = _top_level_of_a_fresh_import() if ns == "mx" else \
+        _public(_module(mx, ns))
     have = _public(_module(mt, ns))
     listed = {n: item for item, names in SKIP[ns].items() for n in names}
     missing = sorted(n for n in want - have if n not in listed)
@@ -157,3 +177,20 @@ def test_skip_list_names_a_roadmap_item():
         for item in items:
             assert item.startswith("Queue 1 item "), item
             assert "Queue 1" in roadmap
+
+
+def test_top_level_device_names():
+    """``mx.tpu`` raises naming ``mx.gpu`` (the port has no TPU and does
+    not stand one in for the card); ``num_gpus`` counts CUDA devices;
+    ``cpu_pinned`` is host memory; the classes and modules are the
+    port's own."""
+    import torch
+    with pytest.raises(mt.MXNetError, match="mx.gpu"):
+        mt.tpu(0)
+    assert mt.num_gpus() == (torch.cuda.device_count()
+                             if torch.cuda.is_available() else 0)
+    assert mt.cpu_pinned().torch_device() == torch.device("cpu")
+    assert mt.cpu_pinned() != mt.cpu()
+    assert mt.NDArray is mt.nd.NDArray and mt.Symbol is mt.sym.Symbol
+    assert mt.Executor is mt.executor.Executor and mt.rnd is mt.random
+    assert mt.operator.CustomOp and mt.config.storage_fallback_log

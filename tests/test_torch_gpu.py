@@ -1726,3 +1726,103 @@ def test_lazy_sgd_on_card_matches_cpu():
                                atol=1e-7)
     np.testing.assert_array_equal(out["gpu"][0][untouched], w0[untouched])
     np.testing.assert_array_equal(out["gpu"][1][untouched], 0.0)
+
+
+# -- slice 16: the remaining operators on the card against the CPU ---------
+
+def _card_and_cpu(name, arrays, **params):
+    from mxnet_tpu_torch.ops.registry import get_op
+    fn = get_op(name).fn
+    got = fn(*[torch.from_numpy(a).cuda() for a in arrays], **params)
+    want = fn(*[torch.from_numpy(a) for a in arrays], **params)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return [g.cpu() for g in got], list(want)
+
+
+def test_multibox_ops_on_card_match_cpu():
+    """Anchors within 1e-6, targets' class ids and masks equal, the
+    detection's rows equal in class id and order (NMS top 400 of 1,900
+    anchors)."""
+    _need_card()
+    rs = np.random.RandomState(0)
+    feat = np.zeros((2, 8, 19, 25), np.float32)
+    (anchor,), _ = _card_and_cpu("_contrib_MultiBoxPrior", [feat],
+                                 sizes=(0.2, 0.272), ratios=(1, 2, 0.5, 3))
+    anchor = anchor.numpy()
+    n = anchor.shape[1]
+    lab = np.full((2, 6, 5), -1, np.float32)
+    lab[:, :3] = np.concatenate([rs.randint(0, 5, (2, 3, 1)),
+                                 rs.uniform(0, 0.5, (2, 3, 2)),
+                                 rs.uniform(0.5, 1, (2, 3, 2))], -1)
+    cls_pred = rs.randn(2, 6, n).astype(np.float32)
+    got, want = _card_and_cpu("_contrib_MultiBoxTarget",
+                              [anchor, lab, cls_pred],
+                              negative_mining_ratio=3)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    prob = torch.softmax(torch.from_numpy(cls_pred), 1).numpy()
+    loc = (rs.randn(2, n * 4) * 0.3).astype(np.float32)
+    got, want = _card_and_cpu("_contrib_MultiBoxDetection",
+                              [prob, loc, anchor], nms_topk=400,
+                              nms_threshold=0.45)
+    assert torch.equal(got[0][..., 0], want[0][..., 0])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+
+
+def test_proposal_and_roi_pooling_on_card_match_cpu():
+    _need_card()
+    rs = np.random.RandomState(1)
+    cls = rs.rand(1, 24, 20, 30).astype(np.float32)
+    bbox = (rs.randn(1, 48, 20, 30) * 0.1).astype(np.float32)
+    info = np.array([[320, 480, 1.0]], np.float32)
+    got, want = _card_and_cpu("_contrib_Proposal", [cls, bbox, info],
+                              rpn_pre_nms_top_n=3000,
+                              rpn_post_nms_top_n=200)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    data = rs.randn(2, 8, 20, 30).astype(np.float32)
+    rois = np.array([[0, 2, 3, 17, 12], [1, 0.5, 0.5, 29, 19],
+                     [1, 10, 10, 10, 10]], np.float32)
+    got, want = _card_and_cpu("ROIPooling", [data, rois],
+                              pooled_size=(6, 6), spatial_scale=0.5)
+    assert torch.equal(got[0], want[0])
+
+
+def test_ctc_loss_on_card_matches_cpu():
+    _need_card()
+    rs = np.random.RandomState(2)
+    x = rs.randn(4, 12, 6).astype(np.float32)
+    lab = rs.randint(1, 6, (4, 3)).astype(np.float32)
+    lab[1, 2] = 0
+    got, want = _card_and_cpu("_ctc_loss", [x, lab])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+
+
+def test_custom_op_on_card_copies_through_the_host():
+    """A Custom op on card inputs: the user's numpy forward and backward,
+    results back on the card."""
+    _need_card()
+
+    class Sq(mt.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], in_data[0].asnumpy() ** 2)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], 2 * in_data[0].asnumpy()
+                        * out_grad[0].asnumpy())
+
+    @mt.operator.register("card_square")
+    class SqProp(mt.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sq()
+
+    x = mt.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3),
+                    ctx=mt.gpu(0))
+    x.attach_grad()
+    with mt.autograd.record():
+        y = mt.nd.Custom(x, op_type="card_square")
+    y.backward()
+    assert y._data.is_cuda and x.grad._data.is_cuda
+    np.testing.assert_array_equal(y.asnumpy(), x.asnumpy() ** 2)
+    np.testing.assert_array_equal(x.grad.asnumpy(), 2 * x.asnumpy())

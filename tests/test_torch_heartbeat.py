@@ -624,3 +624,41 @@ def test_same_arrivals_same_verdicts_in_both_packages(tmp_path,
     assert [d["streak"] for _, d in evs["torch"]] == [3, 4, 5]
     assert all(d["rank"] == 1 and d["excess_ms"] == 85.0
                for _, d in evs["torch"])
+
+
+class _LateWork:
+    """A collective whose 0.25 s slice runs out just before it completes
+    (``Work.wait`` raised "Operation timed out!", then the work finished
+    before ``is_completed`` was asked), ``fail`` whether it completed
+    with an error."""
+
+    def __init__(self, fail=False):
+        self.calls, self.fail = 0, fail
+
+    def wait(self, timeout=None):
+        self.calls += 1
+        if self.calls == 1 or self.fail:
+            raise RuntimeError("Operation timed out!" if self.calls == 1
+                               else "Connection closed by peer")
+        return True
+
+    def is_completed(self):
+        return self.calls >= 1
+
+
+def test_await_takes_a_collective_that_finishes_as_its_slice_runs_out(
+        tmp_path, monkeypatch):
+    """ROADMAP Queue 3, PR 16's fault 2: a collective completing right as
+    a wait slice ran out was taken for a failed one, and raised after the
+    heartbeat timeout with every peer alive (it killed a worker of the
+    card script's elastic phase, whose straggler delay is one slice). An
+    error a completed collective really holds is still raised."""
+    from mxnet_tpu_torch.parallel import collectives
+    monkeypatch.setattr(heartbeat, "stale_ranks", lambda peers: [])
+    monkeypatch.setattr(collectives, "_ERROR_SLACK_S", 0.0)
+    monkeypatch.setenv(heartbeat.ENV_TIMEOUT, "0.2")
+    work = _LateWork()
+    collectives._await([work], [1])
+    assert work.calls == 2
+    with pytest.raises(RuntimeError, match="Connection closed"):
+        collectives._await([_LateWork(fail=True)], [1])

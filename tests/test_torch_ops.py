@@ -133,3 +133,25 @@ def test_flatten_elemwise_add_softmax_output():
     logits = _rand(rs, 4, 10)
     want, got = _run("SoftmaxOutput", [logits, np.zeros(4, np.float32)])
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_reverse_and_flip_without_axis_flip_every_axis():
+    """ROADMAP Queue 3 fault 1 (PR 16): ``reverse``/``flip`` with no axis
+    (or ``axis=()``) flip every axis, as the JAX package's
+    ``jnp.flip(data, None)`` does; the port raised a TypeError."""
+    import mxnet_tpu as mx
+    import mxnet_tpu_torch as mt
+    x = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+    for fn in ("reverse", "flip"):
+        want = getattr(mx.nd, fn)(mx.nd.array(x)).asnumpy()
+        got = getattr(mt.nd, fn)(mt.nd.array(x, ctx=mt.cpu())).asnumpy()
+        np.testing.assert_array_equal(got, want)
+        got = getattr(mt.nd, fn)(mt.nd.array(x, ctx=mt.cpu()),
+                                 axis=()).asnumpy()
+        np.testing.assert_array_equal(got, want)
+    want = mx.sym.reverse(mx.sym.Variable("x")).eval(
+        x=mx.nd.array(x))[0].asnumpy()
+    got = mt.sym.reverse(mt.sym.Variable("x")).eval(
+        ctx=mt.cpu(), x=mt.nd.array(x, ctx=mt.cpu()))[0].asnumpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(want, x[::-1, ::-1, ::-1])
