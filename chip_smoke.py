@@ -11,7 +11,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    power limit; no CUDA device means exit 2.
 2. build — every CUDA kernel source under ``mxnet_tpu_torch/kernels/csrc``
    is compiled with nvcc for sm_90a (one process per source, in
-   parallel), with ``-Xptxas -v``; the build time is set-up time. Then one
+   parallel), with ``-Xptxas -v``, and beside them the native RecordIO
+   loader (``csrc/recordio.cc``) with the host C++ compiler; the build
+   time is set-up time. Then one
    line per kernel function of the flash library with its count of
    tensor-core instructions in ``cuobjdump -sass`` (HGMMA, HMMA); every
    flash kernel must have some (HGMMA in bf16).
@@ -316,7 +318,35 @@ Phases (any failure exits non-zero; no error is swallowed):
    Printed: ms a step (CUDA events), host ms, a profiled step (device
    busy, idle share, classes), each multibox op's time and the NMS's
    host ms, the peak, K1-K3 launches (none: VGG-16 has no BatchNorm).
-21. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+21. records — ImageNet-shaped records and the image pipeline (fp32, both
+   TF32 flags off, cudnn deterministic). (a) 160 raw CHW uint8 records of
+   3 x 224 x 224 with labels in 0-999 from a seed, written by the port's
+   ``MXIndexedRecordIO`` and ``pack`` (24.1 MB), read by
+   ``ImageRecordIter`` (batch 32, ``preprocess_threads`` 4, ImageNet's
+   mean and std) through the native loader, then through the Python path
+   (``rand_mirror``, ``np.random`` seeded); each batch against a numpy
+   reading of the file (``struct`` over the framing and header, the same
+   float32 arithmetic, the same mirror draws) within 1 ulp, img/s of each
+   path. (b) ``resnet50_v1`` (NHWC, fused tails, seeded Xavier weights)
+   behind one transpose of the iterator's NCHW batches, ``SoftmaxOutput``
+   on top, one epoch of ``Module.fit`` (SGD 0.05, momentum 0.9) over
+   (a)'s 5 batches: exactly 16 K1 launches a forward, a finite loss, and
+   batch 0's forward through the record iterator bit-equal to the same
+   forward from ``NDArrayIter`` over the numpy reading; ms a batch (CUDA
+   events, host) with the record iterator and with ``NDArrayIter``, a
+   profiled batch with its ``next()`` (device busy, idle share), the
+   peak. (c) 64 raw HWC 3 x 300 x 300 records with 1-8 boxes each as
+   multi-label headers (the detection phase's ``ssd_data``) through
+   ``mx.image.ImageDetIter`` (batch 32, ``max_boxes`` 50,
+   ``DetHorizontalFlipAug(0.5)`` and a colour normalise, Python's
+   ``random`` seeded) into 2 ``forward_backward`` + ``update`` steps of
+   ``ssd_symbol``: data and ``(32, 50, 5)`` labels equal to a numpy
+   reference flipped where the same draws flip, finite losses. (d)
+   ``"pillow"``: with Pillow, 64 JPEG records encoded at 256 x 256
+   through ``ImageRecordIter(rand_crop=True)`` to 224, equal to a direct
+   PIL decode and a numpy crop under the same draws; without it,
+   ``imdecode`` must raise naming Pillow.
+22. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
@@ -327,8 +357,9 @@ Phases (any failure exits non-zero; no error is swallowed):
    ``image_classification_launches``, ``gluon_zoo_launches``,
    ``dense_prediction_launches`` (0), ``data_parallel_launches``,
    ``model_parallel_launches``, ``engine_meshes_launches``,
-   ``elastic_launches``, ``sparse_launches`` (0) and
-   ``detection_launches`` (0) its counts on those paths — and,
+   ``elastic_launches``, ``sparse_launches`` (0),
+   ``detection_launches`` (0) and ``records_launches`` its counts on
+   those paths — and,
    last, the ``{"ok": true,
    "device": {...}}`` line.
 
@@ -336,7 +367,7 @@ The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-20 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-21 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -463,9 +494,9 @@ def device_phase():
 def build_phase():
     from mxnet_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    log = _build.build_all(force=True)
+    log = _build.build_all(_build.SOURCES + _build.HOST_SOURCES, force=True)
     for name, rec in log.items():
-        print("-- nvcc -Xptxas -v: %s\n%s" % (name, rec["ptxas"]), flush=True)
+        print("-- build output: %s\n%s" % (name, rec["ptxas"]), flush=True)
     emit({"setup_build_s": time.perf_counter() - t0,
           "per_source_s": {n: r["seconds"] for n, r in log.items()}})
     # the flash kernels run on the tensor cores: wgmma (HGMMA) in bf16,
@@ -9191,11 +9222,382 @@ def detection_phase(mx, ctx, rehearsal, card):
     return counts
 
 
+# -- records: RecordIO, the native loader and mx.image feeding the models --
+
+_REC = {False: dict(n=160, hw=224, batch=32, classes=1000, det_n=64,
+                    jpeg_n=64, jpeg_hw=256, threads=4),
+        True: dict(n=8, hw=32, batch=4, classes=10, det_n=4, jpeg_n=4,
+                   jpeg_hw=40, threads=2)}
+_REC_SEED = 31
+# ImageNet's channel statistics, as examples/image-classification passes
+# them to ImageRecordIter
+_IMAGENET_MEAN = (123.68, 116.779, 103.939)
+_IMAGENET_STD = (58.393, 57.12, 57.375)
+
+
+def _rec_write_raw(mx, path, imgs, labels):
+    """Raw uint8 records through the port's ``MXIndexedRecordIO`` and
+    ``pack`` (``path`` .rec, its .idx beside it); a label is a float or a
+    list (the multi-label header)."""
+    w = mx.recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    for i, (img, lab) in enumerate(zip(imgs, labels)):
+        w.write_idx(i, mx.recordio.pack(mx.recordio.IRHeader(0, lab, i, 0),
+                                        np.ascontiguousarray(img).tobytes()))
+    w.close()
+
+
+def _rec_read_numpy(path):
+    """An independent reading of a RecordIO file: ``[(flag, label,
+    payload bytes)]`` by ``struct`` over the dmlc framing (magic, length,
+    4-byte padding) and the 24-byte ``IfQQ`` header."""
+    import struct
+    out = []
+    with open(path, "rb") as f:
+        while True:
+            head = f.read(8)
+            if len(head) < 8:
+                return out
+            magic, lrec = struct.unpack("<II", head)
+            assert magic == 0xced7230a, hex(magic)
+            n = lrec & ((1 << 29) - 1)
+            rec = f.read(n)
+            f.read((4 - n % 4) % 4)
+            flag, label = struct.unpack("<If", rec[:8])
+            out.append((flag, label, rec[24:]))
+
+
+def _ulps(got, want):
+    """The largest difference in units of the last place of ``want``."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float((np.abs(got - want) / np.spacing(np.abs(want))).max())
+
+
+def _rec_normalise(x):
+    mean = np.array(_IMAGENET_MEAN, np.float32).reshape(3, 1, 1)
+    std = np.array(_IMAGENET_STD, np.float32).reshape(3, 1, 1)
+    return (x.astype(np.float32) * np.float32(1.0) - mean) / std
+
+
+def _rec_iter(mx, path, cfg, **kw):
+    return mx.io.ImageRecordIter(
+        path_imgrec=path, data_shape=(3, cfg["hw"], cfg["hw"]),
+        batch_size=cfg["batch"], preprocess_threads=cfg["threads"],
+        mean_r=_IMAGENET_MEAN[0], mean_g=_IMAGENET_MEAN[1],
+        mean_b=_IMAGENET_MEAN[2], std_r=_IMAGENET_STD[0],
+        std_g=_IMAGENET_STD[1], std_b=_IMAGENET_STD[2], **kw)
+
+
+def _rec_epoch(it):
+    """One epoch's (data, label) numpy batches and its images a second."""
+    it.reset()
+    t = time.perf_counter()
+    out = [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in it]
+    s = time.perf_counter() - t
+    return out, sum(len(l) for _, l in out) / s
+
+
+def _rec_loader_leg(mx, cfg, path, ref, labels):
+    """(a) the native loader and the Python path against the numpy
+    reading."""
+    it = _rec_iter(mx, path, cfg)
+    assert it._native is not None, "the native loader is not in use"
+    _rec_epoch(it)                              # warm: the first epoch
+    native, native_rate = _rec_epoch(it)
+    flat = np.concatenate([d for d, _ in native])
+    native_ulps = _ulps(flat, ref)
+    assert native_ulps <= 1, native_ulps
+    assert np.array_equal(np.concatenate([l for _, l in native]), labels)
+    np.random.seed(_REC_SEED)
+    py = _rec_iter(mx, path, cfg, rand_mirror=True)
+    assert py._native is None
+    t = time.perf_counter()
+    pybatches = [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in py]
+    py_rate = len(labels) / (time.perf_counter() - t)
+    np.random.seed(_REC_SEED)
+    flips = np.random.rand(len(labels)) < 0.5
+    want = np.where(flips[:, None, None, None], ref[..., ::-1], ref)
+    py_ulps = _ulps(np.concatenate([d for d, _ in pybatches]), want)
+    assert py_ulps <= 1, py_ulps
+    assert np.array_equal(np.concatenate([l for _, l in pybatches]), labels)
+    return {"native_img_s": native_rate, "python_img_s": py_rate,
+            "native_max_ulps": native_ulps, "python_max_ulps": py_ulps,
+            "bit_equal": native_ulps == 0 and py_ulps == 0,
+            "mirrored": int(flips.sum()), "batches": len(native)}
+
+
+def _rec_symbol(mx, net):
+    """The zoo net (NHWC inside) on the iterators' NCHW batches: one
+    transpose on the device, then ``SoftmaxOutput``."""
+    with mx.name.NameManager():
+        data = mx.sym.transpose(mx.sym.Variable("data"), axes=(0, 2, 3, 1))
+        return mx.sym.SoftmaxOutput(net(data), mx.sym.Variable(
+            "softmax_label"), name="softmax")
+
+
+def _rec_fit(mx, sym, ctx, arg, aux, it, gpu):
+    """One epoch of ``Module.fit`` over ``it``: (module, CUDA-event ms
+    and host ms of each batch after the first)."""
+    mod = mx.mod.Module(sym, context=ctx)
+    log = _BatchLog(mod, gpu)
+    mod.fit(it, eval_metric="ce", optimizer="sgd",
+            optimizer_params={"learning_rate": _BENCH_LR,
+                              "momentum": _BENCH_MOMENTUM,
+                              "rescale_grad": 1.0 / it.batch_size},
+            arg_params=arg, aux_params=aux, num_epoch=1,
+            batch_end_callback=log)
+    return mod, log.ms_per_batch(10 ** 9)
+
+
+def _rec_resnet_leg(mx, ctx, cfg, rehearsal, path, ref, labels):
+    """(b) ResNet-50 v1 through ``Module.fit`` from the records."""
+    from mxnet_tpu_torch.kernels import fused_bn as K1
+    gpu = ctx.device_type == "gpu"
+    net, _, hw, classes = _resnet_net(mx, ctx, rehearsal, seed=0)
+    assert (hw, classes) == (cfg["hw"], cfg["classes"])
+    sym = _rec_symbol(mx, net)
+    aux_names = set(sym.list_auxiliary_states())
+    params = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    arg = {k: v for k, v in params.items() if k not in aux_names}
+    aux = {k: v for k, v in params.items() if k in aux_names}
+    del net, params
+    # batch 0 through the record iterator and through NDArrayIter over the
+    # numpy reading: the same forward, bit for bit
+    probe = mx.mod.Module(sym, context=ctx)
+    probe.bind([("data", (cfg["batch"], 3, hw, hw))],
+               [("softmax_label", (cfg["batch"],))], for_training=False)
+    probe.init_params(arg_params=arg, aux_params=aux)
+    outs = []
+    for it in (_rec_iter(mx, path, cfg),
+               mx.io.NDArrayIter(ref, labels, batch_size=cfg["batch"])):
+        probe.forward(it.next(), is_train=False)
+        outs.append(probe.get_outputs()[0]._data.clone())
+    forward_equal = bool(torch.equal(outs[0], outs[1]))
+    del probe, outs
+    _free(gpu)
+    if gpu:
+        torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after --------
+    K1.launches = 0
+    it = _rec_iter(mx, path, cfg)
+    mod, (ms, wall) = _rec_fit(mx, sym, ctx, arg, aux, it, gpu)
+    launches = K1.launches
+    # ---------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated() if gpu else None
+    outs = mod.get_outputs()[0]._data
+    finite = bool(torch.isfinite(outs).all())
+    prob = outs.double().clamp_min(1e-30)
+    lab = torch.as_tensor(labels[-cfg["batch"]:], device=prob.device).long()
+    ce = float(-torch.log(prob.gather(1, lab[:, None])).mean())
+    prof = None
+    if gpu:
+        it.reset()
+
+        def step():
+            b = it.next()
+            mod.forward_backward(b)
+            mod.update()
+        prof = profile_forward(step, reps=2)
+    del mod
+    _free(gpu)
+    nd_mod, (nd_ms, nd_wall) = _rec_fit(
+        mx, sym, ctx, arg, aux,
+        mx.io.NDArrayIter(ref, labels, batch_size=cfg["batch"]), gpu)
+    del nd_mod
+    _free(gpu)
+    forwards = len(labels) // cfg["batch"]
+    return {"k1_launches": launches, "forwards": forwards,
+            "k1_per_forward": launches / forwards,
+            "loss_last_batch": ce, "finite": finite,
+            "forward_bit_equal": forward_equal,
+            "ms_per_batch": ms, "host_ms_per_batch": wall,
+            "ndarrayiter_ms_per_batch": nd_ms,
+            "ndarrayiter_host_ms_per_batch": nd_wall,
+            "profile_batch_with_next": prof, "peak_bytes": peak}
+
+
+def _rec_det_leg(mx, ctx, rehearsal, cfg, tmp):
+    """(c) ``ImageDetIter`` over HWC records with multi-label headers into
+    the detection phase's SSD: 2 steps."""
+    import random
+    gpu = ctx.device_type == "gpu"
+    scfg = _SSD[rehearsal]
+    n, hw, batch = cfg["det_n"], scfg["hw"], scfg["batch"]
+    x, y = ssd_data(scfg, n, _REC_SEED)
+    imgs = np.clip(x * 200.0, 0, 255).astype(np.uint8).transpose(0, 2, 3, 1)
+    rows = [y[i][y[i, :, 0] >= 0] for i in range(n)]
+    path = os.path.join(tmp, "det.rec")
+    _rec_write_raw(mx, path, imgs, [r.ravel().tolist() for r in rows])
+    mean, std = list(_IMAGENET_MEAN), list(_IMAGENET_STD)
+    augs = [mx.image.DetHorizontalFlipAug(0.5),
+            mx.image.DetBorrowAug(mx.image.ColorNormalizeAug(mean, std))]
+    random.seed(_REC_SEED)
+    it = mx.image.ImageDetIter(batch_size=batch, data_shape=(3, hw, hw),
+                               max_boxes=scfg["max_boxes"], path_imgrec=path,
+                               aug_list=augs)
+    t = time.perf_counter()
+    batches = [b for b in it]
+    det_rate = n / (time.perf_counter() - t)
+    # the numpy reference under the same draws
+    random.seed(_REC_SEED)
+    flips = [random.random() < 0.5 for _ in range(n)]
+    want_x = np.empty((n, 3, hw, hw), np.float32)
+    want_y = np.full((n, scfg["max_boxes"], 5), -1, np.float32)
+    for i in range(n):
+        img, lab = imgs[i], rows[i].copy()
+        if flips[i]:
+            img = img[:, ::-1]
+            lab[:, 1], lab[:, 3] = 1.0 - lab[:, 3], 1.0 - lab[:, 1]
+        want_x[i] = ((img.astype(np.float32) - np.asarray(mean))
+                     / np.asarray(std)).astype(np.float32).transpose(2, 0, 1)
+        want_y[i, :len(lab)] = lab
+    got_x = np.concatenate([b.data[0].asnumpy() for b in batches])
+    got_y = np.concatenate([b.label[0].asnumpy() for b in batches])
+    data_equal = bool(np.array_equal(got_x, want_x))
+    label_equal = bool(np.array_equal(got_y, want_y))
+    assert got_y.shape[1:] == (scfg["max_boxes"], 5), got_y.shape
+    sym = ssd_symbol(mx, scfg)
+    arg0 = ssd_init(mx, scfg, (batch, 3, hw, hw),
+                    (batch, scfg["max_boxes"], 5), seed=0)
+    mod = _ssd_module(mx, sym, ctx, arg0, (batch, 3, hw, hw),
+                      (batch, scfg["max_boxes"], 5))
+    losses, ms = [], []
+    for b in batches:
+        if gpu:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        mod.forward_backward(b)
+        mod.update()
+        if gpu:
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(_ssd_losses(mod.get_outputs()))
+    finite = all(np.isfinite(v) for l in losses for v in l)
+    del mod, arg0
+    _free(gpu)
+    return {"images": n, "batches": len(batches), "flipped": sum(flips),
+            "label_shape": list(got_y.shape[1:]), "data_equal": data_equal,
+            "labels_equal": label_equal, "losses": losses, "finite": finite,
+            "ms_per_step": ms, "detiter_img_s": det_rate}
+
+
+def _rec_pillow_leg(mx, cfg, tmp):
+    """(d) JPEG records through ``ImageRecordIter(rand_crop=True)``
+    against a direct PIL decode and a numpy crop under the same draws, or,
+    without Pillow, the error that names it."""
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    emit({"pillow": Image is not None})
+    if Image is None:
+        try:
+            mx.image.imdecode(b"\xff\xd8\xff")
+        except mx.MXNetError as e:
+            assert "Pillow" in str(e), e
+            return {"pillow": False, "raises_naming_pillow": True}
+        raise AssertionError("imdecode without Pillow did not raise")
+    import io as _pyio
+    n, side, hw = cfg["jpeg_n"], cfg["jpeg_hw"], cfg["hw"]
+    rs = np.random.RandomState(_REC_SEED)
+    yy, xx = np.mgrid[0:side, 0:side]
+    blobs = []
+    for i in range(n):
+        f = rs.uniform(0.5, 4.0, 3)
+        arr = np.stack([127.5 + 127.5 * np.sin(f[c] * (xx + c * yy) / side
+                                                 * np.pi + i)
+                        for c in range(3)], axis=2).astype(np.uint8)
+        buf = _pyio.BytesIO()
+        Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+        blobs.append(buf.getvalue())
+    path = os.path.join(tmp, "jpeg.rec")
+    w = mx.recordio.MXRecordIO(path, "w")
+    for i, b in enumerate(blobs):
+        w.write(mx.recordio.pack(mx.recordio.IRHeader(0, float(i), i, 0), b))
+    w.close()
+    np.random.seed(_REC_SEED)
+    it = mx.io.ImageRecordIter(path_imgrec=path, data_shape=(3, hw, hw),
+                               batch_size=cfg["batch"], rand_crop=True)
+    assert it._native is None
+    t = time.perf_counter()
+    got = np.concatenate([b.data[0].asnumpy() for b in it])
+    rate = n / (time.perf_counter() - t)
+    np.random.seed(_REC_SEED)
+    want = []
+    for b in blobs:
+        img = np.asarray(Image.open(_pyio.BytesIO(b)).convert("RGB"),
+                         np.float32)
+        x0 = np.random.randint(0, side - hw + 1)
+        y0 = np.random.randint(0, side - hw + 1)
+        want.append(img[y0:y0 + hw, x0:x0 + hw].transpose(2, 0, 1))
+    equal = bool(np.array_equal(got, np.stack(want)))
+    return {"pillow": True, "images": n, "encoded_at": [side, side],
+            "crop": [hw, hw], "equal": equal, "jpeg_img_s": rate}
+
+
+def records_phase(mx, ctx, rehearsal, card):
+    """Records written from the seed, read by the native loader and the
+    Python path (a), ResNet-50 v1 through ``Module.fit`` from them (b),
+    ``ImageDetIter`` into the SSD (c), JPEG records and Pillow (d).
+    Returns the K1-K3 launches of (b)'s fit, the phase's main path."""
+    import shutil
+    gpu = ctx.device_type == "gpu"
+    cfg = _REC[rehearsal]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    _free(gpu)
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_records_")
+    try:
+        n, hw = cfg["n"], cfg["hw"]
+        rs = np.random.RandomState(_REC_SEED)
+        imgs = rs.randint(0, 256, (n, 3, hw, hw)).astype(np.uint8)
+        labels = rs.randint(0, cfg["classes"], n).astype(np.float32)
+        path = os.path.join(tmp, "train.rec")
+        _rec_write_raw(mx, path, imgs, labels.tolist())
+        recs = _rec_read_numpy(path)
+        assert [r[1] for r in recs] == labels.tolist()
+        ref = _rec_normalise(np.stack([
+            np.frombuffer(p, np.uint8).reshape(3, hw, hw)
+            for _, _, p in recs]))
+        a = _rec_loader_leg(mx, cfg, path, ref, labels)
+        a["file_bytes"] = os.path.getsize(path)
+        FA.fwd_launches = FA.bwd_launches = 0
+        b = _rec_resnet_leg(mx, ctx, cfg, rehearsal, path, ref, labels)
+        k23 = (FA.fwd_launches, FA.bwd_launches)
+        mx.layout.set_default_layout(None)
+        c = _rec_det_leg(mx, ctx, rehearsal, cfg, tmp)
+        d = _rec_pillow_leg(mx, cfg, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = tf32
+    emit({"records": {
+        "card": card, "a_loader": a, "b_resnet50_fit": b,
+        "c_detection": c, "d_pillow": d,
+        "seconds": time.perf_counter() - t_phase}})
+    assert b["finite"] and np.isfinite(b["loss_last_batch"]), b
+    assert b["forward_bit_equal"], b
+    if gpu:
+        assert b["k1_launches"] == 16 * b["forwards"], b
+    assert c["data_equal"] and c["labels_equal"] and c["finite"], c
+    assert c["label_shape"] == [_SSD[rehearsal]["max_boxes"], 5], c
+    assert not d["pillow"] or d["equal"], d
+    _free(gpu)
+    return (b["k1_launches"],) + k23
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
           "resnet_training", "gluon_training", "decode", "rnn_training",
           "image_classification", "gluon_zoo", "observability",
           "dense_prediction", "data_parallel", "model_parallel",
-          "engine_meshes", "elastic", "sparse", "detection")
+          "engine_meshes", "elastic", "sparse", "detection", "records")
 
 
 def main(argv=None):
@@ -9320,6 +9722,10 @@ def main(argv=None):
         with phase("detection"):
             res["det_launches"] = detection_phase(
                 mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
+    if "records" in todo:
+        with phase("records"):
+            res["rec_launches"] = records_phase(
+                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -9334,7 +9740,8 @@ def main(argv=None):
         + res["k1_gluon_launches"] + res["obs_launches"]
         + res["dp_launches"][0] + res["mp_launches"][0]
         + res["em_launches"][0] + res["el_launches"][0]
-        + res["sp_launches"][0] + res["det_launches"][0],
+        + res["sp_launches"][0] + res["det_launches"][0]
+        + res["rec_launches"][0],
         "serving_launches": res["k1_launches"],
         "observability_launches": res["obs_launches"],
         "training_launches": res["k1_train_launches"],
@@ -9349,6 +9756,7 @@ def main(argv=None):
         "elastic_launches": res["el_launches"][0],
         "sparse_launches": res["sp_launches"][0],
         "detection_launches": res["det_launches"][0],
+        "records_launches": res["rec_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -9363,7 +9771,7 @@ def main(argv=None):
         "launches": launches["fwd"] + res["dp_launches"][1]
         + res["mp_launches"][1] + res["em_launches"][1]
         + res["el_launches"][1] + res["sp_launches"][1]
-        + res["det_launches"][1],
+        + res["det_launches"][1] + res["rec_launches"][1],
         "training_launches": launches["fwd"],
         "rnn_training_launches": res["rnn_launches"][1],
         "image_classification_launches": res["ic_launches"][1],
@@ -9375,6 +9783,7 @@ def main(argv=None):
         "elastic_launches": res["el_launches"][1],
         "sparse_launches": res["sp_launches"][1],
         "detection_launches": res["det_launches"][1],
+        "records_launches": res["rec_launches"][1],
         "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
@@ -9390,7 +9799,7 @@ def main(argv=None):
         "launches": launches["bwd"] + res["dp_launches"][2]
         + res["mp_launches"][2] + res["em_launches"][2]
         + res["el_launches"][2] + res["sp_launches"][2]
-        + res["det_launches"][2],
+        + res["det_launches"][2] + res["rec_launches"][2],
         "training_launches": launches["bwd"],
         "rnn_training_launches": res["rnn_launches"][2],
         "image_classification_launches": res["ic_launches"][2],
@@ -9402,6 +9811,7 @@ def main(argv=None):
         "elastic_launches": res["el_launches"][2],
         "sparse_launches": res["sp_launches"][2],
         "detection_launches": res["det_launches"][2],
+        "records_launches": res["rec_launches"][2],
         "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,

@@ -21,8 +21,9 @@ instruments and controls around them (``mx.telemetry``, ``mx.faults``,
 ``mx.flight``, ``mx.profiler``, the autotuned serving plan), and
 data-parallel training across contexts and worker processes (the
 ``dist*`` stores with 2-bit and fp16 compression, ``launch.py``,
-``Module`` over several contexts, the dp ``SPMDTrainer``); see
-ROADMAP.md.
+``Module`` over several contexts, the dp ``SPMDTrainer``), and records
+and images (``mx.recordio``, ``io.ImageRecordIter`` over the native
+loader, ``mx.image``/``mx.img``); see ROADMAP.md.
 
 A worker started by ``python -m mxnet_tpu_torch.launch`` joins its job
 here, at import (``dist.init_from_env``), before anything else runs.
@@ -86,6 +87,11 @@ from .checkpoint import CheckpointManager  # noqa: F401
 from . import executor_manager  # noqa: F401
 from . import kvstore_server  # noqa: F401
 from . import operator  # noqa: F401
+from . import filesystem  # noqa: F401
+from . import recordio  # noqa: F401
+from . import resource  # noqa: F401
+from . import image  # noqa: F401
+from . import image as img  # noqa: F401
 
 # mx.random's samplers (parity: mx.random.uniform is nd.random.uniform)
 for _name in nd.random.__all__:

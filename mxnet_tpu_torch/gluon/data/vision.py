@@ -5,8 +5,9 @@ Counterpart of ``mxnet_tpu/gluon/data/vision.py``: ``MNIST``,
 files (MNIST idx, plain or gzipped; the CIFAR binary batches) under
 ``root`` instead of downloading them. An item is ``(image, label)``:
 the image a host NDArray (H, W, C) of uint8, the label an int32.
-``ImageRecordDataset`` and ``ImageFolderDataset`` decode images with
-``image/`` and raise until it is ported (ROADMAP Queue 1 item 6).
+``ImageRecordDataset`` (an indexed RecordIO file) and
+``ImageFolderDataset`` (one folder per class) decode their images with
+``image.imdecode``.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import numpy as np
 from ...base import MXNetError
 from ...context import cpu
 from ...ndarray import array as _nd_array
-from .dataset import Dataset
+from .dataset import Dataset, RecordFileDataset
 
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
            "ImageRecordDataset", "ImageFolderDataset"]
@@ -147,17 +148,63 @@ class CIFAR100(_DownloadedDataset):
         self._data = raw[:, 2:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
 
 
-class ImageRecordDataset(Dataset):
-    """(parity: vision.ImageRecordDataset) not ported yet."""
+class ImageRecordDataset(RecordFileDataset):
+    """Images packed in an indexed RecordIO file (parity:
+    vision.ImageRecordDataset): an item is ``(image, label)``, the image
+    decoded by ``image.imdecode`` (host HWC uint8), the label the
+    record header's."""
 
     def __init__(self, filename, flag=1, transform=None):
-        raise MXNetError("ImageRecordDataset needs recordio.py and image/, "
-                         "which are not ported yet (ROADMAP Queue 1 item 6)")
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from ... import recordio
+        from ...image import image as img_mod
+        header, payload = recordio.unpack(super().__getitem__(idx))
+        image = img_mod.imdecode(payload, flag=self._flag)
+        if self._transform is not None:
+            return self._transform(image, header.label)
+        return image, header.label
+
+    def raw_item(self, idx):
+        return None     # items are NDArrays: the DataLoader uses threads
 
 
 class ImageFolderDataset(Dataset):
-    """(parity: vision.ImageFolderDataset) not ported yet."""
+    """Images in one folder per class, ``root/<class>/<image>`` with a
+    .jpg, .jpeg or .png suffix (parity: vision.ImageFolderDataset): the
+    classes in sorted order are ``synsets``, an item is ``(image,
+    label)``."""
 
     def __init__(self, root, flag=1, transform=None):
-        raise MXNetError("ImageFolderDataset needs image/ to decode, which "
-                         "is not ported yet (ROADMAP Queue 1 item 6)")
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self._exts = [".jpg", ".jpeg", ".png"]
+        self._list_images(self._root)
+
+    def _list_images(self, root):
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(root)):
+            path = os.path.join(root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for filename in sorted(os.listdir(path)):
+                if os.path.splitext(filename)[1].lower() in self._exts:
+                    self.items.append((os.path.join(path, filename), label))
+
+    def __getitem__(self, idx):
+        from ...image import image as img_mod
+        img = img_mod.imread(self.items[idx][0], flag=self._flag)
+        label = self.items[idx][1]
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self.items)

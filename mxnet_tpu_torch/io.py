@@ -8,9 +8,10 @@ semantics. Batches are host arrays (``cpu()`` NDArrays), as in the
 reference; a Module copies each into its bound storage on its device.
 ``ResizeIter`` (a fixed number of batches per epoch), ``PrefetchingIter``
 (one background thread ahead of its iterator), ``MNISTIter`` (MNIST
-idx files, plain or gzipped), ``CSVIter`` and ``LibSVMIter`` (csr
-batches on the iterator's context, default ``gpu(0)``) are ported too;
-``ImageRecordIter`` is not yet (ROADMAP Queue 1 item 6).
+idx files, plain or gzipped), ``CSVIter``, ``LibSVMIter`` (csr
+batches on the iterator's context, default ``gpu(0)``),
+``ImageRecordIter`` (RecordIO images through the native loader or PIL)
+and ``MXDataIter`` are ported too.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from . import telemetry
 from . import faults
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
-           "PrefetchingIter", "MNISTIter", "CSVIter", "LibSVMIter"]
+           "PrefetchingIter", "MNISTIter", "CSVIter", "LibSVMIter",
+           "ImageRecordIter", "MXDataIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -532,3 +534,230 @@ class LibSVMIter(DataIter):
 
     def getpad(self):
         return max(self.cursor + self.batch_size - self.num_data, 0)
+
+
+class ImageRecordIter(DataIter):
+    """RecordIO image iterator (parity: mxnet_tpu/io.py:537-733,
+    src/io/iter_image_recordio_2.cc).
+
+    Raw payloads are uint8 **CHW** tensors; encoded payloads (JPEG, PNG,
+    BMP, GIF: an image magic that PIL opens) decode through PIL, then a
+    crop to ``data_shape`` (random with ``rand_crop``, centred otherwise).
+    Every value is ``(x * scale - mean) / std`` in float32. Two paths give
+    the batches:
+
+    * the native threaded loader (``_native.py``) when no augmentation is
+      asked for (no ``rand_crop``/``rand_mirror``), ``label_width`` is 1,
+      ``num_parts`` is 1, no payload is encoded, ``round_batch`` has no
+      partial tail to wrap, and the file is local. It shuffles with its
+      own ``mt19937_64(seed)`` at construction and every ``reset``. If it
+      cannot be built or loaded, the constructor raises;
+    * otherwise the Python path: ``_decode`` per record, ``rand_mirror``
+      from ``np.random``, ``shuffle`` by ``np.random.shuffle`` at
+      ``reset`` only (the first epoch is unshuffled), the last partial
+      batch wrapped to the epoch head and counted in ``pad`` under
+      ``round_batch`` (dropped without it).
+
+    Batches are host (``cpu()``) NDArrays, as ``NDArrayIter``'s are.
+    """
+
+    _IMG_MAGIC = (b"\xff\xd8", b"\x89PN", b"BM", b"GIF")
+
+    def __init__(self, path_imgrec, data_shape, batch_size, label_width=1,
+                 shuffle=False, rand_crop=False, rand_mirror=False,
+                 mean_r=0.0, mean_g=0.0, mean_b=0.0, std_r=1.0, std_g=1.0,
+                 std_b=1.0, scale=1.0, preprocess_threads=4, seed=0,
+                 num_parts=1, part_index=0, round_batch=True, **kwargs):
+        super().__init__(int(batch_size))
+        from . import recordio
+        from .filesystem import scheme_of
+        self.data_shape = tuple(int(x) for x in data_shape)
+        self.label_width = int(label_width)
+        self.shuffle = shuffle
+        self.rand_crop = rand_crop
+        self.rand_mirror = rand_mirror
+        c = int(data_shape[0])
+        means = [mean_r, mean_g, mean_b][:c] if c <= 3 else [mean_r] * c
+        stds = [std_r, std_g, std_b][:c] if c <= 3 else [std_r] * c
+        self.mean = np.array(means, np.float32).reshape(c, 1, 1)
+        self.std = np.array(stds, np.float32).reshape(c, 1, 1)
+        self.scale = scale
+        self.rec = recordio.MXRecordIO(path_imgrec, "r")
+        self._records = []
+        while True:
+            s = self.rec.read()
+            if s is None:
+                break
+            self._records.append(s)
+        if num_parts > 1:   # dmlc InputSplit: every num_parts-th record
+            self._records = self._records[part_index::num_parts]
+        self._round_batch = bool(round_batch)
+        self._native = None
+        scheme = scheme_of(path_imgrec)
+        if not rand_crop and not rand_mirror and self.label_width == 1 \
+                and num_parts == 1 and scheme in ("", "file") \
+                and not self._records_encoded() \
+                and not (self._round_batch
+                         and len(self._records) % self.batch_size != 0):
+            from ._native import NativeRecordLoader
+            path = os.fspath(path_imgrec)
+            self._native = NativeRecordLoader(
+                path[len("file://"):] if scheme == "file" else path,
+                int(batch_size), self.data_shape,
+                num_threads=int(preprocess_threads), shuffle=bool(shuffle),
+                seed=int(seed), scale=scale, mean=(mean_r, mean_g, mean_b),
+                std=(std_r, std_g, std_b))
+        self._order = np.arange(len(self._records))
+        self.cursor = -self.batch_size
+
+    def _open_encoded(self, img):
+        """A loaded PIL image if the payload is an encoded image, else
+        None: it starts with an image magic AND PIL opens it (raw pixels
+        that merely start with a magic stay raw)."""
+        if not (img[:2] in self._IMG_MAGIC or img[:3] in self._IMG_MAGIC):
+            return None
+        import io as _pyio
+        from .image.image import _pil
+        try:
+            pic = _pil().open(_pyio.BytesIO(img))
+            pic.load()
+            return pic
+        except Exception:
+            return None
+
+    def _records_encoded(self):
+        from . import recordio
+        return any(
+            self._open_encoded(recordio.unpack(r)[1]) is not None
+            for r in self._records)
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        shape = (self.batch_size,) if self.label_width == 1 \
+            else (self.batch_size, self.label_width)
+        return [DataDesc("softmax_label", shape)]
+
+    def reset(self):
+        self.cursor = -self.batch_size
+        if self._native is not None:
+            self._native.reset()
+        if self.shuffle:
+            np.random.shuffle(self._order)
+
+    def next(self):
+        if self._native is not None:
+            data, label = self._native.next()
+            return DataBatch([_nd_array(data, ctx=cpu())],
+                             [_nd_array(label, ctx=cpu())], pad=0)
+        return super().next()
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        if self._round_batch:
+            return self.cursor < len(self._records)
+        return self.cursor + self.batch_size <= len(self._records)
+
+    def _batch_indices(self):
+        idx = self._order[self.cursor:self.cursor + self.batch_size]
+        while len(idx) < self.batch_size:    # wrap, repeatedly if the
+            idx = np.concatenate(            # file holds < one batch
+                [idx, self._order[:self.batch_size - len(idx)]])
+        return idx
+
+    def _decode(self, s):
+        from . import recordio
+        header, img = recordio.unpack(s)
+        c, h, w = self.data_shape
+        pic = self._open_encoded(img)
+        if pic is not None:
+            if c == 1:
+                pic = pic.convert("L")
+            elif c == 3:
+                if pic.mode != "RGB":
+                    pic = pic.convert("RGB")
+            else:
+                raise MXNetError(
+                    "encoded-image decode supports 1 or 3 channels, "
+                    "data_shape has %d" % c)
+            if pic.width < w or pic.height < h:
+                pic = pic.resize((max(w, pic.width), max(h, pic.height)))
+            dx, dy = pic.width - w, pic.height - h
+            if self.rand_crop:
+                x0 = np.random.randint(0, dx + 1)
+                y0 = np.random.randint(0, dy + 1)
+            else:
+                x0, y0 = dx // 2, dy // 2
+            pic = pic.crop((x0, y0, x0 + w, y0 + h))
+            arr = np.asarray(pic, dtype=np.float32)
+            arr = arr[:, :, None] if arr.ndim == 2 else arr
+            arr = arr.transpose(2, 0, 1)
+        else:
+            arr = np.frombuffer(img, dtype=np.uint8)
+            if arr.size < c * h * w:
+                raise MXNetError("record payload too small for raw decode "
+                                 "and not an encoded image")
+            arr = arr[:c * h * w].reshape(c, h, w).astype(np.float32)
+        if self.rand_mirror and np.random.rand() < 0.5:
+            arr = arr[:, :, ::-1]
+        return (arr * self.scale - self.mean) / self.std, header.label
+
+    def getdata(self):
+        batch = np.stack([self._decode(self._records[i])[0]
+                          for i in self._batch_indices()])
+        return [_nd_array(batch, ctx=cpu())]
+
+    def getlabel(self):
+        from . import recordio
+        # labels live in the record header: no image decode needed
+        labels = np.array(
+            [np.atleast_1d(recordio.unpack(self._records[i])[0].label)
+             for i in self._batch_indices()], np.float32)
+        if self.label_width == 1:
+            labels = labels[:, 0]
+        return [_nd_array(labels, ctx=cpu())]
+
+    def getpad(self):
+        remain = len(self._records) - self.cursor
+        return max(0, self.batch_size - remain) if remain > 0 else 0
+
+
+class MXDataIter(DataIter):
+    """The reference's C-handle iterator face over a created iterator
+    (parity: mxnet_tpu/io.py:735): every call goes to the wrapped
+    ``DataIter``."""
+
+    def __init__(self, handle, data_name="data", label_name="softmax_label",
+                 **_):
+        if not isinstance(handle, DataIter):
+            raise MXNetError("MXDataIter wraps a created iterator; use "
+                             "mx.io.<IterName>(...)")
+        self._iter = handle
+        super().__init__(self._iter.batch_size)
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["_iter"], name)
+
+    def reset(self):
+        self._iter.reset()
+
+    def next(self):
+        return self._iter.next()
+
+    def iter_next(self):
+        return self._iter.iter_next()
+
+    def getdata(self):
+        return self._iter.getdata()
+
+    def getlabel(self):
+        return self._iter.getlabel()
+
+    def getindex(self):
+        return self._iter.getindex()
+
+    def getpad(self):
+        return self._iter.getpad()

@@ -65,6 +65,14 @@ lesser = _binary("lesser", lambda a, b: a < b, lambda a, b: float(a < b))
 lesser_equal = _binary("lesser_equal", lambda a, b: a <= b,
                        lambda a, b: float(a <= b))
 
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,
+             mean=None):
+    """Decode an image bytestring to a host HWC uint8 NDArray (parity:
+    mx.nd.imdecode; ``image.imdecode`` does the work)."""
+    from ..image import image as _img
+    return _img.imdecode(str_img, flag=1 if channels == 3 else 0)
+
+
 # fluent methods: x.relu() == nd.relu(x)
 _FLUENT_METHODS = [
     "reshape_like", "zeros_like", "ones_like", "broadcast_axes", "repeat",

@@ -7,9 +7,12 @@ an NPZ container of name -> array (a list saves under
 """
 from __future__ import annotations
 
+import io as _io
+
 import numpy as np
 
 from ..base import MXNetError
+from ..filesystem import open_uri
 from .ndarray import NDArray, array
 
 _LIST_PREFIX = "__mx_list__:"
@@ -30,7 +33,7 @@ def save(fname, data):
         if not isinstance(v, NDArray):
             raise MXNetError("save: values must be NDArrays")
         arrays[k] = v.asnumpy()
-    with open(fname, "wb") as f:
+    with open_uri(fname, "wb") as f:
         np.savez(f, **arrays)
 
 
@@ -38,12 +41,15 @@ def load(fname, ctx=None):
     """Load NDArrays saved by :func:`save` (or by the JAX package) onto
     ``ctx`` (default: the current context)."""
     try:
-        f = open(fname, "rb")
+        f = open_uri(fname, "rb")
     except FileNotFoundError:
         raise MXNetError("load: no such file %r" % fname)
-    with f, np.load(f, allow_pickle=False) as npz:
-        keys = list(npz.keys())
-        if keys and all(k.startswith(_LIST_PREFIX) for k in keys):
-            keys.sort(key=lambda k: int(k[len(_LIST_PREFIX):]))
-            return [array(npz[k], ctx=ctx) for k in keys]
-        return {k: array(npz[k], ctx=ctx) for k in keys}
+    with f:
+        # a registered scheme's stream may not seek: buffer it
+        src = f if f.seekable() else _io.BytesIO(f.read())
+        with np.load(src, allow_pickle=False) as npz:
+            keys = list(npz.keys())
+            if keys and all(k.startswith(_LIST_PREFIX) for k in keys):
+                keys.sort(key=lambda k: int(k[len(_LIST_PREFIX):]))
+                return [array(npz[k], ctx=ctx) for k in keys]
+            return {k: array(npz[k], ctx=ctx) for k in keys}

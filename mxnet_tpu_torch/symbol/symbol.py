@@ -250,7 +250,8 @@ class Symbol:
         return json.dumps(graph, indent=2)
 
     def save(self, fname):
-        with open(fname, "w") as f:
+        from ..filesystem import open_uri
+        with open_uri(fname, "w") as f:
             f.write(self.tojson())
 
     # -- binding -----------------------------------------------------------
@@ -520,5 +521,6 @@ def _parse_attr(v):
 
 
 def load(fname):
-    with open(fname, "r") as f:
+    from ..filesystem import open_uri
+    with open_uri(fname, "r") as f:
         return load_json(f.read())

@@ -8,7 +8,9 @@ Every public name of the top level ``mx``, ``mx.nd``, ``mx.sym``,
 ``mx.flight``, ``mx.profiler``, ``mx.log``, ``mx.tuner``,
 ``mx.compile_cache``, ``mx.checkpoint``, ``mx.callback``,
 ``mx.serving``, ``mx.metric``, ``mx.initializer``, ``mx.optimizer``,
-``mx.io``, ``mx.mon`` and ``mx.parallel`` in ``mxnet_tpu``, and every public method of ``Symbol``,
+``mx.io``, ``mx.mon``, ``mx.parallel``, ``mx.recordio``, ``mx.image``,
+``mx.image.detection``, ``mx.filesystem`` and ``mx.resource`` in
+``mxnet_tpu``, and every public method of ``Symbol``,
 ``Module``, ``KVStore``, ``InferenceEngine`` and ``DecodeEngine``,
 either exists in ``mxnet_tpu_torch`` or sits on the skip list below,
 under the ROADMAP.md item that will port it. A name ported since must
@@ -25,18 +27,17 @@ import pytest
 import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 
 _REGISTRY = "Queue 1 item 6: registry.py (the registry helpers)"
 
 # {namespace: {ROADMAP item: [names]}}; "mx" is the top level
 SKIP = {
     "mx": {
-        "Queue 1 item 6.3: records and images": ["recordio", "image",
-                                                 "img"],
         "Queue 1 item 6.5: the runtime's leftovers (contrib carries "
         "contrib/autograd.py and contrib/tensorboard.py)": [
-            "engine", "resource", "registry", "filesystem", "libinfo",
-            "storage", "test_utils", "visualization", "viz", "contrib"],
+            "engine", "registry", "libinfo", "storage", "test_utils",
+            "visualization", "viz", "contrib"],
         "Queue 1 item 6.6: the C boundary, then rtc.py (K4)": ["rtc"],
         _REGISTRY: ["init_registry"],
         "Queue 1 item 6: not to be ported (mxnet_tpu/torch.py, mx.th)":
@@ -45,7 +46,6 @@ SKIP = {
     "nd": {
         "Queue 1 item 6: bf16 nd.save and load_frombuffer":
             ["load_frombuffer"],
-        "Queue 1 item 6.3: records and images": ["imdecode"],
     },
     "sym": {},
     "autograd": {},
@@ -55,9 +55,7 @@ SKIP = {
     "gluon.loss": {},
     "gluon.nn": {},
     "gluon.data": {},
-    "gluon.data.vision": {
-        "Queue 1 item 6: recordio and image/": ["RecordFileDataset"],
-    },
+    "gluon.data.vision": {},
     "gluon.model_zoo.vision": {},
     "kvstore": {},
     "kvstore.KVStore": {},
@@ -103,11 +101,16 @@ SKIP = {
     "optimizer": {_REGISTRY: ["registry_create", "jnp_abs",
                               "jnp_maximum"]},
     "io": {
-        "Queue 1 item 6: recordio and image/": ["ImageRecordIter",
-                                                "MXDataIter"],
         _REGISTRY: ["create_iterator", "register", "registry_create"],
     },
     "mon": {},
+    "recordio": {},
+    "image": {},
+    "image.detection": {},
+    "filesystem": {},
+    "resource": {
+        "Queue 1 item 6.5: storage.py (the pooled host storage)":
+            ["Storage"]},
     "parallel": {
         "Queue 1 item 6: not to be ported (JAX's own shard_map and its "
         "compat module: every member runs its per-device code itself)":

@@ -20,6 +20,7 @@ import mxnet_tpu as mx
 from mxnet_tpu.ops.registry import get_op as jax_op
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch.ops.registry import get_op as port_op
 
 CPU = mt.cpu()

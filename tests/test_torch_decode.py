@@ -31,6 +31,7 @@ import mxnet_tpu.decode as jdec
 from mxnet_tpu.rnn.rnn_cell import lstm_decode_step as j_lstm_step
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.decode import (DecodeEngine, AttentionDecodeCell,
                                     LSTMDecodeCell, DeadlineExceeded,

@@ -62,6 +62,7 @@ from mxnet_tpu import parallel as jpar
 from mxnet_tpu.gradient_compression import quantize_2bit, dequantize_2bit
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch import launch, dist
 
 import torch_dist_worker as W

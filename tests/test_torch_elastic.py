@@ -34,6 +34,7 @@ import pytest
 import mxnet_tpu as mx
 
 import torch_elastic_worker as W
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HB_TIMEOUT = 3.0

@@ -40,6 +40,7 @@ from mxnet_tpu.parallel.ring_attention import \
 from mxnet_tpu.serving import InferenceEngine as JEngine
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch.decode import DecodeEngine
 from mxnet_tpu_torch.parallel import PartitionRules
 from mxnet_tpu_torch.parallel.ring_attention import DECODE_PARTITION_RULES

@@ -22,6 +22,7 @@ from mxnet_tpu import faults as jfaults, telemetry as jtelemetry
 from mxnet_tpu.base import MXNetError as JMXNetError
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch import faults, telemetry
 from mxnet_tpu_torch.base import MXNetError
 

@@ -18,6 +18,7 @@ from mxnet_tpu.pallas import flash_attention as jax_flash
 from mxnet_tpu.pallas import flash_attention_carry as jax_carry
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch.kernels import flash_attention as K
 
 

@@ -32,6 +32,7 @@ from mxnet_tpu import flight as jflight, telemetry as jtelemetry
 from mxnet_tpu.faults import InjectedFault as JInjectedFault
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch import flight, telemetry
 from mxnet_tpu_torch.faults import InjectedFault
 

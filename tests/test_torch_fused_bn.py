@@ -18,6 +18,7 @@ from mxnet_tpu.ops.registry import get_op as jax_get_op
 from mxnet_tpu.pallas.fused_bn import scale_bias_add_relu as jax_sbar
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch.kernels import fused_bn as K
 from mxnet_tpu_torch.ops.registry import get_op as port_get_op
 

@@ -44,6 +44,7 @@ from mxnet_tpu.gluon import loss as jloss
 from mxnet_tpu.gluon.model_zoo.vision import resnet as jres
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres
 

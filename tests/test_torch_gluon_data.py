@@ -25,6 +25,7 @@ import pytest
 import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mt.cpu()
 gd = {mx: mx.gluon.data, mt: mt.gluon.data}
@@ -146,8 +147,10 @@ def test_dataset_transforms_match_jax():
     _same(out[mt][0], out[mx][0])
     _same(out[mt][1], out[mx][1])
     assert out[mt][2:] == out[mx][2:]
-    with pytest.raises(mt.MXNetError, match="Queue 1 item 6"):
-        mt.gluon.data.RecordFileDataset("x.rec")
+    # a missing record file (RecordFileDataset is ported: no stub error)
+    for pkg in (mx, mt):
+        with pytest.raises(FileNotFoundError):
+            gd[pkg].RecordFileDataset("no-such-dir/x.rec")
 
 
 @pytest.mark.parametrize("thread_pool", [True, False],
@@ -274,9 +277,17 @@ def test_vision_datasets_match_jax(tmp_path, gz):
     assert t.raw_item(0) is None and mn.raw_item(0) is not None
     with pytest.raises(mt.MXNetError, match="not found"):
         mt.gluon.data.vision.MNIST(root=str(tmp_path / "none"))
-    for cls in ("ImageRecordDataset", "ImageFolderDataset"):
-        with pytest.raises(mt.MXNetError, match="Queue 1 item 6"):
-            getattr(mt.gluon.data.vision, cls)(str(tmp_path))
+    # the image datasets are ported (tests/test_torch_image.py): a folder
+    # of data files holds classes and no images; a directory is no
+    # record file
+    folders = [gd[pkg].vision.ImageFolderDataset(str(tmp_path))
+               for pkg in (mx, mt)]
+    assert folders[1].synsets == folders[0].synsets == ["c10", "c100",
+                                                         "mnist"]
+    assert len(folders[1]) == len(folders[0]) == 0
+    for pkg in (mx, mt):
+        with pytest.raises(IsADirectoryError):
+            gd[pkg].vision.ImageRecordDataset(str(tmp_path / "c10"))
 
 
 def test_mnist_iter_matches_jax(tmp_path):

@@ -20,6 +20,7 @@ import mxnet_tpu as mx
 from mxnet_tpu import gradient_compression as J
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch import gradient_compression as T
 
 CPU = mt.cpu()

@@ -18,6 +18,7 @@ import pytest
 import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 
 RS = np.random.RandomState(0)
 X = RS.uniform(-1, 1, (4, 6)).astype(np.float32)

@@ -16,6 +16,7 @@ from mxnet_tpu import faults as jfaults, heartbeat as jheartbeat
 from mxnet_tpu import telemetry as jtelemetry
 from mxnet_tpu_torch import faults, heartbeat
 from mxnet_tpu_torch.heartbeat import CollectiveGate, DeadWorkerError
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _wait_for(pred, timeout=5.0):

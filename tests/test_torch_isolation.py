@@ -11,6 +11,7 @@ import torch
 import mxnet_tpu  # noqa: F401  (both packages in one process, as elsewhere)
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mxnet_tpu_torch")

@@ -28,6 +28,7 @@ from mxnet_tpu import parallel as jpar
 from mxnet_tpu.parallel.compat import shard_map
 
 import torch_mp_worker as W
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4

@@ -30,6 +30,7 @@ import mxnet_tpu as mx
 from mxnet_tpu.gluon.model_zoo.vision import resnet as jres
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres
 
 B, HW, CLASSES, NBATCH = 8, 32, 10, 6

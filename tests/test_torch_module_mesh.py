@@ -39,6 +39,7 @@ import mxnet_tpu as mx
 from mxnet_tpu.parallel import PartitionRules as JRules
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 import mxnet_tpu_torch.executor as t_executor
 from mxnet_tpu_torch.io import DataBatch, DataDesc
 from mxnet_tpu_torch.parallel import PartitionRules, P

@@ -48,6 +48,7 @@ from mxnet_tpu.serving import InferenceEngine as JEngine
 from mxnet_tpu.tuner import plan_serving as jplan
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch import telemetry as tt, faults, flight
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.decode import (DecodeEngine, AttentionDecodeCell,

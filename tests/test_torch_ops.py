@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from mxnet_tpu.ops.registry import get_op as jax_get_op
 
 from mxnet_tpu_torch.ops.registry import get_op as port_get_op
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _run(name, arrays, **params):

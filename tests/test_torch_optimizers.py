@@ -23,6 +23,7 @@ import pytest
 import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mt.cpu()
 RTOL, ATOL = 1e-5, 1e-6

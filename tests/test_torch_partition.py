@@ -25,6 +25,7 @@ from mxnet_tpu.parallel import moe as jmoe, pipeline as jpipe
 from mxnet_tpu.parallel import ulysses as jul
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch import parallel as tpar
 from mxnet_tpu_torch.parallel import partition as tpart
 from mxnet_tpu_torch.parallel import moe as tmoe, pipeline as tpipe

@@ -41,6 +41,7 @@ import mxnet_tpu as mx
 from mxnet_tpu.ops.rnn import rnn_param_size
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch import weights
 
 CPU = mt.cpu()

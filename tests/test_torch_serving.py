@@ -29,6 +29,7 @@ from mxnet_tpu.gluon.model_zoo.vision import resnet as jresnet
 from mxnet_tpu.serving import InferenceEngine as JaxEngine
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
 from mxnet_tpu_torch.predictor import Predictor
 from mxnet_tpu_torch.base import MXNetError

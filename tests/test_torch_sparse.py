@@ -26,6 +26,7 @@ import mxnet_tpu as mx
 from mxnet_tpu.ndarray import sparse as jsp
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch.ndarray import sparse as tsp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -31,6 +31,7 @@ import mxnet_tpu as mx
 from mxnet_tpu.ndarray import sparse as jsp
 
 import torch_sparse_worker as W
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2

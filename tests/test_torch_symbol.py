@@ -22,6 +22,7 @@ import mxnet_tpu as mj
 from mxnet_tpu.gluon.model_zoo.vision import resnet as jresnet
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
 
 HW = 32

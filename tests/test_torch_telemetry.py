@@ -53,6 +53,7 @@ import mxnet_tpu as mx
 from mxnet_tpu import telemetry as jt
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from mxnet_tpu_torch import telemetry as tt
 from mxnet_tpu_torch import executor as _ex
 

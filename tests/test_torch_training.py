@@ -35,6 +35,7 @@ from mxnet_tpu_torch.gluon.block import make_pure_fn
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres
 from mxnet_tpu_torch.kernels import fused_bn as K
 from mxnet_tpu_torch.ops.registry import get_op as port_get_op
+from torch_threads import one_torch_thread, default_torch_threads  # noqa: F401
 
 SHAPE = (4, 5, 5, 6)          # NHWC
 
@@ -733,7 +734,7 @@ def test_make_pure_fn_raw_step_matches_jax(bf16, monkeypatch):
     assert t_losses[-1] < t_losses[0]
 
 
-def test_raw_step_matches_jax_as_it_is(monkeypatch):
+def test_raw_step_matches_jax_as_it_is(monkeypatch, default_torch_threads):
     """The fp32 raw step with nothing shared: the JAX package runs as it
     is (its ReLUs, the block tail's Pallas kernel in interpret mode under
     its custom VJP), the units whose sign differs between the two

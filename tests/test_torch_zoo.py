@@ -21,6 +21,7 @@ import pytest
 import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 from test_torch_kvstore import chip_smoke, jsymbols
 
 CPU = mt.cpu()
