@@ -127,8 +127,10 @@ Phases (any failure exits non-zero; no error is swallowed):
    bound modules (6), parameter copies per bucket switch, Perplexity
    (``score`` after the passes under the vocabulary size), the peak of
    each pass (none above the second once every module is bound), a
-   profile of one step at length 60. K1-K3 launch 0 times on this
-   path.
+   profile of one step at length 60. (c) The word LM with ``--tied``
+   (the decoder's weight is the embedding's, one ``embedding0_weight``):
+   step 1 at dropout 0 against the CPU, as in (a). K1-K3 launch 0 times
+   on this path.
 11. image_classification — the recipe of
    ``examples/image-classification`` (fp32, both TF32 flags off, cudnn
    deterministic). (a) ``common/fit.py``'s loop on
@@ -346,7 +348,34 @@ Phases (any failure exits non-zero; no error is swallowed):
    through ``ImageRecordIter(rand_crop=True)`` to 224, equal to a direct
    PIL decode and a numpy crop under the same draws; without it,
    ``imdecode`` must raise naming Pillow.
-22. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+22. conv_recurrent — the ConvLSTM encoder-forecaster of Shi et al. 2015
+   (section 4.1, Moving MNIST's shapes: 16 patch channels on 16 x 16, 10
+   frames in and 10 out, 128-64-64 hidden channels, 5 x 5 kernels, batch
+   16; sprites bouncing in 64 x 64 from a seed; fp32, both TF32 flags
+   off, cuDNN's default algorithms). (a) ``gluon.contrib.rnn.
+   Conv2DLSTMCell``s through ``autograd.record`` and ``gluon.Trainer``
+   (RMSProp 1e-3, gamma1 0.9): step 1 eager and hybridized against each
+   other (1e-6) and a CPU recompute (loss 1e-4 relative, parameters 1e-3
+   of each tensor's largest value); then 20 steps: ms a step (CUDA
+   events), the peak, a profiled step (idle share), and exactly 130
+   ``cudnn_convolution`` and 130 ``convolution_backward`` calls a step.
+   (b) The same network of ``mx.rnn.ConvLSTMCell``s through
+   ``Module.fit`` (2 epochs of 3 batches) whose batches are made by host
+   work pushed to ``mx.engine`` into ``resource`` temp space (bit-equal
+   under ``NaiveEngine``), logged by ``mx.contrib.tensorboard.
+   LogMetricsCallback``; ``mx.viz.print_summary``'s count equal to (a)'s;
+   step 1 against the CPU as in (a). (c) ``mx.test_utils.
+   check_consistency`` of one ``ConvLSTMCell`` step over the card and the
+   CPU; the first layer's i2h weight gradient under cuDNN's deterministic
+   and default algorithms against the CPU; ``Storage.device_stats``
+   against ``torch.cuda.memory_stats``; ``InferenceEngine`` on ResNet-50
+   v1 whose bucket-32 forward runs out of memory under
+   ``torch.cuda.set_per_process_memory_fraction``: a
+   ``DeviceMemoryError`` naming the ledger with PyTorch's OOM as its
+   cause, then a bucket-1 forward with exactly 16 K1 launches;
+   ``MXNET_PROFILER_AUTOSTART=1`` in a child process, whose trace holds
+   the card's kernels.
+23. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
@@ -358,8 +387,8 @@ Phases (any failure exits non-zero; no error is swallowed):
    ``dense_prediction_launches`` (0), ``data_parallel_launches``,
    ``model_parallel_launches``, ``engine_meshes_launches``,
    ``elastic_launches``, ``sparse_launches`` (0),
-   ``detection_launches`` (0) and ``records_launches`` its counts on
-   those paths — and,
+   ``detection_launches`` (0), ``records_launches`` and
+   ``conv_recurrent_launches`` its counts on those paths — and,
    last, the ``{"ok": true,
    "device": {...}}`` line.
 
@@ -367,7 +396,7 @@ The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-21 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-22 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -2128,7 +2157,8 @@ _RNN_LOSS_TOL, _RNN_PARAM_TOL = 1e-4, 1e-3     # step 1 against the CPU
 
 def _word_lm(mx, cfg):
     """``examples/gluon/word_language_model/train.py``'s RNNModel (its
-    states begin on the input's context)."""
+    states begin on the input's context); ``cfg["tied"]`` ties the
+    decoder's weight to the embedding (``--tied``, emsize = nhid)."""
     gluon = mx.gluon
 
     class RNNModel(gluon.Block):
@@ -2140,8 +2170,10 @@ def _word_lm(mx, cfg):
                 self.rnn = gluon.rnn.LSTM(cfg["nhid"], cfg["nlayers"],
                                           dropout=cfg["dropout"],
                                           input_size=cfg["emsize"])
-                self.decoder = gluon.nn.Dense(cfg["vocab"],
-                                              in_units=cfg["nhid"])
+                # --tied: the decoder shares the embedding's parameters
+                self.decoder = gluon.nn.Dense(
+                    cfg["vocab"], in_units=cfg["nhid"],
+                    params=self.encoder.params if cfg.get("tied") else None)
                 self.hidden_dim = cfg["nhid"]
 
         def forward(self, inputs, hidden=None):
@@ -2319,6 +2351,43 @@ def _word_lm_leg(mx, ctx, rehearsal, card):
         "masks_agree": hl["losses"] == el["losses"]}
     _set_dropout(model, cfg["dropout"], False)
     emit({"rnn_training": {"word_lm": rec}})
+    return rec
+
+
+def _tied_word_lm_leg(mx, ctx, rehearsal, card):
+    """(c): upstream's ``--tied`` medium word LM (emsize = nhid = 650,
+    vocab 10,000; one ``embedding0_weight`` serves the embedding and the
+    decoder): step 1 at dropout 0 on the card against the CPU."""
+    cfg = dict(_WLM[rehearsal], dropout=0.0, tied=True)
+    model = _word_lm(mx, cfg)
+    model.initialize(mx.init.Xavier(generator=torch.Generator().manual_seed(
+        2)), ctx=ctx)
+    params = model.collect_params()
+    names = list(params.keys())
+    tied = [k for k in names if k.endswith("embedding0_weight")]
+    assert len(tied) == 1 and not [k for k in names if "dense" in k], names
+    init = _host_copy(params)
+    tokens = np.random.RandomState(2).randint(
+        0, cfg["vocab"], (cfg["bptt"] + 1, cfg["batch"])).astype(np.float32)
+    _set_dropout(model, 0.0, False)
+    loss = _WordLMSteps(mx, model, tokens, cfg, ctx)()
+    got = _host_copy(params)
+    cpu = _word_lm(mx, cfg)
+    cpu.initialize(ctx=mx.cpu())
+    _load_params(cpu, init)
+    cpu_loss = _WordLMSteps(mx, cpu, tokens, cfg, mx.cpu())()
+    want = _host_copy(cpu.collect_params())
+    rec = {"config": {k: v for k, v in cfg.items()}, "card": card,
+           "parameters": int(sum(p.data().size for p in params.values())),
+           "tied_parameter": tied[0],
+           "step1_dropout0": {
+               "loss": loss, "cpu_loss": cpu_loss,
+               "loss_rel_err_vs_cpu": abs(loss - cpu_loss) / abs(cpu_loss),
+               "param_scaled_err_vs_cpu": _max_scaled(got, want)}}
+    emit({"rnn_training": {"tied_word_lm": rec}})
+    s1 = rec["step1_dropout0"]
+    assert s1["loss_rel_err_vs_cpu"] <= _RNN_LOSS_TOL, s1
+    assert s1["param_scaled_err_vs_cpu"] <= _RNN_PARAM_TOL, s1
     return rec
 
 
@@ -3989,6 +4058,7 @@ def rnn_training_phase(mx, ctx, rehearsal):
     K1.launches = FA.fwd_launches = FA.bwd_launches = 0
     _word_lm_leg(mx, ctx, rehearsal, card)
     _bucketing_leg(mx, ctx, rehearsal, card)
+    _tied_word_lm_leg(mx, ctx, rehearsal, card)
     counts = _kernel_counts()
     # ---------------------------------------------------------------------
     emit({"rnn_training": {"k1_launches": counts[0],
@@ -9593,11 +9663,730 @@ def records_phase(mx, ctx, rehearsal, card):
     return (b["k1_launches"],) + k23
 
 
+# -- conv_recurrent: the ConvLSTM encoder-forecaster of Shi et al. 2015 ----
+
+# Shi et al., "Convolutional LSTM Network", NIPS 2015, section 4.1 (Moving
+# MNIST): 64x64 frames as 16x16 grids of 4x4 patches (16 channels), 10
+# frames in and 10 predicted, three ConvLSTM layers of 128, 64 and 64
+# hidden channels in the encoder and in the forecaster, 5x5 kernels with
+# pad 2, RMSProp (lr 1e-3, decay 0.9). The rehearsal and the CPU tests
+# take the small configuration.
+_CONVLSTM = {False: dict(frame=64, patch=4, frames_in=10, frames_out=10,
+                         hidden=(128, 64, 64), kernel=5, batch=16,
+                         sprites=2, sprite=28, steps=20, epochs=2,
+                         batches=3),
+             True: dict(frame=32, patch=4, frames_in=3, frames_out=3,
+                        hidden=(8, 8), kernel=3, batch=2, sprites=1,
+                        sprite=10, steps=3, epochs=2, batches=3)}
+# Table 1 of the paper: "ConvLSTM(5x5)-5x5-128-5x5-64-5x5-64", with the
+# peephole weights that neither package's cells have
+_CONVLSTM_PAPER_PARAMS = 7585296
+_CONVLSTM_SEED = 18
+_CONVLSTM_LR, _CONVLSTM_GAMMA1 = 1e-3, 0.9
+
+
+def moving_sprites(cfg, n, seed):
+    """Moving-MNIST-shaped sequences made from ``seed``: ``sprites``
+    random ``sprite``x``sprite`` patterns bounce inside a ``frame`` square
+    (the brighter pixel wins where they overlap); each frame is cut into
+    ``patch``x``patch`` patches as channels. Returns float32 ``(x, y)``:
+    ``(n, frames_in, patch**2, S, S)`` and ``(n, frames_out, ...)``,
+    ``S = frame // patch``, values in [0, 1]."""
+    rs = np.random.RandomState(seed)
+    f, s, p = cfg["frame"], cfg["sprite"], cfg["patch"]
+    T = cfg["frames_in"] + cfg["frames_out"]
+    k = cfg["sprites"]
+    look = rs.rand(n, k, s, s).astype(np.float32) ** 3
+    pos = rs.uniform(0, f - s, (n, k, 2))
+    vel = rs.uniform(-3.0, 3.0, (n, k, 2))
+    frames = np.zeros((n, T, f, f), np.float32)
+    for t in range(T):
+        for i in range(n):
+            for j in range(k):
+                y, x = (int(round(v)) for v in pos[i, j])
+                win = frames[i, t, y:y + s, x:x + s]
+                np.maximum(win, look[i, j], out=win)
+        pos += vel
+        for lim in (pos < 0, pos > f - s):      # bounce off the walls
+            vel[lim] = -vel[lim]
+        pos = np.clip(pos, 0, f - s)
+    g = f // p
+    patches = frames.reshape(n, T, g, p, g, p).transpose(
+        0, 1, 3, 5, 2, 4).reshape(n, T, p * p, g, g)
+    return (np.ascontiguousarray(patches[:, :cfg["frames_in"]]),
+            np.ascontiguousarray(patches[:, cfg["frames_in"]:]))
+
+
+def convlstm_init(cfg, names_shapes, seed):
+    """Seeded weights for either model: uniform in +-1/sqrt(fan_in) for
+    each weight, zero biases (names and shapes in ``names_shapes``)."""
+    rs = np.random.RandomState(seed)
+    out = {}
+    for name, shape in sorted(names_shapes.items()):
+        if name.endswith("bias"):
+            out[name] = np.zeros(shape, np.float32)
+        else:
+            bound = 1.0 / np.sqrt(float(np.prod(shape[1:])))
+            out[name] = rs.uniform(-bound, bound, shape).astype(np.float32)
+    return out
+
+
+def convlstm_ef(mx, cfg):
+    """The encoder-forecaster of ``gluon.contrib.rnn.Conv2DLSTMCell``s, a
+    HybridBlock called as ``net(x, *states)``: ``x`` the input frames
+    ``(N, frames_in, C, S, S)``, ``states`` the encoder's zero begin states
+    (h and c of each layer). The forecaster's layers start from the
+    encoder's last states and take zeros as input (the paper's forecaster
+    takes none); a 1x1 convolution over the forecaster's concatenated
+    hidden states gives each predicted frame's logits, stacked as
+    ``(N, frames_out, C, S, S)``. Parameter names are the symbolic model's
+    (``enc0_i2h_weight``, ..., ``pred_weight``)."""
+    gluon = mx.gluon
+    crnn = gluon.contrib.rnn
+    c, s, k = cfg["patch"] ** 2, cfg["frame"] // cfg["patch"], cfg["kernel"]
+    nl = len(cfg["hidden"])
+
+    class EncoderForecaster(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="")
+            with self.name_scope():
+                for tag in ("enc", "fore"):
+                    cin = c
+                    for i, h in enumerate(cfg["hidden"]):
+                        setattr(self, "%s%d" % (tag, i), crnn.Conv2DLSTMCell(
+                            input_shape=(cin, s, s), hidden_channels=h,
+                            i2h_kernel=k, h2h_kernel=k, i2h_pad=k // 2,
+                            prefix="%s%d_" % (tag, i)))
+                        cin = h
+                self.pred = gluon.nn.Conv2D(
+                    c, kernel_size=1, in_channels=sum(cfg["hidden"]),
+                    prefix="pred_")
+
+        def hybrid_forward(self, F, x, *states):
+            xs = F.SliceChannel(x, num_outputs=cfg["frames_in"], axis=1,
+                                squeeze_axis=True)
+            st = [list(states[2 * i:2 * i + 2]) for i in range(nl)]
+            for t in range(cfg["frames_in"]):
+                inp = xs[t]
+                for i in range(nl):
+                    inp, st[i] = getattr(self, "enc%d" % i)(inp, st[i])
+            zero = F.zeros_like(xs[0])
+            outs = []
+            for t in range(cfg["frames_out"]):
+                inp, hs = zero, []
+                for i in range(nl):
+                    inp, st[i] = getattr(self, "fore%d" % i)(inp, st[i])
+                    hs.append(inp)
+                outs.append(F.expand_dims(self.pred(F.Concat(*hs, dim=1)),
+                                          axis=1))
+            return F.Concat(*outs, dim=1)
+
+    return EncoderForecaster()
+
+
+def convlstm_ef_states(mx, cfg, ctx):
+    """The encoder's zero begin states, h and c of each layer."""
+    s = cfg["frame"] // cfg["patch"]
+    return [mx.nd.zeros((cfg["batch"], h, s, s), ctx=ctx)
+            for h in cfg["hidden"] for _ in range(2)]
+
+
+def convlstm_ef_symbol(mx, cfg):
+    """The same network of ``mx.rnn.ConvLSTMCell``s as one unrolled symbol
+    for ``Module``: inputs ``data`` and ``label``, output the mean sigmoid
+    cross-entropy (``MakeLoss``, the formula of Gluon's
+    ``SigmoidBinaryCrossEntropyLoss`` on logits)."""
+    sym = mx.sym
+    c, s, k = cfg["patch"] ** 2, cfg["frame"] // cfg["patch"], cfg["kernel"]
+    b = cfg["batch"]
+    cells = {}
+    for tag in ("enc", "fore"):
+        cin = c
+        for i, h in enumerate(cfg["hidden"]):
+            cells[tag, i] = mx.rnn.ConvLSTMCell(
+                input_shape=(b, cin, s, s), num_hidden=h, h2h_kernel=(k, k),
+                i2h_kernel=(k, k), i2h_pad=(k // 2, k // 2),
+                prefix="%s%d_" % (tag, i))
+            cin = h
+    nl = len(cfg["hidden"])
+    xs = sym.SliceChannel(sym.Variable("data"), num_outputs=cfg["frames_in"],
+                          axis=1, squeeze_axis=True)
+    st = [[sym.zeros(shape=(b, h, s, s)) for _ in range(2)]
+          for h in cfg["hidden"]]
+    for t in range(cfg["frames_in"]):
+        inp = xs[t]
+        for i in range(nl):
+            inp, st[i] = cells["enc", i](inp, st[i])
+    pw, pb = sym.Variable("pred_weight"), sym.Variable("pred_bias")
+    outs = []
+    for t in range(cfg["frames_out"]):
+        inp, hs = sym.zeros(shape=(b, c, s, s)), []
+        for i in range(nl):
+            inp, st[i] = cells["fore", i](inp, st[i])
+            hs.append(inp)
+        logit = sym.Convolution(sym.Concat(*hs, dim=1), weight=pw, bias=pb,
+                                num_filter=c, kernel=(1, 1),
+                                name="pred_t%d" % t)
+        outs.append(sym.expand_dims(logit, axis=1))
+    logits = sym.Concat(*outs, dim=1)
+    label = sym.Variable("label")
+    neg = sym.relu(-logits)
+    bce = logits - logits * label + neg + sym.log(sym.exp(-neg)
+                                                 + sym.exp(-logits - neg))
+    return sym.MakeLoss(sym.mean(bce), name="bce")
+
+
+def _ef_gluon_net(mx, cfg, ctx, init):
+    net = convlstm_ef(mx, cfg)
+    net.initialize(ctx=ctx)
+    _ef_load(net.collect_params(), init)
+    return net
+
+
+def _ef_load(params, init):
+    with torch.no_grad():
+        for k, p in params.items():
+            p.data()._data.copy_(torch.from_numpy(init[k]))
+
+
+class _EFGluonStep:
+    """One training step of the Gluon encoder-forecaster: ``record`` →
+    ``SigmoidBinaryCrossEntropyLoss`` on the logits, mean → ``backward``
+    → ``Trainer.step(1)`` (RMSProp)."""
+
+    def __init__(self, mx, net, cfg, ctx):
+        self.mx, self.net, self.cfg, self.ctx = mx, net, cfg, ctx
+        self.loss_fn = mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+        self.trainer = mx.gluon.Trainer(
+            net.collect_params(), "rmsprop",
+            {"learning_rate": _CONVLSTM_LR, "gamma1": _CONVLSTM_GAMMA1})
+        self.states = convlstm_ef_states(mx, cfg, ctx)
+
+    def __call__(self, x, y):
+        mx = self.mx
+        X, Y = mx.nd.array(x, ctx=self.ctx), mx.nd.array(y, ctx=self.ctx)
+        with mx.autograd.record():
+            loss = self.loss_fn(self.net(X, *self.states), Y).mean()
+        loss.backward()
+        self.trainer.step(1)
+        return loss
+
+
+def _ef_step1(mx, cfg, ctx, init, x, y, hybridize):
+    net = _ef_gluon_net(mx, cfg, ctx, init)
+    net.hybridize(hybridize)
+    loss = float(_EFGluonStep(mx, net, cfg, ctx)(x, y).asscalar())
+    return loss, _host_copy(net.collect_params())
+
+
+def _conv_calls(fn):
+    """cuDNN convolutions of one call of ``fn``: ATen's
+    ``cudnn_convolution`` (forward) and ``convolution_backward`` events
+    of a CPU-side profile."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key in ("aten::cudnn_convolution",
+                         "aten::convolution_backward")}
+
+
+def _ef_gluon_leg(mx, ctx, rehearsal, cfg, init, n_params, card):
+    """(a): step 1 eager and hybridized on the card against each other
+    and a CPU recompute, then ``steps`` timed eager steps on fresh
+    batches, one profiled step and its cuDNN convolution count."""
+    gpu = ctx.device_type == "gpu"
+    x, y = moving_sprites(cfg, cfg["batch"], _CONVLSTM_SEED)
+    e_loss, e_par = _ef_step1(mx, cfg, ctx, init, x, y, False)
+    h_loss, h_par = _ef_step1(mx, cfg, ctx, init, x, y, True)
+    t0 = time.perf_counter()
+    c_loss, c_par = _ef_step1(mx, cfg, mx.cpu(), init, x, y, False)
+    cpu_s = time.perf_counter() - t0
+    rec = {"config": dict(cfg), "card": card, "parameters": n_params,
+           "paper_table1_parameters": _CONVLSTM_PAPER_PARAMS,
+           "precision": "fp32; TF32 off (cudnn and matmul); cudnn's "
+                        "default (nondeterministic) algorithms",
+           "step1": {"loss": e_loss, "cpu_loss": c_loss,
+                     "loss_rel_err_vs_cpu": abs(e_loss - c_loss)
+                     / abs(c_loss),
+                     "param_scaled_err_vs_cpu": _max_scaled(e_par, c_par),
+                     "hybridized_loss": h_loss,
+                     "hybridized_vs_eager_loss_abs": abs(h_loss - e_loss),
+                     "hybridized_vs_eager_param_scaled":
+                         _max_scaled(h_par, e_par),
+                     "hybridized_bit_equal": h_loss == e_loss and all(
+                         torch.equal(h_par[k], e_par[k]) for k in e_par),
+                     "cpu_recompute_s": cpu_s}}
+    s1 = rec["step1"]
+    assert s1["loss_rel_err_vs_cpu"] <= _RNN_LOSS_TOL, s1
+    assert s1["param_scaled_err_vs_cpu"] <= _RNN_PARAM_TOL, s1
+    assert s1["hybridized_vs_eager_loss_abs"] <= 1e-6, s1
+    assert s1["hybridized_vs_eager_param_scaled"] <= 1e-6, s1
+    del e_par, h_par, c_par
+
+    net = _ef_gluon_net(mx, cfg, ctx, init)
+    step = _EFGluonStep(mx, net, cfg, ctx)
+    data = [moving_sprites(cfg, cfg["batch"], _CONVLSTM_SEED + 1 + i)
+            for i in range(cfg["steps"])]
+    it = iter(data)
+    peaks = []
+
+    def tracked():
+        xb, yb = next(it)
+        if gpu:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        out = float(step(xb, yb).asscalar())
+        if gpu:
+            peaks.append(torch.cuda.max_memory_allocated())
+        return out
+
+    losses, ms, wall = _timed_steps(tracked, cfg["steps"], gpu)
+    assert all(np.isfinite(losses)), losses
+    leg = {"steps": cfg["steps"], "losses": losses}
+    # i2h and h2h of every layer at every frame, and the 1x1 head per
+    # predicted frame
+    nf = 2 * len(cfg["hidden"]) * (cfg["frames_in"] + cfg["frames_out"]) \
+        + cfg["frames_out"]
+    leg["convolutions_per_step"] = nf
+    if gpu:
+        seqs = cfg["batch"]
+        leg.update({"step_ms": ms, "step_ms_mean_2_on": float(np.mean(
+            ms[1:])), "step_wall_ms": wall,
+            "sequences_per_s": seqs / float(np.mean(ms[1:])) * 1e3,
+            "peak_bytes_per_step": peaks})
+        xb, yb = data[-1]
+        leg["step_profile"] = profile_forward(lambda: step(xb, yb),
+                                              reps=1)
+        calls = _conv_calls(lambda: step(xb, yb))
+        leg["cudnn_calls_per_step"] = calls
+        assert calls.get("aten::cudnn_convolution", 0) == nf, (calls, nf)
+        assert calls.get("aten::convolution_backward", 0) == nf, (calls, nf)
+    rec["steps"] = leg
+    return rec, (e_loss, c_loss)
+
+
+class _EngineFrames:
+    """A DataIter whose next batch is made by host work pushed to
+    ``mx.engine`` while the current one trains, into ``resource``
+    temp space (pooled ``mx.storage``); ``next`` waits for the batch's
+    variable, copies it to the card and pushes the one after."""
+
+    def __init__(self, mx, cfg, ctx, engine, batches, seed):
+        self.mx, self.cfg, self.ctx, self.engine = mx, cfg, ctx, engine
+        self.batches, self.seed = batches, seed
+        self.batch_size = cfg["batch"]
+        s = cfg["frame"] // cfg["patch"]
+        shape = (cfg["batch"], cfg["frames_in"], cfg["patch"] ** 2, s, s)
+        self.provide_data = [mx.io.DataDesc("data", shape)]
+        self.provide_label = [mx.io.DataDesc("label", shape)]
+        self.res = mx.resource.request(mx.cpu(), "temp_space")
+        self.buf = self.res.get_space((2,) + shape)
+        self.var = engine.new_var()
+        self.k = 0
+        self.made = []
+        self._push(0)
+
+    def _push(self, k):
+        if k >= self.batches:
+            return
+
+        def make():
+            x, y = moving_sprites(self.cfg, self.cfg["batch"], self.seed + k)
+            self.buf[0], self.buf[1] = x, y
+        self.engine.push(make, mutable_vars=[self.var])
+
+    def reset(self):
+        self.engine.wait_for_var(self.var)
+        self.k = 0
+        self._push(0)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next()
+
+    def next(self):
+        if self.k >= self.batches:
+            raise StopIteration
+        self.engine.wait_for_var(self.var)
+        self.made.append(self.buf.copy())
+        mx = self.mx
+        batch = mx.io.DataBatch([mx.nd.array(self.buf[0], ctx=self.ctx)],
+                                [mx.nd.array(self.buf[1], ctx=self.ctx)],
+                                pad=0)
+        self.k += 1
+        self._push(self.k)
+        return batch
+
+
+def _ef_module(mx, cfg, ctx, init):
+    mod = mx.mod.Module(convlstm_ef_symbol(mx, cfg), data_names=("data",),
+                        label_names=("label",), context=ctx)
+    s = cfg["frame"] // cfg["patch"]
+    shape = (cfg["batch"], cfg["frames_in"], cfg["patch"] ** 2, s, s)
+    mod.bind(data_shapes=[("data", shape)], label_shapes=[("label", shape)])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=ctx)
+                                for k, v in init.items()},
+                    allow_missing=False)
+    return mod
+
+
+_EF_OPT = {"learning_rate": _CONVLSTM_LR, "gamma1": _CONVLSTM_GAMMA1,
+           "rescale_grad": 1.0}
+
+
+def _ef_module_step1(mx, cfg, ctx, init, x, y):
+    mod = _ef_module(mx, cfg, ctx, init)
+    mod.init_optimizer(optimizer="rmsprop", optimizer_params=_EF_OPT)
+    mod.forward(mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                                [mx.nd.array(y, ctx=ctx)]), is_train=True)
+    loss = float(mod.get_outputs()[0].asnumpy())
+    mod.backward()
+    mod.update()
+    arg, _ = mod.get_params()
+    return loss, {k: v._data.to("cpu", copy=True) for k, v in arg.items()}
+
+
+def _ef_symbolic_leg(mx, ctx, rehearsal, cfg, init, n_params, card, tmp,
+                     gluon_step1):
+    """(b): the same network of ``mx.rnn.ConvLSTMCell``s through
+    ``Module.fit`` (RMSProp, ``epochs`` x ``batches``), fed by
+    ``_EngineFrames`` and logged by ``LogMetricsCallback``; the summary's
+    parameter count; the batches bit-equal under ``NaiveEngine``; step 1
+    against a CPU recompute."""
+    import io as _io
+    gpu = ctx.device_type == "gpu"
+    sym = convlstm_ef_symbol(mx, cfg)
+    s = cfg["frame"] // cfg["patch"]
+    shape = (cfg["batch"], cfg["frames_in"], cfg["patch"] ** 2, s, s)
+    out = _io.StringIO()
+    with contextlib.redirect_stdout(out):
+        total = mx.viz.print_summary(sym, shape={"data": shape,
+                                                 "label": shape})
+    text = out.getvalue()
+    assert total == n_params, (total, n_params)
+    rec = {"card": card, "summary_total_params": total,
+           "summary_lines": len(text.splitlines()),
+           "summary_tail": text.splitlines()[-2:]}
+
+    # step 1 on the card and the CPU, and against (a)'s step 1
+    x, y = moving_sprites(cfg, cfg["batch"], _CONVLSTM_SEED)
+    loss, par = _ef_module_step1(mx, cfg, ctx, init, x, y)
+    t0 = time.perf_counter()
+    c_loss, c_par = _ef_module_step1(mx, cfg, mx.cpu(), init, x, y)
+    rec["step1"] = {"loss": loss, "cpu_loss": c_loss,
+                    "loss_rel_err_vs_cpu": abs(loss - c_loss) / abs(c_loss),
+                    "param_scaled_err_vs_cpu": _max_scaled(par, c_par),
+                    "gluon_step1_loss": gluon_step1[0],
+                    "loss_abs_vs_gluon": abs(loss - gluon_step1[0]),
+                    "cpu_recompute_s": time.perf_counter() - t0}
+    s1 = rec["step1"]
+    assert s1["loss_rel_err_vs_cpu"] <= _RNN_LOSS_TOL, s1
+    assert s1["param_scaled_err_vs_cpu"] <= _RNN_PARAM_TOL, s1
+    del par, c_par
+
+    # the batches: a threaded engine against NaiveEngine, bit for bit
+    runs = {}
+    for naive in (False, True):
+        eng = mx.engine.NaiveEngine() if naive else mx.engine.Engine(
+            num_workers=2)
+        it = _EngineFrames(mx, cfg, ctx, eng, cfg["batches"],
+                           _CONVLSTM_SEED + 100)
+        for _ in it:
+            pass
+        runs[naive] = it.made
+        it.res.release()
+    rec["naive_engine_bit_equal"] = len(runs[False]) == cfg["batches"] \
+        and all(np.array_equal(a, b) for a, b in zip(runs[False],
+                                                     runs[True]))
+    assert rec["naive_engine_bit_equal"], "engine batches differ"
+
+    # Module.fit over the engine-fed batches, the metric log beside it
+    st0 = mx.storage.Storage.get().stats()
+    it = _EngineFrames(mx, cfg, ctx, mx.engine.get(), cfg["batches"],
+                       _CONVLSTM_SEED + 100)
+    st1 = mx.storage.Storage.get().stats()
+    logdir = os.path.join(tmp, "tb")
+    cb = mx.contrib.tensorboard.LogMetricsCallback(logdir, prefix="train")
+    mod = _ef_module(mx, cfg, ctx, init)
+    times = []
+
+    def timed(param):
+        if gpu:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        cb(param)
+
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=cfg["epochs"], optimizer="rmsprop",
+            optimizer_params=_EF_OPT, eval_metric=mx.metric.Loss(),
+            batch_end_callback=timed)
+    fit_s = time.perf_counter() - t0
+    writer = cb.summary_writer
+    if hasattr(writer, "flush"):
+        writer.flush()
+    events = sorted(os.listdir(logdir))
+    arg, _ = mod.get_params()
+    finite = all(bool(torch.isfinite(v._data).all()) for v in arg.values())
+    rec["fit"] = {"epochs": cfg["epochs"], "batches": cfg["batches"],
+                  "steps": len(times), "fit_s": fit_s,
+                  "batch_ms": [1e3 * (b - a) for a, b in zip(times,
+                                                             times[1:])],
+                  "metric_log": events,
+                  "metric_writer": type(writer).__name__,
+                  "temp_space_pool_bytes": st1["allocated"]
+                  - st0["allocated"], "finite": finite}
+    it.res.release()
+    assert len(times) == cfg["epochs"] * cfg["batches"], times
+    assert events and finite, rec["fit"]
+    return rec
+
+
+def _ef_oom_leg(mx, ctx, rehearsal, card):
+    """(c) 3: ``InferenceEngine`` on ResNet-50 v1: the bucket-32 forward
+    run out of memory under ``set_per_process_memory_fraction`` (the
+    rehearsal raises a synthetic ``torch.OutOfMemoryError`` there
+    instead) must fail its request with ``DeviceMemoryError``; after the
+    cap is lifted a bucket-1 forward is served with 16 K1 launches."""
+    from mxnet_tpu_torch.kernels import fused_bn as K
+    from mxnet_tpu_torch.serving import InferenceEngine, DeviceMemoryError
+    gpu = ctx.device_type == "gpu"
+    sym, params, hw, classes, max_batch, reqs, _ = _served_resnet(
+        mx, ctx, rehearsal)
+    eng = InferenceEngine(sym, params, {"data": (1, hw, hw, 3)},
+                          max_batch=max_batch, max_wait_ms=2.0, ctx=ctx)
+    rec = {}
+    big = np.random.RandomState(3).uniform(
+        -1, 1, (max_batch, hw, hw, 3)).astype(np.float32)
+    fn = eng._forward._fn
+    try:
+        if gpu:
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            total = torch.cuda.get_device_properties(0).total_memory
+            allowed = torch.cuda.memory_reserved() + (32 << 20)
+            torch.cuda.set_per_process_memory_fraction(allowed / total)
+            rec["cap_bytes"] = allowed
+        else:
+            def fake(args, aux):
+                if args["data"].shape[0] == max_batch:
+                    raise torch.OutOfMemoryError(
+                        "CUDA out of memory. Tried to allocate 98.00 MiB "
+                        "(rehearsal)")
+                return fn(args, aux)
+            eng._forward._fn = fake
+        err = None
+        try:
+            eng.submit(data=big).result(timeout=600)
+        except DeviceMemoryError as e:
+            err = e
+    finally:
+        if gpu:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        eng._forward._fn = fn
+    assert err is not None, "no DeviceMemoryError"
+    msg = str(err)
+    rec.update({"error": type(err).__name__,
+                "cause": type(err.__cause__).__name__,
+                "names_the_ledger": "live device-buffer ledger" in msg,
+                "names_the_card": "program memory card" in msg,
+                "message_head": msg.splitlines()[:3]})
+    del err
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+    K.launches = 0
+    out = eng.submit(data=reqs[0][:1]).result(timeout=600)
+    rec["bucket1_k1_launches"] = K.launches
+    rec["bucket1_finite"] = bool(np.isfinite(out[0]).all())
+    eng.close()
+    assert rec["cause"] == "OutOfMemoryError", rec
+    assert rec["names_the_ledger"] and rec["names_the_card"], rec
+    assert rec["bucket1_finite"], rec
+    assert rec["bucket1_k1_launches"] == (16 if gpu else 0), rec
+    mx.layout.set_default_layout(None)
+    return rec
+
+
+def _wgrad_by_algorithm(cfg):
+    """The weight gradient of the first layer's i2h convolution on the
+    card, with cuDNN's deterministic algorithms and with its default
+    ones, each against the CPU's: the largest difference over the CPU
+    gradient's largest value."""
+    c, s, k, b = cfg["patch"] ** 2, cfg["frame"] // cfg["patch"], \
+        cfg["kernel"], cfg["batch"]
+    o = 4 * cfg["hidden"][0]
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(b, c, s, s, generator=g) * 0.1
+    go = torch.randn(b, o, s, s, generator=g)
+    wshape = (o, c, k, k)
+    cpu = torch.nn.grad.conv2d_weight(x, wshape, go, padding=k // 2)
+    out = {"shape": [list(x.shape), list(wshape)]}
+    det = torch.backends.cudnn.deterministic
+    try:
+        for mode in (True, False):
+            torch.backends.cudnn.deterministic = mode
+            card = torch.nn.grad.conv2d_weight(x.cuda(), wshape, go.cuda(),
+                                               padding=k // 2).cpu()
+            out["deterministic" if mode else "default"] = float(
+                (card - cpu).abs().max() / cpu.abs().max())
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
+def _ef_runtime_leg(mx, ctx, rehearsal, cfg, card, tmp):
+    """(c): ``check_consistency`` of one ``ConvLSTMCell`` step's symbol
+    over the card and the CPU, ``Storage.device_stats`` against
+    ``torch.cuda.memory_stats``, the OOM leg, and
+    ``MXNET_PROFILER_AUTOSTART=1`` in a child process."""
+    gpu = ctx.device_type == "gpu"
+    rec = {"card": card}
+    c, s, h = cfg["patch"] ** 2, cfg["frame"] // cfg["patch"], \
+        cfg["hidden"][0]
+    k = cfg["kernel"]
+    cell = mx.rnn.ConvLSTMCell(input_shape=(cfg["batch"], c, s, s),
+                               num_hidden=h, h2h_kernel=(k, k),
+                               i2h_kernel=(k, k), i2h_pad=(k // 2, k // 2),
+                               prefix="cc_")
+    o, (hh, cc) = cell(mx.sym.Variable("data"),
+                       [mx.sym.Variable("h0"), mx.sym.Variable("c0")])
+    one = mx.sym.Group([o, cc])
+    shapes = {"data": (cfg["batch"], c, s, s), "h0": (cfg["batch"], h, s, s),
+              "c0": (cfg["batch"], h, s, s)}
+    ctxs = [ctx, mx.cpu()] if gpu else [mx.cpu(0), mx.cpu(1)]
+    t0 = time.perf_counter()
+    res = mx.test_utils.check_consistency(
+        one, [dict(shapes, ctx=c_) for c_ in ctxs], scale=0.1)
+    (o0, g0), (o1, g1) = res
+    rec["check_consistency"] = {
+        "contexts": [str(c_) for c_ in ctxs], "rtol": 1e-3, "atol": 1e-4,
+        "outputs_max_abs_err": max(float(np.abs(a - b).max())
+                                   for a, b in zip(o0, o1)),
+        "grads_max_abs_err": max(float(np.abs(g0[n] - g1[n]).max())
+                                 for n in g0),
+        "s": time.perf_counter() - t0}
+
+    if gpu:
+        rec["cudnn_wgrad"] = _wgrad_by_algorithm(cfg)
+
+    st = mx.storage.Storage.device_stats(ctx)
+    if gpu:
+        torch.cuda.synchronize()
+        raw = torch.cuda.memory_stats(0)
+        keys = ("allocated_bytes.all.current", "reserved_bytes.all.current",
+                "num_alloc_retries", "num_ooms")
+        rec["device_stats"] = {kk: [st[kk], raw[kk]] for kk in keys}
+        rec["device_stats"]["bytes_limit"] = st["bytes_limit"]
+        assert all(a == b for a, b in
+                   (rec["device_stats"][kk] for kk in keys)), rec
+        assert st["bytes_in_use"] == st["allocated_bytes.all.current"]
+        assert st["bytes_limit"] == torch.cuda.get_device_properties(
+            0).total_memory
+    else:
+        assert st == {}, st
+    rec["ledger_report_keys"] = sorted(mx.storage.Storage.ledger_report())
+
+    rec["oom"] = _ef_oom_leg(mx, ctx, rehearsal, card)
+
+    code = ("import mxnet_tpu_torch as mt, torch; "
+            "print(mt.profiler._state['running']); "
+            "ctx = mt.gpu(0) if torch.cuda.is_available() else mt.cpu(); "
+            "a = mt.nd.ones((256, 256), ctx=ctx); "
+            "print(float(mt.nd.dot(a, a).sum().asscalar()))")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MXNET_PROFILER_AUTOSTART="1",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    child_dir = os.path.join(tmp, "autostart")
+    os.makedirs(child_dir)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=child_dir, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    trace = json.load(open(os.path.join(child_dir, "profile.json")))
+    kernels = [e for e in trace["traceEvents"]
+               if e.get("cat") == "kernel"]
+    rec["profiler_autostart"] = {"running_at_import": lines[-2] == "True",
+                                 "result": float(lines[-1]),
+                                 "trace_events": len(trace["traceEvents"]),
+                                 "device_kernels": len(kernels),
+                                 "child_s": time.perf_counter() - t0}
+    assert lines[-2] == "True" and float(lines[-1]) == 256.0 ** 3, lines
+    if gpu:
+        assert kernels, "the autostarted trace holds no device kernel"
+    return rec
+
+
+def conv_recurrent_phase(mx, ctx, rehearsal, card):
+    """The ConvLSTM encoder-forecaster of Shi et al. (2015, section 4.1)
+    at the paper's widths: (a) Gluon ``Conv2DLSTMCell``s through
+    ``autograd.record`` and ``gluon.Trainer``, eager and hybridized; (b)
+    ``mx.rnn.ConvLSTMCell``s through ``Module.fit``, fed by host work
+    pushed to ``mx.engine`` into ``resource`` temp space; (c) the runtime
+    on the card: ``check_consistency``, ``Storage.device_stats``,
+    ``DeviceMemoryError`` from serving ResNet-50, the profiler's
+    autostart. Returns the K1-K3 launches of the main path (16 K1: (c)'s
+    bucket-1 forward)."""
+    import shutil
+    gpu = ctx.device_type == "gpu"
+    cfg = _CONVLSTM[rehearsal]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # cuDNN's deterministic weight-gradient algorithm for the first
+    # layer's i2h convolution (16 -> 512 channels, 5x5 on 16x16) is far
+    # from the CPU's gradient, the default one is not (leg (c)'s
+    # ``cudnn_wgrad`` line measures both): the phase takes cuDNN's
+    # default algorithms
+    torch.backends.cudnn.deterministic = False
+    _free(gpu)
+    from mxnet_tpu_torch.kernels import fused_bn as K1
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_conv_recurrent_")
+    try:
+        probe = convlstm_ef(mx, cfg)
+        shapes = {k: p.shape for k, p in probe.collect_params().items()}
+        n_params = int(sum(np.prod(v) for v in shapes.values()))
+        init = convlstm_init(cfg, shapes, _CONVLSTM_SEED)
+        del probe
+        # -- the main path: counts zeroed just before, read just after ----
+        K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+        a, a1 = _ef_gluon_leg(mx, ctx, rehearsal, cfg, init, n_params, card)
+        b = _ef_symbolic_leg(mx, ctx, rehearsal, cfg, init, n_params, card,
+                             tmp, a1)
+        c = _ef_runtime_leg(mx, ctx, rehearsal, cfg, card, tmp)
+        counts = _kernel_counts()
+        # -----------------------------------------------------------------
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    emit({"conv_recurrent": {
+        "a_gluon": a, "b_module": b, "c_runtime": c,
+        "k1_launches": counts[0], "k2_launches": counts[1],
+        "k3_launches": counts[2],
+        "seconds": time.perf_counter() - t_phase}})
+    assert counts == ((16 if gpu else 0), 0, 0), counts
+    _free(gpu)
+    return counts
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
           "resnet_training", "gluon_training", "decode", "rnn_training",
           "image_classification", "gluon_zoo", "observability",
           "dense_prediction", "data_parallel", "model_parallel",
-          "engine_meshes", "elastic", "sparse", "detection", "records")
+          "engine_meshes", "elastic", "sparse", "detection", "records",
+          "conv_recurrent")
 
 
 def main(argv=None):
@@ -9726,6 +10515,10 @@ def main(argv=None):
         with phase("records"):
             res["rec_launches"] = records_phase(
                 mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
+    if "conv_recurrent" in todo:
+        with phase("conv_recurrent"):
+            res["cr_launches"] = conv_recurrent_phase(
+                mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -9741,7 +10534,7 @@ def main(argv=None):
         + res["dp_launches"][0] + res["mp_launches"][0]
         + res["em_launches"][0] + res["el_launches"][0]
         + res["sp_launches"][0] + res["det_launches"][0]
-        + res["rec_launches"][0],
+        + res["rec_launches"][0] + res["cr_launches"][0],
         "serving_launches": res["k1_launches"],
         "observability_launches": res["obs_launches"],
         "training_launches": res["k1_train_launches"],
@@ -9757,6 +10550,7 @@ def main(argv=None):
         "sparse_launches": res["sp_launches"][0],
         "detection_launches": res["det_launches"][0],
         "records_launches": res["rec_launches"][0],
+        "conv_recurrent_launches": res["cr_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -9771,7 +10565,8 @@ def main(argv=None):
         "launches": launches["fwd"] + res["dp_launches"][1]
         + res["mp_launches"][1] + res["em_launches"][1]
         + res["el_launches"][1] + res["sp_launches"][1]
-        + res["det_launches"][1] + res["rec_launches"][1],
+        + res["det_launches"][1] + res["rec_launches"][1]
+        + res["cr_launches"][1],
         "training_launches": launches["fwd"],
         "rnn_training_launches": res["rnn_launches"][1],
         "image_classification_launches": res["ic_launches"][1],
@@ -9784,6 +10579,7 @@ def main(argv=None):
         "sparse_launches": res["sp_launches"][1],
         "detection_launches": res["det_launches"][1],
         "records_launches": res["rec_launches"][1],
+        "conv_recurrent_launches": res["cr_launches"][1],
         "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
@@ -9799,7 +10595,8 @@ def main(argv=None):
         "launches": launches["bwd"] + res["dp_launches"][2]
         + res["mp_launches"][2] + res["em_launches"][2]
         + res["el_launches"][2] + res["sp_launches"][2]
-        + res["det_launches"][2] + res["rec_launches"][2],
+        + res["det_launches"][2] + res["rec_launches"][2]
+        + res["cr_launches"][2],
         "training_launches": launches["bwd"],
         "rnn_training_launches": res["rnn_launches"][2],
         "image_classification_launches": res["ic_launches"][2],
@@ -9812,6 +10609,7 @@ def main(argv=None):
         "sparse_launches": res["sp_launches"][2],
         "detection_launches": res["det_launches"][2],
         "records_launches": res["rec_launches"][2],
+        "conv_recurrent_launches": res["cr_launches"][2],
         "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,

@@ -23,7 +23,10 @@ data-parallel training across contexts and worker processes (the
 ``dist*`` stores with 2-bit and fp16 compression, ``launch.py``,
 ``Module`` over several contexts, the dp ``SPMDTrainer``), and records
 and images (``mx.recordio``, ``io.ImageRecordIter`` over the native
-loader, ``mx.image``/``mx.img``); see ROADMAP.md.
+loader, ``mx.image``/``mx.img``), the convolutional recurrent cells
+(``gluon.contrib.rnn``, ``mx.rnn``'s conv cells) and the runtime around
+them (``mx.engine``, ``mx.storage``, ``mx.registry``, ``mx.libinfo``,
+``mx.viz``, ``mx.test_utils``, ``mx.contrib``); see ROADMAP.md.
 
 A worker started by ``python -m mxnet_tpu_torch.launch`` joins its job
 here, at import (``dist.init_from_env``), before anything else runs.
@@ -92,6 +95,15 @@ from . import recordio  # noqa: F401
 from . import resource  # noqa: F401
 from . import image  # noqa: F401
 from . import image as img  # noqa: F401
+from .initializer import init_registry  # noqa: F401
+from . import registry  # noqa: F401
+from . import engine  # noqa: F401
+from . import storage  # noqa: F401
+from . import libinfo  # noqa: F401
+from . import visualization  # noqa: F401
+from . import visualization as viz  # noqa: F401
+from . import test_utils  # noqa: F401
+from . import contrib  # noqa: F401
 
 # mx.random's samplers (parity: mx.random.uniform is nd.random.uniform)
 for _name in nd.random.__all__:

@@ -9,7 +9,8 @@ import os
 
 from .telemetry import _percentile
 
-__all__ = ["MXNetError", "get_env", "latency_percentiles"]
+__all__ = ["MXNetError", "get_env", "latency_percentiles",
+           "registry_create"]
 
 
 class MXNetError(RuntimeError):
@@ -42,3 +43,39 @@ def latency_percentiles(samples_ms):
     if not s:
         return None
     return {"p%d_ms" % q: round(_percentile(s, q), 4) for q in (50, 95, 99)}
+
+
+# kind nickname -> {lower-cased name: class}; shared with registry.py's
+# get_register_func/get_create_func of the same nickname
+_KIND_REGISTRIES = {}
+
+
+def registry_create(kind):
+    """A small ``(register, alias, create, get)`` registry for one kind
+    (the dmlc registry pattern the reference uses for optimizers,
+    metrics, initializers and data iterators)."""
+    entries = _KIND_REGISTRIES.setdefault(kind, {})
+
+    def register(cls=None, name=None):
+        def _reg(cls):
+            entries[(name or cls.__name__).lower()] = cls
+            return cls
+
+        if cls is None:
+            return _reg
+        return _reg(cls)
+
+    def alias(name, cls):
+        entries[name.lower()] = cls
+
+    def create(name, *args, **kwargs):
+        key = name.lower()
+        if key not in entries:
+            raise MXNetError("%s %r is not registered (known: %s)"
+                             % (kind, name, sorted(entries)))
+        return entries[key](*args, **kwargs)
+
+    def get(name):
+        return entries.get(name.lower())
+
+    return register, alias, create, get

@@ -45,7 +45,8 @@ from . import telemetry
 from . import faults
 
 __all__ = ["Executor", "ReplicaSet", "infer_graph_attrs",
-           "infer_graph_shapes", "record_dispatch", "make_card"]
+           "infer_graph_shapes", "record_dispatch", "make_card",
+           "DeviceMemoryError"]
 
 
 # ---------------------------------------------------------------------------
@@ -74,6 +75,82 @@ def record_dispatch(kind):
 
 _PROG_SEQ = itertools.count(1)
 _QUIET = threading.local()
+
+
+class DeviceMemoryError(MXNetError):
+    """A device allocation failure re-raised with the live buffer ledger
+    and the failing program's memory card in its message (the JAX
+    package's ``executor.DeviceMemoryError``). The original error rides
+    as ``__cause__``: ``torch.OutOfMemoryError`` from the caching
+    allocator, or a ``RuntimeError`` of cuBLAS or cuDNN whose text
+    carries an OOM marker."""
+
+
+_OOM_MARKERS = ("RESOURCE_EXHAUSTED", "RESOURCE EXHAUSTED",
+                "Out of memory", "out of memory", "OOM")
+
+
+def _is_oom(exc):
+    if isinstance(exc, torch.OutOfMemoryError):
+        return True
+    s = str(exc)
+    return isinstance(exc, RuntimeError) and any(m in s
+                                                 for m in _OOM_MARKERS)
+
+
+def _fmt_bytes(n):
+    if n is None:
+        return "?"
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(n) < 1024 or unit == "GiB":
+            return "%.1f%s" % (n, unit) if unit != "B" else "%dB" % n
+        n /= 1024.0
+    return "%d" % n
+
+
+def _enriched_oom(exc, card):
+    """The DeviceMemoryError for one dispatch-time OOM, in the JAX
+    package's lines: the backend's message first, then the program's
+    memory card, the ledger's per-context totals and top live buffers,
+    and the card's allocator counters (``storage.Storage.device_stats``)
+    where there is a card."""
+    lines = ["device memory exhausted dispatching program %r: %s"
+             % (card.get("id", "?"), exc)]
+    lines.append(
+        "program memory card: peak_bytes=%s argument_bytes=%s "
+        "output_bytes=%s temp_bytes=%s generated_code_bytes=%s "
+        "flops=%s bytes_accessed=%s" % (
+            _fmt_bytes(card.get("peak_bytes")),
+            _fmt_bytes(card.get("argument_bytes")),
+            _fmt_bytes(card.get("output_bytes")),
+            _fmt_bytes(card.get("temp_bytes")),
+            _fmt_bytes(card.get("generated_code_bytes")),
+            card.get("flops"), card.get("bytes_accessed")))
+    led = telemetry.ledger()
+    if led:
+        lines.append("live device-buffer ledger:")
+        for ctx, st in sorted(led.items()):
+            lines.append("  %s: %d buffers alive / %s (peak %s)"
+                         % (ctx, st["alive_count"],
+                            _fmt_bytes(st["alive_bytes"]),
+                            _fmt_bytes(st["peak_bytes"])))
+    top = telemetry.ledger_top(8)
+    if top:
+        lines.append("top live buffers:")
+        for b in top:
+            lines.append("  %s %s %s %s [%s]"
+                         % (_fmt_bytes(b["nbytes"]),
+                            tuple(b["shape"] or ()), b["dtype"], b["ctx"],
+                            b["kind"]))
+    from .storage import Storage
+    stats = Storage.device_stats()
+    if stats:
+        lines.append("device allocator stats: bytes_in_use=%s "
+                     "peak_bytes_in_use=%s bytes_reserved=%s bytes_limit=%s"
+                     % tuple(_fmt_bytes(stats[k]) for k in (
+                         "bytes_in_use", "peak_bytes_in_use",
+                         "bytes_reserved", "bytes_limit")))
+    return DeviceMemoryError("\n".join(lines))
 
 
 @contextlib.contextmanager
@@ -228,6 +305,26 @@ class _InstrumentedProgram:
             self.on_card(card)
         return result
 
+    def _oom_guard(self, key, fn, *args):
+        """``fn(*args)``, with a device allocation failure re-raised as
+        ``DeviceMemoryError`` (its card: the signature's, or, on its first
+        call, the id the card would have taken) after a postmortem."""
+        try:
+            return fn(*args)
+        except RuntimeError as e:     # torch.OutOfMemoryError is one
+            if isinstance(e, DeviceMemoryError) or not _is_oom(e):
+                raise
+            card = self._cards.get(key) or {
+                "id": "%s/s%d" % (self.entry, len(self._cards))}
+            err = _enriched_oom(e, card)
+            # the ledger and card evidence dies with the process: dump the
+            # flight window too (a no-op without a flight directory)
+            from . import flight
+            flight.postmortem("device_memory_error", exc=err,
+                              extra={"program": card.get("id"),
+                                     "kind": self.kind})
+            raise err from e
+
     def build(self, *args):
         """Run one call and build its signature's card (when telemetry
         is on and the card is new) without counting a dispatch."""
@@ -235,8 +332,8 @@ class _InstrumentedProgram:
             return self._fn(*args)
         key = _dispatch_key(args)
         if key not in self._cards and telemetry.enabled():
-            return self._run_carded(key, args)
-        return self._fn(*args)
+            return self._oom_guard(key, self._run_carded, key, args)
+        return self._oom_guard(key, self._fn, *args)
 
     def __call__(self, *args):
         if getattr(_QUIET, "on", False):
@@ -246,10 +343,10 @@ class _InstrumentedProgram:
         telemetry.program_dispatch(card)
         act = faults.fire("dispatch")
         if card is None and telemetry.enabled():
-            result = self._run_carded(key, args)
+            result = self._oom_guard(key, self._run_carded, key, args)
             telemetry.program_dispatch(self._cards[key])
         else:
-            result = self._fn(*args)
+            result = self._oom_guard(key, self._fn, *args)
         if act == "nan":
             out = result[self.out_index] \
                 if isinstance(result, (list, tuple)) else result
@@ -788,9 +885,10 @@ class Executor:
             if req not in _GRAD_REQS:
                 raise MXNetError("grad_req %r for %r (use write, add or "
                                  "null)" % (req, n))
-            if req != "null" and self.grad_dict.get(n) is None:
-                raise MXNetError("bind: %r has grad_req %r but no gradient "
-                                 "array" % (n, req))
+            # no gradient array: no gradient (upstream's MXExecutorBindEX
+            # turns the request into kNullOp)
+            if self.grad_dict.get(n) is None:
+                self._grad_req[n] = "null"
         self.outputs = []
         self._pending = None    # (outputs, leaves) of a training forward
         self._monitor_callback = None

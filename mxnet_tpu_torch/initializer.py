@@ -20,7 +20,7 @@ import re
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, registry_create, _KIND_REGISTRIES
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Zero", "One",
            "Constant", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
@@ -332,19 +332,14 @@ class Mixed(Initializer):
                          "catch-all" % name)
 
 
-_REGISTRY = {"uniform": Uniform, "normal": Normal, "zero": Zero,
-             "zeros": Zero, "one": One, "ones": One, "constant": Constant,
-             "orthogonal": Orthogonal, "xavier": Xavier,
-             "msraprelu": MSRAPrelu, "bilinear": Bilinear,
-             "lstmbias": LSTMBias, "load": Load, "mixed": Mixed,
-             "fusedrnn": FusedRNN}
-
-
-def register(cls):
-    """Register an initializer class under its lower-cased name (parity:
-    initializer.register)."""
-    _REGISTRY[cls.__name__.lower()] = cls
-    return cls
+register = registry_create("initializer")[0]
+_REGISTRY = _KIND_REGISTRIES["initializer"]
+_REGISTRY.update({"uniform": Uniform, "normal": Normal, "zero": Zero,
+                  "zeros": Zero, "one": One, "ones": One,
+                  "constant": Constant, "orthogonal": Orthogonal,
+                  "xavier": Xavier, "msraprelu": MSRAPrelu,
+                  "bilinear": Bilinear, "lstmbias": LSTMBias, "load": Load,
+                  "mixed": Mixed, "fusedrnn": FusedRNN})
 
 
 def create(name, **kwargs):
@@ -356,3 +351,7 @@ def create(name, **kwargs):
         raise MXNetError("initializer %r is not registered (known: %s)"
                          % (name, sorted(_REGISTRY)))
     return cls(**kwargs)
+
+
+# (parity: mx.init_registry) this kind's register and create
+init_registry = {"register": register, "create": create}

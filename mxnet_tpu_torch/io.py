@@ -26,7 +26,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, registry_create
 from .context import cpu, current_context
 from .ndarray.ndarray import NDArray, array as _nd_array
 from . import telemetry
@@ -35,6 +35,9 @@ from . import faults
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "MNISTIter", "CSVIter", "LibSVMIter",
            "ImageRecordIter", "MXDataIter"]
+
+
+register, _, create_iterator, _ = registry_create("data iterator")
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -378,6 +381,7 @@ def _read_idx_labels(path):
         return np.frombuffer(f.read(), dtype=np.uint8)
 
 
+@register(name="MNISTIter")
 class MNISTIter(NDArrayIter):
     """MNIST idx files, plain or gzipped, as float32 images in [0, 1]
     (N, 1, 28, 28), or (N, 784) with ``flat`` (parity:
@@ -406,6 +410,7 @@ class MNISTIter(NDArrayIter):
                          part_index=int(kwargs.get("part_index", 0)))
 
 
+@register(name="CSVIter")
 class CSVIter(NDArrayIter):
     """Rows of a CSV file as float32 samples of ``data_shape``, with
     labels from ``label_csv`` (a (1,) label flattens to a vector); a
@@ -467,6 +472,7 @@ def _csr_rows(indptr, indices, values, rows):
     return out_ptr, indices[take], values[take]
 
 
+@register(name="LibSVMIter")
 class LibSVMIter(DataIter):
     """LibSVM reader yielding csr data batches (parity:
     mxnet_tpu/io.py:465-530, src/io/iter_libsvm.cc): ``num_parts`` and
@@ -536,6 +542,7 @@ class LibSVMIter(DataIter):
         return max(self.cursor + self.batch_size - self.num_data, 0)
 
 
+@register(name="ImageRecordIter")
 class ImageRecordIter(DataIter):
     """RecordIO image iterator (parity: mxnet_tpu/io.py:537-733,
     src/io/iter_image_recordio_2.cc).

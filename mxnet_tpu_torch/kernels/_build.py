@@ -4,7 +4,7 @@ Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into ``_build/lib<name>.so``, a shared library with a plain C interface
 loaded through ``ctypes`` — no PyTorch headers, so a build takes seconds.
 The host sources (``csrc/<name>.cc``, :data:`HOST_SOURCES`: the RecordIO
-loader) are compiled the same way by the host C++ compiler (``$CXX``,
+loader, the dependency engine and the pooled host storage) are compiled the same way by the host C++ compiler (``$CXX``,
 else ``c++``). Builds happen at first use (or all at once, in parallel,
 through :func:`build_all`), never at import; a library newer than its
 source is reused. Each build writes a name of its own and renames it into
@@ -29,7 +29,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("fused_bn", "flash_attention")
-HOST_SOURCES = ("recordio",)
+HOST_SOURCES = ("recordio", "engine", "storage")
 # -split-compile=0: the device code's optimisation passes on every core
 # (the flash library's 18 kernels build in ~15 s instead of ~37 s on the
 # H100 machine's 8 cores, the same tensor-core instruction counts)
@@ -64,8 +64,8 @@ def cxx_path():
     found = shutil.which(cxx)
     if not found:
         raise MXNetError("host C++ compiler %r not found ($CXX, else c++ on "
-                         "PATH): the native RecordIO loader cannot be built"
-                         % cxx)
+                         "PATH): the native host libraries (%s) cannot be "
+                         "built" % (cxx, ", ".join(HOST_SOURCES)))
     return found
 
 

@@ -25,8 +25,11 @@ Each dispatches on the tensor's device:
 For a CUDA tensor the wrapper launches the kernel or raises; it never
 falls back to the plain version. Not carried over: the operator tuner's
 ``block_q`` choice (``block_q`` is accepted and does not change the
-result: the kernels use their own 64- and 128-row tiles) and the
-``MXTPU_FLASH_BWD=xla`` switch (on a CUDA tensor the backward is K3).
+result: the kernels use their own 64- and 128-row tiles), so
+``tuner.tuned_choice`` has no call site here (the JAX package's chooses
+between the Pallas kernel and a plain composition, and the port runs no
+plain version on the card), and the ``MXTPU_FLASH_BWD=xla`` switch (on a
+CUDA tensor the backward is K3).
 """
 from __future__ import annotations
 

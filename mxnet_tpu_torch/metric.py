@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as _numpy
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, registry_create, _KIND_REGISTRIES
 from .ndarray.ndarray import NDArray
 from . import telemetry
 
@@ -25,16 +25,8 @@ __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "Caffe", "CustomMetric", "np", "create", "register",
            "check_label_shapes"]
 
-_REGISTRY = {}
-
-
-def register(cls=None, name=None):
-    """Register a metric class under its lower-cased name (or ``name``);
-    usable as ``@register`` and ``@register(name="acc")``."""
-    def _reg(c):
-        _REGISTRY[(name or c.__name__).lower()] = c
-        return c
-    return _reg(cls) if cls is not None else _reg
+register = registry_create("metric")[0]
+_REGISTRY = _KIND_REGISTRIES["metric"]
 
 
 def create(metric, *args, **kwargs):

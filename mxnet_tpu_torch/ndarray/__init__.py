@@ -10,7 +10,7 @@ import numpy as _np
 from .. import ops as _ops  # noqa: F401  (registers the operators)
 from .ndarray import (NDArray, array, zeros, ones, full, empty, arange,
                       concatenate, moveaxis, waitall, onehot_encode)
-from .utils import save, load
+from .utils import save, load, load_frombuffer
 from . import register as _register
 
 _register.populate(globals())

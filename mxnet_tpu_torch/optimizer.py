@@ -30,7 +30,7 @@ import pickle
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, registry_create, _KIND_REGISTRIES
 from .ops import optimizer_ops as _O
 from .ndarray import (sgd_update, sgd_mom_update, mp_sgd_update,  # noqa: F401
                       mp_sgd_mom_update, adam_update, rmsprop_update,
@@ -42,13 +42,8 @@ __all__ = ["Optimizer", "SGD", "NAG", "SGLD", "DCASGD", "Adam", "AdaGrad",
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
 
-_REGISTRY = {}
-
-
-def register(cls):
-    """Register an optimizer class under its lower-cased name."""
-    _REGISTRY[cls.__name__.lower()] = cls
-    return cls
+register = registry_create("optimizer")[0]
+_REGISTRY = _KIND_REGISTRIES["optimizer"]
 
 
 def create(name, **kwargs):

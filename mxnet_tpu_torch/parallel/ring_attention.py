@@ -239,8 +239,9 @@ def ring_attention(q, k, v, mesh, axis_name="sp", batch_axis_name=None,
     the plain ring backward); False picks the plain online-softmax ring;
     None (default) means the kernel for CUDA tensors and the plain ring
     for CPU tensors — the counterpart of "Pallas on a real TPU". The
-    reference's operator tuner, which measures both on the TPU, is not
-    ported.
+    JAX package's ``tuner.tuned_choice`` measures both on the TPU;
+    ``tuner.OperatorTuner`` is ported but not called here, since the port
+    runs no plain version of a kernel on the card.
     """
     _check_axes("ring_attention", mesh, axis_name, batch_axis_name)
     (q, k, v), wrap = _prepare(q, k, v, mesh)

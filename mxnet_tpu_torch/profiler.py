@@ -12,9 +12,8 @@ list on Kineto's timebase, the program cards under
 under ``otherData.mxnet_tpu_series``. Kineto's raw export stays beside
 it in ``<filename stem>_trace/``.
 
-``pause``/``resume`` are no-ops, as in the JAX package. The
-``MXNET_PROFILER_AUTOSTART`` knob lives in ``config.py``, which is not
-ported yet (ROADMAP Queue 1 item 6).
+``pause``/``resume`` are no-ops, as in the JAX package.
+``MXNET_PROFILER_AUTOSTART=1`` starts tracing at import (``config.py``).
 """
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ import os
 
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, get_env  # noqa: F401 (the JAX module's name)
 from . import telemetry
 
 __all__ = ["profiler_set_config", "profiler_set_state", "set_config",

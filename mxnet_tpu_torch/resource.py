@@ -6,9 +6,11 @@ Counterpart of ``mxnet_tpu/resource.py`` (the reference's
 ``ResourceManager.get().request(ctx, req)``; ``MXNET_EXEC_NUM_TEMP``
 bounds the temp-space slots handed out round-robin per device.
 
-``temp_space`` is host scratch (numpy): PyTorch's caching allocator owns
-device scratch, so what remains is host-visible staging such as
-``image.ImageIter``'s batch buffer. ``random`` hands out the port's
+``temp_space`` is host scratch: PyTorch's caching allocator owns device
+scratch, so what remains is host-visible staging such as
+``image.ImageIter``'s batch buffer, taken from the pooled host storage
+(``Storage.get().alloc``/``free``, ``storage.py``) as in the JAX
+package. ``random`` hands out the port's
 ``torch.Generator`` of the resource's device (``random.generator``,
 seeded by ``mx.random.seed``), where the JAX package hands out a split
 key.
@@ -22,8 +24,9 @@ import numpy as np
 from .base import MXNetError, get_env
 from .context import current_context
 from . import random as _random
+from .storage import Storage
 
-__all__ = ["Resource", "ResourceManager", "request"]
+__all__ = ["Resource", "ResourceManager", "request", "Storage"]
 
 
 class Resource:
@@ -38,19 +41,21 @@ class Resource:
         self._retired = []
 
     def get_space(self, shape, dtype=np.float32):
-        """A scratch numpy array over this slot's buffer, reused across
-        requests. A larger request grows the buffer; the outgrown one is
-        kept (the last ``_MAX_RETIRED`` of them) so that views handed out
-        just before never alias the new one."""
+        """A scratch numpy array over this slot's pooled buffer, reused
+        across requests. A larger request takes a larger buffer; the
+        outgrown one is parked (the last ``_MAX_RETIRED`` of them, then
+        freed oldest first) so that views handed out just before never
+        alias a buffer the pool hands out again."""
         if self.kind != "temp_space":
             raise MXNetError("get_space on a %r resource" % self.kind)
         nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
         if self._buf is None or self._buf.size < nbytes:
             if self._buf is not None:
                 self._retired.append(self._buf)
-                del self._retired[:-self._MAX_RETIRED]
-            self._buf = np.empty(max(nbytes, 1), np.uint8)
-        return self._buf[:nbytes].view(dtype).reshape(shape)
+                while len(self._retired) > self._MAX_RETIRED:
+                    Storage.get().free(self._retired.pop(0))
+            self._buf = Storage.get().alloc(max(nbytes, 1))
+        return self._buf.array(shape, dtype)
 
     def get_generator(self):
         """The ``torch.Generator`` of this resource's device (parity:
@@ -60,8 +65,12 @@ class Resource:
         return _random.generator(self.ctx.torch_device())
 
     def release(self):
+        for h in self._retired:
+            Storage.get().free(h)
         self._retired = []
-        self._buf = None
+        if self._buf is not None:
+            Storage.get().free(self._buf)
+            self._buf = None
 
 
 class ResourceManager:

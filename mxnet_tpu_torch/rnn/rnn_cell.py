@@ -6,9 +6,11 @@ Counterpart of ``mxnet_tpu/rnn/rnn_cell.py`` (parity: reference
 ``FusedRNNCell`` over the fused ``RNN`` op with ``unfuse`` and
 ``pack_weights``/``unpack_weights``, ``SequentialRNNCell``,
 ``DropoutCell``, ``ZoneoutCell``, ``ResidualCell``,
-``BidirectionalCell``), as the bucketing LSTM example builds them, and
-``lstm_decode_step`` for ``decode.LSTMDecodeCell``. The convolutional
-cells are not ported yet (ROADMAP).
+``BidirectionalCell``), as the bucketing LSTM example builds them, the
+convolutional cells (``BaseConvRNNCell``, ``ConvRNNCell``,
+``ConvLSTMCell``, ``ConvGRUCell``: ``Convolution`` gates, the state's
+shape probed with a ``Convolution``'s shape inference), and
+``lstm_decode_step`` for ``decode.LSTMDecodeCell``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from ..symbol import Symbol, Variable
 __all__ = ["BaseRNNCell", "RNNCell", "LSTMCell", "GRUCell", "FusedRNNCell",
            "SequentialRNNCell", "BidirectionalCell", "DropoutCell",
            "ZoneoutCell", "ResidualCell", "RNNParams", "ModifierCell",
+           "BaseConvRNNCell", "ConvRNNCell", "ConvLSTMCell", "ConvGRUCell",
            "lstm_decode_step"]
 
 
@@ -592,6 +595,168 @@ class BidirectionalCell(BaseRNNCell):
         outputs = sym_mod.Concat(l_out, r_out, dim=2,
                                  name="%sout" % self._output_prefix)
         return outputs, l_states + r_states
+
+
+# ---------------------------------------------------------------------------
+# Convolutional RNN cells (counterpart of mxnet_tpu/rnn/rnn_cell.py:548-685;
+# parity: the reference's rnn_cell.py:1094-1455)
+# ---------------------------------------------------------------------------
+
+class BaseConvRNNCell(BaseRNNCell):
+    """Abstract convolutional RNN cell (parity: rnn_cell.BaseConvRNNCell):
+    gate pre-activations are convolutions over the input and the spatial
+    hidden state instead of dense projections."""
+
+    def __init__(self, input_shape, num_hidden, h2h_kernel=(3, 3),
+                 h2h_dilate=(1, 1), i2h_kernel=(3, 3), i2h_stride=(1, 1),
+                 i2h_pad=(1, 1), i2h_dilate=(1, 1),
+                 i2h_weight_initializer=None, h2h_weight_initializer=None,
+                 i2h_bias_initializer="zeros", h2h_bias_initializer="zeros",
+                 activation="tanh", prefix="", params=None,
+                 conv_layout="NCHW"):
+        super().__init__(prefix=prefix, params=params)
+        if h2h_kernel[0] % 2 == 0 or h2h_kernel[1] % 2 == 0:
+            raise MXNetError("h2h_kernel must be odd (got %s)"
+                             % (h2h_kernel,))
+        self._h2h_kernel = tuple(h2h_kernel)
+        self._h2h_dilate = tuple(h2h_dilate)
+        self._h2h_pad = (h2h_dilate[0] * (h2h_kernel[0] - 1) // 2,
+                         h2h_dilate[1] * (h2h_kernel[1] - 1) // 2)
+        self._i2h_kernel = tuple(i2h_kernel)
+        self._i2h_stride = tuple(i2h_stride)
+        self._i2h_pad = tuple(i2h_pad)
+        self._i2h_dilate = tuple(i2h_dilate)
+        self._num_hidden = num_hidden
+        self._input_shape = tuple(input_shape)
+        self._conv_layout = conv_layout
+        self._activation = activation
+        # state spatial shape falls out of the i2h convolution
+        probe = sym_mod.Convolution(
+            Variable("data"), num_filter=num_hidden,
+            kernel=self._i2h_kernel, stride=self._i2h_stride,
+            pad=self._i2h_pad, dilate=self._i2h_dilate)
+        shape = probe.infer_shape(data=self._input_shape)[1][0]
+        self._state_shape = (0,) + tuple(shape[1:])
+        self._iW = self.params.get("i2h_weight",
+                                   init=i2h_weight_initializer)
+        self._hW = self.params.get("h2h_weight",
+                                   init=h2h_weight_initializer)
+        self._iB = self.params.get("i2h_bias", init=i2h_bias_initializer)
+        self._hB = self.params.get("h2h_bias", init=h2h_bias_initializer)
+
+    @property
+    def _num_gates(self):
+        return len(self._gate_names)
+
+    def _default_begin_state(self, inputs, layout):
+        """The batch vector of the default begin state sums the input over
+        every axis but N: ``(N, T) + input_shape[1:]`` unrolled, ``input_shape``
+        a step. The JAX package's base rule sums axes 0-2 but N, which
+        leaves the spatial axes in and fails for these 5-D inputs
+        (ROADMAP, faults of the reference)."""
+        ndim = len(self._input_shape)
+        if isinstance(inputs, Symbol):
+            n_axis = layout.find("N")
+            return self._symbolic_begin_state(
+                inputs, tuple(i for i in range(ndim + 1) if i != n_axis))
+        if isinstance(inputs, (list, tuple)) and inputs \
+                and isinstance(inputs[0], Symbol):
+            return self._symbolic_begin_state(inputs[0],
+                                              tuple(range(1, ndim)))
+        return self.begin_state()
+
+    @property
+    def state_info(self):
+        return [{"shape": self._state_shape,
+                 "__layout__": self._conv_layout},
+                {"shape": self._state_shape,
+                 "__layout__": self._conv_layout}]
+
+    def _conv_forward(self, inputs, states, name):
+        i2h = sym_mod.Convolution(
+            inputs, weight=self._iW, bias=self._iB,
+            num_filter=self._num_hidden * self._num_gates,
+            kernel=self._i2h_kernel, stride=self._i2h_stride,
+            pad=self._i2h_pad, dilate=self._i2h_dilate,
+            name="%si2h" % name)
+        h2h = sym_mod.Convolution(
+            states[0], weight=self._hW, bias=self._hB,
+            num_filter=self._num_hidden * self._num_gates,
+            kernel=self._h2h_kernel, pad=self._h2h_pad,
+            dilate=self._h2h_dilate, name="%sh2h" % name)
+        return i2h, h2h
+
+
+class ConvRNNCell(BaseConvRNNCell):
+    """(parity: rnn_cell.ConvRNNCell)"""
+
+    @property
+    def _gate_names(self):
+        return ("",)
+
+    @property
+    def state_info(self):
+        return [{"shape": self._state_shape,
+                 "__layout__": self._conv_layout}]
+
+    def __call__(self, inputs, states):
+        self._counter += 1
+        name = "%st%d_" % (self._prefix, self._counter)
+        i2h, h2h = self._conv_forward(inputs, states, name)
+        output = self._get_activation(i2h + h2h, self._activation,
+                                      name="%sout" % name)
+        return output, [output]
+
+
+class ConvLSTMCell(BaseConvRNNCell):
+    """(parity: rnn_cell.ConvLSTMCell — Shi et al. convolutional LSTM)"""
+
+    @property
+    def _gate_names(self):
+        return ("_i", "_f", "_c", "_o")
+
+    def __call__(self, inputs, states):
+        self._counter += 1
+        name = "%st%d_" % (self._prefix, self._counter)
+        i2h, h2h = self._conv_forward(inputs, states, name)
+        gates = i2h + h2h
+        sliced = sym_mod.SliceChannel(gates, num_outputs=4, axis=1,
+                                      name="%sslice" % name)
+        in_gate = sym_mod.Activation(sliced[0], act_type="sigmoid")
+        forget_gate = sym_mod.Activation(sliced[1], act_type="sigmoid")
+        in_transform = self._get_activation(sliced[2], self._activation)
+        out_gate = sym_mod.Activation(sliced[3], act_type="sigmoid")
+        next_c = forget_gate * states[1] + in_gate * in_transform
+        next_h = out_gate * self._get_activation(next_c, self._activation)
+        return next_h, [next_h, next_c]
+
+
+class ConvGRUCell(BaseConvRNNCell):
+    """(parity: rnn_cell.ConvGRUCell)"""
+
+    @property
+    def _gate_names(self):
+        return ("_r", "_z", "_o")
+
+    @property
+    def state_info(self):
+        return [{"shape": self._state_shape,
+                 "__layout__": self._conv_layout}]
+
+    def __call__(self, inputs, states):
+        self._counter += 1
+        name = "%st%d_" % (self._prefix, self._counter)
+        i2h, h2h = self._conv_forward(inputs, states, name)
+        i2h_s = sym_mod.SliceChannel(i2h, num_outputs=3, axis=1)
+        h2h_s = sym_mod.SliceChannel(h2h, num_outputs=3, axis=1)
+        reset_gate = sym_mod.Activation(i2h_s[0] + h2h_s[0],
+                                        act_type="sigmoid")
+        update_gate = sym_mod.Activation(i2h_s[1] + h2h_s[1],
+                                         act_type="sigmoid")
+        next_h_tmp = self._get_activation(i2h_s[2] + reset_gate * h2h_s[2],
+                                          self._activation)
+        next_h = (1.0 - update_gate) * next_h_tmp + update_gate * states[0]
+        return next_h, [next_h]
 
 
 def lstm_decode_step(x, h, c, wx, wh, b):

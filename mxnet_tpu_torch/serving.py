@@ -69,7 +69,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError, latency_percentiles
-from .executor import record_dispatch
+from .executor import record_dispatch, DeviceMemoryError
 from .ops.common import numpy_dtype
 from .predictor import Predictor
 from . import telemetry
@@ -78,7 +78,7 @@ from . import flight
 
 __all__ = ["InferenceEngine", "bucket_sizes", "validate_buckets",
            "DeadlineExceeded", "QueueOverflow", "CircuitOpen",
-           "EngineClosed"]
+           "EngineClosed", "DeviceMemoryError"]
 
 # what a mesh engine's rank 0 broadcasts ahead of each dispatch
 _MSG_STOP, _MSG_FORWARD = 0, 1
@@ -165,8 +165,9 @@ _SHUTDOWN = object()
 
 def _is_transient(exc):
     """Whether a launch failure is worth retrying: only errors flagged
-    ``transient``. Program errors (shape, dtype, out of memory) fail the
-    same way every time."""
+    ``transient``. Program errors (shape, dtype, out of memory: a
+    ``DeviceMemoryError``, since a retry allocates the same bytes) fail
+    the same way every time."""
     return bool(getattr(exc, "transient", False))
 
 

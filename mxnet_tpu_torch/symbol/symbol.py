@@ -255,10 +255,12 @@ class Symbol:
             f.write(self.tojson())
 
     # -- binding -----------------------------------------------------------
-    def bind(self, ctx=None, args=None, args_grad=None, grad_req="null",
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
-        """Bind given arrays (and gradient arrays, where ``grad_req`` is
-        not null) to an Executor. With ``group2ctx`` (``{group:
+        """Bind given arrays (and gradient arrays) to an Executor.
+        ``grad_req`` defaults to ``"write"`` as in the JAX package and
+        upstream; an argument without a gradient array takes no gradient
+        (upstream's ``MXExecutorBindEX``). With ``group2ctx`` (``{group:
         Context}``) each grouped array must already live on its group's
         Context."""
         from ..executor import Executor

@@ -1,24 +1,219 @@
-"""The serving autotuner: a bucket plan from the program-card corpus.
+"""Runtime implementation tuning, and the serving autotuner.
 
-A copy of ``mxnet_tpu/tuner.py:178-389`` (``plan_serving`` and its
-helpers): the SERVING CONFIGURATION (batch-bucket set, pipeline depth)
-from the persisted corpus (``compile_cache.corpus_records``) — measured
-per-bucket step-ms and the observed coalesced-row histogram across past
-runs — instead of pow-2 defaults. The learned-cost-model framing is
-Kaufman et al. (arXiv:2008.01040): the corpus is the feature store, the
-interpolated cost model below its first, deliberately simple reader.
+Counterpart of ``mxnet_tpu/tuner.py`` (parity target: the reference's
+``src/operator/operator_tune.{h,cc,-inl.h}``, which times each
+elementwise kernel at start-up to choose OMP or serial per op and size).
 
-``OperatorTuner`` and ``tuned_choice`` (:47-176, :390), which time
-implementations of one op against each other, are not ported yet
-(ROADMAP Queue 1 item 6).
+``OperatorTuner`` chooses between named implementations of one op: it
+measures each candidate the first time an (op, static signature) pair is
+seen, caches the winner in the process and, with ``MXNET_TUNING_CACHE``,
+in a JSON file. On a card the candidates are timed with CUDA events after
+a synchronise; on the host with the wall clock around work that ends in
+its result. The port has no call site for it: the JAX package's two
+(``pallas/flash_attention.py:78``, ``parallel/ring_attention.py:282``)
+choose between a Pallas kernel and a plain composition, and the port runs
+no plain version of a kernel on the card.
+
+Env knobs (the reference's names):
+- ``MXNET_USE_OPERATOR_TUNING`` (default 1): 0 turns measurement off and
+  every choice falls to the first (default) candidate;
+- ``MXNET_OUTPUT_TUNING_DATA`` (default 0): log each measurement;
+- ``MXNET_TUNING_CACHE``: a JSON file that decisions are loaded from and
+  saved to;
+- ``MXNET_TUNING_REPEAT`` (default 3): timed runs per candidate.
+
+The serving autotuner (``plan_serving`` and its helpers, a copy of
+``mxnet_tpu/tuner.py:178-389``) derives the SERVING CONFIGURATION (the
+bucket set, the pipeline depth) from the persisted corpus
+(``compile_cache.corpus_records``) — measured per-bucket step-ms and the
+observed coalesced-row histogram across past runs — instead of pow-2
+defaults. The learned-cost-model framing is Kaufman et al.
+(arXiv:2008.01040): the corpus is the feature store, the interpolated
+cost model below its first, deliberately simple reader.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
+import time
 
-__all__ = ["plan_serving"]
+import torch
 
+from .base import get_env
+from .log import get_logger
+
+__all__ = ["OperatorTuner", "tuner", "tuned_choice", "plan_serving"]
+
+_log = get_logger("tuner")
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    data = getattr(x, "_data", None)       # an NDArray
+    return [data] if isinstance(data, torch.Tensor) else []
+
+
+def _is_abstract(x):
+    """Whether ``x`` carries no data to time: a ``meta`` tensor (the
+    executor's shape inference) or a value traced by ``torch.compile``
+    (the JAX package's tracer test)."""
+    return torch.compiler.is_compiling() or any(
+        t.is_meta for t in _tensors(x))
+
+
+class OperatorTuner:
+    """Measure-and-cache chooser over named implementation candidates.
+
+    ``choose(op, key, candidates)`` returns the label of the fastest
+    candidate for this (op, key) signature. ``candidates`` is an ordered
+    ``(label, thunk)`` sequence; each thunk runs its implementation once
+    on synthetic data and returns tensors (timed to completion: CUDA
+    events when the result lies on a card, the wall clock otherwise).
+    The first candidate is the default: it wins without measurement when
+    tuning is off, and when every candidate fails.
+    """
+
+    def __init__(self):
+        self._cache = {}
+        self._records = []          # (op, key, label, {label: seconds})
+        self._loaded_path = None
+
+    # -- persistence -------------------------------------------------------
+    def _persist_path(self):
+        return get_env("MXNET_TUNING_CACHE", "", str) or None
+
+    def _load_persisted(self):
+        path = self._persist_path()
+        if path and path != self._loaded_path and os.path.exists(path):
+            try:
+                with open(path) as f:
+                    self._cache.update(json.load(f))
+            except (OSError, ValueError) as e:
+                _log.warning("tuner: could not load %s: %s", path, e)
+            self._loaded_path = path
+
+    def _save_persisted(self):
+        path = self._persist_path()
+        if not path:
+            return
+        try:
+            with open(path, "w") as f:
+                json.dump(self._cache, f, indent=0, sort_keys=True)
+        except OSError as e:
+            _log.warning("tuner: could not save %s: %s", path, e)
+
+    # -- core --------------------------------------------------------------
+    @staticmethod
+    def enabled():
+        return bool(get_env("MXNET_USE_OPERATOR_TUNING", 1, int))
+
+    @staticmethod
+    def _cache_key(op, key):
+        return "%s|%s" % (op, key)
+
+    def choose(self, op, key, candidates):
+        """Pick a label from ``candidates`` for signature ``(op, key)``."""
+        candidates = list(candidates)
+        labels = [lab for lab, _ in candidates]
+        if len(candidates) == 1:
+            return labels[0]
+        self._load_persisted()
+        ck = self._cache_key(op, key)
+        hit = self._cache.get(ck)
+        if hit in labels:
+            return hit
+        if not self.enabled():
+            return labels[0]
+        best = self._measure(op, key, candidates)
+        self._cache[ck] = best
+        self._save_persisted()
+        return best
+
+    def cached(self, op, key, default):
+        """The cached choice, never measured (for abstract values, where
+        running real work must not happen)."""
+        self._load_persisted()
+        return self._cache.get(self._cache_key(op, key), default)
+
+    @staticmethod
+    def _time_once(thunk, cuda):
+        """Seconds of one call: CUDA events around it on the card (after
+        a synchronise, so no earlier work is counted), else the wall
+        clock around the call and a wait for its tensors."""
+        if cuda:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            thunk()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3
+        t0 = time.perf_counter()
+        _tensors(thunk())           # host tensors are ready on return
+        return time.perf_counter() - t0
+
+    def _measure(self, op, key, candidates):
+        repeat = max(1, get_env("MXNET_TUNING_REPEAT", 3, int))
+        timings = {}
+        for label, thunk in candidates:
+            try:
+                warm = _tensors(thunk())                # first call: warm
+                cuda = any(t.is_cuda for t in warm)
+                timings[label] = min(self._time_once(thunk, cuda)
+                                     for _ in range(repeat))
+            except Exception as e:                   # candidate invalid here
+                _log.debug("tuner: %s[%s] candidate %r failed: %s",
+                           op, key, label, e)
+                timings[label] = float("inf")
+        winner = min(timings, key=timings.get)
+        if not (timings[winner] < float("inf")):
+            winner = candidates[0][0]                # all failed: default
+        self._records.append((op, key, winner, dict(timings)))
+        if get_env("MXNET_OUTPUT_TUNING_DATA", 0, int):
+            _log.info("tuner: %s[%s] -> %r  (%s)", op, key, winner,
+                      ", ".join("%s=%.3gms" % (l, t * 1e3)
+                                for l, t in timings.items()))
+        return winner
+
+    # -- introspection -----------------------------------------------------
+    def records(self):
+        """Measurement log: list of (op, key, winner, {label: seconds})."""
+        return list(self._records)
+
+    def clear(self):
+        self._cache.clear()
+        self._records.clear()
+        self._loaded_path = None
+
+
+_TUNER = OperatorTuner()
+
+
+def tuner():
+    """The process-wide tuner."""
+    return _TUNER
+
+
+def tuned_choice(op, key, candidates, args=()):
+    """The measured choice, or the cached one (else the default
+    candidate) when any of ``args`` is abstract (a ``meta`` tensor, or
+    traced by ``torch.compile``)."""
+    candidates = list(candidates)
+    if any(_is_abstract(a) for a in args):
+        return _TUNER.cached(op, key, candidates[0][0])
+    return _TUNER.choose(op, key, candidates)
+
+
+# ---------------------------------------------------------------------------
+# The serving autotuner (card-corpus plans)
+# ---------------------------------------------------------------------------
 
 def _merge_rows_hist(records, max_batch):
     hist = {}

@@ -28,7 +28,12 @@ checked copy:
   or None beside the previous weight). (A ``gluon.Trainer``'s
   ``save_states`` file loads in either package's ``load_states`` as it
   is.) A Gluon RNN layer's per-layer parameters carry by name like any
-  block's;
+  block's, and so do the convolutional cells' of ``gluon.contrib.rnn``
+  (``i2h_weight``/``h2h_weight``/``i2h_bias``/``h2h_bias``, OI+spatial,
+  or O+spatial+I under a channels-last ``conv_layout``), a ``Module`` of
+  ``mx.rnn``'s conv cells (the same four names under the cell's prefix)
+  and a tied word LM (one ``embedding0_weight`` for the embedding and the
+  decoder, as the JAX model has);
 * :func:`fused_rnn_from_numpy` gives a ``rnn.FusedRNNCell``'s packed
   ``parameters`` vector from the JAX cell's packed vector or from its
   ``unpack_weights`` arrays, checked against the cell's layout.

@@ -9,8 +9,10 @@ Every public name of the top level ``mx``, ``mx.nd``, ``mx.sym``,
 ``mx.compile_cache``, ``mx.checkpoint``, ``mx.callback``,
 ``mx.serving``, ``mx.metric``, ``mx.initializer``, ``mx.optimizer``,
 ``mx.io``, ``mx.mon``, ``mx.parallel``, ``mx.recordio``, ``mx.image``,
-``mx.image.detection``, ``mx.filesystem`` and ``mx.resource`` in
-``mxnet_tpu``, and every public method of ``Symbol``,
+``mx.image.detection``, ``mx.filesystem``, ``mx.resource``,
+``mx.gluon.contrib.rnn``, ``mx.engine``, ``mx.storage``, ``mx.registry``,
+``mx.libinfo``, ``mx.visualization``, ``mx.test_utils`` and ``mx.contrib``
+(with its ``autograd`` and ``tensorboard``) in ``mxnet_tpu``, and every public method of ``Symbol``,
 ``Module``, ``KVStore``, ``InferenceEngine`` and ``DecodeEngine``,
 either exists in ``mxnet_tpu_torch`` or sits on the skip list below,
 under the ROADMAP.md item that will port it. A name ported since must
@@ -29,29 +31,18 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from torch_threads import one_torch_thread  # noqa: F401
 
-_REGISTRY = "Queue 1 item 6: registry.py (the registry helpers)"
-
 # {namespace: {ROADMAP item: [names]}}; "mx" is the top level
 SKIP = {
     "mx": {
-        "Queue 1 item 6.5: the runtime's leftovers (contrib carries "
-        "contrib/autograd.py and contrib/tensorboard.py)": [
-            "engine", "registry", "libinfo", "storage", "test_utils",
-            "visualization", "viz", "contrib"],
         "Queue 1 item 6.6: the C boundary, then rtc.py (K4)": ["rtc"],
-        _REGISTRY: ["init_registry"],
         "Queue 1 item 6: not to be ported (mxnet_tpu/torch.py, mx.th)":
             ["th", "torch"],
     },
-    "nd": {
-        "Queue 1 item 6: bf16 nd.save and load_frombuffer":
-            ["load_frombuffer"],
-    },
+    "nd": {},
     "sym": {},
     "autograd": {},
-    "gluon": {
-        "Queue 1 item 6: gluon.contrib": ["contrib"],
-    },
+    "gluon": {},
+    "gluon.contrib.rnn": {},
     "gluon.loss": {},
     "gluon.nn": {},
     "gluon.data": {},
@@ -62,55 +53,49 @@ SKIP = {
     "sym.Symbol": {},
     "mod.Module": {},
     "gluon.rnn": {},
-    "rnn": {
-        "Queue 1 item 6: the convolutional RNN cells": [
-            "BaseConvRNNCell", "ConvGRUCell", "ConvLSTMCell",
-            "ConvRNNCell"],
-    },
+    "rnn": {},
     "mod": {},
     "telemetry": {},
     "faults": {},
     "flight": {},
     "log": {},
     "callback": {},
-    "profiler": {
-        "Queue 1 item 6: config.py (MXNET_PROFILER_AUTOSTART)":
-            ["get_env"],
-    },
-    "tuner": {
-        "Queue 1 item 6: OperatorTuner": [
-            "OperatorTuner", "get_env", "get_logger", "tuned_choice",
-            "tuner"],
-    },
+    "profiler": {},
+    "tuner": {},
     "compile_cache": {
-        "Queue 1 item 6: the compile cache's executable store": [
+        "Queue 1 item 1: the compile cache's executable store (the port "
+        "compiles no programs; its store keeps item 1's captured CUDA "
+        "graphs)": [
             "cache_dir", "enabled", "entry_path", "faults", "index_get",
             "index_put", "load", "lowered_key", "persistable",
             "programs_record", "quick_key", "source_fingerprint",
             "store"],
     },
     "checkpoint": {},
-    "serving": {
-        "Queue 1 item 6: DeviceMemoryError (OOM errors enriched with "
-        "the ledger)": ["DeviceMemoryError"],
-    },
+    "serving": {},
     "serving.InferenceEngine": {},
     "decode.DecodeEngine": {},
-    "metric": {_REGISTRY: ["registry_create"]},
-    "initializer": {_REGISTRY: ["init_registry", "registry_create"]},
-    "optimizer": {_REGISTRY: ["registry_create", "jnp_abs",
-                              "jnp_maximum"]},
-    "io": {
-        _REGISTRY: ["create_iterator", "register", "registry_create"],
-    },
+    "metric": {},
+    "initializer": {},
+    "optimizer": {
+        "Queue 1 item 6: not to be ported (jax.numpy wrappers, "
+        "mxnet_tpu/optimizer.py:607-614)": ["jnp_abs", "jnp_maximum"]},
+    "io": {},
     "mon": {},
     "recordio": {},
     "image": {},
     "image.detection": {},
     "filesystem": {},
-    "resource": {
-        "Queue 1 item 6.5: storage.py (the pooled host storage)":
-            ["Storage"]},
+    "resource": {},
+    "engine": {},
+    "storage": {},
+    "registry": {},
+    "libinfo": {},
+    "visualization": {},
+    "test_utils": {},
+    "contrib": {},
+    "contrib.autograd": {},
+    "contrib.tensorboard": {},
     "parallel": {
         "Queue 1 item 6: not to be ported (JAX's own shard_map and its "
         "compat module: every member runs its per-device code itself)":

@@ -1889,3 +1889,160 @@ def test_image_iter_batches_copy_to_the_card(tmp_path):
     assert b0._data.is_cuda
     np.testing.assert_array_equal(
         b0.asnumpy(), imgs[:4].transpose(0, 3, 1, 2).astype(np.float32))
+
+
+# -- slice 18: the recurrent family's rest and the runtime's leftovers ---------
+
+def test_engine_and_storage_libraries_build_with_the_host_compiler(
+        tmp_path, monkeypatch):
+    """``kernels/csrc/engine.cc`` and ``storage.cc`` built from scratch
+    with ``$CXX`` (else ``c++``) into a fresh build directory; the engine
+    keeps push order across its workers and the pool reuses a bucket."""
+    _need_card()
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch import engine as E, storage as S
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(E, "_LIB", None)
+    monkeypatch.setattr(S, "_LIB", None)
+    log = _build.build_all(("engine", "storage"), force=True)
+    assert set(log) >= {"engine", "storage"}
+    for n in ("engine", "storage"):
+        assert (tmp_path / "_build" / ("lib%s.so" % n)).is_file()
+    e = E.Engine(num_workers=4)
+    v = e.new_var()
+    out = []
+    for i in range(64):
+        e.push(lambda i=i: out.append(i), mutable_vars=[v])
+    e.wait_for_var(v)
+    assert out == list(range(64))
+    st = S.Storage()
+    h = st.alloc(10000)
+    ptr = h.ptr
+    st.free(h)
+    h2 = st.alloc(9000)
+    assert h2.ptr == ptr
+    st.free(h2)
+
+
+def test_check_consistency_of_a_conv_lstm_step_card_and_cpu():
+    """One ``mx.rnn.ConvLSTMCell`` step's symbol on ``gpu(0)`` and
+    ``cpu()`` (fp32, TF32 off): outputs and gradients within
+    ``check_consistency``'s 1e-3/1e-4."""
+    _need_card()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cell = mt.rnn.ConvLSTMCell(input_shape=(4, 16, 16, 16),
+                                   num_hidden=32, h2h_kernel=(5, 5),
+                                   i2h_kernel=(5, 5), i2h_pad=(2, 2),
+                                   prefix="cc_")
+        o, (_, c) = cell(mt.sym.Variable("data"),
+                         [mt.sym.Variable("h0"), mt.sym.Variable("c0")])
+        shapes = {"data": (4, 16, 16, 16), "h0": (4, 32, 16, 16),
+                  "c0": (4, 32, 16, 16)}
+        res = mt.test_utils.check_consistency(
+            mt.sym.Group([o, c]), [dict(shapes, ctx=mt.gpu(0)),
+                                   dict(shapes, ctx=mt.cpu())], scale=0.1)
+        assert len(res) == 2 and set(res[0][1]) >= {"cc_i2h_weight",
+                                                    "cc_h2h_weight"}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def test_gluon_conv_lstm_cell_channels_last_on_card_matches_cpu():
+    """A ``Conv2DLSTMCell`` in NHWC on the card against the same cell on
+    the CPU: three unrolled steps and their gradients."""
+    _need_card()
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(0)
+    x = rs.randn(2, 3, 12, 12, 8).astype(np.float32)
+    got = []
+    w = None
+    for ctx in (mt.gpu(0), mt.cpu()):
+        with mt.name.NameManager():
+            cell = mt.gluon.contrib.rnn.Conv2DLSTMCell(
+                (12, 12, 8), 16, i2h_kernel=3, h2h_kernel=5, i2h_pad=1,
+                conv_layout="NHWC")
+        cell.initialize(ctx=ctx)
+        params = cell.collect_params()
+        if w is None:
+            w = {k: (rs.randn(*p.shape) * 0.1).astype(np.float32)
+                 for k, p in params.items()}
+        for k, p in params.items():
+            p.set_data(mt.nd.array(w[k], ctx=ctx))
+        with mt.autograd.record():
+            out, states = cell.unroll(3, mt.nd.array(x, ctx=ctx),
+                                      layout="NTC", merge_outputs=True)
+            loss = out.sum() + states[1].sum()
+        loss.backward()
+        got.append((out.asnumpy(), {k: p.grad().asnumpy()
+                                    for k, p in params.items()}))
+    np.testing.assert_allclose(got[0][0], got[1][0], rtol=1e-4, atol=1e-5)
+    for k in got[1][1]:
+        np.testing.assert_allclose(got[0][1][k], got[1][1][k], rtol=1e-3,
+                                   atol=1e-4)
+
+
+def test_operator_tuner_times_card_candidates_with_cuda_events(monkeypatch):
+    """Candidates returning card tensors are timed with CUDA events after
+    a synchronise: a 4096-wide matmul loses to a 64-wide one, and both
+    times are device seconds recorded in ``records()``."""
+    _need_card()
+    monkeypatch.delenv("MXNET_TUNING_CACHE", raising=False)
+    monkeypatch.setenv("MXNET_TUNING_REPEAT", "3")
+    big = torch.randn(4096, 4096, device="cuda")
+    small = torch.randn(64, 64, device="cuda")
+    t = mt.tuner.OperatorTuner()
+    win = t.choose("mm", "card", [("big", lambda: big @ big),
+                                  ("small", lambda: small @ small)])
+    assert win == "small"
+    (_, _, _, times), = t.records()
+    assert 0 < times["small"] < times["big"] < 1.0
+
+
+def test_storage_device_stats_are_the_allocators():
+    _need_card()
+    keep = torch.empty(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    st = mt.storage.Storage.device_stats(mt.gpu(0))
+    raw = torch.cuda.memory_stats(0)
+    assert st["bytes_in_use"] == raw["allocated_bytes.all.current"]
+    assert st["bytes_limit"] == torch.cuda.get_device_properties(
+        0).total_memory
+    rep = mt.storage.Storage.ledger_report()
+    assert rep["reconciliation"]["allocator_bytes_in_use"] >= keep.numel()
+    del keep
+
+
+def test_device_memory_error_from_a_real_card_oom():
+    """A forward that asks for more than the process may hold (a 1 GiB
+    activation under a memory cap) fails with ``DeviceMemoryError``
+    naming the program's card, PyTorch's OOM as its cause; with the cap
+    lifted the same forward runs."""
+    _need_card()
+    x = mt.sym.Variable("x")
+    net = mt.sym.FullyConnected(x, num_hidden=1 << 16, no_bias=True,
+                                name="wide")
+    ctx = mt.gpu(0)
+    ex = net.simple_bind(ctx=ctx, grad_req="null", x=(4096, 64))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(
+        (torch.cuda.memory_reserved() + (64 << 20)) / total)
+    try:
+        with pytest.raises(mt.serving.DeviceMemoryError) as ei:
+            ex.forward(is_train=False)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    assert isinstance(ei.value.__cause__, torch.OutOfMemoryError)
+    assert "program memory card" in str(ei.value)
+    assert "device allocator stats" in str(ei.value)
+    del ei
+    torch.cuda.empty_cache()
+    out = ex.forward(is_train=False)[0]
+    assert out.shape == (4096, 1 << 16)
