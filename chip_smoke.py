@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; no error is swallowed):
 2. build — every CUDA kernel source under ``mxnet_tpu_torch/kernels/csrc``
    is compiled with nvcc for sm_90a (one process per source, in
    parallel), with ``-Xptxas -v``, and beside them the native RecordIO
-   loader (``csrc/recordio.cc``) with the host C++ compiler; the build
+   loader (``csrc/recordio.cc``), the engine, the storage pool and the C
+   ABI library (``libmxnet.so``) with the host C++ compiler; the build
    time is set-up time. Then one
    line per kernel function of the flash library with its count of
    tensor-core instructions in ``cuobjdump -sass`` (HGMMA, HMMA); every
@@ -375,7 +376,44 @@ Phases (any failure exits non-zero; no error is swallowed):
    cause, then a bucket-1 forward with exactly 16 K1 launches;
    ``MXNET_PROFILER_AUTOSTART=1`` in a child process, whose trace holds
    the card's kernels.
-23. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+23. c_boundary — a C deployment of ResNet-50 v1 through the port's own C
+   library (``kernels/_build/libmxnet.so``, built from ``kernels/csrc``
+   with ``c_api.cc``, ``c_predict_api.cc`` and ``embed_common.cc``), two
+   C drivers compiled here and run as child processes (the second
+   loads, compiles and binds while the first runs, and starts its timed
+   batches when the first has ended) that embed the
+   interpreter (``_build.driver_link_flags()``; ``PYTHONPATH`` holds the
+   repo and this interpreter's site-packages; TF32 off through
+   ``MXNET_CUDA_ALLOW_TENSOR_CORE=0``). (a) The build's seconds and the
+   kind of libpython. (b) ``MXPredCreate`` at ``dev_type`` 2 on the
+   serving phase's exported ``resnet50_v1`` (NHWC, fused tails), 3
+   forwards of a seeded float32 batch of 32 x 224 x 224 x 3, host ms a
+   forward, profiled through ``MXSetProfilerConfig``/``State``/
+   ``MXDumpProfile``: the logits within 1e-5 of the largest of the
+   port's Python ``Predictor`` on the card, the first 4 rows within 1e-3
+   of a CPU forward, 16 K1 launches a forward in the child's trace and in
+   its wrapper's count. (c) Seeded uint8 images (3 batches of 32 x 224
+   x 224 x 3) through ``MXNDArrayCreateEx``/``SyncCopyFromCPU``, a CUDA
+   C normaliser (``_CB_NORMALISE``: ImageNet's mean and 1/std, NHWC,
+   float32 out) compiled by ``MXRtcCudaModuleCreate`` and launched by
+   ``MXRtcCudaKernelCall`` into the float32 array that
+   ``MXSymbolCreateFromFile``/``MXNDArrayLoad``/``MXExecutorBind`` bind
+   as ``data``, ``MXExecutorForward``/``Outputs``: the normalised batch
+   bit-equal to ``(x.float() - mean) * inv_std``, the logits within 1e-5
+   of the Python ``Predictor`` fed the plain batch, K1 16 times a
+   forward and K4 once a batch (trace and wrapper counts). (d)
+   ``mx.rtc`` in this process: an ``extern "C"`` axpy, a mangled kernel
+   staging through dynamic shared memory at two block sizes, a template
+   exported by its name expression in float and double, a ``__half``
+   kernel, a compile error carrying NVRTC's log, a dtype mismatch
+   refused before any launch; then K4's time at (c)'s batch: device ms
+   by CUDA events around one launch behind a spinning stream (the
+   host's launch path hidden), with 256 MB written before it (the 24 MB
+   it moves would stay in the 50 MB L2) and warm, CUDA-event ms over 100
+   launches (the host's launch path included), the plain version's
+   device ms (flushed alike), the bound (5 bytes an element at the
+   memory rate).
+24. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
    tails with residual) and its ``bwd_*`` the backward's per batch-32
    step; for K2 and K3 they are at the LM's shape, ``ms``
@@ -388,7 +426,10 @@ Phases (any failure exits non-zero; no error is swallowed):
    ``model_parallel_launches``, ``engine_meshes_launches``,
    ``elastic_launches``, ``sparse_launches`` (0),
    ``detection_launches`` (0), ``records_launches`` and
-   ``conv_recurrent_launches`` its counts on those paths — and,
+   ``conv_recurrent_launches`` and ``c_boundary_launches`` its counts
+   on those paths; K4 (``rtc_normalise_nhwc``: ``mx.rtc`` compiling and
+   launching the normaliser) its time at (c)'s batch and its launches on
+   (c)'s path — and,
    last, the ``{"ok": true,
    "device": {...}}`` line.
 
@@ -396,7 +437,7 @@ The kernels phase also gives each batch-1 case the kernel's device time
 from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
 time, which includes the wrapper's host time.
 
-``--cpu-rehearsal`` runs phases 3-22 on the CPU at a small size, where
+``--cpu-rehearsal`` runs phases 3-23 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
 """
 from __future__ import annotations
@@ -523,7 +564,8 @@ def device_phase():
 def build_phase():
     from mxnet_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    log = _build.build_all(_build.SOURCES + _build.HOST_SOURCES, force=True)
+    log = _build.build_all(_build.SOURCES + _build.HOST_SOURCES
+                           + tuple(_build.EMBED_SOURCES), force=True)
     for name, rec in log.items():
         print("-- build output: %s\n%s" % (name, rec["ptxas"]), flush=True)
     emit({"setup_build_s": time.perf_counter() - t0,
@@ -10381,12 +10423,779 @@ def conv_recurrent_phase(mx, ctx, rehearsal, card):
     return counts
 
 
+# -- c_boundary: the C ABI and runtime-compiled kernels (K4) ----------------
+
+_CB = {False: dict(batch=32, forwards=3), True: dict(batch=4, forwards=3)}
+_CB_SEED = 19
+# ResNet-50's input statistics (the records phase's, ImageNet's)
+_CB_MEAN, _CB_STD = _IMAGENET_MEAN, _IMAGENET_STD
+
+# K4's kernel on the C path: uint8 NHWC images into float32 NHWC, minus the
+# channel mean, times 1/std; one thread per 4 elements (a 4-byte load, a
+# 16-byte store), the ragged tail element by element. Bound by bytes.
+_CB_NORMALISE = r'''
+extern "C" __global__ void normalise_nhwc(
+    const unsigned char* __restrict__ x, float* __restrict__ y,
+    const float* __restrict__ mean, const float* __restrict__ inv_std,
+    int n) {
+  long i = 4L * (blockIdx.x * (long)blockDim.x + threadIdx.x);
+  if (i + 3 < n) {
+    uchar4 v = *reinterpret_cast<const uchar4*>(x + i);
+    int c = (int)(i % 3);
+    int c1 = c == 2 ? 0 : c + 1, c2 = c1 == 2 ? 0 : c1 + 1;
+    float4 o;
+    o.x = ((float)v.x - mean[c]) * inv_std[c];
+    o.y = ((float)v.y - mean[c1]) * inv_std[c1];
+    o.z = ((float)v.z - mean[c2]) * inv_std[c2];
+    o.w = ((float)v.w - mean[c]) * inv_std[c];
+    *reinterpret_cast<float4*>(y + i) = o;
+  } else {
+    for (long k = i; k < n; ++k) {
+      int c = (int)(k % 3);
+      y[k] = ((float)x[k] - mean[c]) * inv_std[c];
+    }
+  }
+}
+'''
+_CB_NORMALISE_SIG = ("const uint8_t *x, float *y, const float *mean, "
+                     "const float *inv_std, int n")
+
+_CB_HEAD = r'''
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <time.h>
+typedef unsigned int mx_uint;
+typedef void* Handle;
+extern const char* MXGetLastError();
+extern int MXSetProfilerConfig(int, const char*);
+extern int MXSetProfilerState(int);
+extern int MXDumpProfile();
+#define CHECK(x) do { if ((x) != 0) { \
+    printf("FAIL %s: %s\n", #x, MXGetLastError()); exit(1); } } while (0)
+static char* slurp(const char* path, long* size) {
+    FILE* f = fopen(path, "rb");
+    if (!f) { printf("FAIL open %s\n", path); exit(2); }
+    fseek(f, 0, SEEK_END); *size = ftell(f); fseek(f, 0, SEEK_SET);
+    char* buf = (char*)malloc(*size + 1);
+    if (fread(buf, 1, *size, f) != (size_t)*size) exit(2);
+    buf[*size] = 0; fclose(f);
+    return buf;
+}
+static double now_ms() {
+    struct timespec t; clock_gettime(CLOCK_MONOTONIC, &t);
+    return t.tv_sec * 1e3 + t.tv_nsec / 1e6;
+}
+'''
+
+# (b): MXPred* serving. argv: symbol params input.f32 logits.f32 trace.json
+# dev_type n h w c forwards
+_CB_PREDICT_DRIVER = _CB_HEAD + r'''
+extern int MXPredCreate(const char*, const void*, int, int, int, mx_uint,
+                        const char**, const mx_uint*, const mx_uint*,
+                        Handle*);
+extern int MXPredSetInput(Handle, const char*, const float*, mx_uint);
+extern int MXPredForward(Handle);
+extern int MXPredGetOutputShape(Handle, mx_uint, mx_uint**, mx_uint*);
+extern int MXPredGetOutput(Handle, mx_uint, float*, mx_uint);
+extern int MXPredFree(Handle);
+
+int main(int argc, char** argv) {
+    long js, ps, xs;
+    char* json = slurp(argv[1], &js);
+    char* params = slurp(argv[2], &ps);
+    float* x = (float*)slurp(argv[3], &xs);
+    int dev = atoi(argv[6]), forwards = atoi(argv[11]);
+    mx_uint shape[4];
+    for (int i = 0; i < 4; ++i) shape[i] = (mx_uint)atoi(argv[7 + i]);
+    const char* keys[] = {"data"};
+    mx_uint indptr[] = {0, 4};
+    Handle h;
+    CHECK(MXSetProfilerConfig(0, argv[5]));
+    CHECK(MXSetProfilerState(1));
+    double t0 = now_ms();
+    CHECK(MXPredCreate(json, params, (int)ps, dev, 0, 1, keys, indptr,
+                       shape, &h));
+    printf("CREATE_MS %.3f\n", now_ms() - t0);
+    FILE* out = fopen(argv[4], "wb");
+    for (int f = 0; f < forwards; ++f) {
+        double t = now_ms();
+        CHECK(MXPredSetInput(h, "data", x, (mx_uint)(xs / 4)));
+        CHECK(MXPredForward(h));
+        mx_uint* oshape; mx_uint ondim;
+        CHECK(MXPredGetOutputShape(h, 0, &oshape, &ondim));
+        mx_uint n = 1;
+        for (mx_uint i = 0; i < ondim; ++i) n *= oshape[i];
+        float* y = (float*)malloc(n * sizeof(float));
+        CHECK(MXPredGetOutput(h, 0, y, n));   /* copies to the host: syncs */
+        printf("FORWARD_MS %d %.3f\n", f, now_ms() - t);
+        fwrite(y, sizeof(float), n, out);
+        free(y);
+    }
+    fclose(out);
+    CHECK(MXSetProfilerState(0));
+    CHECK(MXDumpProfile());
+    CHECK(MXPredFree(h));
+    printf("PREDICT_OK\n");
+    return 0;
+}
+'''
+
+# (c): the general ABI with K4 on the input path. argv: symbol params
+# images.u8 logits.f32 normalised.f32 trace.json kernel.cu mode n h w c
+# batches; mode "rtc" normalises on the card through MXRtcCuda*, "host" in
+# C on the host (the CPU rehearsal: no NVRTC there, and MXNDArrayLoad,
+# which names no device, loads onto the default gpu(0) and refuses)
+_CB_ABI_DRIVER = _CB_HEAD + r'''
+extern int MXNDArrayCreateEx(const mx_uint*, mx_uint, int, int, int, int,
+                             Handle*);
+extern int MXNDArraySyncCopyFromCPU(Handle, const void*, size_t);
+extern int MXNDArraySyncCopyToCPU(Handle, void*, size_t);
+extern int MXNDArrayLoad(const char*, mx_uint*, Handle**, mx_uint*,
+                         const char***);
+extern int MXSymbolCreateFromFile(const char*, Handle*);
+extern int MXSymbolListArguments(Handle, mx_uint*, const char***);
+extern int MXSymbolListAuxiliaryStates(Handle, mx_uint*, const char***);
+extern int MXExecutorBind(Handle, int, int, mx_uint, Handle*, Handle*,
+                          mx_uint*, mx_uint, Handle*, Handle*);
+extern int MXExecutorForward(Handle, int);
+extern int MXExecutorOutputs(Handle, mx_uint*, Handle**);
+extern int MXNDArrayGetShape(Handle, mx_uint*, const mx_uint**);
+extern int MXRtcCudaModuleCreate(const char*, int, const char**, int,
+                                 const char**, Handle*);
+extern int MXRtcCudaKernelCreate(Handle, const char*, int, int*, int*, int*,
+                                 Handle*);
+extern int MXRtcCudaKernelCall(Handle, int, void**, mx_uint, mx_uint,
+                               mx_uint, mx_uint, mx_uint, mx_uint, mx_uint);
+
+static const float MEAN[3] = {@MEAN@};
+static const float STD[3] = {@STD@};
+
+/* the handle of "prefix:name" in the loaded list, or NULL */
+static Handle find(const char* prefix, const char* name, mx_uint n,
+                   Handle* arrs, char names[][128]) {
+    char want[160];
+    snprintf(want, sizeof(want), "%s:%s", prefix, name);
+    for (mx_uint i = 0; i < n; ++i)
+        if (strcmp(names[i], want) == 0) return arrs[i];
+    return NULL;
+}
+
+int main(int argc, char** argv) {
+    int rtc = strcmp(argv[8], "rtc") == 0, dev = rtc ? 2 : 1;
+    mx_uint shape[4];
+    for (int i = 0; i < 4; ++i) shape[i] = (mx_uint)atoi(argv[9 + i]);
+    int batches = atoi(argv[13]);
+    int n = (int)(shape[0] * shape[1] * shape[2] * shape[3]);
+    CHECK(MXSetProfilerConfig(0, argv[6]));
+    CHECK(MXSetProfilerState(1));
+    long is, ks;
+    unsigned char* images = (unsigned char*)slurp(argv[3], &is);
+    if (is != (long)n * batches) { printf("FAIL images\n"); return 2; }
+    char* kernel_src = slurp(argv[7], &ks);
+    float inv_std[3];
+    for (int c = 0; c < 3; ++c) inv_std[c] = 1.0f / STD[c];
+
+    Handle x8, xf, mean, istd;
+    mx_uint three = 3;
+    CHECK(MXNDArrayCreateEx(shape, 4, dev, 0, 0, 3, &x8));   /* uint8 */
+    CHECK(MXNDArrayCreateEx(shape, 4, dev, 0, 0, 0, &xf));   /* float32 */
+    CHECK(MXNDArrayCreateEx(&three, 1, dev, 0, 0, 0, &mean));
+    CHECK(MXNDArrayCreateEx(&three, 1, dev, 0, 0, 0, &istd));
+    CHECK(MXNDArraySyncCopyFromCPU(mean, MEAN, 3));
+    CHECK(MXNDArraySyncCopyFromCPU(istd, inv_std, 3));
+
+    Handle mod = NULL, kern = NULL;
+    if (rtc) {
+        const char* exports[] = {"normalise_nhwc"};
+        double t = now_ms();
+        CHECK(MXRtcCudaModuleCreate(kernel_src, 0, NULL, 1, exports, &mod));
+        printf("NVRTC_MS %.3f\n", now_ms() - t);
+        int is_nd[] = {1, 1, 1, 1, 0}, is_const[] = {1, 0, 1, 1, 0};
+        int types[] = {3, 0, 0, 0, 4};   /* uint8, float32 x3, int32 */
+        CHECK(MXRtcCudaKernelCreate(mod, "normalise_nhwc", 5, is_nd,
+                                    is_const, types, &kern));
+    }
+
+    Handle sym;
+    CHECK(MXSymbolCreateFromFile(argv[1], &sym));
+    mx_uint n_args, n_aux, n_loaded, n_names;
+    const char** tmp;
+    static char arg_names[1024][128], aux_names[1024][128],
+        loaded_names[2048][128];
+    CHECK(MXSymbolListArguments(sym, &n_args, &tmp));
+    for (mx_uint i = 0; i < n_args; ++i)
+        snprintf(arg_names[i], 128, "%s", tmp[i]);
+    CHECK(MXSymbolListAuxiliaryStates(sym, &n_aux, &tmp));
+    for (mx_uint i = 0; i < n_aux; ++i)
+        snprintf(aux_names[i], 128, "%s", tmp[i]);
+    Handle* loaded;
+    if (MXNDArrayLoad(argv[2], &n_loaded, &loaded, &n_names, &tmp) != 0) {
+        /* the ABI carries no device here: the default context, gpu(0),
+           holds, and a box without a card refuses */
+        printf("LOAD_REFUSED %s\n", MXGetLastError());
+        CHECK(MXSetProfilerState(0));
+        return rtc ? 1 : 0;
+    }
+    for (mx_uint i = 0; i < n_names; ++i)
+        snprintf(loaded_names[i], 128, "%s", tmp[i]);
+    Handle* held = (Handle*)malloc(n_loaded * sizeof(Handle));
+    memcpy(held, loaded, n_loaded * sizeof(Handle));
+
+    static Handle args[1024], grads[1024], aux[1024];
+    static mx_uint reqs[1024];
+    for (mx_uint i = 0; i < n_args; ++i) {
+        args[i] = strcmp(arg_names[i], "data") == 0 ? xf :
+            find("arg", arg_names[i], n_loaded, held, loaded_names);
+        if (args[i] == NULL) { printf("FAIL arg %s\n", arg_names[i]);
+                               return 1; }
+        grads[i] = NULL;
+        reqs[i] = 0;
+    }
+    for (mx_uint i = 0; i < n_aux; ++i) {
+        aux[i] = find("aux", aux_names[i], n_loaded, held, loaded_names);
+        if (aux[i] == NULL) { printf("FAIL aux %s\n", aux_names[i]);
+                              return 1; }
+    }
+    Handle ex;
+    CHECK(MXExecutorBind(sym, dev, 0, n_args, args, grads, reqs, n_aux, aux,
+                         &ex));
+
+    /* ready: the parent says when (b)'s child is done, so the timed
+       batches run alone on the card */
+    char go[16];
+    if (fgets(go, sizeof(go), stdin) == NULL) {
+        printf("FAIL no go from the parent\n");
+        return 1;
+    }
+    float* host = (float*)malloc((size_t)n * sizeof(float));
+    FILE* fnorm = fopen(argv[5], "wb");
+    FILE* flog = fopen(argv[4], "wb");
+    for (int b = 0; b < batches; ++b) {
+        double t = now_ms();
+        const unsigned char* src = images + (size_t)b * n;
+        if (rtc) {
+            CHECK(MXNDArraySyncCopyFromCPU(x8, src, (size_t)n));
+            void* kargs[5] = {x8, xf, mean, istd, &n};
+            mx_uint threads = (mx_uint)((n + 3) / 4);
+            CHECK(MXRtcCudaKernelCall(kern, 0, kargs,
+                                      (threads + 255) / 256, 1, 1,
+                                      256, 1, 1, 0));
+        } else {
+            for (int k = 0; k < n; ++k)
+                host[k] = ((float)src[k] - MEAN[k % 3]) * inv_std[k % 3];
+            CHECK(MXNDArraySyncCopyFromCPU(xf, host, (size_t)n));
+        }
+        CHECK(MXExecutorForward(ex, 0));
+        mx_uint n_out;
+        Handle* outs;
+        CHECK(MXExecutorOutputs(ex, &n_out, &outs));
+        mx_uint ndim;
+        const mx_uint* oshape;
+        CHECK(MXNDArrayGetShape(outs[0], &ndim, &oshape));
+        size_t m = 1;
+        for (mx_uint i = 0; i < ndim; ++i) m *= oshape[i];
+        float* logits = (float*)malloc(m * sizeof(float));
+        CHECK(MXNDArraySyncCopyToCPU(outs[0], logits, m));
+        printf("BATCH_MS %d %.3f\n", b, now_ms() - t);
+        fwrite(logits, sizeof(float), m, flog);
+        free(logits);
+        CHECK(MXNDArraySyncCopyToCPU(xf, host, (size_t)n));
+        fwrite(host, sizeof(float), (size_t)n, fnorm);
+    }
+    fclose(fnorm);
+    fclose(flog);
+    CHECK(MXSetProfilerState(0));
+    CHECK(MXDumpProfile());
+    printf("ABI_OK\n");
+    return 0;
+}
+'''
+
+
+def _cb_trace(path):
+    """A child's trace: ({device kernel name: launches}, the wrappers'
+    launch counts the child's profiler recorded, ``otherData.
+    mxnet_kernel_launches``)."""
+    with open(path) as f:
+        trace = json.load(f)
+    return (collections.Counter(e["name"] for e in trace["traceEvents"]
+                                if e.get("cat") == "kernel"),
+            trace["otherData"]["mxnet_kernel_launches"])
+
+
+def _cb_count(kernels, fragment):
+    return sum(n for k, n in kernels.items() if fragment in k)
+
+
+def _cb_build(tmp):
+    """(a): the C library from ``kernels/csrc`` and both drivers, linked
+    with ``_build.driver_link_flags()``."""
+    import shutil
+    from mxnet_tpu_torch.kernels import _build
+    t0 = time.perf_counter()
+    # the build phase built it beside the CUDA kernels (the rehearsal has
+    # no build phase)
+    log = _build.BUILD_LOG.get("mxnet") or _build.build_all(
+        ("mxnet",), force=True)["mxnet"]
+    t_lib, t0 = log["seconds"], time.perf_counter()
+    cc = shutil.which("cc") or shutil.which("gcc") or _build.cxx_path()
+    abi_src = _CB_ABI_DRIVER.replace(
+        "@MEAN@", ", ".join("%.9gf" % m for m in _CB_MEAN)).replace(
+        "@STD@", ", ".join("%.9gf" % s for s in _CB_STD))
+    exes, procs = {}, {}
+    for name, src in (("predict", _CB_PREDICT_DRIVER), ("abi", abi_src)):
+        path = os.path.join(tmp, name + ".c")
+        with open(path, "w") as f:
+            f.write(src)
+        exes[name] = os.path.join(tmp, name)
+        procs[name] = subprocess.Popen(
+            [cc, "-O2", path, "-o", exes[name]] + _build.driver_link_flags(),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, p in procs.items():
+        out, _ = p.communicate()
+        assert p.returncode == 0, (name, out)
+    rec = {"library_s": t_lib, "library": _build.lib_path("mxnet"),
+           "drivers_s": time.perf_counter() - t0,
+           "libpython": _build.libpython_kind(),
+           "link_flags": _build.driver_link_flags()}
+    emit({"c_boundary_build": rec})
+    return exes, rec
+
+
+def _cb_env():
+    """A driver's environment: the repo and this interpreter's
+    site-packages on ``PYTHONPATH`` (an embedded interpreter does not see
+    a virtual environment), TF32 off through the ABI's knob."""
+    import site
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = [root] + site.getsitepackages()
+    if os.environ.get("PYTHONPATH"):
+        path.append(os.environ["PYTHONPATH"])
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(path),
+                MXNET_CUDA_ALLOW_TENSOR_CORE="0")
+
+
+def _cb_start(exe, args):
+    """A driver started as a child process: (Popen, its start time)."""
+    return (subprocess.Popen([exe] + [str(a) for a in args],
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True,
+                             env=_cb_env()), time.perf_counter())
+
+
+def _cb_wait(started, go=False, timeout=600):
+    """Its output lines and wall seconds once it ends (``go`` first tells
+    a driver that waits on its stdin to go on); killed on any failure."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(input="go\n" if go else None,
+                                    timeout=timeout)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    assert proc.returncode == 0, (proc.args[0], out[-3000:], err[-3000:])
+    return out.splitlines(), time.perf_counter() - t0
+
+
+def _cb_ms(lines, tag):
+    return [float(l.split()[-1]) for l in lines if l.startswith(tag)]
+
+
+def _cb_scaled(got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _cb_predictor(mx, files, shape, ctx):
+    """The port's Python ``Predictor`` on the files the C drivers read:
+    a function of one batch to its logits."""
+    with open(files["json"]) as f:
+        pred = mx.predictor.Predictor(f.read(), files["params"],
+                                      {"data": shape}, ctx=ctx)
+
+    def forward(x):
+        pred.forward(data=x)
+        return pred.get_output(0).asnumpy()
+    return forward
+
+
+def _cb_serving_leg(mx, exes, files, cfg, ctx, rehearsal, tmp):
+    """(b): MXPred* serving from a C program at dev_type 2."""
+    gpu = ctx.device_type == "gpu"
+    hw, n = files["hw"], cfg["batch"]
+    shape = (n, hw, hw, 3)
+    x = np.random.RandomState(_CB_SEED).uniform(-1, 1, shape).astype(
+        np.float32)
+    xin, yout = os.path.join(tmp, "x.f32"), os.path.join(tmp, "pred.f32")
+    trace = os.path.join(tmp, "predict_trace.json")
+    x.tofile(xin)
+    lines, wall = _cb_wait(_cb_start(exes["predict"], [
+        files["json"], files["params"], xin, yout, trace, 2 if gpu else 1]
+        + list(shape) + [cfg["forwards"]]))
+    got = np.fromfile(yout, np.float32).reshape(cfg["forwards"], n, -1)
+    assert np.isfinite(got).all() and got.shape[2] == files["classes"]
+    assert all(np.array_equal(got[0], g) for g in got[1:]), \
+        "the C forwards disagree with each other"
+    kernels, wrappers = _cb_trace(trace)
+    k1 = _cb_count(kernels, "scale_bias_add_relu")
+    card = _cb_predictor(mx, files, shape, ctx)(x)
+    err_card = _cb_scaled(got[0], card)
+    rows = min(n, 4)
+    cpu = _cb_predictor(mx, files, (rows,) + shape[1:], mx.cpu())(x[:rows])
+    err_cpu = _cb_scaled(got[0][:rows], cpu)
+    rec = {"batch": n, "forwards": cfg["forwards"],
+           "create_ms": _cb_ms(lines, "CREATE_MS")[0],
+           "forward_ms_host": _cb_ms(lines, "FORWARD_MS"),
+           "child_s": wall, "trace_device_kernels": sum(kernels.values()),
+           "k1_launches": k1, "k1_expected": 16 * cfg["forwards"]
+           if gpu else 0, "child_wrapper_counts": wrappers,
+           "vs_python_predictor_on_card": err_card, "tol_card": 1e-5,
+           "cpu_rows": rows, "vs_cpu_forward": err_cpu, "tol_cpu": 1e-3,
+           "tf32": False}
+    emit({"c_boundary_serving": rec})
+    assert err_card <= 1e-5, rec
+    assert err_cpu <= 1e-3, rec
+    assert k1 == rec["k1_expected"], rec
+    assert wrappers["scale_bias_add_relu"] == k1, rec
+    assert wrappers["rtc"] == 0, rec
+    return rec
+
+
+def _cb_abi_start(exes, files, cfg, ctx, tmp):
+    """(c)'s child, started ahead: it loads, compiles and binds while (b)
+    runs, then waits on its stdin before its timed batches."""
+    gpu = ctx.device_type == "gpu"
+    hw, n, batches = files["hw"], cfg["batch"], cfg["forwards"]
+    shape = (n, hw, hw, 3)
+    imgs = np.random.RandomState(_CB_SEED + 1).randint(
+        0, 256, (batches,) + shape).astype(np.uint8)
+    paths = {k: os.path.join(tmp, k) for k in
+             ("images.u8", "abi_logits.f32", "normalised.f32",
+              "abi_trace.json", "normalise.cu")}
+    imgs.tofile(paths["images.u8"])
+    with open(paths["normalise.cu"], "w") as f:
+        f.write(_CB_NORMALISE)
+    started = _cb_start(exes["abi"], [
+        files["json"], files["params"], paths["images.u8"],
+        paths["abi_logits.f32"], paths["normalised.f32"],
+        paths["abi_trace.json"], paths["normalise.cu"],
+        "rtc" if gpu else "host"] + list(shape) + [batches])
+    return started, imgs, paths
+
+
+def _cb_abi_leg(mx, started, files, cfg, ctx):
+    """(c): the general ABI with the runtime-compiled normaliser (K4)
+    feeding ``MXExecutorBind``/``MXExecutorForward``."""
+    gpu = ctx.device_type == "gpu"
+    hw, n, batches = files["hw"], cfg["batch"], cfg["forwards"]
+    shape = (n, hw, hw, 3)
+    started, imgs, paths = started
+    lines, wall = _cb_wait(started, go=True)
+    if not gpu:
+        refused = [l for l in lines if l.startswith("LOAD_REFUSED")]
+        rec = {"mode": "host", "load_refused": refused, "child_s": wall,
+               "k1_launches": 0, "k4_launches": 0,
+               "normalise_max_abs_err": 0.0}
+        emit({"c_boundary_abi": rec})
+        assert refused and "no CUDA device" in refused[0], lines
+        return rec
+    norm = np.fromfile(paths["normalised.f32"], np.float32).reshape(
+        (batches,) + shape)
+    logits = np.fromfile(paths["abi_logits.f32"], np.float32).reshape(
+        batches, n, -1)
+    # the plain version, on the card where the kernel ran
+    dev = ctx.torch_device()
+    mean = torch.tensor(_CB_MEAN, dtype=torch.float32, device=dev)
+    inv_std = 1.0 / torch.tensor(_CB_STD, dtype=torch.float32, device=dev)
+    plain = [((torch.from_numpy(b).to(dev).float() - mean) * inv_std)
+             .cpu().numpy() for b in imgs]
+    norm_err = max(float(np.abs(a - b).max()) for a, b in zip(norm, plain))
+    norm_ulps = max(_ulps(a, b) for a, b in zip(norm, plain))
+    kernels, wrappers = _cb_trace(paths["abi_trace.json"])
+    k1 = _cb_count(kernels, "scale_bias_add_relu")
+    k4 = _cb_count(kernels, "normalise_nhwc")
+    predict = _cb_predictor(mx, files, shape, ctx)
+    errs = [_cb_scaled(lg, predict(p)) for lg, p in zip(logits, plain)]
+    rec = {"batch": n, "batches": batches, "mode": "rtc" if gpu else "host",
+           "nvrtc_ms": (_cb_ms(lines, "NVRTC_MS") or [None])[0],
+           "batch_ms_host": _cb_ms(lines, "BATCH_MS"), "child_s": wall,
+           "normalise_max_abs_err": norm_err, "normalise_ulps": norm_ulps,
+           "normalise_bit_equal": norm_err == 0.0,
+           "vs_python_predictor": max(errs), "tol": 1e-5,
+           "k1_launches": k1, "k1_expected": 16 * batches if gpu else 0,
+           "k4_launches": k4, "k4_expected": batches if gpu else 0,
+           "child_wrapper_counts": wrappers,
+           "trace_device_kernels": sum(kernels.values())}
+    emit({"c_boundary_abi": rec})
+    assert np.isfinite(logits).all(), rec
+    assert norm_err == 0.0, rec
+    assert max(errs) <= 1e-5, rec
+    assert (k1, k4) == (rec["k1_expected"], rec["k4_expected"]), rec
+    assert (wrappers["scale_bias_add_relu"], wrappers["rtc"]) == (k1, k4), \
+        rec
+    return rec
+
+
+_CB_RTC_CASES = r'''
+extern "C" __global__ void axpy(const float* x, float* y, float alpha,
+                                int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] += alpha * x[i];
+}
+
+// a C++ (mangled) kernel: each block reverses its segment through
+// dynamic shared memory
+__global__ void reverse_blocks(const float* x, float* y, int n) {
+  extern __shared__ float tile[];
+  int base = blockIdx.x * blockDim.x, t = threadIdx.x;
+  if (base + t < n) tile[t] = x[base + t];
+  __syncthreads();
+  int j = blockDim.x - 1 - t;
+  if (base + j < n) y[base + j] = tile[t];
+}
+
+template <typename T>
+__global__ void scale(const T* x, T* y, T a, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] * a;
+}
+'''
+
+_CB_HALF = r'''
+#include <cuda_fp16.h>
+extern "C" __global__ void hscale(const __half* x, __half* y, __half a,
+                                  int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = __hmul(x[i], a);
+}
+'''
+
+
+def _isolated_ms(fn, before=None, reps=21):
+    """The device ms of ``fn``'s kernels alone: the median over ``reps``
+    of CUDA events recorded just around it while the stream still spins
+    on ``torch.cuda._sleep`` (~1 ms), so the host's launch path, slower
+    than a small kernel, is hidden; ``before`` (an L2 flush) runs ahead
+    of the first event. A profiler trace is not used: after the earlier
+    phases' traces in this process it attributes these short kernels
+    wrongly (PERF.md §6)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        if before is not None:
+            before()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _cb_rtc_leg(mx, ctx, rehearsal):
+    """(d): ``mx.rtc`` in this process, each case against its plain
+    PyTorch version; then K4's time at (c)'s batch."""
+    from mxnet_tpu_torch import rtc
+    gpu = ctx.device_type == "gpu"
+    rec = {}
+    if not gpu:     # the CPU holds only the refusals
+        try:
+            rtc.CudaKernel(None, "k", "k", rtc.parse_signature(
+                "float *y")).launch([mx.nd.zeros((1,), ctx=ctx)], ctx,
+                                    (1, 1, 1), (1, 1, 1))
+            raise AssertionError("a cpu launch did not raise")
+        except mx.MXNetError as e:
+            rec["cpu_ctx_refused"] = "mx.gpu" in str(e)
+        emit({"c_boundary_rtc": rec})
+        assert rec["cpu_ctx_refused"], rec
+        return rec, None
+    dev = ctx.torch_device()
+    g = torch.Generator(device=dev).manual_seed(_CB_SEED)
+    n = 1 << 20
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(_CB_RTC_CASES,
+                         exports=["reverse_blocks", "scale<float>",
+                                  "scale<double>"])
+    rec["compile_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["lowered"] = dict(mod._lowered)
+    x = mx.nd.NDArray(torch.randn(n, generator=g, device=dev))
+    y0 = torch.randn(n, generator=g, device=dev)
+
+    # extern "C" axpy: y += a*x may contract to one fma, the plain version
+    # rounds twice: 1 ulp of |y|'s scale
+    y = mx.nd.NDArray(y0.clone())
+    mod.get_kernel("axpy", "const float *x, float *y, float alpha, int n"
+                   ).launch([x, y, 2.5, n], ctx, ((n + 255) // 256, 1, 1),
+                            (256, 1, 1))
+    want = y0 + 2.5 * x._data
+    rec["axpy_max_abs_err"] = float((y._data - want).abs().max())
+    assert rec["axpy_max_abs_err"] <= 1e-6 * float(want.abs().max()), rec
+
+    # mangled export through dynamic shared memory, two splits
+    k = mod.get_kernel("reverse_blocks", "const float *x, float *y, int n")
+    for bd in (128, 512):
+        out = mx.nd.NDArray(torch.empty(n, device=dev))
+        k.launch([x, out, n], ctx, (n // bd, 1, 1), (bd, 1, 1),
+                 shared_mem=bd * 4)
+        want = x._data.view(-1, bd).flip(1).reshape(-1)
+        rec["reverse_%d_equal" % bd] = bool(torch.equal(out._data, want))
+        assert rec["reverse_%d_equal" % bd], rec
+
+    # templates exported by their name expressions
+    for t, tdt, cty in (("float", torch.float32, "float"),
+                        ("double", torch.float64, "double")):
+        xt = mx.nd.NDArray(x._data.to(tdt))
+        out = mx.nd.NDArray(torch.empty(n, device=dev, dtype=tdt))
+        mod.get_kernel("scale<%s>" % t, "const %s *x, %s *y, %s a, int n"
+                       % (cty, cty, cty)).launch(
+            [xt, out, 0.75, n], ctx, ((n + 255) // 256, 1, 1), (256, 1, 1))
+        rec["scale_%s_equal" % t] = bool(torch.equal(out._data,
+                                                     xt._data * 0.75))
+        assert rec["scale_%s_equal" % t], rec
+
+    # __half by its 16 bits: a product of two halves is exact in float,
+    # so one rounding on both sides
+    hmod = rtc.CudaModule(_CB_HALF)
+    xh = mx.nd.NDArray(x._data.half())
+    out = mx.nd.NDArray(torch.empty(n, device=dev, dtype=torch.float16))
+    hmod.get_kernel("hscale", "const __half *x, __half *y, __half a, int n"
+                    ).launch([xh, out, 1.5, n], ctx,
+                             ((n + 255) // 256, 1, 1), (256, 1, 1))
+    rec["half_equal"] = bool(torch.equal(out._data, xh._data * 1.5))
+    assert rec["half_equal"], rec
+
+    # a compile error raises with NVRTC's log
+    try:
+        rtc.CudaModule('extern "C" __global__ void broken(float* y) '
+                       '{ y[0] = undeclared_name; }')
+        raise AssertionError("a broken module compiled")
+    except mx.MXNetError as e:
+        rec["compile_error_has_log"] = "undeclared_name" in str(e)
+    assert rec["compile_error_has_log"], rec
+
+    # a dtype mismatch raises before any launch
+    before = rtc.launches
+    try:
+        mod.get_kernel("axpy", "const float *x, float *y, float alpha, "
+                       "int n").launch(
+            [mx.nd.NDArray(x._data.int()), y, 1.0, n], ctx, (1, 1, 1),
+            (1, 1, 1))
+        raise AssertionError("a dtype mismatch launched")
+    except mx.MXNetError:
+        rec["dtype_mismatch_refused"] = rtc.launches == before
+    assert rec["dtype_mismatch_refused"], rec
+
+    # K4's time at (c)'s batch: the normaliser against its plain version
+    b = _CB[rehearsal]["batch"]
+    numel = b * 224 * 224 * 3
+    norm = rtc.CudaModule(_CB_NORMALISE).get_kernel("normalise_nhwc",
+                                                    _CB_NORMALISE_SIG)
+    x8 = mx.nd.NDArray(torch.randint(0, 256, (b, 224, 224, 3),
+                                     generator=g, device=dev,
+                                     dtype=torch.uint8))
+    yf = mx.nd.NDArray(torch.empty((b, 224, 224, 3), device=dev))
+    mean = mx.nd.NDArray(torch.tensor(_CB_MEAN, device=dev))
+    inv_std = mx.nd.NDArray(1.0 / torch.tensor(_CB_STD, device=dev))
+    args = [x8, yf, mean, inv_std, numel]
+    grid = (((numel + 3) // 4 + 255) // 256, 1, 1)
+    launch = lambda: norm.launch(args, ctx, grid, (256, 1, 1))
+    plain = lambda: (x8._data.float() - mean._data) * inv_std._data
+    launch()
+    err = float((yf._data - plain()).abs().max())
+    # the 24 MB it moves fit the 50 MB L2: "warm" repeats the launch, the
+    # kernel's ms writes 256 MB between launches (the C path's input
+    # arrives by a fresh host copy, its output goes to the executor)
+    flush = torch.empty(64 << 20, device=dev)
+    ms = time_cuda(launch, iters=100)
+    dms = _isolated_ms(launch, before=flush.zero_)
+    warm_dms = _isolated_ms(launch)
+    plain_ms = _isolated_ms(plain, before=flush.zero_)
+    plain_event_ms = time_cuda(plain, iters=100)
+    nbytes = numel * (1 + 4)
+    rate = next(r for key, r in _MEM_RATE
+                if key in torch.cuda.get_device_name(0))
+    k4 = {"shape": [b, 224, 224, 3], "max_abs_err": err,
+          "event_ms": ms, "ms": dms, "warm_ms": warm_dms,
+          "plain_ms": plain_ms, "plain_event_ms": plain_event_ms,
+          "bytes": nbytes,
+          "bound_ms": nbytes / rate * 1e3, "bound_by": "bytes",
+          "roofline_share": nbytes / rate * 1e3 / dms}
+    rec["normalise"] = k4
+    emit({"c_boundary_rtc": rec})
+    assert err == 0.0, k4
+    return rec, k4
+
+
+def c_boundary_phase(mx, ctx, rehearsal, card):
+    """A C deployment of ResNet-50 v1 through the port's own C library,
+    with a runtime-compiled CUDA C kernel (K4) on its input path:
+    (a) the library and two C drivers built; (b) ``MXPred*`` serving at
+    ``dev_type`` 2; (c) the general ABI, ``MXRtcCudaModuleCreate``'s
+    normaliser feeding ``MXExecutorBind``; (d) ``mx.rtc`` in this
+    process. Returns the launches of K1 and K4 on the main path ((b) and
+    (c), read from the children's traces) and K4's timing."""
+    import shutil
+    gpu = ctx.device_type == "gpu"
+    cfg = _CB[rehearsal]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _free(gpu)
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.kernels import fused_bn as K1
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_c_boundary_")
+    abi = None
+    try:
+        exes, build = _cb_build(tmp)
+        sym, params, hw, classes, _, _, _ = _served_resnet(mx, ctx,
+                                                           rehearsal)
+        files = {"json": os.path.join(tmp, "resnet-symbol.json"),
+                 "params": os.path.join(tmp, "resnet-0000.params"),
+                 "hw": hw, "classes": classes}
+        sym.save(files["json"])
+        mx.nd.save(files["params"], params)
+        del params
+        # -- the main path: counts zeroed just before, read just after ----
+        K1.launches = FA.fwd_launches = FA.bwd_launches = rtc.launches = 0
+        abi = _cb_abi_start(exes, files, cfg, ctx, tmp)
+        b = _cb_serving_leg(mx, exes, files, cfg, ctx, rehearsal, tmp)
+        c = _cb_abi_leg(mx, abi, files, cfg, ctx)
+        counts = _kernel_counts() + (rtc.launches,)
+        # -----------------------------------------------------------------
+        d, k4 = _cb_rtc_leg(mx, ctx, rehearsal)
+    finally:
+        if abi is not None and abi[0][0].poll() is None:
+            abi[0][0].kill()
+            abi[0][0].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    k1 = b["k1_launches"] + c["k1_launches"]
+    emit({"c_boundary": {
+        "card": card, "a_build": build, "b_serving": b, "c_abi": c,
+        "d_rtc": d, "k1_launches": k1, "k4_launches": c["k4_launches"],
+        "parent_counts_during_children": counts,
+        "seconds": time.perf_counter() - t_phase}})
+    # the C programs ran in children (their wrappers' counts came back in
+    # their traces): this process launched only the Python Predictor's K1
+    # tails for the gates
+    assert counts[1:] == (0, 0, 0), counts
+    _free(gpu)
+    return (k1, 0, 0, c["k4_launches"]), k4, c
+
+
 PHASES = ("kernels", "serving", "attention_kernels", "training",
           "resnet_training", "gluon_training", "decode", "rnn_training",
           "image_classification", "gluon_zoo", "observability",
           "dense_prediction", "data_parallel", "model_parallel",
           "engine_meshes", "elastic", "sparse", "detection", "records",
-          "conv_recurrent")
+          "conv_recurrent", "c_boundary")
 
 
 def main(argv=None):
@@ -10519,6 +11328,11 @@ def main(argv=None):
         with phase("conv_recurrent"):
             res["cr_launches"] = conv_recurrent_phase(
                 mx, ctx, rehearsal, "cpu" if rehearsal else _card_line())
+    if "c_boundary" in todo:
+        with phase("c_boundary"):
+            res["cb_launches"], res["k4"], res["cb_abi"] = \
+                c_boundary_phase(mx, ctx, rehearsal,
+                                 "cpu" if rehearsal else _card_line())
     if rehearsal or todo != list(PHASES):
         print("chip_smoke: %s passed (no device result)"
               % ("CPU rehearsal" if rehearsal else "phases " + ",".join(todo)))
@@ -10534,7 +11348,8 @@ def main(argv=None):
         + res["dp_launches"][0] + res["mp_launches"][0]
         + res["em_launches"][0] + res["el_launches"][0]
         + res["sp_launches"][0] + res["det_launches"][0]
-        + res["rec_launches"][0] + res["cr_launches"][0],
+        + res["rec_launches"][0] + res["cr_launches"][0]
+        + res["cb_launches"][0],
         "serving_launches": res["k1_launches"],
         "observability_launches": res["obs_launches"],
         "training_launches": res["k1_train_launches"],
@@ -10551,6 +11366,7 @@ def main(argv=None):
         "detection_launches": res["det_launches"][0],
         "records_launches": res["rec_launches"][0],
         "conv_recurrent_launches": res["cr_launches"][0],
+        "c_boundary_launches": res["cb_launches"][0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
@@ -10580,6 +11396,7 @@ def main(argv=None):
         "detection_launches": res["det_launches"][1],
         "records_launches": res["rec_launches"][1],
         "conv_recurrent_launches": res["cr_launches"][1],
+        "c_boundary_launches": res["cb_launches"][1],
         "max_abs_err": attn["fwd_max_abs_err"],
         "ms": attn["fwd_device_us"] / 1e3,
         "event_ms": attn["fwd_us"] / 1e3,
@@ -10610,6 +11427,7 @@ def main(argv=None):
         "detection_launches": res["det_launches"][2],
         "records_launches": res["rec_launches"][2],
         "conv_recurrent_launches": res["cr_launches"][2],
+        "c_boundary_launches": res["cb_launches"][2],
         "max_abs_err": attn["bwd_max_abs_err"],
         "ms": attn["bwd_device_us"] / 1e3,
         "event_ms": attn["bwd_us"] / 1e3,
@@ -10619,7 +11437,19 @@ def main(argv=None):
         "library_ms": attn["bwd_library_device_us"] / 1e3,
         "library_call": "torch.autograd.grad through "
                         "scaled_dot_product_attention",
-        "shape": attn["shape"]}]})
+        "shape": attn["shape"]}, {
+        "name": "rtc_normalise_nhwc", "route": "cuda",
+        "source": "mxnet_tpu_torch/rtc.py",
+        "kernel_source": "chip_smoke.py (_CB_NORMALISE)",
+        "replaces": "mxnet_tpu/rtc.py:37",
+        "launches": res["cb_launches"][3],
+        "c_boundary_launches": res["cb_launches"][3],
+        "max_abs_err": max(res["k4"]["max_abs_err"],
+                           res["cb_abi"]["normalise_max_abs_err"]),
+        "ms": res["k4"]["ms"], "event_ms": res["k4"]["event_ms"],
+        "plain_ms": res["k4"]["plain_ms"],
+        "bound_ms": res["k4"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "shape": res["k4"]["shape"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})
     return 0

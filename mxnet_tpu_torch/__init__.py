@@ -26,7 +26,9 @@ and images (``mx.recordio``, ``io.ImageRecordIter`` over the native
 loader, ``mx.image``/``mx.img``), the convolutional recurrent cells
 (``gluon.contrib.rnn``, ``mx.rnn``'s conv cells) and the runtime around
 them (``mx.engine``, ``mx.storage``, ``mx.registry``, ``mx.libinfo``,
-``mx.viz``, ``mx.test_utils``, ``mx.contrib``); see ROADMAP.md.
+``mx.viz``, ``mx.test_utils``, ``mx.contrib``), and the C boundary (the
+C API and the C predict API in ``kernels/_build/libmxnet.so``, built at
+first use, and ``mx.rtc``'s NVRTC-compiled CUDA C); see ROADMAP.md.
 
 A worker started by ``python -m mxnet_tpu_torch.launch`` joins its job
 here, at import (``dist.init_from_env``), before anything else runs.
@@ -104,6 +106,7 @@ from . import visualization  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from . import test_utils  # noqa: F401
 from . import contrib  # noqa: F401
+from . import rtc  # noqa: F401
 
 # mx.random's samplers (parity: mx.random.uniform is nd.random.uniform)
 for _name in nd.random.__all__:

@@ -4,7 +4,10 @@ Counterpart of ``mxnet_tpu/config.py``: the storage fallback's warning
 (``MXNET_STORAGE_FALLBACK_LOG_VERBOSE``: a sparse array that an op reads
 through its dense view is logged once per site) and
 ``MXNET_PROFILER_AUTOSTART`` (the profiler starts at import and writes
-its trace at exit).
+its trace at exit), and upstream's ``MXNET_CUDA_ALLOW_TENSOR_CORE`` (0:
+float32 convolutions and matrix products run in full float32, not TF32).
+A program over the C ABI sets these in its environment, as it has no
+Python to set ``torch.backends`` with.
 """
 from __future__ import annotations
 
@@ -43,4 +46,17 @@ def _autostart_profiler():
         atexit.register(profiler.set_state, "stop")
 
 
+def _tensor_core_math():
+    """MXNET_CUDA_ALLOW_TENSOR_CORE=0: both of PyTorch's TF32 flags off
+    (``torch.backends.cudnn.allow_tf32``,
+    ``torch.backends.cuda.matmul.allow_tf32``), as upstream's knob turns
+    tensor-core math off for float32; unset or 1 leaves PyTorch's
+    defaults."""
+    if not get_env("MXNET_CUDA_ALLOW_TENSOR_CORE", 1, int):
+        import torch
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 _autostart_profiler()
+_tensor_core_math()

@@ -5,8 +5,10 @@ Counterpart of ``mxnet_tpu/libinfo.py`` (parity: reference
 libmxnet.so). The port's native libraries are the kernels and host
 libraries that ``kernels/_build.py`` builds at first use from
 ``kernels/csrc/`` into ``kernels/_build/``: the CUDA kernels
-(:data:`kernels._build.SOURCES`) and the host libraries
-(:data:`kernels._build.HOST_SOURCES`).
+(:data:`kernels._build.SOURCES`), the host libraries
+(:data:`kernels._build.HOST_SOURCES`) and the C ABI, ``libmxnet.so``
+(:data:`kernels._build.EMBED_SOURCES`), which a C or C++ program links as
+upstream's programs link ``libmxnet.so``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ def find_lib_path():
         Every ``kernels/_build/lib<name>.so`` that exists; empty before
         the first build (nothing is built at import).
     """
-    names = ["lib%s.so" % n for n in _build.SOURCES + _build.HOST_SOURCES]
+    names = ["lib%s.so" % n for n in _build.SOURCES + _build.HOST_SOURCES
+             + tuple(_build.EMBED_SOURCES)]
     return [os.path.join(_build.BUILD_DIR, n) for n in names
             if os.path.exists(os.path.join(_build.BUILD_DIR, n))]
 

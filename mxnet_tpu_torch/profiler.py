@@ -9,8 +9,11 @@ filename, with the telemetry host spans (``serve_batch``, ``feed``,
 ``step``, ...) and their causal flow events merged into Kineto's event
 list on Kineto's timebase, the program cards under
 ``otherData.mxnet_tpu_programs`` and the flight sampler's recent series
-under ``otherData.mxnet_tpu_series``. Kineto's raw export stays beside
-it in ``<filename stem>_trace/``.
+under ``otherData.mxnet_tpu_series``, and the process's counts of
+hand-written kernel launches so far (K1-K3's wrappers and ``mx.rtc``'s)
+under ``otherData.mxnet_kernel_launches``: a program over the C ABI has
+no Python to read them with. Kineto's raw export stays beside it in
+``<filename stem>_trace/``.
 
 ``pause``/``resume`` are no-ops, as in the JAX package.
 ``MXNET_PROFILER_AUTOSTART=1`` starts tracing at import (``config.py``).
@@ -26,7 +29,8 @@ from .base import MXNetError, get_env  # noqa: F401 (the JAX module's name)
 from . import telemetry
 
 __all__ = ["profiler_set_config", "profiler_set_state", "set_config",
-           "set_state", "dump", "pause", "resume", "Scope", "dump_profile"]
+           "set_state", "dump", "pause", "resume", "Scope", "dump_profile",
+           "kernel_launches"]
 
 _state = {"running": False, "filename": "profile.json", "dir": None,
           "prof": None}
@@ -159,12 +163,26 @@ def _link_chrome_trace():
     cards = telemetry.programs()
     if cards:
         trace.setdefault("otherData", {})["mxnet_tpu_programs"] = cards
+    trace.setdefault("otherData", {})["mxnet_kernel_launches"] = \
+        kernel_launches()
     from . import flight
     samples = flight.series(240)
     if samples:
         trace.setdefault("otherData", {})["mxnet_tpu_series"] = samples
     with open(_state["filename"], "w") as dst:
         json.dump(trace, dst)
+
+
+def kernel_launches():
+    """{kernel: launches so far in this process} of the hand-written
+    kernels' wrappers: K1 (``scale_bias_add_relu``), K2 and K3 (flash
+    attention's forward and backward) and K4 (``mx.rtc``'s launches)."""
+    from . import rtc
+    from .kernels import fused_bn, flash_attention
+    return {"scale_bias_add_relu": fused_bn.launches,
+            "flash_attention_fwd": flash_attention.fwd_launches,
+            "flash_attention_bwd": flash_attention.bwd_launches,
+            "rtc": rtc.launches}
 
 
 def dump(finished=True, profile_process="worker"):

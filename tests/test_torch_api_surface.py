@@ -34,7 +34,6 @@ from torch_threads import one_torch_thread  # noqa: F401
 # {namespace: {ROADMAP item: [names]}}; "mx" is the top level
 SKIP = {
     "mx": {
-        "Queue 1 item 6.6: the C boundary, then rtc.py (K4)": ["rtc"],
         "Queue 1 item 6: not to be ported (mxnet_tpu/torch.py, mx.th)":
             ["th", "torch"],
     },

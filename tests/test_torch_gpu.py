@@ -2046,3 +2046,123 @@ def test_device_memory_error_from_a_real_card_oom():
     torch.cuda.empty_cache()
     out = ex.forward(is_train=False)[0]
     assert out.shape == (4096, 1 << 16)
+
+
+# -- the C boundary and mx.rtc (K4) ----------------------------------------
+
+def _rtc_sources():
+    cs = _chip_smoke()
+    return cs._CB_RTC_CASES, cs._CB_HALF, cs._CB_NORMALISE, \
+        cs._CB_NORMALISE_SIG
+
+
+def _randn(n, dtype=torch.float32, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(n, generator=g, device="cuda").to(dtype)
+
+
+def test_rtc_cases_match_plain_versions():
+    """``chip_smoke.py``'s phase (d) cases: an ``extern "C"`` axpy, a
+    mangled kernel through dynamic shared memory at two block sizes, a
+    template by its name expression, a ``__half`` kernel."""
+    _need_card()
+    from mxnet_tpu_torch import rtc
+    cases, half, _, _ = _rtc_sources()
+    ctx, n = mt.gpu(0), 1 << 16
+    mod = rtc.CudaModule(cases, exports=["reverse_blocks", "scale<float>"])
+    x = mt.nd.NDArray(_randn(n))
+    y0 = _randn(n, seed=1)
+    y = mt.nd.NDArray(y0.clone())
+    before = rtc.launches
+    mod.get_kernel("axpy", "const float *x, float *y, float a, int n"
+                   ).launch([x, y, 2.5, n], ctx, (n // 256, 1, 1),
+                            (256, 1, 1))
+    want = y0 + 2.5 * x._data
+    assert float((y._data - want).abs().max()) <= 1e-6 * float(
+        want.abs().max())
+    k = mod.get_kernel("reverse_blocks", "const float *x, float *y, int n")
+    for bd in (128, 512):
+        out = mt.nd.NDArray(torch.empty(n, device="cuda"))
+        k.launch([x, out, n], ctx, (n // bd, 1, 1), (bd, 1, 1),
+                 shared_mem=bd * 4)
+        assert torch.equal(out._data,
+                           x._data.view(-1, bd).flip(1).reshape(-1))
+    out = mt.nd.NDArray(torch.empty(n, device="cuda"))
+    mod.get_kernel("scale<float>", "const float *x, float *y, float a, "
+                   "int n").launch([x, out, 0.75, n], ctx,
+                                   (n // 256, 1, 1), (256, 1, 1))
+    assert torch.equal(out._data, x._data * 0.75)
+    xh = mt.nd.NDArray(x._data.half())
+    oh = mt.nd.NDArray(torch.empty(n, device="cuda", dtype=torch.float16))
+    rtc.CudaModule(half).get_kernel(
+        "hscale", "const __half *x, __half *y, __half a, int n").launch(
+        [xh, oh, 1.5, n], ctx, (n // 256, 1, 1), (256, 1, 1))
+    assert torch.equal(oh._data, xh._data * 1.5)
+    assert rtc.launches == before + 5
+
+
+def test_rtc_refusals_on_card():
+    _need_card()
+    from mxnet_tpu_torch import rtc
+    cases, _, _, _ = _rtc_sources()
+    with pytest.raises(mt.MXNetError, match="undeclared_name"):
+        rtc.CudaModule('extern "C" __global__ void k(float* y) '
+                       '{ y[0] = undeclared_name; }')
+    k = rtc.CudaModule(cases).get_kernel(
+        "axpy", "const float *x, float *y, float a, int n")
+    y = mt.nd.NDArray(torch.zeros(8, device="cuda"))
+    before = rtc.launches
+    for args in ([mt.nd.NDArray(torch.zeros(8, device="cuda",
+                                            dtype=torch.int32)), y, 1.0, 8],
+                 [mt.nd.zeros((8,), ctx=mt.cpu()), y, 1.0, 8],
+                 [mt.nd.NDArray(torch.zeros(8, 2, device="cuda").t()[0]),
+                  y, 1.0, 8]):
+        with pytest.raises(mt.MXNetError):
+            k.launch(args, mt.gpu(0), (1, 1, 1), (8, 1, 1))
+    with pytest.raises(mt.MXNetError, match=r"mx\.gpu"):
+        k.launch([y, y, 1.0, 8], mt.cpu(), (1, 1, 1), (8, 1, 1))
+    assert rtc.launches == before
+
+
+def test_rtc_from_a_thread_torch_never_touched():
+    """A launch from a fresh thread pushes the device's primary context
+    itself and lands on that thread's current stream."""
+    _need_card()
+    import threading
+    from mxnet_tpu_torch import rtc
+    _, _, norm_src, sig = _rtc_sources()
+    k = rtc.CudaModule(norm_src).get_kernel("normalise_nhwc", sig)
+    x8 = mt.nd.NDArray(torch.randint(0, 256, (2, 5, 7, 3), device="cuda",
+                                     dtype=torch.uint8))
+    out = mt.nd.NDArray(torch.empty((2, 5, 7, 3), device="cuda"))
+    mean = mt.nd.NDArray(torch.tensor([1.0, 2.0, 3.0], device="cuda"))
+    inv = mt.nd.NDArray(torch.tensor([0.5, 0.25, 2.0], device="cuda"))
+    errs = []
+
+    def run():
+        try:
+            k.launch([x8, out, mean, inv, 210], mt.gpu(0), (1, 1, 1),
+                     (64, 1, 1))
+            torch.cuda.synchronize()
+        except Exception as e:  # surfaced below
+            errs.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errs, errs
+    assert torch.equal(out._data, (x8._data.float() - mean._data)
+                       * inv._data)
+
+
+def test_c_train_driver_on_card(tmp_path):
+    """The C LeNet training driver of ``tests/test_c_api.py:108`` at
+    ``dev_type`` 2, linked with ``_build.driver_link_flags()``."""
+    _need_card()
+    import torch_c_abi as abi
+    json_path = abi.lenet_symbol(mt, str(tmp_path / "lenet-symbol.json"))
+    exe = abi.build_driver(abi.LENET_DRIVER_SRC, tmp_path, "train_driver")
+    p = abi.run_driver(exe, [json_path, 2])
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "TRAIN_OK" in p.stdout, p.stdout
+    assert float(p.stdout.split("acc=")[1].split()[0]) > 0.8, p.stdout

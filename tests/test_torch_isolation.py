@@ -2,6 +2,7 @@
 package, and its entry points never fall back to the CPU silently."""
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -68,6 +69,27 @@ def test_sources_import_no_jax(path):
                 continue
             for n in names:
                 assert not _is_jax_side(n), "%s imports %s" % (fn, n)
+
+
+def test_c_sources_import_only_port_modules():
+    """The port's C library (``kernels/csrc/*.cc``) imports only
+    ``mxnet_tpu_torch`` modules into its embedded interpreter: a copy of
+    ``src/c_api.cc`` that kept ``mxnet_tpu.c_api_impl`` would load the
+    JAX package from the port's library."""
+    csrc = os.path.join(PKG, "kernels", "csrc")
+    found = {}
+    for f in sorted(os.listdir(csrc)):
+        if not f.endswith((".cc", ".h")):
+            continue
+        with open(os.path.join(csrc, f)) as fh:
+            src = fh.read()
+        assert '"mxnet_tpu.' not in src and '"mxnet_tpu"' not in src, f
+        mods = re.findall(r'PyImport_ImportModule\(\s*"([^"]+)"', src)
+        for m in mods:
+            assert m.split(".")[0] == "mxnet_tpu_torch", (f, m)
+        found[f] = mods
+    assert found["c_api.cc"] == ["mxnet_tpu_torch.c_api_impl"]
+    assert found["c_predict_api.cc"] == ["mxnet_tpu_torch.c_predict"]
 
 
 def test_no_cuda_and_no_ctx_raises(monkeypatch):
