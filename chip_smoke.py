@@ -20,10 +20,17 @@ Phases (any failure exits non-zero; no error is swallowed):
    flash kernel must have some (HGMMA in bf16).
 3. kernels — the block-tail kernel (K1) against its plain PyTorch version
    at the shapes the serving path gives it (the four ResNet-50 block-tail
-   shapes at batch 1 and 32) plus ragged shapes, fp32 and bf16, with and
-   without a residual; one JSON line per case with the kernel's and the
-   plain version's time (CUDA events over 50 launches after warm-up), the
-   memory bound, the roofline share and the max abs error.
+   shapes at batch 1 and 32) plus ragged shapes, fp32 (bit-equal) and
+   bf16, with and without a residual; one JSON line per case with the
+   kernel's device time alone (CUDA events around one launch behind a
+   spinning stream, L2 flushed by writing 256 MB first, and warm), its
+   CUDA-event time over 50 back-to-back calls (the host's path included),
+   the plain version's time, the memory bound, the roofline share, the max
+   abs error, and at batch 1 the host launch path (CUDA-event µs a call
+   over 100 back-to-back calls). The flush writes 256 MB and reads it
+   back, so the L2 holds clean lines and the kernel pays for no other
+   write-back; at batch 32 ``dirty_flush_us`` beside it is the time after
+   the write alone.
 4. serving — the port's ``resnet50_v1`` (NHWC, fused block tails,
    1000 classes, 224x224x3, fp32, Xavier weights from a seeded
    ``torch.Generator``) exported and served through ``InferenceEngine``
@@ -73,8 +80,11 @@ Phases (any failure exits non-zero; no error is swallowed):
    phase-split from the same params (bit-equal), and step 1 recomputed
    by the port on the CPU: the loss within 1e-4, the weights within 1e-3
    of each tensor's largest value on the card's ReLU branches. Last,
-   K1's backward against its plain version at the batch-32 tail shapes
-   (fp32 and bf16, strided incoming gradient) with its time and bound.
+   K1's backward kernel against its plain version at the batch-32 tail
+   shapes and the ragged ones (fp32 and bf16, strided and dense incoming
+   gradient; dx and dres bit-equal, two calls bit-equal) with its device
+   time alone and its bound. Every training leg counts 16 K1 backward
+   launches a step beside the 16 forward ones.
 8. gluon_training — README.md's Gluon loop on the same ``resnet50_v1``
    (fp32, TF32 off, cudnn deterministic, batch 32, one fixed synthetic
    batch, seeded weights): ``autograd.record`` → ``SoftmaxCrossEntropyLoss``
@@ -413,10 +423,13 @@ Phases (any failure exits non-zero; no error is swallowed):
    launches (the host's launch path included), the plain version's
    device ms (flushed alike), the bound (5 bytes an element at the
    memory rate).
-24. a ``{"kernels": [...]}`` line — for K1 its ``ms``/``plain_ms``/
+24. a ``{"kernels": [...]}`` line — for K1 its ``ms`` (device time alone,
+   L2 flushed with clean lines; ``warm_ms``, ``dirty_flush_ms`` and
+   ``event_ms`` beside), ``plain_ms`` and
    ``bound_ms`` are per batch-32 forward (the sum over the 16 fp32 block
-   tails with residual) and its ``bwd_*`` the backward's per batch-32
-   step; for K2 and K3 they are at the LM's shape, ``ms``
+   tails with residual), ``launch_host_us`` the batch-1 launch path, and
+   its ``bwd_*`` the backward kernel's per batch-32 step, with
+   ``bwd_launches`` per path; for K2 and K3 they are at the LM's shape, ``ms``
    and ``library_ms`` device times (``event_ms`` beside), ``plain_ms`` by
    CUDA events; each
    ``launches`` is the count on that kernel's main paths (K1: serving,
@@ -432,10 +445,6 @@ Phases (any failure exits non-zero; no error is swallowed):
    (c)'s path — and,
    last, the ``{"ok": true,
    "device": {...}}`` line.
-
-The kernels phase also gives each batch-1 case the kernel's device time
-from a ``torch.profiler`` trace (``device_us``) beside its CUDA-event
-time, which includes the wrapper's host time.
 
 ``--cpu-rehearsal`` runs phases 3-23 on the CPU at a small size, where
 every kernel wrapper takes its plain version.
@@ -464,6 +473,9 @@ _MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
 _R50_TAILS = ((56, 256, 3), (28, 512, 4), (14, 1024, 6), (7, 2048, 3))
 _RAGGED = ((3, 5, 7, 33), (2, 20, 7, 33), (2, 2, 2, 600))
 _TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
+# K1's backward launches on each main path (in this process or read from
+# its workers), for the kernels line
+_K1_BWD = collections.Counter()
 
 
 def emit(obj):
@@ -490,6 +502,39 @@ def time_cuda(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _l2_flush(buf):
+    """A ``before`` for :func:`_isolated_ms`: write ``buf`` (256 MB, over
+    the 50 MB L2) and read it back, so the L2 holds clean lines of it and
+    the timed kernel pays for no write-back of the flush's."""
+    def flush():
+        buf.zero_()
+        buf.sum()
+    return flush
+
+
+def _isolated_ms(fn, before=None, reps=21):
+    """The device ms of ``fn``'s kernels alone: the median over ``reps``
+    of CUDA events recorded just around it while the stream still spins
+    on ``torch.cuda._sleep`` (~1 ms), so the host's launch path, slower
+    than a small kernel, is hidden; ``before`` (an L2 flush) runs ahead
+    of the first event. A profiler trace is not used: after the earlier
+    phases' traces in this process it attributes these short kernels
+    wrongly (PERF.md §6)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        if before is not None:
+            before()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def device_time(fn, match=None, reps=20):
@@ -592,11 +637,21 @@ def kernel_cases():
 
 
 def kernel_phase(dev, rate):
-    """Kernel vs plain version; returns per-forward totals for the main
-    path's shapes (fp32, batch 32, with residual) and its max abs error."""
+    """Kernel vs plain version at every case of :func:`kernel_cases`; on
+    the card each case's device time alone (``_isolated_ms``: L2 flushed
+    by writing 256 MB first, and warm), its CUDA-event time over 50
+    back-to-back calls (the host's path included) and the plain
+    version's, and at batch 1 the host launch path (CUDA-event µs a call
+    over 100 back-to-back calls, where the kernel takes 2-4 µs). Returns
+    per-forward totals for the main path's shapes (fp32, batch 32, with
+    residual), its max abs error and the batch-1 launch paths."""
     from mxnet_tpu_torch.kernels import fused_bn as K
+    cuda = dev.type == "cuda"
     g = torch.Generator(device=dev).manual_seed(1)
-    main_ms = main_plain = main_bound = main_err = 0.0
+    flush = torch.empty(64 << 20, device=dev) if cuda else None
+    tot = collections.Counter()
+    host = collections.defaultdict(list)
+    main_err = 0.0
     for shape, main_shape in kernel_cases():
         for dtype in (torch.float32, torch.bfloat16):
             for with_res in (True, False):
@@ -608,7 +663,7 @@ def kernel_phase(dev, rate):
                 b = torch.randn(c, generator=g, device=dev)
                 got = K.scale_bias_add_relu(x, s, b, r)
                 want = K.scale_bias_add_relu_reference(x, s, b, r)
-                if dev.type == "cuda":
+                if cuda:
                     torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 tol = _TOL[dtype]
@@ -618,37 +673,53 @@ def kernel_phase(dev, rate):
                        "dtype": str(dtype).replace("torch.", ""),
                        "residual": with_res, "max_abs_err": err,
                        "tol": tol, "match": bool(ok)}
-                if dev.type == "cuda":
-                    ms = time_cuda(lambda: K.scale_bias_add_relu(x, s, b, r))
-                    plain = time_cuda(
-                        lambda: K.scale_bias_add_relu_reference(x, s, b, r))
+                if dtype == torch.float32:
+                    rec["bit_equal"] = bool(torch.equal(got, want))
+                    ok = ok and rec["bit_equal"]
+                if cuda:
+                    fn = lambda: K.scale_bias_add_relu(x, s, b, r)  # noqa
+                    plain = lambda: K.scale_bias_add_relu_reference(  # noqa
+                        x, s, b, r)
+                    ms = _isolated_ms(fn, before=_l2_flush(flush))
+                    warm = _isolated_ms(fn)
+                    plain_ms = _isolated_ms(plain, before=_l2_flush(flush))
+                    event = time_cuda(fn)
                     nbytes = (3 if with_res else 2) * x.numel() \
-                        * x.element_size() + 2 * c * x.element_size()
+                        * x.element_size() + 2 * c * s.element_size()
                     bound = nbytes / rate * 1e3
-                    rec.update({"us": ms * 1e3, "plain_us": plain * 1e3,
+                    rec.update({"us": ms * 1e3, "warm_us": warm * 1e3,
+                                "event_us": event * 1e3,
+                                "plain_us": plain_ms * 1e3,
+                                "plain_event_us": time_cuda(plain) * 1e3,
                                 "bound_us": bound * 1e3, "bytes": nbytes,
-                                "roofline_share": bound / ms})
-                    if shape[0] == 1:
-                        # the kernel alone, without the wrapper's host time
-                        dms, _ = device_time(
-                            lambda: K.scale_bias_add_relu(x, s, b, r),
-                            match="scale_bias_add_relu")
-                        rec.update({"device_us": dms * 1e3,
-                                    "device_roofline_share": bound / dms})
+                                "roofline_share": bound / ms,
+                                "warm_roofline_share": bound / warm})
+                    if shape[0] == 32:
+                        dirty = _isolated_ms(fn, before=flush.zero_)
+                        rec["dirty_flush_us"] = dirty * 1e3
+                    if shape[0] == 1 and main_shape:
+                        rec["launch_host_us"] = time_cuda(
+                            fn, iters=100) * 1e3
+                        host[rec["dtype"]].append(rec["launch_host_us"])
                     if main_shape and shape[0] == 32 and with_res \
                             and dtype == torch.float32:
                         n = next(k for hw, cc, k in _R50_TAILS if cc == c)
-                        main_ms += n * ms
-                        main_plain += n * plain
-                        main_bound += n * bound
+                        for key, v in (("ms", ms), ("warm_ms", warm),
+                                       ("dirty_flush_ms", dirty),
+                                       ("event_ms", event),
+                                       ("plain_ms", plain_ms),
+                                       ("bound_ms", bound)):
+                            tot[key] += n * v
                 if main_shape and with_res and dtype == torch.float32:
                     main_err = max(main_err, err)
                 emit(rec)
                 if not ok:
                     raise AssertionError("kernel disagrees with its plain "
                                          "version: %s" % rec)
-    return {"ms": main_ms, "plain_ms": main_plain, "bound_ms": main_bound,
-            "max_abs_err": main_err}
+    out = dict(tot, max_abs_err=main_err)
+    for dt, v in host.items():
+        out["launch_host_us_" + dt] = [min(v), max(v)]
+    return out
 
 
 def profile_forward(fn, reps=3):
@@ -769,7 +840,7 @@ def serving_phase(mx, ctx, rehearsal, seed=0):
     if ctx.device_type == "gpu":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    K.launches = 0
+    K.launches = K.bwd_launches = 0
     t0 = time.perf_counter()
     eng = InferenceEngine(sym, params, {"data": (1, hw, hw, 3)},
                           max_batch=max_batch, max_wait_ms=2.0, ctx=ctx)
@@ -781,7 +852,7 @@ def serving_phase(mx, ctx, rehearsal, seed=0):
     bouts = [f.result(timeout=600) for f in bfuts]
     t2 = time.perf_counter()
     st = eng.stats()
-    launches = K.launches
+    launches, _K1_BWD["serving"] = K.launches, K.bwd_launches
     forwards = len(eng.buckets) + st["batches"]
     # ---------------------------------------------------------------------
 
@@ -791,9 +862,11 @@ def serving_phase(mx, ctx, rehearsal, seed=0):
     expect = n_fused * forwards if ctx.device_type == "gpu" else 0
     emit({"graph_ops": dict(graph_ops), "tails_per_forward": n_fused,
           "forwards": forwards,
-          "kernel_launches": launches, "expected": expect})
+          "kernel_launches": launches, "expected": expect,
+          "bwd_launches": _K1_BWD["serving"]})
     assert n_fused == (16 if not rehearsal else 4), n_fused
     assert launches == expect, (launches, expect)
+    assert _K1_BWD["serving"] == 0, _K1_BWD
 
     bucket_fwd_ms, profiles = {}, {}
     if ctx.device_type == "gpu":
@@ -1360,7 +1433,7 @@ def _raw_leg(mx, net, ctx, rehearsal, hw, classes):
     if gpu:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    K.launches = 0
+    K.launches = K.bwd_launches = K.strided_grads = 0
     losses = [step() for _ in range(warm)]
     if gpu:
         start = torch.cuda.Event(enable_timing=True)
@@ -1372,7 +1445,8 @@ def _raw_leg(mx, net, ctx, rehearsal, hw, classes):
         end.record()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = K.launches
+    launches, strided = K.launches, K.strided_grads
+    bwd = K.bwd_launches
     # ---------------------------------------------------------------------
     losses = [float(v) for v in losses]
     expect = 16 * (warm + timed) if gpu else 0
@@ -1381,7 +1455,11 @@ def _raw_leg(mx, net, ctx, rehearsal, hw, classes):
            "batch": batch, "precision": "bf16 weights + fp32 masters",
            "lr": _BENCH_LR, "momentum": _BENCH_MOMENTUM,
            "steps": warm + timed, "losses": losses,
-           "kernel_launches": launches, "expected": expect}
+           "kernel_launches": launches, "expected": expect,
+           "bwd_launches": bwd,
+           # of a step's 16 backward calls, those whose incoming
+           # gradient arrived strided (the wrapper copies it dense)
+           "bwd_strided_g_per_step": strided / (warm + timed)}
     if gpu:
         step_ms = start.elapsed_time(end) / timed
         rec.update({"step_ms": step_ms, "step_wall_ms": wall * 1e3 / timed,
@@ -1393,6 +1471,8 @@ def _raw_leg(mx, net, ctx, rehearsal, hw, classes):
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
     assert launches == expect, (launches, expect)
+    assert bwd == expect, (bwd, expect)
+    _K1_BWD["training"] += bwd
     del step
     return launches
 
@@ -1555,16 +1635,16 @@ def _module_leg(mx, net, sym, ctx, rehearsal, hw, classes):
     if gpu:
         torch.cuda.reset_peak_memory_stats()
     # -- the main path: counts zeroed just before, read just after --------
-    K.launches = 0
+    K.launches = K.bwd_launches = 0
     fused, f_metric, f_secs = _module_run(mx, sym, ctx, arg, aux, data,
                                           batch, True)
-    launches_fused = K.launches
-    K.launches = 0
+    launches_fused, bwd_fused = K.launches, K.bwd_launches
+    K.launches = K.bwd_launches = 0
     snap = {}
     with _BranchTape() as tape:
         split, s_metric, s_secs = _module_run(mx, sym, ctx, arg, aux, data,
                                               batch, False, snap, tape)
-    launches_split = K.launches
+    launches_split, bwd_split = K.launches, K.bwd_launches
     # ---------------------------------------------------------------------
     expect = 16 * n if gpu else 0
     peak = torch.cuda.max_memory_allocated() if gpu else None
@@ -1586,6 +1666,7 @@ def _module_leg(mx, net, sym, ctx, rehearsal, hw, classes):
            "phase_split_metric": s_metric.get_name_value(),
            "kernel_launches": {"fused": launches_fused,
                                "phase_split": launches_split},
+           "bwd_launches": {"fused": bwd_fused, "phase_split": bwd_split},
            "expected_each": expect,
            "fused_ms_per_batch": f_secs * 1e3,
            "phase_split_ms_per_batch": s_secs * 1e3,
@@ -1634,6 +1715,8 @@ def _module_leg(mx, net, sym, ctx, rehearsal, hw, classes):
           if not all(np.isfinite(x) for _, x in v.get_name_value())]
     assert not ok, ok
     assert launches_fused == launches_split == expect, rec
+    assert bwd_fused == bwd_split == expect, rec
+    _K1_BWD["training"] += bwd_fused + bwd_split
     # max pooling's backward on CUDA adds through atomics, in no fixed
     # order; everything else repeats bit for bit under cudnn.deterministic
     assert gap <= 1e-4, rec
@@ -1658,90 +1741,127 @@ def _tail_cases(rehearsal):
 
 def tail_backward_phase(dev, rate, rehearsal):
     """K1 under autograd against autograd through its plain version at
-    the batch-32 block-tail shapes, fp32 and bf16, with a residual and a
-    non-contiguous incoming gradient: the forward bit-equal in fp32, the
-    gradients within the JAX package's tolerances (1e-5 fp32, as
-    ``tests/test_pallas.py::test_scale_bias_add_relu_grad``; 2e-2 bf16),
-    scaled by the largest magnitude. On the card, the backward's time
-    (plain PyTorch, ``scale_bias_add_relu_backward``) against its bound:
-    g, out and x read, dx and dres written, over the memory rate (the
-    backward never reads the residual). Returns the fp32 per-step sums
-    (16 tails)."""
+    the batch-32 block-tail shapes and the ragged ones, fp32 and bf16,
+    with a residual and the incoming gradient strided (as cuDNN's
+    channels-last permutations hand it over) and contiguous: the forward
+    bit-equal in fp32, the gradients within the JAX package's tolerances
+    (1e-5 fp32, as ``tests/test_pallas.py::test_scale_bias_add_relu_grad``;
+    2e-2 bf16) of the largest magnitude. The backward against its plain
+    version (``scale_bias_add_relu_backward``) on the same inputs: dx
+    and dres bit-equal, dscale and dbias within those tolerances; two
+    backward calls bit-equal. On the card, at the batch-32 shapes with a
+    contiguous gradient, the backward's device time alone (flushed and
+    warm), the plain backward's and autograd's through the plain chain,
+    against its bound: g, out and x read, dx and dres written, over the
+    memory rate (the backward never reads the residual). Returns the
+    fp32 per-step sums (16 tails)."""
     from mxnet_tpu_torch.kernels import fused_bn as K
     cuda = dev.type == "cuda"
     g = torch.Generator(device=dev).manual_seed(4)
-    tot = {"bwd_ms": 0.0, "bwd_plain_ms": 0.0, "bwd_bound_ms": 0.0,
-           "bwd_max_scaled_err": 0.0}
-    for shape, count in _tail_cases(rehearsal):
+    flush = torch.empty(64 << 20, device=dev) if cuda else None
+    tot = collections.Counter(bwd_max_scaled_err=0.0)
+    cases = [(s, k) for s, k in _tail_cases(rehearsal)] \
+        + [(s, 0) for s in _RAGGED]
+    for shape, count in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            c = shape[-1]
-            rnd = lambda s: torch.randn(s, generator=g,  # noqa: E731
-                                        device=dev)
-            x, r = rnd(shape).to(dtype), rnd(shape).to(dtype)
-            sc, bi = rnd((c,)) + 1.0, rnd((c,))
-            grad = rnd((shape[0], c) + shape[1:3]).to(dtype) \
-                .permute(0, 2, 3, 1)
-            leaves = [t.clone().requires_grad_() for t in (x, sc, bi, r)]
-            ref_leaves = [t.clone().requires_grad_() for t in (x, sc, bi, r)]
-            out = K.scale_bias_add_relu(*leaves)
-            ref = K.scale_bias_add_relu_reference(*ref_leaves)
-            # the plain backward on the kernel's ReLU branches: in bf16 a
-            # sum within an ulp of zero lands on either side; in fp32 no
-            # branch may differ
-            mask = out.detach() > 0
-            flips = int((mask != (ref.detach() > 0)).sum())
-            masked = _masked_tail(*ref_leaves, mask)
-            got = torch.autograd.grad(out, leaves, grad, retain_graph=True)
-            want = torch.autograd.grad(masked, ref_leaves, grad,
-                                       retain_graph=True)
-            if cuda:
-                torch.cuda.synchronize()
-            tol = 1e-5 if dtype == torch.float32 else 2e-2
-            fwd_equal = bool(torch.equal(out, ref))
-            fwd_err = _scaled_err(out, ref)[1]
-            errs = [_rel_to_max(a, w) for a, w in zip(got, want)]
-            err = max(e for _, e in errs)
-            rec = {"kernel": "scale_bias_add_relu_backward",
-                   "shape": list(shape), "dtype": str(dtype)[6:],
-                   "grad_contiguous": grad.is_contiguous(),
-                   "fwd_bit_equal": fwd_equal, "fwd_scaled_err": fwd_err,
-                   "relu_branches_differing": flips,
-                   "bwd_scaled_err": err,
-                   "bwd_max_abs_err": max(a for a, _ in errs), "tol": tol}
-            ok = err <= tol and flips <= 1e-3 * out.numel() and (
-                fwd_equal and flips == 0 if dtype == torch.float32
-                else fwd_err <= tol)
-            rec["match"] = bool(ok)
-            if cuda:
+            for strided in (True, False):
+                c = shape[-1]
+                rnd = lambda s: torch.randn(s, generator=g,  # noqa: E731
+                                            device=dev)
+                x, r = rnd(shape).to(dtype), rnd(shape).to(dtype)
+                sc, bi = rnd((c,)) + 1.0, rnd((c,))
+                grad = rnd((shape[0], c) + shape[1:3]).to(dtype) \
+                    .permute(0, 2, 3, 1)
+                if not strided:
+                    grad = grad.contiguous()
+                leaves = [t.clone().requires_grad_() for t in (x, sc, bi, r)]
+                ref_leaves = [t.clone().requires_grad_()
+                              for t in (x, sc, bi, r)]
+                out = K.scale_bias_add_relu(*leaves)
+                ref = K.scale_bias_add_relu_reference(*ref_leaves)
+                # the plain backward on the kernel's ReLU branches: in
+                # bf16 a sum within an ulp of zero lands on either side;
+                # in fp32 no branch may differ
+                mask = out.detach() > 0
+                flips = int((mask != (ref.detach() > 0)).sum())
+                masked = _masked_tail(*ref_leaves, mask)
+                got = torch.autograd.grad(out, leaves, grad,
+                                          retain_graph=True)
+                again = torch.autograd.grad(out, leaves, grad,
+                                            retain_graph=True)
+                want = torch.autograd.grad(masked, ref_leaves, grad,
+                                           retain_graph=True)
                 o = out.detach()
-                bwd = lambda: K.scale_bias_add_relu_backward(  # noqa: E731
+                pdx, pds, pdb, pdr = K.scale_bias_add_relu_backward(
                     grad.contiguous(), x, sc, bi, o, True)
-                plain = lambda: torch.autograd.grad(  # noqa: E731
-                    masked, ref_leaves, grad, retain_graph=True)
-                # g, out and x read, dx and dres written (the residual
-                # is not read); scale read, dscale and dbias written
-                item = x.element_size()
-                nbytes = 5 * x.numel() * item + 4 * c * 4
-                bound = nbytes / rate * 1e3
-                ms, plain_ms = time_cuda(bwd, iters=20), \
-                    time_cuda(plain, iters=20)
-                rec.update({"bwd_us": ms * 1e3, "bwd_plain_us": plain_ms * 1e3,
-                            "bwd_bound_us": bound * 1e3, "bytes": nbytes,
-                            "roofline_share": bound / ms,
-                            "tails_per_step": count})
-                if dtype == torch.float32:
-                    tot["bwd_ms"] += count * ms
-                    tot["bwd_plain_ms"] += count * plain_ms
-                    tot["bwd_bound_ms"] += count * bound
-            if dtype == torch.float32:
-                tot["bwd_max_scaled_err"] = max(tot["bwd_max_scaled_err"],
-                                                err)
-            emit(rec)
-            if not ok:
-                raise AssertionError("K1's backward disagrees with its "
-                                     "plain version: %s" % rec)
-            del leaves, ref_leaves, out, ref, masked, got, want
-    return tot
+                if cuda:
+                    torch.cuda.synchronize()
+                tol = 1e-5 if dtype == torch.float32 else 2e-2
+                fwd_equal = bool(torch.equal(out, ref))
+                fwd_err = _scaled_err(out, ref)[1]
+                errs = [_rel_to_max(a, w) for a, w in zip(got, want)]
+                err = max(e for _, e in errs)
+                plain_err = max(_rel_to_max(got[1], pds)[1],
+                                _rel_to_max(got[2], pdb)[1])
+                rec = {"kernel": "scale_bias_add_relu_backward",
+                       "shape": list(shape), "dtype": str(dtype)[6:],
+                       "grad_contiguous": grad.is_contiguous(),
+                       "fwd_bit_equal": fwd_equal, "fwd_scaled_err": fwd_err,
+                       "relu_branches_differing": flips,
+                       "bwd_scaled_err": err,
+                       "bwd_max_abs_err": max(a for a, _ in errs),
+                       "dx_dres_bit_equal_plain": bool(
+                           torch.equal(got[0], pdx)
+                           and torch.equal(got[3], pdr)),
+                       "dscale_dbias_scaled_err_plain": plain_err,
+                       "two_calls_bit_equal": all(
+                           torch.equal(a, b) for a, b in zip(got, again)),
+                       "tol": tol}
+                ok = err <= tol and flips <= 1e-3 * out.numel() and (
+                    fwd_equal and flips == 0 if dtype == torch.float32
+                    else fwd_err <= tol) and plain_err <= tol \
+                    and rec["dx_dres_bit_equal_plain"] \
+                    and rec["two_calls_bit_equal"]
+                rec["match"] = bool(ok)
+                if cuda and count and not strided:
+                    gc_ = grad.contiguous()
+                    bwd = lambda: torch.autograd.grad(  # noqa: E731
+                        out, leaves, gc_, retain_graph=True)
+                    plain = lambda: K.scale_bias_add_relu_backward(  # noqa
+                        gc_, x, sc, bi, o, True)
+                    chain = lambda: torch.autograd.grad(  # noqa: E731
+                        masked, ref_leaves, gc_, retain_graph=True)
+                    # g, out and x read, dx and dres written (the
+                    # residual is not read); scale read, dscale and
+                    # dbias written
+                    nbytes = 5 * x.numel() * x.element_size() + 3 * c * 4
+                    bound = nbytes / rate * 1e3
+                    clean = _l2_flush(flush)
+                    t = {"bwd_ms": _isolated_ms(bwd, before=clean),
+                         "bwd_warm_ms": _isolated_ms(bwd),
+                         "bwd_dirty_flush_ms": _isolated_ms(
+                             bwd, before=flush.zero_),
+                         "bwd_event_ms": time_cuda(bwd, iters=20),
+                         "bwd_plain_ms": _isolated_ms(plain, before=clean),
+                         "bwd_autograd_ms": _isolated_ms(
+                             chain, before=clean),
+                         "bwd_bound_ms": bound}
+                    rec.update({k.replace("_ms", "_us"): v * 1e3
+                                for k, v in t.items()})
+                    rec.update({"bytes": nbytes, "tails_per_step": count,
+                                "roofline_share": bound / t["bwd_ms"]})
+                    if dtype == torch.float32:
+                        for k, v in t.items():
+                            tot[k] += count * v
+                if dtype == torch.float32 and count:
+                    tot["bwd_max_scaled_err"] = max(
+                        tot["bwd_max_scaled_err"], err, plain_err)
+                emit(rec)
+                if not ok:
+                    raise AssertionError("K1's backward disagrees with its "
+                                         "plain version: %s" % rec)
+                del leaves, ref_leaves, out, ref, masked, got, again, want
+    return dict(tot)
 
 
 def resnet_training_phase(mx, ctx, dev, rate, rehearsal):
@@ -1858,16 +1978,17 @@ def _gluon_leg(mx, net, init, X, Y, batch, hybridize, gpu, steps=5):
         return float(out.asscalar())     # keep no device tensor across steps
 
     # -- the main path: counts zeroed just before, read just after --------
-    K.launches = 0
+    K.launches = K.bwd_launches = 0
     first, ms1, wall1 = _timed_steps(tracked, 1, gpu)
     snap1 = _host_copy(params)
     rest, ms, wall = _timed_steps(tracked, steps - 1, gpu)
-    launches = K.launches
+    launches, bwd = K.launches, K.bwd_launches
     # ---------------------------------------------------------------------
     losses = first + rest
     rec = {"leg": "gluon_hybridized" if hybridize else "gluon_eager",
            "steps": steps, "losses": losses, "k1_launches": launches,
-           "k1_launches_expected": 16 * steps if gpu else 0}
+           "k1_launches_expected": 16 * steps if gpu else 0,
+           "k1_bwd_launches": bwd}
     if gpu:
         rec.update({"step1_ms": ms1[0], "step_ms": ms,
                     "step_ms_mean": float(np.mean(ms)),
@@ -1953,6 +2074,8 @@ def gluon_training_phase(mx, ctx, rehearsal):
         assert all(np.isfinite(rec["losses"])), rec["losses"]
         assert rec["losses"][-1] < rec["losses"][0], rec["losses"]
         assert rec["k1_launches"] == rec["k1_launches_expected"], rec
+        assert rec["k1_bwd_launches"] == rec["k1_launches_expected"], rec
+        _K1_BWD["gluon_training"] += rec["k1_bwd_launches"]
         assert rec["step1_loss_rel_err_vs_raw"] <= 1e-5, rec
         assert rec["step1_param_scaled_err_vs_raw"] <= 1e-4, rec
         if gpu:
@@ -3771,7 +3894,7 @@ def image_classification_phase(mx, ctx, rehearsal):
     from mxnet_tpu_torch.kernels import flash_attention as FA
     with tempfile.TemporaryDirectory() as tmp:
         # -- the main path: counts zeroed just before, read just after ----
-        K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+        K1.launches = K1.bwd_launches = FA.fwd_launches = FA.bwd_launches = 0
         t0 = time.perf_counter()
         prefix, batch, hw, x, y = _fit_leg(mx, ctx, rehearsal, card, tmp)
         t1 = time.perf_counter()
@@ -3779,6 +3902,7 @@ def image_classification_phase(mx, ctx, rehearsal):
         t2 = time.perf_counter()
         _fine_tune_leg(mx, ctx, rehearsal, card, prefix, batch, hw, x, y)
         counts = _kernel_counts()
+        _k1_bwd("image_classification")
         # -----------------------------------------------------------------
     emit({"image_classification": {
         "leg_s": {"fit": t1 - t0, "score": t2 - t1,
@@ -4053,12 +4177,13 @@ def gluon_zoo_phase(mx, ctx, rehearsal):
     from mxnet_tpu_torch.kernels import fused_bn as K1
     from mxnet_tpu_torch.kernels import flash_attention as FA
     # -- the main path: counts zeroed just before, read just after --------
-    K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+    K1.launches = K1.bwd_launches = FA.fwd_launches = FA.bwd_launches = 0
     t0 = time.perf_counter()
     _zoo_inference_leg(mx, ctx, rehearsal, card)
     t1 = time.perf_counter()
     _zoo_training_leg(mx, ctx, rehearsal, card)
     counts = _kernel_counts()
+    _k1_bwd("gluon_zoo")
     # ---------------------------------------------------------------------
     emit({"gluon_zoo": {
         "leg_s": {"inference": t1 - t0, "training": time.perf_counter() - t1},
@@ -4080,6 +4205,14 @@ def _kernel_counts():
     return K1.launches, FA.fwd_launches, FA.bwd_launches
 
 
+def _k1_bwd(path, since=0):
+    """K1's backward launches on ``path``'s main path (since ``since``),
+    kept for the kernels line; these paths train no fused block tail."""
+    from mxnet_tpu_torch.kernels import fused_bn as K1
+    _K1_BWD[path] = K1.bwd_launches - since
+    assert _K1_BWD[path] == 0, (path, _K1_BWD[path])
+
+
 def rnn_training_phase(mx, ctx, rehearsal):
     """Train the recurrent family at published widths: the Gluon word
     language model over ``gluon.rnn.LSTM`` (cuDNN's fused RNN) and the
@@ -4097,11 +4230,12 @@ def rnn_training_phase(mx, ctx, rehearsal):
     from mxnet_tpu_torch.kernels import fused_bn as K1
     from mxnet_tpu_torch.kernels import flash_attention as FA
     # -- the main path: counts zeroed just before, read just after --------
-    K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+    K1.launches = K1.bwd_launches = FA.fwd_launches = FA.bwd_launches = 0
     _word_lm_leg(mx, ctx, rehearsal, card)
     _bucketing_leg(mx, ctx, rehearsal, card)
     _tied_word_lm_leg(mx, ctx, rehearsal, card)
     counts = _kernel_counts()
+    _k1_bwd("rnn_training")
     # ---------------------------------------------------------------------
     emit({"rnn_training": {"k1_launches": counts[0],
                            "k2_launches": counts[1],
@@ -4705,16 +4839,22 @@ def observability_phase(mx, ctx, rehearsal, card):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     # -- the main path: counts zeroed just before, read just after --------
-    K.launches = 0
+    K.launches = K.bwd_launches = 0
     _, forwards, n_tails = _obs_serving(mx, ctx, rehearsal, card, tmp)
     _obs_decode(mx, ctx, rehearsal, card)
     forwards += _obs_fit(mx, ctx, rehearsal, card)
-    launches = K.launches
+    launches, bwd = K.launches, K.bwd_launches
     # ---------------------------------------------------------------------
     expect = forwards * n_tails if gpu else 0
+    # the fit's 4 batches (2 fused, 2 phase-split) are the only backwards
+    bwd_expect = 4 * n_tails if gpu else 0
     emit({"observability_k1": {"forwards": forwards, "tails": n_tails,
-                               "launches": launches, "expected": expect}})
+                               "launches": launches, "expected": expect,
+                               "bwd_launches": bwd,
+                               "bwd_expected": bwd_expect}})
     assert launches == expect, (launches, expect)
+    assert bwd == bwd_expect, (bwd, bwd_expect)
+    _K1_BWD["observability"] += bwd
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
         = tf32
     mx.layout.set_default_layout(None)
@@ -5517,7 +5657,7 @@ def dense_prediction_phase(mx, ctx, rehearsal, card):
     legs = {}
     with tempfile.TemporaryDirectory() as tmp:
         # -- the main path: counts zeroed just before, read just after ----
-        K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+        K1.launches = K1.bwd_launches = FA.fwd_launches = FA.bwd_launches = 0
         t = time.perf_counter()
         _fcn_forward_leg(mx, cfg, ctx, arg0, x, card)
         legs["forward"], t = time.perf_counter() - t, time.perf_counter()
@@ -5536,6 +5676,7 @@ def dense_prediction_phase(mx, ctx, rehearsal, card):
         _fcn_module_legs(mx, ctx, card)
         legs["module_and_gluon"] = time.perf_counter() - t
         counts = _kernel_counts()
+        _k1_bwd("dense_prediction")
         # -----------------------------------------------------------------
     emit({"dense_prediction": {
         "card": card, "leg_s": legs, "k1_launches": counts[0],
@@ -5674,14 +5815,14 @@ def _dp_module_leg(mx, ctx, cfg, sym, arg, aux, hw, classes, rank, kv_type,
     pin = os.environ.get("MXNET_MODULE_FUSED_STEP")
     if not fused:
         os.environ["MXNET_MODULE_FUSED_STEP"] = "0"
-    K.launches = 0
+    K.launches = K.bwd_launches = 0
     t0 = time.perf_counter()
     mod.fit(it, eval_metric=metric, num_epoch=epochs,
             batch_end_callback=batch_end, epoch_end_callback=epoch_end)
     if gpu:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = K.launches
+    launches, bwd = K.launches, K.bwd_launches
     # ---------------------------------------------------------------------
     if pin is None:
         os.environ.pop("MXNET_MODULE_FUSED_STEP", None)
@@ -5695,7 +5836,7 @@ def _dp_module_leg(mx, ctx, cfg, sym, arg, aux, hw, classes, rank, kv_type,
            "batches": n, "epoch_digests": digests,
            "aux_digests": aux_digests, "step1_ce": snap["ce"],
            "metric": metric.get_name_value(), "k1_launches": launches,
-           "k1_expected": 16 * n if gpu else 0,
+           "k1_bwd_launches": bwd, "k1_expected": 16 * n if gpu else 0,
            "fallback": getattr(reason, "code", None),
            "wire_bytes_per_batch": kv.wire_bytes_last_push,
            "wire_bytes_raw_per_batch": kv.wire_bytes_last_push_raw,
@@ -5876,7 +6017,7 @@ def _dp_gluon_leg(mx, ctx, cfg, rank, out, rehearsal):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     # -- the main path: counts zeroed just before, read just after --------
-    K.launches = 0
+    K.launches = K.bwd_launches = 0
     for i in range(steps):
         if i == steps - 1:
             tr.save_states(fname)
@@ -5887,7 +6028,7 @@ def _dp_gluon_leg(mx, ctx, cfg, rank, out, rehearsal):
         if i == 0 and rank == 0:
             torch.save({k: p.data()._data.cpu() for k, p in params.items()},
                        os.path.join(out, "gluon-step1.pt"))
-    launches = K.launches
+    launches, bwd = K.launches, K.bwd_launches
     # ---------------------------------------------------------------------
     end = {k: p.data()._data.clone() for k, p in params.items()}
     if rank == 0:
@@ -5910,7 +6051,7 @@ def _dp_gluon_leg(mx, ctx, cfg, rank, out, rehearsal):
                                      if _dp_moving(k)}),
            "resumed_bit_equal": _digest(resumed) == _digest(end),
            "resumed_num_update": tr2._optimizer.num_update,
-           "k1_launches": launches,
+           "k1_launches": launches, "k1_bwd_launches": bwd,
            "k1_expected": 16 * steps if gpu else 0}
     if gpu:
         rec["peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -6336,7 +6477,8 @@ def _data_parallel(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase,
     for tag in _DP_MODULE_LEGS:
         r0, r1 = (m["legs"][tag] for m in mod_recs)
         legs[tag] = {"rank0": r0, "rank1": {k: r1[k] for k in (
-            "epoch_digests", "aux_digests", "k1_launches", "ms_per_batch",
+            "epoch_digests", "aux_digests", "k1_launches",
+            "k1_bwd_launches", "ms_per_batch",
             "peak_bytes", "kv_push_span", "wire_bytes_per_batch")
             if k in r1}}
         checks["%s_replicas_bit_equal" % tag] = \
@@ -6347,8 +6489,12 @@ def _data_parallel(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase,
         else:
             checks["%s_moving_stats_per_worker" % tag] = all(
                 a != b for a, b in zip(r0["aux_digests"], r1["aux_digests"]))
+        # 16 forward and 16 backward launches a training batch
         checks["%s_k1_launches" % tag] = all(
-            r["k1_launches"] == r["k1_expected"] for r in (r0, r1))
+            r["k1_launches"] == r["k1_bwd_launches"] == r["k1_expected"]
+            for r in (r0, r1))
+        _K1_BWD["data_parallel"] += r0["k1_bwd_launches"] \
+            + r1["k1_bwd_launches"]
     a0, a1 = (m["legs"]["dist_sync"] for m in mod_recs)
     checks["dist_sync_fused"] = a0["fallback"] is None
     checks["dist_sync_wire_bytes"] = \
@@ -6432,8 +6578,10 @@ def _data_parallel(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase,
         e0["moving_digest"] != e1["moving_digest"]
     checks["gluon_resume_bit_equal"] = e0["resumed_bit_equal"] \
         and e1["resumed_bit_equal"]
-    checks["gluon_k1_launches"] = all(r["k1_launches"] == r["k1_expected"]
-                                      for r in (e0, e1))
+    checks["gluon_k1_launches"] = all(
+        r["k1_launches"] == r["k1_bwd_launches"] == r["k1_expected"]
+        for r in (e0, e1))
+    _K1_BWD["data_parallel"] += e0["k1_bwd_launches"] + e1["k1_bwd_launches"]
     checks["gluon_step1_loss"] = g_loss_rel[0] <= 1e-5
     checks["gluon_step1_gate"] = g_ok
     checks["gluon_fp64_steps_gate"] = g64_ok
@@ -6555,13 +6703,14 @@ def _mp_counts():
     """The launch counts of K1 and of K2/K3, the wrappers' own."""
     from mxnet_tpu_torch.kernels import flash_attention as FA
     from mxnet_tpu_torch.kernels import fused_bn as K
-    return {"k1": K.launches, "fwd": FA.fwd_launches, "bwd": FA.bwd_launches}
+    return {"k1": K.launches, "k1_bwd": K.bwd_launches,
+            "fwd": FA.fwd_launches, "bwd": FA.bwd_launches}
 
 
 def _mp_zero_counts():
     from mxnet_tpu_torch.kernels import flash_attention as FA
     from mxnet_tpu_torch.kernels import fused_bn as K
-    K.launches = FA.fwd_launches = FA.bwd_launches = 0
+    K.launches = K.bwd_launches = FA.fwd_launches = FA.bwd_launches = 0
 
 
 def _mp_attn_vs_plain(fn, mesh, qkv, rank):
@@ -6640,7 +6789,8 @@ def _mp_lm_leg(mx, ctx, cfg, rank, out, tag, axes, attn_name, per_step):
            "end_digest": _digest({k: torch.from_numpy(v)
                                   for k, v in end.items()}),
            "shard_shapes": shard, "kernel_launches": launches,
-           "k1_launches": counts["k1"], "step1_launches": counts1,
+           "k1_launches": counts["k1"], "k1_bwd_launches": counts["k1_bwd"],
+           "step1_launches": counts1,
            "expected": ({k: v * steps for k, v in per_step.items()} if gpu
                         else {"fwd": 0, "bwd": 0}),
            "attention_vs_plain": {"shape": list(step1_qkv[0].shape),
@@ -6980,6 +7130,7 @@ def _model_parallel(mx, ctx, rehearsal, card, cfg, gpu, out):
                 tuple(shape)[0] * axes["tp"] == want["p1"][k].shape[0]
                 for g in legs for k, shape in g["shard_shapes"].items())
         k1 += sum(g["k1_launches"] for g in legs)
+        _K1_BWD["model_parallel"] += sum(g["k1_bwd_launches"] for g in legs)
         k2 += sum(g["kernel_launches"]["fwd"] for g in legs)
         k3 += sum(g["kernel_launches"]["bwd"] for g in legs)
         report[tag] = {"rank0": legs[0],
@@ -7032,6 +7183,7 @@ def _model_parallel(mx, ctx, rehearsal, card, cfg, gpu, out):
         for c in ([r["legs"]["moe"][t]["launches"] for t, _ in _MP_MOE_CAPS]
                   + [r["legs"]["pipeline"]["launches"]]):
             k1, k2, k3 = k1 + c["k1"], k2 + c["fwd"], k3 + c["bwd"]
+            _K1_BWD["model_parallel"] += c["k1_bwd"]
     # (d) the pipeline against the sequential oracle
     pouts, pdw, pdb = _mp_pipe_oracle(cfg, dev)
     got = [torch.load(os.path.join(out, "pipe-r%d.pt" % r))
@@ -7337,7 +7489,7 @@ def _em_fit_leg(mx, ctx, rank, out, rehearsal):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     # -- the main path: counts zeroed just before, read just after --------
-    K.launches = 0
+    K.launches = K.bwd_launches = 0
     C.reset_wire()
     t0 = time.perf_counter()
     mod.fit(it, eval_metric=mx.metric.create(["acc", "ce"]),
@@ -7347,7 +7499,7 @@ def _em_fit_leg(mx, ctx, rank, out, rehearsal):
     if gpu:
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = K.launches
+    launches, bwd = K.launches, K.bwd_launches
     # ---------------------------------------------------------------------
     assert mod._fused_fallback_reason is None, mod._fused_fallback_reason
     end_arg, end_aux = _host_params(mod)
@@ -7356,8 +7508,8 @@ def _em_fit_leg(mx, ctx, rank, out, rehearsal):
     rec = {"layout": mod.partition_summary()["mesh_axes"],
            "fit_s": fit_s, "batches": len(marks),
            "batch_s_after_first": (marks[-1] - marks[0]) / (len(marks) - 1),
-           "k1_launches": launches, "tails_per_step": 16 if not rehearsal
-           else 4,
+           "k1_launches": launches, "k1_bwd_launches": bwd,
+           "tails_per_step": 16 if not rehearsal else 4,
            "end_digest": _digest(end_arg), "end_aux_digest": _digest(end_aux),
            "committed_param_bytes": _em_bytes(
                ex.arg_dict[k]._data for k in mod._param_names),
@@ -7575,8 +7727,9 @@ def _engine_meshes(mx, ctx, rehearsal, card, gpu, out):
     checks["fit_ranks_bit_equal"] = len(
         {(f["end_digest"], f["end_aux_digest"]) for f in ft}) == 1
     checks["fit_k1_per_step_every_rank"] = all(
-        f["k1_launches"] == (f["tails_per_step"] if gpu else 0)
-        * f["batches"] for f in ft)
+        f["k1_launches"] == f["k1_bwd_launches"]
+        == (f["tails_per_step"] if gpu else 0) * f["batches"] for f in ft)
+    _K1_BWD["engine_meshes"] += sum(f["k1_bwd_launches"] for f in ft)
     checks["fit_checkpoint_mesh_to_one_device"] = \
         ft[0]["mesh_to_one_device_bit_equal"]
     checks["fit_checkpoint_one_device_to_mesh"] = \
@@ -7589,7 +7742,8 @@ def _engine_meshes(mx, ctx, rehearsal, card, gpu, out):
                                "committed_grad_bytes",
                                "committed_state_bytes",
                                "replicated_param_bytes", "peak_bytes",
-                               "k1_launches")} for f in ft]}
+                               "k1_launches", "k1_bwd_launches")}
+        for f in ft]}
     emit({"engine_meshes": {
         "card": card, "world": _EM_WORLD, "backend": recs[0]["backend"],
         "serving_axes": _EM_SERVE_AXES, "fit_axes": _EM_FIT_AXES,
@@ -7796,7 +7950,7 @@ def _el_fit_leg(mx, ctx, cfg, rank, out, rehearsal):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     # -- the main path: counts zeroed just before, read just after --------
-    K.launches = 0
+    K.launches = K.bwd_launches = 0
     t0 = time.perf_counter()
     try:
         mod.fit(it, eval_metric=metric, num_epoch=cfg["epochs"],
@@ -7809,6 +7963,7 @@ def _el_fit_leg(mx, ctx, cfg, rank, out, rehearsal):
             torch.cuda.synchronize()
         cnt = mx.telemetry.counters()
         rec.update({"died": died, "k1_launches": K.launches,
+                    "k1_bwd_launches": K.bwd_launches,
                     "fused_steps": cnt.get("kvstore.dist.fused_steps", 0),
                     "kv_crossings": cnt.get("heartbeat.gate_crossings.kv"),
                     "step_crossings": cnt.get(
@@ -7820,7 +7975,7 @@ def _el_fit_leg(mx, ctx, cfg, rank, out, rehearsal):
     if gpu:
         torch.cuda.synchronize()
     rec["fit_wall_s"] = time.perf_counter() - t0
-    rec["k1_launches"] = K.launches
+    rec["k1_launches"], rec["k1_bwd_launches"] = K.launches, K.bwd_launches
     # ---------------------------------------------------------------------
     cnt = mx.telemetry.counters()
     rec["counters"] = {k: v for k, v in cnt.items() if k.startswith(
@@ -7950,11 +8105,11 @@ def _el_group2ctx_leg(mx, ctx, rehearsal):
         os.environ["MXNET_MODULE_FUSED_STEP"] = "1" if fused else "0"
         try:
             mod = mx.mod.Module(s, context=ctx, group2ctxs=g2c)
-            K.launches = 0
+            K.launches = K.bwd_launches = 0
             mod.fit(mx.io.NDArrayIter(x, y, batch_size=batch), num_epoch=1,
                     arg_params=arg, aux_params=aux, kvstore=None,
                     optimizer="sgd", optimizer_params=_dp_opt(batch))
-            launches = K.launches
+            launches = (K.launches, K.bwd_launches)
             code = getattr(mod._fused_fallback_reason, "code", None)
             got = _host_params(mod)
             ctxs = sorted({str(a.context) for a in
@@ -7968,16 +8123,17 @@ def _el_group2ctx_leg(mx, ctx, rehearsal):
         _free(gpu)
         return got, launches, code, ctxs
     # -- the main path (the grouped batch): counts zeroed inside ---------
-    g_par, g_k1, g_code, g_ctxs = one_batch(
+    g_par, (g_k1, g_bwd), g_code, g_ctxs = one_batch(
         grouped, {"g1": ctx, "g2": ctx}, True)
     # ---------------------------------------------------------------------
-    u_par, u_k1, _, _ = one_batch(sym, None, False)
+    u_par, (u_k1, _), _, _ = one_batch(sym, None, False)
     f_par, _, _, _ = one_batch(sym, None, True)
     rec = {"resnet": {
         "groups": {"g1": str(ctx), "g2": str(ctx)},
         "g2_nodes": sum(1 for n in grouped._topo_nodes()
                         if n._extra_attrs.get("ctx_group") == "g2"),
         "fallback": g_code, "contexts": g_ctxs, "k1_launches": g_k1,
+        "k1_bwd_launches": g_bwd,
         "k1_expected": n_fused if gpu else 0, "ungrouped_k1_launches": u_k1,
         "bit_equal_ungrouped_phase_split": all(
             _bit_equal(a, b) for a, b in zip(g_par, u_par)),
@@ -8079,18 +8235,21 @@ def _elastic(mx, ctx, rehearsal, card, cfg, gpu, out):
     checks["victim_crossings_counted"] = (
         rv["kv_crossings"] == 1 and rv["step_crossings"] == kill - 2
         and rv["fault_counts"]["kv_collective"]["calls"] == kill)
-    # K1: 16 a forward on every worker (the victim's 4 steps, the
-    # survivors' 4 before and 6 after the loss)
+    # K1: 16 a forward and 16 a backward on every worker (the victim's 4
+    # steps, its last dying at the gradients' collective; the survivors'
+    # 4 before and 6 after the loss)
     steps = {"victim": cfg["batches"] + cfg["kill_at"][1],
              "survivor": cfg["batches"] + cfg["kill_at"][1]
              + (cfg["epochs"] - cfg["kill_at"][0]) * cfg["batches"]}
     tails = 16 if not rehearsal else 0
     checks["k1_16_a_forward_every_worker"] = (
         rv["fused_steps"] == steps["victim"]
-        and rv["k1_launches"] == tails * steps["victim"]
+        and rv["k1_launches"] == rv["k1_bwd_launches"]
+        == tails * steps["victim"]
         and all(r["fused_steps"] == steps["survivor"]
-                and r["k1_launches"] == tails * steps["survivor"]
-                for r in (r0, r2)))
+                and r["k1_launches"] == r["k1_bwd_launches"]
+                == tails * steps["survivor"] for r in (r0, r2)))
+    _K1_BWD["elastic"] += sum(r["k1_bwd_launches"] for r in (rv, r0, r2))
     # the postmortems through tools/flight_view.py
     flight = os.path.join(out, "flight")
     pms = sorted(f for f in os.listdir(flight)
@@ -8149,7 +8308,9 @@ def _elastic(mx, ctx, rehearsal, card, cfg, gpu, out):
         g2c["resnet"]["bit_equal_ungrouped_phase_split"]
     checks["group2ctx_phase_split"] = g2c["resnet"]["fallback"] == "group2ctx"
     checks["group2ctx_k1_16_a_forward"] = \
-        g2c["resnet"]["k1_launches"] == g2c["resnet"]["k1_expected"]
+        g2c["resnet"]["k1_launches"] == g2c["resnet"]["k1_bwd_launches"] \
+        == g2c["resnet"]["k1_expected"]
+    _K1_BWD["elastic"] += g2c["resnet"]["k1_bwd_launches"]
     m = g2c["mlp"]
     checks["group2ctx_mlp_host_and_card"] = (
         m["out_err_over_max"] <= 1e-6
@@ -8696,7 +8857,8 @@ def _sparse(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase):
     parse_s = time.perf_counter() - t0
     kv = mx.kv.create("device")
     step = _SpStep(mx, ctx, cfg, kv)
-    k0 = _kernel_counts()
+    from mxnet_tpu_torch.kernels import fused_bn as K1
+    k0, bwd0 = _kernel_counts(), K1.bwd_launches
     batches, losses, first, host_top = [], [], None, []
     for epoch in range(cfg["epochs"]):
         train.reset()
@@ -8717,6 +8879,7 @@ def _sparse(mx, ctx, rehearsal, card, cfg, gpu, out, t_phase):
                 first = (b, o, _sp_first_batch_gates(mx, step, b, o, cfg))
             last_ids = o["row_ids"].asnumpy()
     launches = [a - b for a, b in zip(_kernel_counts(), k0)]
+    _k1_bwd("sparse", since=bwd0)
     peak = (torch.cuda.max_memory_allocated() - base) if gpu else None
     mean = [float(np.mean([l for e, l in losses if e == k]))
             for k in range(cfg["epochs"])]
@@ -9250,7 +9413,7 @@ def detection_phase(mx, ctx, rehearsal, card):
     assert n_anchors == cfg["anchors"], n_anchors
     batch = _ssd_batch(mx, x, y)
     # -- the main path: counts zeroed just before, read just after --------
-    K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+    K1.launches = K1.bwd_launches = FA.fwd_launches = FA.bwd_launches = 0
     mod = _ssd_module(mx, sym, ctx, arg0, x.shape, y.shape)
     if gpu:
         torch.cuda.reset_peak_memory_stats()
@@ -9281,6 +9444,7 @@ def detection_phase(mx, ctx, rehearsal, card):
                                     mod.update()), reps=1) if gpu else None
     peak = torch.cuda.max_memory_allocated() if gpu else None
     counts = _kernel_counts()
+    _k1_bwd("detection")
     # ----------------------------------------------------------------------
     gates = {}
     # (c) the detection rows of the whole batch
@@ -9489,10 +9653,10 @@ def _rec_resnet_leg(mx, ctx, cfg, rehearsal, path, ref, labels):
     if gpu:
         torch.cuda.reset_peak_memory_stats()
     # -- the main path: counts zeroed just before, read just after --------
-    K1.launches = 0
+    K1.launches = K1.bwd_launches = 0
     it = _rec_iter(mx, path, cfg)
     mod, (ms, wall) = _rec_fit(mx, sym, ctx, arg, aux, it, gpu)
-    launches = K1.launches
+    launches, bwd = K1.launches, K1.bwd_launches
     # ---------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated() if gpu else None
     outs = mod.get_outputs()[0]._data
@@ -9517,8 +9681,8 @@ def _rec_resnet_leg(mx, ctx, cfg, rehearsal, path, ref, labels):
     del nd_mod
     _free(gpu)
     forwards = len(labels) // cfg["batch"]
-    return {"k1_launches": launches, "forwards": forwards,
-            "k1_per_forward": launches / forwards,
+    return {"k1_launches": launches, "k1_bwd_launches": bwd,
+            "forwards": forwards, "k1_per_forward": launches / forwards,
             "loss_last_batch": ce, "finite": finite,
             "forward_bit_equal": forward_equal,
             "ms_per_batch": ms, "host_ms_per_batch": wall,
@@ -9697,10 +9861,12 @@ def records_phase(mx, ctx, rehearsal, card):
     assert b["finite"] and np.isfinite(b["loss_last_batch"]), b
     assert b["forward_bit_equal"], b
     if gpu:
-        assert b["k1_launches"] == 16 * b["forwards"], b
+        assert b["k1_launches"] == b["k1_bwd_launches"] \
+            == 16 * b["forwards"], b
     assert c["data_equal"] and c["labels_equal"] and c["finite"], c
     assert c["label_shape"] == [_SSD[rehearsal]["max_boxes"], 5], c
     assert not d["pillow"] or d["equal"], d
+    _K1_BWD["records"] += b["k1_bwd_launches"]
     _free(gpu)
     return (b["k1_launches"],) + k23
 
@@ -10401,12 +10567,13 @@ def conv_recurrent_phase(mx, ctx, rehearsal, card):
         init = convlstm_init(cfg, shapes, _CONVLSTM_SEED)
         del probe
         # -- the main path: counts zeroed just before, read just after ----
-        K1.launches = FA.fwd_launches = FA.bwd_launches = 0
+        K1.launches = K1.bwd_launches = FA.fwd_launches = FA.bwd_launches = 0
         a, a1 = _ef_gluon_leg(mx, ctx, rehearsal, cfg, init, n_params, card)
         b = _ef_symbolic_leg(mx, ctx, rehearsal, cfg, init, n_params, card,
                              tmp, a1)
         c = _ef_runtime_leg(mx, ctx, rehearsal, cfg, card, tmp)
         counts = _kernel_counts()
+        _k1_bwd("conv_recurrent")
         # -----------------------------------------------------------------
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -10858,6 +11025,8 @@ def _cb_serving_leg(mx, exes, files, cfg, ctx, rehearsal, tmp):
     assert err_cpu <= 1e-3, rec
     assert k1 == rec["k1_expected"], rec
     assert wrappers["scale_bias_add_relu"] == k1, rec
+    # the trace carries the backward's count too: none in a forward
+    assert wrappers["scale_bias_add_relu_backward"] == 0, wrappers
     assert wrappers["rtc"] == 0, rec
     return rec
 
@@ -10932,6 +11101,7 @@ def _cb_abi_leg(mx, started, files, cfg, ctx):
     assert norm_err == 0.0, rec
     assert max(errs) <= 1e-5, rec
     assert (k1, k4) == (rec["k1_expected"], rec["k4_expected"]), rec
+    assert wrappers["scale_bias_add_relu_backward"] == 0, wrappers
     assert (wrappers["scale_bias_add_relu"], wrappers["rtc"]) == (k1, k4), \
         rec
     return rec
@@ -10970,29 +11140,6 @@ extern "C" __global__ void hscale(const __half* x, __half* y, __half a,
   if (i < n) y[i] = __hmul(x[i], a);
 }
 '''
-
-
-def _isolated_ms(fn, before=None, reps=21):
-    """The device ms of ``fn``'s kernels alone: the median over ``reps``
-    of CUDA events recorded just around it while the stream still spins
-    on ``torch.cuda._sleep`` (~1 ms), so the host's launch path, slower
-    than a small kernel, is hidden; ``before`` (an L2 flush) runs ahead
-    of the first event. A profiler trace is not used: after the earlier
-    phases' traces in this process it attributes these short kernels
-    wrongly (PERF.md §6)."""
-    times = []
-    for _ in range(reps):
-        torch.cuda._sleep(2_000_000)
-        if before is not None:
-            before()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def _cb_rtc_leg(mx, ctx, rehearsal):
@@ -11162,11 +11309,13 @@ def c_boundary_phase(mx, ctx, rehearsal, card):
         mx.nd.save(files["params"], params)
         del params
         # -- the main path: counts zeroed just before, read just after ----
-        K1.launches = FA.fwd_launches = FA.bwd_launches = rtc.launches = 0
+        K1.launches = K1.bwd_launches = FA.fwd_launches = FA.bwd_launches \
+            = rtc.launches = 0
         abi = _cb_abi_start(exes, files, cfg, ctx, tmp)
         b = _cb_serving_leg(mx, exes, files, cfg, ctx, rehearsal, tmp)
         c = _cb_abi_leg(mx, abi, files, cfg, ctx)
         counts = _kernel_counts() + (rtc.launches,)
+        _k1_bwd("c_boundary")
         # -----------------------------------------------------------------
         d, k4 = _cb_rtc_leg(mx, ctx, rehearsal)
     finally:
@@ -11368,11 +11517,21 @@ def main(argv=None):
         "conv_recurrent_launches": res["cr_launches"][0],
         "c_boundary_launches": res["cb_launches"][0],
         "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "ms": k1["ms"], "warm_ms": k1["warm_ms"],
+        "dirty_flush_ms": k1["dirty_flush_ms"],
+        "event_ms": k1["event_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
-        "backward": "plain PyTorch (scale_bias_add_relu_backward)",
-        "bwd_ms": bwd["bwd_ms"], "bwd_plain_ms": bwd["bwd_plain_ms"],
+        "launch_host_us": k1["launch_host_us_float32"],
+        "launch_host_us_bf16": k1["launch_host_us_bfloat16"],
+        "backward": "csrc/fused_bn.cu (one pass + a fixed-order finish)",
+        "bwd_launches": sum(_K1_BWD.values()),
+        "bwd_launches_by_path": dict(_K1_BWD),
+        "bwd_ms": bwd["bwd_ms"], "bwd_warm_ms": bwd["bwd_warm_ms"],
+        "bwd_dirty_flush_ms": bwd["bwd_dirty_flush_ms"],
+        "bwd_event_ms": bwd["bwd_event_ms"],
+        "bwd_plain_ms": bwd["bwd_plain_ms"],
+        "bwd_autograd_ms": bwd["bwd_autograd_ms"],
         "bwd_bound_ms": bwd["bwd_bound_ms"],
         "bwd_max_scaled_err": bwd["bwd_max_scaled_err"]}, {
         "name": "flash_attention_fwd", "route": "cuda",

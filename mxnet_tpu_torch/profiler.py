@@ -175,11 +175,14 @@ def _link_chrome_trace():
 
 def kernel_launches():
     """{kernel: launches so far in this process} of the hand-written
-    kernels' wrappers: K1 (``scale_bias_add_relu``), K2 and K3 (flash
-    attention's forward and backward) and K4 (``mx.rtc``'s launches)."""
+    kernels' wrappers: K1 (``scale_bias_add_relu`` and its backward), K2
+    and K3 (flash attention's forward and backward) and K4 (``mx.rtc``'s
+    launches). ``scale_bias_add_relu_backward`` counts backward calls:
+    each is two device kernels, the pass and the finishing reduction."""
     from . import rtc
     from .kernels import fused_bn, flash_attention
     return {"scale_bias_add_relu": fused_bn.launches,
+            "scale_bias_add_relu_backward": fused_bn.bwd_launches,
             "flash_attention_fwd": flash_attention.fwd_launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
             "rtc": rtc.launches}

@@ -934,6 +934,7 @@ def test_profiler_trace_carries_kernel_launch_counts(tmp_path, monkeypatch):
     from mxnet_tpu_torch.kernels import fused_bn
     monkeypatch.setattr(rtc, "launches", 3)
     monkeypatch.setattr(fused_bn, "launches", 16)
+    monkeypatch.setattr(fused_bn, "bwd_launches", 5)
     path = str(tmp_path / "trace.json")
     L = _lib()
     L.MXSetProfilerConfig.argtypes = [i_, cp]
@@ -945,5 +946,7 @@ def test_profiler_trace_carries_kernel_launch_counts(tmp_path, monkeypatch):
     L.MXNDArrayFree(h)
     with open(path) as f:
         counts = json.load(f)["otherData"]["mxnet_kernel_launches"]
-    assert counts == {"scale_bias_add_relu": 16, "flash_attention_fwd": 0,
-                      "flash_attention_bwd": 0, "rtc": 3}
+    assert counts == {"scale_bias_add_relu": 16,
+                      "scale_bias_add_relu_backward": 5,
+                      "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                      "rtc": 3}

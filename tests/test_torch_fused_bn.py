@@ -105,3 +105,110 @@ def test_wrapper_checks_and_dispatch():
     with pytest.raises(mt.MXNetError, match="dtype"):
         K.scale_bias_add_relu(x.double(), s, b)
 
+
+# -- the CUDA kernels' host-side rules, held on the CPU ----------------------
+
+# ResNet-50's block tails at batch 32 and 1 (H = W, C), and the ragged cases
+_TAILS = [(b, hw, hw, c) for b in (32, 1)
+          for hw, c in ((56, 256), (28, 512), (14, 1024), (7, 2048))]
+
+
+@pytest.mark.parametrize("shape", _TAILS + SHAPES)
+def test_bwd_partition_covers_every_row_once(shape):
+    """The backward's blocks take contiguous row ranges that cover every
+    row exactly once, none empty, at most ``_BWD_BLOCKS`` of them; the
+    partition is a function of the shape alone (the same on every
+    call)."""
+    rows = int(np.prod(shape[:-1]))
+    blocks, per = K.bwd_partition(rows)
+    assert (blocks, per) == K.bwd_partition(rows)
+    assert 1 <= blocks <= K._BWD_BLOCKS
+    seen = np.zeros(rows, np.int64)
+    for b in range(blocks):
+        lo, hi = b * per, min(rows, (b + 1) * per)
+        assert lo < hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("residual", [True, False])
+def test_cpu_backward_is_the_plain_one_and_counts_nothing(residual):
+    """On CPU tensors the autograd backward is the plain version: the
+    gradients equal the JAX package's custom VJP (interpret mode) within
+    1e-5 of the largest magnitude, with a strided incoming gradient, and
+    no launch counter moves."""
+    import jax
+    x, r, s, b = _inputs((2, 5, 3, 33), 4)
+    s = s + 1.5
+    cot = np.random.RandomState(5).randn(2, 33, 5, 3).astype(np.float32) \
+        .transpose(0, 2, 3, 1)
+    jres = jnp.asarray(r) if residual else None
+    _, vjp = jax.vjp(lambda *a: jax_sbar(*a) if residual
+                     else jax_sbar(*a, None), jnp.asarray(x), jnp.asarray(s),
+                     jnp.asarray(b), *([jres] if residual else []))
+    want = vjp(jnp.asarray(np.ascontiguousarray(cot)))
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in (x, s, b) + ((r,) if residual else ())]
+    counts = (K.launches, K.bwd_launches, K.strided_grads)
+    out = K.scale_bias_add_relu(*leaves[:3],
+                                leaves[3] if residual else None)
+    g = torch.from_numpy(cot)
+    assert not g.is_contiguous()
+    got = torch.autograd.grad(out, leaves, g)
+    assert counts == (K.launches, K.bwd_launches, K.strided_grads)
+    plain = K.scale_bias_add_relu_backward(g.contiguous(), *leaves[:3],
+                                           out.detach(), residual)
+    for a, p in zip(got, plain):
+        assert torch.equal(a, p)
+    for a, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("coef_dtype", [torch.float32, torch.float64,
+                                        torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 8, 8, 16)] + SHAPES)
+def test_fp32_coefficients_with_bf16_x_match_jax(shape, coef_dtype):
+    """The kernels read fp32 coefficients and round them to the
+    activation's type in-register: the wrapper's ``_coef`` gives fp32
+    values whose bf16 rounding is ``scale.to(bfloat16)`` (no cast launch
+    for fp32 coefficients: the same tensor), and the kernel's arithmetic
+    on them (fp32, one rounding on store), written out here in PyTorch,
+    agrees with the JAX package's bf16 ``scale_bias_add_relu`` within
+    2e-2."""
+    x, r, s, b = _inputs(shape, 6)
+    ts, tb = (torch.from_numpy(a).to(coef_dtype) for a in (s, b))
+    cs, cb = (K._coef(t, torch.bfloat16) for t in (ts, tb))
+    assert cs.dtype == torch.float32 and cs.is_contiguous()
+    if coef_dtype == torch.float32:
+        assert cs.data_ptr() == ts.data_ptr()
+    for c_, t in ((cs, ts), (cb, tb)):
+        assert torch.equal(c_.to(torch.bfloat16), t.to(torch.bfloat16))
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    tr = torch.from_numpy(r).to(torch.bfloat16)
+    rs_, rb_ = (c_.to(torch.bfloat16).float() for c_ in (cs, cb))
+    got = torch.clamp_min(tx.float() * rs_ + rb_ + tr.float(), 0) \
+        .to(torch.bfloat16)
+    want = np.asarray(jax_sbar(jnp.asarray(x).astype(jnp.bfloat16),
+                               jnp.asarray(np.asarray(ts.float())),
+                               jnp.asarray(np.asarray(tb.float())),
+                               jnp.asarray(r).astype(jnp.bfloat16)),
+                      np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_lean_path_builds_no_autograd_node_without_grad():
+    """Nothing to differentiate (serving, ``torch.no_grad``): the wrapper
+    builds no autograd node and gives the same values; with an input that
+    requires grad it runs under the autograd Function."""
+    x, r, s, b = (torch.from_numpy(a) for a in _inputs((2, 4, 4, 16), 7))
+    want = K.scale_bias_add_relu_reference(x, s, b, r)
+    out = K.scale_bias_add_relu(x, s, b, r)
+    assert out.grad_fn is None and torch.equal(out, want)
+    sg = s.clone().requires_grad_()
+    out = K.scale_bias_add_relu(x, sg, b, r)
+    assert type(out.grad_fn).__name__ == "_ScaleBiasAddReLUBackward"
+    with torch.no_grad():
+        assert K.scale_bias_add_relu(x, sg, b, r).grad_fn is None

@@ -46,6 +46,53 @@ def test_kernel_matches_plain_version(dtype, shape):
         want = K.scale_bias_add_relu_reference(x, s, b, res)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+        if dtype == torch.float32:
+            assert torch.equal(got, want)
+
+
+def _offset(shape, dtype, g):
+    """A contiguous tensor of ``shape`` whose data starts one element
+    past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.randn(n + 1, generator=g, device="cuda").to(dtype)[1:] \
+        .view(shape)
+
+
+@pytest.mark.parametrize("case", [
+    "aligned",      # rows of 1 KB, 16-byte pointers: vectors
+    "wide",         # a 16-32 KB row: more vectors than threads a row
+    "ragged",       # C = 33: scalars
+    "offset",       # a view one element in: scalars
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_cases_bit_equal_to_plain(case, dtype):
+    """The forward kernel at each kind of shape and alignment: one
+    launch, bit-equal to the plain version in fp32 (within 2e-2 in
+    bf16), with and without a residual, with fp32 coefficients read by
+    both."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shape = {"aligned": (4, 9, 9, 256), "wide": (2, 3, 5, 8192),
+             "ragged": (3, 5, 7, 33), "offset": (2, 7, 7, 64)}[case]
+    c = shape[-1]
+    if case == "offset":
+        x, r = _offset(shape, dtype, g), _offset(shape, dtype, g)
+    else:
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        r = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    s = torch.randn(c, generator=g, device="cuda")
+    b = torch.randn(c, generator=g, device="cuda")
+    for res in (r, None):
+        before = K.launches
+        got = K.scale_bias_add_relu(x, s, b, res)
+        want = K.scale_bias_add_relu_reference(x, s, b, res)
+        torch.cuda.synchronize()
+        assert K.launches == before + 1
+        if dtype == torch.float32:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
 
 
 def test_kernel_takes_unaligned_views():
@@ -116,16 +163,22 @@ def _masked_tail(x, scale, bias, residual, mask):
                                             device=y.device))
 
 
+@pytest.mark.parametrize("strided", [True, False])
 @pytest.mark.parametrize("residual", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", TAIL_SHAPES)
-def test_kernel_backward_matches_plain_version(shape, dtype, residual):
+def test_kernel_backward_matches_plain_version(shape, dtype, residual,
+                                               strided):
     """The kernel forward under ``torch.autograd.Function`` against
     autograd through the plain version, with the incoming gradient a
     non-contiguous view (as cuDNN's channels-last permutations hand it
-    over): forward bit-equal in fp32, within 2e-2 in bf16; gradients
-    within 1e-5 (fp32) and 2e-2 (bf16) of the largest magnitude; one
-    launch per forward. The plain version's backward takes the kernel's
+    over) or dense: forward bit-equal in fp32, within 2e-2 in bf16;
+    gradients within 1e-5 (fp32) and 2e-2 (bf16) of the largest
+    magnitude; one forward and one backward launch. Against the plain
+    backward (``scale_bias_add_relu_backward``) on the same inputs, dx
+    and dres bit-equal, dscale and dbias within those tolerances, and a
+    second backward bit-equal to the first. The plain version's backward
+    takes the kernel's
     ReLU branches: in bf16 the kernel rounds the sum once and the plain
     chain after each op, so a sum within an ulp of zero lands on either
     side (0.03% of the elements measured), and the gradient of such an
@@ -138,11 +191,14 @@ def test_kernel_backward_matches_plain_version(shape, dtype, residual):
     s, b = rnd((c,)) + 1.0, rnd((c,))
     perm = (0, 3, 1, 2)
     grad = rnd(tuple(shape[i] for i in perm)).to(dtype).permute(0, 2, 3, 1)
-    assert not grad.is_contiguous()
+    if not strided:
+        grad = grad.contiguous()
+    assert grad.is_contiguous() != strided
     ins = [x, s, b] + ([r] if residual else [])
     leaves = [t.clone().requires_grad_() for t in ins]
     ref_leaves = [t.clone().requires_grad_() for t in ins]
-    before = K.launches
+    before, before_b = K.launches, K.bwd_launches
+    before_s = K.strided_grads
     out = K.scale_bias_add_relu(*leaves[:3],
                                 leaves[3] if residual else None)
     assert K.launches == before + 1
@@ -152,20 +208,73 @@ def test_kernel_backward_matches_plain_version(shape, dtype, residual):
     mask = out.detach() > 0
     flips = int((mask != (want.detach() > 0)).sum())
     masked = _masked_tail(*ref_leaves[:3], res_in, mask)
-    got_g = torch.autograd.grad(out, leaves, grad)
+    got_g = torch.autograd.grad(out, leaves, grad, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, grad)
     want_g = torch.autograd.grad(masked, ref_leaves, grad)
+    plain = K.scale_bias_add_relu_backward(grad.contiguous(), x, s, b,
+                                           out.detach(), residual)
     torch.cuda.synchronize()
-    assert K.launches == before + 1          # the backward launches nothing
+    assert K.launches == before + 1
+    assert K.bwd_launches == before_b + 2    # one a backward
+    assert K.strided_grads == before_s + 2 * strided
+    assert all(torch.equal(a, b_) for a, b_ in zip(got_g, again))
+    assert torch.equal(got_g[0], plain[0])
+    if residual:
+        assert torch.equal(got_g[3], plain[3])
     if dtype == torch.float32:
         assert torch.equal(out, want) and flips == 0
     assert flips <= 1e-3 * out.numel(), flips
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     _close(out, want, tol)
-    for a, w in zip(got_g, want_g):
+    for a, w in list(zip(got_g, want_g)) + [(got_g[1], plain[1]),
+                                            (got_g[2], plain[2])]:
         assert a.dtype == w.dtype
         scale = w.float().abs().max().item()
         torch.testing.assert_close(a.float(), w.float(), rtol=0,
                                    atol=tol * max(scale, 1e-30))
+
+
+@pytest.mark.parametrize("case", ["aligned", "wide", "ragged", "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_cases_match_plain(case, dtype):
+    """The backward kernel at each kind of shape and alignment (an
+    offset saved input takes its scalar loads): one backward call a
+    gradient, dx and dres bit-equal to ``scale_bias_add_relu_backward``,
+    dscale and dbias within 1e-5 (fp32) or 2e-2 (bf16) of the largest
+    magnitude, and a second call bit-equal to the first."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    shape = {"aligned": (4, 9, 9, 256), "wide": (2, 3, 5, 8192),
+             "ragged": (3, 5, 7, 33), "offset": (2, 7, 7, 64)}[case]
+    c = shape[-1]
+    if case == "offset":
+        x = _offset(shape, dtype, g)
+    else:
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    r = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    s = torch.randn(c, generator=g, device="cuda") + 1.0
+    b = torch.randn(c, generator=g, device="cuda")
+    gr = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (s, b, r)]
+    out = K.scale_bias_add_relu(x, *leaves)
+    before = K.bwd_launches
+    got = torch.autograd.grad(out, leaves, gr, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, gr)
+    plain = K.scale_bias_add_relu_backward(gr, x, s, b, out.detach(), True)
+    torch.cuda.synchronize()
+    assert K.bwd_launches == before + 2
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    assert torch.equal(got[2], plain[3])
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, w in ((got[0], plain[1]), (got[1], plain[2])):
+        torch.testing.assert_close(a, w, rtol=0,
+                                   atol=tol * w.abs().max().item())
+    # dx: through a leaf x
+    xl = x.clone().requires_grad_() if case != "offset" else None
+    if xl is not None:
+        dx, = torch.autograd.grad(K.scale_bias_add_relu(xl, s, b, r), [xl],
+                                  gr)
+        assert torch.equal(dx, plain[0])
 
 
 def test_block_tail_gradients_reach_every_input_on_card():
